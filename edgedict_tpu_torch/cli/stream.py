@@ -1,0 +1,134 @@
+"""Streaming decode CLI of the port (counterpart of cli/stream.py, --path
+mode): decode a wav file chunk by chunk and print the transcript and the
+throughput line.
+
+  python -m edgedict_tpu_torch.cli.stream --flagfile flagfiles/E6D2.txt \
+      --path x.wav [--pt_path reference.pt] [--device cuda|cpu]
+
+--device defaults to cuda and fails without a card; the CPU runs only when
+asked with --device cpu.  --infer_dtype auto is bf16 on CUDA (bf16 encoder,
+fp32 joint and prediction net) and fp32 on the CPU.  Without --pt_path the
+weights are random (seed 0).  Microphone input (--mic) is not
+ported yet.
+"""
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import torch
+
+from edgedict_tpu_torch.config import (
+    add_model_flags, feature_config_from_flags, parse_flags,
+    transducer_config_from_flags)
+from edgedict_tpu_torch.stream import resolve_device
+
+
+def set_numerics():
+    """True fp32 matmuls and fp32 reductions in bf16 matmuls on CUDA: the
+    fp32 token loop must not run in TF32 (greedy tokens would stop being
+    exact)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def build_parser(description):
+    parser = argparse.ArgumentParser(description=description)
+    add_model_flags(parser)
+    parser.add_argument('--device', default='cuda',
+                        help="torch device: 'cuda' (default) or 'cpu'")
+    parser.add_argument('--pt_path', default=None,
+                        help='reference PyTorch checkpoint (.pt, plain or '
+                             'lightning)')
+    parser.add_argument('--infer_dtype', default='auto',
+                        choices=('auto', 'bf16', 'bfloat16', 'fp32',
+                                 'float32'),
+                        help='encoder compute dtype: auto = bf16 on CUDA, '
+                             'fp32 on the CPU')
+    parser.add_argument('--step_n_frame', type=int, default=2,
+                        help='encoder input frames per chunk')
+    return parser
+
+
+def resolve_infer_dtype(name, device):
+    if name == 'auto':
+        return torch.bfloat16 if device.type == 'cuda' else None
+    return {'bf16': torch.bfloat16, 'bfloat16': torch.bfloat16,
+            'fp32': None, 'float32': None}[name]
+
+
+def build_tokenizer(flags):
+    """Tokenizer per flags, with the reference cache layout (char →
+    <logdir_root>/char, bpe → BPE-<size>)."""
+    from edgedict_tpu.tokenizer import CharTokenizer, HuggingFaceTokenizer
+    if flags.tokenizer == 'bpe':
+        return HuggingFaceTokenizer(cache_dir='BPE-%d' % flags.bpe_size,
+                                    vocab_size=flags.bpe_size)
+    tok = CharTokenizer(cache_dir=os.path.join(flags.logdir_root, 'char'))
+    try:
+        tok.load()
+    except FileNotFoundError:
+        pass
+    return tok
+
+
+def load_inference_bundle(flags):
+    """(model on the CPU, cfg, feature_cfg, tokenizer, compute dtype,
+    device) from parsed flags — shared by the stream and serve CLIs."""
+    from edgedict_tpu_torch.compat import load_reference_checkpoint
+    from edgedict_tpu_torch.models.transducer import Transducer
+
+    device = resolve_device(flags.device)
+    tokenizer = build_tokenizer(flags)
+    if getattr(tokenizer, 'tokenizer', None) is None and \
+            getattr(tokenizer, 'token2id', None) is None:
+        raise SystemExit('tokenizer cache not found — point --logdir_root '
+                         '(char) or the working directory (BPE-<size>) at '
+                         'one')
+    feature_cfg = feature_config_from_flags(flags, pad_to_divisible=False)
+    cfg = transducer_config_from_flags(flags, tokenizer.vocab_size,
+                                       feature_cfg.input_size)
+    if flags.pt_path:
+        model = load_reference_checkpoint(flags.pt_path, cfg, 'cpu')
+        print(f'loaded {flags.pt_path}')
+    else:
+        print('WARNING: no checkpoint found — using random weights')
+        model = Transducer(cfg, device='cpu', seed=0)
+    dtype = resolve_infer_dtype(flags.infer_dtype, device)
+    return model, cfg, feature_cfg, tokenizer, dtype, device
+
+
+def main(argv=None):
+    from edgedict_tpu.data.audio_io import load_audio
+    from edgedict_tpu_torch.stream import StreamingDecoder
+
+    parser = build_parser('streaming greedy decode of a wav file')
+    parser.add_argument('--path', required=True, help='wav file to decode')
+    parser.add_argument('--block_chunks', type=int, default=1,
+                        help='>1 decodes N chunks per layer-major group '
+                             'step (same output)')
+    flags = parse_flags(parser, sys.argv[1:] if argv is None else argv)
+    set_numerics()
+    model, cfg, feature_cfg, tokenizer, dtype, device = \
+        load_inference_bundle(flags)
+    decoder = StreamingDecoder(model, cfg, feature_cfg, tokenizer,
+                               device=device,
+                               step_n_frame=flags.step_n_frame,
+                               block_chunks=flags.block_chunks,
+                               compute_dtype=dtype)
+    audio, sr = load_audio(flags.path)
+    if sr != 16000:
+        raise SystemExit(f'expected 16 kHz audio, got {sr}')
+    text = decoder.decode_wav(audio)
+    print(text)
+    if decoder.elapsed:
+        mean_ms = float(np.mean(decoder.elapsed)) * 1000
+        total = sum(decoder.elapsed)
+        print(f'[chunks {len(decoder.elapsed)}  mean {mean_ms:.2f} ms  '
+              f'throughput {len(audio) / sr / total:.2f} sec/sec]')
+
+
+if __name__ == '__main__':
+    main()

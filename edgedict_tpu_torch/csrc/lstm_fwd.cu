@@ -1,0 +1,173 @@
+// K1 — LSTM recurrence, forward.
+//
+// Replaces edgedict_tpu/ops/rnn_pallas.py:_fwd_kernel (launched by
+// _run_fwd under the custom-vjp lstm_recurrence_tm): given the hoisted
+// input projection x_proj = x W_ih^T + (b_ih + b_hh) for every step, run
+// gates = x_proj[t] + h W_hh^T, the i,f,g,o cell with fp32 h/c, and emit
+// ys (x_proj's dtype) and cs (fp32).
+//
+// What bounds it on the H100: the recurrent weight. Every step reads all of
+// W_hh (4H x H: 16 MB fp32, 8 MB bf16 at H=1024) for a matrix-vector
+// product at small B, so a step is a bandwidth problem, not a FLOP problem
+// (2*4H*H*B flops over 4H*H*sizeof(T) bytes = B/2 flop/byte in fp32).
+// Steps are sequential; T is 1-2 per streaming chunk.
+//
+// Design: the TPU kernel keeps W_hh resident in VMEM across a time grid;
+// an SM has 227 KB, so here W_hh is instead split across the grid. Each
+// block owns kUnits hidden units, i.e. the 4*kUnits gate rows of W_hh that
+// feed them, and computes those gates for every batch row: one warp per
+// gate row, lanes striding the contiguous row (coalesced), the batch's h
+// staged in shared memory kBatchTile rows at a time, fp32 FMAs and a warp
+// shuffle reduction. The block then applies the cell update to the units it
+// owns, so no other block ever reads its c. h is read by every block, so the
+// host loop ping-pongs it between two buffers, one launch per step. W_hh of
+// one layer (<= 16 MB) stays in the 50 MB L2 across the steps of a call.
+// A persistent kernel with a grid-wide barrier per step is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kUnits = 4;             // hidden units per block
+constexpr int kRows = 4 * kUnits;     // gate rows per block (i, f, g, o)
+constexpr int kThreads = 128;         // 4 warps
+constexpr int kBatchTile = 8;         // batch rows of h staged at once
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename Elem>
+__device__ __forceinline__ Elem from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+template <typename Elem>
+__global__ void __launch_bounds__(kThreads)
+lstm_step_kernel(const Elem* __restrict__ xp,     // (B, 4H) this step
+                 const Elem* __restrict__ w_hh,   // (4H, H)
+                 const float* __restrict__ h_in,  // (B, H)
+                 const float* __restrict__ c_in,  // (B, H)
+                 float* __restrict__ h_out,       // (B, H)
+                 float* __restrict__ c_out,       // (B, H)
+                 Elem* __restrict__ y,            // (B, H)
+                 int B, int H) {
+  extern __shared__ float smem[];
+  float* hs = smem;                         // kBatchTile * H
+  float* gs = smem + kBatchTile * H;        // kBatchTile * kRows
+  const int unit0 = blockIdx.x * kUnits;
+  const int nu = min(kUnits, H - unit0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  constexpr int kWarps = kThreads / 32;
+
+  for (int b0 = 0; b0 < B; b0 += kBatchTile) {
+    const int nb = min(kBatchTile, B - b0);
+    __syncthreads();  // the previous tile is fully consumed
+    // h enters the dot in W_hh's dtype, as the TPU kernel casts it
+    for (int i = threadIdx.x; i < nb * H; i += kThreads)
+      hs[i] = to_f32(from_f32<Elem>(h_in[(size_t)b0 * H + i]));
+    __syncthreads();
+
+    for (int r = warp; r < 4 * nu; r += kWarps) {
+      const int q = r / nu;            // gate
+      const int j = r - q * nu;        // unit within the block
+      const Elem* wr = w_hh + (size_t)(q * H + unit0 + j) * H;
+      float acc[kBatchTile];
+#pragma unroll
+      for (int bb = 0; bb < kBatchTile; ++bb) acc[bb] = 0.0f;
+#pragma unroll 4
+      for (int k = lane; k < H; k += 32) {
+        const float w = to_f32(wr[k]);
+#pragma unroll
+        for (int bb = 0; bb < kBatchTile; ++bb)
+          if (bb < nb) acc[bb] = fmaf(w, hs[bb * H + k], acc[bb]);
+      }
+#pragma unroll
+      for (int bb = 0; bb < kBatchTile; ++bb) {
+        float v = acc[bb];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0 && bb < nb) gs[bb * kRows + r] = v;
+      }
+    }
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < nb * nu; i += kThreads) {
+      const int bb = i / nu;
+      const int j = i - bb * nu;
+      const size_t b = (size_t)(b0 + bb);
+      const int u = unit0 + j;
+      const Elem* x = xp + b * 4 * H;
+      const float* g = gs + bb * kRows;
+      const float gi = to_f32(x[u]) + g[j];
+      const float gf = to_f32(x[H + u]) + g[nu + j];
+      const float gg = to_f32(x[2 * H + u]) + g[2 * nu + j];
+      const float go = to_f32(x[3 * H + u]) + g[3 * nu + j];
+      const float c = sigmoid(gf) * c_in[b * H + u] + sigmoid(gi) * tanhf(gg);
+      const float h = sigmoid(go) * tanhf(c);
+      c_out[b * H + u] = c;
+      h_out[b * H + u] = h;
+      y[b * H + u] = from_f32<Elem>(h);
+    }
+  }
+}
+
+template <typename Elem>
+cudaError_t run(const void* xp, const void* w_hh, const void* h0,
+                const void* c0, void* ys, void* cs, void* hbuf, int T, int B,
+                int H, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)(kBatchTile * H + kBatchTile * kRows) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lstm_step_kernel<Elem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((H + kUnits - 1) / kUnits);
+  const size_t bh = (size_t)B * H;
+  const Elem* x = static_cast<const Elem*>(xp);
+  Elem* y = static_cast<Elem*>(ys);
+  float* c = static_cast<float*>(cs);
+  float* hb = static_cast<float*>(hbuf);
+  for (int t = 0; t < T; ++t) {
+    const float* h_in =
+        t == 0 ? static_cast<const float*>(h0) : hb + ((t - 1) & 1) * bh;
+    const float* c_in =
+        t == 0 ? static_cast<const float*>(c0) : c + (size_t)(t - 1) * bh;
+    lstm_step_kernel<Elem><<<grid, kThreads, smem, stream>>>(
+        x + (size_t)t * 4 * bh, static_cast<const Elem*>(w_hh), h_in, c_in,
+        hb + (t & 1) * bh, c + (size_t)t * bh, y + (size_t)t * bh, B, H);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// x_proj (T, B, 4H) and w_hh (4H, H) in fp32 (bf16 == 0) or bf16;
+// h0, c0 (B, H) fp32; outputs ys (T, B, H) in x_proj's dtype, cs (T, B, H)
+// fp32, hbuf (2, B, H) fp32 scratch whose slot (T-1)&1 holds the final h.
+extern "C" int edd_lstm_fwd(const void* xp, const void* w_hh, const void* h0,
+                            const void* c0, void* ys, void* cs, void* hbuf,
+                            int T, int B, int H, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? run<__nv_bfloat16>(xp, w_hh, h0, c0, ys, cs, hbuf, T, B, H, s)
+           : run<float>(xp, w_hh, h0, c0, ys, cs, hbuf, T, B, H, s);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}

@@ -1,0 +1,411 @@
+"""Streaming greedy decode runtime (counterpart of edgedict_tpu/stream.py,
+greedy parts).
+
+A decoder carries encoder (h, c), prediction-net (h, c) and the last
+prediction-net output across fixed-size audio chunks; each chunk is
+featurized (K2), run through one encoder step (K1 per layer) and every
+resulting encoder frame emits at most one token through the fused frame
+loop (K3): argmax of the joint, `<unk>` re-argmaxed, the prediction net
+advanced only on non-blank (reference rnnt/stream.py:28-120).
+
+Chunk geometry (reference youtube_live.py:26-30):
+  win_size = win_length + hop_length * (downsample * step_n_frame - 1)
+  hop_size = hop_length * downsample * step_n_frame
+with the features computed per chunk with pad_to_divisible=False.
+
+Every decoder takes an explicit `device`; 'cuda' without a card raises.
+`quantize=` and `mesh=` are not ported yet and raise.
+"""
+
+import copy
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from edgedict_tpu.tokenizer import UNK
+from edgedict_tpu_torch.features import FeatureConfig, FeaturePipeline
+from edgedict_tpu_torch.models import transducer as T
+from edgedict_tpu_torch.ops.decode_kernel import (
+    build_decode_cache, greedy_frame_loop)
+
+
+class StreamState(NamedTuple):
+    enc_state: tuple         # encoder ((L, B, H), (L, B, H))
+    dec_state: tuple         # prediction net ((L, B, H), (L, B, H))
+    h_dec: torch.Tensor      # last prediction-net output (B, dec_proj)
+
+
+def resolve_device(device):
+    """torch.device(device), refusing 'cuda' when no card is visible."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but "
+                           'torch.cuda.is_available() is False')
+    return device
+
+
+def stream_chunk_geometry(win_length, hop_length, downsample, step_n_frame):
+    """(win_size, hop_size) in samples (reference youtube_live.py:26-30)."""
+    win_size = win_length + hop_length * (downsample * step_n_frame - 1)
+    hop_size = hop_length * downsample * step_n_frame
+    return win_size, hop_size
+
+
+def _not_ported(quantize, mesh):
+    if quantize is not None:
+        raise NotImplementedError(f'quantize={quantize!r} is not yet ported')
+    if mesh is not None:
+        raise NotImplementedError('mesh= (multi-device serving) is not yet '
+                                  'ported')
+
+
+@torch.no_grad()
+def make_stream_state(model, cfg: T.TransducerConfig, batch, device):
+    """Zero encoder state; prediction net primed with BOS (reference
+    rnnt/stream.py:78-91).  batch > 1 = independent parallel streams."""
+    enc_state = T.encoder_zero_state(cfg, batch, device)
+    empty = torch.zeros((batch, 0), dtype=torch.long, device=device)
+    h_dec, dec_state = T.decoder_apply(model.decoder, cfg, empty)
+    return StreamState(enc_state=enc_state, dec_state=dec_state,
+                       h_dec=h_dec[:, 0].contiguous())
+
+
+@torch.no_grad()
+def prepare_inference_params(model, dtype=None, quantize=None, device=None):
+    """A frozen copy of `model` on `device` for serving.
+
+    Serving precision policy (stream.py:71-139 of the JAX package): with a
+    reduced `dtype` (bf16) ONLY the encoder is cast; the prediction net and
+    the joint stay fp32, so the whole frame-synchronous token loop runs in
+    fp32 and token decisions do not sit on bf16 rounding boundaries.  The
+    copy carries `decode_cache`, the K3 weight layout, built once."""
+    _not_ported(quantize, None)
+    prepared = copy.deepcopy(model).requires_grad_(False)
+    if device is not None:
+        prepared.to(device)
+    if dtype is not None:
+        prepared.encoder.to(dtype)
+    prepared.decode_cache = build_decode_cache(prepared)
+    return prepared
+
+
+def make_chunk_step(model, cfg: T.TransducerConfig,
+                    pipeline: FeaturePipeline, unk_id=None,
+                    compute_dtype=None):
+    """Per-chunk decode step: fn(state, audio (B, chunk)) → (tokens
+    (n_frames, B) int32 with NUL on silent frames, new_state).  `model`
+    comes from prepare_inference_params.  fn.frame_loop(state, enc_xs) is
+    the greedy loop alone."""
+    blank = int(cfg.blank)
+    unk = None if unk_id is None else int(unk_id)
+
+    def frame_loop(state, enc_xs):
+        # the token loop runs at the joint's fp32 (bf16 frames upcast)
+        enc_xs = enc_xs.float()
+        f = torch.matmul(enc_xs, model.joint.w_enc.t())  # all frames at once
+        hs, cs = state.dec_state
+        tokens, _, h_dec, hs, cs = greedy_frame_loop(
+            model.decode_cache, f.transpose(0, 1).contiguous(), state.h_dec,
+            hs, cs, blank, unk)
+        return tokens, h_dec, (hs, cs)
+
+    def encode(state, xs):
+        if compute_dtype is not None:
+            xs = xs.to(compute_dtype)
+        enc_xs, enc_state = T.encoder_apply(model.encoder, cfg, xs,
+                                            state.enc_state)
+        tokens, h_dec, dec_state = frame_loop(state, enc_xs)
+        return tokens, StreamState(enc_state=enc_state, dec_state=dec_state,
+                                   h_dec=h_dec)
+
+    @torch.no_grad()
+    def chunk_step(state, audio):
+        lens = torch.full((audio.shape[0],), audio.shape[1],
+                          dtype=torch.int32, device=audio.device)
+        xs, _ = pipeline(audio, lens)
+        return encode(state, xs)
+
+    chunk_step.frame_loop = frame_loop
+    chunk_step.encode = encode
+    return chunk_step
+
+
+def make_chunk_group_step(chunk_step, pipeline: FeaturePipeline):
+    """Multi-chunk step, LAYER-MAJOR: the n chunks are featurized as one
+    batch, their frames concatenated along time, and the encoder runs once
+    over them with the carried state — the same math as n sequential
+    chunk steps (TimeReduction boundaries align because each chunk gives
+    the same even number of frames), reading each layer's weights once
+    per block instead of once per chunk.  fn(state, chunks (n, chunk)) →
+    (tokens (n, f, 1), new_state)."""
+
+    @torch.no_grad()
+    def group_step(state, chunks):
+        n = chunks.shape[0]
+        lens = torch.full((n,), chunks.shape[1], dtype=torch.int32,
+                          device=chunks.device)
+        xs, _ = pipeline(chunks, lens)                 # (n, f, feat)
+        tokens, new_state = chunk_step.encode(
+            state, xs.reshape(1, n * xs.shape[1], -1))
+        return tokens.reshape(n, -1, 1), new_state
+
+    return group_step
+
+
+def _audio_tensor(frames, device):
+    """numpy PCM → device tensor: int16 stays int16 (the pipeline scales
+    it on the device, halving the host→device bytes), anything else is
+    sent as float32."""
+    frames = np.asarray(frames)
+    if frames.dtype != np.int16:
+        frames = frames.astype(np.float32, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+
+
+def _fetch_start(tokens):
+    """Begin the device→host copy of `tokens` without waiting for it."""
+    if tokens.device.type != 'cuda':
+        return tokens, None
+    host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+    host.copy_(tokens, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _fetch_done(pending):
+    host, event = pending
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
+def _chunks(audio, win, hop):
+    n = max((len(audio) - win) // hop + 1, 0)
+    if not n:
+        return np.zeros((0, win), np.float32)
+    return np.stack([audio[i * hop:i * hop + win] for i in range(n)])
+
+
+class MultiStreamDecoder:
+    """Server mode: N independent streams decoded in one chunk step per
+    round — the batch axis carries the streams."""
+
+    def __init__(self, model, cfg, feature_cfg: FeatureConfig, tokenizer,
+                 n_streams, *, device, step_n_frame=2, compute_dtype=None,
+                 quantize=None, mesh=None):
+        assert not feature_cfg.pad_to_divisible
+        _not_ported(quantize, mesh)
+        self.device = resolve_device(device)
+        self.model = prepare_inference_params(model, compute_dtype,
+                                              device=self.device)
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.n = n_streams
+        self.pipeline = FeaturePipeline(feature_cfg, self.device)
+        self.win_size, self.hop_size = stream_chunk_geometry(
+            feature_cfg.win_length, feature_cfg.hop_length,
+            feature_cfg.downsample, step_n_frame)
+        self.chunk_step = make_chunk_step(
+            self.model, cfg, self.pipeline,
+            unk_id=getattr(tokenizer, 'unk_id', None),
+            compute_dtype=compute_dtype)
+        self._fresh = make_stream_state(self.model, cfg, n_streams,
+                                        self.device)
+        self.elapsed = []
+        self.reset()
+
+    def reset(self):
+        self.state = self._fresh
+        self._pending = None                 # decode_pipelined lag buffer
+
+    def reset_stream(self, i):
+        """Reset one stream's state, leaving the others untouched."""
+        def blend(new, old, axis):
+            out = old.clone()
+            out.select(axis, i).copy_(new.select(axis, i))
+            return out
+
+        fresh, st = self._fresh, self.state
+        self.state = StreamState(
+            enc_state=tuple(blend(n, o, 1) for n, o in
+                            zip(fresh.enc_state, st.enc_state)),
+            dec_state=tuple(blend(n, o, 1) for n, o in
+                            zip(fresh.dec_state, st.dec_state)),
+            h_dec=blend(fresh.h_dec, st.h_dec, 0))
+
+    def decode(self, frames):
+        """frames (n_streams, win_size), float or int16 PCM → list of the
+        newly decoded text per stream."""
+        start = time.perf_counter()
+        tokens, self.state = self.chunk_step(
+            self.state, _audio_tensor(frames, self.device))
+        tokens = tokens.cpu().numpy()                # (n_frames, N)
+        self.elapsed.append(time.perf_counter() - start)
+        return self._render(tokens)
+
+    def _render(self, tokens):
+        """(n_frames, N) int tokens → text per stream, touching only the
+        emitting positions."""
+        out = [''] * self.n
+        flat = tokens.reshape(tokens.shape[0], self.n)
+        frames_idx, stream_idx = np.nonzero(flat > UNK)
+        for s in np.unique(stream_idx):
+            rows = frames_idx[stream_idx == s]
+            out[int(s)] = ''.join(
+                self.tokenizer.id_to_token(int(flat[f, s]))
+                .replace('</w>', ' ') for f in rows)
+        return out
+
+    def decode_pipelined(self, frames):
+        """Lag-1 round: dispatch THIS round, then fetch the PREVIOUS round's
+        tokens, so the host's fetch overlaps the device's work on the new
+        round.  Returns None on the first call; flush() gives the last
+        round's text at end of stream."""
+        tokens, self.state = self.chunk_step(
+            self.state, _audio_tensor(frames, self.device))
+        prev, self._pending = self._pending, _fetch_start(tokens)
+        if prev is None:
+            return None
+        return self._render(_fetch_done(prev))
+
+    def flush(self):
+        """Drain the pipelined decoder: text of the last dispatched round."""
+        prev, self._pending = self._pending, None
+        return self._render(_fetch_done(prev)) if prev is not None else None
+
+
+class StreamingDecoder:
+    """Single-stream decoder (the reference PytorchStreamDecoder).
+
+    decode(frame) consumes one chunk (win_size samples) and returns the
+    newly decoded text; per-chunk wall times (ending in the token fetch,
+    so device work included) go to `elapsed`, and the per-frame tokens
+    (blanks included) of every call since the last decode_wav go to
+    `emitted`."""
+
+    def __init__(self, model, cfg, feature_cfg: FeatureConfig, tokenizer, *,
+                 device, step_n_frame=2, reset_step=None, block_chunks=1,
+                 compute_dtype=None, quantize=None, mesh=None):
+        assert not feature_cfg.pad_to_divisible, \
+            'streaming uses pad_to_divisible=False (rnnt/stream.py:38-44)'
+        _not_ported(quantize, mesh)
+        self.device = resolve_device(device)
+        self.model = prepare_inference_params(model, compute_dtype,
+                                              device=self.device)
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.pipeline = FeaturePipeline(feature_cfg, self.device)
+        self.win_size, self.hop_size = stream_chunk_geometry(
+            feature_cfg.win_length, feature_cfg.hop_length,
+            feature_cfg.downsample, step_n_frame)
+        self.chunk_step = make_chunk_step(
+            self.model, cfg, self.pipeline,
+            unk_id=getattr(tokenizer, 'unk_id', None),
+            compute_dtype=compute_dtype)
+        self.block_chunks = max(1, block_chunks)
+        self.group_step = (make_chunk_group_step(self.chunk_step,
+                                                 self.pipeline)
+                           if self.block_chunks > 1 else None)
+        self.reset_step = reset_step
+        self._fresh = make_stream_state(self.model, cfg, 1, self.device)
+        self.emitted = []
+        self.reset_profile()
+        self.reset()
+
+    def reset(self):
+        self.state = self._fresh
+        self._steps = 0
+
+    def reset_profile(self):
+        self.elapsed = []
+
+    def _detok(self, tokens):
+        out = []
+        for t in tokens:
+            if t > UNK:   # never emit NUL/PAD/BOS/UNK as text
+                out.append(self.tokenizer.id_to_token(int(t))
+                           .replace('</w>', ' '))
+        return ''.join(out)
+
+    def _after(self, n_chunks):
+        self._steps += n_chunks
+        if self.reset_step and self._steps >= self.reset_step:
+            self.reset()
+
+    def decode(self, frame) -> str:
+        """frame: (win_size,) samples → newly decoded text."""
+        start = time.perf_counter()
+        audio = _audio_tensor(np.asarray(frame, np.float32)[None, :],
+                              self.device)
+        tokens, self.state = self.chunk_step(self.state, audio)
+        tokens = tokens.cpu().numpy()[:, 0]
+        self.elapsed.append(time.perf_counter() - start)
+        self.emitted.append(tokens)
+        self._after(1)
+        return self._detok(tokens)
+
+    def decode_block(self, chunks) -> str:
+        """`block_chunks` consecutive chunks (block_chunks, win_size) in one
+        group step; same text as that many decode() calls."""
+        assert self.group_step is not None
+        if self.reset_step and self._steps + len(chunks) > self.reset_step:
+            # the periodic reset lands inside this block: per-chunk decode
+            # so it fires at exactly the chunk decode() would reset at
+            return ''.join(self.decode(c) for c in chunks)
+        start = time.perf_counter()
+        tokens, self.state = self.group_step(
+            self.state, _audio_tensor(np.asarray(chunks, np.float32),
+                                      self.device))
+        tokens = tokens.cpu().numpy().reshape(-1)
+        self.elapsed.append(time.perf_counter() - start)
+        self.emitted.append(tokens)
+        self._after(len(chunks))
+        return self._detok(tokens)
+
+    def decode_wav(self, audio) -> str:
+        """Offline chunked decode of a whole waveform (reference
+        stream.py:106-117): block-grouped while whole blocks remain, then
+        chunk by chunk."""
+        self.reset()
+        self.emitted = []
+        chunks = _chunks(audio, self.win_size, self.hop_size)
+        n = len(chunks)
+        text = []
+        i = 0
+        if self.group_step is not None:
+            while i + self.block_chunks <= n:
+                text.append(self.decode_block(
+                    chunks[i:i + self.block_chunks]))
+                i += self.block_chunks
+        for j in range(i, n):
+            text.append(self.decode(chunks[j]))
+        return ''.join(text)
+
+    def decode_wav_pipelined(self, audio) -> str:
+        """decode_wav over whole blocks with a lag-1 token fetch: block i's
+        tokens come back while block i+1 runs.  A trailing partial block is
+        dropped, as in the JAX decoder; under a reset_step policy this
+        delegates to decode_wav (which honours the resets)."""
+        assert self.group_step is not None
+        if self.reset_step:
+            return self.decode_wav(audio)
+        self.reset()
+        chunks = _chunks(audio, self.win_size, self.hop_size)
+        n = len(chunks) - len(chunks) % self.block_chunks
+        pending, done = None, []
+        start = time.perf_counter()
+        for i in range(0, n, self.block_chunks):
+            tokens, self.state = self.group_step(
+                self.state, _audio_tensor(
+                    np.asarray(chunks[i:i + self.block_chunks], np.float32),
+                    self.device))
+            prev, pending = pending, _fetch_start(tokens)
+            if prev is not None:
+                done.append(_fetch_done(prev))
+        if pending is not None:
+            done.append(_fetch_done(pending))
+        self.elapsed.append(time.perf_counter() - start)
+        return ''.join(self._detok(t.reshape(-1)) for t in done)
