@@ -7,10 +7,12 @@ Phases, each printing JSON or text lines:
   1 device   card name, nvidia-smi name + power limit
   2 build    nvcc build of csrc/*.cu (seconds, ptxas register/spill lines)
   3 kernels  K1 (LSTM forward), K2 (mel power), K3 (greedy frame loop),
-             each against its plain PyTorch version on the card at the main
-             path's shapes, with stated tolerances (tokens exact), and both
-             timed with CUDA events (median of 20 after warm-up, in turns
-             plain, kernel, kernel, plain)
+             K4 (LSTM backward), K7/K8 (fused joint forward / backward),
+             K9/K10 (lattice alpha / beta+grad), each against its plain
+             PyTorch version on the card at the main paths' shapes, with
+             stated tolerances (tokens exact), and both timed with CUDA
+             events (median of 20 after warm-up, in turns plain, kernel,
+             kernel, plain)
   4 slice    E6D2 from flagfiles/E6D2.txt with seeded random weights:
              StreamingDecoder.decode_wav of 4 s of seeded synthetic audio
              on cuda fp32 == the CPU run (plain versions), token for token;
@@ -18,10 +20,21 @@ Phases, each printing JSON or text lines:
   5 server   StreamServer over MultiStreamDecoder(n_streams=8, cuda), as
              edgedict_tpu_torch/cli/serve.py builds it; 4 concurrent
              clients, each transcript == decode_wav of its audio
-  6 launches every kernel launched by the main path itself: the counts are
-             zeroed just before the measured cuda fp32 decode_wav and just
-             before the clients connect, and read just after each, so no
-             warm-up, reference or comparison call is counted
+  6 train_parity  one fp32 E6D2 train step (full width and depth, B=4,
+             ~2 s) on cuda against the CPU plain path from the same weights
+             and batch: loss, grad_norm, grads and params after the Adam step
+  7 train_run  the port's Trainer (as cli/baseline.py builds it) from
+             flagfiles/E6D2.txt (batch 32, bf16, BPE 2048) on a seeded
+             synthetic corpus of 8-16 s utterances: 2 warm-up and 5 measured
+             steps (median step ms, audio s/s), loss falling on a repeated
+             small batch, one --mode eval pass (val_loss, WER)
+  8 launches every kernel launched by the main paths themselves: the counts
+             are zeroed just before the measured cuda fp32 decode_wav, just
+             before the clients connect and just before the measured train
+             steps, and read just after each, so no warm-up, reference or
+             comparison call is counted; the train counts must equal what
+             the steps imply (8 LSTM calls forward and 8 backward, one of
+             K2 and K7-K10 per micro-step)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -288,7 +301,146 @@ def phase_kernels(torch):
                     record('greedy_decode', err,
                            case.get('ms') if main else None,
                            case.get('plain_ms'))
+    train_kernels(torch, rng, dev, record)
     STATE['kernels'] = summary
+
+
+def _rel(torch, a, b):
+    """max |a - b| / max(1, max |b|), in fp32."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def train_kernels(torch, rng, dev, record):
+    """K4, K7/K8 and K9/K10 against their plain versions at the E6D2
+    training step's shapes (B=32, 16 s: encoder T=427/214, prediction net
+    T=U+1=65, joint J=640, V=2048)."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    from edgedict_tpu_torch.ops import rnnt_loss as PL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+    bf16, fp32 = torch.bfloat16, torch.float32
+
+    def t_(*shape, scale=1.0, dtype=fp32):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
+                               device=dev).to(dtype)
+
+    # K4 — LSTM backward: encoder layer 0 in bf16 (the training dtype), a
+    # shorter encoder layer in fp32, the prediction net in bf16
+    for hid, b, t, dt in ((1024, 32, 427, bf16), (1024, 32, 64, fp32),
+                          (256, 32, 65, bf16)):
+        k = 1.0 / hid ** 0.5
+        xp = t_(t, b, 4 * hid, dtype=dt)
+        w = torch.as_tensor(rng.uniform(-k, k, (4 * hid, hid))
+                            .astype(np.float32), device=dev).to(dt)
+        h0, c0 = t_(b, hid, scale=0.5), t_(b, hid, scale=0.5)
+        ys, cs, _ = K1.lstm_recurrence(xp, w, h0, c0)
+        dys = t_(t, b, hid, dtype=dt)
+        args = (xp, w, h0, c0, ys, cs, dys, None, None)
+        out = K1.lstm_recurrence_bwd(*args)
+        ref = K1.lstm_recurrence_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = [_rel(torch, a, r) for a, r in zip(out, ref)]
+        tol = 1e-4 if dt == fp32 else 2e-2
+        case = {'kernel': 'K4 lstm_bwd', 'H': hid, 'B': b, 'T': t,
+                'dtype': str(dt).split('.')[-1], 'dgates_rel': errs[0],
+                'dh0_rel': errs[1], 'dc0_rel': errs[2],
+                'tol': f'max|d| / max(1, max|ref|) <= {tol}'}
+        ms, pms = time_pair(torch, lambda: K1.lstm_recurrence_bwd_plain(*args),
+                            lambda: K1.lstm_recurrence_bwd(*args))
+        case.update(ms=ms, plain_ms=pms)
+        emit(case)
+        require(max(errs) <= tol, f'K4 disagrees: {case}')
+        record('lstm_bwd', max(errs), ms if (hid, t) == (1024, 427) else None,
+               pms)
+
+    # K7 / K8 — fused joint: the E6D2 step in bf16, and U+1 = 300 (past the
+    # TPU kernel's U envelope)
+    for b, t, u1, dt in ((32, 214, 65, bf16), (2, 50, 300, bf16)):
+        j, v = 640, 2048
+        f, g = t_(b, t, j, dtype=dt), t_(b, u1, j, dtype=dt)
+        w_t = t_(j, v, scale=j ** -0.5)
+        bias = t_(v, scale=0.1)
+        labels = torch.as_tensor(rng.randint(4, v, (b, u1 - 1))
+                                 .astype(np.int32), device=dev)
+        d_b, d_l = t_(b, t, u1, scale=0.1), t_(b, t, u1 - 1, scale=0.1)
+        wt_e = w_t.to(dt).contiguous()
+        blank_lp, label_lp, lse = KJ.joint_lse_fwd(f, g, wt_e, bias, labels,
+                                                   0)
+        grads = KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse, d_b, d_l)
+        leaves = [x.clone().requires_grad_() for x in (f, g, w_t, bias)]
+        ref = KJ.fused_joint_lse_plain(*leaves, labels, 0)
+        ref_g = torch.autograd.grad(ref, leaves, (d_b, d_l),
+                                    retain_graph=True)
+        torch.cuda.synchronize()
+        fwd_err = max(_rel(torch, blank_lp, ref[0]),
+                      _rel(torch, label_lp, ref[1]))
+        bwd_errs = [_rel(torch, a, r) for a, r in zip(grads, ref_g)]
+        case = {'kernel': 'K7/K8 joint_lse', 'B': b, 'T': t, 'U1': u1,
+                'J': j, 'V': v, 'dtype': str(dt).split('.')[-1],
+                'fwd_rel': fwd_err, 'df_rel': bwd_errs[0],
+                'dg_rel': bwd_errs[1], 'dw_rel': bwd_errs[2],
+                'dbias_rel': bwd_errs[3],
+                'tol': 'lp 1e-4, grads 2e-2 (bf16 dlogits), of max(1, max|ref|)'}
+        main = u1 == 65
+        if main:
+            ms, pms = time_pair(
+                torch, lambda: KJ.fused_joint_lse_plain(f, g, w_t, bias,
+                                                        labels, 0),
+                lambda: KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0))
+            bms, bpms = time_pair(
+                torch, lambda: torch.autograd.grad(ref, leaves, (d_b, d_l),
+                                                   retain_graph=True),
+                lambda: KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse,
+                                         d_b, d_l))
+            case.update(fwd_ms=ms, fwd_plain_ms=pms, bwd_ms=bms,
+                        bwd_plain_ms=bpms)
+        emit(case)
+        require(fwd_err <= 1e-4 and max(bwd_errs) <= 2e-2,
+                f'K7/K8 disagree: {case}')
+        record('joint_lse_fwd', fwd_err, case.get('fwd_ms'),
+               case.get('fwd_plain_ms'))
+        record('joint_lse_bwd', max(bwd_errs), case.get('bwd_ms'),
+               case.get('bwd_plain_ms'))
+        del ref, ref_g, leaves
+
+    # K9 / K10 — the lattice of the E6D2 step
+    b, t, u1 = 32, 214, 65
+    logits = torch.as_tensor(rng.randn(b, t, u1, 2).astype(np.float32),
+                             device=dev)
+    lp = logits - torch.logsumexp(logits, -1, keepdim=True)
+    blank, label = lp[..., 0].contiguous(), lp[:, :, :-1, 1].contiguous()
+    xlen = torch.as_tensor(rng.randint(200, t + 1, b).astype(np.int32),
+                           device=dev)
+    ylen = torch.as_tensor(rng.randint(40, u1, b).astype(np.int32),
+                           device=dev)
+    alpha, logz = KL.lattice_alpha(blank, label, xlen, ylen)
+    gb, gl = KL.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
+    r_alpha, r_logz = PL.lattice_alpha_plain(blank, label, xlen, ylen)
+    r_gb, r_gl = PL.lattice_beta_grad_plain(blank, label, r_alpha, r_logz,
+                                            xlen, ylen)
+    torch.cuda.synchronize()
+    logz_err = _rel(torch, logz, r_logz)
+    occ_err = max(float((gb - r_gb).abs().max()),
+                  float((gl - r_gl).abs().max()))
+    occ_tol = max(1e-5, 1e-6 * float(r_logz.abs().max()))
+    ams, apms = time_pair(
+        torch, lambda: PL.lattice_alpha_plain(blank, label, xlen, ylen),
+        lambda: KL.lattice_alpha(blank, label, xlen, ylen))
+    bms, bpms = time_pair(
+        torch, lambda: PL.lattice_beta_grad_plain(blank, label, alpha, logz,
+                                                  xlen, ylen),
+        lambda: KL.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen))
+    case = {'kernel': 'K9/K10 lattice', 'B': b, 'T': t, 'U1': u1,
+            'logz_rel': logz_err, 'occupancy_max_abs': occ_err,
+            'tol': f'logz 1e-5 of max(1, |logz|); occupancy {occ_tol:.2e} '
+                   '(1e-6 |logZ|)', 'alpha_ms': ams, 'alpha_plain_ms': apms,
+            'beta_grad_ms': bms, 'beta_grad_plain_ms': bpms}
+    emit(case)
+    require(logz_err <= 1e-5 and occ_err <= occ_tol,
+            f'K9/K10 disagree: {case}')
+    record('lattice_alpha', logz_err, ams, apms)
+    record('lattice_beta_grad', occ_err, bms, bpms)
 
 
 def _e6d2():
@@ -300,20 +452,28 @@ def _e6d2():
     return cfg, feat
 
 
+def _counters():
+    """{kernel name: the wrapper that counts its launches}."""
+    from edgedict_tpu_torch.ops import (
+        decode_kernel, features_kernel, joint_lse_kernel, rnn_kernel,
+        rnnt_loss_kernel)
+    return {'lstm_fwd': rnn_kernel.lstm_recurrence,
+            'mel_power': features_kernel.mel_power,
+            'greedy_decode': decode_kernel.greedy_frame_loop,
+            'lstm_bwd': rnn_kernel.lstm_recurrence_bwd,
+            'joint_lse_fwd': joint_lse_kernel.joint_lse_fwd,
+            'joint_lse_bwd': joint_lse_kernel.joint_lse_bwd,
+            'lattice_alpha': rnnt_loss_kernel.lattice_alpha,
+            'lattice_beta_grad': rnnt_loss_kernel.lattice_beta_grad}
+
+
 def _reset_launches():
-    from edgedict_tpu_torch.ops import decode_kernel, features_kernel, \
-        rnn_kernel
-    rnn_kernel.lstm_recurrence.launches = 0
-    features_kernel.mel_power.launches = 0
-    decode_kernel.greedy_frame_loop.launches = 0
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def _launches():
-    from edgedict_tpu_torch.ops import decode_kernel, features_kernel, \
-        rnn_kernel
-    return {'lstm_fwd': rnn_kernel.lstm_recurrence.launches,
-            'mel_power': features_kernel.mel_power.launches,
-            'greedy_decode': decode_kernel.greedy_frame_loop.launches}
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def _first_divergence(torch, model, cfg, feat, tok, audio, a, b):
@@ -472,6 +632,246 @@ def phase_server(torch):
     STATE['round_ms'] = res['round_ms_mean']
 
 
+def _e6d2_train_cfg():
+    """E6D2 TransducerConfig (V=2048) and the trainer's FeatureConfig from
+    flagfiles/E6D2.txt, with dither and SpecAugment off."""
+    import dataclasses
+
+    from edgedict_tpu_torch import config as C
+    parser = C.add_train_flags(C.add_model_flags(argparse.ArgumentParser()))
+    flags = C.parse_flags(parser, [f'--flagfile={REPO}/flagfiles/E6D2.txt'])
+    feat = dataclasses.replace(C.feature_config_from_flags(flags), dither=0.0,
+                               T_num_mask=0, F_num_mask=0)
+    return C.transducer_config_from_flags(flags, 2048, feat.input_size), feat
+
+
+def phase_train_parity(torch):
+    """One fp32 E6D2 train step (full width and depth, seeded init, B=4,
+    ~2 s) on CUDA against the CPU plain path from the same weights and
+    batch; dither and SpecAugment off so that both see the same features,
+    lr 5e-4 (E6D2's, without warmup) so that the step moves the params."""
+    import copy
+
+    from edgedict_tpu_torch import optim
+    from edgedict_tpu_torch import train as TR
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    from edgedict_tpu_torch.features import FeaturePipeline
+    from edgedict_tpu_torch.models import transducer as T
+    cfg, feat = _e6d2_train_cfg()
+    lr = 5e-4
+    rng = np.random.RandomState(7)
+    secs = (2.0, 1.8, 1.6, 2.0)
+    audio = np.zeros((4, 32000), np.float32)
+    for i, sec in enumerate(secs):
+        audio[i, :int(sec * 16000)] = synthetic_audio(20 + i, sec)
+    host = {'audio': audio,
+            'alen': np.array([int(x * 16000) for x in secs], np.int32),
+            'ys': rng.randint(4, 2048, (4, 12)).astype(np.int32),
+            'ylen': np.array([12, 10, 8, 11], np.int32)}
+    model = T.Transducer(cfg, device='cpu', seed=0)
+    opt = optim.build_optimizer('adam')
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        m = copy.deepcopy(model).to(dev)
+        pipe = FeaturePipeline(feat, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batch = TR.device_batch(host, 1, dev)
+        micro = {k: v[0] for k, v in batch.items()}
+        xs, xlen = pipe(micro['audio'], micro['alen'], train=True,
+                        generator=gen)
+        loss = T.transducer_loss(m, cfg, xs, micro['ys'], xlen,
+                                 micro['ylen'], deterministic=False,
+                                 generator=gen)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+        state = TR.TrainState(m, opt.init(dict(m.named_parameters())))
+        step = TR.make_train_step(cfg, opt, bf16=False, feature_pipeline=pipe)
+        t0 = time.perf_counter()
+        state, met = step(state, batch, lr, gen)
+        res[dev] = {'loss': float(met['loss']),
+                    'grad_norm': float(met['grad_norm']),
+                    'skipped': float(met['skipped']),
+                    'step_s': time.perf_counter() - t0, 'grads': grads,
+                    'params': {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()}}
+    a, b = res['cuda'], res['cpu']
+    grad_rel = max(float((a['grads'][k] - g).abs().max())
+                   / max(1e-30, float(g.abs().max()))
+                   for k, g in b['grads'].items())
+    diffs = [(a['params'][k] - p).abs() for k, p in b['params'].items()]
+    moved = max(float((b['params'][k] - model.state_dict()[k]).abs().max())
+                for k in b['params'])
+    n = sum(d.numel() for d in diffs)
+    out = {'phase': 'train_parity', 'config': 'flagfiles/E6D2.txt fp32',
+           'B': 4, 'audio_s': list(secs), 'lr': lr,
+           'loss_cuda': a['loss'], 'loss_cpu': b['loss'],
+           'loss_rel': abs(a['loss'] - b['loss']) / abs(b['loss']),
+           'grad_norm_rel': abs(a['grad_norm'] - b['grad_norm'])
+           / b['grad_norm'],
+           'grad_max_rel': grad_rel,
+           'param_max_abs_diff': max(float(d.max()) for d in diffs),
+           'param_share_diff_over_0.01lr':
+               sum(int((d > 0.01 * lr).sum()) for d in diffs) / n,
+           'param_max_update': moved,
+           'step_s_cuda': a['step_s'], 'step_s_cpu': b['step_s'],
+           'bounds': 'loss 1e-5 rel, grad_norm 1e-4 rel, each grad 1e-3 of '
+                     'its max, params max 2 lr and > 0.01 lr on < 1e-3 of '
+                     'them (Adam\'s first step is g/|g|: a grad at its '
+                     'rounding level may flip sign)'}
+    emit(out)
+    require(a['skipped'] == b['skipped'] == 0.0, 'a parity step was skipped')
+    require(out['loss_rel'] <= 1e-5 and out['grad_norm_rel'] <= 1e-4
+            and grad_rel <= 1e-3, 'CUDA train step differs from the CPU')
+    require(out['param_max_abs_diff'] <= 2 * lr + 1e-6
+            and out['param_share_diff_over_0.01lr'] <= 1e-3,
+            'params after the step differ between CUDA and the CPU')
+
+
+def _synthetic_corpus(root, texts, seed, lo=8.0, hi=16.0):
+    """LibriSpeech layout (<root>/<spk>/<chap>/*.trans.txt + wav) of one
+    utterance of lo..hi seconds of synthetic audio per text."""
+    from edgedict_tpu.data.audio_io import save_wav
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, '1', '1')
+    os.makedirs(d, exist_ok=True)
+    lines = []
+    for i, text in enumerate(texts):
+        name = f'1-1-{i:04d}'
+        save_wav(os.path.join(d, name + '.wav'),
+                 synthetic_audio(seed + i, rng.uniform(lo, hi)), 16000)
+        lines.append(f'{name} {text.upper()}')
+    with open(os.path.join(d, '1-1.trans.txt'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+
+
+def _corpus_texts(n_train, n_eval, seed=0):
+    """Texts over a seeded lexicon of 800 made-up words, each used twice in
+    the training texts, so that BPE training reaches 2048 ids."""
+    rng = np.random.RandomState(seed)
+    letters = np.array(list('abcdefghijklmnopqrstuvwxyz'))
+    lex = []
+    while len(lex) < 800:
+        w = ''.join(rng.choice(letters, rng.randint(4, 10)))
+        if w not in lex:
+            lex.append(w)
+    stream = list(rng.permutation(lex + lex))
+    train = [' '.join(c) for c in np.array_split(stream, n_train)]
+    evals = [' '.join(rng.choice(lex, 12)) for _ in range(n_eval)]
+    return train, evals
+
+
+def phase_train_run(torch):
+    """The port's Trainer, built as cli/baseline.py builds it, from
+    flagfiles/E6D2.txt (batch 32, bf16, BPE 2048) on a synthetic corpus of
+    8-16 s utterances: warm-up steps, then measured steps; loss falls on a
+    repeated small batch; one --mode eval pass."""
+    import tempfile
+
+    from edgedict_tpu_torch.cli import baseline
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.train import device_batch, make_train_state
+    from edgedict_tpu_torch.trainer import Trainer
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix='edd_smoke_') as tmp:
+        os.chdir(tmp)             # the BPE-2048/ cache lands in the cwd
+        try:
+            t0 = time.perf_counter()
+            train_texts, eval_texts = _corpus_texts(96, 8)
+            _synthetic_corpus(os.path.join(tmp, 'train'), train_texts, 100)
+            _synthetic_corpus(os.path.join(tmp, 'test'), eval_texts, 900)
+            none = os.path.join(tmp, 'none')
+            argv = [f'--flagfile={REPO}/flagfiles/E6D2.txt',
+                    '--LibriSpeech_train_100', os.path.join(tmp, 'train'),
+                    '--LibriSpeech_train_360', none,
+                    '--LibriSpeech_train_500', none,
+                    '--LibriSpeech_test', os.path.join(tmp, 'test'),
+                    '--TEDLIUM_train', none, '--CommonVoice', none,
+                    '--YT_bloomberg2', none, '--YT_life', none,
+                    '--logdir_root', os.path.join(tmp, 'logs'),
+                    '--name', 'e6d2-smoke', '--device', 'cuda']
+            flags = parse_flags(baseline.build_parser(), argv)
+            trainer = Trainer(flags)
+            setup_s = time.perf_counter() - t0
+            vocab = trainer.tokenizer.vocab_size
+            require(vocab == 2048 and trainer.cfg.vocab_size == 2048,
+                    f'vocab is {vocab}, not 2048')
+
+            def batches():
+                while True:
+                    yield from trainer.loader
+
+            it = batches()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):                                  # warm-up
+                float(trainer.run_step(next(it))['loss'])
+            _reset_launches()
+            times, audio_s, losses, shapes = [], [], [], []
+            n_measured = 5
+            for _ in range(n_measured):
+                batch = next(it)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses.append(float(trainer.run_step(batch)['loss']))
+                times.append(time.perf_counter() - t1)
+                audio_s.append(float(batch['alen'].sum()) / 16000.0)
+                shapes.append([int(x) for x in batch['audio'].shape[1:]]
+                              + [int(batch['ys'].shape[1]) + 1])
+            STATE['launches_train'] = _launches()
+            it.close()
+            med = statistics.median(times)
+            accum = trainer.accum_steps
+            STATE['train_expect'] = {
+                'lstm_fwd': 8 * accum * n_measured,
+                'lstm_bwd': 8 * accum * n_measured,
+                'mel_power': accum * n_measured,
+                'joint_lse_fwd': accum * n_measured,
+                'joint_lse_bwd': accum * n_measured,
+                'lattice_alpha': accum * n_measured,
+                'lattice_beta_grad': accum * n_measured}
+            res = {'phase': 'train_run', 'config': 'flagfiles/E6D2.txt',
+                   'vocab': vocab, 'batch_size': flags.batch_size,
+                   'accum': accum, 'bf16': flags.bf16,
+                   'utterances': len(trainer.train_dataset),
+                   'setup_s': setup_s,
+                   'batch_samples_U1': shapes,
+                   'step_ms': [1e3 * x for x in times],
+                   'step_ms_median': 1e3 * med,
+                   'audio_s_per_s': [a / x for a, x in zip(audio_s, times)],
+                   'audio_s_per_s_median': statistics.median(
+                       a / x for a, x in zip(audio_s, times)),
+                   'losses': losses,
+                   'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
+
+            # loss falls on a repeated small batch (fresh weights, lr 1e-3)
+            small = {k: v[:4] for k, v in next(iter(trainer.loader)).items()}
+            dev_small = device_batch(small, 1, trainer.device)
+            state = make_train_state(trainer.cfg, trainer.optimizer,
+                                     trainer.device, seed=1)
+            fall = []
+            for _ in range(10):
+                state, m = trainer.train_step(state, dev_small, 1e-3,
+                                              trainer.generator)
+                fall.append(float(m['loss']))
+            res['repeated_batch_losses'] = fall
+            del state
+
+            trainer.save()
+            lines = []
+            baseline.main(argv + ['--mode', 'eval'], log_fn=lines.append)
+            val = [ln for ln in lines if ln.startswith('val_loss')]
+            res['eval'] = val[0] if val else None
+            emit(res)
+            require(all(np.isfinite(losses)), 'a train loss is not finite')
+            require(fall[-1] < fall[0], f'loss did not fall: {fall}')
+            require(bool(val) and np.isfinite(float(val[0].split()[1])),
+                    f'eval printed no finite val_loss: {lines}')
+        finally:
+            os.chdir(cwd)
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/lstm_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -479,7 +879,18 @@ SOURCES = {
                   'edgedict_tpu/ops/features_pallas.py:57'),
     'greedy_decode': ('edgedict_tpu_torch/csrc/greedy_decode.cu',
                       'edgedict_tpu/ops/decode_pallas.py:131'),
+    'lstm_bwd': ('edgedict_tpu_torch/csrc/lstm_bwd.cu',
+                 'edgedict_tpu/ops/rnn_pallas.py:205'),
+    'joint_lse_fwd': ('edgedict_tpu_torch/csrc/joint_lse.cu',
+                      'edgedict_tpu/ops/joint_lse_pallas.py:156'),
+    'joint_lse_bwd': ('edgedict_tpu_torch/csrc/joint_lse.cu',
+                      'edgedict_tpu/ops/joint_lse_pallas.py:277'),
+    'lattice_alpha': ('edgedict_tpu_torch/csrc/rnnt_loss.cu',
+                      'edgedict_tpu/ops/rnnt_loss_pallas.py:78'),
+    'lattice_beta_grad': ('edgedict_tpu_torch/csrc/rnnt_loss.cu',
+                          'edgedict_tpu/ops/rnnt_loss_pallas.py:116'),
 }
+SERVING = ('lstm_fwd', 'mel_power', 'greedy_decode')
 
 
 def main():
@@ -500,18 +911,25 @@ def main():
     set_numerics(torch)
     phases = (('device', phase_device), ('build', phase_build),
               ('kernels', phase_kernels), ('slice', phase_slice),
-              ('server', phase_server))
+              ('server', phase_server), ('train_parity', phase_train_parity),
+              ('train_run', phase_train_run))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()
             fn(torch)
             emit(f'phase {name} passed in {time.perf_counter() - t0:.1f} s')
         runs = {'decode_wav': STATE['launches_decode_wav'],
-                'server': STATE['launches_server']}
-        emit({'phase': 'launches', **runs})
-        for run, counts in runs.items():
-            require(all(n > 0 for n in counts.values()),
-                    f'a kernel was not launched by {run}: {counts}')
+                'server': STATE['launches_server'],
+                'train': STATE['launches_train']}
+        emit({'phase': 'launches', **runs,
+              'train_expected': STATE['train_expect']})
+        for run in ('decode_wav', 'server'):
+            require(all(runs[run][k] > 0 for k in SERVING),
+                    f'a kernel was not launched by {run}: {runs[run]}')
+        require(all(runs['train'][k] == n
+                    for k, n in STATE['train_expect'].items()),
+                f'train launches {runs["train"]} != '
+                f'{STATE["train_expect"]}')
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1

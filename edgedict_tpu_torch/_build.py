@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` sources compile with nvcc into ONE shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers: the build takes
-seconds, not minutes):
+Each `csrc/*.cu` source compiles with its own nvcc process, all started
+together, into an object; one more nvcc links them into ONE shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers: the build
+takes seconds, not minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o libedgedict_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
+         libedgedict_kernels-<hash>.so *.o
 
 The library is built at first use into `edgedict_tpu_torch/_build/`
 (gitignored), keyed by a hash of the sources and flags, so an edit to any
@@ -30,15 +33,30 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
-SOURCES = ('lstm_fwd.cu', 'mel_power.cu', 'greedy_decode.cu')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+SOURCES = ('lstm_fwd.cu', 'lstm_bwd.cu', 'mel_power.cu', 'greedy_decode.cu',
+           'joint_lse.cu', 'rnnt_loss.cu')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                           '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # xp, w_hh, h0, c0, ys, cs, hbuf, T, B, H, bf16, stream
     'edd_lstm_fwd': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xp, w_hh, w_hh_t, h0e, c0, ys, cs, dys, dcs, dhT, dgates, dh0, dc,
+    # T, B, H, bf16, stream
+    'edd_lstm_bwd': (_P,) * 13 + (_I, _I, _I, _I, _P),
+    # f, g, wt, bias, labels, blank_lp, label_lp, lse, B, T, U1, J, V,
+    # blank, bf16, stream
+    'edd_joint_lse_fwd': (_P,) * 8 + (_I,) * 7 + (_P,),
+    # f, g, wt, w, bias, labels, lse, d_blank, d_label, df, dg, dw, dbias,
+    # B, T, U1, J, V, blank, bf16, n_split, stream
+    'edd_joint_lse_bwd': (_P,) * 13 + (_I,) * 8 + (_P,),
+    # blank, label, xlen, ylen, alpha, logz, B, T, U1, stream
+    'edd_lattice_alpha': (_P,) * 6 + (_I, _I, _I, _P),
+    # blank, label, alpha, logz, xlen, ylen, beta, gb, gl, B, T, U1, stream
+    'edd_lattice_beta_grad': (_P,) * 9 + (_I, _I, _I, _P),
     # audio_p, Lp, wcos, wsin, mel_t, out, B, T, n_fft, hop, n_freq,
     # n_mels, stream
     'edd_mel_power': (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -79,17 +97,40 @@ def source_hash():
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; → [(returncode, output)]."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return [(p.returncode, out) for p, out in
+            ((p, p.communicate()[0]) for p in procs)]
+
+
 def _compile(out_path):
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{out_path}.{os.getpid()}.tmp'
-    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    tag = f'{out_path}.{os.getpid()}'
+    nvcc = nvcc_path()
+    objs = [f'{tag}.{name}.o' for name in SOURCES]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        results = _run_all([[nvcc, *NVCC_FLAGS, '-c', os.path.join(CSRC, name),
+                             '-o', obj] for name, obj in zip(SOURCES, objs)])
+        log = ''.join(out for _, out in results)
+        failed = [f'{name}:\n{out[-4000:]}' for name, (rc, out)
+                  in zip(SOURCES, results) if rc != 0]
+        if failed:
+            raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
+        tmp = f'{tag}.tmp'
+        (rc, out), = _run_all([[nvcc, *ARCH_FLAGS, '-shared', '-o', tmp,
+                                *objs]])
+        log += out
+        if rc != 0:
+            raise RuntimeError(f'nvcc link failed ({rc}):\n{out[-8000:]}')
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({r.returncode}):\n{log[-8000:]}')
     # the log first: a concurrent process that finds the library reads it
     with open(f'{out_path}.log.{os.getpid()}', 'w') as f:
         f.write(log)

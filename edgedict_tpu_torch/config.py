@@ -4,9 +4,11 @@ on argparse.
 Reads the reference's flagfile presets (flagfiles/E6D2.txt, ...) in the
 absl syntax they use: one flag per line, `--k=v`, `--flag`, `--noflag`,
 nested `--flagfile=path`, blank lines and `#` / `//` comments.  The flags
-the serving slice reads are registered with the JAX package's defaults;
-the other keys of the JAX registry that a preset or a run snapshot
-carries (`--lr`, `--apex`, `--opt_level`, `--name`, ...) are accepted and
+each entry point reads are registered with the JAX package's defaults:
+`add_model_flags` for the model, features and tokenizer (every CLI),
+`add_train_flags` for the trainer (cli/baseline.py).  The other keys of the
+JAX registry that a preset or a run snapshot carries (`--apex`,
+`--opt_level`, the trainer's keys in a serving CLI, ...) are accepted and
 ignored.  Any other key is an error, as with absl.
 """
 
@@ -49,21 +51,72 @@ MODEL_FLAGS = (
     ('downsample', int, 3),
 )
 
-# flags of edgedict_tpu/config.py the serving slice does not read
+def optional_float(text):
+    return None if str(text).lower() in ('none', '') else float(text)
+
+
+def optional_int(text):
+    return None if str(text).lower() in ('none', '') else int(text)
+
+
+_LIBRI = '../librispeech/LibriSpeech/'
+_SPEECH = '../speech_data/'
+
+# the trainer's flags (name, type, default) — defaults as in
+# edgedict_tpu/config.py
+TRAIN_FLAGS = (
+    ('name', str, 'rnn-t-v5'),
+    ('mode', str, 'train'),
+    ('resume_step', optional_int, None),
+    ('LibriSpeech_train_100', str, _LIBRI + 'train-clean-100'),
+    ('LibriSpeech_train_360', str, _LIBRI + 'train-clean-360'),
+    ('LibriSpeech_train_500', str, _LIBRI + 'train-other-500'),
+    ('LibriSpeech_test', str, _LIBRI + 'test-clean'),
+    ('TEDLIUM_train', str, _SPEECH + 'TEDLIUM/TEDLIUM_release1/train'),
+    ('CommonVoice', str, _SPEECH + 'common_voice'),
+    ('YT_bloomberg2', str, _SPEECH + 'common_voice'),
+    ('YT_life', str, _SPEECH + 'common_voice'),
+    ('num_workers', int, 4),
+    ('cache_audio', parse_bool, False),
+    ('optim', str, 'adam'),
+    ('lr', float, 1e-4),
+    ('sched', parse_bool, True),
+    ('sched_patience', int, 1),
+    ('sched_factor', float, 0.5),
+    ('sched_min_lr', float, 1e-6),
+    ('warmup_step', int, 10000),
+    ('epochs', int, 30),
+    ('batch_size', int, 8),
+    ('sub_batch_size', int, 8),
+    ('eval_batch_size', int, 4),
+    ('gradclip', optional_float, None),
+    ('enc_dropout', float, 0.0),
+    ('dec_dropout', float, 0.0),
+    ('audio_max_length', float, 14),
+    ('T_mask', int, 50),
+    ('T_num_mask', int, 2),
+    ('F_mask', int, 5),
+    ('F_num_mask', int, 1),
+    ('time_warp_w', int, 0),
+    ('loss_step', int, 5),
+    ('save_step', int, 10000),
+    ('keep_checkpoints', int, 0),
+    ('eval_step', int, 10000),
+    ('sample_size', int, 20),
+    ('bf16', parse_bool, True),
+    ('audio_bucket_frames', int, 128),
+    ('label_bucket', int, 16),
+)
+MODES = ('train', 'resume', 'eval', 'device_rate')
+OPTIMIZERS = ('adam', 'adamw', 'sgd', 'sm3', 'novograd')
+
+# flags of edgedict_tpu/config.py that no entry point of the port reads
 UNREAD = frozenset((
-    'name', 'enc_dropout', 'dec_dropout', 'mode', 'resume_step',
-    'LibriSpeech_train_100', 'LibriSpeech_train_360',
-    'LibriSpeech_train_500', 'LibriSpeech_test', 'LibriSpeech_dev',
-    'TEDLIUM_train', 'TEDLIUM_test', 'CommonVoice', 'YT_bloomberg2',
-    'YT_life', 'num_workers', 'cache_audio', 'device_corpus',
-    'use_pretrained', 'optim', 'lr', 'sched', 'sched_patience',
-    'sched_factor', 'sched_min_lr', 'warmup_step', 'epochs', 'batch_size',
-    'sub_batch_size', 'eval_batch_size', 'gradclip', 'audio_max_length',
-    'T_mask', 'T_num_mask', 'F_mask', 'F_num_mask', 'apex', 'opt_level',
-    'multi_gpu', 'loss_step', 'save_step', 'keep_checkpoints', 'eval_step',
-    'sample_size', 'eval_beam_width', 'dp_size', 'tp_size', 'pp_size',
-    'bf16', 'audio_bucket_frames', 'label_bucket', 'time_warp_w',
-    'profile_dir', 'compilation_cache_dir'))
+    'LibriSpeech_dev', 'TEDLIUM_test', 'device_corpus', 'use_pretrained',
+    'apex', 'opt_level', 'multi_gpu', 'eval_beam_width', 'dp_size',
+    'tp_size', 'pp_size', 'profile_dir', 'compilation_cache_dir'))
+# keys a flagfile may carry that a parser may leave unregistered
+_IGNORABLE = UNREAD | {name for name, _, _ in TRAIN_FLAGS}
 
 
 def add_model_flags(parser):
@@ -72,6 +125,19 @@ def add_model_flags(parser):
                         help='read flags from this file (absl syntax)')
     for name, typ, default in MODEL_FLAGS:
         parser.add_argument(f'--{name}', type=typ, default=default)
+    return parser
+
+
+def add_train_flags(parser):
+    """Register the trainer's flags (cli/baseline.py) next to the model
+    flags."""
+    for name, typ, default in TRAIN_FLAGS:
+        kw = {}
+        if name == 'mode':
+            kw['choices'] = MODES
+        elif name == 'optim':
+            kw['choices'] = OPTIMIZERS
+        parser.add_argument(f'--{name}', type=typ, default=default, **kw)
     return parser
 
 
@@ -103,14 +169,16 @@ def _bool_flags(parser):
 
 def normalize_argv(argv, parser):
     """absl spellings → argparse: `--flag` / `--noflag` of a bool flag
-    become `--flag=true/false`; unread keys are dropped."""
+    become `--flag=true/false`; keys of the JAX registry this parser does
+    not register are dropped."""
     bools = _bool_flags(parser)
+    ignore = _IGNORABLE - {a.dest for a in parser._actions}
     out = []
     for arg in argv:
         if arg.startswith('--'):
             key = arg[2:].split('=', 1)[0]
-            if key in UNREAD or (key.startswith('no')
-                                 and key[2:] in UNREAD):
+            if key in ignore or (key.startswith('no')
+                                 and key[2:] in ignore):
                 continue
             if '=' not in arg:
                 if key in bools:
@@ -139,11 +207,14 @@ def transducer_config_from_flags(flags, vocab_size, input_size):
         dec_layers=flags.dec_layers,
         dec_proj_size=flags.dec_proj_size,
         joint_size=flags.joint_size,
+        enc_dropout=getattr(flags, 'enc_dropout', 0.0),
+        dec_dropout=getattr(flags, 'dec_dropout', 0.0),
         module_type=flags.enc_type)
 
 
 def feature_config_from_flags(flags, pad_to_divisible=True):
-    """FeatureConfig.from_flags of the JAX package, inference fields."""
+    """FeatureConfig.from_flags of the JAX package; the SpecAugment fields
+    come from the trainer's flags where the parser has them."""
     return FeatureConfig(
         feature_type=flags.feature,
         feature_size=flags.feature_size,
@@ -153,4 +224,9 @@ def feature_config_from_flags(flags, pad_to_divisible=True):
         delta=flags.delta,
         normalize='per_feature' if flags.cmvn else 'none',
         downsample=flags.downsample,
-        pad_to_divisible=pad_to_divisible)
+        pad_to_divisible=pad_to_divisible,
+        T_mask=getattr(flags, 'T_mask', 0),
+        T_num_mask=getattr(flags, 'T_num_mask', 0),
+        F_mask=getattr(flags, 'F_mask', 0),
+        F_num_mask=getattr(flags, 'F_num_mask', 0),
+        W_warp=getattr(flags, 'time_warp_w', 0))

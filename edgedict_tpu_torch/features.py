@@ -1,11 +1,12 @@
-"""Audio feature frontend, inference subset (counterpart of
-edgedict_tpu/features.py).
+"""Audio feature frontend (counterpart of edgedict_tpu/features.py).
 
 Waveform (B, L) + lengths → features (B, T', input_size) + lengths, on the
 device the pipeline was built for.  The mel power stage is K2
 (ops/features_kernel.py: plain on CPU, the CUDA kernel on CUDA); log,
-normalization, deltas and frame stacking stay plain tensor code.  Dither
-and SpecAugment (train=True) wait for the training port.
+normalization, deltas and frame stacking stay plain tensor code.  With
+train=True and a torch.Generator, dither is added to the waveform and
+SpecAugment masks the stacked features; SpecAugment's time warp
+(W_warp > 0) is not ported yet.
 
 The numpy constant builders (Hann window, Slaney/HTK mel filterbank, DCT)
 are copies of the JAX package's, so both packages featurize with the same
@@ -158,6 +159,27 @@ def normalize_batch(feat, lengths, normalize_type):
     return (feat - mean) / std
 
 
+def spec_augment(feat, t_mask, t_num, f_mask, f_num, generator):
+    """SpecAugment on (B, T, F): per-sample time then frequency masks, zero
+    fill, start ~ U[0, dim), width ~ U[0, max_width) (features.py:208-231),
+    drawn from `generator` on feat's device."""
+    b, t, f = feat.shape
+    keep = torch.ones((b, t, f), dtype=torch.bool, device=feat.device)
+    for dim, num, width, axis in ((t, t_num, t_mask, 1), (f, f_num, f_mask, 2)):
+        if num <= 0 or width <= 0:
+            continue
+        starts = torch.randint(0, dim, (b, num), generator=generator,
+                               device=feat.device)
+        widths = torch.randint(0, width, (b, num), generator=generator,
+                               device=feat.device)
+        pos = torch.arange(dim, device=feat.device)[None, None, :]
+        hit = ((pos >= starts[..., None])
+               & (pos < (starts + widths)[..., None])).any(dim=1)  # (B, dim)
+        hit = hit[:, :, None] if axis == 1 else hit[:, None, :]
+        keep = keep & ~hit
+    return torch.where(keep, feat, 0.0)
+
+
 def pcm_to_float(audio):
     """int16 PCM → float32 in [-1, 1) on the tensor's device (1/32768 is a
     power of two: exact); float input passes through as float32."""
@@ -172,19 +194,25 @@ def pcm_to_float(audio):
 
 @dataclasses.dataclass(frozen=True)
 class FeatureConfig:
-    """The inference fields of edgedict_tpu.features.FeatureConfig (dither
-    and the SpecAugment widths come with the training port)."""
+    """edgedict_tpu.features.FeatureConfig: inference fields, dither and the
+    SpecAugment widths (W_warp > 0, time warp, is refused)."""
     feature_type: str = 'logfbank'   # 'mfcc' | 'melspec' | 'logfbank'
     feature_size: int = 80
     sample_rate: int = 16000
     n_fft: int = 512
     win_length: int = 400
     hop_length: int = 200
+    dither: float = 1e-5
     preemph: float = 0.97
     normalize: str = 'none'
     delta: bool = False
     downsample: int = 1
     pad_to_divisible: bool = True
+    T_mask: int = 0
+    T_num_mask: int = 0
+    F_mask: int = 0
+    F_num_mask: int = 0
+    W_warp: int = 0                  # SpecAugment time warp: not ported
     mfcc_n_mels: int = 128
 
     @property
@@ -234,15 +262,24 @@ class FeaturePipeline:
                 t = t // self.cfg.downsample
         return t
 
-    def __call__(self, audio, lengths, train=False):
-        if train:
-            raise NotImplementedError(
-                'train=True (dither, SpecAugment) is not yet ported')
+    def __call__(self, audio, lengths, train=False, generator=None):
+        """train=True adds dither (logfbank) and SpecAugment, drawn from
+        `generator` (a torch.Generator on this pipeline's device)."""
         c = self.cfg
+        if train:
+            if generator is None:
+                raise ValueError('train=True needs a torch.Generator')
+            if c.W_warp > 0:
+                raise NotImplementedError(
+                    'SpecAugment time warp (W_warp > 0) is not yet ported')
         audio = pcm_to_float(audio)
         lengths = lengths.to(torch.int32)
-        if c.feature_type == 'logfbank' and c.preemph is not None:
-            audio = preemphasis(audio, c.preemph)
+        if c.feature_type == 'logfbank':
+            if train and c.dither > 0:
+                audio = audio + c.dither * torch.randn(
+                    audio.shape, generator=generator, device=audio.device)
+            if c.preemph is not None:
+                audio = preemphasis(audio, c.preemph)
         feat = mel_power(audio.contiguous(), self.tables)
         feat_len = torch.ceil(lengths.float() / c.hop_length).to(torch.int32)
 
@@ -262,5 +299,9 @@ class FeaturePipeline:
             d2 = compute_deltas(d1)
             feat = torch.cat([feat, d1, d2], dim=-1)
 
-        return downsample_stack(feat, feat_len, c.downsample,
-                                c.pad_to_divisible)
+        feat, feat_len = downsample_stack(feat, feat_len, c.downsample,
+                                          c.pad_to_divisible)
+        if train and (c.T_num_mask > 0 or c.F_num_mask > 0):
+            feat = spec_augment(feat, c.T_mask, c.T_num_mask, c.F_mask,
+                                c.F_num_mask, generator)
+        return feat, feat_len

@@ -32,7 +32,7 @@ import torch.nn as nn
 from edgedict_tpu.tokenizer import BOS, NUL, PAD
 from edgedict_tpu_torch.ops import rnn as rnn_ops
 from edgedict_tpu_torch.ops.layers import (
-    embedding, layer_norm, linear, linear_init)
+    dropout, embedding, layer_norm, linear, linear_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +42,11 @@ class TransducerConfig:
     input_size: int = 240
     enc_hidden_size: int = 600
     enc_layers: int = 4
+    enc_dropout: float = 0.0
     enc_proj_size: int = 600
     dec_hidden_size: int = 150
     dec_layers: int = 2
+    dec_dropout: float = 0.0
     dec_proj_size: int = 150
     joint_size: int = 512
     enc_time_reductions: Tuple[int, ...] = (1,)
@@ -229,10 +231,13 @@ def encoder_zero_state(cfg: TransducerConfig, batch, device):
                                    cfg.enc_hidden_size, device)
 
 
-def encoder_apply(encoder: Encoder, cfg: TransducerConfig, xs, state=None):
+def encoder_apply(encoder: Encoder, cfg: TransducerConfig, xs, state=None,
+                  deterministic=True, generator=None):
     """xs (B, T, input_size) → (ys (B, T // time_scale, enc_proj_size),
     new state ((L, B, H), (L, B, H))).  state None means zeros.  Runs
-    time-major inside, like the JAX encoder."""
+    time-major inside, like the JAX encoder.  With deterministic=False and
+    a generator, cfg.enc_dropout applies after each layer
+    (transducer.py:175-177)."""
     if state is None:
         state = encoder_zero_state(cfg, xs.shape[0], xs.device)
     hs, cs = state
@@ -249,6 +254,9 @@ def encoder_apply(encoder: Encoder, cfg: TransducerConfig, xs, state=None):
         xs = layer_norm(xs, proj[0].weight, proj[0].bias)
         if i in cfg.enc_time_reductions:
             xs = time_reduction_tm(xs, cfg.reduction_factor)
+        if not deterministic and cfg.enc_dropout > 0 \
+                and generator is not None:
+            xs = dropout(xs, cfg.enc_dropout, False, generator)
     xs = linear(xs, encoder.proj.weight, encoder.proj.bias)
     return xs.transpose(0, 1), (torch.stack(new_h), torch.stack(new_c))
 
@@ -262,17 +270,23 @@ def decoder_zero_state(cfg: TransducerConfig, batch, device):
                                    cfg.dec_hidden_size, device)
 
 
-def decoder_apply(decoder: Decoder, cfg: TransducerConfig, ys, state=None):
+def decoder_apply(decoder: Decoder, cfg: TransducerConfig, ys, state=None,
+                  deterministic=True, generator=None):
     """ys (B, U) int token ids → ((B, U(+1), dec_proj_size), state).  With
     state None a BOS is prepended and the state starts at zero (reference
-    rnnt/models.py:150-152); with a state this is a streaming step."""
+    rnnt/models.py:150-152); with a state this is a streaming step.  With
+    deterministic=False and a generator, cfg.dec_dropout applies between
+    the LSTM layers (transducer.py:221-222)."""
     if state is None:
         bos = torch.full((ys.shape[0], 1), BOS, dtype=ys.dtype,
                          device=ys.device)
         ys = torch.cat([bos, ys], dim=1)
         state = decoder_zero_state(cfg, ys.shape[0], ys.device)
     emb = embedding(decoder.embed.weight, ys.long(), padding_idx=PAD)
-    out, state = rnn_ops.stacked_lstm(decoder.lstm.layers(), emb, state)
+    out, state = rnn_ops.stacked_lstm(
+        decoder.lstm.layers(), emb, state,
+        dropout=0.0 if deterministic else cfg.dec_dropout,
+        generator=generator)
     return linear(out, decoder.proj.weight, decoder.proj.bias), state
 
 
@@ -318,3 +332,22 @@ def transducer_logits(model: Transducer, cfg: TransducerConfig, xs, ys):
     h_enc, _ = encoder_apply(model.encoder, cfg, xs)
     h_dec, _ = decoder_apply(model.decoder, cfg, ys)
     return joint_apply(model.joint, h_enc, h_dec)
+
+
+def transducer_loss(model: Transducer, cfg: TransducerConfig, xs, ys, xlen,
+                    ylen, deterministic=True, generator=None):
+    """Mean RNN-T loss over the batch (transducer.py:311-327): encoder and
+    prediction net (dropout drawn from `generator` when not deterministic),
+    frame lengths rescaled by the encoder's time reduction, then the loss
+    fused with the joint (ops/rnnt_loss.py:rnnt_loss_from_joint)."""
+    from edgedict_tpu_torch.ops.rnnt_loss import rnnt_loss_from_joint
+    h_enc, _ = encoder_apply(model.encoder, cfg, xs,
+                             deterministic=deterministic,
+                             generator=generator)
+    h_dec, _ = decoder_apply(model.decoder, cfg, ys,
+                             deterministic=deterministic,
+                             generator=generator)
+    xlen_s = scale_length(cfg, xlen, xs.shape[1], h_enc.shape[1])
+    losses = rnnt_loss_from_joint(model.joint, h_enc, h_dec, ys, xlen_s,
+                                  ylen, blank=cfg.blank)
+    return losses.mean()

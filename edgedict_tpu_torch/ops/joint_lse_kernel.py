@@ -1,0 +1,145 @@
+"""K7 + K8 — fused joint + logsumexp + blank/label gather, and its backward
+(counterpart of edgedict_tpu/ops/joint_lse_pallas.py; kernels in
+csrc/joint_lse.cu).
+
+`fused_joint_lse(f, g, w_t, bias, labels, blank)` → (blank_lp (B,T,U+1),
+label_lp (B,T,U)) without ever materialising the (B,T,U+1,V) logits: for
+CUDA tensors an autograd.Function whose forward is K7 (saving only the
+per-cell logsumexp) and whose backward is K8 (recompute, dlogits, dW, dbias,
+df, dg); for CPU tensors `fused_joint_lse_plain`, the same math in plain
+PyTorch, differentiated by autograd.  Products run in f's dtype (bf16 in
+training) with fp32 accumulation; W and the bias gradients come back fp32.
+There is no U envelope: any U+1 runs.
+"""
+
+import torch
+
+from edgedict_tpu_torch import _build
+
+
+def fused_joint_lse_plain(f, g, w_t, bias, labels, blank):
+    """f (B,T,J), g (B,U+1,J), w_t (J,V), bias (V,), labels (B,U) →
+    (blank_lp (B,T,U+1), label_lp (B,T,U)) fp32: h = tanh(f + g) in fp32,
+    rounded to f's dtype for the product h·W^T (fp32 accumulation) + bias,
+    then the two entries normalised by one logsumexp (joint_lse_pallas.py's
+    _xla_reference)."""
+    dtype = f.dtype
+    h = torch.tanh(f.float()[:, :, None, :] + g.float()[:, None, :, :])
+    logits = h.to(dtype).float() @ w_t.to(dtype).float() + bias.float()
+    lse = torch.logsumexp(logits, -1)
+    u = labels.shape[1]
+    blank_lp = logits[..., blank] - lse
+    idx = labels.long()[:, None, :, None].expand(-1, logits.shape[1], -1, 1)
+    label_lp = torch.gather(logits[:, :, :u], -1, idx)[..., 0] \
+        - lse[:, :, :u]
+    return blank_lp, label_lp
+
+
+def _dims(f, g, w_t, bias, labels):
+    dtypes = (torch.float32, torch.bfloat16)
+    _build.require_cuda(f, 'f', dtypes)
+    _build.require_cuda(g, 'g', (f.dtype,))
+    _build.require_cuda(w_t, 'w_t', (f.dtype,))
+    _build.require_cuda(bias, 'bias', (torch.float32,))
+    _build.require_cuda(labels, 'labels', (torch.int32,))
+    b, t, j = f.shape
+    u1 = g.shape[1]
+    v = w_t.shape[1]
+    if g.shape != (b, u1, j) or w_t.shape != (j, v) or bias.shape != (v,) \
+            or labels.shape != (b, u1 - 1) or min(b, t, u1, j, v) < 1:
+        raise ValueError(f'fused_joint_lse: f {tuple(f.shape)} g '
+                         f'{tuple(g.shape)} w_t {tuple(w_t.shape)} bias '
+                         f'{tuple(bias.shape)} labels {tuple(labels.shape)}')
+    return b, t, u1, j, v
+
+
+def joint_lse_fwd(f, g, w_t, bias, labels, blank):
+    """K7: → (blank_lp (B,T,U+1), label_lp (B,T,U), lse (B,T,U+1)), fp32;
+    f, g, w_t in one dtype (fp32 or bf16), all contiguous CUDA tensors."""
+    b, t, u1, j, v = _dims(f, g, w_t, bias, labels)
+    dev = f.device
+    blank_lp = torch.empty((b, t, u1), dtype=torch.float32, device=dev)
+    label_lp = torch.empty((b, t, u1 - 1), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, t, u1), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.check(_build.library().edd_joint_lse_fwd(
+        p(f), p(g), p(w_t), p(bias), p(labels), p(blank_lp), p(label_lp),
+        p(lse), b, t, u1, j, v, int(blank), int(f.dtype == torch.bfloat16),
+        _build.stream_ptr(dev)), 'joint_lse_fwd')
+    joint_lse_fwd.launches += 1
+    return blank_lp, label_lp, lse
+
+
+joint_lse_fwd.launches = 0
+
+
+def joint_lse_bwd(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
+    """K8: → (df (B,T,J), dg (B,U+1,J), dw_t (J,V), dbias (V,)), all fp32;
+    w (V, J) for the dh product is made here from w_t."""
+    b, t, u1, j, v = _dims(f, g, w_t, bias, labels)
+    _build.require_cuda(lse, 'lse', (torch.float32,))
+    _build.require_cuda(d_blank, 'd_blank', (torch.float32,))
+    _build.require_cuda(d_label, 'd_label', (torch.float32,))
+    if lse.shape != (b, t, u1) or d_blank.shape != (b, t, u1) \
+            or d_label.shape != (b, t, u1 - 1):
+        raise ValueError(f'joint_lse_bwd: lse {tuple(lse.shape)} d_blank '
+                         f'{tuple(d_blank.shape)} d_label '
+                         f'{tuple(d_label.shape)}')
+    dev = f.device
+    w = w_t.t().contiguous()
+    df = torch.zeros((b, t, j), dtype=torch.float32, device=dev)
+    dg = torch.zeros((b, u1, j), dtype=torch.float32, device=dev)
+    dw_t = torch.zeros((j, v), dtype=torch.float32, device=dev)
+    dbias = torch.zeros((v,), dtype=torch.float32, device=dev)
+    # row shares of the dW kernel: at most two blocks per SM in all, one wave
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    strips = -(-v // 32)
+    n_split = max(1, min(2 * sms // strips, -(-b * t * u1 // 32)))
+    p = _build.ptr
+    _build.check(_build.library().edd_joint_lse_bwd(
+        p(f), p(g), p(w_t), p(w), p(bias), p(labels), p(lse), p(d_blank),
+        p(d_label), p(df), p(dg), p(dw_t), p(dbias), b, t, u1, j, v,
+        int(blank), int(f.dtype == torch.bfloat16), n_split,
+        _build.stream_ptr(dev)), 'joint_lse_bwd')
+    joint_lse_bwd.launches += 1
+    return df, dg, dw_t, dbias
+
+
+joint_lse_bwd.launches = 0
+
+
+class _FusedJointLSE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f, g, w_t, bias, labels, blank):
+        dtype = f.dtype
+        args = (f.contiguous(), g.contiguous(),
+                w_t.to(dtype).contiguous(), bias.float().contiguous(),
+                labels.to(torch.int32).contiguous())
+        blank_lp, label_lp, lse = joint_lse_fwd(*args, blank)
+        ctx.save_for_backward(*args, lse)
+        ctx.blank = blank
+        ctx.dtypes = (f.dtype, g.dtype, w_t.dtype, bias.dtype)
+        return blank_lp, label_lp
+
+    @staticmethod
+    def backward(ctx, d_blank, d_label):
+        f, g, w_t, bias, labels, lse = ctx.saved_tensors
+        if d_blank is None:
+            d_blank = torch.zeros_like(lse)
+        if d_label is None:
+            d_label = torch.zeros(labels.shape[0], lse.shape[1],
+                                  labels.shape[1], device=lse.device)
+        df, dg, dw_t, dbias = joint_lse_bwd(
+            f, g, w_t, bias, labels, ctx.blank, lse,
+            d_blank.float().contiguous(), d_label.float().contiguous())
+        f_dt, g_dt, w_dt, b_dt = ctx.dtypes
+        return (df.to(f_dt), dg.to(g_dt), dw_t.to(w_dt), dbias.to(b_dt),
+                None, None)
+
+
+def fused_joint_lse(f, g, w_t, bias, labels, blank):
+    """See fused_joint_lse_plain; CUDA tensors go through K7 (forward) and
+    K8 (backward)."""
+    if f.device.type == 'cpu':
+        return fused_joint_lse_plain(f, g, w_t, bias, labels, blank)
+    return _FusedJointLSE.apply(f, g, w_t, bias, labels, blank)

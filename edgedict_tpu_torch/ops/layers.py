@@ -43,3 +43,14 @@ def embedding(table, ids, padding_idx=None):
     if padding_idx is not None:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
     return out
+
+
+def dropout(x, rate, deterministic, generator=None):
+    """Inverted dropout (layers.py:83-87): keep with probability 1 - rate,
+    scale kept values by 1 / (1 - rate).  The mask is drawn from
+    `generator`, on x's device."""
+    if deterministic or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)

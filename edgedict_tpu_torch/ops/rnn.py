@@ -12,6 +12,7 @@ The GRU encoder option is not ported yet (models/transducer.py refuses it).
 
 import torch
 
+from edgedict_tpu_torch.ops.layers import dropout as dropout_fn
 from edgedict_tpu_torch.ops.layers import linear
 from edgedict_tpu_torch.ops.rnn_kernel import lstm_recurrence
 
@@ -54,15 +55,19 @@ def lstm_layer(params, xs, state):
     return ys.transpose(0, 1), st
 
 
-def stacked_lstm(layers, xs, state):
+def stacked_lstm(layers, xs, state, dropout=0.0, generator=None):
     """Multi-layer LSTM (torch nn.LSTM(num_layers=L) equivalent), batch-
-    major.  state: (h, c) each (L, B, H)."""
+    major.  state: (h, c) each (L, B, H).  Inverted dropout between layers
+    (not after the last), drawn from `generator`, when dropout > 0 and a
+    generator is given (rnn.py:336-350)."""
     hs, cs = state
     new_h, new_c = [], []
     for i, layer in enumerate(layers):
         xs, (h, c) = lstm_layer(layer, xs, (hs[i], cs[i]))
         new_h.append(h)
         new_c.append(c)
+        if dropout > 0 and generator is not None and i < len(layers) - 1:
+            xs = dropout_fn(xs, dropout, False, generator)
     return xs, (torch.stack(new_h), torch.stack(new_c))
 
 

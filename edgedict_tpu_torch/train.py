@@ -1,0 +1,113 @@
+"""The training step (counterpart of edgedict_tpu/parallel/train.py, one
+device, no mesh).
+
+`make_train_step` returns `step(state, batch, lr, generator)`.  The batch
+holds (accum, micro, ...) tensors on the model's device: 'audio', 'alen',
+'ys', 'ylen' when a feature pipeline is given (featurised inside the step,
+dither and SpecAugment on), else 'xs', 'xlen', 'ys', 'ylen'.  Each micro-batch
+runs forward + backward with bf16 activations when bf16=True (features cast
+to bf16, params stay fp32, each op casts its weights to the activation
+dtype); the gradients sum in fp32 in `param.grad` and are averaged over the
+micro-batches (train.py:171-194).  The optimizer update is applied only
+when the loss and the gradient norm are finite: a non-finite step leaves
+the params and the optimizer state, Adam's count included, as they were,
+without a host sync (train.py:201-211).  Metrics: loss, grad_norm (before
+clipping), skipped.
+
+`make_eval_step` returns `eval(model, batch)` → (loss, y_seq, out_len) for
+an 'audio', 'alen', 'ys', 'ylen' batch: the deterministic fp32 loss and the
+greedy decode (K3 on CUDA).
+"""
+
+import dataclasses
+
+import torch
+
+from edgedict_tpu_torch import optim
+from edgedict_tpu_torch.models import transducer as T
+from edgedict_tpu_torch.models.decoding import transducer_greedy_decode
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: T.Transducer
+    opt_state: dict
+    step: int = 0
+
+
+def make_train_state(cfg, optimizer, device, seed=0):
+    """Seeded model on `device` (Transducer's CPU torch.Generator init, so
+    every device gets the same weights) and its optimizer state."""
+    model = T.Transducer(cfg, device=device, seed=seed)
+    return TrainState(model=model,
+                      opt_state=optimizer.init(dict(model.named_parameters())))
+
+
+def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None):
+    compute_dtype = torch.bfloat16 if bf16 else torch.float32
+
+    def micro_loss(model, micro, generator):
+        if feature_pipeline is not None:
+            xs, xlen = feature_pipeline(micro['audio'], micro['alen'],
+                                        train=True, generator=generator)
+        else:
+            xs, xlen = micro['xs'], micro['xlen']
+        return T.transducer_loss(model, cfg, xs.to(compute_dtype),
+                                 micro['ys'], xlen, micro['ylen'],
+                                 deterministic=False, generator=generator)
+
+    def train_step(state, batch, lr, generator=None):
+        model = state.model
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        accum = batch['ys'].shape[0]
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=batch['ys'].device)
+        for i in range(accum):
+            loss = micro_loss(model, {k: v[i] for k, v in batch.items()},
+                              generator)
+            loss.backward()
+            loss_sum = loss_sum + loss.detach().float()
+        loss = loss_sum / accum
+        grads = {k: p.grad / accum for k, p in params.items()}
+        with torch.no_grad():
+            updates, new_opt = optimizer.update(grads, state.opt_state,
+                                                params, lr)
+            gnorm = optim.global_norm(grads.values())
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            for k, p in params.items():
+                p.copy_(torch.where(ok, p + updates[k], p))
+            new_opt = optim.select_state(ok, new_opt, state.opt_state)
+        for p in params.values():
+            p.grad = None
+        metrics = {'loss': loss, 'grad_norm': gnorm,
+                   'skipped': (~ok).float()}
+        return TrainState(model, new_opt, state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(cfg, feature_pipeline):
+    @torch.no_grad()
+    def eval_step(model, batch):
+        xs, xlen = feature_pipeline(batch['audio'], batch['alen'])
+        loss = T.transducer_loss(model, cfg, xs, batch['ys'], xlen,
+                                 batch['ylen'])
+        y_seq, out_len, _ = transducer_greedy_decode(model, cfg, xs, xlen)
+        return loss, y_seq, out_len
+
+    return eval_step
+
+
+def device_batch(batch, accum_steps, device):
+    """Host batch dict of (B, ...) arrays → (accum, B / accum, ...) tensors
+    on `device` (train.py:shard_batch, one device)."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        if v.shape[0] % accum_steps:
+            raise ValueError(f'{k}: batch {v.shape[0]} does not split into '
+                             f'{accum_steps} micro-batches')
+        out[k] = v.reshape((accum_steps, -1) + tuple(v.shape[1:])).to(device)
+    return out

@@ -128,5 +128,12 @@ def test_cpu_tensor_takes_plain_path_and_train_refused():
     before = K2.mel_power.launches
     pipe(torch.zeros(1, 400), torch.tensor([400]))
     assert K2.mel_power.launches == before
-    with pytest.raises(NotImplementedError):
+    # train=True needs its generator; SpecAugment's time warp is not ported
+    with pytest.raises(ValueError):
         pipe(torch.zeros(1, 400), torch.tensor([400]), train=True)
+    warp = PF.FeaturePipeline(PF.FeatureConfig(
+        feature_size=8, n_fft=64, win_length=40, hop_length=20, W_warp=5),
+        'cpu')
+    with pytest.raises(NotImplementedError):
+        warp(torch.zeros(1, 400), torch.tensor([400]), train=True,
+             generator=torch.Generator().manual_seed(0))
