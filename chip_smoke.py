@@ -7,32 +7,47 @@ Phases, each printing JSON or text lines:
   1 device   card name, nvidia-smi name + power limit
   2 build    nvcc build of csrc/*.cu (seconds, ptxas register/spill lines)
   3 kernels  K1 (LSTM forward), K2 (mel power), K3 (greedy frame loop),
-             K4 (LSTM backward), K7/K8 (fused joint forward / backward),
-             K9/K10 (lattice alpha / beta+grad), each against its plain
-             PyTorch version on the card at the main paths' shapes, with
-             stated tolerances (tokens exact), and both timed with CUDA
-             events (median of 20 after warm-up, in turns plain, kernel,
-             kernel, plain)
+             K4 (LSTM backward), K5 (GRU forward), K7/K8 (fused joint
+             forward / backward), K9/K10 (lattice alpha / beta+grad), K11
+             (int8-weight matmul), K12/K13 (int8 LSTM / GRU recurrences),
+             each against its plain PyTorch version on the card at the main
+             paths' shapes, with stated tolerances (tokens exact), and both
+             timed with CUDA events (median of 20 after warm-up, in turns
+             plain, kernel, kernel, plain); K11 also beside a dequantize-
+             then-F.linear yardstick (library_ms); each kernel's bound
+             (bytes once over 3.35 TB/s, or operations over the peak of
+             their type, whichever is larger) from the timed inputs
   4 slice    E6D2 from flagfiles/E6D2.txt with seeded random weights:
              StreamingDecoder.decode_wav of 4 s of seeded synthetic audio
              on cuda fp32 == the CPU run (plain versions), token for token;
              cuda bf16 encoder diff and token agreement; per-chunk ms
-  5 server   StreamServer over MultiStreamDecoder(n_streams=8, cuda), as
+  5 slice_int8  the same decode with quantize='int8' (fp32): cuda == the
+             CPU int8 run token for token, int8-vs-fp32 token agreement,
+             per-chunk ms, encoder bytes int8 against fp32
+  6 slice_gru  E6D2 widths with enc_type GRU (seeded random weights): cuda
+             fp32 == CPU, cuda int8 == CPU int8, bf16 encoder diff and
+             token agreement, per-chunk ms
+  7 server   StreamServer over MultiStreamDecoder(n_streams=8, cuda), as
              edgedict_tpu_torch/cli/serve.py builds it; 4 concurrent
              clients, each transcript == decode_wav of its audio
-  6 train_parity  one fp32 E6D2 train step (full width and depth, B=4,
+  8 server_int8  the same with quantize='int8' (cli/serve.py --quantize
+             int8)
+  9 train_parity  one fp32 E6D2 train step (full width and depth, B=4,
              ~2 s) on cuda against the CPU plain path from the same weights
              and batch: loss, grad_norm, grads and params after the Adam step
-  7 train_run  the port's Trainer (as cli/baseline.py builds it) from
+ 10 train_run  the port's Trainer (as cli/baseline.py builds it) from
              flagfiles/E6D2.txt (batch 32, bf16, BPE 2048) on a seeded
              synthetic corpus of 8-16 s utterances: 2 warm-up and 5 measured
              steps (median step ms, audio s/s), loss falling on a repeated
              small batch, one --mode eval pass (val_loss, WER)
-  8 launches every kernel launched by the main paths themselves: the counts
-             are zeroed just before the measured cuda fp32 decode_wav, just
-             before the clients connect and just before the measured train
-             steps, and read just after each, so no warm-up, reference or
-             comparison call is counted; the train counts must equal what
+ 11 launches every kernel launched by the main paths themselves: the counts
+             are zeroed just before each measured cuda decode_wav (LSTM
+             fp32 / int8, GRU fp32 / int8), just before the clients of each
+             server connect and just before the measured train steps, and
+             read just after each, so no warm-up, reference or comparison
+             call is counted; the decodes' counts must equal what their
+             encoder calls imply (per call: int8 LSTM K11 7, K12 6, K1 0;
+             GRU K5 6; int8 GRU K11 7, K13 6, K5 0), the train counts what
              the steps imply (8 LSTM calls forward and 8 backward, one of
              K2 and K7-K10 per micro-step)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
@@ -112,6 +127,31 @@ def time_pair(torch, plain, kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+# the H100 SXM's published peaks (NVIDIA's data sheet; dense): device memory
+# rate and the operation rate of each input type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {'fp32': 67e12, 'bf16': 989e12}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, n_ops, kind):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of the bytes moved (each input read once, each output
+    written once) over the memory rate and the operations over the peak of
+    their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def kind_of(torch, t):
+    return 'bf16' if t.dtype == torch.bfloat16 else 'fp32'
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -170,11 +210,15 @@ def phase_kernels(torch):
     rng = np.random.RandomState(0)
     summary = {}
 
-    def record(name, err, ms=None, plain_ms=None):
+    def record(name, err, ms=None, plain_ms=None, bounds=None,
+               library_ms=None):
+        """Keep the largest error, and the times and bound of the first
+        timed main-path case."""
         s = summary.setdefault(name, {'max_abs_err': 0.0})
         s['max_abs_err'] = max(s['max_abs_err'], err)
         if ms is not None and 'ms' not in s:
-            s['ms'], s['plain_ms'] = ms, plain_ms
+            s['ms'], s['plain_ms'], s['library_ms'] = ms, plain_ms, library_ms
+            s['bound_ms'], s['bound_by'] = bounds
 
     # K2 — mel power, E6D2 featurizer (n_fft 512, win 320, hop 200, 80 mels)
     cfg = F.FeatureConfig(feature_type='logfbank', feature_size=80,
@@ -200,10 +244,17 @@ def phase_kernels(torch):
                                 lambda: K2.mel_power_plain(audio, pipe.tables),
                                 lambda: K2.mel_power(audio, pipe.tables))
             case.update(ms=ms, plain_ms=pms)
+        n_freq, n_mels = pipe.tables.mel_t.shape
+        frames = b * ker.shape[1]
+        bounds = bound(nbytes(audio, pipe.tables.wcos, pipe.tables.wsin,
+                              pipe.tables.mel_t, ker),
+                       frames * (4 * cfg.n_fft * n_freq + 3 * n_freq
+                                 + 2 * n_freq * n_mels), 'fp32')
+        case.update(bound_ms=bounds[0], bound_by=bounds[1])
         emit(case)
         require(ok, f'K2 disagrees: {case}')
         record('mel_power', err, case.get('ms') if (b, length) == (1, 1320)
-               else None, case.get('plain_ms'))
+               else None, case.get('plain_ms'), bounds)
 
     # K1 — LSTM recurrence, encoder (H=1024) and prediction net (H=256)
     cases = [(1024, b, t, dt) for dt in (torch.float32, torch.bfloat16)
@@ -246,10 +297,13 @@ def phase_kernels(torch):
                 torch, lambda: K1.lstm_recurrence_plain(xp, w, h0, c0),
                 lambda: K1.lstm_recurrence(xp, w, h0, c0))
             case.update(ms=ms, plain_ms=pms)
+        bounds = bound(nbytes(xp, w, h0, c0, ys, cs, hT),
+                       2 * t * b * 4 * hid * hid, kind_of(torch, xp))
+        case.update(bound_ms=bounds[0], bound_by=bounds[1])
         emit(case)
         require(all(oks), f'K1 disagrees: {case}')
         record('lstm_fwd', max(errs), case.get('ms') if main else None,
-               case.get('plain_ms'))
+               case.get('plain_ms'), bounds)
 
     # K3 — greedy frame loop at E6D2's joint / prediction-net widths
     dcfg = T.TransducerConfig(vocab_size=2048, vocab_embed_size=64,
@@ -295,14 +349,37 @@ def phase_kernels(torch):
                             torch, lambda: K3.greedy_frame_loop_plain(*args),
                             lambda: K3.greedy_frame_loop(*args))
                         case.update(ms=ms, plain_ms=pms)
+                    bounds = k3_bound(torch, dcfg, cache, args, out)
+                    case.update(bound_ms=bounds[0], bound_by=bounds[1])
                     emit(case)
                     require(tok_eq and all(ok for ok, _ in errs),
                             f'K3 disagrees: {case}')
                     record('greedy_decode', err,
                            case.get('ms') if main else None,
-                           case.get('plain_ms'))
+                           case.get('plain_ms'), bounds)
     train_kernels(torch, rng, dev, record)
+    serving_kernels_q(torch, rng, dev, record)
     STATE['kernels'] = summary
+
+
+def k3_bound(torch, cfg, cache, args, out):
+    """K3's bound from this call's data: every frame's joint and logits,
+    and the prediction net, its joint projection and an embedding row for
+    each non-blank frame; the weights read once."""
+    f, h_dec, hs, cs, blank = args[1], args[2], args[3], args[4], args[5]
+    tokens = out[0]
+    frames = tokens.numel()
+    emitted = int((tokens != blank).sum())
+    j, v = cache['w_out_t'].shape
+    d = cache['w_dec_t'].shape[0]
+    pred = sum(2 * (lay['w_ih_t'].numel() + lay['w_hh_t'].numel())
+               for lay in cache['layers']) + 2 * cache['w_proj_t'].numel()
+    weights = [t for k, t in cache.items() if k not in ('layers', 'table')]
+    weights += [t for lay in cache['layers'] for t in lay.values()]
+    n_bytes = (nbytes(f, h_dec, hs, cs, *weights, *out[:1], *out[2:])
+               + emitted * cache['table'].shape[1] * 4)
+    n_ops = frames * (2 * j * v + 2 * j) + emitted * (pred + 2 * d * j)
+    return bound(n_bytes, n_ops, 'fp32')
 
 
 def _rel(torch, a, b):
@@ -348,11 +425,14 @@ def train_kernels(torch, rng, dev, record):
                 'tol': f'max|d| / max(1, max|ref|) <= {tol}'}
         ms, pms = time_pair(torch, lambda: K1.lstm_recurrence_bwd_plain(*args),
                             lambda: K1.lstm_recurrence_bwd(*args))
-        case.update(ms=ms, plain_ms=pms)
+        bounds = bound(nbytes(xp, w, h0, c0, ys, cs, dys, *out),
+                       4 * t * b * 4 * hid * hid, kind_of(torch, xp))
+        case.update(ms=ms, plain_ms=pms, bound_ms=bounds[0],
+                    bound_by=bounds[1])
         emit(case)
         require(max(errs) <= tol, f'K4 disagrees: {case}')
         record('lstm_bwd', max(errs), ms if (hid, t) == (1024, 427) else None,
-               pms)
+               pms, bounds)
 
     # K7 / K8 — fused joint: the E6D2 step in bf16, and U+1 = 300 (past the
     # TPU kernel's U envelope)
@@ -395,13 +475,21 @@ def train_kernels(torch, rng, dev, record):
                                          d_b, d_l))
             case.update(fwd_ms=ms, fwd_plain_ms=pms, bwd_ms=bms,
                         bwd_plain_ms=bpms)
+        lattice_ops = 2 * b * t * u1 * j * v
+        fwd_bound = bound(nbytes(f, g, wt_e, bias, labels, blank_lp,
+                                 label_lp, lse), lattice_ops,
+                          kind_of(torch, f))
+        bwd_bound = bound(nbytes(f, g, wt_e, bias, labels, lse, d_b, d_l,
+                                 *grads), 3 * lattice_ops, kind_of(torch, f))
+        case.update(fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
         emit(case)
         require(fwd_err <= 1e-4 and max(bwd_errs) <= 2e-2,
                 f'K7/K8 disagree: {case}')
         record('joint_lse_fwd', fwd_err, case.get('fwd_ms'),
-               case.get('fwd_plain_ms'))
+               case.get('fwd_plain_ms'), fwd_bound)
         record('joint_lse_bwd', max(bwd_errs), case.get('bwd_ms'),
-               case.get('bwd_plain_ms'))
+               case.get('bwd_plain_ms'), bwd_bound)
         del ref, ref_g, leaves
 
     # K9 / K10 — the lattice of the E6D2 step
@@ -436,11 +524,146 @@ def train_kernels(torch, rng, dev, record):
             'tol': f'logz 1e-5 of max(1, |logz|); occupancy {occ_tol:.2e} '
                    '(1e-6 |logZ|)', 'alpha_ms': ams, 'alpha_plain_ms': apms,
             'beta_grad_ms': bms, 'beta_grad_plain_ms': bpms}
+    # the cells this data needs: t < xlen, u <= ylen (fp32 in and out)
+    cells = int((xlen.long() * (ylen.long() + 1)).sum())
+    alpha_bound = bound(cells * 4 * 3 + nbytes(xlen, ylen, logz), cells * 10,
+                        'fp32')
+    beta_bound = bound(cells * 4 * 5 + nbytes(xlen, ylen, logz), cells * 20,
+                       'fp32')
+    case.update(alpha_bound_ms=alpha_bound[0],
+                beta_grad_bound_ms=beta_bound[0])
     emit(case)
     require(logz_err <= 1e-5 and occ_err <= occ_tol,
             f'K9/K10 disagree: {case}')
-    record('lattice_alpha', logz_err, ams, apms)
-    record('lattice_beta_grad', occ_err, bms, bpms)
+    record('lattice_alpha', logz_err, ams, apms, alpha_bound)
+    record('lattice_beta_grad', occ_err, bms, bpms, beta_bound)
+
+
+def serving_kernels_q(torch, rng, dev, record):
+    """K5 (GRU forward), K11 (int8-weight matmul), K12 / K13 (int8 LSTM /
+    GRU recurrences) against their plain versions at E6D2's serving shapes
+    (H=1024, B 1 and 64, T=2; K11 for every layer's x_proj and the final
+    projection at R = T*B rows 2 and 512), fp32 and bf16."""
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    from edgedict_tpu_torch.ops import quant as Q
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    fp32, bf16 = torch.float32, torch.bfloat16
+
+    def t_(*shape, scale=1.0, dtype=fp32):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
+                               device=dev).to(dtype)
+
+    # K11: fp32 to 1e-5 of max(1, |out|) (fp32 sums in another order); bf16
+    # to 1e-2 (both round the same fp32 value to bf16: one ulp apart at most)
+    for (k, n), r, dt in [(kn, r, dt) for kn in ((240, 4096), (1024, 4096),
+                                                 (1024, 640), (240, 3072),
+                                                 (1024, 3072))
+                          for r in (2, 512) for dt in (fp32, bf16)]:
+        x = t_(r, k, dtype=dt)
+        q, sc = Q.quantize_int8(t_(n, k, scale=k ** -0.5))
+        bias = t_(n, scale=0.1)
+        out = Q.quant_matmul(x, q, sc, bias)
+        ref = Q.quant_matmul_plain(x, q, sc, bias)
+        torch.cuda.synchronize()
+        rel = _rel(torch, out, ref)
+        tol = 1e-5 if dt == fp32 else 1e-2
+        ms, pms = time_pair(torch, lambda: Q.quant_matmul_plain(x, q, sc,
+                                                                bias),
+                            lambda: Q.quant_matmul(x, q, sc, bias))
+        lib = _median_ms(torch, lambda: torch.nn.functional.linear(
+            x, Q.dequantize(q, sc, dt), bias.to(dt)))
+        case = {'kernel': 'K11 quant_matmul', 'R': r, 'K': k, 'N': n,
+                'dtype': str(dt).split('.')[-1], 'rel_err': rel,
+                'tol': f'max|d| / max(1, max|ref|) <= {tol}', 'ms': ms,
+                'plain_ms': pms, 'library_ms': lib}
+        b_ms, b_by = bound(nbytes(x, q, sc, bias, out), 2 * r * k * n,
+                           kind_of(torch, x))
+        case.update(bound_ms=b_ms, bound_by=b_by)
+        emit(case)
+        require(rel <= tol, f'K11 disagrees: {case}')
+        main = (r, k, n, dt) == (2, 1024, 4096, fp32)
+        record('quant_matmul', rel, ms if main else None, pms,
+               (b_ms, b_by), lib)
+
+    # K5 / K12 / K13: free-running to 1e-4 in fp32 and 2e-2 in bf16, where
+    # one rounding flip of h feeds every later step; so bf16 is also held
+    # step by step from the kernel's own carried state: ys to one bf16 ulp
+    # (2^-7 of |ys|, or 1e-2), the LSTM's cs to 1e-4
+    hid, t = 1024, 2
+    kw = 1.0 / hid ** 0.5
+    for name, b, dt in [(nm, b, dt) for nm in ('gru_fwd', 'lstm_fwd_q',
+                                                'gru_fwd_q')
+                        for b in (1, 64) for dt in (fp32, bf16)]:
+        gates = 4 if name == 'lstm_fwd_q' else 3
+        xp = t_(t, b, gates * hid, dtype=dt)
+        w = torch.as_tensor(rng.uniform(-kw, kw, (gates * hid, hid))
+                            .astype(np.float32), device=dev)
+        b_hh = t_(gates * hid, scale=0.1)
+        h0 = t_(b, hid, scale=0.5)
+        c0 = t_(b, hid, scale=0.5)
+        if name == 'gru_fwd':
+            w = w.to(dt)
+            kernel = lambda: K5.gru_recurrence(xp, w, b_hh, h0)  # noqa: E731
+            plain = lambda: K5.gru_recurrence_plain(  # noqa: E731
+                xp, w, b_hh, h0)
+            w_eff, inputs = w, (xp, w, b_hh, h0)
+        else:
+            q, sc = Q.quantize_int8(w)
+            w_eff = Q.dequantize(q, sc, dt)
+            if name == 'gru_fwd_q':
+                kernel = lambda: Q.gru_recurrence_q(  # noqa: E731
+                    xp, q, sc, b_hh, h0)
+                plain = lambda: Q.gru_recurrence_q_plain(  # noqa: E731
+                    xp, q, sc, b_hh, h0)
+                inputs = (xp, q, sc, b_hh, h0)
+            else:
+                kernel = lambda: Q.lstm_recurrence_q(  # noqa: E731
+                    xp, q, sc, h0, c0)
+                plain = lambda: Q.lstm_recurrence_q_plain(  # noqa: E731
+                    xp, q, sc, h0, c0)
+                inputs = (xp, q, sc, h0, c0)
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        run_tol = 1e-4 if dt == fp32 else 2e-2
+        step_tol = (1e-4, 1e-4) if dt == fp32 else (1e-2, 2.0 ** -7)
+        if name == 'lstm_fwd_q':
+            ys, cs, _ = out
+            step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w_eff, h0, c0,
+                                                ys, cs)
+            runs = [_close(a, r_, run_tol, run_tol)
+                    for a, r_ in zip(out, ref)]
+            steps = [_close(ys, step_ys, *step_tol),
+                     _close(cs, step_cs, 1e-4, 1e-4)]
+        else:
+            ys = out
+            h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b,
+                                                                    hid)
+            step_ys = K5.gru_recurrence_plain(
+                xp.reshape(1, t * b, gates * hid), w_eff, b_hh,
+                h_prev).reshape(ys.shape)
+            runs = [_close(ys, ref, run_tol, run_tol)]
+            steps = [_close(ys, step_ys, *step_tol)]
+        ok = all(c for c, _ in runs + steps)
+        errs = [e for _, e in runs]
+        steps = [e for _, e in steps]
+        ms, pms = time_pair(torch, plain, kernel)
+        b_ms, b_by = bound(nbytes(*inputs, *((out,) if name != 'lstm_fwd_q'
+                                             else out)),
+                           2 * t * b * gates * hid * hid, kind_of(torch, xp))
+        label = {'gru_fwd': 'K5 gru_fwd', 'lstm_fwd_q': 'K12 lstm_fwd_q',
+                 'gru_fwd_q': 'K13 gru_fwd_q'}[name]
+        case = {'kernel': label, 'H': hid, 'B': b, 'T': t,
+                'dtype': str(dt).split('.')[-1], 'run_max_abs': max(errs),
+                'step_max_abs': steps, 'ms': ms, 'plain_ms': pms,
+                'bound_ms': b_ms, 'bound_by': b_by,
+                'tol': f'run atol/rtol {run_tol}; per step ys atol '
+                       f'{step_tol[0]} rtol {step_tol[1]:.3g}'
+                       + (', cs 1e-4' if name == 'lstm_fwd_q' else '')}
+        emit(case)
+        require(ok, f'{label} disagrees: {case}')
+        main = (b, dt) == (1, fp32)
+        record(name, max(errs + steps), ms if main else None, pms,
+               (b_ms, b_by))
 
 
 def _e6d2():
@@ -455,9 +678,13 @@ def _e6d2():
 def _counters():
     """{kernel name: the wrapper that counts its launches}."""
     from edgedict_tpu_torch.ops import (
-        decode_kernel, features_kernel, joint_lse_kernel, rnn_kernel,
-        rnnt_loss_kernel)
+        decode_kernel, features_kernel, gru_kernel, joint_lse_kernel, quant,
+        rnn_kernel, rnnt_loss_kernel)
     return {'lstm_fwd': rnn_kernel.lstm_recurrence,
+            'gru_fwd': gru_kernel.gru_recurrence,
+            'quant_matmul': quant.quant_matmul,
+            'lstm_fwd_q': quant.lstm_recurrence_q,
+            'gru_fwd_q': quant.gru_recurrence_q,
             'mel_power': features_kernel.mel_power,
             'greedy_decode': decode_kernel.greedy_frame_loop,
             'lstm_bwd': rnn_kernel.lstm_recurrence_bwd,
@@ -509,8 +736,47 @@ def _first_divergence(torch, model, cfg, feat, tok, audio, a, b):
     return k, float('nan')
 
 
-def phase_slice(torch):
+def _decode(model, cfg, feat, tok, audio, device, dtype=None, quantize=None,
+            count=None):
+    """A warm-up decode_wav, then the measured one → (decoder, tokens);
+    with `count`, the launch counts of the measured decode alone go to
+    STATE['launches_' + count]."""
     from edgedict_tpu_torch import stream as S
+    dec = S.StreamingDecoder(model, cfg, feat, tok, device=device,
+                             compute_dtype=dtype, quantize=quantize)
+    dec.decode_wav(audio)                    # warm-up
+    dec.reset_profile()
+    if count:
+        _reset_launches()
+    dec.decode_wav(audio)
+    if count:
+        STATE['launches_' + count] = _launches()
+        STATE['chunks_' + count] = len(dec.elapsed)
+    return dec, np.concatenate(dec.emitted)
+
+
+def _agreement(a, b):
+    return float((a == b).mean()) if a.shape == b.shape else 0.0
+
+
+def _bf16_encoder_diff(torch, cfg, dec32, dec16, audio):
+    """Encoder output, bf16 encoder against fp32, over the whole
+    utterance as one layer-major block → (max |diff|, max |fp32 out|)."""
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.models import transducer as T
+    with torch.no_grad():
+        chunks = torch.as_tensor(S._chunks(audio, dec32.win_size,
+                                           dec32.hop_size), device='cuda')
+        lens = torch.full((len(chunks),), chunks.shape[1], device='cuda')
+        xs, _ = dec32.pipeline(chunks, lens)
+        xs = xs.reshape(1, -1, xs.shape[-1])
+        e32, _ = T.encoder_apply(dec32.model.encoder, cfg, xs)
+        e16, _ = T.encoder_apply(dec16.model.encoder, cfg,
+                                 xs.to(torch.bfloat16))
+    return float((e16.float() - e32).abs().max()), float(e32.abs().max())
+
+
+def phase_slice(torch):
     from edgedict_tpu_torch.cli.profile_stream import (
         StandInTokenizer, synthetic_audio)
     from edgedict_tpu_torch.models import transducer as T
@@ -523,21 +789,11 @@ def phase_slice(torch):
           n_params, 'input_size': cfg.input_size, 'audio_s': len(audio) /
           16000, 'weights': 'random, seed 0'})
 
-    def run(device, dtype, count=False):
-        dec = S.StreamingDecoder(model, cfg, feat, tok, device=device,
-                                 compute_dtype=dtype)
-        dec.decode_wav(audio)                    # warm-up
-        dec.reset_profile()
-        if count:
-            _reset_launches()
-        text = dec.decode_wav(audio)
-        if count:
-            STATE['launches_decode_wav'] = _launches()
-        return dec, text, np.concatenate(dec.emitted)
-
-    cuda32, text32, tok32 = run('cuda', None, count=True)
-    cpu32, text_cpu, tok_cpu = run('cpu', None)
-    cuda16, text16, tok16 = run('cuda', torch.bfloat16)
+    cuda32, tok32 = _decode(model, cfg, feat, tok, audio, 'cuda',
+                            count='decode_wav')
+    cpu32, tok_cpu = _decode(model, cfg, feat, tok, audio, 'cpu')
+    cuda16, tok16 = _decode(model, cfg, feat, tok, audio, 'cuda',
+                            torch.bfloat16)
     equal = tok32.shape == tok_cpu.shape and bool((tok32 == tok_cpu).all())
     res = {'phase': 'slice', 'frames': int(tok32.size),
            'nonblank_frames': int((tok32 != 0).sum()),
@@ -546,21 +802,9 @@ def phase_slice(torch):
            'chunk_ms_cuda_fp32': 1e3 * float(np.mean(cuda32.elapsed)),
            'chunk_ms_cuda_bf16': 1e3 * float(np.mean(cuda16.elapsed)),
            'chunk_ms_cpu_fp32': 1e3 * float(np.mean(cpu32.elapsed)),
-           'bf16_token_agreement': float((tok16 == tok32).mean())
-           if tok16.shape == tok32.shape else 0.0}
-    # encoder output, bf16 encoder vs fp32, over the whole utterance as
-    # one layer-major block
-    with torch.no_grad():
-        chunks = torch.as_tensor(S._chunks(audio, cuda32.win_size,
-                                           cuda32.hop_size), device='cuda')
-        lens = torch.full((len(chunks),), chunks.shape[1], device='cuda')
-        xs, _ = cuda32.pipeline(chunks, lens)
-        xs = xs.reshape(1, -1, xs.shape[-1])
-        e32, _ = T.encoder_apply(cuda32.model.encoder, cfg, xs)
-        e16, _ = T.encoder_apply(cuda16.model.encoder, cfg,
-                                 xs.to(torch.bfloat16))
-        res['bf16_encoder_max_abs'] = float((e16.float() - e32).abs().max())
-        res['encoder_out_max_abs'] = float(e32.abs().max())
+           'bf16_token_agreement': _agreement(tok16, tok32)}
+    res['bf16_encoder_max_abs'], res['encoder_out_max_abs'] = \
+        _bf16_encoder_diff(torch, cfg, cuda32, cuda16, audio)
     if not equal:
         k, gap = _first_divergence(torch, model, cfg, feat, tok, audio,
                                    tok_cpu, tok32)
@@ -569,26 +813,108 @@ def phase_slice(torch):
     require(equal, 'cuda fp32 tokens differ from the CPU run')
     require(res['nonblank_frames'] > 0, 'no token emitted')
     STATE['model'] = model
+    STATE['tokens_fp32'] = tok32
     STATE['chunk_ms'] = res['chunk_ms_cuda_fp32']
 
 
-def phase_server(torch):
+def phase_slice_int8(torch):
+    """E6D2 StreamingDecoder(quantize='int8'), fp32, on the slice's model
+    and audio: cuda tokens == the CPU plain int8 run's; int8-vs-fp32 token
+    agreement; per-chunk ms; the encoder's bytes int8 against fp32."""
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    from edgedict_tpu_torch.ops.quant import module_bytes
+    cfg, feat = _e6d2()
+    tok = StandInTokenizer(cfg.vocab_size)
+    model = STATE['model']
+    audio = synthetic_audio(0)
+    cuda8, tok8 = _decode(model, cfg, feat, tok, audio, 'cuda',
+                          quantize='int8', count='decode_wav_int8')
+    cpu8, tok_cpu = _decode(model, cfg, feat, tok, audio, 'cpu',
+                            quantize='int8')
+    equal = tok8.shape == tok_cpu.shape and bool((tok8 == tok_cpu).all())
+    res = {'phase': 'slice_int8', 'quantize': 'int8', 'dtype': 'fp32',
+           'frames': int(tok8.size), 'nonblank_frames': int((tok8 != 0).sum()),
+           'chunks': len(cuda8.elapsed), 'cuda_int8_equals_cpu_int8': equal,
+           'int8_vs_fp32_token_agreement': _agreement(tok8,
+                                                      STATE['tokens_fp32']),
+           'chunk_ms_cuda_int8': 1e3 * float(np.mean(cuda8.elapsed)),
+           'chunk_ms_cpu_int8': 1e3 * float(np.mean(cpu8.elapsed)),
+           'encoder_bytes_int8': module_bytes(cuda8.model.encoder),
+           'encoder_bytes_fp32': module_bytes(model.encoder)}
+    emit(res)
+    require(equal, 'cuda int8 tokens differ from the CPU int8 run')
+    require(res['nonblank_frames'] > 0, 'no token emitted')
+    require(res['encoder_bytes_int8'] < 0.3 * res['encoder_bytes_fp32'],
+            'the int8 encoder is not a quarter of the fp32 one')
+
+
+def phase_slice_gru(torch):
+    """E6D2 widths with enc_type GRU (seeded random weights): cuda fp32
+    == CPU and cuda int8 == CPU int8, token for token; bf16 encoder diff and
+    token agreement; per-chunk ms."""
+    import dataclasses
+
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    from edgedict_tpu_torch.models import transducer as T
+    cfg, feat = _e6d2()
+    cfg = dataclasses.replace(cfg, module_type='GRU')
+    tok = StandInTokenizer(cfg.vocab_size)
+    model = T.Transducer(cfg, device='cpu', seed=0)
+    audio = synthetic_audio(0)
+    emit({'phase': 'slice_gru', 'config': 'flagfiles/E6D2.txt --enc_type GRU',
+          'params': sum(p.numel() for p in model.parameters()),
+          'weights': 'random, seed 0'})
+    cuda32, tok32 = _decode(model, cfg, feat, tok, audio, 'cuda',
+                            count='decode_wav_gru')
+    _, tok_cpu = _decode(model, cfg, feat, tok, audio, 'cpu')
+    cuda8, tok8 = _decode(model, cfg, feat, tok, audio, 'cuda',
+                          quantize='int8', count='decode_wav_gru_int8')
+    _, tok8_cpu = _decode(model, cfg, feat, tok, audio, 'cpu',
+                          quantize='int8')
+    cuda16, tok16 = _decode(model, cfg, feat, tok, audio, 'cuda',
+                            torch.bfloat16)
+    eq32 = tok32.shape == tok_cpu.shape and bool((tok32 == tok_cpu).all())
+    eq8 = tok8.shape == tok8_cpu.shape and bool((tok8 == tok8_cpu).all())
+    res = {'phase': 'slice_gru', 'frames': int(tok32.size),
+           'nonblank_frames': int((tok32 != 0).sum()),
+           'chunks': len(cuda32.elapsed),
+           'cuda_fp32_equals_cpu': eq32, 'cuda_int8_equals_cpu_int8': eq8,
+           'chunk_ms_cuda_fp32': 1e3 * float(np.mean(cuda32.elapsed)),
+           'chunk_ms_cuda_bf16': 1e3 * float(np.mean(cuda16.elapsed)),
+           'chunk_ms_cuda_int8': 1e3 * float(np.mean(cuda8.elapsed)),
+           'bf16_token_agreement': _agreement(tok16, tok32),
+           'int8_vs_fp32_token_agreement': _agreement(tok8, tok32)}
+    res['bf16_encoder_max_abs'], res['encoder_out_max_abs'] = \
+        _bf16_encoder_diff(torch, cfg, cuda32, cuda16, audio)
+    emit(res)
+    require(eq32, 'GRU cuda fp32 tokens differ from the CPU run')
+    require(eq8, 'GRU cuda int8 tokens differ from the CPU int8 run')
+    require(res['nonblank_frames'] > 0, 'no token emitted')
+
+
+def phase_server(torch, quantize=None):
+    """StreamServer over MultiStreamDecoder(n_streams=8, cuda, quantize)
+    as cli/serve.py builds it; 4 concurrent clients, each transcript ==
+    decode_wav of its audio."""
     import asyncio
 
-    from edgedict_tpu.serving import stream_client
     from edgedict_tpu_torch import stream as S
     from edgedict_tpu_torch.cli.profile_stream import (
         StandInTokenizer, synthetic_audio)
     from edgedict_tpu_torch.cli.serve import build_server
     from edgedict_tpu_torch.models import transducer as T
+    from edgedict_tpu_torch.serving import stream_client
     cfg, feat = _e6d2()
     tok = StandInTokenizer(cfg.vocab_size)
     model = STATE.get('model') or T.Transducer(cfg, device='cpu', seed=0)
     audios = [synthetic_audio(10 + i, seconds=3.0) for i in range(4)]
-    single = S.StreamingDecoder(model, cfg, feat, tok, device='cuda')
+    single = S.StreamingDecoder(model, cfg, feat, tok, device='cuda',
+                                quantize=quantize)
     expected = [single.decode_wav(a) for a in audios]
     dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=8,
-                               device='cuda')
+                               device='cuda', quantize=quantize)
     server = build_server(dec, port=0, round_timeout_ms=0)   # lockstep
     loop = asyncio.new_event_loop()
     started = threading.Event()
@@ -615,14 +941,15 @@ def phase_server(torch):
             c.start()
         for c in clients:
             c.join(600)
-        STATE['launches_server'] = _launches()
+        run = 'server' if quantize is None else f'server_{quantize}'
+        STATE['launches_' + run] = _launches()
         require(not any(c.is_alive() for c in clients), 'client timed out')
     finally:
         asyncio.run_coroutine_threadsafe(server.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
         th.join(60)
     match = [r == e for r, e in zip(results, expected)]
-    res = {'phase': 'server', 'n_streams': dec.n, 'clients': len(audios),
+    res = {'phase': run, 'n_streams': dec.n, 'clients': len(audios),
            'rounds': server.rounds,
            'round_ms_mean': 1e3 * float(np.mean(dec.elapsed)),
            'transcripts_match': match,
@@ -630,6 +957,10 @@ def phase_server(torch):
     emit(res)
     require(all(match), 'a server transcript differs from decode_wav')
     STATE['round_ms'] = res['round_ms_mean']
+
+
+def phase_server_int8(torch):
+    phase_server(torch, quantize='int8')
 
 
 def _e6d2_train_cfg():
@@ -732,8 +1063,8 @@ def phase_train_parity(torch):
 def _synthetic_corpus(root, texts, seed, lo=8.0, hi=16.0):
     """LibriSpeech layout (<root>/<spk>/<chap>/*.trans.txt + wav) of one
     utterance of lo..hi seconds of synthetic audio per text."""
-    from edgedict_tpu.data.audio_io import save_wav
     from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    from edgedict_tpu_torch.data.audio_io import save_wav
     rng = np.random.RandomState(seed)
     d = os.path.join(root, '1', '1')
     os.makedirs(d, exist_ok=True)
@@ -881,6 +1212,8 @@ SOURCES = {
                       'edgedict_tpu/ops/decode_pallas.py:131'),
     'lstm_bwd': ('edgedict_tpu_torch/csrc/lstm_bwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:205'),
+    'gru_fwd': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
+                'edgedict_tpu/ops/rnn_pallas.py:462'),
     'joint_lse_fwd': ('edgedict_tpu_torch/csrc/joint_lse.cu',
                       'edgedict_tpu/ops/joint_lse_pallas.py:156'),
     'joint_lse_bwd': ('edgedict_tpu_torch/csrc/joint_lse.cu',
@@ -889,8 +1222,52 @@ SOURCES = {
                       'edgedict_tpu/ops/rnnt_loss_pallas.py:78'),
     'lattice_beta_grad': ('edgedict_tpu_torch/csrc/rnnt_loss.cu',
                           'edgedict_tpu/ops/rnnt_loss_pallas.py:116'),
+    'quant_matmul': ('edgedict_tpu_torch/csrc/quant_matmul.cu',
+                     'edgedict_tpu/ops/quant.py:162'),
+    'lstm_fwd_q': ('edgedict_tpu_torch/csrc/lstm_fwd.cu',
+                   'edgedict_tpu/ops/quant.py:287'),
+    'gru_fwd_q': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
+                  'edgedict_tpu/ops/quant.py:361'),
 }
-SERVING = ('lstm_fwd', 'mel_power', 'greedy_decode')
+SERVING = ('mel_power', 'greedy_decode')
+# per encoder call of each measured decode: the encoder kernels it must
+# launch (E6D2: 6 layers; K11 for each layer's x_proj and the projection)
+DECODE_RUNS = {
+    'decode_wav': {'lstm_fwd': 6, 'gru_fwd': 0, 'quant_matmul': 0,
+                   'lstm_fwd_q': 0, 'gru_fwd_q': 0},
+    'decode_wav_int8': {'lstm_fwd': 0, 'gru_fwd': 0, 'quant_matmul': 7,
+                        'lstm_fwd_q': 6, 'gru_fwd_q': 0},
+    'decode_wav_gru': {'lstm_fwd': 0, 'gru_fwd': 6, 'quant_matmul': 0,
+                       'lstm_fwd_q': 0, 'gru_fwd_q': 0},
+    'decode_wav_gru_int8': {'lstm_fwd': 0, 'gru_fwd': 0, 'quant_matmul': 7,
+                            'lstm_fwd_q': 0, 'gru_fwd_q': 6},
+}
+
+
+def check_launches():
+    """The launch counts of every main-path run against what it implies."""
+    runs = {run: STATE['launches_' + run] for run in
+            (*DECODE_RUNS, 'server', 'server_int8', 'train')}
+    expect = {}
+    for run, per_call in DECODE_RUNS.items():
+        n = STATE['chunks_' + run]      # one encoder call per chunk
+        expect[run] = {k: c * n for k, c in per_call.items()}
+        expect[run].update(mel_power=n, greedy_decode=n)
+    emit({'phase': 'launches', **runs, 'decode_expected': expect,
+          'train_expected': STATE['train_expect']})
+    for run, want in expect.items():
+        require(all(runs[run][k] == c for k, c in want.items()),
+                f'{run} launches {runs[run]} != {want}')
+    for run, kernels in (('server', ('lstm_fwd',)),
+                         ('server_int8', ('quant_matmul', 'lstm_fwd_q'))):
+        require(all(runs[run][k] > 0 for k in SERVING + kernels),
+                f'a kernel was not launched by {run}: {runs[run]}')
+    require(runs['server_int8']['lstm_fwd'] == 0,
+            f'the int8 server launched K1: {runs["server_int8"]}')
+    require(all(runs['train'][k] == n
+                for k, n in STATE['train_expect'].items()),
+            f'train launches {runs["train"]} != {STATE["train_expect"]}')
+    return runs
 
 
 def main():
@@ -911,25 +1288,17 @@ def main():
     set_numerics(torch)
     phases = (('device', phase_device), ('build', phase_build),
               ('kernels', phase_kernels), ('slice', phase_slice),
-              ('server', phase_server), ('train_parity', phase_train_parity),
+              ('slice_int8', phase_slice_int8),
+              ('slice_gru', phase_slice_gru), ('server', phase_server),
+              ('server_int8', phase_server_int8),
+              ('train_parity', phase_train_parity),
               ('train_run', phase_train_run))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()
             fn(torch)
             emit(f'phase {name} passed in {time.perf_counter() - t0:.1f} s')
-        runs = {'decode_wav': STATE['launches_decode_wav'],
-                'server': STATE['launches_server'],
-                'train': STATE['launches_train']}
-        emit({'phase': 'launches', **runs,
-              'train_expected': STATE['train_expect']})
-        for run in ('decode_wav', 'server'):
-            require(all(runs[run][k] > 0 for k in SERVING),
-                    f'a kernel was not launched by {run}: {runs[run]}')
-        require(all(runs['train'][k] == n
-                    for k, n in STATE['train_expect'].items()),
-                f'train launches {runs["train"]} != '
-                f'{STATE["train_expect"]}')
+        runs = check_launches()
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1
@@ -938,8 +1307,9 @@ def main():
     emit({'kernels': [
         {'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
          'replaces': SOURCES[name][1], 'launches': launches[name],
-         'max_abs_err': kernels[name]['max_abs_err'],
-         'ms': kernels[name]['ms'], 'plain_ms': kernels[name]['plain_ms']}
+         **{key: kernels[name][key] for key in (
+             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+             'library_ms')}}
         for name in SOURCES]})
     emit(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': STATE['kind'],

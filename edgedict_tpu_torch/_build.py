@@ -34,7 +34,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
 SOURCES = ('lstm_fwd.cu', 'lstm_bwd.cu', 'mel_power.cu', 'greedy_decode.cu',
-           'joint_lse.cu', 'rnnt_loss.cu')
+           'joint_lse.cu', 'rnnt_loss.cu', 'gru_fwd.cu', 'quant_matmul.cu')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
@@ -44,6 +44,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # xp, w_hh, h0, c0, ys, cs, hbuf, T, B, H, bf16, stream
     'edd_lstm_fwd': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xp, w_q, w_scale, h0, c0, ys, cs, hbuf, T, B, H, bf16, stream
+    'edd_lstm_fwd_q': (_P,) * 8 + (_I,) * 4 + (_P,),
+    # xp, w_hh, b_hh, h0, ys, hbuf, T, B, H, bf16, stream
+    'edd_gru_fwd': (_P,) * 6 + (_I,) * 4 + (_P,),
+    # xp, w_q, w_scale, b_hh, h0, ys, hbuf, T, B, H, bf16, stream
+    'edd_gru_fwd_q': (_P,) * 7 + (_I,) * 4 + (_P,),
+    # x, wq, scale, bias, out, R, K, N, bf16, stream
+    'edd_quant_matmul': (_P,) * 5 + (_I,) * 4 + (_P,),
     # xp, w_hh, w_hh_t, h0e, c0, ys, cs, dys, dcs, dhT, dgates, dh0, dc,
     # T, B, H, bf16, stream
     'edd_lstm_bwd': (_P,) * 13 + (_I, _I, _I, _I, _P),

@@ -1,0 +1,146 @@
+"""ctypes bindings for the repo's host-side C++ libraries in `native/`
+(the parts of edgedict_tpu/native.py the port uses: the CharBPE merge
+engine, the BPE trainer and the FLAC decoder).
+
+Build them with `make -C native`.  Each binding is optional: when a `.so`
+is missing, `available()` says so and the callers (tokenizer.py,
+data/audio_io.py) take their pure-Python paths.
+"""
+
+import ctypes
+import os
+
+import numpy as np
+
+# .so lookup: EDGEDICT_NATIVE_DIR override, else <repo root>/native
+_NATIVE_DIR = os.environ.get('EDGEDICT_NATIVE_DIR') or os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'native')
+
+
+def _load(name):
+    path = os.path.join(_NATIVE_DIR, name)
+    if not os.path.exists(path):
+        return None
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        return None
+
+
+_bpe = _load('libchar_bpe.so')
+_flac = _load('libflac_decoder.so')
+_bpe_tr = _load('libbpe_trainer.so')
+
+if _bpe is not None:
+    _bpe.bpe_create.restype = ctypes.c_void_p
+    _bpe.bpe_encode_word.restype = ctypes.c_int
+if _flac is not None:
+    _flac.flac_probe.restype = ctypes.c_int
+    _flac.flac_decode.restype = ctypes.c_int64
+    if hasattr(_flac, 'flac_decode_mono_f32'):
+        _flac.flac_decode_mono_f32.restype = ctypes.c_int64
+if _bpe_tr is not None:
+    _bpe_tr.bpe_trainer_create.restype = ctypes.c_void_p
+    _bpe_tr.bpe_trainer_add_symbol.restype = ctypes.c_int32
+    _bpe_tr.bpe_trainer_train.restype = ctypes.c_int
+
+
+def available():
+    return {'char_bpe': _bpe is not None, 'flac': _flac is not None,
+            'bpe_trainer': _bpe_tr is not None}
+
+
+def _ptr(a, ty):
+    return a.ctypes.data_as(ctypes.POINTER(ty))
+
+
+def train_bpe_merges(word_freqs, initial_symbols, max_merges,
+                     min_frequency=2):
+    """Learn BPE merges natively.  word_freqs: [(symbol tuple, freq)];
+    initial_symbols: the ORDERED initial symbols.  → [(left, right)],
+    identical to the pure-Python trainer's (same tie-breaking)."""
+    assert _bpe_tr is not None, 'build native/libbpe_trainer.so first'
+    h = ctypes.c_void_p(_bpe_tr.bpe_trainer_create())
+    try:
+        sym_id = {}
+        for s in initial_symbols:
+            sym_id[s] = _bpe_tr.bpe_trainer_add_symbol(h, s.encode('utf-8'))
+        for symbols, freq in word_freqs:
+            ids = np.asarray([sym_id[s] for s in symbols], np.int32)
+            _bpe_tr.bpe_trainer_add_word(h, _ptr(ids, ctypes.c_int32),
+                                         len(ids), ctypes.c_int64(int(freq)))
+        out = np.zeros((max(max_merges, 1), 2), np.int32)
+        n = _bpe_tr.bpe_trainer_train(h, max_merges,
+                                      ctypes.c_int64(min_frequency),
+                                      _ptr(out, ctypes.c_int32))
+        names = list(initial_symbols)
+        merges = []
+        for i in range(n):
+            a, b = int(out[i, 0]), int(out[i, 1])
+            merges.append((names[a], names[b]))
+            names.append(names[a] + names[b])
+        return merges
+    finally:
+        _bpe_tr.bpe_trainer_destroy(h)
+
+
+def flac_available():
+    return _flac is not None
+
+
+def read_flac(path):
+    """Decode a FLAC file → (float32 mono samples in [-1, 1], sample
+    rate) via native/flac_decoder.cpp."""
+    assert _flac is not None, 'build native/libflac_decoder.so first'
+    with open(path, 'rb') as f:
+        data = np.frombuffer(f.read(), np.uint8)
+    sr, ch, bps = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    total = ctypes.c_int64()
+    ret = _flac.flac_probe(_ptr(data, ctypes.c_uint8), len(data),
+                           ctypes.byref(sr), ctypes.byref(ch),
+                           ctypes.byref(bps), ctypes.byref(total))
+    if ret != 0:
+        raise ValueError(f'not a FLAC stream: {path}')
+    n = int(total.value) or len(data) * 8 // max(bps.value, 1)
+    if hasattr(_flac, 'flac_decode_mono_f32'):
+        out = np.zeros((n,), np.float32)
+        frames = _flac.flac_decode_mono_f32(
+            _ptr(data, ctypes.c_uint8), len(data),
+            _ptr(out, ctypes.c_float), n)
+        if frames < 0:
+            raise ValueError(f'FLAC decode failed: {path}')
+        return out[:frames], int(sr.value)
+    out = np.zeros((n * ch.value,), np.int32)
+    frames = _flac.flac_decode(_ptr(data, ctypes.c_uint8), len(data),
+                               _ptr(out, ctypes.c_int32), n)
+    if frames < 0:
+        raise ValueError(f'FLAC decode failed: {path}')
+    pcm = out[:frames * ch.value].reshape(-1, ch.value).astype(np.float32)
+    pcm = pcm.mean(axis=1) / float(1 << (bps.value - 1))
+    return pcm, int(sr.value)
+
+
+class NativeBPE:
+    """Merge engine over int32 symbol ids (Unicode handled by the
+    caller)."""
+
+    def __init__(self, merges_ids):
+        """merges_ids: [(left_id, right_id, merged_id)]."""
+        assert _bpe is not None, 'build native/libchar_bpe.so first'
+        arr = np.ascontiguousarray(merges_ids, np.int32).reshape(-1, 3)
+        self._handle = ctypes.c_void_p(_bpe.bpe_create(
+            len(arr), _ptr(np.ascontiguousarray(arr[:, 0]), ctypes.c_int32),
+            _ptr(np.ascontiguousarray(arr[:, 1]), ctypes.c_int32),
+            _ptr(np.ascontiguousarray(arr[:, 2]), ctypes.c_int32)))
+
+    def encode_word(self, sym_ids):
+        syms = np.ascontiguousarray(sym_ids, np.int32)
+        out = np.zeros((max(len(syms), 1),), np.int32)
+        n = _bpe.bpe_encode_word(self._handle, _ptr(syms, ctypes.c_int32),
+                                 len(syms), _ptr(out, ctypes.c_int32))
+        return out[:n].tolist()
+
+    def __del__(self):
+        if _bpe is not None and getattr(self, '_handle', None):
+            _bpe.bpe_destroy(self._handle)
+            self._handle = None

@@ -1,7 +1,11 @@
 """Where a streaming chunk's time goes, for each encoder dtype (fp32, bf16).
 
   python -m edgedict_tpu_torch.cli.profile_stream \
-      --flagfile flagfiles/E6D2.txt [--seconds 8] [--device cuda|cpu]
+      --flagfile flagfiles/E6D2.txt [--seconds 8] [--device cuda|cpu] \
+      [--quantize int8] [--enc_type GRU]
+
+--quantize int8 profiles the int8 weight-only encoder, --enc_type GRU the
+GRU encoder (the flags of cli/stream.py).
 
 Seeded random weights (seed 0), seeded synthetic audio and a stand-in
 tokenizer over `--bpe_size` ids.  For B=1 StreamingDecoder.decode_wav it
@@ -11,7 +15,9 @@ prints one JSON line per dtype with
                           and copy, divided by the chunks;
   device_busy_share       that device time over the profiled run's wall time
                           (one stream, so device events do not overlap);
-  kernel_device_ms_per_chunk   the same, per hand-written kernel (K1-K3);
+  kernel_device_ms_per_chunk   the same, per hand-written kernel of the
+                          variant's path (K2, K3 and the encoder's: K1;
+                          K11 + K12 int8; K5 GRU; K11 + K13 int8 GRU);
   stage_ms                featurize / encoder / frame loop, each closed by a
                           device synchronise (the chunk step run piecewise);
   block_ms                per layer-major block of --block_chunks chunks.
@@ -35,9 +41,29 @@ from edgedict_tpu_torch.models import transducer as T
 from edgedict_tpu_torch.stream import (
     StreamingDecoder, StreamState, _audio_tensor, _chunks, resolve_device)
 
-# substrings of the hand-written kernels' names in the profiler's trace
-KERNELS = {'lstm_fwd': 'lstm_step_kernel', 'mel_power': 'mel_power_kernel',
-           'greedy_decode': 'greedy_decode_kernel'}
+# substrings of the hand-written kernels' names in the profiler's trace,
+# and whether the name carries int8 weights (None: either)
+KERNELS = {'lstm_fwd': ('lstm_step_kernel', False),
+           'lstm_fwd_q': ('lstm_step_kernel', True),
+           'gru_fwd': ('gru_step_kernel', False),
+           'gru_fwd_q': ('gru_step_kernel', True),
+           'quant_matmul': ('qmm_', None),
+           'mel_power': ('mel_power_kernel', None),
+           'greedy_decode': ('greedy_decode_kernel', None)}
+
+
+# the encoder's kernels per (enc_type, quantize); K2 and K3 run in every
+# variant
+ENCODER_KERNELS = {('LSTM', None): ('lstm_fwd',),
+                   ('LSTM', 'int8'): ('quant_matmul', 'lstm_fwd_q'),
+                   ('GRU', None): ('gru_fwd',),
+                   ('GRU', 'int8'): ('quant_matmul', 'gru_fwd_q')}
+
+
+def kernel_of(key, kernel):
+    """True if the profiler key `key` names `kernel` of KERNELS."""
+    sub, int8 = KERNELS[kernel]
+    return sub in key and (int8 is None or int8 == ('signed char' in key))
 
 
 class StandInTokenizer:
@@ -113,15 +139,17 @@ def stage_ms(dec, chunks, dtype):
                     map(float, mean)))
 
 
-def profile_dtype(model, cfg, feat, tok, audio, device, dtype, block_chunks):
+def profile_dtype(model, cfg, feat, tok, audio, device, dtype, block_chunks,
+                  quantize=None):
     from torch.profiler import ProfilerActivity, profile
     dec = StreamingDecoder(model, cfg, feat, tok, device=device,
-                           compute_dtype=dtype)
+                           compute_dtype=dtype, quantize=quantize)
     dec.decode_wav(audio)                               # warm-up
     dec.reset_profile()
     dec.decode_wav(audio)
     n = len(dec.elapsed)
-    res = {'dtype': 'bf16' if dtype is not None else 'fp32', 'chunks': n,
+    res = {'dtype': 'bf16' if dtype is not None else 'fp32',
+           'quantize': quantize, 'enc_type': cfg.module_type, 'chunks': n,
            'wall_ms_per_chunk': 1e3 * float(np.mean(dec.elapsed))}
 
     acts = [ProfilerActivity.CPU]
@@ -138,13 +166,16 @@ def profile_dtype(model, cfg, feat, tok, audio, device, dtype, block_chunks):
     res['device_ms_per_chunk'] = total_us / 1e3 / n if total_us else None
     res['device_busy_share'] = total_us / 1e6 / wall if total_us else None
     res['kernel_device_ms_per_chunk'] = {
-        name: sum(us for key, us in dev_us.items() if sub in key) / 1e3 / n
-        if total_us else None for name, sub in KERNELS.items()}
+        name: sum(us for key, us in dev_us.items() if kernel_of(key, name))
+        / 1e3 / n if total_us else None
+        for name in ENCODER_KERNELS[cfg.module_type, quantize]
+        + ('mel_power', 'greedy_decode')}
     res['stage_ms'] = stage_ms(
         dec, _chunks(audio, dec.win_size, dec.hop_size), dtype)
 
     block = StreamingDecoder(model, cfg, feat, tok, device=device,
-                             block_chunks=block_chunks, compute_dtype=dtype)
+                             block_chunks=block_chunks, compute_dtype=dtype,
+                             quantize=quantize)
     block.decode_wav(audio)                             # warm-up
     block.reset_profile()
     block.decode_wav(audio)
@@ -164,6 +195,8 @@ def main(argv=None):
                         help='length of the synthetic utterance')
     parser.add_argument('--block_chunks', type=int, default=8,
                         help='chunks per layer-major block for block_ms')
+    parser.add_argument('--quantize', default=None, choices=('int8',),
+                        help="'int8' = weight-only int8 encoder")
     flags = parse_flags(parser, sys.argv[1:] if argv is None else argv)
     set_numerics()
     device = resolve_device(flags.device)
@@ -172,7 +205,8 @@ def main(argv=None):
                                        feat.input_size)
     tok = StandInTokenizer(flags.bpe_size)
     model = T.Transducer(cfg, device='cpu', seed=0)
-    head = {'device': str(device),
+    head = {'device': str(device), 'enc_type': cfg.module_type,
+            'quantize': flags.quantize,
             'params': sum(p.numel() for p in model.parameters()),
             'audio_s': flags.seconds}
     if device.type == 'cuda':
@@ -185,7 +219,8 @@ def main(argv=None):
     audio = synthetic_audio(0, flags.seconds)
     for dtype in (None, torch.bfloat16):
         print(json.dumps(profile_dtype(model, cfg, feat, tok, audio, device,
-                                       dtype, flags.block_chunks)),
+                                       dtype, flags.block_chunks,
+                                       flags.quantize)),
               flush=True)
 
 

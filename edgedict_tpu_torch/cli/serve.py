@@ -1,22 +1,23 @@
 """Serving CLI of the port (counterpart of cli/serve.py, greedy, one
-device): N concurrent PCM streams over TCP through the JAX package's
-StreamServer, one chunk step of the port's MultiStreamDecoder per round.
+device): N concurrent PCM streams over TCP through serving.StreamServer,
+one chunk step of the port's MultiStreamDecoder per round.
 
   python -m edgedict_tpu_torch.cli.serve --flagfile flagfiles/E6D2.txt \
-      --port 8765 --n_streams 64 [--pt_path reference.pt]
+      --port 8765 --n_streams 64 [--pt_path reference.pt] \
+      [--quantize int8] [--enc_type GRU]
 
-Clients speak the protocol of edgedict_tpu/serving.py; a minimal client
-is edgedict_tpu.serving.stream_client.  Beam search and multi-device
-serving are not ported yet.
+Clients speak the protocol of serving.py (the JAX package's, unchanged); a
+minimal client is edgedict_tpu_torch.serving.stream_client.  Beam search
+and multi-device serving are not ported yet.
 """
 
 import asyncio
 import sys
 
-from edgedict_tpu.serving import StreamServer
 from edgedict_tpu_torch.cli.stream import (
     build_parser, load_inference_bundle, set_numerics)
 from edgedict_tpu_torch.config import parse_flags
+from edgedict_tpu_torch.serving import StreamServer
 from edgedict_tpu_torch.stream import MultiStreamDecoder
 
 
@@ -26,7 +27,7 @@ def build_decoder(flags):
     return MultiStreamDecoder(model, cfg, feature_cfg, tokenizer,
                               n_streams=flags.n_streams, device=device,
                               step_n_frame=flags.step_n_frame,
-                              compute_dtype=dtype)
+                              compute_dtype=dtype, quantize=flags.quantize)
 
 
 def build_server(decoder, host='127.0.0.1', port=0, round_timeout_ms=75,

@@ -3,13 +3,15 @@ mode): decode a wav file chunk by chunk and print the transcript and the
 throughput line.
 
   python -m edgedict_tpu_torch.cli.stream --flagfile flagfiles/E6D2.txt \
-      --path x.wav [--pt_path reference.pt] [--device cuda|cpu]
+      --path x.wav [--pt_path reference.pt] [--device cuda|cpu] \
+      [--quantize int8] [--enc_type GRU]
 
 --device defaults to cuda and fails without a card; the CPU runs only when
 asked with --device cpu.  --infer_dtype auto is bf16 on CUDA (bf16 encoder,
-fp32 joint and prediction net) and fp32 on the CPU.  Without --pt_path the
-weights are random (seed 0).  Microphone input (--mic) is not
-ported yet.
+fp32 joint and prediction net) and fp32 on the CPU.  --quantize int8 serves
+an int8 weight-only encoder (ops/quant.py); --enc_type GRU a GRU encoder.
+Without --pt_path the weights are random (seed 0).  Microphone input
+(--mic) is not ported yet.
 """
 
 import argparse
@@ -49,6 +51,10 @@ def build_parser(description):
                              'fp32 on the CPU')
     parser.add_argument('--step_n_frame', type=int, default=2,
                         help='encoder input frames per chunk')
+    parser.add_argument('--quantize', default=None, choices=('int8',),
+                        help="'int8' = weight-only int8 encoder "
+                             '(per-channel symmetric scales; ops/quant.py); '
+                             'unset = serve at --infer_dtype precision')
     return parser
 
 
@@ -62,7 +68,8 @@ def resolve_infer_dtype(name, device):
 def build_tokenizer(flags):
     """Tokenizer per flags, with the reference cache layout (char →
     <logdir_root>/char, bpe → BPE-<size>)."""
-    from edgedict_tpu.tokenizer import CharTokenizer, HuggingFaceTokenizer
+    from edgedict_tpu_torch.tokenizer import (
+        CharTokenizer, HuggingFaceTokenizer)
     if flags.tokenizer == 'bpe':
         return HuggingFaceTokenizer(cache_dir='BPE-%d' % flags.bpe_size,
                                     vocab_size=flags.bpe_size)
@@ -101,7 +108,7 @@ def load_inference_bundle(flags):
 
 
 def main(argv=None):
-    from edgedict_tpu.data.audio_io import load_audio
+    from edgedict_tpu_torch.data.audio_io import load_audio
     from edgedict_tpu_torch.stream import StreamingDecoder
 
     parser = build_parser('streaming greedy decode of a wav file')
@@ -117,7 +124,7 @@ def main(argv=None):
                                device=device,
                                step_n_frame=flags.step_n_frame,
                                block_chunks=flags.block_chunks,
-                               compute_dtype=dtype)
+                               compute_dtype=dtype, quantize=flags.quantize)
     audio, sr = load_audio(flags.path)
     if sr != 16000:
         raise SystemExit(f'expected 16 kHz audio, got {sr}')

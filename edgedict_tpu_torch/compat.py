@@ -30,7 +30,9 @@ def convert_lightning2normal(checkpoint):
 def state_dict_from_jax_params(params):
     """edgedict_tpu params pytree (numpy or array-likes) → reference
     state_dict of fp32 CPU tensors.  The joint's w_enc / w_dec are
-    concatenated back into the single (J, E + D) first weight."""
+    concatenated back into the single (J, E + D) first weight.  An LSTM
+    encoder layer carries 4H gate rows, a GRU one 3H, under the same
+    `encoder.lstm.lstms.{i}.*` keys (compat/torch_import.py:58)."""
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32))
 

@@ -1,10 +1,16 @@
-// K1 — LSTM recurrence, forward.
+// K1 and K12 — LSTM recurrence, forward.
 //
-// Replaces edgedict_tpu/ops/rnn_pallas.py:_fwd_kernel (launched by
+// Replaces edgedict_tpu/ops/rnn_pallas.py:_fwd_kernel (K1, launched by
 // _run_fwd under the custom-vjp lstm_recurrence_tm): given the hoisted
 // input projection x_proj = x W_ih^T + (b_ih + b_hh) for every step, run
 // gates = x_proj[t] + h W_hh^T, the i,f,g,o cell with fp32 h/c, and emit
-// ys (x_proj's dtype) and cs (fp32).
+// ys (x_proj's dtype) and cs (fp32). K12 replaces
+// edgedict_tpu/ops/quant.py:_fwd_kernel_q, the same with W_hh int8 and a
+// per-output-channel fp32 scale: the TPU kernel dequantizes W_hh once into
+// VMEM as q * scale in fp32 rounded to the compute dtype and multiplies h
+// by that (not scale-after-accumulate, which differs in bf16). The scale
+// is per gate row, which is one warp here, so each weight is dequantized
+// the same way in registers as it is read (4 MB of int8 a step at H=1024).
 //
 // What bounds it on the H100: the recurrent weight. Every step reads all of
 // W_hh (4H x H: 16 MB fp32, 8 MB bf16 at H=1024) for a matrix-vector
@@ -28,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -49,14 +56,26 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// one recurrent weight as the product sees it: stored in the compute dtype,
+// or int8 dequantized to it (q * scale in fp32, then rounded)
+template <typename Elem>
+__device__ __forceinline__ float weight(const Elem* wr, int k, float) {
+  return to_f32(wr[k]);
+}
+template <typename Elem>
+__device__ __forceinline__ float weight(const int8_t* wr, int k, float s) {
+  return to_f32(from_f32<Elem>(static_cast<float>(wr[k]) * s));
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <typename Elem>
+template <typename Elem, typename W>
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const Elem* __restrict__ xp,     // (B, 4H) this step
-                 const Elem* __restrict__ w_hh,   // (4H, H)
+                 const W* __restrict__ w_hh,      // (4H, H)
+                 const float* __restrict__ w_scale,  // (4H) int8 only
                  const float* __restrict__ h_in,  // (B, H)
                  const float* __restrict__ c_in,  // (B, H)
                  float* __restrict__ h_out,       // (B, H)
@@ -83,13 +102,15 @@ lstm_step_kernel(const Elem* __restrict__ xp,     // (B, 4H) this step
     for (int r = warp; r < 4 * nu; r += kWarps) {
       const int q = r / nu;            // gate
       const int j = r - q * nu;        // unit within the block
-      const Elem* wr = w_hh + (size_t)(q * H + unit0 + j) * H;
+      const int row = q * H + unit0 + j;
+      const W* wr = w_hh + (size_t)row * H;
+      const float s = w_scale != nullptr ? w_scale[row] : 1.0f;
       float acc[kBatchTile];
 #pragma unroll
       for (int bb = 0; bb < kBatchTile; ++bb) acc[bb] = 0.0f;
 #pragma unroll 4
       for (int k = lane; k < H; k += 32) {
-        const float w = to_f32(wr[k]);
+        const float w = weight<Elem>(wr, k, s);
 #pragma unroll
         for (int bb = 0; bb < kBatchTile; ++bb)
           if (bb < nb) acc[bb] = fmaf(w, hs[bb * H + k], acc[bb]);
@@ -125,16 +146,16 @@ lstm_step_kernel(const Elem* __restrict__ xp,     // (B, 4H) this step
   }
 }
 
-template <typename Elem>
-cudaError_t run(const void* xp, const void* w_hh, const void* h0,
-                const void* c0, void* ys, void* cs, void* hbuf, int T, int B,
-                int H, cudaStream_t stream) {
+template <typename Elem, typename W>
+cudaError_t run(const void* xp, const void* w_hh, const float* w_scale,
+                const void* h0, const void* c0, void* ys, void* cs,
+                void* hbuf, int T, int B, int H, cudaStream_t stream) {
   const size_t smem =
       (size_t)(kBatchTile * H + kBatchTile * kRows) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_step_kernel<Elem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        lstm_step_kernel<Elem, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((H + kUnits - 1) / kUnits);
@@ -148,8 +169,9 @@ cudaError_t run(const void* xp, const void* w_hh, const void* h0,
         t == 0 ? static_cast<const float*>(h0) : hb + ((t - 1) & 1) * bh;
     const float* c_in =
         t == 0 ? static_cast<const float*>(c0) : c + (size_t)(t - 1) * bh;
-    lstm_step_kernel<Elem><<<grid, kThreads, smem, stream>>>(
-        x + (size_t)t * 4 * bh, static_cast<const Elem*>(w_hh), h_in, c_in,
+    lstm_step_kernel<Elem, W><<<grid, kThreads, smem, stream>>>(
+        x + (size_t)t * 4 * bh, static_cast<const W*>(w_hh), w_scale, h_in,
+        c_in,
         hb + (t & 1) * bh, c + (size_t)t * bh, y + (size_t)t * bh, B, H);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -167,7 +189,24 @@ extern "C" int edd_lstm_fwd(const void* xp, const void* w_hh, const void* h0,
                             int T, int B, int H, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      bf16 ? run<__nv_bfloat16>(xp, w_hh, h0, c0, ys, cs, hbuf, T, B, H, s)
-           : run<float>(xp, w_hh, h0, c0, ys, cs, hbuf, T, B, H, s);
+      bf16 ? run<__nv_bfloat16, __nv_bfloat16>(xp, w_hh, nullptr, h0, c0, ys,
+                                               cs, hbuf, T, B, H, s)
+           : run<float, float>(xp, w_hh, nullptr, h0, c0, ys, cs, hbuf, T, B,
+                               H, s);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// K12. As K1 with w_q (4H, H) int8 and w_scale (4H) fp32.
+extern "C" int edd_lstm_fwd_q(const void* xp, const void* w_q,
+                              const void* w_scale, const void* h0,
+                              const void* c0, void* ys, void* cs, void* hbuf,
+                              int T, int B, int H, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(w_scale);
+  const cudaError_t e =
+      bf16 ? run<__nv_bfloat16, int8_t>(xp, w_q, sc, h0, c0, ys, cs, hbuf, T,
+                                        B, H, s)
+           : run<float, int8_t>(xp, w_q, sc, h0, c0, ys, cs, hbuf, T, B, H,
+                                s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -19,8 +19,10 @@ with `load_state_dict`:
 
 The modules only hold parameters; the math is in the plain functions
 below (encoder_apply, decoder_apply, joint_apply, ...), which take the
-module and carry RNN state explicitly, as the JAX functions do.  Only the
-LSTM encoder is ported (`module_type='GRU'` raises).
+module and carry RNN state explicitly, as the JAX functions do.  The
+encoder's cell is an LSTM or, with `module_type='GRU'`, a GRU (the
+reference's --enc_type GRU: the same keys, 3H gate rows); an int8 encoder
+from ops/quant.py:quantize_encoder runs through the same encoder_apply.
 """
 
 import dataclasses
@@ -29,10 +31,11 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from edgedict_tpu.tokenizer import BOS, NUL, PAD
+from edgedict_tpu_torch.ops import quant
 from edgedict_tpu_torch.ops import rnn as rnn_ops
 from edgedict_tpu_torch.ops.layers import (
     dropout, embedding, layer_norm, linear, linear_init)
+from edgedict_tpu_torch.tokenizer import BOS, NUL, PAD
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +55,7 @@ class TransducerConfig:
     enc_time_reductions: Tuple[int, ...] = (1,)
     reduction_factor: int = 2
     blank: int = NUL
-    module_type: str = 'LSTM'   # only 'LSTM' is ported
+    module_type: str = 'LSTM'   # encoder cell: 'LSTM' or 'GRU'
 
     @property
     def time_scale(self):
@@ -85,13 +88,14 @@ class Linear(nn.Module):
 class LSTM(nn.Module):
     """Parameters of a torch nn.LSTM (weight_ih_l{k}, ...); `layer(k)`
     gives the ops/rnn.py params dict of layer k."""
+    init = staticmethod(rnn_ops.lstm_init)
 
     def __init__(self, input_size, hidden_size, num_layers, generator):
         super().__init__()
         self.num_layers = num_layers
         for k in range(num_layers):
-            p = rnn_ops.lstm_init(input_size if k == 0 else hidden_size,
-                                  hidden_size, generator)
+            p = self.init(input_size if k == 0 else hidden_size,
+                          hidden_size, generator)
             setattr(self, f'weight_ih_l{k}', _p(p['w_ih']))
             setattr(self, f'weight_hh_l{k}', _p(p['w_hh']))
             setattr(self, f'bias_ih_l{k}', _p(p['b_ih']))
@@ -105,6 +109,12 @@ class LSTM(nn.Module):
 
     def layers(self):
         return [self.layer(k) for k in range(self.num_layers)]
+
+
+class GRU(LSTM):
+    """Parameters of a torch nn.GRU: weight_ih_l{k} (3H, in),
+    weight_hh_l{k} (3H, H), biases (3H); gates r, z, n."""
+    init = staticmethod(rnn_ops.gru_init)
 
 
 class Embedding(nn.Module):
@@ -123,9 +133,10 @@ class ResLayerNormLSTM(nn.Module):
         super().__init__()
         self.lstms = nn.ModuleList()
         self.projs = nn.ModuleList()
+        cell = {'LSTM': LSTM, 'GRU': GRU}[cfg.module_type]
         in_size = cfg.input_size
         for _ in range(cfg.enc_layers):
-            self.lstms.append(LSTM(in_size, cfg.enc_hidden_size, 1,
+            self.lstms.append(cell(in_size, cfg.enc_hidden_size, 1,
                                    generator))
             self.projs.append(nn.Sequential(LayerNorm(cfg.enc_hidden_size)))
             in_size = cfg.enc_hidden_size
@@ -187,10 +198,9 @@ class Transducer(nn.Module):
 
     def __init__(self, cfg: TransducerConfig, device, seed=0):
         super().__init__()
-        if cfg.module_type != 'LSTM':
-            raise NotImplementedError(
-                f'module_type={cfg.module_type!r} is not yet ported '
-                '(only the LSTM encoder)')
+        if cfg.module_type not in ('LSTM', 'GRU'):
+            raise ValueError(f'module_type={cfg.module_type!r}: expected '
+                             "'LSTM' or 'GRU'")
         self.cfg = cfg
         g = torch.Generator().manual_seed(seed)
         self.encoder = Encoder(cfg, g)
@@ -227,28 +237,46 @@ def time_reduction_tm(xs, factor):
 # ---------------------------------------------------------------------------
 
 def encoder_zero_state(cfg: TransducerConfig, batch, device):
+    """((L, B, H), (L, B, H)) for the LSTM, (L, B, H) for the GRU."""
+    if cfg.module_type == 'GRU':
+        return rnn_ops.gru_zero_state(cfg.enc_layers, batch,
+                                      cfg.enc_hidden_size, device)
     return rnn_ops.lstm_zero_state(cfg.enc_layers, batch,
                                    cfg.enc_hidden_size, device)
+
+
+def encoder_linear(proj, xs):
+    """The encoder's final projection: the float Linear, or the int8 one
+    of a quantized encoder (ops/quant.py), as ops/layers.py:linear picks
+    by its leaves in the JAX package."""
+    if hasattr(proj, 'w_q'):
+        return quant.quant_linear(proj, xs)
+    return linear(xs, proj.weight, proj.bias)
 
 
 def encoder_apply(encoder: Encoder, cfg: TransducerConfig, xs, state=None,
                   deterministic=True, generator=None):
     """xs (B, T, input_size) → (ys (B, T // time_scale, enc_proj_size),
-    new state ((L, B, H), (L, B, H))).  state None means zeros.  Runs
-    time-major inside, like the JAX encoder.  With deterministic=False and
-    a generator, cfg.enc_dropout applies after each layer
-    (transducer.py:175-177)."""
+    new state: ((L, B, H), (L, B, H)) for the LSTM, (L, B, H) for the
+    GRU).  state None means zeros.  Runs time-major inside, like the JAX
+    encoder, and dispatches per cell type (transducer.py:145-175).  With
+    deterministic=False and a generator, cfg.enc_dropout applies after
+    each layer (transducer.py:175-177)."""
+    is_lstm = cfg.module_type == 'LSTM'
     if state is None:
         state = encoder_zero_state(cfg, xs.shape[0], xs.device)
-    hs, cs = state
     xs = xs.transpose(0, 1)
     xs = layer_norm(xs, encoder.norm.weight, encoder.norm.bias)
     new_h, new_c = [], []
-    for i, (lstm, proj) in enumerate(zip(encoder.lstm.lstms,
-                                         encoder.lstm.projs)):
-        ys, (h, c) = rnn_ops.lstm_layer_tm(lstm.layer(0), xs, (hs[i], cs[i]))
+    for i, (rnn, proj) in enumerate(zip(encoder.lstm.lstms,
+                                        encoder.lstm.projs)):
+        if is_lstm:
+            ys, (h, c) = rnn_ops.lstm_layer_tm(rnn.layer(0), xs,
+                                               (state[0][i], state[1][i]))
+            new_c.append(c)
+        else:
+            ys, h = rnn_ops.gru_layer_tm(rnn.layer(0), xs, state[i])
         new_h.append(h)
-        new_c.append(c)
         # residual add from layer 2 on (reference rnnt/models.py:66-69)
         xs = xs + ys if i != 0 else ys
         xs = layer_norm(xs, proj[0].weight, proj[0].bias)
@@ -257,8 +285,10 @@ def encoder_apply(encoder: Encoder, cfg: TransducerConfig, xs, state=None,
         if not deterministic and cfg.enc_dropout > 0 \
                 and generator is not None:
             xs = dropout(xs, cfg.enc_dropout, False, generator)
-    xs = linear(xs, encoder.proj.weight, encoder.proj.bias)
-    return xs.transpose(0, 1), (torch.stack(new_h), torch.stack(new_c))
+    xs = encoder_linear(encoder.proj, xs)
+    new_state = (torch.stack(new_h), torch.stack(new_c)) if is_lstm \
+        else torch.stack(new_h)
+    return xs.transpose(0, 1), new_state
 
 
 # ---------------------------------------------------------------------------

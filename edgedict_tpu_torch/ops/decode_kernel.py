@@ -18,8 +18,8 @@ import ctypes
 
 import torch
 
-from edgedict_tpu.tokenizer import PAD
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.tokenizer import PAD
 
 MAX_LAYERS = 4      # csrc/greedy_decode.cu:kMaxLayers
 

@@ -1,9 +1,10 @@
 """Streaming greedy decode runtime (counterpart of edgedict_tpu/stream.py,
 greedy parts).
 
-A decoder carries encoder (h, c), prediction-net (h, c) and the last
-prediction-net output across fixed-size audio chunks; each chunk is
-featurized (K2), run through one encoder step (K1 per layer) and every
+A decoder carries the encoder state (LSTM (h, c), or GRU h),
+prediction-net (h, c) and the last prediction-net output across fixed-size
+audio chunks; each chunk is featurized (K2), run through one encoder step
+(per layer K1 for the LSTM, K5 for the GRU) and every
 resulting encoder frame emits at most one token through the fused frame
 loop (K3): argmax of the joint, `<unk>` re-argmaxed, the prediction net
 advanced only on non-blank (reference rnnt/stream.py:28-120).
@@ -14,7 +15,9 @@ Chunk geometry (reference youtube_live.py:26-30):
 with the features computed per chunk with pad_to_divisible=False.
 
 Every decoder takes an explicit `device`; 'cuda' without a card raises.
-`quantize=` and `mesh=` are not ported yet and raise.
+`quantize='int8'` serves an int8 weight-only encoder (ops/quant.py: K11
+for the input projections and the final projection, K12 / K13 for the LSTM
+/ GRU recurrences); `mesh=` is not ported yet and raises.
 """
 
 import copy
@@ -24,15 +27,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from edgedict_tpu.tokenizer import UNK
 from edgedict_tpu_torch.features import FeatureConfig, FeaturePipeline
 from edgedict_tpu_torch.models import transducer as T
+from edgedict_tpu_torch.ops import quant
 from edgedict_tpu_torch.ops.decode_kernel import (
     build_decode_cache, greedy_frame_loop)
+from edgedict_tpu_torch.tokenizer import UNK
 
 
 class StreamState(NamedTuple):
-    enc_state: tuple         # encoder ((L, B, H), (L, B, H))
+    enc_state: object        # encoder: LSTM ((L, B, H), (L, B, H)),
+                             # GRU (L, B, H)
     dec_state: tuple         # prediction net ((L, B, H), (L, B, H))
     h_dec: torch.Tensor      # last prediction-net output (B, dec_proj)
 
@@ -53,9 +58,7 @@ def stream_chunk_geometry(win_length, hop_length, downsample, step_n_frame):
     return win_size, hop_size
 
 
-def _not_ported(quantize, mesh):
-    if quantize is not None:
-        raise NotImplementedError(f'quantize={quantize!r} is not yet ported')
+def _not_ported(mesh):
     if mesh is not None:
         raise NotImplementedError('mesh= (multi-device serving) is not yet '
                                   'ported')
@@ -80,13 +83,27 @@ def prepare_inference_params(model, dtype=None, quantize=None, device=None):
     reduced `dtype` (bf16) ONLY the encoder is cast; the prediction net and
     the joint stay fp32, so the whole frame-synchronous token loop runs in
     fp32 and token decisions do not sit on bf16 rounding boundaries.  The
-    copy carries `decode_cache`, the K3 weight layout, built once."""
-    _not_ported(quantize, None)
+    copy carries `decode_cache`, the K3 weight layout, built once.
+
+    quantize='int8' replaces the encoder by its int8 weight-only version
+    (ops/quant.py:quantize_encoder), quantized from the PRE-CAST fp32
+    weights so that the int8 values and the fp32 scales do not depend on
+    the serving dtype; only the pass-through tensors (biases, LayerNorms)
+    then follow `dtype` (stream.py:99-131).  Another mode raises
+    ValueError."""
+    if quantize not in (None, 'int8'):
+        raise ValueError(f"unknown quantize mode {quantize!r}; expected "
+                         "'int8'")
     prepared = copy.deepcopy(model).requires_grad_(False)
+    if quantize is not None:
+        prepared.encoder = quant.quantize_encoder(prepared.encoder)
     if device is not None:
         prepared.to(device)
     if dtype is not None:
-        prepared.encoder.to(dtype)
+        if quantize is not None:
+            quant.cast_passthrough(prepared.encoder, dtype)
+        else:
+            prepared.encoder.to(dtype)
     prepared.decode_cache = build_decode_cache(prepared)
     return prepared
 
@@ -197,9 +214,9 @@ class MultiStreamDecoder:
                  n_streams, *, device, step_n_frame=2, compute_dtype=None,
                  quantize=None, mesh=None):
         assert not feature_cfg.pad_to_divisible
-        _not_ported(quantize, mesh)
+        _not_ported(mesh)
         self.device = resolve_device(device)
-        self.model = prepare_inference_params(model, compute_dtype,
+        self.model = prepare_inference_params(model, compute_dtype, quantize,
                                               device=self.device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -229,9 +246,13 @@ class MultiStreamDecoder:
             return out
 
         fresh, st = self._fresh, self.state
+        if isinstance(st.enc_state, torch.Tensor):        # GRU (L, B, H)
+            enc_state = blend(fresh.enc_state, st.enc_state, 1)
+        else:                                             # LSTM (h, c)
+            enc_state = tuple(blend(n, o, 1) for n, o in
+                              zip(fresh.enc_state, st.enc_state))
         self.state = StreamState(
-            enc_state=tuple(blend(n, o, 1) for n, o in
-                            zip(fresh.enc_state, st.enc_state)),
+            enc_state=enc_state,
             dec_state=tuple(blend(n, o, 1) for n, o in
                             zip(fresh.dec_state, st.dec_state)),
             h_dec=blend(fresh.h_dec, st.h_dec, 0))
@@ -291,9 +312,9 @@ class StreamingDecoder:
                  compute_dtype=None, quantize=None, mesh=None):
         assert not feature_cfg.pad_to_divisible, \
             'streaming uses pad_to_divisible=False (rnnt/stream.py:38-44)'
-        _not_ported(quantize, mesh)
+        _not_ported(mesh)
         self.device = resolve_device(device)
-        self.model = prepare_inference_params(model, compute_dtype,
+        self.model = prepare_inference_params(model, compute_dtype, quantize,
                                               device=self.device)
         self.cfg = cfg
         self.tokenizer = tokenizer

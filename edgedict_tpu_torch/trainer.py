@@ -1,7 +1,7 @@
 """Training orchestration on one device (counterpart of
 edgedict_tpu/trainer.py).
 
-Flags → tokenizer → datasets (edgedict_tpu.data: LibriSpeech / TEDLIUM /
+Flags → tokenizer → datasets (data/: LibriSpeech / TEDLIUM /
 CommonVoice / YouTube layouts, host loader with length bucketing) → seeded
 Transducer + optimizer + plateau scheduler → step loop with linear warmup,
 the grad-accumulated train step (train.py), periodic eval (loss + greedy
@@ -18,21 +18,22 @@ import time
 import numpy as np
 import torch
 
-from edgedict_tpu.data import (
-    BucketSpec, CommonVoice, DataLoader, Librispeech, MergedDataset,
-    TEDLIUM, YoutubeCaption)
-from edgedict_tpu.metrics import wer as wer_fn
-from edgedict_tpu.tokenizer import CharTokenizer, HuggingFaceTokenizer
 from edgedict_tpu_torch import optim
 from edgedict_tpu_torch.checkpoint import (
     checkpoint_path, latest_step, load_checkpoint, prune_checkpoints,
     save_checkpoint, snapshot_flags)
 from edgedict_tpu_torch.config import (
     feature_config_from_flags, transducer_config_from_flags)
+from edgedict_tpu_torch.data import (
+    BucketSpec, CommonVoice, DataLoader, Librispeech, MergedDataset,
+    TEDLIUM, YoutubeCaption)
 from edgedict_tpu_torch.features import FeaturePipeline
+from edgedict_tpu_torch.metrics import wer as wer_fn
 from edgedict_tpu_torch.stream import resolve_device
+from edgedict_tpu_torch.tokenizer import CharTokenizer, HuggingFaceTokenizer
 from edgedict_tpu_torch.train import (
-    device_batch, make_eval_step, make_train_state, make_train_step)
+    check_trainable, device_batch, make_eval_step, make_train_state,
+    make_train_step)
 
 AUGMENT_SEED = 1234
 
@@ -99,8 +100,9 @@ class Trainer:
     def __init__(self, flags):
         self.flags = flags
         self.logdir = os.path.join(flags.logdir_root, flags.name)
-        os.makedirs(self.logdir, exist_ok=True)
         self.device = resolve_device(flags.device)
+        check_trainable(flags.enc_type, self.device)
+        os.makedirs(self.logdir, exist_ok=True)
 
         self.tokenizer = build_tokenizer(flags)
         train_datasets, eval_dataset = build_datasets(flags, self.tokenizer)

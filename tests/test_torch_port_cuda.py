@@ -313,3 +313,153 @@ def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
     valid = torch.arange(t, device=cuda)[None] < xlen[:, None]
     assert _max_abs(per_frame[valid], torch.ones_like(per_frame[valid])) \
         <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# GRU and int8 serving: K5 (GRU forward), K11 (int8 matmul), K12 / K13
+# (int8 LSTM / GRU recurrences)
+# ---------------------------------------------------------------------------
+
+def _step_from_own_state(plain, xp, ys, h0, *args):
+    """Each step of a plain GRU recurrence from the state the kernel itself
+    carried into it (h0 at t=0, else ys[t-1], h rounded to x_proj's dtype:
+    exact in fp32, the same cast the dot reads in bf16)."""
+    t, b, h3 = xp.shape
+    h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b, -1)
+    return plain(xp.reshape(1, t * b, h3), *args, h_prev).reshape(ys.shape)
+
+
+@pytest.mark.parametrize('hid,b,t,dtype,int8', [
+    (16, 3, 5, torch.float32, False), (1024, 1, 2, torch.float32, False),
+    (1024, 64, 2, torch.bfloat16, False), (1030, 11, 3, torch.float32, False),
+    (1024, 1, 2, torch.float32, True), (1024, 64, 2, torch.bfloat16, True),
+    (72, 9, 4, torch.float32, True),
+])
+def test_k5_k13_gru_fwd_matches_plain(cuda, hid, b, t, dtype, int8):
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    from edgedict_tpu_torch.ops import quant as Q
+    g = torch.Generator(device='cpu').manual_seed(hid + b + t)
+    k = 1.0 / hid ** 0.5
+    xp = torch.randn(t, b, 3 * hid, generator=g).to(cuda, dtype)
+    w = torch.rand(3 * hid, hid, generator=g) * 2 * k - k
+    b_hh = (torch.rand(3 * hid, generator=g) - 0.5).to(cuda)
+    h0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
+    if int8:
+        q, s = (x.to(cuda) for x in Q.quantize_int8(w))
+        fn, plain, args = Q.gru_recurrence_q, Q.gru_recurrence_q_plain, \
+            (q, s, b_hh)
+    else:
+        w = w.to(cuda, dtype)
+        fn, plain, args = K5.gru_recurrence, K5.gru_recurrence_plain, \
+            (w, b_hh)
+    before = fn.launches
+    ys = fn(xp, *args, h0)
+    ref = plain(xp, *args, h0)
+    assert fn.launches == before + 1
+    assert ys.dtype == dtype and ys.shape == (t, b, hid)
+    # free-running: fp32 to the forward bound, bf16 drifts once a one-ulp
+    # flip of h's rounding feeds the later steps; step by step from the
+    # kernel's own state, bf16 is held to one ulp
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _max_abs(ys, ref) <= tol
+    step = _step_from_own_state(plain, xp, ys, h0, *args)
+    if dtype == torch.float32:
+        assert _max_abs(ys, step) <= 1e-4
+    else:       # one bf16 ulp: the fp32 h of the update is rounded here
+        assert bool(((ys.float() - step.float()).abs()
+                     <= 1e-2 + 2.0 ** -7 * step.float().abs()).all())
+
+
+@pytest.mark.parametrize('hid,b,t,dtype', [
+    (1024, 1, 2, torch.float32), (1024, 64, 2, torch.bfloat16),
+    (16, 3, 5, torch.float32), (1030, 11, 3, torch.float32),
+])
+def test_k12_lstm_fwd_q_matches_plain(cuda, hid, b, t, dtype):
+    from edgedict_tpu_torch.ops import quant as Q
+    g = torch.Generator(device='cpu').manual_seed(hid * 3 + b + t)
+    k = 1.0 / hid ** 0.5
+    xp = torch.randn(t, b, 4 * hid, generator=g).to(cuda, dtype)
+    q, s = (x.to(cuda) for x in
+            Q.quantize_int8(torch.rand(4 * hid, hid, generator=g) * 2 * k - k))
+    h0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
+    c0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
+    before = Q.lstm_recurrence_q.launches
+    ys, cs, hT = Q.lstm_recurrence_q(xp, q, s, h0, c0)
+    ref = Q.lstm_recurrence_q_plain(xp, q, s, h0, c0)
+    assert Q.lstm_recurrence_q.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip((ys, cs, hT), ref):
+        assert _max_abs(a, r) <= tol
+    h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b, hid)
+    c_prev = torch.cat([c0[None], cs[:-1]]).reshape(t * b, hid)
+    step = Q.lstm_recurrence_q_plain(xp.reshape(1, t * b, 4 * hid), q, s,
+                                     h_prev, c_prev)
+    assert _max_abs(cs, step[1].reshape(cs.shape)) <= 1e-4
+
+
+@pytest.mark.parametrize('r,k,n,dtype', [
+    (2, 240, 4096, torch.float32), (2, 1024, 3072, torch.bfloat16),
+    (512, 1024, 4096, torch.float32), (512, 1024, 640, torch.bfloat16),
+    (33, 9, 130, torch.float32), (5, 13, 7, torch.bfloat16),
+    (1, 1024, 640, torch.float32),
+])
+def test_k11_quant_matmul_matches_plain(cuda, r, k, n, dtype):
+    """Both launch shapes (matrix-vector up to 32 rows, tiled above), K
+    not a multiple of 4 included; fp32 to 1e-4 of the output scale, bf16
+    to one bf16 rounding of the output."""
+    from edgedict_tpu_torch.ops import quant as Q
+    g = torch.Generator(device='cpu').manual_seed(r + k + n)
+    x = torch.randn(r, k, generator=g).to(cuda, dtype)
+    q, s = (t.to(cuda) for t in
+            Q.quantize_int8(torch.randn(n, k, generator=g) / k ** 0.5))
+    bias = torch.randn(n, generator=g).to(cuda)
+    before = Q.quant_matmul.launches
+    out = Q.quant_matmul(x, q, s, bias)
+    ref = Q.quant_matmul_plain(x, q, s, bias)
+    assert Q.quant_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (r, n)
+    scale = max(1.0, float(ref.float().abs().max()))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _max_abs(out, ref) <= tol * scale
+
+
+def test_gru_backward_on_cuda_raises(cuda):
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    xp = torch.randn(2, 1, 24, device=cuda, requires_grad=True)
+    w = torch.randn(24, 8, device=cuda)
+    ys = K5.gru_recurrence(xp, w, torch.zeros(24, device=cuda),
+                           torch.zeros(1, 8, device=cuda))
+    with pytest.raises(NotImplementedError, match='K6'):
+        ys.sum().backward()
+
+
+@pytest.mark.parametrize('module_type,quantize', [
+    ('LSTM', 'int8'), ('GRU', None), ('GRU', 'int8')])
+def test_gru_and_int8_streaming_cuda_equals_cpu(cuda, module_type, quantize):
+    import dataclasses
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    from edgedict_tpu_torch.ops import quant as Q
+    cfg, feat, _, audio = _small_stream()
+    cfg = dataclasses.replace(cfg, module_type=module_type)
+    model = T.Transducer(cfg, 'cpu', seed=2)
+    with torch.no_grad():
+        model.joint.out.weight *= 8.0
+    out = []
+    for device in ('cpu', 'cuda'):
+        dec = S.StreamingDecoder(model, cfg, feat, _Tok(), device=device,
+                                 quantize=quantize)
+        counts = [f.launches for f in (K1.lstm_recurrence, K5.gru_recurrence,
+                                       Q.quant_matmul, Q.lstm_recurrence_q,
+                                       Q.gru_recurrence_q)]
+        out.append((dec.decode_wav(audio), np.concatenate(dec.emitted)))
+        counts = [f.launches - c for f, c in zip(
+            (K1.lstm_recurrence, K5.gru_recurrence, Q.quant_matmul,
+             Q.lstm_recurrence_q, Q.gru_recurrence_q), counts)]
+    assert out[0][0] == out[1][0]
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    n_chunks = len(dec.elapsed)
+    layers = cfg.enc_layers * n_chunks
+    want = {('LSTM', 'int8'): [0, 0, layers + n_chunks, layers, 0],
+            ('GRU', None): [0, layers, 0, 0, 0],
+            ('GRU', 'int8'): [0, 0, layers + n_chunks, 0, layers]}
+    assert counts == want[module_type, quantize]

@@ -164,6 +164,12 @@ def test_seeded_init_and_gru_refused():
                               b.state_dict().items()):
         assert torch.equal(x, y), k
     assert not a.decoder.embed.weight[1].any()
-    with pytest.raises(NotImplementedError):
-        PT.Transducer(PT.TransducerConfig(vocab_size=8, module_type='GRU'),
+    # the GRU encoder is ported (3H gate rows); an unknown cell is refused
+    gru = PT.Transducer(PT.TransducerConfig(vocab_size=8, module_type='GRU',
+                                            input_size=5, enc_hidden_size=6),
+                        device='cpu')
+    assert gru.encoder.lstm.lstms[0].weight_ih_l0.shape == (18, 5)
+    assert gru.encoder.lstm.lstms[0].weight_hh_l0.shape == (18, 6)
+    with pytest.raises(ValueError):
+        PT.Transducer(PT.TransducerConfig(vocab_size=8, module_type='RNN'),
                       device='cpu')

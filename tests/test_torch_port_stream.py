@@ -255,8 +255,9 @@ def test_prepare_inference_params_policy(pair):
 
 def test_unported_options_and_missing_card_raise(pair):
     _, model = pair
-    with pytest.raises(NotImplementedError):
-        _dec(model, quantize='int8')
+    # int8 is ported; another mode is refused as in the JAX package
+    with pytest.raises(ValueError):
+        _dec(model, quantize='fp8')
     with pytest.raises(NotImplementedError):
         PS.MultiStreamDecoder(model, PCFG, PFEAT, _Tok(), 2, device='cpu',
                               mesh=object())
