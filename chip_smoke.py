@@ -7,16 +7,19 @@ Phases, each printing JSON or text lines:
   1 device   card name, nvidia-smi name + power limit
   2 build    nvcc build of csrc/*.cu (seconds, ptxas register/spill lines)
   3 kernels  K1 (LSTM forward), K2 (mel power), K3 (greedy frame loop),
-             K4 (LSTM backward), K5 (GRU forward), K7/K8 (fused joint
-             forward / backward), K9/K10 (lattice alpha / beta+grad), K11
-             (int8-weight matmul), K12/K13 (int8 LSTM / GRU recurrences),
-             each against its plain PyTorch version on the card at the main
-             paths' shapes, with stated tolerances (tokens exact), and both
-             timed with CUDA events (median of 20 after warm-up, in turns
-             plain, kernel, kernel, plain); K11 also beside a dequantize-
-             then-F.linear yardstick (library_ms); each kernel's bound
-             (bytes once over 3.35 TB/s, or operations over the peak of
-             their type, whichever is larger) from the timed inputs
+             K4 (LSTM backward), K5 (GRU forward), K6 (GRU backward), K7/K8
+             (fused joint forward / backward), K9/K10 (lattice alpha /
+             beta+grad), K11 (int8-weight matmul), K12/K13 (int8 LSTM / GRU
+             recurrences), each against its plain PyTorch version on the
+             card at the main paths' shapes, with stated tolerances (tokens
+             exact), and both timed with CUDA events (median of 20 after
+             warm-up, in turns plain, kernel, kernel, plain); K11 also
+             beside a dequantize-then-F.linear yardstick, the recurrences
+             K1/K4/K5/K6 beside one cuDNN nn.LSTM / nn.GRU layer (forward,
+             or forward+backward) and the port's own layer timed the same
+             way (library_ms, layer_ms); each kernel's bound (bytes once
+             over 3.35 TB/s, or operations over the peak of their type,
+             whichever is larger) from the timed inputs
   4 slice    E6D2 from flagfiles/E6D2.txt with seeded random weights:
              StreamingDecoder.decode_wav of 4 s of seeded synthetic audio
              on cuda fp32 == the CPU run (plain versions), token for token;
@@ -35,12 +38,16 @@ Phases, each printing JSON or text lines:
   9 train_parity  one fp32 E6D2 train step (full width and depth, B=4,
              ~2 s) on cuda against the CPU plain path from the same weights
              and batch: loss, grad_norm, grads and params after the Adam step
- 10 train_run  the port's Trainer (as cli/baseline.py builds it) from
+ 10 train_parity_gru  the same with --enc_type GRU (K5/K6 on cuda)
+ 11 train_run  the port's Trainer (as cli/baseline.py builds it) from
              flagfiles/E6D2.txt (batch 32, bf16, BPE 2048) on a seeded
              synthetic corpus of 8-16 s utterances: 2 warm-up and 5 measured
-             steps (median step ms, audio s/s), loss falling on a repeated
-             small batch, one --mode eval pass (val_loss, WER)
- 11 launches every kernel launched by the main paths themselves: the counts
+             steps (median step ms, audio s/s, peak memory), loss falling on
+             a repeated small batch, one --mode eval pass (val_loss, WER)
+ 12 train_run_gru  the same with --enc_type GRU on the same corpus and
+             BPE model, plus one step of a Trainer with --time_warp_w 80
+             --optim novograd (finite loss)
+ 13 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8), just before the clients of each
              server connect and just before the measured train steps, and
@@ -48,8 +55,8 @@ Phases, each printing JSON or text lines:
              call is counted; the decodes' counts must equal what their
              encoder calls imply (per call: int8 LSTM K11 7, K12 6, K1 0;
              GRU K5 6; int8 GRU K11 7, K13 6, K5 0), the train counts what
-             the steps imply (8 LSTM calls forward and 8 backward, one of
-             K2 and K7-K10 per micro-step)
+             the steps imply (per micro-step: LSTM 8 K1 and 8 K4, GRU 6 K5,
+             6 K6, 2 K1 and 2 K4; one of K2 and K7-K10 each)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -58,6 +65,7 @@ non-zero; without a CUDA card nothing runs.
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -297,13 +305,15 @@ def phase_kernels(torch):
                 torch, lambda: K1.lstm_recurrence_plain(xp, w, h0, c0),
                 lambda: K1.lstm_recurrence(xp, w, h0, c0))
             case.update(ms=ms, plain_ms=pms)
+        if main:
+            case.update(layer_times(torch, 'LSTM', hid, b, t, dt, False))
         bounds = bound(nbytes(xp, w, h0, c0, ys, cs, hT),
                        2 * t * b * 4 * hid * hid, kind_of(torch, xp))
         case.update(bound_ms=bounds[0], bound_by=bounds[1])
         emit(case)
         require(all(oks), f'K1 disagrees: {case}')
         record('lstm_fwd', max(errs), case.get('ms') if main else None,
-               case.get('plain_ms'), bounds)
+               case.get('plain_ms'), bounds, case.get('library_ms'))
 
     # K3 — greedy frame loop at E6D2's joint / prediction-net widths
     dcfg = T.TransducerConfig(vocab_size=2048, vocab_embed_size=64,
@@ -388,6 +398,57 @@ def _rel(torch, a, b):
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
+ENC_IN = 240      # E6D2 encoder layer 0's input: 80 mels stacked 3 times
+
+
+def layer_times(torch, cell, hid, b, t, dt, backward, n_in=ENC_IN):
+    """The library yardstick of a recurrence kernel: one cuDNN nn.LSTM /
+    nn.GRU layer (num_layers=1, input (T, B, n_in), weights in the same
+    dtype), forward alone or forward+backward, beside the port's own layer
+    (ops/rnn.py: the cuBLAS input projection and the kernels, fp32 master
+    weights as in training) timed the same way.  cuDNN computes the same
+    layer function (b_hh inside the GRU's reset gate included); it is a
+    layer time, the kernel's ms is the recurrence alone.  Where cuDNN
+    refuses the dtype, that is recorded and fp32 is timed.
+    → {'library_ms', 'library_dtype', 'layer_ms', 'cudnn'}."""
+    from edgedict_tpu_torch.ops import rnn as R
+    dev = torch.device('cuda')
+    gen = torch.Generator(device='cpu').manual_seed(hid + b + t)
+    xs = torch.randn(t, b, n_in, generator=gen).to(dev, dt)
+    dy = torch.randn(t, b, hid, generator=gen).to(dev, dt)
+    mod = getattr(torch.nn, cell)(n_in, hid).to(dev)
+    params = {k: getattr(mod, f'{name}_l0').detach().clone().requires_grad_()
+              for k, name in (('w_ih', 'weight_ih'), ('w_hh', 'weight_hh'),
+                              ('b_ih', 'bias_ih'), ('b_hh', 'bias_hh'))}
+    h0 = torch.zeros(b, hid, device=dev)
+    state = h0 if cell == 'GRU' else (h0, h0)
+    layer = R.gru_layer_tm if cell == 'GRU' else R.lstm_layer_tm
+
+    def run(fn, x):
+        if not backward:
+            with torch.no_grad():
+                fn(x)
+            return
+        x = x.detach().requires_grad_()
+        fn(x)[0].backward(dy.to(x.dtype))
+
+    out = {'cudnn': torch.backends.cudnn.version(), 'library_dtype':
+           str(dt).split('.')[-1]}
+    try:
+        lib_mod = mod.to(dt)
+        run(lib_mod, xs)
+        lib_x = xs
+    except RuntimeError as e:         # cuDNN refuses the dtype: say so
+        out.update(cudnn_refused=f'{out["library_dtype"]}: {e}'[:200],
+                   library_dtype='float32')
+        lib_mod, lib_x = mod.float(), xs.float()
+    out['library_ms'] = _median_ms(torch, lambda: run(lib_mod, lib_x),
+                                   iters=10, warmup=2)
+    out['layer_ms'] = _median_ms(torch, lambda: run(
+        lambda x: layer(params, x, state), xs), iters=10, warmup=2)
+    return out
+
+
 def train_kernels(torch, rng, dev, record):
     """K4, K7/K8 and K9/K10 against their plain versions at the E6D2
     training step's shapes (B=32, 16 s: encoder T=427/214, prediction net
@@ -429,10 +490,52 @@ def train_kernels(torch, rng, dev, record):
                        4 * t * b * 4 * hid * hid, kind_of(torch, xp))
         case.update(ms=ms, plain_ms=pms, bound_ms=bounds[0],
                     bound_by=bounds[1])
+        main = (hid, t) == (1024, 427)
+        if main:
+            case.update(layer_times(torch, 'LSTM', hid, b, t, dt, True))
         emit(case)
         require(max(errs) <= tol, f'K4 disagrees: {case}')
-        record('lstm_bwd', max(errs), ms if (hid, t) == (1024, 427) else None,
-               pms, bounds)
+        record('lstm_bwd', max(errs), ms if main else None, pms, bounds,
+               case.get('library_ms'))
+
+    # K6 — GRU backward: encoder layer 0 in bf16 (the training dtype), a
+    # shorter encoder layer in fp32, and odd small shapes
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    for hid, b, t, dt in ((1024, 32, 427, bf16), (1024, 32, 64, fp32),
+                          (1030, 11, 3, fp32), (40, 5, 7, bf16)):
+        k = 1.0 / hid ** 0.5
+        xp = t_(t, b, 3 * hid, dtype=dt)
+        w = torch.as_tensor(rng.uniform(-k, k, (3 * hid, hid))
+                            .astype(np.float32), device=dev).to(dt)
+        b_hh = t_(3 * hid, scale=0.1)
+        h0 = t_(b, hid, scale=0.5)
+        ys, _ = K5.gru_recurrence(xp, w, b_hh, h0)
+        dys = t_(t, b, hid, dtype=dt)
+        dhT = t_(b, hid)
+        args = (xp, w, b_hh, h0, ys, dys, dhT)
+        out = K5.gru_recurrence_bwd(*args)
+        ref = K5.gru_recurrence_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = [_rel(torch, a, r) for a, r in zip(out, ref)]
+        tol = 1e-4 if dt == fp32 else 2e-2
+        case = {'kernel': 'K6 gru_bwd', 'H': hid, 'B': b, 'T': t,
+                'dtype': str(dt).split('.')[-1], 'dgx_rel': errs[0],
+                'dgh_rel': errs[1], 'dh0_rel': errs[2],
+                'tol': f'max|d| / max(1, max|ref|) <= {tol}'}
+        main = (hid, t) == (1024, 427)
+        ms, pms = time_pair(torch, lambda: K5.gru_recurrence_bwd_plain(*args),
+                            lambda: K5.gru_recurrence_bwd(*args))
+        case.update(ms=ms, plain_ms=pms)
+        # the gate remat and the dh product: 2 x 2·T·B·3H·H
+        bounds = bound(nbytes(xp, w, b_hh, h0, ys, dys, dhT, *out),
+                       12 * t * b * hid * hid, kind_of(torch, xp))
+        case.update(bound_ms=bounds[0], bound_by=bounds[1])
+        if main:
+            case.update(layer_times(torch, 'GRU', hid, b, t, dt, True))
+        emit(case)
+        require(max(errs) <= tol, f'K6 disagrees: {case}')
+        record('gru_bwd', max(errs), ms if main else None, pms, bounds,
+               case.get('library_ms'))
 
     # K7 / K8 — fused joint: the E6D2 step in bf16, and U+1 = 300 (past the
     # TPU kernel's U envelope)
@@ -603,7 +706,8 @@ def serving_kernels_q(torch, rng, dev, record):
         c0 = t_(b, hid, scale=0.5)
         if name == 'gru_fwd':
             w = w.to(dt)
-            kernel = lambda: K5.gru_recurrence(xp, w, b_hh, h0)  # noqa: E731
+            kernel = lambda: K5.gru_recurrence(  # noqa: E731
+                xp, w, b_hh, h0)[0]
             plain = lambda: K5.gru_recurrence_plain(  # noqa: E731
                 xp, w, b_hh, h0)
             w_eff, inputs = w, (xp, w, b_hh, h0)
@@ -659,11 +763,13 @@ def serving_kernels_q(torch, rng, dev, record):
                 'tol': f'run atol/rtol {run_tol}; per step ys atol '
                        f'{step_tol[0]} rtol {step_tol[1]:.3g}'
                        + (', cs 1e-4' if name == 'lstm_fwd_q' else '')}
+        main = (b, dt) == (1, fp32)
+        if main and name == 'gru_fwd':
+            case.update(layer_times(torch, 'GRU', hid, b, t, dt, False))
         emit(case)
         require(ok, f'{label} disagrees: {case}')
-        main = (b, dt) == (1, fp32)
         record(name, max(errs + steps), ms if main else None, pms,
-               (b_ms, b_by))
+               (b_ms, b_by), case.get('library_ms'))
 
 
 def _e6d2():
@@ -688,6 +794,7 @@ def _counters():
             'mel_power': features_kernel.mel_power,
             'greedy_decode': decode_kernel.greedy_frame_loop,
             'lstm_bwd': rnn_kernel.lstm_recurrence_bwd,
+            'gru_bwd': gru_kernel.gru_recurrence_bwd,
             'joint_lse_fwd': joint_lse_kernel.joint_lse_fwd,
             'joint_lse_bwd': joint_lse_kernel.joint_lse_bwd,
             'lattice_alpha': rnnt_loss_kernel.lattice_alpha,
@@ -976,12 +1083,14 @@ def _e6d2_train_cfg():
     return C.transducer_config_from_flags(flags, 2048, feat.input_size), feat
 
 
-def phase_train_parity(torch):
+def phase_train_parity(torch, module_type='LSTM'):
     """One fp32 E6D2 train step (full width and depth, seeded init, B=4,
     ~2 s) on CUDA against the CPU plain path from the same weights and
     batch; dither and SpecAugment off so that both see the same features,
-    lr 5e-4 (E6D2's, without warmup) so that the step moves the params."""
+    lr 5e-4 (E6D2's, without warmup) so that the step moves the params.
+    module_type='GRU': the same with the GRU encoder (K5/K6 on CUDA)."""
     import copy
+    import dataclasses
 
     from edgedict_tpu_torch import optim
     from edgedict_tpu_torch import train as TR
@@ -989,6 +1098,7 @@ def phase_train_parity(torch):
     from edgedict_tpu_torch.features import FeaturePipeline
     from edgedict_tpu_torch.models import transducer as T
     cfg, feat = _e6d2_train_cfg()
+    cfg = dataclasses.replace(cfg, module_type=module_type)
     lr = 5e-4
     rng = np.random.RandomState(7)
     secs = (2.0, 1.8, 1.6, 2.0)
@@ -1035,8 +1145,11 @@ def phase_train_parity(torch):
     moved = max(float((b['params'][k] - model.state_dict()[k]).abs().max())
                 for k in b['params'])
     n = sum(d.numel() for d in diffs)
-    out = {'phase': 'train_parity', 'config': 'flagfiles/E6D2.txt fp32',
-           'B': 4, 'audio_s': list(secs), 'lr': lr,
+    out = {'phase': 'train_parity' + ('_gru' if module_type == 'GRU'
+                                       else ''),
+           'config': 'flagfiles/E6D2.txt fp32' + (
+               ' --enc_type GRU' if module_type == 'GRU' else ''),
+           'params': sum(p.numel() for p in model.parameters()), 'B': 4, 'audio_s': list(secs), 'lr': lr,
            'loss_cuda': a['loss'], 'loss_cpu': b['loss'],
            'loss_rel': abs(a['loss'] - b['loss']) / abs(b['loss']),
            'grad_norm_rel': abs(a['grad_norm'] - b['grad_norm'])
@@ -1094,113 +1207,163 @@ def _corpus_texts(n_train, n_eval, seed=0):
     return train, evals
 
 
-def phase_train_run(torch):
-    """The port's Trainer, built as cli/baseline.py builds it, from
-    flagfiles/E6D2.txt (batch 32, bf16, BPE 2048) on a synthetic corpus of
-    8-16 s utterances: warm-up steps, then measured steps; loss falls on a
-    repeated small batch; one --mode eval pass."""
+def _train_corpus():
+    """The synthetic corpus of the train_run phases, written once into a
+    temp dir that main() removes: → (dir, trainer argv without --name)."""
     import tempfile
+    if 'train_corpus' not in STATE:
+        tmp = tempfile.mkdtemp(prefix='edd_smoke_')
+        STATE['train_corpus'] = (tmp, None)
+        train_texts, eval_texts = _corpus_texts(96, 8)
+        _synthetic_corpus(os.path.join(tmp, 'train'), train_texts, 100)
+        _synthetic_corpus(os.path.join(tmp, 'test'), eval_texts, 900)
+        none = os.path.join(tmp, 'none')
+        argv = [f'--flagfile={REPO}/flagfiles/E6D2.txt',
+                '--LibriSpeech_train_100', os.path.join(tmp, 'train'),
+                '--LibriSpeech_train_360', none,
+                '--LibriSpeech_train_500', none,
+                '--LibriSpeech_test', os.path.join(tmp, 'test'),
+                '--TEDLIUM_train', none, '--CommonVoice', none,
+                '--YT_bloomberg2', none, '--YT_life', none,
+                '--logdir_root', os.path.join(tmp, 'logs'),
+                '--device', 'cuda']
+        STATE['train_corpus'] = (tmp, argv)
+    return STATE['train_corpus']
 
+
+def phase_train_run(torch, enc_type='LSTM'):
+    """The port's Trainer, built as cli/baseline.py builds it, from
+    flagfiles/E6D2.txt (batch 32, bf16, BPE 2048) with --enc_type on a
+    synthetic corpus of 8-16 s utterances (shared by both encoders, the
+    BPE model trained once): warm-up steps, then measured steps; loss
+    falls on a repeated small batch; one --mode eval pass.  GRU: also one
+    step with --time_warp_w 80 --optim novograd."""
     from edgedict_tpu_torch.cli import baseline
     from edgedict_tpu_torch.config import parse_flags
     from edgedict_tpu_torch.train import device_batch, make_train_state
     from edgedict_tpu_torch.trainer import Trainer
+    gru = enc_type == 'GRU'
+    run = 'train_gru' if gru else 'train'
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix='edd_smoke_') as tmp:
-        os.chdir(tmp)             # the BPE-2048/ cache lands in the cwd
-        try:
-            t0 = time.perf_counter()
-            train_texts, eval_texts = _corpus_texts(96, 8)
-            _synthetic_corpus(os.path.join(tmp, 'train'), train_texts, 100)
-            _synthetic_corpus(os.path.join(tmp, 'test'), eval_texts, 900)
-            none = os.path.join(tmp, 'none')
-            argv = [f'--flagfile={REPO}/flagfiles/E6D2.txt',
-                    '--LibriSpeech_train_100', os.path.join(tmp, 'train'),
-                    '--LibriSpeech_train_360', none,
-                    '--LibriSpeech_train_500', none,
-                    '--LibriSpeech_test', os.path.join(tmp, 'test'),
-                    '--TEDLIUM_train', none, '--CommonVoice', none,
-                    '--YT_bloomberg2', none, '--YT_life', none,
-                    '--logdir_root', os.path.join(tmp, 'logs'),
-                    '--name', 'e6d2-smoke', '--device', 'cuda']
-            flags = parse_flags(baseline.build_parser(), argv)
-            trainer = Trainer(flags)
-            setup_s = time.perf_counter() - t0
-            vocab = trainer.tokenizer.vocab_size
-            require(vocab == 2048 and trainer.cfg.vocab_size == 2048,
-                    f'vocab is {vocab}, not 2048')
+    t0 = time.perf_counter()
+    tmp, base = _train_corpus()
+    os.chdir(tmp)                 # the BPE-2048/ cache lands in the cwd
+    try:
+        argv = base + ['--name', f'e6d2-{enc_type.lower()}', '--enc_type',
+                       enc_type]
+        flags = parse_flags(baseline.build_parser(), argv)
+        trainer = Trainer(flags)
+        setup_s = time.perf_counter() - t0
+        vocab = trainer.tokenizer.vocab_size
+        require(vocab == 2048 and trainer.cfg.vocab_size == 2048,
+                f'vocab is {vocab}, not 2048')
+        require(trainer.cfg.module_type == enc_type,
+                f'the trainer built a {trainer.cfg.module_type} encoder')
 
-            def batches():
-                while True:
-                    yield from trainer.loader
+        def batches():
+            while True:
+                yield from trainer.loader
 
-            it = batches()
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(2):                                  # warm-up
-                float(trainer.run_step(next(it))['loss'])
-            _reset_launches()
-            times, audio_s, losses, shapes = [], [], [], []
-            n_measured = 5
-            for _ in range(n_measured):
-                batch = next(it)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                losses.append(float(trainer.run_step(batch)['loss']))
-                times.append(time.perf_counter() - t1)
-                audio_s.append(float(batch['alen'].sum()) / 16000.0)
-                shapes.append([int(x) for x in batch['audio'].shape[1:]]
-                              + [int(batch['ys'].shape[1]) + 1])
-            STATE['launches_train'] = _launches()
-            it.close()
-            med = statistics.median(times)
-            accum = trainer.accum_steps
-            STATE['train_expect'] = {
-                'lstm_fwd': 8 * accum * n_measured,
-                'lstm_bwd': 8 * accum * n_measured,
-                'mel_power': accum * n_measured,
-                'joint_lse_fwd': accum * n_measured,
-                'joint_lse_bwd': accum * n_measured,
-                'lattice_alpha': accum * n_measured,
-                'lattice_beta_grad': accum * n_measured}
-            res = {'phase': 'train_run', 'config': 'flagfiles/E6D2.txt',
-                   'vocab': vocab, 'batch_size': flags.batch_size,
-                   'accum': accum, 'bf16': flags.bf16,
-                   'utterances': len(trainer.train_dataset),
-                   'setup_s': setup_s,
-                   'batch_samples_U1': shapes,
-                   'step_ms': [1e3 * x for x in times],
-                   'step_ms_median': 1e3 * med,
-                   'audio_s_per_s': [a / x for a, x in zip(audio_s, times)],
-                   'audio_s_per_s_median': statistics.median(
-                       a / x for a, x in zip(audio_s, times)),
-                   'losses': losses,
-                   'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
+        it = batches()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):                                  # warm-up
+            float(trainer.run_step(next(it))['loss'])
+        _reset_launches()
+        times, audio_s, losses, shapes = [], [], [], []
+        n_measured = 5
+        for _ in range(n_measured):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(trainer.run_step(batch)['loss']))
+            times.append(time.perf_counter() - t1)
+            audio_s.append(float(batch['alen'].sum()) / 16000.0)
+            shapes.append([int(x) for x in batch['audio'].shape[1:]]
+                          + [int(batch['ys'].shape[1]) + 1])
+        STATE['launches_' + run] = _launches()
+        it.close()
+        med = statistics.median(times)
+        n = trainer.accum_steps * n_measured        # micro-steps measured
+        enc, dec = trainer.cfg.enc_layers, trainer.cfg.dec_layers
+        STATE.setdefault('train_expect', {})[run] = {
+            'lstm_fwd': (dec if gru else enc + dec) * n,
+            'lstm_bwd': (dec if gru else enc + dec) * n,
+            'gru_fwd': enc * n if gru else 0,
+            'gru_bwd': enc * n if gru else 0,
+            'mel_power': n, 'joint_lse_fwd': n, 'joint_lse_bwd': n,
+            'lattice_alpha': n, 'lattice_beta_grad': n}
+        res = {'phase': 'train_run' + ('_gru' if gru else ''),
+               'config': 'flagfiles/E6D2.txt' + (' --enc_type GRU' if gru
+                                                 else ''),
+               'params': sum(p.numel() for p in
+                             trainer.state.model.parameters()),
+               'vocab': vocab, 'batch_size': flags.batch_size,
+               'accum': trainer.accum_steps, 'bf16': flags.bf16,
+               'utterances': len(trainer.train_dataset),
+               'setup_s': setup_s,
+               'batch_samples_U1': shapes,
+               'step_ms': [1e3 * x for x in times],
+               'step_ms_median': 1e3 * med,
+               'audio_s_per_s': [a / x for a, x in zip(audio_s, times)],
+               'audio_s_per_s_median': statistics.median(
+                   a / x for a, x in zip(audio_s, times)),
+               'losses': losses,
+               'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
 
-            # loss falls on a repeated small batch (fresh weights, lr 1e-3)
-            small = {k: v[:4] for k, v in next(iter(trainer.loader)).items()}
-            dev_small = device_batch(small, 1, trainer.device)
-            state = make_train_state(trainer.cfg, trainer.optimizer,
-                                     trainer.device, seed=1)
-            fall = []
-            for _ in range(10):
-                state, m = trainer.train_step(state, dev_small, 1e-3,
-                                              trainer.generator)
-                fall.append(float(m['loss']))
-            res['repeated_batch_losses'] = fall
-            del state
+        # loss falls on a repeated small batch (fresh weights, lr 1e-3)
+        small = {k: v[:4] for k, v in next(iter(trainer.loader)).items()}
+        dev_small = device_batch(small, 1, trainer.device)
+        state = make_train_state(trainer.cfg, trainer.optimizer,
+                                 trainer.device, seed=1)
+        fall = []
+        for _ in range(10):
+            state, m = trainer.train_step(state, dev_small, 1e-3,
+                                          trainer.generator)
+            fall.append(float(m['loss']))
+        res['repeated_batch_losses'] = fall
+        del state
 
-            trainer.save()
-            lines = []
-            baseline.main(argv + ['--mode', 'eval'], log_fn=lines.append)
-            val = [ln for ln in lines if ln.startswith('val_loss')]
-            res['eval'] = val[0] if val else None
-            emit(res)
-            require(all(np.isfinite(losses)), 'a train loss is not finite')
-            require(fall[-1] < fall[0], f'loss did not fall: {fall}')
-            require(bool(val) and np.isfinite(float(val[0].split()[1])),
-                    f'eval printed no finite val_loss: {lines}')
-        finally:
-            os.chdir(cwd)
+        trainer.save()
+        lines = []
+        baseline.main(argv + ['--mode', 'eval'], log_fn=lines.append)
+        val = [ln for ln in lines if ln.startswith('val_loss')]
+        res['eval'] = val[0] if val else None
+        if gru:
+            res['warp_novograd'] = _warp_novograd_step(torch, argv, batch)
+        del trainer
+        emit(res)
+        require(all(np.isfinite(losses)), 'a train loss is not finite')
+        require(fall[-1] < fall[0], f'loss did not fall: {fall}')
+        require(bool(val) and np.isfinite(float(val[0].split()[1])),
+                f'eval printed no finite val_loss: {lines}')
+        if gru:
+            w = res['warp_novograd']
+            require(np.isfinite(w['loss']) and w['skipped'] == 0.0,
+                    f'the time-warp + novograd step failed: {w}')
+    finally:
+        os.chdir(cwd)
+
+
+def _warp_novograd_step(torch, argv, batch):
+    """One measured step of a Trainer built with --time_warp_w 80 --optim
+    novograd (the two training flags the slice added), on `batch`."""
+    from edgedict_tpu_torch.cli import baseline
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.trainer import Trainer
+    flags = parse_flags(baseline.build_parser(), argv + [
+        '--name', 'e6d2-gru-warp', '--time_warp_w', '80', '--optim',
+        'novograd'])
+    trainer = Trainer(flags)
+    require(trainer.feature_cfg.W_warp == 80
+            and trainer.optimizer.name == 'novograd',
+            'the time-warp / novograd flags did not reach the trainer')
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = trainer.run_step(batch)
+    loss = float(m['loss'])
+    return {'flags': '--time_warp_w 80 --optim novograd', 'loss': loss,
+            'skipped': float(m['skipped']),
+            'step_ms': 1e3 * (time.perf_counter() - t1)}
 
 
 SOURCES = {
@@ -1214,6 +1377,8 @@ SOURCES = {
                  'edgedict_tpu/ops/rnn_pallas.py:205'),
     'gru_fwd': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
                 'edgedict_tpu/ops/rnn_pallas.py:462'),
+    'gru_bwd': ('edgedict_tpu_torch/csrc/gru_bwd.cu',
+                'edgedict_tpu/ops/rnn_pallas.py:512'),
     'joint_lse_fwd': ('edgedict_tpu_torch/csrc/joint_lse.cu',
                       'edgedict_tpu/ops/joint_lse_pallas.py:156'),
     'joint_lse_bwd': ('edgedict_tpu_torch/csrc/joint_lse.cu',
@@ -1247,7 +1412,7 @@ DECODE_RUNS = {
 def check_launches():
     """The launch counts of every main-path run against what it implies."""
     runs = {run: STATE['launches_' + run] for run in
-            (*DECODE_RUNS, 'server', 'server_int8', 'train')}
+            (*DECODE_RUNS, 'server', 'server_int8', 'train', 'train_gru')}
     expect = {}
     for run, per_call in DECODE_RUNS.items():
         n = STATE['chunks_' + run]      # one encoder call per chunk
@@ -1264,9 +1429,9 @@ def check_launches():
                 f'a kernel was not launched by {run}: {runs[run]}')
     require(runs['server_int8']['lstm_fwd'] == 0,
             f'the int8 server launched K1: {runs["server_int8"]}')
-    require(all(runs['train'][k] == n
-                for k, n in STATE['train_expect'].items()),
-            f'train launches {runs["train"]} != {STATE["train_expect"]}')
+    for run, want in STATE['train_expect'].items():
+        require(all(runs[run][k] == n for k, n in want.items()),
+                f'{run} launches {runs[run]} != {want}')
     return runs
 
 
@@ -1292,7 +1457,10 @@ def main():
               ('slice_gru', phase_slice_gru), ('server', phase_server),
               ('server_int8', phase_server_int8),
               ('train_parity', phase_train_parity),
-              ('train_run', phase_train_run))
+              ('train_parity_gru',
+               lambda torch: phase_train_parity(torch, 'GRU')),
+              ('train_run', phase_train_run),
+              ('train_run_gru', lambda torch: phase_train_run(torch, 'GRU')))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()
@@ -1302,6 +1470,9 @@ def main():
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1
+    finally:
+        if 'train_corpus' in STATE:
+            shutil.rmtree(STATE['train_corpus'][0], ignore_errors=True)
     launches = {k: sum(c[k] for c in runs.values()) for k in SOURCES}
     kernels = STATE['kernels']
     emit({'kernels': [

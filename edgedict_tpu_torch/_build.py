@@ -34,7 +34,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
 SOURCES = ('lstm_fwd.cu', 'lstm_bwd.cu', 'mel_power.cu', 'greedy_decode.cu',
-           'joint_lse.cu', 'rnnt_loss.cu', 'gru_fwd.cu', 'quant_matmul.cu')
+           'joint_lse.cu', 'rnnt_loss.cu', 'gru_fwd.cu', 'gru_bwd.cu',
+           'quant_matmul.cu')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
@@ -55,6 +56,9 @@ _SIGNATURES = {
     # xp, w_hh, w_hh_t, h0e, c0, ys, cs, dys, dcs, dhT, dgates, dh0, dc,
     # T, B, H, bf16, stream
     'edd_lstm_bwd': (_P,) * 13 + (_I, _I, _I, _I, _P),
+    # xp, w_hh, w_hh_t, b_hh, h0e, ys, dys, dhT, dgx, dgh, dh0, carry,
+    # T, B, H, bf16, stream
+    'edd_gru_bwd': (_P,) * 12 + (_I,) * 4 + (_P,),
     # f, g, wt, bias, labels, blank_lp, label_lp, lse, B, T, U1, J, V,
     # blank, bf16, stream
     'edd_joint_lse_fwd': (_P,) * 8 + (_I,) * 7 + (_P,),

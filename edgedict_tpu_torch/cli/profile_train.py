@@ -2,7 +2,7 @@
 
   python -m edgedict_tpu_torch.cli.profile_train \
       --flagfile flagfiles/E6D2.txt [--batch_size 32] [--seconds 16] \
-      [--label_len 64] [--steps 5] [--device cuda|cpu]
+      [--label_len 64] [--steps 5] [--device cuda|cpu] [--enc_type GRU]
 
 Seeded random weights (seed 0), a seeded synthetic batch of --batch_size
 utterances of --seconds of audio with --label_len random token ids over
@@ -51,6 +51,7 @@ from edgedict_tpu_torch.train import (
 
 # substrings of the hand-written kernels' names in the profiler's trace
 KERNELS = {'lstm_fwd': 'lstm_step_kernel', 'lstm_bwd': 'lstm_bwd_step',
+           'gru_fwd': 'gru_step_kernel', 'gru_bwd': 'gru_bwd_step',
            'mel_power': 'mel_power_kernel',
            'joint_lse_fwd': 'joint_lse_fwd',
            'joint_lse_bwd_dh': 'joint_lse_bwd_dh',

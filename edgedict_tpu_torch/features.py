@@ -4,9 +4,9 @@ Waveform (B, L) + lengths → features (B, T', input_size) + lengths, on the
 device the pipeline was built for.  The mel power stage is K2
 (ops/features_kernel.py: plain on CPU, the CUDA kernel on CUDA); log,
 normalization, deltas and frame stacking stay plain tensor code.  With
-train=True and a torch.Generator, dither is added to the waveform and
-SpecAugment masks the stacked features; SpecAugment's time warp
-(W_warp > 0) is not ported yet.
+train=True and a torch.Generator, dither is added to the waveform, and
+the stacked features are time-warped (W_warp > 0, the linear warp) and
+then masked by SpecAugment.
 
 The numpy constant builders (Hann window, Slaney/HTK mel filterbank, DCT)
 are copies of the JAX package's, so both packages featurize with the same
@@ -180,6 +180,49 @@ def spec_augment(feat, t_mask, t_num, f_mask, f_num, generator):
     return torch.where(keep, feat, 0.0)
 
 
+def time_warp_resample(feat, center, shift):
+    """The linear time warp of (B, T, F) as a pure function of its draws
+    (features.py:time_warp, method='linear'): per sample, the frame at
+    `center` moves to center + shift, [0, center] and [center, T-1] are
+    stretched linearly onto the new pieces, and each output frame
+    interpolates its two source frames.  The arithmetic is the JAX
+    package's, op for op in fp32."""
+    b, t, f = feat.shape
+    src_center = (center + shift).float()[:, None]
+    center = center.float()[:, None]
+    pos = torch.arange(t, dtype=torch.float32, device=feat.device)[None, :]
+    left = pos / torch.clamp(center, min=1.0) * src_center
+    right = (src_center + (pos - center)
+             / torch.clamp(t - 1 - center, min=1.0) * (t - 1 - src_center))
+    src = torch.clamp(torch.where(pos <= center, left, right), 0.0, t - 1.0)
+    lo = torch.floor(src).long()
+    hi = torch.clamp(lo + 1, max=t - 1)
+    w = (src - lo.float())[..., None]
+
+    def gather(idx):
+        return torch.gather(feat, 1, idx[..., None].expand(b, t, f))
+    return gather(lo) * (1.0 - w) + gather(hi) * w
+
+
+def time_warp(feat, warp_param, generator, method='linear'):
+    """SpecAugment time warp on (B, T, F) (features.py:234-273): an anchor
+    center ~ U[W, T-W) per sample moves by shift ~ U[-W, W], drawn from
+    `generator` on feat's device; T <= 2W+1 returns feat unchanged.  The
+    spline warp of the legacy models is not ported."""
+    if method == 'spline':
+        raise NotImplementedError(
+            "time_warp(method='spline') needs ops/image_warp.py, which is "
+            'not ported yet (ROADMAP.md, Queue 13)')
+    b, t, _ = feat.shape
+    if t <= 2 * warp_param + 1:
+        return feat
+    center = torch.randint(warp_param, t - warp_param, (b,),
+                           generator=generator, device=feat.device)
+    shift = torch.randint(-warp_param, warp_param + 1, (b,),
+                          generator=generator, device=feat.device)
+    return time_warp_resample(feat, center, shift)
+
+
 def pcm_to_float(audio):
     """int16 PCM → float32 in [-1, 1) on the tensor's device (1/32768 is a
     power of two: exact); float input passes through as float32."""
@@ -194,8 +237,8 @@ def pcm_to_float(audio):
 
 @dataclasses.dataclass(frozen=True)
 class FeatureConfig:
-    """edgedict_tpu.features.FeatureConfig: inference fields, dither and the
-    SpecAugment widths (W_warp > 0, time warp, is refused)."""
+    """edgedict_tpu.features.FeatureConfig: inference fields, dither, the
+    time-warp parameter and the SpecAugment widths."""
     feature_type: str = 'logfbank'   # 'mfcc' | 'melspec' | 'logfbank'
     feature_size: int = 80
     sample_rate: int = 16000
@@ -212,7 +255,7 @@ class FeatureConfig:
     T_num_mask: int = 0
     F_mask: int = 0
     F_num_mask: int = 0
-    W_warp: int = 0                  # SpecAugment time warp: not ported
+    W_warp: int = 0                  # SpecAugment time-warp parameter
     mfcc_n_mels: int = 128
 
     @property
@@ -263,15 +306,12 @@ class FeaturePipeline:
         return t
 
     def __call__(self, audio, lengths, train=False, generator=None):
-        """train=True adds dither (logfbank) and SpecAugment, drawn from
-        `generator` (a torch.Generator on this pipeline's device)."""
+        """train=True adds dither (logfbank), the time warp and SpecAugment,
+        drawn from `generator` (a torch.Generator on this pipeline's
+        device) in that order."""
         c = self.cfg
-        if train:
-            if generator is None:
-                raise ValueError('train=True needs a torch.Generator')
-            if c.W_warp > 0:
-                raise NotImplementedError(
-                    'SpecAugment time warp (W_warp > 0) is not yet ported')
+        if train and generator is None:
+            raise ValueError('train=True needs a torch.Generator')
         audio = pcm_to_float(audio)
         lengths = lengths.to(torch.int32)
         if c.feature_type == 'logfbank':
@@ -301,6 +341,8 @@ class FeaturePipeline:
 
         feat, feat_len = downsample_stack(feat, feat_len, c.downsample,
                                           c.pad_to_divisible)
+        if train and c.W_warp > 0:
+            feat = time_warp(feat, c.W_warp, generator)
         if train and (c.T_num_mask > 0 or c.F_num_mask > 0):
             feat = spec_augment(feat, c.T_mask, c.T_num_mask, c.F_mask,
                                 c.F_num_mask, generator)

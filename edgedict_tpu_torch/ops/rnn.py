@@ -5,8 +5,9 @@ layouts: {'w_ih' (nH, in), 'w_hh' (nH, H), 'b_ih' (nH), 'b_hh' (nH)}, with
 n = 4 and gate order i,f,g,o for the LSTM, n = 3 and torch's r,z,n for the
 GRU.  The input projection for the whole sequence is one matmul (as
 rnn_pallas.py computes it outside its kernels); only the h W_hh^T
-recurrence runs step by step, in ops/rnn_kernel.py (LSTM: K1) and
-ops/gru_kernel.py (GRU: K5), plain loops on the CPU.  State is fp32.
+recurrence runs step by step, in ops/rnn_kernel.py (LSTM: K1, backward
+K4) and ops/gru_kernel.py (GRU: K5, backward K6), plain loops on the CPU.
+State is fp32.
 
 Params holding int8 leaves ('w_hh_q', built by
 stream.prepare_inference_params(quantize='int8')) route to the quantized
@@ -96,15 +97,16 @@ def gru_layer_tm(params, xs, state):
 
     x_proj = x W_ih^T + b_ih with fp32 accumulation, stored in xs's dtype
     (rnn_pallas.py:gru_layer_tm); b_hh joins the recurrent product inside
-    the reset gate, in fp32; hT is ys[-1]."""
+    the reset gate, in fp32; hT is ys[-1] (its own output of the
+    recurrence, whose cotangent joins the backward at t = T-1)."""
     if 'w_hh_q' in params:
         return quant.gru_layer_tm_q(params, xs, state)
     dtype = xs.dtype
     x_proj = linear(xs, params['w_ih'], params['b_ih'].float()).contiguous()
-    ys = gru_recurrence(x_proj, params['w_hh'].to(dtype).contiguous(),
-                        params['b_hh'].float().contiguous(),
-                        state.float().contiguous())
-    return ys, ys[-1].to(state.dtype)
+    ys, h = gru_recurrence(x_proj, params['w_hh'].to(dtype).contiguous(),
+                           params['b_hh'].float().contiguous(),
+                           state.float().contiguous())
+    return ys, h.to(state.dtype)
 
 
 def gru_zero_state(num_layers, batch, hidden, device):

@@ -6,12 +6,14 @@ math on dicts of tensors keyed by parameter name:
     clip_by_global_norm(gradclip) → scale_by_adam(b1 .9, b2 .999, eps 1e-8)
     [→ + weight_decay · param for adamw] → × (−lr)
 
-(sgd: clip → momentum trace g + m·t → × (−lr)).  `update` is functional: it
-returns the updates and a NEW state and leaves the given state untouched,
-so the train step can keep the old params and state, Adam's step count
-included, when a step is skipped (parallel/train.py:201-211), without a
-host sync.  The lr enters each call as a number (the warmup × plateau
-schedule lives on the host).  SM3 and Novograd are not ported yet.
+(sgd: clip → momentum trace g + m·t → × (−lr); sm3: clip → scale_by_sm3
+with momentum 0.9 → × (−lr); novograd: clip → scale_by_novograd(
+weight_decay) → × (−lr); optim.py:30-129, 155-158).  `update` is
+functional: it returns the updates and a NEW state and leaves the given
+state untouched, so the train step can keep the old params and state,
+Adam's step count included, when a step is skipped (parallel/train.py:
+201-211), without a host sync.  The lr enters each call as a number (the
+warmup × plateau schedule lives on the host).
 """
 
 import math
@@ -24,15 +26,50 @@ def global_norm(tensors):
     return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
 
 
+SM3_MOMENTUM = 0.9          # build_optimizer's scale_by_sm3(momentum=0.9)
+SM3_EPS = 1e-30
+NOVOGRAD_B1, NOVOGRAD_B2, NOVOGRAD_EPS = 0.95, 0.0, 1e-8
+
+
+def sm3_update(g, accs, mom):
+    """SM3-II (optim.py:scale_by_sm3, beta 0): the second-moment estimate
+    is the min of the rank-1 accumulators {dim: tensor keeping only that
+    dim} plus g², each accumulator then takes its max over the other dims;
+    the update is g / (sqrt(nu) + eps) through a 0.9 momentum EMA.
+    → (new accs, new momentum = the update)."""
+    nu = accs[0]
+    for i in range(1, g.ndim):
+        nu = torch.minimum(nu, accs[i])
+    nu = nu.expand(g.shape) + g * g
+    new_accs = {}
+    for i in range(max(1, g.ndim)):          # a scalar keeps one accumulator
+        rest = [j for j in range(g.ndim) if j != i]
+        new_accs[i] = torch.amax(nu, dim=rest, keepdim=True) if rest else nu
+    upd = g / (torch.sqrt(nu) + SM3_EPS)
+    return new_accs, SM3_MOMENTUM * mom + (1 - SM3_MOMENTUM) * upd
+
+
+def novograd_update(g, m, v, p, weight_decay):
+    """Novograd (optim.py:scale_by_novograd, b2 0, no grad averaging):
+    one fp32 scalar second moment per tensor, v = |g|² on the first step
+    (v == 0), d = g / (sqrt(v) + eps) + wd·p, m = b1·m + d.
+    → (new m = the update, new v)."""
+    norm = torch.sum(g.float() ** 2)
+    v = torch.where(v == 0, norm,
+                    NOVOGRAD_B2 * v + (1 - NOVOGRAD_B2) * norm)
+    d = g / (torch.sqrt(v) + NOVOGRAD_EPS)
+    if weight_decay:
+        d = d + weight_decay * p
+    return NOVOGRAD_B1 * m + d, v
+
+
 class Optimizer:
-    """One of adam / adamw / sgd with optional global-norm clipping."""
+    """One of adam / adamw / sgd / sm3 / novograd with optional
+    global-norm clipping."""
 
     def __init__(self, name, gradclip=None, weight_decay=0.0, momentum=0.9,
                  b1=0.9, b2=0.999, eps=1e-8):
-        if name in ('sm3', 'novograd'):
-            raise NotImplementedError(
-                f'optimizer {name!r} is not yet ported (adam, adamw, sgd)')
-        if name not in ('adam', 'adamw', 'sgd'):
+        if name not in ('adam', 'adamw', 'sgd', 'sm3', 'novograd'):
             raise ValueError(f'unknown optimizer {name}')
         self.name = name
         self.gradclip = gradclip
@@ -42,12 +79,26 @@ class Optimizer:
 
     def init(self, params):
         """params: {name: tensor} → state {'count': int32 scalar, and
-        'mu'/'nu' (adam, adamw) or 'trace' (sgd with momentum)}."""
+        'mu'/'nu' (adam, adamw), 'trace' (sgd with momentum), 'accs' {name:
+        {dim: rank-1 accumulator}} / 'momentum' (sm3) or 'm' / 'v' fp32
+        scalars (novograd)}."""
         dev = next(iter(params.values())).device
         state = {'count': torch.zeros((), dtype=torch.int32, device=dev)}
         if self.name in ('adam', 'adamw'):
             state['mu'] = {k: torch.zeros_like(p) for k, p in params.items()}
             state['nu'] = {k: torch.zeros_like(p) for k, p in params.items()}
+        elif self.name == 'sm3':
+            state['accs'] = {
+                k: {i: p.new_zeros([d if j == i else 1
+                                    for j, d in enumerate(p.shape)])
+                    for i in range(max(1, p.ndim))}
+                for k, p in params.items()}
+            state['momentum'] = {k: torch.zeros_like(p)
+                                 for k, p in params.items()}
+        elif self.name == 'novograd':
+            state['m'] = {k: torch.zeros_like(p) for k, p in params.items()}
+            state['v'] = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                          for k in params}
         elif self.momentum:
             state['trace'] = {k: torch.zeros_like(p)
                               for k, p in params.items()}
@@ -77,6 +128,19 @@ class Optimizer:
             if self.name == 'adamw' and self.weight_decay:
                 updates = {k: u + self.weight_decay * params[k]
                            for k, u in updates.items()}
+        elif self.name == 'sm3':
+            outs = {k: sm3_update(g, state['accs'][k], state['momentum'][k])
+                    for k, g in grads.items()}
+            new['accs'] = {k: o[0] for k, o in outs.items()}
+            new['momentum'] = {k: o[1] for k, o in outs.items()}
+            updates = dict(new['momentum'])
+        elif self.name == 'novograd':
+            outs = {k: novograd_update(g, state['m'][k], state['v'][k],
+                                       params[k], self.weight_decay)
+                    for k, g in grads.items()}
+            new['m'] = {k: o[0] for k, o in outs.items()}
+            new['v'] = {k: o[1] for k, o in outs.items()}
+            updates = dict(new['m'])
         elif self.momentum:
             new['trace'] = {k: g + self.momentum * state['trace'][k]
                             for k, g in grads.items()}

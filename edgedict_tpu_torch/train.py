@@ -35,22 +35,9 @@ class TrainState:
     step: int = 0
 
 
-def check_trainable(module_type, device):
-    """Refuse GRU-encoder training on CUDA up front: its backward needs the
-    GRU backward kernel K6, which the port does not have yet (the forward
-    K5 would run and the first backward would fail).  On the CPU the plain
-    GRU is differentiated by autograd."""
-    if module_type == 'GRU' and torch.device(device).type == 'cuda':
-        raise NotImplementedError(
-            'training the GRU encoder on CUDA needs the GRU backward kernel '
-            'K6 (edgedict_tpu/ops/rnn_pallas.py:_gru_bwd_kernel), which is '
-            'not ported yet (ROADMAP.md, Queue 2); --device cpu trains it')
-
-
 def make_train_state(cfg, optimizer, device, seed=0):
     """Seeded model on `device` (Transducer's CPU torch.Generator init, so
     every device gets the same weights) and its optimizer state."""
-    check_trainable(cfg.module_type, device)
     model = T.Transducer(cfg, device=device, seed=seed)
     return TrainState(model=model,
                       opt_state=optimizer.init(dict(model.named_parameters())))

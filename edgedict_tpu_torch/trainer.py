@@ -32,8 +32,7 @@ from edgedict_tpu_torch.metrics import wer as wer_fn
 from edgedict_tpu_torch.stream import resolve_device
 from edgedict_tpu_torch.tokenizer import CharTokenizer, HuggingFaceTokenizer
 from edgedict_tpu_torch.train import (
-    check_trainable, device_batch, make_eval_step, make_train_state,
-    make_train_step)
+    device_batch, make_eval_step, make_train_state, make_train_step)
 
 AUGMENT_SEED = 1234
 
@@ -101,7 +100,6 @@ class Trainer:
         self.flags = flags
         self.logdir = os.path.join(flags.logdir_root, flags.name)
         self.device = resolve_device(flags.device)
-        check_trainable(flags.enc_type, self.device)
         os.makedirs(self.logdir, exist_ok=True)
 
         self.tokenizer = build_tokenizer(flags)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes and at the E6D2 main paths' shapes (serving: K1-K3;
-training: K4, K7/K8 in fp32 and bf16, K9/K10), plus the streaming decoder
-on CUDA against the CPU.  Marked `cuda`: every test skips where no
+at small shapes and at the E6D2 main paths' shapes (serving: K1-K3, K5,
+K11-K13; training: K4, K6, K7/K8 in fp32 and bf16, K9/K10), plus the
+streaming decoder and a GRU train step on CUDA against the CPU.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
 
@@ -354,6 +354,9 @@ def test_k5_k13_gru_fwd_matches_plain(cuda, hid, b, t, dtype, int8):
             (w, b_hh)
     before = fn.launches
     ys = fn(xp, *args, h0)
+    if not int8:                                     # K5 returns (ys, hT)
+        ys, hT = ys
+        assert torch.equal(hT, ys[-1])
     ref = plain(xp, *args, h0)
     assert fn.launches == before + 1
     assert ys.dtype == dtype and ys.shape == (t, b, hid)
@@ -423,14 +426,85 @@ def test_k11_quant_matmul_matches_plain(cuda, r, k, n, dtype):
     assert _max_abs(out, ref) <= tol * scale
 
 
-def test_gru_backward_on_cuda_raises(cuda):
-    from edgedict_tpu_torch.ops import gru_kernel as K5
-    xp = torch.randn(2, 1, 24, device=cuda, requires_grad=True)
-    w = torch.randn(24, 8, device=cuda)
-    ys = K5.gru_recurrence(xp, w, torch.zeros(24, device=cuda),
-                           torch.zeros(1, 8, device=cuda))
-    with pytest.raises(NotImplementedError, match='K6'):
-        ys.sum().backward()
+@pytest.mark.parametrize('hid,b,t,dtype', [
+    (16, 3, 5, torch.float32), (1024, 8, 16, torch.float32),
+    (1024, 8, 16, torch.bfloat16), (1030, 11, 3, torch.float32),
+    (64, 2, 1, torch.bfloat16), (40, 5, 7, torch.bfloat16),
+])
+def test_k6_gru_bwd_matches_plain(cuda, hid, b, t, dtype):
+    """K6 against its plain reverse loop on the same forward (dgx, dgh,
+    dh0 to 1e-4 of max(1, max|ref|) in fp32, 2e-2 in bf16, as K4), then
+    through the autograd.Function: K5 forward, K6 backward, the dW_hh
+    matmul and the db_hh sum."""
+    from edgedict_tpu_torch.ops import gru_kernel as K
+    g = torch.Generator(device='cpu').manual_seed(hid + b + t)
+    k = 1.0 / hid ** 0.5
+    xp = torch.randn(t, b, 3 * hid, generator=g).to(cuda, dtype)
+    w = (torch.rand(3 * hid, hid, generator=g) * 2 * k - k).to(cuda, dtype)
+    b_hh = (torch.rand(3 * hid, generator=g) - 0.5).to(cuda)
+    h0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
+    ys, _ = K.gru_recurrence(xp, w, b_hh, h0)
+    dys = torch.randn(t, b, hid, generator=g).to(cuda, dtype)
+    dhT = torch.randn(b, hid, generator=g).to(cuda)
+    before = K.gru_recurrence_bwd.launches
+    out = K.gru_recurrence_bwd(xp, w, b_hh, h0, ys, dys, dhT)
+    assert K.gru_recurrence_bwd.launches == before + 1
+    ref = K.gru_recurrence_bwd_plain(xp, w, b_hh, h0, ys, dys, dhT)
+    assert out[0].dtype == out[1].dtype == dtype
+    assert out[2].dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip(out, ref):
+        assert _rel_err(a, r) <= tol
+    leaves = [x.clone().requires_grad_() for x in (xp, w, b_hh, h0)]
+    ys2, hT2 = K.gru_recurrence(*leaves)
+    torch.autograd.backward((ys2, hT2), (dys, dhT.to(dtype)))
+    dgx, dgh, dh0 = K.gru_recurrence_bwd_plain(xp, w, b_hh, h0, ys, dys,
+                                               dhT.to(dtype).float())
+    h_prev = torch.cat([h0.to(dtype)[None], ys[:-1]]).float()
+    dw_ref = dgh.float().reshape(-1, 3 * hid).t() @ h_prev.reshape(-1, hid)
+    assert _rel_err(leaves[0].grad, dgx) <= tol
+    assert _rel_err(leaves[1].grad, dw_ref) <= (
+        1e-3 if dtype == torch.float32 else 5e-2)
+    assert _rel_err(leaves[2].grad, dgh.float().sum((0, 1))) <= (
+        1e-3 if dtype == torch.float32 else 5e-2)
+    assert _rel_err(leaves[3].grad, dh0) <= tol
+
+
+def test_gru_train_step_cuda_matches_cpu(cuda):
+    """One fp32 make_train_step step of a small GRU-encoder transducer
+    (adam, accum 2) on CUDA against the CPU plain path from the same
+    weights and batch: loss 1e-5 rel, grad_norm 1e-4 rel, params within
+    2 lr (Adam's first step is g/|g|), and K5/K6 each launched once per
+    layer and micro-batch."""
+    import dataclasses
+    from edgedict_tpu_torch import optim
+    from edgedict_tpu_torch import train as TR
+    from edgedict_tpu_torch.ops import gru_kernel as K
+    cfg, _, _, _ = _small_stream()
+    cfg = dataclasses.replace(cfg, module_type='GRU', vocab_size=40)
+    rng = np.random.RandomState(0)
+    host = {'xs': rng.randn(4, 12, cfg.input_size).astype(np.float32),
+            'xlen': np.array([12, 10, 12, 9], np.int32),
+            'ys': rng.randint(4, 40, (4, 5)).astype(np.int32),
+            'ylen': np.array([5, 4, 3, 5], np.int32)}
+    opt = optim.build_optimizer('adam', gradclip=1.0)
+    lr, res = 1e-3, []
+    for dev in ('cpu', cuda):
+        state = TR.make_train_state(cfg, opt, dev, seed=3)
+        step = TR.make_train_step(cfg, opt, bf16=False)
+        counts = (K.gru_recurrence.launches, K.gru_recurrence_bwd.launches)
+        state, m = step(state, TR.device_batch(host, 2, dev), lr)
+        counts = (K.gru_recurrence.launches - counts[0],
+                  K.gru_recurrence_bwd.launches - counts[1])
+        res.append((float(m['loss']), float(m['grad_norm']), counts,
+                    {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()}))
+    (l0, g0, c0, p0), (l1, g1, c1, p1) = res
+    assert c0 == (0, 0) and c1 == (2 * cfg.enc_layers, 2 * cfg.enc_layers)
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(g1 - g0) <= 1e-4 * g0
+    for k, v in p0.items():
+        assert _max_abs(p1[k], v) <= 2 * lr + 1e-6, k
 
 
 @pytest.mark.parametrize('module_type,quantize', [

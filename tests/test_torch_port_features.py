@@ -1,11 +1,13 @@
 """Port featurizer (edgedict_tpu_torch/features.py, K2's plain version in
 ops/features_kernel.py) == the JAX featurizer: the XLA stft path and the
-Pallas mel-power kernel in interpret mode, on the same numpy audio."""
+Pallas mel-power kernel in interpret mode, on the same numpy audio; the
+linear time warp == JAX's resample exactly, given JAX's draws."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from edgedict_tpu import features as JF
@@ -128,12 +130,50 @@ def test_cpu_tensor_takes_plain_path_and_train_refused():
     before = K2.mel_power.launches
     pipe(torch.zeros(1, 400), torch.tensor([400]))
     assert K2.mel_power.launches == before
-    # train=True needs its generator; SpecAugment's time warp is not ported
+    # train=True needs its generator
     with pytest.raises(ValueError):
         pipe(torch.zeros(1, 400), torch.tensor([400]), train=True)
-    warp = PF.FeaturePipeline(PF.FeatureConfig(
-        feature_size=8, n_fft=64, win_length=40, hop_length=20, W_warp=5),
-        'cpu')
-    with pytest.raises(NotImplementedError):
-        warp(torch.zeros(1, 400), torch.tensor([400]), train=True,
-             generator=torch.Generator().manual_seed(0))
+    # the time warp runs (W_warp > 0) and moves the features: with no
+    # dither, the same generator seed with W_warp = 0 gives the clean ones
+    cfg = PF.FeatureConfig(feature_size=8, n_fft=64, win_length=40,
+                           hop_length=20, dither=0.0, W_warp=5)
+    audio = torch.from_numpy(_audio(3, 1200))
+    lens = torch.full((3,), 1200)
+    warped, n1 = PF.FeaturePipeline(cfg, 'cpu')(
+        audio, lens, train=True, generator=torch.Generator().manual_seed(0))
+    clean, n0 = PF.FeaturePipeline(cfg, 'cpu')(audio, lens)
+    assert warped.shape == clean.shape and torch.equal(n0, n1)
+    assert not torch.equal(warped, clean)
+    assert torch.isfinite(warped).all()
+
+
+@pytest.mark.parametrize('b,t,w', [(4, 40, 5), (3, 12, 3), (2, 11, 5),
+                                   (1, 7, 3)])
+def test_time_warp_resample_equals_jax(b, t, w):
+    """Given the center and shift JAX draws from its key, the port's
+    resample equals JAX's features.time_warp bit for bit; T <= 2W+1
+    returns the features unchanged (no draw)."""
+    feat = np.random.RandomState(t).randn(b, t, 6).astype(np.float32)
+    key = jax.random.PRNGKey(b * t)
+    ref = np.asarray(JF.time_warp(key, jnp.asarray(feat), w))
+    if t <= 2 * w + 1:
+        np.testing.assert_array_equal(ref, feat)
+        out = PF.time_warp(torch.from_numpy(feat), w, torch.Generator())
+        assert torch.equal(out, torch.from_numpy(feat))
+        return
+    k1, k2 = jax.random.split(key)
+    center = np.array(jax.random.randint(k1, (b,), w, t - w))
+    shift = np.array(jax.random.randint(k2, (b,), -w, w + 1))
+    out = PF.time_warp_resample(torch.from_numpy(feat),
+                                torch.from_numpy(center),
+                                torch.from_numpy(shift))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert not np.array_equal(ref, feat) or not shift.any()
+    # the port's own draws come from its generator
+    g = torch.Generator().manual_seed(1)
+    a = PF.time_warp(torch.from_numpy(feat), w, g)
+    b2 = PF.time_warp(torch.from_numpy(feat),
+                      w, torch.Generator().manual_seed(1))
+    assert torch.equal(a, b2)
+    with pytest.raises(NotImplementedError, match='image_warp'):
+        PF.time_warp(torch.from_numpy(feat), w, g, method='spline')

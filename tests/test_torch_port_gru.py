@@ -2,9 +2,10 @@
 version in ops/gru_kernel.py, models/transducer.py module_type='GRU') ==
 the JAX GRU: the lax.scan layer, the Pallas recurrence in interpret mode,
 encoder_apply and the streaming decoders on the same weights; the
-state_dict round trip; GRU training refused on CUDA."""
+state_dict round trip; cli.baseline training a GRU encoder (train →
+resume replaying the same losses)."""
 
-import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -19,8 +20,8 @@ from edgedict_tpu.ops import rnn as JR
 from edgedict_tpu.ops import rnn_pallas
 from edgedict_tpu.stream import StreamingDecoder as JStreamingDecoder
 from edgedict_tpu_torch import compat as PC
+from edgedict_tpu_torch import checkpoint as C
 from edgedict_tpu_torch import stream as PS
-from edgedict_tpu_torch import train as PTR
 from edgedict_tpu_torch.features import FeatureConfig as PFeat
 from edgedict_tpu_torch.models import transducer as PT
 from edgedict_tpu_torch.ops import gru_kernel as K5
@@ -91,21 +92,22 @@ def test_recurrence_matches_pallas_interpret(dtype):
         jnp.asarray(xp).astype(jdt), jnp.asarray(w_hh.T).astype(jdt),
         jnp.asarray(b_hh), jnp.asarray(h0))
     tdt = getattr(torch, dtype)
-    ys_p = K5.gru_recurrence(torch.from_numpy(xp).to(tdt),
-                             torch.from_numpy(w_hh).to(tdt),
-                             torch.from_numpy(b_hh), torch.from_numpy(h0))
-    assert ys_p.dtype == tdt
+    ys_p, h_p = K5.gru_recurrence(torch.from_numpy(xp).to(tdt),
+                                  torch.from_numpy(w_hh).to(tdt),
+                                  torch.from_numpy(b_hh), torch.from_numpy(h0))
+    assert ys_p.dtype == h_p.dtype == tdt
+    assert torch.equal(h_p, ys_p[-1])
     tol = (RTOL, ATOL) if dtype == 'float32' else (0.0, 1e-2)
     np.testing.assert_allclose(ys_p.float().numpy(),
                                np.asarray(ys_j.astype(jnp.float32)), *tol)
-    np.testing.assert_allclose(ys_p[-1].float().numpy(),
+    np.testing.assert_allclose(h_p.float().numpy(),
                                np.asarray(h_j.astype(jnp.float32)), *tol)
 
 
 def test_gru_layer_gradients_match_jax():
-    """On the CPU the plain GRU is differentiated by autograd (GRU
-    training runs there): d(sum of outputs)/d(params, xs, h0) == jax.grad
-    of the JAX scan layer."""
+    """On the CPU the GRU layer's backward is K6's plain reverse loop:
+    d(sum of outputs)/d(params, xs, h0) == jax.grad of the JAX scan
+    layer."""
     rng = np.random.RandomState(3)
     t, b, n_in, hid = 4, 2, 5, 8
     p = _params(rng, n_in, hid)
@@ -233,35 +235,35 @@ def test_multistream_gru_state_and_reset(pair):
     assert torch.equal(after[:, 2], before[:, 2])
 
 
-def test_gru_training_on_cuda_refused(tmp_path, monkeypatch):
-    """GRU training on CUDA refuses at construction, naming K6 (the GRU
-    backward is not ported); the device check is mocked, no card needed.
-    On the CPU the GRU model trains (its loss backpropagates)."""
-    from edgedict_tpu_torch import optim
-    from edgedict_tpu_torch import trainer as PTrainer
+def test_gru_cli_baseline_train_resume_replays_losses(tmp_path):
+    """cli.baseline --enc_type GRU on the CPU (the K5/K6 plain versions):
+    train 6 steps (checkpoints at 3 and 6); resume from 3 in a copy of the
+    run: steps 4-6 replay the same losses and end on the same params, bit
+    for bit, and the GRU weights moved."""
+    from test_torch_port_train import _cli_args, _write_corpus
+
     from edgedict_tpu_torch.cli import baseline
-    from edgedict_tpu_torch.config import parse_flags
-    with pytest.raises(NotImplementedError, match='K6'):
-        PTR.check_trainable('GRU', 'cuda')
-    with pytest.raises(NotImplementedError, match='K6'):
-        PTR.make_train_state(PCFG, optim.build_optimizer('adam'), 'cuda')
-    PTR.check_trainable('LSTM', 'cuda')
-    PTR.check_trainable('GRU', 'cpu')
-    monkeypatch.setattr(PTrainer, 'resolve_device',
-                        lambda d: torch.device('cuda'))
-    flags = parse_flags(baseline.build_parser(),
-                        ['--enc_type', 'GRU', '--device', 'cuda',
-                         '--logdir_root', str(tmp_path)])
-    with pytest.raises(NotImplementedError, match='K6'):
-        PTrainer.Trainer(flags)
-    # CPU: one loss backward through the plain GRU
-    cfg = dataclasses.replace(PCFG, enc_layers=1)
-    model = PT.Transducer(cfg, 'cpu', seed=0)
-    rng = np.random.RandomState(0)
-    xs = torch.from_numpy(rng.randn(2, 6, cfg.input_size).astype(np.float32))
-    ys = torch.from_numpy(rng.randint(4, cfg.vocab_size, (2, 3)))
-    loss = PT.transducer_loss(model, cfg, xs, ys, torch.tensor([6, 5]),
-                              torch.tensor([3, 2]))
-    loss.backward()
-    g = model.encoder.lstm.lstms[0].weight_hh_l0.grad
-    assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
+    corpus = _write_corpus(str(tmp_path / 'libri'))
+    args = _cli_args(corpus, str(tmp_path / 'logs'), 'gru') + [
+        '--enc_type', 'GRU']
+    lines_a = []
+    a = baseline.main(args + ['--mode', 'train'], log_fn=lines_a.append)
+    assert a.state.step == 6 and a.cfg.module_type == 'GRU'
+    steps_a = [ln for ln in lines_a if ln.startswith('step ')]
+    assert len(steps_a) == 6
+    ckpt = C.checkpoint_path(a.logdir, 6)
+    final_a = C.load_checkpoint(ckpt)['model']
+    first = C.load_checkpoint(C.checkpoint_path(a.logdir, 3))['model']
+    key = 'encoder.lstm.lstms.0.weight_hh_l0'
+    assert final_a[key].shape == (3 * 16, 16)
+    assert not torch.equal(final_a[key], first[key])
+    os.remove(ckpt)
+    lines_b = []
+    b = baseline.main(args + ['--mode', 'resume', '--resume_step', '3'],
+                      log_fn=lines_b.append)
+    assert 'resumed from step 3' in lines_b
+    steps_b = [ln for ln in lines_b if ln.startswith('step ')]
+    strip = lambda ln: ln.rsplit(' (', 1)[0]  # noqa: E731  (drop the clock)
+    assert [strip(x) for x in steps_b] == [strip(x) for x in steps_a[3:]]
+    for k, v in b.state.model.state_dict().items():
+        assert torch.equal(v, final_a[k]), k

@@ -1,9 +1,9 @@
 """The port's training step and what surrounds it, on the CPU:
 
-  * one make_train_step step (adam, gradclip, accum 2, fp32, feature mode)
-    against the JAX package's from the same weights (state_dict_from_jax_
-    params): loss rtol 1e-5, params after the step rtol 1e-4 / atol 1e-5
-    (tests/test_rnn_pallas.py:132-138);
+  * two make_train_step steps (adam, gradclip, accum 2, fp32, LSTM and
+    GRU encoders) against the JAX package's from the same weights
+    (state_dict_from_jax_params): loss rtol 1e-5, params after each step
+    rtol 1e-4 / atol 1e-5 (tests/test_rnn_pallas.py:132-138);
   * the optimizers against optax, and the non-finite skip (params and
     optimizer state, Adam's count included, unchanged);
   * dither, SpecAugment and dropout by their properties (torch and JAX
@@ -57,9 +57,10 @@ def _port_state(jparams, cfg, optimizer):
     return state
 
 
-def test_train_step_matches_jax():
-    jcfg = JT.TransducerConfig(**SMALL)
-    pcfg = PT.TransducerConfig(**SMALL)
+@pytest.mark.parametrize('module_type', ['LSTM', 'GRU'])
+def test_train_step_matches_jax(module_type):
+    jcfg = JT.TransducerConfig(**SMALL, module_type=module_type)
+    pcfg = PT.TransducerConfig(**SMALL, module_type=module_type)
     jo = jopt.build_optimizer('adam', lr=1e-2, gradclip=0.5)
     jstate = jtrain.make_train_state(jax.random.PRNGKey(3), jcfg, jo)
     po = popt.build_optimizer('adam', gradclip=0.5)
@@ -89,24 +90,32 @@ def test_train_step_matches_jax():
     assert int(pstate.opt_state['count']) == 2 and pstate.step == 2
 
 
-@pytest.mark.parametrize('name', ['adam', 'adamw', 'sgd'])
+@pytest.mark.parametrize('name', ['adam', 'adamw', 'sgd', 'sm3',
+                                  'novograd'])
 def test_optimizer_matches_optax(name):
+    """The port's update == the JAX package's optax chain (clip → scale →
+    × −lr) over three steps; SM3 on a matrix, a vector and a scalar (its
+    rank-1 accumulators), Novograd from its v == 0 first step, with
+    weight decay."""
     rng = np.random.RandomState(1)
     params = {'a': rng.randn(3, 4).astype(np.float32),
-              'b': rng.randn(5).astype(np.float32)}
+              'b': rng.randn(5).astype(np.float32),
+              'c': np.float32(rng.randn())}
     chain = [optax.clip_by_global_norm(1.0)]
     chain += {'adam': [optax.scale_by_adam()],
               'adamw': [optax.scale_by_adam(),
                         optax.add_decayed_weights(0.1)],
-              'sgd': [optax.trace(decay=0.9)]}[name]
+              'sgd': [optax.trace(decay=0.9)],
+              'sm3': [jopt.scale_by_sm3(momentum=0.9)],
+              'novograd': [jopt.scale_by_novograd(weight_decay=0.1)]}[name]
     jo = optax.chain(*chain)
     po = popt.Optimizer(name, gradclip=1.0, weight_decay=0.1)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    pp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    pp = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
     js, ps = jo.init(jp), po.init(pp)
     for step in range(3):
-        grads = {k: rng.randn(*v.shape).astype(np.float32) * (step + 1)
-                 for k, v in params.items()}
+        grads = {k: np.array(rng.randn(*np.shape(v)) * (step + 1),
+                             np.float32) for k, v in params.items()}
         ju, js = jo.update({k: jnp.asarray(g) for k, g in grads.items()},
                            js, jp)
         jp = {k: jp[k] - 0.05 * ju[k] for k in jp}
