@@ -17,9 +17,12 @@ Phases, each printing JSON or text lines:
              beside a dequantize-then-F.linear yardstick, the recurrences
              K1/K4/K5/K6 beside one cuDNN nn.LSTM / nn.GRU layer (forward,
              or forward+backward) and the port's own layer timed the same
-             way (library_ms, layer_ms); each kernel's bound (bytes once
-             over 3.35 TB/s, or operations over the peak of their type,
-             whichever is larger) from the timed inputs
+             way (library_ms, layer_ms); K4/K6 also split into their two
+             launches, the gate remat and the dh chain (torch.profiler
+             device ms); K1 and K5 also at the training shape (H=1024 B=32
+             T=427 bf16) beside cuDNN's layer forward; each kernel's bound
+             (bytes once over 3.35 TB/s, or operations over the peak of
+             their type, whichever is larger) from the timed inputs
   4 slice    E6D2 from flagfiles/E6D2.txt with seeded random weights:
              StreamingDecoder.decode_wav of 4 s of seeded synthetic audio
              on cuda fp32 == the CPU run (plain versions), token for token;
@@ -368,6 +371,7 @@ def phase_kernels(torch):
                            case.get('ms') if main else None,
                            case.get('plain_ms'), bounds)
     train_kernels(torch, rng, dev, record)
+    train_shape_forward(torch, rng, dev)
     serving_kernels_q(torch, rng, dev, record)
     STATE['kernels'] = summary
 
@@ -449,6 +453,90 @@ def layer_times(torch, cell, hid, b, t, dt, backward, n_in=ENC_IN):
     return out
 
 
+def kernel_split_ms(torch, fn, parts, n=5):
+    """Device ms per call of fn for each part of `parts` ({name: substrings
+    all in the kernel's name}), from torch.profiler over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgedict_tpu_torch.cli.profile_stream import device_times_us
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = device_times_us(prof)
+    return {name: sum(us for key, us in dev_us.items()
+                      if all(sub in key for sub in subs)) / 1e3 / n
+            for name, subs in parts.items()}
+
+
+# K4/K6's two launches: the gate remat over all steps and the dh chain
+BWD_PARTS = {'remat_ms': ('remat_',), 'chain_ms': ('chain_kernel',)}
+
+
+def train_shape_forward(torch, rng, dev):
+    """K1 and K5 at the training step's encoder shape (H=1024 B=32 T=427
+    bf16) beside one cuDNN layer's forward (the next redesign's yardstick).
+    Free-running bf16 drifts over 427 steps (a one-ulp flip of h feeds every
+    later step), so each step is held from the kernel's own carried state:
+    ys to one bf16 ulp, the LSTM's cs to 1e-4; the free-running error is
+    reported."""
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    hid, b, t, dt = 1024, 32, 427, torch.bfloat16
+    k = 1.0 / hid ** 0.5
+    for cell, gates in (('LSTM', 4), ('GRU', 3)):
+        xp = torch.as_tensor(rng.randn(t, b, gates * hid).astype(np.float32),
+                             device=dev).to(dt)
+        w = torch.as_tensor(rng.uniform(-k, k, (gates * hid, hid))
+                            .astype(np.float32), device=dev).to(dt)
+        h0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
+                             device=dev)
+        if cell == 'LSTM':
+            c0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
+                                 device=dev)
+            inputs = (xp, w, h0, c0)
+            kernel = lambda: K1.lstm_recurrence(*inputs)  # noqa: E731
+            plain = lambda: K1.lstm_recurrence_plain(*inputs)  # noqa: E731
+            ys, cs, hT = kernel()
+            outs = (ys, cs, hT)
+            step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w, h0, c0, ys,
+                                                cs)
+            steps = [_close(ys, step_ys, 1e-2, 2.0 ** -7),
+                     _close(cs, step_cs, 1e-4, 1e-4)]
+            run_err = _close(ys, plain()[0], 0.0, 0.0)[1]
+        else:
+            b_hh = torch.as_tensor(rng.randn(gates * hid).astype(np.float32)
+                                   * 0.1, device=dev)
+            inputs = (xp, w, b_hh, h0)
+            kernel = lambda: K5.gru_recurrence(*inputs)[0]  # noqa: E731
+            plain = lambda: K5.gru_recurrence_plain(*inputs)  # noqa: E731
+            ys = kernel()
+            outs = (ys,)
+            h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b,
+                                                                    hid)
+            step_ys = K5.gru_recurrence_plain(
+                xp.reshape(1, t * b, gates * hid), w, b_hh,
+                h_prev).reshape(ys.shape)
+            steps = [_close(ys, step_ys, 1e-2, 2.0 ** -7)]
+            run_err = _close(ys, plain(), 0.0, 0.0)[1]
+        torch.cuda.synchronize()
+        ms, pms = time_pair(torch, plain, kernel)
+        b_ms, b_by = bound(nbytes(*inputs, *outs),
+                           2 * t * b * gates * hid * hid, 'bf16')
+        label = 'K1 lstm_fwd' if cell == 'LSTM' else 'K5 gru_fwd'
+        case = {'kernel': label, 'H': hid, 'B': b, 'T': t, 'dtype': 'bfloat16',
+                'shape': 'training', 'step_max_abs': [e for _, e in steps],
+                'run_max_abs': run_err, 'ms': ms, 'plain_ms': pms,
+                'bound_ms': b_ms, 'bound_by': b_by,
+                'tol': 'per step ys atol 1e-2 rtol 2^-7'
+                       + (', cs 1e-4' if cell == 'LSTM' else '')}
+        case.update(layer_times(torch, cell, hid, b, t, dt, False))
+        emit(case)
+        require(all(ok for ok, _ in steps), f'{label} disagrees: {case}')
+
+
 def train_kernels(torch, rng, dev, record):
     """K4, K7/K8 and K9/K10 against their plain versions at the E6D2
     training step's shapes (B=32, 16 s: encoder T=427/214, prediction net
@@ -491,6 +579,8 @@ def train_kernels(torch, rng, dev, record):
         case.update(ms=ms, plain_ms=pms, bound_ms=bounds[0],
                     bound_by=bounds[1])
         main = (hid, t) == (1024, 427)
+        case.update(kernel_split_ms(
+            torch, lambda: K1.lstm_recurrence_bwd(*args), BWD_PARTS))
         if main:
             case.update(layer_times(torch, 'LSTM', hid, b, t, dt, True))
         emit(case)
@@ -530,6 +620,8 @@ def train_kernels(torch, rng, dev, record):
         bounds = bound(nbytes(xp, w, b_hh, h0, ys, dys, dhT, *out),
                        12 * t * b * hid * hid, kind_of(torch, xp))
         case.update(bound_ms=bounds[0], bound_by=bounds[1])
+        case.update(kernel_split_ms(
+            torch, lambda: K5.gru_recurrence_bwd(*args), BWD_PARTS))
         if main:
             case.update(layer_times(torch, 'GRU', hid, b, t, dt, True))
         emit(case)
@@ -1373,11 +1465,11 @@ SOURCES = {
                   'edgedict_tpu/ops/features_pallas.py:57'),
     'greedy_decode': ('edgedict_tpu_torch/csrc/greedy_decode.cu',
                       'edgedict_tpu/ops/decode_pallas.py:131'),
-    'lstm_bwd': ('edgedict_tpu_torch/csrc/lstm_bwd.cu',
+    'lstm_bwd': ('edgedict_tpu_torch/csrc/rnn_bwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:205'),
     'gru_fwd': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
                 'edgedict_tpu/ops/rnn_pallas.py:462'),
-    'gru_bwd': ('edgedict_tpu_torch/csrc/gru_bwd.cu',
+    'gru_bwd': ('edgedict_tpu_torch/csrc/rnn_bwd.cu',
                 'edgedict_tpu/ops/rnn_pallas.py:512'),
     'joint_lse_fwd': ('edgedict_tpu_torch/csrc/joint_lse.cu',
                       'edgedict_tpu/ops/joint_lse_pallas.py:156'),

@@ -33,9 +33,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
-SOURCES = ('lstm_fwd.cu', 'lstm_bwd.cu', 'mel_power.cu', 'greedy_decode.cu',
-           'joint_lse.cu', 'rnnt_loss.cu', 'gru_fwd.cu', 'gru_bwd.cu',
-           'quant_matmul.cu')
+SOURCES = ('lstm_fwd.cu', 'rnn_bwd.cu', 'mel_power.cu', 'greedy_decode.cu',
+           'joint_lse.cu', 'rnnt_loss.cu', 'gru_fwd.cu', 'quant_matmul.cu')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
@@ -53,12 +52,14 @@ _SIGNATURES = {
     'edd_gru_fwd_q': (_P,) * 7 + (_I,) * 4 + (_P,),
     # x, wq, scale, bias, out, R, K, N, bf16, stream
     'edd_quant_matmul': (_P,) * 5 + (_I,) * 4 + (_P,),
-    # xp, w_hh, w_hh_t, h0e, c0, ys, cs, dys, dcs, dhT, dgates, dh0, dc,
-    # T, B, H, bf16, stream
-    'edd_lstm_bwd': (_P,) * 13 + (_I, _I, _I, _I, _P),
-    # xp, w_hh, w_hh_t, b_hh, h0e, ys, dys, dhT, dgx, dgh, dh0, carry,
-    # T, B, H, bf16, stream
-    'edd_gru_bwd': (_P,) * 12 + (_I,) * 4 + (_P,),
+    # xp, w_hh, h0e, c0, ys, cs, dys, dcs, dhT, hproj, dgates, dh0, dc0,
+    # T, B, H, bf16, grid, smem, stream
+    'edd_lstm_bwd': (_P,) * 13 + (_I,) * 6 + (_P,),
+    # xp, w_hh, b_hh, h0e, ys, dys, dhT, hproj, dgx, dgh, dh0,
+    # T, B, H, bf16, grid, smem, stream
+    'edd_gru_bwd': (_P,) * 11 + (_I,) * 6 + (_P,),
+    # gru, bf16, smem, out (int*)
+    'edd_rnn_bwd_blocks_per_sm': (_I, _I, _I, _P),
     # f, g, wt, bias, labels, blank_lp, label_lp, lse, B, T, U1, J, V,
     # blank, bf16, stream
     'edd_joint_lse_fwd': (_P,) * 8 + (_I,) * 7 + (_P,),
@@ -170,6 +171,8 @@ def library():
                 fn = getattr(lib, name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
+            lib.edd_error_string.argtypes = [_I]
+            lib.edd_error_string.restype = ctypes.c_char_p
             build_info.update(seconds=seconds, path=path, log=log,
                               cached=cached)
             _lib = lib
@@ -178,7 +181,8 @@ def library():
 
 def check(err, name):
     if err != 0:
-        raise RuntimeError(f'{name}: CUDA error {err} at launch')
+        what = _lib.edd_error_string(err).decode() if _lib else ''
+        raise RuntimeError(f'{name}: CUDA error {err} at launch ({what})')
 
 
 def ptr(t):

@@ -11,6 +11,8 @@ Prints one JSON line with
   step_ms                 median of --steps whole train steps (train.py),
                           each closed by a device synchronise;
   audio_s_per_s           the batch's audio seconds over step_ms;
+  peak_mem_gb             the most device memory allocated over the warm-up
+                          and timed steps (null on the CPU);
   stage_ms                median per stage of the same step run piecewise,
                           each stage closed by a synchronise: forward
                           (features, encoder, prediction net, joint
@@ -49,15 +51,22 @@ from edgedict_tpu_torch.stream import resolve_device
 from edgedict_tpu_torch.train import (
     device_batch, make_train_state, make_train_step)
 
-# substrings of the hand-written kernels' names in the profiler's trace
-KERNELS = {'lstm_fwd': 'lstm_step_kernel', 'lstm_bwd': 'lstm_bwd_step',
-           'gru_fwd': 'gru_step_kernel', 'gru_bwd': 'gru_bwd_step',
-           'mel_power': 'mel_power_kernel',
-           'joint_lse_fwd': 'joint_lse_fwd',
-           'joint_lse_bwd_dh': 'joint_lse_bwd_dh',
-           'joint_lse_bwd_dw': 'joint_lse_bwd_dw',
-           'lattice_alpha': 'lattice_alpha_kernel',
-           'lattice_beta_grad': 'lattice_beta_grad_kernel'}
+# the hand-written kernels in the profiler's trace: every substring of a
+# value is in the kernel's name (K4/K6: remat + chain, and each apart)
+KERNELS = {'lstm_fwd': ('lstm_step_kernel',),
+           'lstm_bwd': ('LstmCell',),
+           'lstm_bwd_remat': ('remat_', 'LstmCell'),
+           'lstm_bwd_chain': ('chain_kernel', 'LstmCell'),
+           'gru_fwd': ('gru_step_kernel',),
+           'gru_bwd': ('GruCell',),
+           'gru_bwd_remat': ('remat_', 'GruCell'),
+           'gru_bwd_chain': ('chain_kernel', 'GruCell'),
+           'mel_power': ('mel_power_kernel',),
+           'joint_lse_fwd': ('joint_lse_fwd',),
+           'joint_lse_bwd_dh': ('joint_lse_bwd_dh',),
+           'joint_lse_bwd_dw': ('joint_lse_bwd_dw',),
+           'lattice_alpha': ('lattice_alpha_kernel',),
+           'lattice_beta_grad': ('lattice_beta_grad_kernel',)}
 
 
 def synthetic_batch(n, seconds, label_len, vocab, seed=0):
@@ -151,6 +160,8 @@ def profile(flags, device, log_fn=print):
             ['nvidia-smi', '--query-gpu=name,power.limit',
              '--format=csv,noheader'], capture_output=True, text=True,
             timeout=60).stdout.strip()
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(device)
     for _ in range(2):                                   # warm-up
         state, m = step(state, batch, lr, gen)
     _sync(device)
@@ -166,6 +177,8 @@ def profile(flags, device, log_fn=print):
     res['audio_s_per_s'] = float(host['alen'].sum()) / 16000.0 \
         / statistics.median(times)
     res['losses'] = losses
+    res['peak_mem_gb'] = torch.cuda.max_memory_allocated(device) / 1e9 \
+        if device.type == 'cuda' else None
     stages = [stage_ms(state, cfg, optimizer, pipeline, batch, lr, gen,
                        flags.bf16, device) for _ in range(flags.steps)]
     res['stage_ms'] = {k: statistics.median(s[k] for s in stages)
@@ -187,8 +200,9 @@ def profile(flags, device, log_fn=print):
     res['device_ms_per_step'] = total_us / 1e3 / n if total_us else None
     res['device_busy_share'] = total_us / 1e6 / wall if total_us else None
     res['kernel_device_ms_per_step'] = {
-        name: sum(us for key, us in dev_us.items() if sub in key) / 1e3 / n
-        if total_us else None for name, sub in KERNELS.items()}
+        name: sum(us for key, us in dev_us.items()
+                  if all(sub in key for sub in subs)) / 1e3 / n
+        if total_us else None for name, subs in KERNELS.items()}
     res['top_device_ms'] = {k: us / 1e3 / n for k, us in sorted(
         dev_us.items(), key=lambda kv: -kv[1])[:10]}
     log_fn(json.dumps(res))

@@ -1,20 +1,22 @@
 """K5 + K6 — the GRU recurrence, forward and backward (counterpart of
 edgedict_tpu/ops/rnn_pallas.py:gru_recurrence_tm; kernels in
-csrc/gru_fwd.cu and csrc/gru_bwd.cu).
+csrc/gru_fwd.cu and csrc/rnn_bwd.cu).
 
 `gru_recurrence` takes the hoisted input projection (b_ih included) and
 runs the time recurrence with torch's gates r, z, n, b_hh applied inside
 the reset gate, as a `torch.autograd.Function` returning (ys, hT) like the
-JAX custom VJP: the forward is K5, the backward K6 (the dh chain, gates
-rematerialised from the saved ys), and dW_hh / db_hh are one matmul and one
-sum over all steps outside the kernel (rnn_pallas.py:651-659).  The plain
-PyTorch loops below run for CPU tensors, the kernels for CUDA tensors.  The
-device of the tensors decides; there is no fallback from one to the other.
+JAX custom VJP: the forward is K5, the backward K6 (the gates
+rematerialised from the saved ys in one product, then the dh chain), and
+dW_hh / db_hh are one matmul and one sum over all steps outside the kernel
+(rnn_pallas.py:651-659).  The plain PyTorch loops below run for CPU
+tensors, the kernels for CUDA tensors.  The device of the tensors decides;
+there is no fallback from one to the other.
 """
 
 import torch
 
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.ops import rnn_bwd
 
 
 def gru_recurrence_plain(x_proj, w_hh, b_hh, h0):
@@ -115,7 +117,8 @@ def gru_recurrence_bwd_plain(x_proj, w_hh, b_hh, h0, ys, dys, dhT):
 
 
 def _gru_bwd_kernel(x_proj, w_hh, b_hh, h0, ys, dys, dhT):
-    """K6: one step kernel per timestep in reverse, then one for dh0."""
+    """K6: the gate remat over all steps into an fp32 scratch, then the
+    persistent chain kernel (ops/rnn_bwd.py plans its grid)."""
     t_len, b, hid = check_gru_args(x_proj, w_hh, b_hh, h0, (x_proj.dtype,))
     dtype = x_proj.dtype
     for name, t, dts in (('ys', ys, (dtype,)), ('dys', dys, (dtype,))):
@@ -128,24 +131,27 @@ def _gru_bwd_kernel(x_proj, w_hh, b_hh, h0, ys, dys, dhT):
     if dhT is not None:
         dhT = dhT.float().contiguous()
         _build.require_cuda(dhT, 'dhT', (torch.float32,))
+        if dhT.shape != (b, hid):
+            raise ValueError(f'gru_recurrence_bwd: dhT {tuple(dhT.shape)}')
+    plan = rnn_bwd.card_plan(x_proj, 3)
     dev = x_proj.device
-    w_hh_t = w_hh.t().contiguous()
     h0e = h0.to(dtype).contiguous()
+    hproj = torch.empty(x_proj.shape, dtype=torch.float32, device=dev)
     dgx = torch.empty_like(x_proj)
     dgh = torch.empty_like(x_proj)
     dh0 = torch.empty((b, hid), dtype=torch.float32, device=dev)
-    carry = torch.zeros((b, hid), dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.check(_build.library().edd_gru_bwd(
-        p(x_proj), p(w_hh), p(w_hh_t), p(b_hh), p(h0e), p(ys), p(dys),
-        p(dhT), p(dgx), p(dgh), p(dh0), p(carry), t_len, b, hid,
-        int(dtype == torch.bfloat16), _build.stream_ptr(dev)), 'gru_bwd')
+        p(x_proj), p(w_hh), p(b_hh), p(h0e), p(ys), p(dys), p(dhT),
+        p(hproj), p(dgx), p(dgh), p(dh0), t_len, b, hid,
+        int(dtype == torch.bfloat16), plan.blocks, plan.smem,
+        _build.stream_ptr(dev)), 'gru_bwd')
     gru_recurrence_bwd.launches += 1
     return dgx, dgh, dh0
 
 
 def gru_recurrence_bwd(x_proj, w_hh, b_hh, h0, ys, dys, dhT):
-    """See gru_recurrence_bwd_plain; CUDA tensors launch csrc/gru_bwd.cu
+    """See gru_recurrence_bwd_plain; CUDA tensors launch csrc/rnn_bwd.cu
     (K6)."""
     if x_proj.device.type == 'cpu':
         return gru_recurrence_bwd_plain(x_proj, w_hh, b_hh, h0, ys, dys, dhT)
@@ -193,7 +199,7 @@ class _GRURecurrence(torch.autograd.Function):
 
 def gru_recurrence(x_proj, w_hh, b_hh, h0):
     """→ (ys, hT = ys[T-1]); see gru_recurrence_plain.  CUDA tensors launch
-    csrc/gru_fwd.cu (K5), and their backward csrc/gru_bwd.cu (K6).
+    csrc/gru_fwd.cu (K5), and their backward csrc/rnn_bwd.cu (K6).
     Differentiable in all four inputs."""
     return _GRURecurrence.apply(x_proj, w_hh, b_hh, h0)
 

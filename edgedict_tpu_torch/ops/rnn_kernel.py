@@ -1,18 +1,20 @@
 """K1 + K4 — the LSTM recurrence, forward and backward (counterpart of
 edgedict_tpu/ops/rnn_pallas.py:lstm_recurrence_tm; kernels in
-csrc/lstm_fwd.cu and csrc/lstm_bwd.cu).
+csrc/lstm_fwd.cu and csrc/rnn_bwd.cu).
 
 `lstm_recurrence` takes the hoisted input projection (bias included) and
 runs the time recurrence as a `torch.autograd.Function`: the forward is K1,
-the backward K4 (the dh/dc chain, gates rematerialised from the saved ys),
-and dW_hh is one matmul over all steps outside the kernel.  The plain
-PyTorch loops below run for CPU tensors, the kernels for CUDA tensors.  The
-device of the tensors decides; there is no fallback from one to the other.
+the backward K4 (the gates rematerialised from the saved ys in one product,
+then the dh/dc chain), and dW_hh is one matmul over all steps outside the
+kernel.  The plain PyTorch loops below run for CPU tensors, the kernels for
+CUDA tensors.  The device of the tensors decides; there is no fallback from
+one to the other.
 """
 
 import torch
 
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.ops import rnn_bwd
 
 
 def lstm_recurrence_plain(x_proj, w_hh, h0, c0):
@@ -106,8 +108,12 @@ def lstm_recurrence_bwd_plain(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
 
 
 def _lstm_bwd_kernel(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
-    """K4: one step kernel per timestep in reverse, then one for dh0."""
+    """K4: the gate remat over all steps into an fp32 scratch, then the
+    persistent chain kernel (ops/rnn_bwd.py plans its grid)."""
     dtype = x_proj.dtype
+    _build.require_cuda(x_proj, 'x_proj', (torch.float32, torch.bfloat16))
+    _build.require_cuda(w_hh, 'w_hh', (dtype,))
+    _build.require_cuda(c0, 'c0', (torch.float32,))
     for name, t, dts in (('ys', ys, (dtype,)), ('cs', cs, (torch.float32,)),
                          ('dys', dys, (dtype,)),
                          ('dcs', dcs, (torch.float32,)),
@@ -116,27 +122,33 @@ def _lstm_bwd_kernel(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
             _build.require_cuda(t, name, dts)
     t_len, b, h4 = x_proj.shape
     hid = h4 // 4
-    if ys.shape != (t_len, b, hid) or cs.shape != ys.shape:
-        raise ValueError(f'lstm_recurrence_bwd: ys {tuple(ys.shape)} cs '
-                         f'{tuple(cs.shape)} for x_proj {tuple(x_proj.shape)}')
+    if t_len < 1 or b < 1 or h4 != 4 * hid or w_hh.shape != (h4, hid) \
+            or ys.shape != (t_len, b, hid) or cs.shape != ys.shape \
+            or c0.shape != (b, hid) or h0.shape != (b, hid) \
+            or any(x is not None and x.shape != ys.shape for x in (dys, dcs)) \
+            or (dhT is not None and dhT.shape != (b, hid)):
+        raise ValueError(f'lstm_recurrence_bwd: x_proj {tuple(x_proj.shape)} '
+                         f'w_hh {tuple(w_hh.shape)} ys {tuple(ys.shape)} cs '
+                         f'{tuple(cs.shape)}')
+    plan = rnn_bwd.card_plan(x_proj, 4)
     dev = x_proj.device
-    w_hh_t = w_hh.t().contiguous()
     h0e = h0.to(dtype).contiguous()
+    hproj = torch.empty(x_proj.shape, dtype=torch.float32, device=dev)
     dgates = torch.empty_like(x_proj)
     dh0 = torch.empty((b, hid), dtype=torch.float32, device=dev)
-    dc = torch.zeros((b, hid), dtype=torch.float32, device=dev)
-    lib = _build.library()
+    dc0 = torch.empty((b, hid), dtype=torch.float32, device=dev)
     p = _build.ptr
-    _build.check(lib.edd_lstm_bwd(
-        p(x_proj), p(w_hh), p(w_hh_t), p(h0e), p(c0), p(ys), p(cs), p(dys),
-        p(dcs), p(dhT), p(dgates), p(dh0), p(dc), t_len, b, hid,
-        int(dtype == torch.bfloat16), _build.stream_ptr(dev)), 'lstm_bwd')
+    _build.check(_build.library().edd_lstm_bwd(
+        p(x_proj), p(w_hh), p(h0e), p(c0), p(ys), p(cs), p(dys), p(dcs),
+        p(dhT), p(hproj), p(dgates), p(dh0), p(dc0), t_len, b, hid,
+        int(dtype == torch.bfloat16), plan.blocks, plan.smem,
+        _build.stream_ptr(dev)), 'lstm_bwd')
     lstm_recurrence_bwd.launches += 1
-    return dgates, dh0, dc
+    return dgates, dh0, dc0
 
 
 def lstm_recurrence_bwd(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
-    """See lstm_recurrence_bwd_plain; CUDA tensors launch csrc/lstm_bwd.cu
+    """See lstm_recurrence_bwd_plain; CUDA tensors launch csrc/rnn_bwd.cu
     (K4)."""
     if x_proj.device.type == 'cpu':
         return lstm_recurrence_bwd_plain(x_proj, w_hh, h0, c0, ys, cs, dys,
@@ -186,7 +198,7 @@ class _LSTMRecurrence(torch.autograd.Function):
 
 def lstm_recurrence(x_proj, w_hh, h0, c0):
     """See lstm_recurrence_plain; CUDA tensors launch csrc/lstm_fwd.cu (K1),
-    and their backward csrc/lstm_bwd.cu (K4).  Differentiable in all four
+    and their backward csrc/rnn_bwd.cu (K4).  Differentiable in all four
     inputs."""
     return _LSTMRecurrence.apply(x_proj, w_hh, h0, c0)
 

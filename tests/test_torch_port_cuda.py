@@ -192,12 +192,30 @@ def _rel_err(a, b):
     return _max_abs(a, b) / scale
 
 
-@pytest.mark.parametrize('hid,b,t,dtype', [
-    (16, 3, 5, torch.float32), (1024, 8, 16, torch.float32),
-    (1024, 8, 16, torch.bfloat16), (256, 8, 65, torch.float32),
-    (1030, 11, 3, torch.float32), (64, 2, 1, torch.bfloat16),
-])
-def test_k4_lstm_bwd_matches_plain(cuda, hid, b, t, dtype):
+# the E6D2 shapes (encoder H=1024 at B=32 T=427 in bf16, prediction net
+# H=256), B = 1 and a ragged B = 33, odd H, and each cotangent absent
+BWD_CASES = [
+    (16, 3, 5, torch.float32, 'all'), (1024, 8, 16, torch.float32, 'all'),
+    (1024, 8, 16, torch.bfloat16, 'all'), (256, 8, 65, torch.float32, 'all'),
+    (1030, 11, 3, torch.float32, 'all'), (64, 2, 1, torch.bfloat16, 'all'),
+    (1024, 32, 427, torch.bfloat16, 'all'),
+    (1024, 1, 16, torch.bfloat16, 'all'), (1024, 1, 5, torch.float32, 'all'),
+    (1024, 33, 8, torch.bfloat16, 'all'), (256, 33, 6, torch.float32, 'all'),
+    (1030, 11, 3, torch.bfloat16, 'all'), (40, 5, 7, torch.bfloat16, 'dys'),
+    (1024, 8, 6, torch.float32, 'dys'), (1024, 8, 6, torch.bfloat16, 'dhT'),
+    (64, 33, 4, torch.float32, 'dhT'),
+]
+
+
+def _cotangents(cot, dys, dcs, dhT):
+    """'all' keeps every cotangent, 'dys' only dys, 'dhT' only dhT."""
+    return (dys if cot in ('all', 'dys') else None,
+            dcs if cot == 'all' else None,
+            dhT if cot in ('all', 'dhT') else None)
+
+
+@pytest.mark.parametrize('hid,b,t,dtype,cot', BWD_CASES)
+def test_k4_lstm_bwd_matches_plain(cuda, hid, b, t, dtype, cot):
     from edgedict_tpu_torch.ops import rnn_kernel as K
     g = torch.Generator(device='cpu').manual_seed(hid + b + t)
     k = 1.0 / hid ** 0.5
@@ -210,10 +228,11 @@ def test_k4_lstm_bwd_matches_plain(cuda, hid, b, t, dtype):
     dcs = torch.zeros_like(cs)
     dcs[-1] = torch.randn(b, hid, generator=g).to(cuda)
     dhT = torch.randn(b, hid, generator=g).to(cuda)
+    cots = _cotangents(cot, dys, dcs, dhT)
     before = K.lstm_recurrence_bwd.launches
-    out = K.lstm_recurrence_bwd(xp, w, h0, c0, ys, cs, dys, dcs, dhT)
+    out = K.lstm_recurrence_bwd(xp, w, h0, c0, ys, cs, *cots)
     assert K.lstm_recurrence_bwd.launches == before + 1
-    ref = K.lstm_recurrence_bwd_plain(xp, w, h0, c0, ys, cs, dys, dcs, dhT)
+    ref = K.lstm_recurrence_bwd_plain(xp, w, h0, c0, ys, cs, *cots)
     assert out[0].dtype == dtype
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, r in zip(out, ref):
@@ -426,12 +445,8 @@ def test_k11_quant_matmul_matches_plain(cuda, r, k, n, dtype):
     assert _max_abs(out, ref) <= tol * scale
 
 
-@pytest.mark.parametrize('hid,b,t,dtype', [
-    (16, 3, 5, torch.float32), (1024, 8, 16, torch.float32),
-    (1024, 8, 16, torch.bfloat16), (1030, 11, 3, torch.float32),
-    (64, 2, 1, torch.bfloat16), (40, 5, 7, torch.bfloat16),
-])
-def test_k6_gru_bwd_matches_plain(cuda, hid, b, t, dtype):
+@pytest.mark.parametrize('hid,b,t,dtype,cot', BWD_CASES)
+def test_k6_gru_bwd_matches_plain(cuda, hid, b, t, dtype, cot):
     """K6 against its plain reverse loop on the same forward (dgx, dgh,
     dh0 to 1e-4 of max(1, max|ref|) in fp32, 2e-2 in bf16, as K4), then
     through the autograd.Function: K5 forward, K6 backward, the dW_hh
@@ -446,10 +461,11 @@ def test_k6_gru_bwd_matches_plain(cuda, hid, b, t, dtype):
     ys, _ = K.gru_recurrence(xp, w, b_hh, h0)
     dys = torch.randn(t, b, hid, generator=g).to(cuda, dtype)
     dhT = torch.randn(b, hid, generator=g).to(cuda)
+    c_dys, _, c_dhT = _cotangents(cot, dys, None, dhT)
     before = K.gru_recurrence_bwd.launches
-    out = K.gru_recurrence_bwd(xp, w, b_hh, h0, ys, dys, dhT)
+    out = K.gru_recurrence_bwd(xp, w, b_hh, h0, ys, c_dys, c_dhT)
     assert K.gru_recurrence_bwd.launches == before + 1
-    ref = K.gru_recurrence_bwd_plain(xp, w, b_hh, h0, ys, dys, dhT)
+    ref = K.gru_recurrence_bwd_plain(xp, w, b_hh, h0, ys, c_dys, c_dhT)
     assert out[0].dtype == out[1].dtype == dtype
     assert out[2].dtype == torch.float32
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -468,6 +484,30 @@ def test_k6_gru_bwd_matches_plain(cuda, hid, b, t, dtype):
     assert _rel_err(leaves[2].grad, dgh.float().sum((0, 1))) <= (
         1e-3 if dtype == torch.float32 else 5e-2)
     assert _rel_err(leaves[3].grad, dh0) <= tol
+
+
+@pytest.mark.parametrize('cell,hid,dtype', [('LSTM', 2048, torch.float32),
+                                            ('GRU', 3000, torch.float32),
+                                            ('LSTM', 4096, torch.bfloat16)])
+def test_k4_k6_shape_outside_the_plan_raises(cuda, cell, hid, dtype):
+    """A hidden size whose W_hh column slice does not fit one block's
+    shared memory is refused with ValueError naming the shape, before any
+    launch."""
+    from edgedict_tpu_torch.ops import gru_kernel as KG
+    from edgedict_tpu_torch.ops import rnn_kernel as KL
+    t, b = 2, 4
+    g = 4 if cell == 'LSTM' else 3
+    xp = torch.zeros(t, b, g * hid, device=cuda, dtype=dtype)
+    w = torch.zeros(g * hid, hid, device=cuda, dtype=dtype)
+    h0 = torch.zeros(b, hid, device=cuda)
+    ys = torch.zeros(t, b, hid, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match=f'H={hid}'):
+        if cell == 'LSTM':
+            cs = torch.zeros(t, b, hid, device=cuda)
+            KL.lstm_recurrence_bwd(xp, w, h0, h0, ys, cs, ys, None, None)
+        else:
+            b_hh = torch.zeros(g * hid, device=cuda)
+            KG.gru_recurrence_bwd(xp, w, b_hh, h0, ys, ys, None)
 
 
 def test_gru_train_step_cuda_matches_cpu(cuda):
