@@ -19,8 +19,11 @@ Phases, each printing JSON or text lines:
              or forward+backward) and the port's own layer timed the same
              way (library_ms, layer_ms); K4/K6 also split into their two
              launches, the gate remat and the dh chain (torch.profiler
-             device ms); K1 and K5 also at the training shape (H=1024 B=32
-             T=427 bf16) beside cuDNN's layer forward; each kernel's bound
+             device ms); K1 and K5 (one persistent launch per call) with
+             their launch plan (grid, shared memory, blocks per SM), also at
+             the training shape (H=1024 B=32 T=427 bf16, held step by step
+             from the kernel's own state) beside cuDNN's layer forward and
+             the port's own layer; each kernel's bound
              (bytes once over 3.35 TB/s, or operations over the peak of
              their type, whichever is larger) from the timed inputs
   4 slice    E6D2 from flagfiles/E6D2.txt with seeded random weights:
@@ -198,6 +201,14 @@ def _close(a, b, atol, rtol):
     return ok, float(diff.max()) if diff.numel() else 0.0
 
 
+def fwd_plan(x_proj, gates):
+    """K1/K5's launch plan for x_proj (ops/rnn_fwd.py, from the card)."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import rnn_fwd
+    return dataclasses.asdict(rnn_fwd.card_plan(x_proj, gates))
+
+
 def lstm_steps_plain(torch, K1, xp, w, h0, c0, ys, cs):
     """Each step of the plain recurrence, started from the state the
     kernel itself carried into it: (h, c) = (h0, c0) at t=0, else
@@ -267,10 +278,14 @@ def phase_kernels(torch):
         record('mel_power', err, case.get('ms') if (b, length) == (1, 1320)
                else None, case.get('plain_ms'), bounds)
 
-    # K1 — LSTM recurrence, encoder (H=1024) and prediction net (H=256)
+    # K1 — LSTM recurrence, encoder (H=1024) and prediction net (H=256, and
+    # E6D2_LARGE_Batch's 512); the persistent kernel's 32-row slabs at the
+    # ragged B=33 and the server's 256
     cases = [(1024, b, t, dt) for dt in (torch.float32, torch.bfloat16)
              for b in (1, 8) for t in (1, 2, 16)]
     cases += [(256, b, t, torch.float32) for b in (1, 8) for t in (1, 2)]
+    cases += [(1024, 33, 3, torch.bfloat16), (1024, 256, 2, torch.float32),
+              (512, 32, 2, torch.bfloat16)]
     for hid, b, t, dt in cases:
         k = 1.0 / hid ** 0.5
         xp = torch.as_tensor(rng.randn(t, b, 4 * hid).astype(np.float32),
@@ -301,7 +316,7 @@ def phase_kernels(torch):
                 'step_ys_max_abs': errs[3], 'step_cs_max_abs': errs[4],
                 'tol': f'run atol {run_tol[0]} rtol {run_tol[1]}; per step '
                        f'ys atol {ys_tol[0]} rtol {ys_tol[1]}, cs atol 1e-4 '
-                       'rtol 1e-4'}
+                       'rtol 1e-4', 'plan': fwd_plan(xp, 4)}
         main = (hid, b, t, dt) == (1024, 1, 2, torch.float32)
         if t != 16 or b == 1:
             ms, pms = time_pair(
@@ -527,7 +542,8 @@ def train_shape_forward(torch, rng, dev):
                            2 * t * b * gates * hid * hid, 'bf16')
         label = 'K1 lstm_fwd' if cell == 'LSTM' else 'K5 gru_fwd'
         case = {'kernel': label, 'H': hid, 'B': b, 'T': t, 'dtype': 'bfloat16',
-                'shape': 'training', 'step_max_abs': [e for _, e in steps],
+                'shape': 'training', 'plan': fwd_plan(xp, gates),
+                'step_max_abs': [e for _, e in steps],
                 'run_max_abs': run_err, 'ms': ms, 'plain_ms': pms,
                 'bound_ms': b_ms, 'bound_by': b_by,
                 'tol': 'per step ys atol 1e-2 rtol 2^-7'
@@ -788,7 +804,8 @@ def serving_kernels_q(torch, rng, dev, record):
     kw = 1.0 / hid ** 0.5
     for name, b, dt in [(nm, b, dt) for nm in ('gru_fwd', 'lstm_fwd_q',
                                                 'gru_fwd_q')
-                        for b in (1, 64) for dt in (fp32, bf16)]:
+                        for b in (1, 64) for dt in (fp32, bf16)] + [
+                            ('gru_fwd', 33, bf16), ('gru_fwd', 256, fp32)]:
         gates = 4 if name == 'lstm_fwd_q' else 3
         xp = t_(t, b, gates * hid, dtype=dt)
         w = torch.as_tensor(rng.uniform(-kw, kw, (gates * hid, hid))
@@ -856,6 +873,8 @@ def serving_kernels_q(torch, rng, dev, record):
                        f'{step_tol[0]} rtol {step_tol[1]:.3g}'
                        + (', cs 1e-4' if name == 'lstm_fwd_q' else '')}
         main = (b, dt) == (1, fp32)
+        if name == 'gru_fwd':
+            case['plan'] = fwd_plan(xp, 3)
         if main and name == 'gru_fwd':
             case.update(layer_times(torch, 'GRU', hid, b, t, dt, False))
         emit(case)
@@ -1459,7 +1478,7 @@ def _warp_novograd_step(torch, argv, batch):
 
 
 SOURCES = {
-    'lstm_fwd': ('edgedict_tpu_torch/csrc/lstm_fwd.cu',
+    'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
     'mel_power': ('edgedict_tpu_torch/csrc/mel_power.cu',
                   'edgedict_tpu/ops/features_pallas.py:57'),
@@ -1467,7 +1486,7 @@ SOURCES = {
                       'edgedict_tpu/ops/decode_pallas.py:131'),
     'lstm_bwd': ('edgedict_tpu_torch/csrc/rnn_bwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:205'),
-    'gru_fwd': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
+    'gru_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                 'edgedict_tpu/ops/rnn_pallas.py:462'),
     'gru_bwd': ('edgedict_tpu_torch/csrc/rnn_bwd.cu',
                 'edgedict_tpu/ops/rnn_pallas.py:512'),

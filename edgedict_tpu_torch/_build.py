@@ -11,9 +11,10 @@ takes seconds, not minutes):
          libedgedict_kernels-<hash>.so *.o
 
 The library is built at first use into `edgedict_tpu_torch/_build/`
-(gitignored), keyed by a hash of the sources and flags, so an edit to any
-kernel rebuilds and an unchanged tree reuses the build.  A missing nvcc
-or a failed compile raises; nothing is downloaded.
+(gitignored), keyed by a hash of the sources, the headers they include
+(`HEADERS`) and the flags, so an edit to any kernel or header rebuilds and
+an unchanged tree reuses the build.  A missing nvcc or a failed compile
+raises; nothing is downloaded.
 
 Every C entry returns `cudaGetLastError()` after its launches; `check`
 raises when it is not 0.  Pointers and the stream go in as
@@ -33,8 +34,10 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
-SOURCES = ('lstm_fwd.cu', 'rnn_bwd.cu', 'mel_power.cu', 'greedy_decode.cu',
-           'joint_lse.cu', 'rnnt_loss.cu', 'gru_fwd.cu', 'quant_matmul.cu')
+SOURCES = ('rnn_fwd.cu', 'rnn_bwd.cu', 'lstm_fwd.cu', 'gru_fwd.cu',
+           'mel_power.cu', 'greedy_decode.cu', 'joint_lse.cu', 'rnnt_loss.cu',
+           'quant_matmul.cu')
+HEADERS = ('rnn_common.cuh',)
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
@@ -42,12 +45,14 @@ NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xp, w_hh, h0, c0, ys, cs, hbuf, T, B, H, bf16, stream
-    'edd_lstm_fwd': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xp, w_hh, h0e, c0, ys, cs, hT, T, B, H, bf16, grid, smem, stream
+    'edd_lstm_fwd': (_P,) * 7 + (_I,) * 6 + (_P,),
     # xp, w_q, w_scale, h0, c0, ys, cs, hbuf, T, B, H, bf16, stream
     'edd_lstm_fwd_q': (_P,) * 8 + (_I,) * 4 + (_P,),
-    # xp, w_hh, b_hh, h0, ys, hbuf, T, B, H, bf16, stream
-    'edd_gru_fwd': (_P,) * 6 + (_I,) * 4 + (_P,),
+    # xp, w_hh, b_hh, h0e, h0, ys, T, B, H, bf16, grid, smem, stream
+    'edd_gru_fwd': (_P,) * 6 + (_I,) * 6 + (_P,),
+    # gru, bf16, smem, out (int*)
+    'edd_rnn_fwd_blocks_per_sm': (_I, _I, _I, _P),
     # xp, w_q, w_scale, b_hh, h0, ys, hbuf, T, B, H, bf16, stream
     'edd_gru_fwd_q': (_P,) * 7 + (_I,) * 4 + (_P,),
     # x, wq, scale, bias, out, R, K, N, bf16, stream
@@ -104,7 +109,7 @@ def nvcc_path():
 
 def source_hash():
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), 'rb') as f:
             h.update(name.encode() + b'\0' + f.read())
     return h.hexdigest()[:16]

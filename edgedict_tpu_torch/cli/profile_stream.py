@@ -41,15 +41,16 @@ from edgedict_tpu_torch.models import transducer as T
 from edgedict_tpu_torch.stream import (
     StreamingDecoder, StreamState, _audio_tensor, _chunks, resolve_device)
 
-# substrings of the hand-written kernels' names in the profiler's trace,
-# and whether the name carries int8 weights (None: either)
-KERNELS = {'lstm_fwd': ('lstm_step_kernel', False),
-           'lstm_fwd_q': ('lstm_step_kernel', True),
-           'gru_fwd': ('gru_step_kernel', False),
-           'gru_fwd_q': ('gru_step_kernel', True),
-           'quant_matmul': ('qmm_', None),
-           'mel_power': ('mel_power_kernel', None),
-           'greedy_decode': ('greedy_decode_kernel', None)}
+# the hand-written kernels in the profiler's trace: every substring of a
+# value is in the kernel's name (K1/K5: the persistent recurrence, K12/K13:
+# the int8 step kernels)
+KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
+           'lstm_fwd_q': ('lstm_step_kernel',),
+           'gru_fwd': ('recur_fwd_kernel', 'GruStep'),
+           'gru_fwd_q': ('gru_step_kernel',),
+           'quant_matmul': ('qmm_',),
+           'mel_power': ('mel_power_kernel',),
+           'greedy_decode': ('greedy_decode_kernel',)}
 
 
 # the encoder's kernels per (enc_type, quantize); K2 and K3 run in every
@@ -62,8 +63,7 @@ ENCODER_KERNELS = {('LSTM', None): ('lstm_fwd',),
 
 def kernel_of(key, kernel):
     """True if the profiler key `key` names `kernel` of KERNELS."""
-    sub, int8 = KERNELS[kernel]
-    return sub in key and (int8 is None or int8 == ('signed char' in key))
+    return all(sub in key for sub in KERNELS[kernel])
 
 
 class StandInTokenizer:

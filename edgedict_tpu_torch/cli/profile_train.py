@@ -52,12 +52,13 @@ from edgedict_tpu_torch.train import (
     device_batch, make_train_state, make_train_step)
 
 # the hand-written kernels in the profiler's trace: every substring of a
-# value is in the kernel's name (K4/K6: remat + chain, and each apart)
-KERNELS = {'lstm_fwd': ('lstm_step_kernel',),
+# value is in the kernel's name (K1/K5: the persistent recurrence; K4/K6:
+# remat + chain, and each apart)
+KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
            'lstm_bwd': ('LstmCell',),
            'lstm_bwd_remat': ('remat_', 'LstmCell'),
            'lstm_bwd_chain': ('chain_kernel', 'LstmCell'),
-           'gru_fwd': ('gru_step_kernel',),
+           'gru_fwd': ('recur_fwd_kernel', 'GruStep'),
            'gru_bwd': ('GruCell',),
            'gru_bwd_remat': ('remat_', 'GruCell'),
            'gru_bwd_chain': ('chain_kernel', 'GruCell'),

@@ -9,7 +9,11 @@ each entry point reads are registered with the JAX package's defaults:
 `add_train_flags` for the trainer (cli/baseline.py).  The other keys of the
 JAX registry that a preset or a run snapshot carries (`--apex`,
 `--opt_level`, the trainer's keys in a serving CLI, ...) are accepted and
-ignored.  Any other key is an error, as with absl.
+ignored.  The JAX package's flags whose work the port does not do yet
+(`REFUSED`) parse at their defaults, and any other value stops the parse
+with an error that names the flag and the ROADMAP.md Queue 1 item that
+brings it: nothing is dropped without a word.  Any other key is an error,
+as with absl.
 """
 
 import argparse
@@ -110,21 +114,37 @@ TRAIN_FLAGS = (
 MODES = ('train', 'resume', 'eval', 'device_rate')
 OPTIMIZERS = ('adam', 'adamw', 'sgd', 'sm3', 'novograd')
 
-# flags of edgedict_tpu/config.py that no entry point of the port reads
-UNREAD = frozenset((
-    'LibriSpeech_dev', 'TEDLIUM_test', 'device_corpus', 'use_pretrained',
-    'apex', 'opt_level', 'multi_gpu', 'eval_beam_width', 'dp_size',
-    'tp_size', 'pp_size', 'profile_dir', 'compilation_cache_dir'))
+# flags of edgedict_tpu/config.py that the JAX package also accepts and
+# ignores (or that only steer XLA): dropped
+UNREAD = frozenset(('LibriSpeech_dev', 'TEDLIUM_test', 'apex', 'opt_level',
+                    'multi_gpu', 'compilation_cache_dir'))
 # keys a flagfile may carry that a parser may leave unregistered
 _IGNORABLE = UNREAD | {name for name, _, _ in TRAIN_FLAGS}
 
+# flags of edgedict_tpu/config.py whose work the port does not do yet:
+# (name, type, the values that ask for nothing, ROADMAP.md Queue 1 item)
+REFUSED = (
+    ('eval_beam_width', int, (0,), '9, beam search'),
+    ('device_corpus', parse_bool, (False,), '15, trainer features'),
+    ('use_pretrained', parse_bool, (False,), '11, wav2vec'),
+    ('dp_size', int, (-1, 1), '14, multi-GPU'),
+    ('tp_size', int, (1,), '14, multi-GPU'),
+    ('pp_size', int, (1,), '14, multi-GPU'),
+    ('profile_dir', str, (None, ''), '15, trainer features'),
+)
+
 
 def add_model_flags(parser):
-    """Register --flagfile and the model/feature/tokenizer flags."""
+    """Register --flagfile, the model/feature/tokenizer flags and the
+    refused ones (parse_flags checks those)."""
     parser.add_argument('--flagfile', action='append', default=[],
                         help='read flags from this file (absl syntax)')
     for name, typ, default in MODEL_FLAGS:
         parser.add_argument(f'--{name}', type=typ, default=default)
+    for name, typ, allowed, item in REFUSED:
+        parser.add_argument(f'--{name}', type=typ, default=allowed[0],
+                            help=f'not ported yet (ROADMAP.md Queue 1 item '
+                                 f'{item}): only the default is accepted')
     return parser
 
 
@@ -190,8 +210,17 @@ def normalize_argv(argv, parser):
 
 
 def parse_flags(parser, argv):
-    """argv (without the program name) → argparse Namespace."""
-    return parser.parse_args(normalize_argv(expand_argv(list(argv)), parser))
+    """argv (without the program name) → argparse Namespace.  A refused
+    flag at a value that asks for work the port does not do stops the
+    parse (parser.error: SystemExit 2) and names the flag."""
+    flags = parser.parse_args(normalize_argv(expand_argv(list(argv)), parser))
+    refused = [f'--{name}={getattr(flags, name)} (ROADMAP.md Queue 1 item '
+               f'{item})' for name, _, allowed, item in REFUSED
+               if getattr(flags, name, allowed[0]) not in allowed]
+    if refused:
+        parser.error('not ported yet, only the default is accepted: '
+                     + '; '.join(refused))
+    return flags
 
 
 def transducer_config_from_flags(flags, vocab_size, input_size):

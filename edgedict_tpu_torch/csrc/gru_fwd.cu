@@ -1,26 +1,26 @@
-// K5 and K13 — GRU recurrence, forward (torch gates r, z, n).
+// K13 — the int8 GRU recurrence, forward (torch gates r, z, n).
 //
-// Replaces edgedict_tpu/ops/rnn_pallas.py:_gru_fwd_kernel (K5, launched by
-// _gru_run_fwd) and edgedict_tpu/ops/quant.py:_gru_fwd_kernel_q (K13, the
-// same with W_hh int8 + a per-output-channel fp32 scale, launched by
-// _gru_run_fwd_q). Given the hoisted input projection x_proj = x W_ih^T +
+// Replaces edgedict_tpu/ops/quant.py:_gru_fwd_kernel_q (launched by
+// _gru_run_fwd_q): given the hoisted input projection x_proj = x W_ih^T +
 // b_ih for every step, run
-//   h_proj = h W_hh^T + b_hh                 (fp32 accumulate, b_hh fp32)
+//   h_proj = h W^T + b_hh                    (fp32 accumulate, b_hh fp32)
 //   r = sigmoid(x_r + h_r)   z = sigmoid(x_z + h_z)
 //   n = tanh(x_n + r * h_n)  h' = (1 - z) n + z h
-// with fp32 h, and emit ys in x_proj's dtype. The n gate needs r times the
-// recurrent part alone, so h_proj's n rows stay apart from x_proj's (the
-// LSTM pre-sums them). h enters the dot in the compute dtype (x_proj's), as
-// the TPU kernels cast it. For K13 each weight is dequantized as the TPU
-// kernel does it once into VMEM: q * scale in fp32, rounded to the compute
-// dtype, then multiplied by h; here that happens in registers as each
-// weight is read (the scale is per gate row, i.e. per warp).
+// with fp32 h, and emit ys in x_proj's dtype, with W_hh stored int8 beside a
+// per-output-channel fp32 scale. The n gate needs r times the recurrent part
+// alone, so h_proj's n rows stay apart from x_proj's. h enters the dot in
+// the compute dtype (x_proj's), as the TPU kernel casts it. Each weight is
+// dequantized as the TPU kernel does it once into VMEM: q * scale in fp32,
+// rounded to the compute dtype, then multiplied by h; here that happens in
+// registers as each weight is read (the scale is per gate row, i.e. per
+// warp). K5, the same recurrence with W_hh in the compute dtype, is the
+// persistent kernel of csrc/rnn_fwd.cu; this file holds only the int8 entry.
 //
 // What bounds it on the H100: the recurrent weight. Every step reads all of
-// W_hh (3H x H: 12 MB fp32, 6 MB bf16, 3 MB int8 at H=1024) for a
-// matrix-vector product at small B: bandwidth, not FLOPs.
+// W_hh (3H x H int8: 3 MB at H=1024) for a matrix-vector product at small
+// B: bandwidth, not FLOPs.
 //
-// Design: K1's (csrc/lstm_fwd.cu). A block owns kUnits hidden units, i.e.
+// Design: K12's (csrc/lstm_fwd.cu). A block owns kUnits hidden units, i.e.
 // the 3*kUnits gate rows of W_hh that feed them; one warp per gate row,
 // lanes striding the contiguous row, the batch's h staged in shared memory
 // kBatchTile rows at a time, fp32 FMAs and a warp shuffle reduction; the
@@ -34,6 +34,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "rnn_common.cuh"
+
 namespace {
 
 constexpr int kUnits = 4;             // hidden units per block
@@ -41,39 +43,18 @@ constexpr int kRows = 3 * kUnits;     // gate rows per block (r, z, n)
 constexpr int kThreads = 128;         // 4 warps
 constexpr int kBatchTile = 8;         // batch rows of h staged at once
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename Elem>
-__device__ __forceinline__ Elem from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// one recurrent weight as the product sees it: stored in the compute dtype,
-// or int8 dequantized to it (q * scale in fp32, then rounded)
-template <typename Elem>
-__device__ __forceinline__ float weight(const Elem* wr, int k, float) {
-  return to_f32(wr[k]);
-}
+// one recurrent weight as the product sees it: int8 dequantized to the
+// compute dtype (q * scale in fp32, then rounded)
 template <typename Elem>
 __device__ __forceinline__ float weight(const int8_t* wr, int k, float s) {
   return to_f32(from_f32<Elem>(static_cast<float>(wr[k]) * s));
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-template <typename Elem, typename W>
+template <typename Elem>
 __global__ void __launch_bounds__(kThreads)
 gru_step_kernel(const Elem* __restrict__ xp,       // (B, 3H) this step
-                const W* __restrict__ w_hh,        // (3H, H)
-                const float* __restrict__ w_scale, // (3H) int8 only
+                const int8_t* __restrict__ w_q,    // (3H, H)
+                const float* __restrict__ w_scale, // (3H)
                 const float* __restrict__ b_hh,    // (3H)
                 const float* __restrict__ h_in,    // (B, H)
                 float* __restrict__ h_out,         // (B, H)
@@ -99,8 +80,8 @@ gru_step_kernel(const Elem* __restrict__ xp,       // (B, 3H) this step
       const int q = r / nu;            // gate
       const int j = r - q * nu;        // unit within the block
       const int row = q * H + unit0 + j;
-      const W* wr = w_hh + (size_t)row * H;
-      const float s = w_scale != nullptr ? w_scale[row] : 1.0f;
+      const int8_t* wr = w_q + (size_t)row * H;
+      const float s = w_scale[row];
       float acc[kBatchTile];
 #pragma unroll
       for (int bb = 0; bb < kBatchTile; ++bb) acc[bb] = 0.0f;
@@ -140,15 +121,15 @@ gru_step_kernel(const Elem* __restrict__ xp,       // (B, 3H) this step
   }
 }
 
-template <typename Elem, typename W>
-cudaError_t run(const void* xp, const void* w_hh, const float* w_scale,
+template <typename Elem>
+cudaError_t run(const void* xp, const void* w_q, const float* w_scale,
                 const void* b_hh, const void* h0, void* ys, void* hbuf,
                 int T, int B, int H, cudaStream_t stream) {
   const size_t smem =
       (size_t)(kBatchTile * H + kBatchTile * kRows) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gru_step_kernel<Elem, W>,
+        gru_step_kernel<Elem>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
@@ -160,8 +141,8 @@ cudaError_t run(const void* xp, const void* w_hh, const float* w_scale,
   for (int t = 0; t < T; ++t) {
     const float* h_in =
         t == 0 ? static_cast<const float*>(h0) : hb + ((t - 1) & 1) * bh;
-    gru_step_kernel<Elem, W><<<grid, kThreads, smem, stream>>>(
-        x + (size_t)t * 3 * bh, static_cast<const W*>(w_hh), w_scale,
+    gru_step_kernel<Elem><<<grid, kThreads, smem, stream>>>(
+        x + (size_t)t * 3 * bh, static_cast<const int8_t*>(w_q), w_scale,
         static_cast<const float*>(b_hh), h_in, hb + (t & 1) * bh,
         y + (size_t)t * bh, B, H);
     const cudaError_t e = cudaGetLastError();
@@ -172,22 +153,9 @@ cudaError_t run(const void* xp, const void* w_hh, const float* w_scale,
 
 }  // namespace
 
-// K5. x_proj (T, B, 3H) incl. b_ih and w_hh (3H, H) in fp32 (bf16 == 0) or
-// bf16; b_hh (3H) and h0 (B, H) fp32; outputs ys (T, B, H) in x_proj's
-// dtype, hbuf (2, B, H) fp32 scratch.
-extern "C" int edd_gru_fwd(const void* xp, const void* w_hh, const void* b_hh,
-                           const void* h0, void* ys, void* hbuf, int T,
-                           int B, int H, int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      bf16 ? run<__nv_bfloat16, __nv_bfloat16>(xp, w_hh, nullptr, b_hh, h0,
-                                               ys, hbuf, T, B, H, s)
-           : run<float, float>(xp, w_hh, nullptr, b_hh, h0, ys, hbuf, T, B,
-                               H, s);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// K13. As K5 with w_q (3H, H) int8 and w_scale (3H) fp32.
+// K13. x_proj (T, B, 3H) incl. b_ih in fp32 (bf16 == 0) or bf16, w_q (3H,
+// H) int8, w_scale (3H), b_hh (3H) and h0 (B, H) fp32; outputs ys (T, B, H)
+// in x_proj's dtype, hbuf (2, B, H) fp32 scratch.
 extern "C" int edd_gru_fwd_q(const void* xp, const void* w_q,
                              const void* w_scale, const void* b_hh,
                              const void* h0, void* ys, void* hbuf, int T,
@@ -195,8 +163,7 @@ extern "C" int edd_gru_fwd_q(const void* xp, const void* w_q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(w_scale);
   const cudaError_t e =
-      bf16 ? run<__nv_bfloat16, int8_t>(xp, w_q, sc, b_hh, h0, ys, hbuf, T,
-                                        B, H, s)
-           : run<float, int8_t>(xp, w_q, sc, b_hh, h0, ys, hbuf, T, B, H, s);
+      bf16 ? run<__nv_bfloat16>(xp, w_q, sc, b_hh, h0, ys, hbuf, T, B, H, s)
+           : run<float>(xp, w_q, sc, b_hh, h0, ys, hbuf, T, B, H, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -1,40 +1,38 @@
-// K1 and K12 — LSTM recurrence, forward.
+// K12 — the int8 LSTM recurrence, forward.
 //
-// Replaces edgedict_tpu/ops/rnn_pallas.py:_fwd_kernel (K1, launched by
-// _run_fwd under the custom-vjp lstm_recurrence_tm): given the hoisted
-// input projection x_proj = x W_ih^T + (b_ih + b_hh) for every step, run
-// gates = x_proj[t] + h W_hh^T, the i,f,g,o cell with fp32 h/c, and emit
-// ys (x_proj's dtype) and cs (fp32). K12 replaces
-// edgedict_tpu/ops/quant.py:_fwd_kernel_q, the same with W_hh int8 and a
-// per-output-channel fp32 scale: the TPU kernel dequantizes W_hh once into
-// VMEM as q * scale in fp32 rounded to the compute dtype and multiplies h
-// by that (not scale-after-accumulate, which differs in bf16). The scale
-// is per gate row, which is one warp here, so each weight is dequantized
-// the same way in registers as it is read (4 MB of int8 a step at H=1024).
+// Replaces edgedict_tpu/ops/quant.py:_fwd_kernel_q (launched by _run_fwd_q):
+// given the hoisted input projection x_proj = x W_ih^T + (b_ih + b_hh) for
+// every step, run gates = x_proj[t] + h W^T, the i,f,g,o cell with fp32 h/c,
+// and emit ys (x_proj's dtype) and cs (fp32), with W_hh stored int8 beside a
+// per-output-channel fp32 scale. The TPU kernel dequantizes W_hh once into
+// VMEM as q * scale in fp32 rounded to the compute dtype and multiplies h by
+// that (not scale-after-accumulate, which differs in bf16). The scale is per
+// gate row, which is one warp here, so each weight is dequantized the same
+// way in registers as it is read (4 MB of int8 a step at H=1024). K1, the
+// same recurrence with W_hh in the compute dtype, is the persistent kernel of
+// csrc/rnn_fwd.cu; this file holds only the int8 entry.
 //
 // What bounds it on the H100: the recurrent weight. Every step reads all of
-// W_hh (4H x H: 16 MB fp32, 8 MB bf16 at H=1024) for a matrix-vector
-// product at small B, so a step is a bandwidth problem, not a FLOP problem
-// (2*4H*H*B flops over 4H*H*sizeof(T) bytes = B/2 flop/byte in fp32).
-// Steps are sequential; T is 1-2 per streaming chunk.
+// W_hh (4H x H int8: 4 MB at H=1024) for a matrix-vector product at small B
+// (serving: T is 1-2 per streaming chunk), so a step is a bandwidth
+// problem, not a FLOP problem.
 //
-// Design: the TPU kernel keeps W_hh resident in VMEM across a time grid;
-// an SM has 227 KB, so here W_hh is instead split across the grid. Each
-// block owns kUnits hidden units, i.e. the 4*kUnits gate rows of W_hh that
-// feed them, and computes those gates for every batch row: one warp per
-// gate row, lanes striding the contiguous row (coalesced), the batch's h
-// staged in shared memory kBatchTile rows at a time, fp32 FMAs and a warp
-// shuffle reduction. The block then applies the cell update to the units it
-// owns, so no other block ever reads its c. h is read by every block, so the
-// host loop ping-pongs it between two buffers, one launch per step. W_hh of
-// one layer (<= 16 MB) stays in the 50 MB L2 across the steps of a call.
-// A persistent kernel with a grid-wide barrier per step is later work.
+// Design: W_hh is split across the grid. Each block owns kUnits hidden
+// units, i.e. the 4*kUnits gate rows of W_hh that feed them, and computes
+// those gates for every batch row: one warp per gate row, lanes striding the
+// contiguous row (coalesced), the batch's h staged in shared memory
+// kBatchTile rows at a time, fp32 FMAs and a warp shuffle reduction. The
+// block then applies the cell update to the units it owns, so no other block
+// ever reads its c. h is read by every block, so the host loop ping-pongs it
+// between two buffers, one launch per step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+#include "rnn_common.cuh"
 
 namespace {
 
@@ -43,39 +41,18 @@ constexpr int kRows = 4 * kUnits;     // gate rows per block (i, f, g, o)
 constexpr int kThreads = 128;         // 4 warps
 constexpr int kBatchTile = 8;         // batch rows of h staged at once
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename Elem>
-__device__ __forceinline__ Elem from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// one recurrent weight as the product sees it: stored in the compute dtype,
-// or int8 dequantized to it (q * scale in fp32, then rounded)
-template <typename Elem>
-__device__ __forceinline__ float weight(const Elem* wr, int k, float) {
-  return to_f32(wr[k]);
-}
+// one recurrent weight as the product sees it: int8 dequantized to the
+// compute dtype (q * scale in fp32, then rounded)
 template <typename Elem>
 __device__ __forceinline__ float weight(const int8_t* wr, int k, float s) {
   return to_f32(from_f32<Elem>(static_cast<float>(wr[k]) * s));
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-template <typename Elem, typename W>
+template <typename Elem>
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const Elem* __restrict__ xp,     // (B, 4H) this step
-                 const W* __restrict__ w_hh,      // (4H, H)
-                 const float* __restrict__ w_scale,  // (4H) int8 only
+                 const int8_t* __restrict__ w_q,  // (4H, H)
+                 const float* __restrict__ w_scale,  // (4H)
                  const float* __restrict__ h_in,  // (B, H)
                  const float* __restrict__ c_in,  // (B, H)
                  float* __restrict__ h_out,       // (B, H)
@@ -103,8 +80,8 @@ lstm_step_kernel(const Elem* __restrict__ xp,     // (B, 4H) this step
       const int q = r / nu;            // gate
       const int j = r - q * nu;        // unit within the block
       const int row = q * H + unit0 + j;
-      const W* wr = w_hh + (size_t)row * H;
-      const float s = w_scale != nullptr ? w_scale[row] : 1.0f;
+      const int8_t* wr = w_q + (size_t)row * H;
+      const float s = w_scale[row];
       float acc[kBatchTile];
 #pragma unroll
       for (int bb = 0; bb < kBatchTile; ++bb) acc[bb] = 0.0f;
@@ -146,15 +123,15 @@ lstm_step_kernel(const Elem* __restrict__ xp,     // (B, 4H) this step
   }
 }
 
-template <typename Elem, typename W>
-cudaError_t run(const void* xp, const void* w_hh, const float* w_scale,
+template <typename Elem>
+cudaError_t run(const void* xp, const void* w_q, const float* w_scale,
                 const void* h0, const void* c0, void* ys, void* cs,
                 void* hbuf, int T, int B, int H, cudaStream_t stream) {
   const size_t smem =
       (size_t)(kBatchTile * H + kBatchTile * kRows) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_step_kernel<Elem, W>,
+        lstm_step_kernel<Elem>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
@@ -169,10 +146,10 @@ cudaError_t run(const void* xp, const void* w_hh, const float* w_scale,
         t == 0 ? static_cast<const float*>(h0) : hb + ((t - 1) & 1) * bh;
     const float* c_in =
         t == 0 ? static_cast<const float*>(c0) : c + (size_t)(t - 1) * bh;
-    lstm_step_kernel<Elem, W><<<grid, kThreads, smem, stream>>>(
-        x + (size_t)t * 4 * bh, static_cast<const W*>(w_hh), w_scale, h_in,
-        c_in,
-        hb + (t & 1) * bh, c + (size_t)t * bh, y + (size_t)t * bh, B, H);
+    lstm_step_kernel<Elem><<<grid, kThreads, smem, stream>>>(
+        x + (size_t)t * 4 * bh, static_cast<const int8_t*>(w_q), w_scale,
+        h_in, c_in, hb + (t & 1) * bh, c + (size_t)t * bh,
+        y + (size_t)t * bh, B, H);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -181,22 +158,10 @@ cudaError_t run(const void* xp, const void* w_hh, const float* w_scale,
 
 }  // namespace
 
-// x_proj (T, B, 4H) and w_hh (4H, H) in fp32 (bf16 == 0) or bf16;
-// h0, c0 (B, H) fp32; outputs ys (T, B, H) in x_proj's dtype, cs (T, B, H)
-// fp32, hbuf (2, B, H) fp32 scratch whose slot (T-1)&1 holds the final h.
-extern "C" int edd_lstm_fwd(const void* xp, const void* w_hh, const void* h0,
-                            const void* c0, void* ys, void* cs, void* hbuf,
-                            int T, int B, int H, int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      bf16 ? run<__nv_bfloat16, __nv_bfloat16>(xp, w_hh, nullptr, h0, c0, ys,
-                                               cs, hbuf, T, B, H, s)
-           : run<float, float>(xp, w_hh, nullptr, h0, c0, ys, cs, hbuf, T, B,
-                               H, s);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// K12. As K1 with w_q (4H, H) int8 and w_scale (4H) fp32.
+// K12. x_proj (T, B, 4H) in fp32 (bf16 == 0) or bf16, w_q (4H, H) int8,
+// w_scale (4H), h0 and c0 (B, H) fp32; outputs ys (T, B, H) in x_proj's
+// dtype, cs (T, B, H) fp32, hbuf (2, B, H) fp32 scratch whose slot (T-1)&1
+// holds the final h.
 extern "C" int edd_lstm_fwd_q(const void* xp, const void* w_q,
                               const void* w_scale, const void* h0,
                               const void* c0, void* ys, void* cs, void* hbuf,
@@ -204,9 +169,7 @@ extern "C" int edd_lstm_fwd_q(const void* xp, const void* w_q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(w_scale);
   const cudaError_t e =
-      bf16 ? run<__nv_bfloat16, int8_t>(xp, w_q, sc, h0, c0, ys, cs, hbuf, T,
-                                        B, H, s)
-           : run<float, int8_t>(xp, w_q, sc, h0, c0, ys, cs, hbuf, T, B, H,
-                                s);
+      bf16 ? run<__nv_bfloat16>(xp, w_q, sc, h0, c0, ys, cs, hbuf, T, B, H, s)
+           : run<float>(xp, w_q, sc, h0, c0, ys, cs, hbuf, T, B, H, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

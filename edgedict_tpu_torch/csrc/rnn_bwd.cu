@@ -48,6 +48,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "rnn_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -55,34 +57,6 @@ namespace {
 constexpr int kUnits = 8;                 // hidden units per chain block
 constexpr int kThreads = 256;             // 8 warps, both kernels
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename Elem>
-__device__ __forceinline__ Elem from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// D += A (16x16 bf16, row) . B (16x8 bf16, col), fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -324,23 +298,6 @@ struct ChainArgs {
   int T, B, H;
 };
 
-// coherent loads of dg (written by other blocks of this launch): L2 only
-__device__ __forceinline__ uint32_t ldcg_u16(const __nv_bfloat16* p) {
-  return __ldcg(reinterpret_cast<const unsigned short*>(p));
-}
-
-// 8 bf16 of dg row b at k .. k+7 (k a multiple of 8), zero past B or K
-__device__ __forceinline__ uint4 dg_load8(const __nv_bfloat16* dg, int b,
-                                          int k, int B, int K, bool aligned) {
-  if (b >= B || k >= K) return make_uint4(0, 0, 0, 0);
-  const __nv_bfloat16* p = dg + (size_t)b * K + k;
-  if (aligned) return __ldcg(reinterpret_cast<const uint4*>(p));
-  uint32_t v[8];
-  for (int e = 0; e < 8; ++e) v[e] = k + e < K ? ldcg_u16(p + e) : 0u;
-  return make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
-                    v[6] | v[7] << 16);
-}
-
 // Where W_hh[k, unit0 + j] lives in the block's shared slice. bf16: in
 // mma B-fragment order, chunk c = k / 32, lane (j, tig) holding k = 32c +
 // 8 tig .. +7 as 16 bytes; the A side reads dg in the same permutation of k
@@ -378,8 +335,8 @@ __device__ void chain_product(const __nv_bfloat16* dg,
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            xa[u][mt][h] = dg_load8(dg, p0 + mt * 16 + gid + h * 8, k, B, K,
-                                    aligned);
+            xa[u][mt][h] = ldcg8(dg, p0 + mt * 16 + gid + h * 8, k, B, K,
+                                 aligned);
       }
 #pragma unroll
       for (int u = 0; u < kDepth; ++u) {
@@ -414,21 +371,6 @@ __device__ void chain_product(const __nv_bfloat16* dg,
     }
     __syncthreads();
   }
-}
-
-// Sum 2 kOff values over the warp's lanes, halving each stage: a lane keeps
-// the half its bit kOff selects and adds its partner's copy of that half.
-// After fold<16>, v[0] of lane L is the warp's sum of value L.
-template <int kOff>
-__device__ __forceinline__ void fold(float* v, int lane) {
-  const bool up = (lane & kOff) != 0;
-#pragma unroll
-  for (int i = 0; i < kOff; ++i) {
-    const float send = up ? v[i] : v[i + kOff];
-    const float keep = up ? v[i + kOff] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
-  }
-  if constexpr (kOff > 1) fold<kOff / 2>(v, lane);
 }
 
 // fp32: FFMA, a warp per group of 4 batch rows, lanes striding K; the 32

@@ -1,14 +1,14 @@
 """K5 + K6 — the GRU recurrence, forward and backward (counterpart of
 edgedict_tpu/ops/rnn_pallas.py:gru_recurrence_tm; kernels in
-csrc/gru_fwd.cu and csrc/rnn_bwd.cu).
+csrc/rnn_fwd.cu and csrc/rnn_bwd.cu).
 
 `gru_recurrence` takes the hoisted input projection (b_ih included) and
 runs the time recurrence with torch's gates r, z, n, b_hh applied inside
 the reset gate, as a `torch.autograd.Function` returning (ys, hT) like the
-JAX custom VJP: the forward is K5, the backward K6 (the gates
-rematerialised from the saved ys in one product, then the dh chain), and
-dW_hh / db_hh are one matmul and one sum over all steps outside the kernel
-(rnn_pallas.py:651-659).  The plain PyTorch loops below run for CPU
+JAX custom VJP: the forward is K5 (one persistent launch for all steps),
+the backward K6 (the gates rematerialised from the saved ys in one product,
+then the dh chain), and dW_hh / db_hh are one matmul and one sum over all
+steps outside the kernel (rnn_pallas.py:651-659).  The plain PyTorch loops below run for CPU
 tensors, the kernels for CUDA tensors.  The device of the tensors decides;
 there is no fallback from one to the other.
 """
@@ -16,7 +16,7 @@ there is no fallback from one to the other.
 import torch
 
 from edgedict_tpu_torch import _build
-from edgedict_tpu_torch.ops import rnn_bwd
+from edgedict_tpu_torch.ops import rnn_bwd, rnn_fwd
 
 
 def gru_recurrence_plain(x_proj, w_hh, b_hh, h0):
@@ -59,17 +59,20 @@ def check_gru_args(x_proj, w_hh, b_hh, h0, w_dtypes):
 
 
 def _gru_fwd_kernel(x_proj, w_hh, b_hh, h0):
-    """K5: one step kernel per timestep, h ping-ponged between two fp32
-    buffers."""
+    """K5: one persistent cooperative launch for all T steps
+    (ops/rnn_fwd.py plans its grid); the fp32 h is carried in the kernel,
+    the recurrent product reads h0 rounded to x_proj's dtype at t = 0, then
+    ys[t-1]."""
     t, b, hid = check_gru_args(x_proj, w_hh, b_hh, h0, (x_proj.dtype,))
+    plan = rnn_fwd.card_plan(x_proj, 3)
     dev = x_proj.device
+    h0e = h0.to(x_proj.dtype).contiguous()
     ys = torch.empty((t, b, hid), dtype=x_proj.dtype, device=dev)
-    hbuf = torch.empty((2, b, hid), dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.check(_build.library().edd_gru_fwd(
-        p(x_proj), p(w_hh), p(b_hh), p(h0), p(ys), p(hbuf), t, b, hid,
-        int(x_proj.dtype == torch.bfloat16), _build.stream_ptr(dev)),
-        'gru_fwd')
+        p(x_proj), p(w_hh), p(b_hh), p(h0e), p(h0), p(ys), t, b, hid,
+        int(x_proj.dtype == torch.bfloat16), plan.blocks, plan.smem,
+        _build.stream_ptr(dev)), 'gru_fwd')
     gru_recurrence.launches += 1
     return ys
 
@@ -199,7 +202,7 @@ class _GRURecurrence(torch.autograd.Function):
 
 def gru_recurrence(x_proj, w_hh, b_hh, h0):
     """→ (ys, hT = ys[T-1]); see gru_recurrence_plain.  CUDA tensors launch
-    csrc/gru_fwd.cu (K5), and their backward csrc/rnn_bwd.cu (K6).
+    csrc/rnn_fwd.cu (K5), and their backward csrc/rnn_bwd.cu (K6).
     Differentiable in all four inputs."""
     return _GRURecurrence.apply(x_proj, w_hh, b_hh, h0)
 

@@ -13,6 +13,7 @@ path: a CUDA tensor launches the kernels or raises.
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -39,27 +40,58 @@ def chain_smem_bytes(hid, gates, batch, elem_bytes):
             + 2 * batch * UNITS * 4)
 
 
+def check_shape(what, hid, gates, batch, elem_bytes):
+    """ValueError, naming `what` and the shape, for a shape no persistent
+    recurrence kernel (this module's chain, ops/rnn_fwd.py's forward)
+    takes."""
+    if hid < 1 or batch < 1 or gates not in (3, 4) \
+            or elem_bytes not in (2, 4):
+        raise ValueError(f'{what}: no plan for H={hid} B={batch} '
+                         f'G={gates} elem_bytes={elem_bytes}')
+
+
+def resident_blocks(what, hid, gates, batch, smem_bytes, n_sms,
+                    blocks_per_sm):
+    """→ the grid of a persistent recurrence kernel: ceil(hid / UNITS)
+    blocks of `smem_bytes` each, checked to fit one block's shared memory
+    and to be co-resident on a card of `n_sms` SMs holding `blocks_per_sm`
+    of them.  ValueError, naming `what` and the shape, otherwise."""
+    blocks = -(-hid // UNITS)
+    if smem_bytes > SMEM_PER_BLOCK:
+        raise ValueError(
+            f'{what}: H={hid} B={batch} G={gates} needs {smem_bytes} bytes '
+            f'of shared memory per block, over {SMEM_PER_BLOCK}')
+    if blocks > n_sms * blocks_per_sm:
+        raise ValueError(
+            f'{what}: H={hid} B={batch} G={gates} needs {blocks} '
+            f'co-resident blocks; the card holds {n_sms} x {blocks_per_sm}')
+    return blocks
+
+
 def chain_plan(hid, gates, batch, elem_bytes, n_sms, blocks_per_sm):
     """→ ChainPlan for hidden size `hid`, `gates` = 4 (LSTM) or 3 (GRU),
     `batch` rows and elements of `elem_bytes`, on a card of `n_sms` SMs
     that holds `blocks_per_sm` such blocks each.  Raises ValueError when
     the slice does not fit one block's shared memory or the grid cannot
     be co-resident."""
-    if hid < 1 or batch < 1 or gates not in (3, 4) \
-            or elem_bytes not in (2, 4):
-        raise ValueError(f'rnn backward: no plan for H={hid} B={batch} '
-                         f'G={gates} elem_bytes={elem_bytes}')
+    check_shape('rnn backward', hid, gates, batch, elem_bytes)
     smem = chain_smem_bytes(hid, gates, batch, elem_bytes)
-    blocks = -(-hid // UNITS)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(
-            f'rnn backward: H={hid} B={batch} G={gates} needs {smem} bytes '
-            f'of shared memory per block, over {SMEM_PER_BLOCK}')
-    if blocks > n_sms * blocks_per_sm:
-        raise ValueError(
-            f'rnn backward: H={hid} B={batch} G={gates} needs {blocks} '
-            f'co-resident blocks; the card holds {n_sms} x {blocks_per_sm}')
-    return ChainPlan(blocks, smem)
+    return ChainPlan(resident_blocks('rnn backward', hid, gates, batch, smem,
+                                     n_sms, blocks_per_sm), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def card_blocks_per_sm(entry, device_index, gates, bf16, smem_bytes):
+    """How many blocks of `smem_bytes` the kernel behind the C entry
+    `entry` (edd_rnn_bwd_blocks_per_sm or edd_rnn_fwd_blocks_per_sm) fits
+    on one SM of the card, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    cached per shape, off the host path of every call."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.check(getattr(_build.library(), entry)(
+            int(gates == 3), int(bf16), smem_bytes, ctypes.addressof(out)),
+            entry)
+    return out.value
 
 
 def card_plan(x_proj, gates):
@@ -68,12 +100,10 @@ def card_plan(x_proj, gates):
     hid = gh // gates
     elem = x_proj.element_size()
     smem = chain_smem_bytes(hid, gates, batch, elem)
+    dev = x_proj.device
     n = 0
     if smem <= SMEM_PER_BLOCK:
-        out = ctypes.c_int(0)
-        _build.check(_build.library().edd_rnn_bwd_blocks_per_sm(
-            int(gates == 3), int(elem == 2), smem, ctypes.addressof(out)),
-            'rnn_bwd occupancy')
-        n = out.value
-    sms = torch.cuda.get_device_properties(x_proj.device).multi_processor_count
+        n = card_blocks_per_sm('edd_rnn_bwd_blocks_per_sm', dev.index,
+                               gates, elem == 2, smem)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return chain_plan(hid, gates, batch, elem, sms, n)

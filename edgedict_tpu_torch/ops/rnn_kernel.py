@@ -1,12 +1,12 @@
 """K1 + K4 — the LSTM recurrence, forward and backward (counterpart of
 edgedict_tpu/ops/rnn_pallas.py:lstm_recurrence_tm; kernels in
-csrc/lstm_fwd.cu and csrc/rnn_bwd.cu).
+csrc/rnn_fwd.cu and csrc/rnn_bwd.cu).
 
 `lstm_recurrence` takes the hoisted input projection (bias included) and
-runs the time recurrence as a `torch.autograd.Function`: the forward is K1,
-the backward K4 (the gates rematerialised from the saved ys in one product,
-then the dh/dc chain), and dW_hh is one matmul over all steps outside the
-kernel.  The plain PyTorch loops below run for CPU tensors, the kernels for
+runs the time recurrence as a `torch.autograd.Function`: the forward is K1
+(one persistent launch for all steps), the backward K4 (the gates
+rematerialised from the saved ys in one product, then the dh/dc chain), and
+dW_hh is one matmul over all steps outside the kernel.  The plain PyTorch loops below run for CPU tensors, the kernels for
 CUDA tensors.  The device of the tensors decides; there is no fallback from
 one to the other.
 """
@@ -14,7 +14,7 @@ one to the other.
 import torch
 
 from edgedict_tpu_torch import _build
-from edgedict_tpu_torch.ops import rnn_bwd
+from edgedict_tpu_torch.ops import rnn_bwd, rnn_fwd
 
 
 def lstm_recurrence_plain(x_proj, w_hh, h0, c0):
@@ -37,8 +37,9 @@ def lstm_recurrence_plain(x_proj, w_hh, h0, c0):
 
 
 def _lstm_fwd_kernel(x_proj, w_hh, h0, c0):
-    """K1: one step kernel per timestep, h ping-ponged between two
-    buffers."""
+    """K1: one persistent cooperative launch for all T steps
+    (ops/rnn_fwd.py plans its grid); the recurrent product reads h0
+    rounded to x_proj's dtype at t = 0, then ys[t-1]."""
     dtypes = (torch.float32, torch.bfloat16)
     _build.require_cuda(x_proj, 'x_proj', dtypes)
     _build.require_cuda(w_hh, 'w_hh', (x_proj.dtype,))
@@ -52,18 +53,19 @@ def _lstm_fwd_kernel(x_proj, w_hh, h0, c0):
                          f'{tuple(x_proj.shape)}'
                          f' w_hh {tuple(w_hh.shape)} h0 {tuple(h0.shape)}'
                          f' c0 {tuple(c0.shape)}')
+    plan = rnn_fwd.card_plan(x_proj, 4)
     dev = x_proj.device
+    h0e = h0.to(x_proj.dtype).contiguous()
     ys = torch.empty((t, b, hid), dtype=x_proj.dtype, device=dev)
     cs = torch.empty((t, b, hid), dtype=torch.float32, device=dev)
-    hbuf = torch.empty((2, b, hid), dtype=torch.float32, device=dev)
-    lib = _build.library()
+    hT = torch.empty((b, hid), dtype=torch.float32, device=dev)
     p = _build.ptr
-    _build.check(lib.edd_lstm_fwd(
-        p(x_proj), p(w_hh), p(h0), p(c0), p(ys), p(cs), p(hbuf), t, b, hid,
-        int(x_proj.dtype == torch.bfloat16), _build.stream_ptr(dev)),
-        'lstm_fwd')
+    _build.check(_build.library().edd_lstm_fwd(
+        p(x_proj), p(w_hh), p(h0e), p(c0), p(ys), p(cs), p(hT), t, b, hid,
+        int(x_proj.dtype == torch.bfloat16), plan.blocks, plan.smem,
+        _build.stream_ptr(dev)), 'lstm_fwd')
     lstm_recurrence.launches += 1
-    return ys, cs, hbuf[(t - 1) % 2]
+    return ys, cs, hT
 
 
 def lstm_recurrence_bwd_plain(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
@@ -197,7 +199,7 @@ class _LSTMRecurrence(torch.autograd.Function):
 
 
 def lstm_recurrence(x_proj, w_hh, h0, c0):
-    """See lstm_recurrence_plain; CUDA tensors launch csrc/lstm_fwd.cu (K1),
+    """See lstm_recurrence_plain; CUDA tensors launch csrc/rnn_fwd.cu (K1),
     and their backward csrc/rnn_bwd.cu (K4).  Differentiable in all four
     inputs."""
     return _LSTMRecurrence.apply(x_proj, w_hh, h0, c0)

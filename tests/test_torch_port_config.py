@@ -1,0 +1,82 @@
+"""The port's flag parsing refuses the JAX package's flags whose work it
+does not do yet (edgedict_tpu_torch/config.py REFUSED): a value other
+than the default stops the parse (parser.error, SystemExit 2) with a
+message naming the flag and its ROADMAP.md Queue 1 item, under every
+CLI's parser.  The defaults, the flags the JAX package itself ignores and
+the three preset flagfiles still parse."""
+
+import os
+
+import pytest
+
+from edgedict_tpu_torch import config as C
+from edgedict_tpu_torch.cli import baseline, stream
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PRESETS = ['E6D2.txt', 'E4D1.txt', 'E6D2_LARGE_Batch.txt']
+
+
+def _serve_parser():
+    # cli/serve.py's parser: cli/stream.py's plus the server's own flags
+    parser = stream.build_parser('serve')
+    parser.add_argument('--n_streams', type=int, default=64)
+    return parser
+
+
+PARSERS = {'baseline': baseline.build_parser,
+           'stream': lambda: stream.build_parser('stream'),
+           'serve': _serve_parser}
+
+
+@pytest.mark.parametrize('arg,name,item', [
+    ('--eval_beam_width=4', 'eval_beam_width', '9'),
+    ('--device_corpus', 'device_corpus', '15'),
+    ('--use_pretrained=true', 'use_pretrained', '11'),
+    ('--dp_size=2', 'dp_size', '14'),
+    ('--tp_size=2', 'tp_size', '14'),
+    ('--pp_size=4', 'pp_size', '14'),
+    ('--profile_dir=traces', 'profile_dir', '15'),
+])
+@pytest.mark.parametrize('cli', sorted(PARSERS))
+def test_refused_flag_stops_the_parse(capsys, cli, arg, name, item):
+    with pytest.raises(SystemExit) as exc:
+        C.parse_flags(PARSERS[cli](),
+                      [f'--flagfile={REPO}/flagfiles/E6D2.txt', arg])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f'--{name}=' in err and f'Queue 1 item {item}' in err
+
+
+def test_every_refused_flag_is_named_at_once(capsys):
+    """The command line ROADMAP.md's Queue 3 fault gave: it parsed and
+    trained greedy-only on one device from a random init."""
+    with pytest.raises(SystemExit):
+        C.parse_flags(baseline.build_parser(), [
+            '--flagfile', f'{REPO}/flagfiles/E6D2.txt',
+            '--eval_beam_width=4', '--tp_size=2', '--use_pretrained',
+            '--device_corpus'])
+    err = capsys.readouterr().err
+    for name in ('eval_beam_width', 'tp_size', 'use_pretrained',
+                 'device_corpus'):
+        assert f'--{name}=' in err
+
+
+@pytest.mark.parametrize('preset', PRESETS)
+@pytest.mark.parametrize('cli', sorted(PARSERS))
+def test_presets_defaults_and_ignored_flags_parse(cli, preset):
+    flags = C.parse_flags(PARSERS[cli](), [
+        f'--flagfile={REPO}/flagfiles/{preset}',
+        # the refused flags at their defaults, in each spelling
+        '--eval_beam_width=0', '--nodevice_corpus', '--use_pretrained=false',
+        '--dp_size=-1', '--dp_size=1', '--tp_size=1', '--pp_size=1',
+        '--profile_dir=',
+        # accepted and ignored, as by the JAX package
+        '--apex', '--noapex', '--opt_level=O2', '--multi_gpu',
+        '--LibriSpeech_dev=dev', '--TEDLIUM_test=test',
+        '--compilation_cache_dir=cache'])
+    assert (flags.eval_beam_width, flags.device_corpus, flags.use_pretrained,
+            flags.dp_size, flags.tp_size, flags.pp_size) == \
+        (0, False, False, 1, 1, 1)
+    assert flags.profile_dir == ''
+    assert not hasattr(flags, 'apex') and not hasattr(flags, 'opt_level')
+    assert flags.enc_layers in (4, 6) and flags.tokenizer == 'bpe'

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and at the E6D2 main paths' shapes (serving: K1-K3, K5,
-K11-K13; training: K4, K6, K7/K8 in fp32 and bf16, K9/K10), plus the
+K11-K13; training: K1, K4, K5, K6 at H=1024 B=32 T=427 bf16, K7/K8 in fp32
+and bf16, K9/K10), the launch plans' refusals, plus the
 streaming decoder and a GRU train step on CUDA against the CPU.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
@@ -42,6 +43,12 @@ def _max_abs(a, b):
     (1024, 8, 16, torch.float32), (1024, 8, 2, torch.bfloat16),
     (1024, 8, 16, torch.bfloat16),
     (256, 8, 1, torch.float32), (1030, 11, 3, torch.float32),
+    # the persistent kernel's slabs of 32 rows (ragged B = 33, the server's
+    # 256), E6D2_LARGE_Batch's H=512, one step, unaligned rows in bf16
+    (1024, 33, 3, torch.bfloat16), (1024, 256, 2, torch.float32),
+    (256, 256, 2, torch.bfloat16), (512, 8, 4, torch.bfloat16),
+    (512, 33, 2, torch.float32), (1024, 4, 1, torch.bfloat16),
+    (1024, 1, 2, torch.bfloat16), (1030, 11, 3, torch.bfloat16),
 ])
 def test_k1_lstm_fwd_matches_plain(cuda, hid, b, t, dtype):
     g = torch.Generator(device='cpu').manual_seed(hid + b + t)
@@ -353,6 +360,9 @@ def _step_from_own_state(plain, xp, ys, h0, *args):
     (1024, 64, 2, torch.bfloat16, False), (1030, 11, 3, torch.float32, False),
     (1024, 1, 2, torch.float32, True), (1024, 64, 2, torch.bfloat16, True),
     (72, 9, 4, torch.float32, True),
+    (1024, 33, 3, torch.bfloat16, False), (1024, 256, 2, torch.float32, False),
+    (512, 8, 4, torch.bfloat16, False), (256, 33, 1, torch.float32, False),
+    (1024, 4, 1, torch.bfloat16, False), (1030, 11, 3, torch.bfloat16, False),
 ])
 def test_k5_k13_gru_fwd_matches_plain(cuda, hid, b, t, dtype, int8):
     from edgedict_tpu_torch.ops import gru_kernel as K5
@@ -508,6 +518,95 @@ def test_k4_k6_shape_outside_the_plan_raises(cuda, cell, hid, dtype):
         else:
             b_hh = torch.zeros(g * hid, device=cuda)
             KG.gru_recurrence_bwd(xp, w, b_hh, h0, ys, ys, None)
+
+
+def _fwd_case(cuda, cell, hid, b, t, dtype, seed):
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    gates = 4 if cell == 'LSTM' else 3
+    k = 1.0 / hid ** 0.5
+    xp = torch.randn(t, b, gates * hid, generator=g).to(cuda, dtype)
+    w = (torch.rand(gates * hid, hid, generator=g) * 2 * k - k).to(cuda, dtype)
+    h0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
+    if cell == 'LSTM':
+        return (xp, w, h0, torch.randn(b, hid, generator=g).to(cuda) * 0.5)
+    return (xp, w, (torch.rand(gates * hid, generator=g) - 0.5).to(cuda), h0)
+
+
+@pytest.mark.parametrize('cell', ['LSTM', 'GRU'])
+def test_k1_k5_training_shape_held_step_by_step(cuda, cell):
+    """E6D2's encoder layer in training (H=1024 B=32 T=427 bf16).  Over 427
+    steps a one-ulp flip of h's bf16 rounding feeds every later step, so the
+    free-running output is not held: each step is, from the kernel's own
+    carried state (ys[t-1], the LSTM's cs[t-1]): ys within one bf16 ulp, cs
+    to 1e-4."""
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    hid, b, t = 1024, 32, 427
+    args = _fwd_case(cuda, cell, hid, b, t, torch.bfloat16, 427)
+    xp, w = args[0], args[1]
+    h0 = args[2] if cell == 'LSTM' else args[3]
+    if cell == 'LSTM':
+        ys, cs, hT = K1.lstm_recurrence(*args)
+        c0 = args[3]
+        h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b, hid)
+        c_prev = torch.cat([c0[None], cs[:-1]]).reshape(t * b, hid)
+        step = K1.lstm_recurrence_plain(xp.reshape(1, t * b, 4 * hid), w,
+                                        h_prev, c_prev)
+        step_ys = step[0].reshape(ys.shape)
+        assert _max_abs(cs, step[1].reshape(cs.shape)) <= 1e-4
+        # hT is the last step's fp32 h, of which ys[-1] is the rounding
+        assert _max_abs(hT.to(ys.dtype), ys[-1]) == 0.0
+    else:
+        ys, hT = K5.gru_recurrence(*args)
+        assert torch.equal(hT, ys[-1])
+        step_ys = _step_from_own_state(K5.gru_recurrence_plain, xp, ys, h0,
+                                       w, args[2])
+    assert bool(((ys.float() - step_ys.float()).abs()
+                 <= 1e-2 + 2.0 ** -7 * step_ys.float().abs()).all())
+
+
+@pytest.mark.parametrize('cell', ['LSTM', 'GRU'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k1_k5_one_launch_per_call(cuda, cell, dtype):
+    """One K1 or K5 call of T steps is one launch of the persistent kernel
+    (torch.profiler's device trace), not T, and no per-step kernel runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    args = _fwd_case(cuda, cell, 256, 8, 16, dtype, 16)
+    fn = K1.lstm_recurrence if cell == 'LSTM' else K5.gru_recurrence
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    step = 'LstmStep' if cell == 'LSTM' else 'GruStep'
+    assert sum('recur_fwd_kernel' in n and step in n for n in names) == 1
+    assert not any('step_kernel' in n for n in names)
+
+
+@pytest.mark.parametrize('cell,hid,b,dtype', [('LSTM', 2048, 4, torch.float32),
+                                              ('GRU', 3000, 4, torch.float32),
+                                              ('LSTM', 4096, 4, torch.bfloat16),
+                                              ('GRU', 1024, 8192,
+                                               torch.float32)])
+def test_k1_k5_shape_outside_the_plan_raises(cuda, cell, hid, b, dtype):
+    """A shape whose W_hh slice and carries do not fit one block's shared
+    memory is refused with ValueError naming it, before any launch."""
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    g = 4 if cell == 'LSTM' else 3
+    xp = torch.zeros(2, b, g * hid, device=cuda, dtype=dtype)
+    w = torch.zeros(g * hid, hid, device=cuda, dtype=dtype)
+    h0 = torch.zeros(b, hid, device=cuda)
+    fn = K1.lstm_recurrence if cell == 'LSTM' else K5.gru_recurrence
+    before = fn.launches
+    with pytest.raises(ValueError, match=f'H={hid}'):
+        if cell == 'LSTM':
+            K1.lstm_recurrence(xp, w, h0, h0)
+        else:
+            K5.gru_recurrence(xp, w, torch.zeros(g * hid, device=cuda), h0)
+    assert fn.launches == before
 
 
 def test_gru_train_step_cuda_matches_cpu(cuda):

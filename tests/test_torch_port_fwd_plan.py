@@ -1,0 +1,88 @@
+"""The launch plan of K1/K5's persistent forward kernel (ops/rnn_fwd.py) on
+the CPU: for the hidden sizes of the port's main paths (E6D2's encoder
+H=1024, its prediction net H=256, E6D2_LARGE_Batch's H=512) and the odd
+shapes the card tests use, for both cells, batches from one stream to the
+server's 256 and both dtypes, at the H100's 132 SMs the grid is
+co-resident, every hidden unit is owned by exactly one block and the whole
+W_hh slice fits in a block's shared memory; shapes beyond the plan raise
+ValueError naming the shape."""
+
+import pytest
+
+from edgedict_tpu_torch.ops import rnn_fwd as P
+
+H100_SMS = 132
+
+
+def resident_blocks_per_sm(smem, regs_per_thread=128):
+    """The H100's limits on resident blocks of P.THREADS threads and `smem`
+    dynamic bytes per SM: 228 KB of shared memory with 1 KB reserved per
+    block, 2048 threads, 64K registers.  The wrapper asks the card instead
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    if smem > P.SMEM_PER_BLOCK:
+        return 0
+    return min(233472 // (smem + 1024), 2048 // P.THREADS,
+               65536 // (regs_per_thread * P.THREADS))
+
+
+def _plan(hid, gates, batch, elem):
+    smem = P.fwd_smem_bytes(hid, gates, batch, elem)
+    return P.fwd_plan(hid, gates, batch, elem, H100_SMS,
+                      resident_blocks_per_sm(smem))
+
+
+@pytest.mark.parametrize('hid', [16, 40, 64, 256, 512, 1024, 1030])
+@pytest.mark.parametrize('gates', [3, 4])
+@pytest.mark.parametrize('batch', [1, 5, 11, 32, 33, 256])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_plan_is_co_resident_and_covers_every_unit(hid, gates, batch, elem):
+    plan = _plan(hid, gates, batch, elem)
+    smem = P.fwd_smem_bytes(hid, gates, batch, elem)
+    assert plan.smem == smem <= P.SMEM_PER_BLOCK
+    assert plan.blocks <= H100_SMS * resident_blocks_per_sm(smem)
+    owners = [0] * hid
+    for blk in range(plan.blocks):
+        for u in range(blk * P.UNITS, min(hid, (blk + 1) * P.UNITS)):
+            owners[u] += 1
+    assert owners == [1] * hid
+    assert (plan.blocks - 1) * P.UNITS < hid   # no block owns nothing
+
+
+@pytest.mark.parametrize('gates', [3, 4])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_plan_holds_the_whole_weight_slice(gates, elem):
+    # every one of the block's G·UNITS gate rows, all H of each (rounded up
+    # to 32), beside the partial sums of one slab and the (B x UNITS)
+    # carries: E6D2's LSTM layer in bf16 is 64 KB of slice
+    for hid in (1024, 1030):
+        k32 = -(-hid // 32) * 32
+        rest = P.WARPS * P.SLAB * P.RED_LD[gates] * 4 + 33 * P.UNITS * 4
+        assert P.fwd_smem_bytes(hid, gates, 33, elem) \
+            == gates * P.UNITS * k32 * elem + rest
+        assert k32 >= hid and P.RED_LD[gates] >= gates * P.UNITS
+    assert P.fwd_smem_bytes(1024, 4, 32, 2) - 4 * 1024 * P.UNITS * 2 \
+        == P.WARPS * P.SLAB * 40 * 4 + 32 * P.UNITS * 4
+
+
+@pytest.mark.parametrize('hid,gates,batch,elem', [
+    (2048, 4, 32, 4), (4096, 4, 32, 2), (3000, 3, 1, 4), (8192, 3, 256, 2),
+    (1024, 4, 8192, 4)])
+def test_shape_beyond_the_plan_raises(hid, gates, batch, elem):
+    with pytest.raises(ValueError, match=f'H={hid}'):
+        _plan(hid, gates, batch, elem)
+
+
+def test_grid_not_co_resident_raises():
+    # 1056 units fit 132 blocks of 8, one block per SM; 1064 do not
+    P.fwd_plan(1056, 4, 32, 4, H100_SMS, 1)
+    with pytest.raises(ValueError, match='H=1064'):
+        P.fwd_plan(1064, 4, 32, 4, H100_SMS, 1)
+    with pytest.raises(ValueError, match='H=16'):
+        P.fwd_plan(16, 3, 32, 2, H100_SMS, 0)
+
+
+@pytest.mark.parametrize('hid,gates,batch,elem', [
+    (0, 4, 1, 2), (16, 2, 1, 2), (16, 4, 0, 4), (16, 3, 1, 8), (-8, 3, 4, 4)])
+def test_degenerate_shapes_raise(hid, gates, batch, elem):
+    with pytest.raises(ValueError, match=f'H={hid}'):
+        P.fwd_plan(hid, gates, batch, elem, H100_SMS, 1)
