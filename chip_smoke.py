@@ -14,16 +14,20 @@ Phases, each printing JSON or text lines:
              card at the main paths' shapes, with stated tolerances (tokens
              exact), and both timed with CUDA events (median of 20 after
              warm-up, in turns plain, kernel, kernel, plain); K11 also
-             beside a dequantize-then-F.linear yardstick, the recurrences
+             beside a dequantize-then-F.linear yardstick (its tiled
+             kernels, R > 32, as the quant_matmul_tile entry with every R=512
+             case), the recurrences
              K1/K4/K5/K6 beside one cuDNN nn.LSTM / nn.GRU layer (forward,
              or forward+backward) and the port's own layer timed the same
              way (library_ms, layer_ms); K4/K6 also split into their two
              launches, the gate remat and the dh chain (torch.profiler
-             device ms); K1 and K5 (one persistent launch per call) with
-             their launch plan (grid, shared memory, blocks per SM), also at
-             the training shape (H=1024 B=32 T=427 bf16, held step by step
-             from the kernel's own state) beside cuDNN's layer forward and
-             the port's own layer; each kernel's bound
+             device ms), and K8 into its tensor-core launches (h, dlogits,
+             dh, dW, the partials' reduction) with its launch plan; K1 and
+             K5 (one persistent launch per call) with their launch plan
+             (grid, shared memory, blocks per SM), also at the training
+             shape (H=1024 B=32 T=427 bf16, held step by step from the
+             kernel's own state) beside cuDNN's layer forward and the port's
+             own layer; each kernel's bound
              (bytes once over 3.35 TB/s, or operations over the peak of
              their type, whichever is larger) from the timed inputs
   4 slice    E6D2 from flagfiles/E6D2.txt with seeded random weights:
@@ -40,7 +44,8 @@ Phases, each printing JSON or text lines:
              edgedict_tpu_torch/cli/serve.py builds it; 4 concurrent
              clients, each transcript == decode_wav of its audio
   8 server_int8  the same with quantize='int8' (cli/serve.py --quantize
-             int8)
+             int8) at n_streams=64, where every K11 call runs its tiled
+             kernel (R = 128 and 64 rows)
   9 train_parity  one fp32 E6D2 train step (full width and depth, B=4,
              ~2 s) on cuda against the CPU plain path from the same weights
              and batch: loss, grad_norm, grads and params after the Adam step
@@ -62,7 +67,8 @@ Phases, each printing JSON or text lines:
              encoder calls imply (per call: int8 LSTM K11 7, K12 6, K1 0;
              GRU K5 6; int8 GRU K11 7, K13 6, K5 0), the train counts what
              the steps imply (per micro-step: LSTM 8 K1 and 8 K4, GRU 6 K5,
-             6 K6, 2 K1 and 2 K4; one of K2 and K7-K10 each)
+             6 K6, 2 K1 and 2 K4; one of K2 and K7-K10 each); every K11
+             launch of the int8 server is a tiled one
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -387,7 +393,8 @@ def phase_kernels(torch):
                            case.get('plain_ms'), bounds)
     train_kernels(torch, rng, dev, record)
     train_shape_forward(torch, rng, dev)
-    serving_kernels_q(torch, rng, dev, record)
+    summary['quant_matmul_tile']['cases'] = serving_kernels_q(torch, rng, dev,
+                                                              record)
     STATE['kernels'] = summary
 
 
@@ -488,6 +495,12 @@ def kernel_split_ms(torch, fn, parts, n=5):
 
 # K4/K6's two launches: the gate remat over all steps and the dh chain
 BWD_PARTS = {'remat_ms': ('remat_',), 'chain_ms': ('chain_kernel',)}
+# K8's tensor-core launches, summed over the slabs (ops/joint_lse_plan.py)
+K8_PARTS = {'h_ms': ('joint_lse_bwd_h_',),
+            'dlogits_ms': ('joint_lse_bwd_dl_',),
+            'dh_ms': ('joint_lse_bwd_dh_mma',),
+            'dw_ms': ('joint_lse_bwd_dw_mma',),
+            'reduce_ms': ('joint_lse_bwd_reduce',)}
 
 
 def train_shape_forward(torch, rng, dev):
@@ -557,7 +570,10 @@ def train_kernels(torch, rng, dev, record):
     """K4, K7/K8 and K9/K10 against their plain versions at the E6D2
     training step's shapes (B=32, 16 s: encoder T=427/214, prediction net
     T=U+1=65, joint J=640, V=2048)."""
+    import dataclasses
+
     from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.ops import joint_lse_plan as JP
     from edgedict_tpu_torch.ops import rnn_kernel as K1
     from edgedict_tpu_torch.ops import rnnt_loss as PL
     from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
@@ -674,6 +690,12 @@ def train_kernels(torch, rng, dev, record):
                 'dbias_rel': bwd_errs[3],
                 'tol': 'lp 1e-4, grads 2e-2 (bf16 dlogits), of max(1, max|ref|)'}
         main = u1 == 65
+        case['plan'] = dataclasses.asdict(JP.bwd_plan(
+            b, t, u1, j, v, torch.cuda.get_device_properties(dev)
+            .multi_processor_count))
+        case['bwd_parts_ms'] = kernel_split_ms(
+            torch, lambda: KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse,
+                                            d_b, d_l), K8_PARTS)
         if main:
             ms, pms = time_pair(
                 torch, lambda: KJ.fused_joint_lse_plain(f, g, w_t, bias,
@@ -754,7 +776,9 @@ def serving_kernels_q(torch, rng, dev, record):
     """K5 (GRU forward), K11 (int8-weight matmul), K12 / K13 (int8 LSTM /
     GRU recurrences) against their plain versions at E6D2's serving shapes
     (H=1024, B 1 and 64, T=2; K11 for every layer's x_proj and the final
-    projection at R = T*B rows 2 and 512), fp32 and bf16."""
+    projection at R = T*B rows 2, 64, 128 and 512: one stream, the int8
+    server's 64 streams after and before the time reduction, 256 streams),
+    fp32 and bf16.  → K11's R=512 cases (its tiled kernels)."""
     from edgedict_tpu_torch.ops import gru_kernel as K5
     from edgedict_tpu_torch.ops import quant as Q
     from edgedict_tpu_torch.ops import rnn_kernel as K1
@@ -765,11 +789,15 @@ def serving_kernels_q(torch, rng, dev, record):
                                device=dev).to(dtype)
 
     # K11: fp32 to 1e-5 of max(1, |out|) (fp32 sums in another order); bf16
-    # to 1e-2 (both round the same fp32 value to bf16: one ulp apart at most)
+    # to 1e-2 (both round the same fp32 value to bf16: one ulp apart at most).
+    # R=2 runs the matrix-vector kernel, R=64, 128 and 512 the tiled kernels
+    # (each R=512 case is kept in the kernels line's quant_matmul_tile entry)
+    tile_cases = []
     for (k, n), r, dt in [(kn, r, dt) for kn in ((240, 4096), (1024, 4096),
                                                  (1024, 640), (240, 3072),
                                                  (1024, 3072))
-                          for r in (2, 512) for dt in (fp32, bf16)]:
+                          for r in (2, 64, 128, 512)
+                          for dt in (fp32, bf16)]:
         x = t_(r, k, dtype=dt)
         q, sc = Q.quantize_int8(t_(n, k, scale=k ** -0.5))
         bias = t_(n, scale=0.1)
@@ -792,9 +820,18 @@ def serving_kernels_q(torch, rng, dev, record):
         case.update(bound_ms=b_ms, bound_by=b_by)
         emit(case)
         require(rel <= tol, f'K11 disagrees: {case}')
-        main = (r, k, n, dt) == (2, 1024, 4096, fp32)
-        record('quant_matmul', rel, ms if main else None, pms,
-               (b_ms, b_by), lib)
+        if r <= 32:
+            main = (r, k, n, dt) == (2, 1024, 4096, fp32)
+            record('quant_matmul', rel, ms if main else None, pms,
+                   (b_ms, b_by), lib)
+        else:
+            main = (r, k, n, dt) == (512, 1024, 4096, bf16)
+            record('quant_matmul_tile', rel, ms if main else None, pms,
+                   (b_ms, b_by), lib)
+            if r == 512:
+                tile_cases.append({key: case[key] for key in (
+                    'R', 'K', 'N', 'dtype', 'ms', 'plain_ms', 'library_ms',
+                    'bound_ms', 'bound_by', 'rel_err')})
 
     # K5 / K12 / K13: free-running to 1e-4 in fp32 and 2e-2 in bf16, where
     # one rounding flip of h feeds every later step; so bf16 is also held
@@ -881,6 +918,7 @@ def serving_kernels_q(torch, rng, dev, record):
         require(ok, f'{label} disagrees: {case}')
         record(name, max(errs + steps), ms if main else None, pms,
                (b_ms, b_by), case.get('library_ms'))
+    return tile_cases
 
 
 def _e6d2():
@@ -915,10 +953,15 @@ def _counters():
 def _reset_launches():
     for fn in _counters().values():
         fn.launches = 0
+    _counters()['quant_matmul'].tile_launches = 0
 
 
 def _launches():
-    return {name: fn.launches for name, fn in _counters().items()}
+    """{kernel name: launches}; quant_matmul_tile counts K11's tiled
+    launches (R > 32), which quant_matmul also counts."""
+    counts = {name: fn.launches for name, fn in _counters().items()}
+    counts['quant_matmul_tile'] = _counters()['quant_matmul'].tile_launches
+    return counts
 
 
 def _first_divergence(torch, model, cfg, feat, tok, audio, a, b):
@@ -1112,9 +1155,9 @@ def phase_slice_gru(torch):
     require(res['nonblank_frames'] > 0, 'no token emitted')
 
 
-def phase_server(torch, quantize=None):
-    """StreamServer over MultiStreamDecoder(n_streams=8, cuda, quantize)
-    as cli/serve.py builds it; 4 concurrent clients, each transcript ==
+def phase_server(torch, quantize=None, n_streams=8):
+    """StreamServer over MultiStreamDecoder(n_streams, cuda, quantize) as
+    cli/serve.py builds it; 4 concurrent clients, each transcript ==
     decode_wav of its audio."""
     import asyncio
 
@@ -1131,7 +1174,7 @@ def phase_server(torch, quantize=None):
     single = S.StreamingDecoder(model, cfg, feat, tok, device='cuda',
                                 quantize=quantize)
     expected = [single.decode_wav(a) for a in audios]
-    dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=8,
+    dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=n_streams,
                                device='cuda', quantize=quantize)
     server = build_server(dec, port=0, round_timeout_ms=0)   # lockstep
     loop = asyncio.new_event_loop()
@@ -1178,7 +1221,9 @@ def phase_server(torch, quantize=None):
 
 
 def phase_server_int8(torch):
-    phase_server(torch, quantize='int8')
+    """The int8 server at 64 streams: x_proj's R = 2 x 64 rows (64 after
+    the time reduction) put every K11 call on its tiled kernel."""
+    phase_server(torch, quantize='int8', n_streams=64)
 
 
 def _e6d2_train_cfg():
@@ -1500,6 +1545,8 @@ SOURCES = {
                           'edgedict_tpu/ops/rnnt_loss_pallas.py:116'),
     'quant_matmul': ('edgedict_tpu_torch/csrc/quant_matmul.cu',
                      'edgedict_tpu/ops/quant.py:162'),
+    'quant_matmul_tile': ('edgedict_tpu_torch/csrc/quant_matmul.cu',
+                          'edgedict_tpu/ops/quant.py:162'),
     'lstm_fwd_q': ('edgedict_tpu_torch/csrc/lstm_fwd.cu',
                    'edgedict_tpu/ops/quant.py:287'),
     'gru_fwd_q': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
@@ -1512,11 +1559,13 @@ DECODE_RUNS = {
     'decode_wav': {'lstm_fwd': 6, 'gru_fwd': 0, 'quant_matmul': 0,
                    'lstm_fwd_q': 0, 'gru_fwd_q': 0},
     'decode_wav_int8': {'lstm_fwd': 0, 'gru_fwd': 0, 'quant_matmul': 7,
-                        'lstm_fwd_q': 6, 'gru_fwd_q': 0},
+                        'quant_matmul_tile': 0, 'lstm_fwd_q': 6,
+                        'gru_fwd_q': 0},
     'decode_wav_gru': {'lstm_fwd': 0, 'gru_fwd': 6, 'quant_matmul': 0,
                        'lstm_fwd_q': 0, 'gru_fwd_q': 0},
     'decode_wav_gru_int8': {'lstm_fwd': 0, 'gru_fwd': 0, 'quant_matmul': 7,
-                            'lstm_fwd_q': 0, 'gru_fwd_q': 6},
+                            'quant_matmul_tile': 0, 'lstm_fwd_q': 0,
+                            'gru_fwd_q': 6},
 }
 
 
@@ -1540,6 +1589,9 @@ def check_launches():
                 f'a kernel was not launched by {run}: {runs[run]}')
     require(runs['server_int8']['lstm_fwd'] == 0,
             f'the int8 server launched K1: {runs["server_int8"]}')
+    q = runs['server_int8']
+    require(q['quant_matmul_tile'] == q['quant_matmul'] > 0,
+            f'the 64-stream int8 server ran K11 off its tiled kernel: {q}')
     for run, want in STATE['train_expect'].items():
         require(all(runs[run][k] == n for k, n in want.items()),
                 f'{run} launches {runs[run]} != {want}')
@@ -1591,7 +1643,7 @@ def main():
          'replaces': SOURCES[name][1], 'launches': launches[name],
          **{key: kernels[name][key] for key in (
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-             'library_ms')}}
+             'library_ms', 'cases') if key in kernels[name]}}
         for name in SOURCES]})
     emit(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': STATE['kind'],

@@ -22,6 +22,7 @@ raises when it is not 0.  Pointers and the stream go in as
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,7 +38,7 @@ BUILD_DIR = os.path.join(_HERE, '_build')
 SOURCES = ('rnn_fwd.cu', 'rnn_bwd.cu', 'lstm_fwd.cu', 'gru_fwd.cu',
            'mel_power.cu', 'greedy_decode.cu', 'joint_lse.cu', 'rnnt_loss.cu',
            'quant_matmul.cu')
-HEADERS = ('rnn_common.cuh',)
+HEADERS = ('rnn_common.cuh', 'mma_tile.cuh')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v')
@@ -55,8 +56,8 @@ _SIGNATURES = {
     'edd_rnn_fwd_blocks_per_sm': (_I, _I, _I, _P),
     # xp, w_q, w_scale, b_hh, h0, ys, hbuf, T, B, H, bf16, stream
     'edd_gru_fwd_q': (_P,) * 7 + (_I,) * 4 + (_P,),
-    # x, wq, scale, bias, out, R, K, N, bf16, stream
-    'edd_quant_matmul': (_P,) * 5 + (_I,) * 4 + (_P,),
+    # x, wq, scale, bias, out, R, K, N, bf16, tiled, stream
+    'edd_quant_matmul': (_P,) * 5 + (_I,) * 5 + (_P,),
     # xp, w_hh, h0e, c0, ys, cs, dys, dcs, dhT, hproj, dgates, dh0, dc0,
     # T, B, H, bf16, grid, smem, stream
     'edd_lstm_bwd': (_P,) * 13 + (_I,) * 6 + (_P,),
@@ -69,8 +70,12 @@ _SIGNATURES = {
     # blank, bf16, stream
     'edd_joint_lse_fwd': (_P,) * 8 + (_I,) * 7 + (_P,),
     # f, g, wt, w, bias, labels, lse, d_blank, d_label, df, dg, dw, dbias,
-    # B, T, U1, J, V, blank, bf16, n_split, stream
-    'edd_joint_lse_bwd': (_P,) * 13 + (_I,) * 8 + (_P,),
+    # B, T, U1, J, V, blank, n_split, stream
+    'edd_joint_lse_bwd': (_P,) * 13 + (_I,) * 7 + (_P,),
+    # f, g, wt, w, bias, labels, lse, d_blank, d_label, df, dg, dw, dbias,
+    # hs, dls, dw_part, dbias_part, B, T, U1, J, V, blank, r_t, r_u,
+    # slab_tiles, dw_split, stream
+    'edd_joint_lse_bwd_mma': (_P,) * 17 + (_I,) * 10 + (_P,),
     # blank, label, xlen, ylen, alpha, logz, B, T, U1, stream
     'edd_lattice_alpha': (_P,) * 6 + (_I, _I, _I, _P),
     # blank, label, alpha, logz, xlen, ylen, beta, gb, gl, B, T, U1, stream
@@ -197,6 +202,18 @@ def ptr(t):
 
 def stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device):
+    """The SM count of a CUDA device (cached: a launch plan reads it on
+    every call)."""
+    return _sm_count(torch.cuda.current_device() if device.index is None
+                     else device.index)
 
 
 def require_cuda(t, name, dtypes):

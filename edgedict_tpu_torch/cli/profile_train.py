@@ -2,11 +2,15 @@
 
   python -m edgedict_tpu_torch.cli.profile_train \
       --flagfile flagfiles/E6D2.txt [--batch_size 32] [--seconds 16] \
-      [--label_len 64] [--steps 5] [--device cuda|cpu] [--enc_type GRU]
+      [--label_len 64] [--steps 5] [--device cuda|cpu] [--enc_type GRU] \
+      [--k8_slab_mb 8]
 
 Seeded random weights (seed 0), a seeded synthetic batch of --batch_size
 utterances of --seconds of audio with --label_len random token ids over
 --bpe_size ids, and the flags' optimizer, gradclip, bf16 and SpecAugment.
+--k8_slab_mb caps the h + dlogits scratch of K8's bf16 plan
+(ops/joint_lse_plan.py SLAB_BYTES): it measures how K8's scratch traffic
+moves the kernels around it.
 Prints one JSON line with
   step_ms                 median of --steps whole train steps (train.py),
                           each closed by a device synchronise;
@@ -46,6 +50,7 @@ from edgedict_tpu_torch.config import (
     parse_flags, transducer_config_from_flags)
 from edgedict_tpu_torch.features import FeaturePipeline
 from edgedict_tpu_torch.models import transducer as T
+from edgedict_tpu_torch.ops import joint_lse_plan
 from edgedict_tpu_torch.ops.rnnt_loss import rnnt_loss_from_joint
 from edgedict_tpu_torch.stream import resolve_device
 from edgedict_tpu_torch.train import (
@@ -64,8 +69,11 @@ KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
            'gru_bwd_chain': ('chain_kernel', 'GruCell'),
            'mel_power': ('mel_power_kernel',),
            'joint_lse_fwd': ('joint_lse_fwd',),
+           'joint_lse_bwd_h': ('joint_lse_bwd_h_',),
+           'joint_lse_bwd_dl': ('joint_lse_bwd_dl_',),
            'joint_lse_bwd_dh': ('joint_lse_bwd_dh',),
            'joint_lse_bwd_dw': ('joint_lse_bwd_dw',),
+           'joint_lse_bwd_reduce': ('joint_lse_bwd_reduce',),
            'lattice_alpha': ('lattice_alpha_kernel',),
            'lattice_beta_grad': ('lattice_beta_grad_kernel',)}
 
@@ -153,7 +161,7 @@ def profile(flags, device, log_fn=print):
     head = {'device': str(device), 'batch_size': flags.batch_size,
             'accum': accum, 'audio_s': flags.seconds,
             'label_len': flags.label_len, 'vocab': flags.bpe_size,
-            'bf16': flags.bf16,
+            'bf16': flags.bf16, 'k8_slab_bytes': joint_lse_plan.SLAB_BYTES,
             'params': sum(p.numel() for p in state.model.parameters())}
     if device.type == 'cuda':
         head['name'] = torch.cuda.get_device_name(device)
@@ -222,6 +230,9 @@ def build_parser():
                         help='token ids per utterance')
     parser.add_argument('--steps', type=int, default=5,
                         help='timed (and profiled) steps')
+    parser.add_argument('--k8_slab_mb', type=float, default=None,
+                        help="K8's slab scratch in MiB (default: the plan's "
+                             'SLAB_BYTES)')
     return parser
 
 
@@ -229,7 +240,13 @@ def main(argv=None, log_fn=print):
     flags = parse_flags(build_parser(), sys.argv[1:] if argv is None
                         else argv)
     set_numerics()
-    return profile(flags, resolve_device(flags.device), log_fn)
+    slab_bytes = joint_lse_plan.SLAB_BYTES
+    if flags.k8_slab_mb is not None:
+        joint_lse_plan.SLAB_BYTES = int(flags.k8_slab_mb * 2 ** 20)
+    try:
+        return profile(flags, resolve_device(flags.device), log_fn)
+    finally:
+        joint_lse_plan.SLAB_BYTES = slab_bytes
 
 
 if __name__ == '__main__':

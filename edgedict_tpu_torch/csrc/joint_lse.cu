@@ -14,35 +14,51 @@
 //   da = dh (1 - h^2) (fp32 h), df[b,t] += sum_u da, dg[b,u] += sum_t da,
 // with dlogits rounded to W's dtype for the two products, as the TPU kernel
 // feeds its MXU. The (B, T, U+1, V) logits and dlogits never reach device
-// memory: each kernel recomputes them tile by tile.
+// memory whole: the forward and the CUDA-core backward recompute them tile
+// by tile, the tensor-core backward holds one slab's dlogits at a time.
 //
 // What bounds it on the H100: arithmetic. At E6D2 training (B=32, T=214,
 // U+1=65, J=640, V=2048) the forward is 445k rows x J x V = 5.8e11 FMAs and
-// the backward three times that (recompute, dh, dW); bytes are small (f, g,
-// W stay in L2). In bf16, the training dtype, every product runs on the
-// tensor cores (wmma 16x16x16, fp32 accumulate) where J and V are multiples
-// of 16; fp32, and other shapes, run the CUDA-core kernels.
+// the backward three times that (logits, dh, dW); bytes are small (f, g, W
+// stay in L2). In bf16, the training dtype, every backward product runs on
+// the tensor cores (the wrapper pads J and V to multiples of 16), and so
+// does the forward's where J and V are multiples of 16; fp32 runs the
+// CUDA-core kernels.
 //
 // Design:
-//  * forward: a block takes 32 rows, holds their h in shared memory, and
-//    walks V in 128-column chunks: the chunk's logits (wmma into shared
+//  * forward (K7): a block takes 32 rows, holds their h in shared memory,
+//    and walks V in 128-column chunks: the chunk's logits (wmma into shared
 //    memory, or a warp's rows x a lane's 4 columns on CUDA cores), then a
 //    running max / sum of exp and the two gathered logits per row (online
 //    softmax, as _fwd_kernel_split).
-//  * backward dh: the same row tiling recomputes each logits chunk, forms
-//    dlogits (rounded to W's dtype) and accumulates dh = dlogits . W (W in
-//    its (V, J) layout), in wmma accumulators across the chunks or in
-//    shared memory; the epilogue forms da and adds it to df (summed over
-//    the block's rows of one (b, t) first) and dg with fp32 atomics.
-//  * backward dW: the TPU carried dW in one VMEM accumulator across its
-//    ordered grid; blocks here run in no order, so a separate kernel owns a
-//    32-column strip of dW^T per block (a J x 32 fp32 accumulator, in wmma
-//    registers or shared memory) over a contiguous share of the rows,
-//    recomputing h and the strip's logits, and adds the strip to dW^T and
-//    dbias with fp32 atomics once at its end.
-// The atomics make the summation order of df, dg, dW and dbias differ from
-// run to run (fp32 rounding only). Shared-memory rows read by wmma are
-// padded by 16 bytes against bank conflicts.
+//  * backward (K8), bf16 (J, V multiples of 16): the TPU kernel takes
+//    r_t x r_u lattice cells a grid step, computes h once and runs the three
+//    products on it. Here the lattice is cut into tiles of 64 cells
+//    (ops/joint_lse_plan.py picks r_t x r_u), and consecutive tiles into
+//    slabs whose h and dlogits fit a scratch of fixed size; per slab, four
+//    launches: h (one block per tile: its r_t f-rows and r_u g-rows loaded
+//    once, kHCols columns at a time, tanh once per cell, bf16 into the
+//    scratch), dlogits (h . W^T +
+//    bias, the softmax gradient, bf16 into the scratch, fp32 column sums
+//    into per-row-block dbias partials), dh (dlogits . W, then da = dh (1 -
+//    h^2) with fp32 h summed inside each tile: one df atomic per (tile, t,
+//    k) and one dg atomic per (tile, u, k)), dW (h^T . dlogits over row
+//    shares, each into its own fp32 partial, no atomics). The three
+//    products (the bound's count) share one block product: 128 x 128
+//    outputs, 3-stage cp.async ring of 64-deep tiles of both operands,
+//    ldmatrix (.trans for the dW product's transposed operands) into
+//    mma.sync m16n8k16 with fp32 accumulators. One last launch sums the
+//    partials in a fixed order: dW^T and dbias are the same bits from run
+//    to run, df and dg (fp32 atomics) are not.
+//  * backward, fp32: the forward's row tiling recomputes each logits chunk,
+//    forms dlogits and accumulates dh = dlogits . W; the epilogue forms da
+//    and adds it to df (summed over the block's rows of one (b, t) first)
+//    and dg with fp32 atomics. A second kernel owns a 32-column strip of
+//    dW^T per block over a share of the rows, recomputing h and the strip's
+//    logits, and adds the strip to dW^T and dbias with fp32 atomics at its
+//    end.
+// Shared-memory rows read by wmma or ldmatrix are padded by 16 bytes
+// against bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +66,9 @@
 #include <mma.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -62,10 +81,7 @@ constexpr int kStripRows = 32;   // rows per step of the dW kernel
 // bf16, 4 fp32) so that the 16 rows of a wmma tile fall on different banks
 constexpr int kPadB = 8;
 constexpr int kPadF = 4;
-constexpr int kStripLd = kStrip + kPadB;    // bf16 W^T strip / dlogits rows
-constexpr int kStageLdW = kStrip + kPadF;   // fp32 logits rows, dW kernel
-constexpr int kColsLd = kCols + kPadB;      // bf16 dlogits rows, dh kernel
-constexpr int kStageLd = kCols + kPadF;     // fp32 logits rows, fwd / dh
+constexpr int kStageLd = kCols + kPadF;     // fp32 logits rows, forward
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -478,160 +494,6 @@ joint_lse_bwd_dw_kernel(const Elem* __restrict__ f,
   }
 }
 
-// bf16 dW^T, dbias on the tensor cores: rows r0 .. r0 + 31 of the block's
-// share at a time; KTW = 16-row tiles of dW^T per warp (J <= 128 KTW).
-template <int KTW>
-__global__ void __launch_bounds__(kThreads, 2)
-joint_lse_bwd_dw_wmma_kernel(const __nv_bfloat16* __restrict__ f,
-                             const __nv_bfloat16* __restrict__ g,
-                             const __nv_bfloat16* __restrict__ wt,
-                             const float* __restrict__ bias,
-                             const int* __restrict__ labels,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ d_blank,
-                             const float* __restrict__ d_label,
-                             float* __restrict__ dw,
-                             float* __restrict__ dbias, Dims d,
-                             long long rows_per_split, int Jp) {
-  using namespace nvcuda;
-  typedef __nv_bfloat16 bf16;
-  constexpr int R = kStripRows;
-  extern __shared__ __align__(128) unsigned char sraw[];
-  const int ldh = Jp + kPadB;
-  bf16* hs = reinterpret_cast<bf16*>(sraw);        // R x Jp, rows ldh apart
-  bf16* ws = hs + R * ldh;                         // Jp x kStrip (W^T strip)
-  bf16* dls = ws + Jp * kStripLd;                  // R x kStrip
-  float* stage = reinterpret_cast<float*>(dls + R * kStripLd);  // 2 x R x 32
-  float* red = stage + 2 * R * kStageLdW;          // kWarps x 32
-  float* m_z = red + kWarps * 32;                  // R
-  float* m_db = m_z + R;
-  float* m_dl = m_db + R;
-  int* m_lbl = reinterpret_cast<int*>(m_dl + R);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * kStrip;
-  const int col = c0 + lane;
-  const int KT = Jp / 16;
-  const long long start = (long long)blockIdx.y * rows_per_split;
-  const long long end =
-      start + rows_per_split < d.N ? start + rows_per_split : d.N;
-  for (int i = threadIdx.x; i < Jp * kStrip; i += kThreads) {
-    const int k = i / kStrip;
-    const int c = i - k * kStrip;
-    ws[k * kStripLd + c] = (k < d.J && c0 + c < d.V)
-                               ? wt[(size_t)k * d.V + c0 + c]
-                               : __float2bfloat16(0.0f);
-  }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[KTW][2];
-#pragma unroll
-  for (int i = 0; i < KTW; ++i) {
-    wmma::fill_fragment(acc[i][0], 0.0f);
-    wmma::fill_fragment(acc[i][1], 0.0f);
-  }
-  float db_acc = 0.0f;
-  const float bcol = col < d.V ? bias[col] : 0.0f;
-  const int mi = (warp & 3) >> 1, ni = warp & 1, half = warp >> 2;
-  for (long long r0 = start; r0 < end; r0 += R) {
-    __syncthreads();  // the previous step's hs / dls / stage are consumed
-    fill_h_bf16(hs, f, g, r0, R, end, Jp, ldh, d);
-    if (threadIdx.x < R) {
-      const long long r = r0 + threadIdx.x;
-      float z = 0.0f, db = 0.0f, dl = 0.0f;
-      int lb = d.blank;
-      if (r < end) {
-        const Row rw = split_row(r, d);
-        lb = row_label(labels, rw, d);
-        z = lse[r];
-        db = d_blank[r];
-        if (rw.u < d.U) dl = d_label[(size_t)rw.bt * d.U + rw.u];
-      }
-      m_z[threadIdx.x] = z;
-      m_db[threadIdx.x] = db;
-      m_dl[threadIdx.x] = dl;
-      m_lbl[threadIdx.x] = lb;
-    }
-    __syncthreads();
-    {  // logits (R x 32) = h (R x Jp) . W^T strip: tile (mi, ni), k half
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> lg;
-      wmma::fill_fragment(lg, 0.0f);
-      for (int kt = half; kt < KT; kt += 2) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, hs + mi * 16 * ldh + kt * 16, ldh);
-        wmma::load_matrix_sync(b, ws + kt * 16 * kStripLd + ni * 16,
-                               kStripLd);
-        wmma::mma_sync(lg, a, b, lg);
-      }
-      wmma::store_matrix_sync(stage + half * R * kStageLdW +
-                                  mi * 16 * kStageLdW + ni * 16,
-                              lg, kStageLdW, wmma::mem_row_major);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R / kWarps; ++i) {
-      const int rr = warp * (R / kWarps) + i;
-      const float db = m_db[rr], dl = m_dl[rr];
-      float v = 0.0f;
-      if (col < d.V && (db != 0.0f || dl != 0.0f)) {
-        const float logit = stage[rr * kStageLdW + lane] +
-                            stage[(R + rr) * kStageLdW + lane] + bcol;
-        const float p = expf(logit - m_z[rr]);
-        v = (col == d.blank ? db : 0.0f) + (col == m_lbl[rr] ? dl : 0.0f) -
-            (db + dl) * p;
-      }
-      db_acc += v;
-      dls[rr * kStripLd + lane] = __float2bfloat16(v);
-    }
-    __syncthreads();
-    // dW^T strip += h^T (Jp x R) . dlogits (R x 32)
-#pragma unroll
-    for (int i = 0; i < KTW; ++i) {
-      const int kt = warp + kWarps * i;
-      if (kt < KT) {
-#pragma unroll
-        for (int rs = 0; rs < R / 16; ++rs) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-          wmma::load_matrix_sync(a, hs + rs * 16 * ldh + kt * 16, ldh);
-#pragma unroll
-          for (int nj = 0; nj < 2; ++nj) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                b;
-            wmma::load_matrix_sync(b, dls + rs * 16 * kStripLd + nj * 16,
-                                   kStripLd);
-            wmma::mma_sync(acc[i][nj], a, b, acc[i][nj]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* slot = stage + warp * 256;   // one 16 x 16 tile per warp
-#pragma unroll
-  for (int i = 0; i < KTW; ++i) {
-    const int kt = warp + kWarps * i;
-    if (kt < KT) {
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        wmma::store_matrix_sync(slot, acc[i][nj], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int k = kt * 16 + e / 16;
-          const int c = c0 + nj * 16 + (e & 15);
-          if (k < d.J && c < d.V) atomicAdd(&dw[(size_t)k * d.V + c], slot[e]);
-        }
-        __syncwarp();
-      }
-    }
-  }
-  red[warp * 32 + lane] = db_acc;
-  __syncthreads();
-  if (warp == 0 && col < d.V) {
-    float s = 0.0f;
-    for (int i = 0; i < kWarps; ++i) s += red[i * 32 + lane];
-    atomicAdd(&dbias[col], s);
-  }
-}
-
 // logits of rows 0..31 (hs, R x J bf16) at columns c0 .. c0 + 127 into
 // stage (R x kCols fp32) on the tensor cores: warp w takes the 16-row tile
 // w & 1 and the 16-column tiles w >> 1 and (w >> 1) + 4; tiles at or past V
@@ -744,137 +606,436 @@ joint_lse_fwd_wmma_kernel(const __nv_bfloat16* __restrict__ f,
   }
 }
 
-// K8's dh in bf16 on the tensor cores (J and V multiples of 16; KTW 16-col
-// tiles of dh per warp, J <= 128 KTW): per 128-column chunk the logits
-// through wmma, dlogits to shared memory in bf16, dh += dlogits . W with the
-// dh tiles in registers across the chunks; then joint_lse_bwd_dh_kernel's
-// epilogue
-template <int KTW>
-__global__ void __launch_bounds__(kThreads, 2)
-joint_lse_bwd_dh_wmma_kernel(const __nv_bfloat16* __restrict__ f,
-                             const __nv_bfloat16* __restrict__ g,
-                             const __nv_bfloat16* __restrict__ wt,
-                             const __nv_bfloat16* __restrict__ w,
-                             const float* __restrict__ bias,
-                             const int* __restrict__ labels,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ d_blank,
-                             const float* __restrict__ d_label,
-                             float* __restrict__ df, float* __restrict__ dg,
-                             Dims d) {
-  using namespace nvcuda;
-  typedef __nv_bfloat16 bf16;
-  constexpr int R = 32;
-  constexpr int RPW = R / kWarps;
-  extern __shared__ __align__(128) unsigned char sraw[];
-  const int ldh = d.J + kPadB;
-  bf16* hs = reinterpret_cast<bf16*>(sraw);                   // R x J
-  bf16* dls = hs + R * ldh;                                   // R x kCols
-  float* stage = reinterpret_cast<float*>(dls + R * kColsLd);  // R x kCols
-  float* m_z = stage + R * kStageLd;                          // R
-  float* m_db = m_z + R;
-  float* m_dl = m_db + R;
-  int* m_lbl = reinterpret_cast<int*>(m_dl + R);
-  float* dhs = reinterpret_cast<float*>(sraw);   // R x J, after the chunks
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int KT = d.J / 16;
-  const long long r0 = (long long)blockIdx.x * R;
-  fill_h_bf16(hs, f, g, r0, R, d.N, d.J, ldh, d);
-  if (threadIdx.x < R) {
-    const long long r = r0 + threadIdx.x;
-    float z = 0.0f, db = 0.0f, dl = 0.0f;
-    int lb = d.blank;
-    if (r < d.N) {
-      const Row rw = split_row(r, d);
-      lb = row_label(labels, rw, d);
-      z = lse[r];
-      db = d_blank[r];
-      if (rw.u < d.U) dl = d_label[(size_t)rw.bt * d.U + rw.u];
+// ---------------------------------------------------------------------------
+// K8 in bf16 on the tensor cores (J and V multiples of 16): the lattice in
+// 2D tiles, slab by slab (launch plan: ops/joint_lse_plan.py)
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTileCells = 64;     // r_t x r_u cells per lattice tile
+constexpr int kHCols = 1024;       // columns of f, g staged at a time (h)
+constexpr int kGm = 128;           // rows of a product's block (two tiles)
+constexpr int kGn = 128;           // columns of a product's block
+constexpr int kGk = 64;            // depth of one cp.async stage
+constexpr int kGStages = 3;
+constexpr int kGThreads = 256;     // 8 warps of 64 x 32 outputs
+constexpr int kLdMk = kGk + 8;     // [row][k] stage rows: 144 bytes
+constexpr int kLdKm = kGn + 8;     // [k][row] stage rows: 272 bytes
+constexpr int kStageElems = kGm * kLdMk;   // >= kGk * kLdKm
+constexpr int kLdE = kGn + 4;      // fp32 da rows of the dh epilogue
+constexpr int kLdD = kGn + 8;      // bf16 dlogits rows of the dl epilogue
+
+struct Lattice {
+  int B, T, U1, U, J, V, blank;
+  int r_t, r_u, n_tt, n_tu;
+  long long tiles;
+};
+
+struct Cell {
+  int b, t, u;
+  bool ok;
+};
+
+// row `lr` of lattice tile `tile` (the plan's tile_cells)
+__device__ __forceinline__ Cell tile_cell(const Lattice& L, long long tile,
+                                          int lr) {
+  Cell c;
+  const int tu = (int)(tile % L.n_tu);
+  const long long rest = tile / L.n_tu;
+  const int tt = (int)(rest % L.n_tt);
+  c.b = (int)(rest / L.n_tt);
+  c.t = tt * L.r_t + lr / L.r_u;
+  c.u = tu * L.r_u + lr % L.r_u;
+  c.ok = tile < L.tiles && c.t < L.T && c.u < L.U1;
+  return c;
+}
+
+// ROWS x COLS bf16 tile of a row-major matrix (leading dim src_ld), rows r0
+// .., columns c0 .., into shared memory rows `ld` apart, by 16-byte cp.async
+// copies; zero at rows >= row_end or columns >= col_end (both multiples of
+// 8, as are c0 and src_ld).
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_tile(bf16* dst, int ld, const bf16* src,
+                                           size_t src_ld, long long r0,
+                                           long long row_end, int c0,
+                                           int col_end) {
+  constexpr int kChunks = ROWS * (COLS / 8);
+  for (int i = threadIdx.x; i < kChunks; i += kGThreads) {
+    const int r = i / (COLS / 8), c = (i % (COLS / 8)) * 8;
+    bf16* d = dst + r * ld + c;
+    if (r0 + r < row_end && c0 + c < col_end)
+      cp_async16(d, src + (size_t)(r0 + r) * src_ld + c0 + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// One block's 128 x 128 product, acc += A . B over k in [k0, k_end), on
+// mma.sync m16n8k16 through ldmatrix from a 3-stage cp.async ring in `sm`.
+// A is (M, K): stored [m][k] (A_KM false, element (m, k) at a[m * lda + k])
+// or [k][m] (A_KM true, at a[k * lda + m]); B is (K, N): stored [n][k]
+// (B_KN false) or [k][n] (B_KN true). Warp (wm, wn) owns rows wm * 64 ..
+// + 64 and columns wn * 32 .. + 32: acc[i][j] is the m16n8 tile at rows
+// wm * 64 + 16 i, columns wn * 32 + 8 j, element 2 h + e at row + gid + 8 h,
+// column + 2 tig + e.
+template <bool A_KM, bool B_KN>
+__device__ __forceinline__ void gemm_block(
+    float (&acc)[4][4][4], const bf16* a, int lda, long long m0,
+    long long m_end, const bf16* b, int ldb, int n0, int n_end,
+    long long k0, long long k_end, bf16* sm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  bf16* as = sm;
+  bf16* bs = sm + kGStages * kStageElems;
+  auto stage = [&](int buf, long long k) {
+    bf16* ad = as + buf * kStageElems;
+    bf16* bd = bs + buf * kStageElems;
+    if (A_KM)
+      stage_tile<kGk, kGm>(ad, kLdKm, a, lda, k, k_end, (int)m0, (int)m_end);
+    else
+      stage_tile<kGm, kGk>(ad, kLdMk, a, lda, m0, m_end, (int)k, (int)k_end);
+    if (B_KN)
+      stage_tile<kGk, kGn>(bd, kLdKm, b, ldb, k, k_end, n0, n_end);
+    else
+      stage_tile<kGn, kGk>(bd, kLdMk, b, ldb, n0, n_end, (int)k, (int)k_end);
+  };
+  const int nk = (int)((k_end - k0 + kGk - 1) / kGk);
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < nk) stage(s, k0 + (long long)s * kGk);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();   // stage kt landed; stage kt - 1 is consumed
+    const int pf = kt + kGStages - 1;
+    if (pf < nk) stage(pf % kGStages, k0 + (long long)pf * kGk);
+    cp_async_commit();
+    const bf16* ab = as + (kt % kGStages) * kStageElems;
+    const bf16* bb = bs + (kt % kGStages) * kStageElems;
+#pragma unroll
+    for (int kk = 0; kk < kGk; kk += 16) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int mo = wm * 64 + i * 16;
+        if (A_KM)
+          ldmatrix_x4_trans(af[i], ab + (kk + (lane & 7) + ((lane >> 4) << 3)) *
+                                            kLdKm +
+                                        mo + ((lane >> 3) & 1) * 8);
+        else
+          ldmatrix_x4(af[i], ab + (mo + (lane & 15)) * kLdMk + kk +
+                                 (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; jj += 2) {
+        const int no = wn * 32 + jj * 8;
+        uint32_t r[4];
+        if (B_KN)
+          ldmatrix_x4_trans(r, bb + (kk + (lane & 7) +
+                                     (((lane >> 3) & 1) << 3)) * kLdKm +
+                                   no + ((lane >> 4) << 3));
+        else
+          ldmatrix_x4(r, bb + (no + (lane & 7) + ((lane >> 4) << 3)) * kLdMk +
+                             kk + ((lane >> 3) & 1) * 8);
+        bfr[jj][0] = r[0];
+        bfr[jj][1] = r[1];
+        bfr[jj + 1][0] = r[2];
+        bfr[jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
+                   bfr[j][0], bfr[j][1]);
     }
-    m_z[threadIdx.x] = z;
-    m_db[threadIdx.x] = db;
-    m_dl[threadIdx.x] = dl;
-    m_lbl[threadIdx.x] = lb;
   }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[KTW][2];
+  cp_async_wait<0>();
+  __syncthreads();   // the ring may be reused by the epilogue
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4][4]) {
 #pragma unroll
-  for (int i = 0; i < KTW; ++i) {
-    wmma::fill_fragment(acc[i][0], 0.0f);
-    wmma::fill_fragment(acc[i][1], 0.0f);
-  }
-  __syncthreads();
-  for (int c0 = 0; c0 < d.V; c0 += kCols) {
-    wmma_logits_chunk(hs, ldh, wt, c0, stage, d);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+}
+
+// 1. h of the slab's tiles (one block each) in bf16, rows of invalid cells
+// zero: the tile's r_t f-rows and r_u g-rows are loaded once into shared
+// memory, kHCols columns at a time, and tanh(f + g) is taken once per cell
+// in fp32.
+__global__ void __launch_bounds__(kThreads)
+joint_lse_bwd_h_kernel(const bf16* __restrict__ f, const bf16* __restrict__ g,
+                       bf16* __restrict__ hs, Lattice L, long long tile0) {
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  bf16* fs = reinterpret_cast<bf16*>(k8_smem);   // r_t x kc, then r_u x kc
+  const long long tile = tile0 + blockIdx.x;
+  const Cell c0 = tile_cell(L, tile, 0);
+  for (int k0 = 0; k0 < L.J; k0 += kHCols) {
+    const int kc = min(kHCols, L.J - k0);
+    bf16* gs = fs + L.r_t * kc;
+    if (k0 > 0) __syncthreads();   // the previous chunk is consumed
+    for (int i = threadIdx.x; i < (L.r_t + L.r_u) * kc; i += kThreads) {
+      const int r = i / kc, k = k0 + i - r * kc;
+      bf16 v = __float2bfloat16(0.0f);
+      if (c0.b < L.B) {
+        if (r < L.r_t) {
+          const int t = c0.t + r;
+          if (t < L.T) v = f[((size_t)c0.b * L.T + t) * L.J + k];
+        } else {
+          const int u = c0.u + r - L.r_t;
+          if (u < L.U1) v = g[((size_t)c0.b * L.U1 + u) * L.J + k];
+        }
+      }
+      fs[i] = v;
+    }
     __syncthreads();
+    const int groups = kc / 8;
+    for (int i = threadIdx.x; i < kTileCells * groups; i += kThreads) {
+      const int lr = i / groups, k = (i - lr * groups) * 8;
+      const Cell c = tile_cell(L, tile, lr);
+      __align__(16) bf16 out[8];
+      const bf16* fr = fs + (lr / L.r_u) * kc + k;
+      const bf16* gr = gs + (lr % L.r_u) * kc + k;
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int rr = warp * RPW + i;
-      const float db = m_db[rr], dl = m_dl[rr];
+      for (int e = 0; e < 8; ++e)
+        out[e] = __float2bfloat16(
+            c.ok ? tanhf(__bfloat162float(fr[e]) + __bfloat162float(gr[e]))
+                 : 0.0f);
+      *reinterpret_cast<uint4*>(
+          hs + ((size_t)blockIdx.x * kTileCells + lr) * L.J + k0 + k) =
+          *reinterpret_cast<const uint4*>(out);
+    }
+  }
+}
+
+// 2. dlogits (rows, V) = softmax gradient of h . W^T + bias, in bf16, rows
+// of invalid cells zero; the column sums of the fp32 dlogits over the
+// block's rows are added to dbias_part[blockIdx.y].
+__global__ void __launch_bounds__(kGThreads)
+joint_lse_bwd_dl_kernel(const bf16* __restrict__ hs,
+                        const bf16* __restrict__ w,
+                        const float* __restrict__ bias,
+                        const int* __restrict__ labels,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ d_blank,
+                        const float* __restrict__ d_label,
+                        bf16* __restrict__ dls, float* __restrict__ dbias_part,
+                        Lattice L, long long tile0, long long rows) {
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(k8_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const long long m0 = (long long)blockIdx.y * kGm;
+  const int n0 = blockIdx.x * kGn;
+  float acc[4][4][4];
+  zero_acc(acc);
+  gemm_block<false, false>(acc, hs, L.J, m0, rows, w, L.J, n0, L.V, 0, L.J,
+                           sm);
+  // the thread's 8 rows: cotangents, label and lse of their cells
+  float z[4][2], db[4][2], dl[4][2];
+  int lbl[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + wm * 64 + i * 16 + gid + 8 * h;
+      const Cell c = tile_cell(L, tile0 + m / kTileCells,
+                               (int)(m % kTileCells));
+      z[i][h] = db[i][h] = dl[i][h] = 0.0f;
+      lbl[i][h] = L.blank;
+      if (m < rows && c.ok) {
+        const size_t cell = ((size_t)c.b * L.T + c.t) * L.U1 + c.u;
+        z[i][h] = lse[cell];
+        db[i][h] = d_blank[cell];
+        if (c.u < L.U) {
+          dl[i][h] = d_label[((size_t)c.b * L.T + c.t) * L.U + c.u];
+          lbl[i][h] = labels[(size_t)c.b * L.U + c.u];
+        }
+      }
+    }
+  bf16* ds = sm;                                  // kGm x kLdD
+  float* red = reinterpret_cast<float*>(ds + kGm * kLdD);   // 2 x kGn
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cl = wn * 32 + j * 8 + tig * 2 + e;
+      const int col = n0 + cl;
+      const float bc = col < L.V ? bias[col] : 0.0f;
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v = 0.0f;
+          if (col < L.V && (db[i][h] != 0.0f || dl[i][h] != 0.0f)) {
+            const float p = expf(acc[i][j][2 * h + e] + bc - z[i][h]);
+            v = (col == L.blank ? db[i][h] : 0.0f) +
+                (col == lbl[i][h] ? dl[i][h] : 0.0f) -
+                (db[i][h] + dl[i][h]) * p;
+          }
+          sum += v;
+          ds[(wm * 64 + i * 16 + gid + 8 * h) * kLdD + cl] =
+              __float2bfloat16(v);
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+      if (gid == 0) red[wm * kGn + cl] = sum;
+    }
+  __syncthreads();
+  if (threadIdx.x < kGn && n0 + (int)threadIdx.x < L.V) {
+    float* p = dbias_part + (size_t)blockIdx.y * L.V + n0 + threadIdx.x;
+    *p += red[threadIdx.x] + red[kGn + threadIdx.x];
+  }
+  for (int i = threadIdx.x; i < kGm * (kGn / 8); i += kGThreads) {
+    const int r = i / (kGn / 8), c = (i % (kGn / 8)) * 8;
+    if (m0 + r < rows && n0 + c < L.V)
+      *reinterpret_cast<uint4*>(dls + (size_t)(m0 + r) * L.V + n0 + c) =
+          *reinterpret_cast<const uint4*>(ds + r * kLdD + c);
+  }
+}
+
+// 3. dh (rows, J) = dlogits . W on 128 rows (two tiles) x 128 columns; da =
+// dh (1 - h^2) with fp32 h, then inside each tile df[b, t, k] += the sum
+// over its r_u cells and dg[b, u, k] += the sum over its r_t cells: one
+// atomic per tile and (b, t, k) or (b, u, k).
+__global__ void __launch_bounds__(kGThreads)
+joint_lse_bwd_dh_mma_kernel(const bf16* __restrict__ f,
+                            const bf16* __restrict__ g,
+                            const bf16* __restrict__ wt,
+                            const bf16* __restrict__ dls,
+                            float* __restrict__ df, float* __restrict__ dg,
+                            Lattice L, long long tile0, long long rows) {
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(k8_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const long long m0 = (long long)blockIdx.y * kGm;
+  const int n0 = blockIdx.x * kGn;
+  float acc[4][4][4];
+  zero_acc(acc);
+  gemm_block<false, false>(acc, dls, L.V, m0, rows, wt, L.V, n0, L.J, 0, L.V,
+                           sm);
+  float* es = reinterpret_cast<float*>(k8_smem);     // kGm x kLdE da
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lm = wm * 64 + i * 16 + gid + 8 * h;
+      const Cell c = tile_cell(L, tile0 + (m0 + lm) / kTileCells,
+                               (int)((m0 + lm) % kTileCells));
+      const bool ok = m0 + lm < rows && c.ok;
+      const bf16* fr = f + ((size_t)c.b * L.T + c.t) * L.J;
+      const bf16* gr = g + ((size_t)c.b * L.U1 + c.u) * L.J;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = wn * 32 + j * 8 + tig * 2 + e;
+          const int k = n0 + cl;
+          float da = 0.0f;
+          if (ok && k < L.J) {
+            const float hv = tanhf(__bfloat162float(fr[k]) +
+                                   __bfloat162float(gr[k]));
+            da = acc[i][j][2 * h + e] * (1.0f - hv * hv);
+          }
+          es[lm * kLdE + cl] = da;
+        }
+    }
+  __syncthreads();
+  // one (tile, column) pair a thread: 2 tiles x 128 columns
+  for (int pair = threadIdx.x; pair < 2 * kGn; pair += kGThreads) {
+    const int half = pair / kGn, cl = pair % kGn;
+    const int k = n0 + cl;
+    const Cell c0 = tile_cell(L, tile0 + (m0 >> 6) + half, 0);
+    if (k >= L.J || m0 + half * kTileCells >= rows || c0.b >= L.B) continue;
+    const float* et = es + half * kTileCells * kLdE + cl;
+    for (int ti = 0; ti < L.r_t && c0.t + ti < L.T; ++ti) {
+      float s = 0.0f;
+      for (int ui = 0; ui < L.r_u; ++ui) s += et[(ti * L.r_u + ui) * kLdE];
+      atomicAdd(&df[((size_t)c0.b * L.T + c0.t + ti) * L.J + k], s);
+    }
+    for (int ui = 0; ui < L.r_u && c0.u + ui < L.U1; ++ui) {
+      float s = 0.0f;
+      for (int ti = 0; ti < L.r_t; ++ti) s += et[(ti * L.r_u + ui) * kLdE];
+      atomicAdd(&dg[((size_t)c0.b * L.U1 + c0.u + ui) * L.J + k], s);
+    }
+  }
+}
+
+// 4. dW^T partial `blockIdx.z` += h^T . dlogits over its share of the slab's
+// rows: a 128 x 128 tile of (J, V) per block, both operands read
+// transposed ([k][m] and [k][n] stages), each partial element owned by one
+// block of the launch (no atomics).
+__global__ void __launch_bounds__(kGThreads)
+joint_lse_bwd_dw_mma_kernel(const bf16* __restrict__ hs,
+                            const bf16* __restrict__ dls,
+                            float* __restrict__ dw_part, Lattice L,
+                            long long rows, long long share) {
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(k8_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * kGm, n0 = blockIdx.x * kGn;
+  const long long k0 = (long long)blockIdx.z * share;
+  const long long k_end = k0 + share < rows ? k0 + share : rows;
+  if (k0 >= k_end) return;
+  float acc[4][4][4];
+  zero_acc(acc);
+  gemm_block<true, true>(acc, hs, L.J, m0, L.J, dls, L.V, n0, L.V, k0, k_end,
+                         sm);
+  float* part = dw_part + (size_t)blockIdx.z * L.J * L.V;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + gid + 8 * h;
+      if (m >= L.J) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = c0 + lane + 32 * j;
-        float v = 0.0f;
-        if (c < d.V && (db != 0.0f || dl != 0.0f)) {
-          const float p =
-              expf(stage[rr * kStageLd + lane + 32 * j] + bias[c] - m_z[rr]);
-          v = (c == d.blank ? db : 0.0f) + (c == m_lbl[rr] ? dl : 0.0f) -
-              (db + dl) * p;
-        }
-        dls[rr * kColsLd + lane + 32 * j] = __float2bfloat16(v);
+        const int n = n0 + wn * 32 + j * 8 + tig * 2;
+        if (n >= L.V) continue;   // V is even: n + 1 < V too
+        float2* p = reinterpret_cast<float2*>(part + (size_t)m * L.V + n);
+        float2 v = *p;
+        v.x += acc[i][j][2 * h];
+        v.y += acc[i][j][2 * h + 1];
+        *p = v;
       }
     }
-    __syncthreads();
-#pragma unroll 1
-    for (int kc = 0; kc < kCols / 16; ++kc) {
-      const int cb = c0 + kc * 16;
-      if (cb >= d.V) break;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, dls + kc * 16, kColsLd);
-      wmma::load_matrix_sync(a1, dls + 16 * kColsLd + kc * 16, kColsLd);
-#pragma unroll
-      for (int i = 0; i < KTW; ++i) {
-        const int kt = warp + kWarps * i;
-        if (kt < KT) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, w + (size_t)cb * d.J + kt * 16, d.J);
-          wmma::mma_sync(acc[i][0], a0, b, acc[i][0]);
-          wmma::mma_sync(acc[i][1], a1, b, acc[i][1]);
-        }
-      }
-    }
-    __syncthreads();  // stage and dls are rewritten by the next chunk
+}
+
+// 5. after the last slab: dw = the sum of the dW^T partials, dbias the sum
+// of the dbias partials, each in a fixed order
+__global__ void __launch_bounds__(kThreads)
+joint_lse_bwd_reduce_kernel(const float* __restrict__ dw_part,
+                            const float* __restrict__ dbias_part,
+                            float* __restrict__ dw, float* __restrict__ dbias,
+                            int JV, int V, int n_split, int n_rb) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < JV) {
+    float s = 0.0f;
+    for (int p = 0; p < n_split; ++p) s += dw_part[(size_t)p * JV + i];
+    dw[i] = s;
+  } else if (i < (long long)JV + V) {
+    const int v = (int)(i - JV);
+    float s = 0.0f;
+    for (int p = 0; p < n_rb; ++p) s += dbias_part[(size_t)p * V + v];
+    dbias[v] = s;
   }
-#pragma unroll
-  for (int i = 0; i < KTW; ++i) {
-    const int kt = warp + kWarps * i;
-    if (kt < KT) {
-      wmma::store_matrix_sync(dhs + kt * 16, acc[i][0], d.J,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(dhs + 16 * d.J + kt * 16, acc[i][1], d.J,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  dh_epilogue(dhs, f, g, r0, R, d, df, dg);
 }
 
 size_t fwd_wmma_smem(int J) {
   return (size_t)32 * (J + kPadB) * 2 + (size_t)32 * kStageLd * sizeof(float);
-}
-
-size_t dh_wmma_smem(int J) {
-  const size_t a = (size_t)32 * (J + kPadB) * 2 + 32 * kColsLd * 2 +
-                   (32 * kStageLd + 4 * 32) * sizeof(float);
-  const size_t b = (size_t)32 * J * sizeof(float);
-  return a > b ? a : b;
-}
-
-size_t dw_wmma_smem(int Jp) {
-  return (size_t)kStripRows * (Jp + kPadB) * 2 + (size_t)Jp * kStripLd * 2 +
-         kStripRows * kStripLd * 2 +
-         (2 * kStripRows * kStageLdW + kWarps * 32 + 4 * kStripRows) *
-             sizeof(float);
 }
 
 size_t fwd_smem(int rpw, int J) {
@@ -980,49 +1141,6 @@ bool wmma_shapes(const Dims& d) {
   return d.J % 16 == 0 && d.V % 16 == 0 && d.J <= 1024;
 }
 
-template <int KTW>
-cudaError_t launch_dh_wmma(const void* f, const void* g, const void* wt,
-                           const void* w, const void* bias,
-                           const void* labels, const void* lse,
-                           const void* d_blank, const void* d_label,
-                           void* df, void* dg, const Dims& d,
-                           cudaStream_t s) {
-  typedef __nv_bfloat16 bf16;
-  const size_t smem = dh_wmma_smem(d.J);
-  const cudaError_t e = allow_smem(joint_lse_bwd_dh_wmma_kernel<KTW>, smem);
-  if (e != cudaSuccess) return e;
-  const unsigned grid = (unsigned)((d.N + 31) / 32);
-  joint_lse_bwd_dh_wmma_kernel<KTW><<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(wt), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(labels),
-      static_cast<const float*>(lse), static_cast<const float*>(d_blank),
-      static_cast<const float*>(d_label), static_cast<float*>(df),
-      static_cast<float*>(dg), d);
-  return cudaGetLastError();
-}
-
-// bf16: the tensor-core kernel where the shapes allow it
-template <>
-cudaError_t run_dh<__nv_bfloat16>(const void* f, const void* g,
-                                  const void* wt, const void* w,
-                                  const void* bias, const void* labels,
-                                  const void* lse, const void* d_blank,
-                                  const void* d_label, void* df, void* dg,
-                                  const Dims& d, cudaStream_t s) {
-  typedef __nv_bfloat16 bf16;
-  if (wmma_shapes(d))
-    return d.J <= 640 ? launch_dh_wmma<5>(f, g, wt, w, bias, labels, lse,
-                                          d_blank, d_label, df, dg, d, s)
-                      : launch_dh_wmma<8>(f, g, wt, w, bias, labels, lse,
-                                          d_blank, d_label, df, dg, d, s);
-  return dh_smem(4, d.J) <= kMaxSmem
-             ? launch_dh<bf16, 4>(f, g, wt, w, bias, labels, lse, d_blank,
-                                  d_label, df, dg, d, s)
-             : launch_dh<bf16, 1>(f, g, wt, w, bias, labels, lse, d_blank,
-                                  d_label, df, dg, d, s);
-}
-
 template <>
 cudaError_t run_fwd<__nv_bfloat16>(const void* f, const void* g,
                                    const void* wt, const void* bias,
@@ -1069,59 +1187,6 @@ cudaError_t launch_dw(const void* f, const void* g, const void* wt,
   return cudaGetLastError();
 }
 
-template <int KTW>
-cudaError_t launch_dw_wmma(const void* f, const void* g, const void* wt,
-                           const void* bias, const void* labels,
-                           const void* lse, const void* d_blank,
-                           const void* d_label, void* dw, void* dbias,
-                           const Dims& d, int n_split, cudaStream_t s) {
-  const int Jp = (d.J + 15) / 16 * 16;
-  const size_t smem = dw_wmma_smem(Jp);
-  const cudaError_t e = allow_smem(joint_lse_bwd_dw_wmma_kernel<KTW>, smem);
-  if (e != cudaSuccess) return e;
-  const long long per = (d.N + n_split - 1) / n_split;
-  const dim3 grid((d.V + kStrip - 1) / kStrip, n_split);
-  typedef __nv_bfloat16 bf16;
-  joint_lse_bwd_dw_wmma_kernel<KTW><<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(wt), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse),
-      static_cast<const float*>(d_blank), static_cast<const float*>(d_label),
-      static_cast<float*>(dw), static_cast<float*>(dbias), d, per, Jp);
-  return cudaGetLastError();
-}
-
-// bf16: the tensor-core kernel where its accumulator fits (J <= 1024)
-template <>
-cudaError_t launch_dw<__nv_bfloat16>(const void* f, const void* g,
-                                     const void* wt, const void* bias,
-                                     const void* labels, const void* lse,
-                                     const void* d_blank, const void* d_label,
-                                     void* dw, void* dbias, const Dims& d,
-                                     int n_split, cudaStream_t s) {
-  if (d.J <= 640)
-    return launch_dw_wmma<5>(f, g, wt, bias, labels, lse, d_blank, d_label,
-                             dw, dbias, d, n_split, s);
-  if (d.J <= 1024)
-    return launch_dw_wmma<8>(f, g, wt, bias, labels, lse, d_blank, d_label,
-                             dw, dbias, d, n_split, s);
-  const size_t smem = dw_smem(d.J);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e =
-      allow_smem(joint_lse_bwd_dw_kernel<__nv_bfloat16>, smem);
-  if (e != cudaSuccess) return e;
-  const long long per = (d.N + n_split - 1) / n_split;
-  const dim3 grid((d.V + kStrip - 1) / kStrip, n_split);
-  typedef __nv_bfloat16 bf16;
-  joint_lse_bwd_dw_kernel<bf16><<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(wt), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse),
-      static_cast<const float*>(d_blank), static_cast<const float*>(d_label),
-      static_cast<float*>(dw), static_cast<float*>(dbias), d, per);
-  return cudaGetLastError();
-}
-
 template <typename Elem>
 cudaError_t run_bwd(const void* f, const void* g, const void* wt,
                     const void* w, const void* bias, const void* labels,
@@ -1134,6 +1199,61 @@ cudaError_t run_bwd(const void* f, const void* g, const void* wt,
   if (e != cudaSuccess) return e;
   return launch_dw<Elem>(f, g, wt, bias, labels, lse, d_blank, d_label, dw,
                          dbias, d, n_split, s);
+}
+
+size_t gemm_smem() { return (size_t)kGStages * 2 * kStageElems * 2; }
+
+size_t dh_mma_smem() {
+  const size_t e = (size_t)kGm * kLdE * sizeof(float);
+  return e > gemm_smem() ? e : gemm_smem();
+}
+
+// the slabs of the plan, four launches each, then the reduction
+cudaError_t run_bwd_mma(const bf16* f, const bf16* g, const bf16* wt,
+                        const bf16* w, const float* bias, const int* labels,
+                        const float* lse, const float* d_blank,
+                        const float* d_label, float* df, float* dg,
+                        float* dw, float* dbias, bf16* hs, bf16* dls,
+                        float* dw_part, float* dbias_part, const Lattice& L,
+                        int slab_tiles, int dw_split, cudaStream_t s) {
+  const size_t smem_h =
+      (size_t)(L.r_t + L.r_u) * (L.J < kHCols ? L.J : kHCols) * 2;
+  if (smem_h > kMaxSmem || slab_tiles < 2 || slab_tiles % 2 || dw_split < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(joint_lse_bwd_h_kernel, smem_h);
+  if (e == cudaSuccess) e = allow_smem(joint_lse_bwd_dl_kernel, gemm_smem());
+  if (e == cudaSuccess)
+    e = allow_smem(joint_lse_bwd_dh_mma_kernel, dh_mma_smem());
+  if (e == cudaSuccess)
+    e = allow_smem(joint_lse_bwd_dw_mma_kernel, gemm_smem());
+  if (e != cudaSuccess) return e;
+  const unsigned vb = (L.V + kGn - 1) / kGn, jb = (L.J + kGn - 1) / kGn;
+  for (long long t0 = 0; t0 < L.tiles; t0 += slab_tiles) {
+    const long long n = L.tiles - t0 < slab_tiles ? L.tiles - t0 : slab_tiles;
+    const long long rows = n * kTileCells;
+    const unsigned mb = (unsigned)((rows + kGm - 1) / kGm);
+    joint_lse_bwd_h_kernel<<<(unsigned)n, kThreads, smem_h, s>>>(f, g, hs, L,
+                                                                  t0);
+    joint_lse_bwd_dl_kernel<<<dim3(vb, mb), kGThreads, gemm_smem(), s>>>(
+        hs, w, bias, labels, lse, d_blank, d_label, dls, dbias_part, L, t0,
+        rows);
+    joint_lse_bwd_dh_mma_kernel<<<dim3(jb, mb), kGThreads, dh_mma_smem(),
+                                  s>>>(f, g, wt, dls, df, dg, L, t0, rows);
+    const long long share =
+        (rows + (long long)dw_split * kGk - 1) / ((long long)dw_split * kGk) *
+        kGk;
+    joint_lse_bwd_dw_mma_kernel<<<dim3(vb, jb, dw_split), kGThreads,
+                                  gemm_smem(), s>>>(hs, dls, dw_part, L, rows,
+                                                    share);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const long long n_out = (long long)L.J * L.V + L.V;
+  joint_lse_bwd_reduce_kernel<<<(unsigned)((n_out + kThreads - 1) / kThreads),
+                                kThreads, 0, s>>>(
+      dw_part, dbias_part, dw, dbias, L.J * L.V, L.V, dw_split,
+      slab_tiles / 2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1156,25 +1276,64 @@ extern "C" int edd_joint_lse_fwd(const void* f, const void* g, const void* wt,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// + w = W (V, J) in the same dtype, lse from the forward, d_blank (B, T, U1)
-// and d_label (B, T, U1 - 1) fp32 cotangents → accumulates into df (B, T, J),
-// dg (B, U1, J), dw = dW^T (J, V), dbias (V), all fp32 and zeroed by the
-// caller. n_split: row shares of the dW kernel (its grid's second axis).
+// K8 in fp32, on the CUDA cores: f, g, wt as edd_joint_lse_fwd (fp32), w =
+// W (V, J), lse from the forward, d_blank (B, T, U1) and d_label (B, T, U1 -
+// 1) cotangents → accumulates into df (B, T, J), dg (B, U1, J), dw = dW^T
+// (J, V), dbias (V), all fp32 and zeroed by the caller. n_split: row shares
+// of the dW kernel (its grid's second axis).
 extern "C" int edd_joint_lse_bwd(const void* f, const void* g, const void* wt,
                                  const void* w, const void* bias,
                                  const void* labels, const void* lse,
                                  const void* d_blank, const void* d_label,
                                  void* df, void* dg, void* dw, void* dbias,
                                  int B, int T, int U1, int J, int V,
-                                 int blank, int bf16, int n_split,
-                                 void* stream) {
+                                 int blank, int n_split, void* stream) {
   const Dims d = make_dims(B, T, U1, J, V, blank);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      bf16 ? run_bwd<__nv_bfloat16>(f, g, wt, w, bias, labels, lse, d_blank,
-                                    d_label, df, dg, dw, dbias, d, n_split,
-                                    s)
-           : run_bwd<float>(f, g, wt, w, bias, labels, lse, d_blank, d_label,
-                            df, dg, dw, dbias, d, n_split, s);
+      run_bwd<float>(f, g, wt, w, bias, labels, lse, d_blank, d_label, df,
+                     dg, dw, dbias, d, n_split, s);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// K8 in bf16 with J, V multiples of 16 (ops/joint_lse_plan.py): f, g, wt, w,
+// bias, labels, lse, d_blank, d_label, df, dg, dw, dbias as
+// edd_joint_lse_bwd (df, dg zeroed by the caller; dw, dbias written), plus
+// the slab scratch hs (slab_tiles * 64, J) and dls (slab_tiles * 64, V)
+// bf16, dw_part (dw_split, J, V) and dbias_part (slab_tiles / 2, V) fp32
+// zeroed by the caller; lattice tiles of r_t x r_u = 64 cells.
+extern "C" int edd_joint_lse_bwd_mma(
+    const void* f, const void* g, const void* wt, const void* w,
+    const void* bias, const void* labels, const void* lse,
+    const void* d_blank, const void* d_label, void* df, void* dg, void* dw,
+    void* dbias, void* hs, void* dls, void* dw_part, void* dbias_part, int B,
+    int T, int U1, int J, int V, int blank, int r_t, int r_u, int slab_tiles,
+    int dw_split, void* stream) {
+  if (r_t * r_u != kTileCells || J % 16 || V % 16)
+    return (int)cudaErrorInvalidValue;
+  Lattice L;
+  L.B = B;
+  L.T = T;
+  L.U1 = U1;
+  L.U = U1 - 1;
+  L.J = J;
+  L.V = V;
+  L.blank = blank;
+  L.r_t = r_t;
+  L.r_u = r_u;
+  L.n_tt = (T + r_t - 1) / r_t;
+  L.n_tu = (U1 + r_u - 1) / r_u;
+  L.tiles = (long long)B * L.n_tt * L.n_tu;
+  const cudaError_t e = run_bwd_mma(
+      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
+      static_cast<const bf16*>(wt), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const int*>(labels),
+      static_cast<const float*>(lse), static_cast<const float*>(d_blank),
+      static_cast<const float*>(d_label), static_cast<float*>(df),
+      static_cast<float*>(dg), static_cast<float*>(dw),
+      static_cast<float*>(dbias), static_cast<bf16*>(hs),
+      static_cast<bf16*>(dls), static_cast<float*>(dw_part),
+      static_cast<float*>(dbias_part), L, slab_tiles, dw_split,
+      static_cast<cudaStream_t>(stream));
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -58,18 +58,6 @@ constexpr int kUnits = 8;                 // hidden units per chain block
 constexpr int kThreads = 256;             // 8 warps, both kernels
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 __device__ __forceinline__ bool aligned16(const void* a, const void* b,
                                           const void* c) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
@@ -151,7 +139,7 @@ remat_bf16_kernel(const __nv_bfloat16* __restrict__ h0e,
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * kBk);
     cp_async_commit();
-    cp_async_wait1();
+    cp_async_wait<1>();
     __syncthreads();
     const __nv_bfloat16* as = As[kt & 1];
     const __nv_bfloat16* bs = Bs[kt & 1];

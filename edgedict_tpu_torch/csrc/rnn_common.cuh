@@ -12,6 +12,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_tile.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -29,17 +31,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// D += A (16x16 bf16, row) . B (16x8 bf16, col), fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // coherent loads of data that other blocks of the same launch wrote before

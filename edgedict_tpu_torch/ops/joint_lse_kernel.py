@@ -3,18 +3,21 @@
 csrc/joint_lse.cu).
 
 `fused_joint_lse(f, g, w_t, bias, labels, blank)` → (blank_lp (B,T,U+1),
-label_lp (B,T,U)) without ever materialising the (B,T,U+1,V) logits: for
-CUDA tensors an autograd.Function whose forward is K7 (saving only the
-per-cell logsumexp) and whose backward is K8 (recompute, dlogits, dW, dbias,
-df, dg); for CPU tensors `fused_joint_lse_plain`, the same math in plain
-PyTorch, differentiated by autograd.  Products run in f's dtype (bf16 in
+label_lp (B,T,U)) without ever materialising the whole (B,T,U+1,V) logits:
+for CUDA tensors an autograd.Function whose forward is K7 (saving only the
+per-cell logsumexp) and whose backward is K8 (dlogits, dW, dbias, df, dg;
+bf16 launch plan in ops/joint_lse_plan.py); for CPU tensors
+`fused_joint_lse_plain`, the same math in plain PyTorch, differentiated by
+autograd.  Products run in f's dtype (bf16 in
 training) with fp32 accumulation; W and the bias gradients come back fp32.
 There is no U envelope: any U+1 runs.
 """
 
 import torch
+import torch.nn.functional as F
 
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.ops import joint_lse_plan
 
 
 def fused_joint_lse_plain(f, g, w_t, bias, labels, blank):
@@ -75,7 +78,9 @@ joint_lse_fwd.launches = 0
 
 def joint_lse_bwd(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
     """K8: → (df (B,T,J), dg (B,U+1,J), dw_t (J,V), dbias (V,)), all fp32;
-    w (V, J) for the dh product is made here from w_t."""
+    w (V, J) is made here from w_t.  bf16 runs the tensor-core kernels slab
+    by slab over a scratch of the plan's size (ops/joint_lse_plan.py), fp32
+    the CUDA-core kernels.  One launch is counted per call."""
     b, t, u1, j, v = _dims(f, g, w_t, bias, labels)
     _build.require_cuda(lse, 'lse', (torch.float32,))
     _build.require_cuda(d_blank, 'd_blank', (torch.float32,))
@@ -85,23 +90,73 @@ def joint_lse_bwd(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
         raise ValueError(f'joint_lse_bwd: lse {tuple(lse.shape)} d_blank '
                          f'{tuple(d_blank.shape)} d_label '
                          f'{tuple(d_label.shape)}')
+    grads = (_bwd_mma if f.dtype == torch.bfloat16 else _bwd_cuda_cores)(
+        f, g, w_t, bias, labels, blank, lse, d_blank, d_label)
+    joint_lse_bwd.launches += 1
+    return grads
+
+
+def pad16(f, g, w_t, bias):
+    """(f, g, w_t, bias) with J and V padded to multiples of 16, as the
+    tensor-core backward takes them: zero columns of f and g (h = 0 there)
+    and zero rows of W^T add nothing to the products, and a padded vocab
+    column's bias of -inf gives it a softmax of 0, so dlogits 0 there.  The
+    gradients of the padded problem, cut back to J and V, are the
+    original's."""
+    j0, v0 = w_t.shape
+    j, v = -(-j0 // 16) * 16, -(-v0 // 16) * 16
+    if (j, v) == (j0, v0):
+        return f, g, w_t, bias
+    return (F.pad(f, (0, j - j0)), F.pad(g, (0, j - j0)),
+            F.pad(w_t, (0, v - v0, 0, j - j0)),
+            F.pad(bias, (0, v - v0), value=float('-inf')))
+
+
+def _bwd_mma(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
+    """The tensor-core kernels, slab by slab (ops/joint_lse_plan.py), on
+    the problem padded by pad16."""
+    j0, v0 = w_t.shape
+    f, g, w_t, bias = pad16(f, g, w_t, bias)
+    (b, t, j), u1, v = f.shape, g.shape[1], w_t.shape[1]
+    dev = f.device
+    plan = joint_lse_plan.bwd_plan(b, t, u1, j, v, _build.sm_count(dev))
+    if w_t.data_ptr() % 16:            # the products copy 16-byte rows
+        w_t = w_t.clone()
+    w = w_t.t().contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    df, dg = torch.zeros((b, t, j), **f32), torch.zeros((b, u1, j), **f32)
+    dw_t, dbias = torch.empty((j, v), **f32), torch.empty((v,), **f32)
+    hs = torch.empty((plan.slab_rows, j), dtype=torch.bfloat16, device=dev)
+    dls = torch.empty((plan.slab_rows, v), dtype=torch.bfloat16, device=dev)
+    dw_part = torch.zeros((plan.dw_split, j, v), **f32)
+    dbias_part = torch.zeros((plan.slab_tiles // 2, v), **f32)
+    p = _build.ptr
+    _build.check(_build.library().edd_joint_lse_bwd_mma(
+        p(f), p(g), p(w_t), p(w), p(bias), p(labels), p(lse), p(d_blank),
+        p(d_label), p(df), p(dg), p(dw_t), p(dbias), p(hs), p(dls),
+        p(dw_part), p(dbias_part), b, t, u1, j, v, int(blank), plan.r_t,
+        plan.r_u, plan.slab_tiles, plan.dw_split, _build.stream_ptr(dev)),
+        'joint_lse_bwd')
+    return df[..., :j0], dg[..., :j0], dw_t[:j0, :v0], dbias[:v0]
+
+
+def _bwd_cuda_cores(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
+    """fp32: the row-tiled kernels with fp32 atomics."""
+    (b, t, j), u1, v = f.shape, g.shape[1], w_t.shape[1]
     dev = f.device
     w = w_t.t().contiguous()
-    df = torch.zeros((b, t, j), dtype=torch.float32, device=dev)
-    dg = torch.zeros((b, u1, j), dtype=torch.float32, device=dev)
-    dw_t = torch.zeros((j, v), dtype=torch.float32, device=dev)
-    dbias = torch.zeros((v,), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    df, dg = torch.zeros((b, t, j), **f32), torch.zeros((b, u1, j), **f32)
+    dw_t, dbias = torch.zeros((j, v), **f32), torch.zeros((v,), **f32)
     # row shares of the dW kernel: at most two blocks per SM in all, one wave
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     strips = -(-v // 32)
-    n_split = max(1, min(2 * sms // strips, -(-b * t * u1 // 32)))
+    n_split = max(1, min(2 * _build.sm_count(dev) // strips,
+                         -(-b * t * u1 // 32)))
     p = _build.ptr
     _build.check(_build.library().edd_joint_lse_bwd(
         p(f), p(g), p(w_t), p(w), p(bias), p(labels), p(lse), p(d_blank),
         p(d_label), p(df), p(dg), p(dw_t), p(dbias), b, t, u1, j, v,
-        int(blank), int(f.dtype == torch.bfloat16), n_split,
-        _build.stream_ptr(dev)), 'joint_lse_bwd')
-    joint_lse_bwd.launches += 1
+        int(blank), n_split, _build.stream_ptr(dev)), 'joint_lse_bwd')
     return df, dg, dw_t, dbias
 
 

@@ -151,6 +151,21 @@ def quant_matmul_plain(x2d, wq, scale, bias):
     return (y * scale + bias).to(x2d.dtype)
 
 
+GEMV_MAX_ROWS = 32     # up to this many rows: the matrix-vector kernel
+TILE_ROWS = 64         # output rows per block of the tiled kernels
+TILE_COLS = 128        # output channels per block of the tiled kernels
+
+
+def quant_plan(rows, k, n):
+    """K11's launch shape for x (rows, k) . q (n, k)^T → True for the
+    tiled kernels (TILE_ROWS x TILE_COLS outputs a block, rows > 32), False
+    for the matrix-vector kernel, in either dtype.  ValueError for an empty
+    or negative shape."""
+    if rows < 1 or k < 1 or n < 1:
+        raise ValueError(f'quant_matmul: no plan for R={rows} K={k} N={n}')
+    return rows > GEMV_MAX_ROWS
+
+
 def _quant_matmul_kernel(x2d, wq, scale, bias):
     _build.require_cuda(x2d, 'x', FLOATS)
     _build.require_cuda(wq, 'w_q', (torch.int8,))
@@ -165,24 +180,28 @@ def _quant_matmul_kernel(x2d, wq, scale, bias):
     out = torch.empty((r, n), dtype=x2d.dtype, device=x2d.device)
     if r == 0:
         return out
+    bf16 = x2d.dtype == torch.bfloat16
+    tiled = quant_plan(r, k, n)
     p = _build.ptr
     _build.check(_build.library().edd_quant_matmul(
-        p(x2d), p(wq), p(scale), p(bias), p(out), r, k, n,
-        int(x2d.dtype == torch.bfloat16), _build.stream_ptr(x2d.device)),
-        'quant_matmul')
+        p(x2d), p(wq), p(scale), p(bias), p(out), r, k, n, int(bf16),
+        int(tiled), _build.stream_ptr(x2d.device)), 'quant_matmul')
     quant_matmul.launches += 1
+    quant_matmul.tile_launches += tiled
     return out
 
 
 def quant_matmul(x2d, wq, scale, bias):
     """See quant_matmul_plain; CUDA tensors launch csrc/quant_matmul.cu
-    (K11)."""
+    (K11).  `launches` counts every launch, `tile_launches` those of the
+    tiled kernels (rows > 32)."""
     if x2d.device.type == 'cpu':
         return quant_matmul_plain(x2d, wq, scale, bias)
     return _quant_matmul_kernel(x2d, wq, scale, bias)
 
 
 quant_matmul.launches = 0
+quant_matmul.tile_launches = 0
 
 
 def quant_linear(proj, x):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and at the E6D2 main paths' shapes (serving: K1-K3, K5,
 K11-K13; training: K1, K4, K5, K6 at H=1024 B=32 T=427 bf16, K7/K8 in fp32
-and bf16, K9/K10), the launch plans' refusals, plus the
+and bf16, K8's tensor-core path at the E6D2 step and across slabs,
+K9/K10), K11's tiled kernels, the launch plans' refusals, plus the
 streaming decoder and a GRU train step on CUDA against the CPU.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
@@ -302,6 +303,67 @@ def test_k7_k8_fused_joint_matches_plain(cuda, b, t, u1, j, v, dtype):
         assert _rel_err(a.grad, r.grad) <= tol
 
 
+def _k8_case(cuda, b, t, u1, j, v, seed):
+    """joint_lse_bwd (bf16, tensor-core plan) and the plain version's
+    gradients from the same inputs and K7's lse → (grads, ref grads)."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as K
+    f, g, w_t, bias, labels, db, dl = _joint_case(
+        cuda, b, t, u1, j, v, torch.bfloat16, seed)
+    wt_e = w_t.to(torch.bfloat16)
+    lse = K.joint_lse_fwd(f, g, wt_e, bias, labels, 0)[2]
+    before = K.joint_lse_bwd.launches
+    grads = K.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse, db, dl)
+    assert K.joint_lse_bwd.launches == before + 1
+    leaves = [x.clone().requires_grad_() for x in (f, g, w_t, bias)]
+    ref = K.fused_joint_lse_plain(*leaves, labels, 0)
+    ref_g = torch.autograd.grad(ref, leaves, (db, dl))
+    return grads, ref_g, (f, g, wt_e, bias, labels, lse, db, dl)
+
+
+@pytest.mark.parametrize('b,t,u1,j,v', [
+    (32, 214, 65, 640, 2048),     # the E6D2 training step
+    (3, 13, 11, 64, 128),         # T, U+1 not multiples of the 8 x 8 tile
+    (2, 37, 1, 48, 80),           # U+1 = 1: 64 x 1 tiles
+    (2, 6, 1100, 640, 2048),      # U+1 = 1100
+    (2, 6, 33, 768, 400),         # J, V not multiples of 128
+])
+def test_k8_tensor_core_backward_matches_plain(cuda, b, t, u1, j, v):
+    """K8's tensor-core path within 2e-2 of max(1, |ref|) (bf16 h and
+    dlogits feed the products); dW and dbias the same bits on a second
+    call (fixed-order partial sums)."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as K
+    grads, ref_g, args = _k8_case(cuda, b, t, u1, j, v, b + t + u1)
+    for a, r in zip(grads, ref_g):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert _rel_err(a, r) <= 2e-2
+    again = K.joint_lse_bwd(*args[:5], 0, *args[5:])
+    assert torch.equal(again[2], grads[2]) and torch.equal(again[3], grads[3])
+
+
+def test_k8_crosses_slab_boundaries(cuda, monkeypatch):
+    """Slabs of two tiles (five slabs, the last one a single tile) give
+    the one-slab gradients."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as K
+    from edgedict_tpu_torch.ops import joint_lse_plan as P
+    b, t, u1, j, v = 3, 17, 5, 64, 96
+    whole, ref_g, args = _k8_case(cuda, b, t, u1, j, v, 5)
+    monkeypatch.setattr(P, 'SLAB_BYTES', 1)
+    plan = P.bwd_plan(b, t, u1, j, v, 132)
+    assert plan.slab_tiles == 2 and plan.slabs > 2 and plan.tiles % 2 == 1
+    sliced = K.joint_lse_bwd(*args[:5], 0, *args[5:])
+    for a, w, r in zip(sliced, whole, ref_g):
+        assert _rel_err(a, r) <= 2e-2
+        assert _max_abs(a, w) <= 1e-5 * max(1.0, float(w.abs().max()))
+
+
+def test_k8_wide_joint_with_one_label_slot_matches_plain(cuda):
+    """J = 4096 at U+1 = 1 (64 x 1 tiles): the h launch stages f and g in
+    column chunks, so the plan takes any J."""
+    grads, ref_g, _ = _k8_case(cuda, 2, 200, 1, 4096, 256, 1)
+    for a, r in zip(grads, ref_g):
+        assert _rel_err(a, r) <= 2e-2
+
+
 @pytest.mark.parametrize('b,t,u1,edge', [
     (4, 30, 20, 'mixed'), (3, 7, 1, 'full'), (2, 12, 9, 'xlen0'),
     (32, 214, 65, 'mixed'), (2, 6, 1100, 'full'),
@@ -449,6 +511,30 @@ def test_k11_quant_matmul_matches_plain(cuda, r, k, n, dtype):
     out = Q.quant_matmul(x, q, s, bias)
     ref = Q.quant_matmul_plain(x, q, s, bias)
     assert Q.quant_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (r, n)
+    scale = max(1.0, float(ref.float().abs().max()))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _max_abs(out, ref) <= tol * scale
+
+
+@pytest.mark.parametrize('r', [33, 128, 512])
+@pytest.mark.parametrize('k', [13, 240, 1024])
+@pytest.mark.parametrize('n', [7, 640, 4096])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k11_tile_path_matches_plain(cuda, r, k, n, dtype):
+    """K11's tiled kernels (R > 32): tensor cores in bf16, FFMA in fp32,
+    ragged R, K and N; one launch, counted as a tile launch."""
+    from edgedict_tpu_torch.ops import quant as Q
+    g = torch.Generator(device='cpu').manual_seed(r * k + n)
+    x = torch.randn(r, k, generator=g).to(cuda, dtype)
+    q, s = (t.to(cuda) for t in
+            Q.quantize_int8(torch.randn(n, k, generator=g) / k ** 0.5))
+    bias = torch.randn(n, generator=g).to(cuda)
+    before = (Q.quant_matmul.launches, Q.quant_matmul.tile_launches)
+    out = Q.quant_matmul(x, q, s, bias)
+    assert (Q.quant_matmul.launches, Q.quant_matmul.tile_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = Q.quant_matmul_plain(x, q, s, bias)
     assert out.dtype == dtype and out.shape == (r, n)
     scale = max(1.0, float(ref.float().abs().max()))
     tol = 1e-5 if dtype == torch.float32 else 1e-2

@@ -354,3 +354,23 @@ def test_profile_train_cpu_smoke():
     assert set(res['stage_ms']) == {'forward', 'loss', 'backward',
                                     'optimizer'}
     assert res['device_busy_share'] is None and len(res['losses']) == 1
+
+
+def test_profile_train_k8_slab_mb_sets_the_plan_for_the_run_alone():
+    from edgedict_tpu_torch.cli import profile_train
+    from edgedict_tpu_torch.ops import joint_lse_plan
+    default = joint_lse_plan.SLAB_BYTES
+    argv = ['--device', 'cpu', '--batch_size', '2', '--sub_batch_size', '1',
+            '--seconds', '0.5', '--label_len', '3', '--steps', '1',
+            '--bpe_size', '12', '--enc_hidden_size', '8', '--enc_layers', '2',
+            '--enc_proj_size', '8', '--dec_hidden_size', '8', '--dec_layers',
+            '1', '--dec_proj_size', '8', '--joint_size', '8',
+            '--vocab_embed_size', '4', '--feature', 'logfbank',
+            '--feature_size', '8', '--n_fft', '128', '--win_length', '128',
+            '--hop_length', '64', '--gradclip', '1']
+    res = profile_train.main(argv + ['--k8_slab_mb', '8'],
+                             log_fn=lambda *_: 0)
+    assert res['k8_slab_bytes'] == 8 << 20
+    assert joint_lse_plan.SLAB_BYTES == default
+    assert profile_train.main(argv, log_fn=lambda *_: 0)[
+        'k8_slab_bytes'] == default
