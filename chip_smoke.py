@@ -27,7 +27,17 @@ Phases, each printing JSON or text lines:
              (grid, shared memory, blocks per SM), also at the training
              shape (H=1024 B=32 T=427 bf16, held step by step from the
              kernel's own state) beside cuDNN's layer forward and the port's
-             own layer; each kernel's bound
+             own layer; K12/K13 beside dequantize + one cuDNN layer
+             forward and the port's own int8 layer; K7 (bf16: two lattice
+             tiles a block, h resident in shared memory, plan
+             ops/joint_lse_plan.py fwd_plan) at the E6D2 step also with h
+             staged through the slab scratch (both timed, the same bits),
+             at ragged B=33, U+1 = 1, 300, 1100, J/V padded (600, 2000), a
+             wide J=768 and fp32, each bit-stable across two calls; K3 (one
+             cooperative launch over the card, plan ops/decode_plan.py) at
+             B=1/8 T=1/16, the int8 server's B=64 and the eval decode's B=4
+             T=214, bit-stable, with its device time by torch.profiler;
+             each kernel's bound
              (bytes once over 3.35 TB/s, or operations over the peak of
              their type, whichever is larger) from the timed inputs
   4 slice    E6D2 from flagfiles/E6D2.txt with seeded random weights:
@@ -229,6 +239,8 @@ def lstm_steps_plain(torch, K1, xp, w, h0, c0, ys, cs):
 
 
 def phase_kernels(torch):
+    import dataclasses
+
     from edgedict_tpu_torch import features as F
     from edgedict_tpu_torch.ops import decode_kernel as K3
     from edgedict_tpu_torch.ops import features_kernel as K2
@@ -339,62 +351,82 @@ def phase_kernels(torch):
         record('lstm_fwd', max(errs), case.get('ms') if main else None,
                case.get('plain_ms'), bounds, case.get('library_ms'))
 
-    # K3 — greedy frame loop at E6D2's joint / prediction-net widths
+    # K3 — greedy frame loop at E6D2's joint / prediction-net widths: one
+    # stream (T=1: a streaming chunk), the fp32 server's 8 and the int8
+    # server's 64 streams, and the trainer's eval decode (B=4 over a whole
+    # utterance, T=214)
     dcfg = T.TransducerConfig(vocab_size=2048, vocab_embed_size=64,
                               enc_hidden_size=8, enc_layers=1,
                               enc_proj_size=640, dec_hidden_size=256,
                               dec_layers=2, dec_proj_size=256,
                               joint_size=640)
     # blank bias 0: every frame emits; 1.8: about half blank; 6: all blank
+    k3_timed = []      # (case, args): device time by the profiler, last
     for blank_bias in (0.0, 1.8, 6.0):
         model = T.Transducer(dcfg, device=dev, seed=1)
         with torch.no_grad():
             model.joint.out.bias[dcfg.blank] += blank_bias
             model.joint.out.bias[3] += 0.0 if blank_bias else 4.0  # <unk>
         cache = K3.build_decode_cache(model)
-        for b in (1, 8):
+        for b, t in ((1, 1), (1, 16), (8, 1), (8, 16), (64, 1), (4, 214)):
             with torch.no_grad():
                 h_dec0, (hs, cs) = T.decoder_apply(
                     model.decoder, dcfg,
                     torch.zeros((b, 0), dtype=torch.long, device=dev))
             h_dec0 = h_dec0[:, 0].contiguous()
-            for t in (1, 16):
-                f = torch.as_tensor(rng.randn(t, b, 640).astype(np.float32),
-                                    device=dev)
-                for emit_logp in (False, True):
-                    args = (cache, f, h_dec0, hs, cs, 0, 3, emit_logp)
-                    out = K3.greedy_frame_loop(*args)
-                    ref = K3.greedy_frame_loop_plain(*args)
-                    torch.cuda.synchronize()
-                    tok_eq = bool(torch.equal(out[0], ref[0]))
-                    errs = [_close(a, r, 1e-4, 1e-4) for a, r in
-                            zip(out[1:], ref[1:]) if a is not None]
-                    err = max(e for _, e in errs)
-                    case = {'kernel': 'K3 greedy_decode', 'B': b, 'T': t,
-                            'emit_logp': emit_logp, 'unk': 3,
-                            'blank_bias': blank_bias, 'tokens_equal': tok_eq,
-                            'blank_share': float((ref[0] == 0).float()
-                                                 .mean()),
-                            'state_max_abs': err,
-                            'tol': 'tokens exact, atol 1e-4 rtol 1e-4'}
-                    main = (b, t, emit_logp, blank_bias) == (1, 1, False, 0.0)
-                    if not emit_logp and (t == 1 or b == 1):
-                        ms, pms = time_pair(
-                            torch, lambda: K3.greedy_frame_loop_plain(*args),
-                            lambda: K3.greedy_frame_loop(*args))
-                        case.update(ms=ms, plain_ms=pms)
-                    bounds = k3_bound(torch, dcfg, cache, args, out)
-                    case.update(bound_ms=bounds[0], bound_by=bounds[1])
-                    emit(case)
-                    require(tok_eq and all(ok for ok, _ in errs),
-                            f'K3 disagrees: {case}')
-                    record('greedy_decode', err,
-                           case.get('ms') if main else None,
-                           case.get('plain_ms'), bounds)
+            f = torch.as_tensor(rng.randn(t, b, 640).astype(np.float32),
+                                device=dev)
+            for emit_logp in (False, True):
+                args = (cache, f, h_dec0, hs, cs, 0, 3, emit_logp)
+                out = K3.greedy_frame_loop(*args)
+                again = K3.greedy_frame_loop(*args)
+                ref = K3.greedy_frame_loop_plain(*args)
+                torch.cuda.synchronize()
+                tok_eq = bool(torch.equal(out[0], ref[0]))
+                errs = [_close(a, r, 1e-4, 1e-4) for a, r in
+                        zip(out[1:], ref[1:]) if a is not None]
+                err = max(e for _, e in errs)
+                stable = all(torch.equal(a, c) for a, c in zip(out, again)
+                             if a is not None)
+                case = {'kernel': 'K3 greedy_decode', 'B': b, 'T': t,
+                        'emit_logp': emit_logp, 'unk': 3,
+                        'blank_bias': blank_bias, 'tokens_equal': tok_eq,
+                        'blank_share': float((ref[0] == 0).float().mean()),
+                        'state_max_abs': err, 'bit_stable': stable,
+                        'tol': 'tokens exact, atol 1e-4 rtol 1e-4',
+                        'plan': dataclasses.asdict(K3.card_plan(cache, f,
+                                                                hs))}
+                main = (b, t, emit_logp, blank_bias) == (1, 1, False, 0.0)
+                if not emit_logp and (t == 1 or b == 1 or (
+                        t == 214 and blank_bias == 1.8)):
+                    ms, pms = time_pair(
+                        torch, lambda: K3.greedy_frame_loop_plain(*args),
+                        lambda: K3.greedy_frame_loop(*args))
+                    case.update(ms=ms, plain_ms=pms)
+                    if t == 1 or t == 214:
+                        k3_timed.append(({key: case[key] for key in (
+                            'B', 'T', 'blank_bias')}, args))
+                bounds = k3_bound(torch, dcfg, cache, args, out)
+                case.update(bound_ms=bounds[0], bound_by=bounds[1])
+                emit(case)
+                require(tok_eq and all(ok for ok, _ in errs) and stable,
+                        f'K3 disagrees: {case}')
+                record('greedy_decode', err,
+                       case.get('ms') if main else None,
+                       case.get('plain_ms'), bounds)
     train_kernels(torch, rng, dev, record)
     train_shape_forward(torch, rng, dev)
     summary['quant_matmul_tile']['cases'] = serving_kernels_q(torch, rng, dev,
                                                               record)
+    # K3's device time by torch.profiler (None where no profiled run
+    # recorded a launch)
+    for key, args in k3_timed:
+        ms, n = device_ms_per_launch(
+            torch, lambda: K3.greedy_frame_loop(*args), 'greedy_frame_kernel')
+        emit({'kernel': 'K3 greedy_decode', **key, 'device_ms': ms,
+              'profiled_launches': n})
+        if key == {'B': 1, 'T': 1, 'blank_bias': 0.0}:
+            summary['greedy_decode']['device_ms'] = ms
     STATE['kernels'] = summary
 
 
@@ -475,26 +507,64 @@ def layer_times(torch, cell, hid, b, t, dt, backward, n_in=ENC_IN):
     return out
 
 
-def kernel_split_ms(torch, fn, parts, n=5):
-    """Device ms per call of fn for each part of `parts` ({name: substrings
-    all in the kernel's name}), from torch.profiler over n calls."""
+def _profiled_us(torch, fn, n):
+    """{kernel name: (device µs, launches)} of one run of torch.profiler
+    over n calls of fn."""
     from torch.profiler import ProfilerActivity, profile
-
-    from edgedict_tpu_torch.cli.profile_stream import device_times_us
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    dev_us = device_times_us(prof)
-    return {name: sum(us for key, us in dev_us.items()
-                      if all(sub in key for sub in subs)) / 1e3 / n
-            for name, subs in parts.items()}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, count = out.get(e.key, (0.0, 0))
+            out[e.key] = (us + e.device_time_total, count + e.count)
+    return out
+
+
+# the profiler on the card machine has lost kernel records of a profiled
+# run (parent and change alike, PERF.md §7): a lost record only lowers a
+# total, so parts are read as the largest of PROFILE_RUNS profiled runs
+PROFILE_RUNS = 3
+
+
+def kernel_split_ms(torch, fn, parts, n=5):
+    """Device ms per call of fn for each part of `parts` ({name: substrings
+    all in the kernel's name}), from torch.profiler over n calls: the
+    largest of PROFILE_RUNS profiled runs' totals."""
+    fn()
+    torch.cuda.synchronize()
+    best = {name: 0.0 for name in parts}
+    for _ in range(PROFILE_RUNS):
+        dev = _profiled_us(torch, fn, n)
+        for name, subs in parts.items():
+            total = sum(us for key, (us, _) in dev.items()
+                        if all(sub in key for sub in subs)) / 1e3 / n
+            best[name] = max(best[name], total)
+    return best
+
+
+def device_ms_per_launch(torch, fn, name, n=5):
+    """(device ms of one launch of the kernel whose name holds `name`, the
+    launches torch.profiler recorded) over n calls of fn: the mean over the
+    recorded launches of the first of PROFILE_RUNS profiled runs that
+    recorded one; (None, 0) when none did."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_RUNS):
+        dev = _profiled_us(torch, fn, n)
+        us = sum(u for key, (u, _) in dev.items() if name in key)
+        count = sum(c for key, (_, c) in dev.items() if name in key)
+        if count:
+            return us / 1e3 / count, count
+    return None, 0
 
 
 # K4/K6's two launches: the gate remat over all steps and the dh chain
 BWD_PARTS = {'remat_ms': ('remat_',), 'chain_ms': ('chain_kernel',)}
+# K7's launches: the resident kernel (one), or the staged h and product
+K7_PARTS = {'h_ms': ('joint_lse_fwd_h_',), 'mma_ms': ('joint_lse_fwd_mma',)}
 # K8's tensor-core launches, summed over the slabs (ops/joint_lse_plan.py)
 K8_PARTS = {'h_ms': ('joint_lse_bwd_h_',),
             'dlogits_ms': ('joint_lse_bwd_dl_',),
@@ -690,12 +760,16 @@ def train_kernels(torch, rng, dev, record):
                 'dbias_rel': bwd_errs[3],
                 'tol': 'lp 1e-4, grads 2e-2 (bf16 dlogits), of max(1, max|ref|)'}
         main = u1 == 65
-        case['plan'] = dataclasses.asdict(JP.bwd_plan(
-            b, t, u1, j, v, torch.cuda.get_device_properties(dev)
-            .multi_processor_count))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        case['plan'] = dataclasses.asdict(JP.bwd_plan(b, t, u1, j, v, sms))
+        case['fwd_plan'] = dataclasses.asdict(JP.fwd_plan(b, t, u1, j, v,
+                                                          sms))
         case['bwd_parts_ms'] = kernel_split_ms(
             torch, lambda: KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse,
                                             d_b, d_l), K8_PARTS)
+        case['fwd_parts_ms'] = kernel_split_ms(
+            torch, lambda: KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0),
+            K7_PARTS)
         if main:
             ms, pms = time_pair(
                 torch, lambda: KJ.fused_joint_lse_plain(f, g, w_t, bias,
@@ -706,8 +780,22 @@ def train_kernels(torch, rng, dev, record):
                                                    retain_graph=True),
                 lambda: KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse,
                                          d_b, d_l))
+            # the same forward with h staged through the slab scratch
+            staged = KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0, True)
+            st_ms, _ = time_pair(
+                torch, lambda: KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0),
+                lambda: KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0, True))
             case.update(fwd_ms=ms, fwd_plain_ms=pms, bwd_ms=bms,
-                        bwd_plain_ms=bpms)
+                        bwd_plain_ms=bpms, fwd_staged_ms=st_ms,
+                        fwd_staged_parts_ms=kernel_split_ms(
+                            torch, lambda: KJ.joint_lse_fwd(
+                                f, g, wt_e, bias, labels, 0, True),
+                            K7_PARTS),
+                        fwd_staged_equal=all(torch.equal(a, c) for a, c in
+                                             zip(staged, (blank_lp,
+                                                          label_lp, lse))))
+            require(case['fwd_staged_equal'],
+                    'K7 staged through the scratch differs from resident')
         lattice_ops = 2 * b * t * u1 * j * v
         fwd_bound = bound(nbytes(f, g, wt_e, bias, labels, blank_lp,
                                  label_lp, lse), lattice_ops,
@@ -724,6 +812,8 @@ def train_kernels(torch, rng, dev, record):
         record('joint_lse_bwd', max(bwd_errs), case.get('bwd_ms'),
                case.get('bwd_plain_ms'), bwd_bound)
         del ref, ref_g, leaves
+
+    k7_cases(torch, rng, dev, record)
 
     # K9 / K10 — the lattice of the E6D2 step
     b, t, u1 = 32, 214, 65
@@ -770,6 +860,97 @@ def train_kernels(torch, rng, dev, record):
             f'K9/K10 disagree: {case}')
     record('lattice_alpha', logz_err, ams, apms, alpha_bound)
     record('lattice_beta_grad', occ_err, bms, bpms, beta_bound)
+
+
+def k7_cases(torch, rng, dev, record):
+    """K7 against its plain version at the shapes beside the E6D2 step:
+    ragged B=33, U+1 = 1, 300 and 1100, J and V padded to multiples of 16
+    (600, 2000), a J too wide for h to stay resident (768), and fp32 on CUDA
+    cores; labels equal to blank included, and the same bits on a second
+    call.  The blank / label log-probs and the logsumexp to 1e-4 of
+    max(1, |ref|)."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.ops import joint_lse_plan as JP
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, t, u1, j, v, dt in ((33, 214, 65, 640, 2048, torch.bfloat16),
+                               (4, 50, 1, 640, 2048, torch.bfloat16),
+                               (2, 50, 300, 640, 2048, torch.bfloat16),
+                               (2, 6, 1100, 640, 2048, torch.bfloat16),
+                               (2, 9, 33, 600, 2000, torch.bfloat16),
+                               (2, 6, 33, 768, 400, torch.bfloat16),
+                               (2, 20, 65, 640, 2048, torch.float32)):
+        def t_(*shape, scale=1.0):
+            return torch.as_tensor((rng.randn(*shape) * scale)
+                                   .astype(np.float32), device=dev)
+        f, g = t_(b, t, j).to(dt), t_(b, u1, j).to(dt)
+        w_t, bias = t_(j, v, scale=j ** -0.5), t_(v, scale=0.1)
+        labels = torch.as_tensor(rng.randint(0, v, (b, u1 - 1))
+                                 .astype(np.int32), device=dev)
+        labels[:, ::3] = 0
+        wt_e = w_t.to(dt)
+        out = KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0)
+        again = KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0)
+        ref = KJ.fused_joint_lse_plain(f, g, w_t, bias, labels, 0)
+        h = torch.tanh(f.float()[:, :, None] + g.float()[:, None])
+        lse = torch.logsumexp(h.to(dt).float() @ wt_e.float() + bias, -1)
+        del h
+        torch.cuda.synchronize()
+        errs = [_rel(torch, a, r) if a.numel() else 0.0
+                for a, r in zip(out, (*ref, lse))]
+        stable = all(torch.equal(a, c) for a, c in zip(out, again))
+        case = {'kernel': 'K7 joint_lse_fwd', 'B': b, 'T': t, 'U1': u1,
+                'J': j, 'V': v, 'dtype': str(dt).split('.')[-1],
+                'blank_rel': errs[0], 'label_rel': errs[1],
+                'lse_rel': errs[2],
+                'bit_stable': stable,
+                'tol': 'lp and lse 1e-4 of max(1, max|ref|)'}
+        if dt == torch.bfloat16:
+            jp, vp = -(-j // 16) * 16, -(-v // 16) * 16
+            case['plan'] = dataclasses.asdict(JP.fwd_plan(b, t, u1, jp, vp,
+                                                          sms))
+        emit(case)
+        require(max(errs) <= 1e-4 and stable, f'K7 disagrees: {case}')
+        record('joint_lse_fwd', max(errs))
+        del out, again, ref, lse
+
+
+def quant_layer_times(torch, cell, hid, b, t, n_in=ENC_IN):
+    """K12 / K13's library yardstick: dequantize W_ih and W_hh (int8 →
+    fp32) and one cuDNN nn.LSTM / nn.GRU layer forward with them (input
+    (T, B, n_in), fp32), beside the port's own int8 layer (ops/quant.py:
+    K11's x_proj, then K12 / K13) from the same int8 weights, both timed
+    as layer_times times K1/K5's (median of 10).
+    → {'library_ms', 'layer_ms', 'cudnn'}."""
+    from torch.func import functional_call
+
+    from edgedict_tpu_torch.ops import quant as Q
+    dev = torch.device('cuda')
+    gen = torch.Generator(device='cpu').manual_seed(hid + b + t)
+    xs = torch.randn(t, b, n_in, generator=gen).to(dev)
+    mod = getattr(torch.nn, cell)(n_in, hid).to(dev)
+    qrnn = Q.QuantRNN(mod).to(dev)
+    params = qrnn.layer(0)
+    h0 = torch.zeros(b, hid, device=dev)
+    layer = Q.gru_layer_tm_q if cell == 'GRU' else Q.lstm_layer_tm_q
+    state = h0 if cell == 'GRU' else (h0, h0)
+
+    def library():
+        with torch.no_grad():
+            functional_call(mod, {
+                'weight_ih_l0': Q.dequantize(qrnn.w_ih_q, qrnn.w_ih_scale,
+                                             torch.float32),
+                'weight_hh_l0': Q.dequantize(qrnn.w_hh_q, qrnn.w_hh_scale,
+                                             torch.float32),
+                'bias_ih_l0': qrnn.b_ih, 'bias_hh_l0': qrnn.b_hh}, (xs,))
+
+    def port():
+        with torch.no_grad():
+            layer(params, xs, state)
+    return {'cudnn': torch.backends.cudnn.version(),
+            'library_ms': _median_ms(torch, library, iters=10, warmup=2),
+            'layer_ms': _median_ms(torch, port, iters=10, warmup=2)}
 
 
 def serving_kernels_q(torch, rng, dev, record):
@@ -914,6 +1095,9 @@ def serving_kernels_q(torch, rng, dev, record):
             case['plan'] = fwd_plan(xp, 3)
         if main and name == 'gru_fwd':
             case.update(layer_times(torch, 'GRU', hid, b, t, dt, False))
+        if main and name in ('lstm_fwd_q', 'gru_fwd_q'):
+            case.update(quant_layer_times(
+                torch, 'GRU' if name == 'gru_fwd_q' else 'LSTM', hid, b, t))
         emit(case)
         require(ok, f'{label} disagrees: {case}')
         record(name, max(errs + steps), ms if main else None, pms,
@@ -1643,7 +1827,7 @@ def main():
          'replaces': SOURCES[name][1], 'launches': launches[name],
          **{key: kernels[name][key] for key in (
              'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-             'library_ms', 'cases') if key in kernels[name]}}
+             'library_ms', 'device_ms', 'cases') if key in kernels[name]}}
         for name in SOURCES]})
     emit(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': STATE['kind'],

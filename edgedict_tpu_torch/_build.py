@@ -67,8 +67,11 @@ _SIGNATURES = {
     # gru, bf16, smem, out (int*)
     'edd_rnn_bwd_blocks_per_sm': (_I, _I, _I, _P),
     # f, g, wt, bias, labels, blank_lp, label_lp, lse, B, T, U1, J, V,
-    # blank, bf16, stream
-    'edd_joint_lse_fwd': (_P,) * 8 + (_I,) * 7 + (_P,),
+    # blank, stream
+    'edd_joint_lse_fwd': (_P,) * 8 + (_I,) * 6 + (_P,),
+    # f, g, wt, bias, labels, blank_lp, label_lp, lse, hs, B, T, U1, J, V,
+    # blank, r_t, r_u, ldh, slab_tiles, stream
+    'edd_joint_lse_fwd_mma': (_P,) * 9 + (_I,) * 10 + (_P,),
     # f, g, wt, w, bias, labels, lse, d_blank, d_label, df, dg, dw, dbias,
     # B, T, U1, J, V, blank, n_split, stream
     'edd_joint_lse_bwd': (_P,) * 13 + (_I,) * 7 + (_P,),
@@ -85,11 +88,15 @@ _SIGNATURES = {
     'edd_mel_power': (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # f, T, B, J, w_dec_t, b_joint, w_out_t, b_out, V, table, E,
     # L, w_ih_t[L], w_hh_t[L], bias[L], H, w_proj_t, b_proj, D,
-    # h_dec0, hs0, cs0, tokens, logp, h_dec, hs, cs, blank, unk, stream
+    # h_dec0, hs0, cs0, tokens, logp, h_dec, hs, cs, blank, unk,
+    # scratch, scratch_floats, grid, bc, smem, stream
     'edd_greedy_decode': (
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
         _I, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
-        _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+        _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+        _P, ctypes.c_longlong, _I, _I, _I, _P),
+    # unused, unused, smem, out (int*)
+    'edd_greedy_decode_blocks_per_sm': (_I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

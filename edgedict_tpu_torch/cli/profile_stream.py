@@ -43,14 +43,14 @@ from edgedict_tpu_torch.stream import (
 
 # the hand-written kernels in the profiler's trace: every substring of a
 # value is in the kernel's name (K1/K5: the persistent recurrence, K12/K13:
-# the int8 step kernels)
+# the int8 step kernels, K3: its one cooperative launch)
 KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
            'lstm_fwd_q': ('lstm_step_kernel',),
            'gru_fwd': ('recur_fwd_kernel', 'GruStep'),
            'gru_fwd_q': ('gru_step_kernel',),
            'quant_matmul': ('qmm_',),
            'mel_power': ('mel_power_kernel',),
-           'greedy_decode': ('greedy_decode_kernel',)}
+           'greedy_decode': ('greedy_frame_kernel',)}
 
 
 # the encoder's kernels per (enc_type, quantize); K2 and K3 run in every

@@ -58,7 +58,8 @@ from edgedict_tpu_torch.train import (
 
 # the hand-written kernels in the profiler's trace: every substring of a
 # value is in the kernel's name (K1/K5: the persistent recurrence; K4/K6:
-# remat + chain, and each apart)
+# remat + chain, and each apart; K7: all its launches, and apart its h
+# launch and product where h is staged, 0 for the h launch where resident)
 KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
            'lstm_bwd': ('LstmCell',),
            'lstm_bwd_remat': ('remat_', 'LstmCell'),
@@ -69,6 +70,8 @@ KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
            'gru_bwd_chain': ('chain_kernel', 'GruCell'),
            'mel_power': ('mel_power_kernel',),
            'joint_lse_fwd': ('joint_lse_fwd',),
+           'joint_lse_fwd_h': ('joint_lse_fwd_h_',),
+           'joint_lse_fwd_mma': ('joint_lse_fwd_mma',),
            'joint_lse_bwd_h': ('joint_lse_bwd_h_',),
            'joint_lse_bwd_dl': ('joint_lse_bwd_dl_',),
            'joint_lse_bwd_dh': ('joint_lse_bwd_dh',),

@@ -20,36 +20,46 @@
 // What bounds it on the H100: arithmetic. At E6D2 training (B=32, T=214,
 // U+1=65, J=640, V=2048) the forward is 445k rows x J x V = 5.8e11 FMAs and
 // the backward three times that (logits, dh, dW); bytes are small (f, g, W
-// stay in L2). In bf16, the training dtype, every backward product runs on
-// the tensor cores (the wrapper pads J and V to multiples of 16), and so
-// does the forward's where J and V are multiples of 16; fp32 runs the
+// stay in L2). In bf16, the training dtype, every product runs on the
+// tensor cores (the wrapper pads J and V to multiples of 16); fp32 runs the
 // CUDA-core kernels.
 //
-// Design:
-//  * forward (K7): a block takes 32 rows, holds their h in shared memory,
-//    and walks V in 128-column chunks: the chunk's logits (wmma into shared
-//    memory, or a warp's rows x a lane's 4 columns on CUDA cores), then a
-//    running max / sum of exp and the two gathered logits per row (online
-//    softmax, as _fwd_kernel_split).
-//  * backward (K8), bf16 (J, V multiples of 16): the TPU kernel takes
-//    r_t x r_u lattice cells a grid step, computes h once and runs the three
-//    products on it. Here the lattice is cut into tiles of 64 cells
-//    (ops/joint_lse_plan.py picks r_t x r_u), and consecutive tiles into
-//    slabs whose h and dlogits fit a scratch of fixed size; per slab, four
-//    launches: h (one block per tile: its r_t f-rows and r_u g-rows loaded
-//    once, kHCols columns at a time, tanh once per cell, bf16 into the
-//    scratch), dlogits (h . W^T +
-//    bias, the softmax gradient, bf16 into the scratch, fp32 column sums
-//    into per-row-block dbias partials), dh (dlogits . W, then da = dh (1 -
-//    h^2) with fp32 h summed inside each tile: one df atomic per (tile, t,
-//    k) and one dg atomic per (tile, u, k)), dW (h^T . dlogits over row
-//    shares, each into its own fp32 partial, no atomics). The three
-//    products (the bound's count) share one block product: 128 x 128
-//    outputs, 3-stage cp.async ring of 64-deep tiles of both operands,
-//    ldmatrix (.trans for the dW product's transposed operands) into
-//    mma.sync m16n8k16 with fp32 accumulators. One last launch sums the
-//    partials in a fixed order: dW^T and dbias are the same bits from run
-//    to run, df and dg (fp32 atomics) are not.
+// Design. The lattice is cut into tiles of 64 cells (r_t frames x r_u label
+// slots; ops/joint_lse_plan.py picks the shape), and all three tensor-core
+// products share one block product, gemm_block: 128 x 128 outputs (two
+// tiles), a 3-stage cp.async ring of 64-deep stages, ldmatrix (.trans for
+// transposed operands) into mma.sync m16n8k16 with fp32 accumulators.
+//  * forward (K7), bf16: a block takes two whole tiles (128 rows). Where
+//    their h fits in shared memory beside the ring (J up to 640: 128 x 648
+//    bf16 = 166 KB + 54 KB of W^T stages), the block loads the tiles' r_t
+//    f-rows and r_u g-rows once, takes tanh once per cell into shared
+//    memory, then streams only W^T, 128 columns at a time, through the ring
+//    (gemm_block with A resident) — one pass over W per 128 rows, no
+//    scratch. Wider J stages h through a bounded slab scratch with the h
+//    launch the backward uses, and the same kernel reads A from it. After
+//    each 128-column chunk a thread folds its 8 rows x 8 columns of fp32
+//    accumulators (+ bias; -inf past V) into per-row running (max, sum of
+//    exp) and the blank and label logits where they fall (the online
+//    logsumexp of _fwd_kernel_split); at the end the 4 lanes and the 4
+//    column warps that share a row combine in a fixed order through a small
+//    shared-memory reduction, and each row's three outputs are written
+//    once: no atomics, no partials, the same bits from run to run.
+//  * forward, fp32: a block takes 32 rows, holds their h in shared memory
+//    and walks V in 128-column chunks on CUDA cores (a warp's rows x a
+//    lane's 4 columns), with the same online logsumexp.
+//  * backward (K8), bf16: the TPU kernel takes r_t x r_u lattice cells a
+//    grid step, computes h once and runs the three products on it. Here
+//    consecutive tiles form slabs whose h and dlogits fit a scratch of
+//    fixed size; per slab, four launches: h (one block per tile: its r_t
+//    f-rows and r_u g-rows loaded once, kHCols columns at a time, tanh once
+//    per cell, bf16 into the scratch), dlogits (h . W^T + bias, the softmax
+//    gradient, bf16 into the scratch, fp32 column sums into per-row-block
+//    dbias partials), dh (dlogits . W, then da = dh (1 - h^2) with fp32 h
+//    summed inside each tile: one df atomic per (tile, t, k) and one dg
+//    atomic per (tile, u, k)), dW (h^T . dlogits over row shares, each into
+//    its own fp32 partial, no atomics). One last launch sums the partials
+//    in a fixed order: dW^T and dbias are the same bits from run to run, df
+//    and dg (fp32 atomics) are not.
 //  * backward, fp32: the forward's row tiling recomputes each logits chunk,
 //    forms dlogits and accumulates dh = dlogits . W; the epilogue forms da
 //    and adds it to df (summed over the block's rows of one (b, t) first)
@@ -57,13 +67,12 @@
 //    dW^T per block over a share of the rows, recomputing h and the strip's
 //    logits, and adds the strip to dW^T and dbias with fp32 atomics at its
 //    end.
-// Shared-memory rows read by wmma or ldmatrix are padded by 16 bytes
-// against bank conflicts.
+// Shared-memory rows read by ldmatrix are padded by 16 bytes against bank
+// conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -77,28 +86,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 128;       // logits columns per chunk (4 per lane)
 constexpr int kStrip = 32;       // dW^T columns per block
 constexpr int kStripRows = 32;   // rows per step of the dW kernel
-// shared-memory rows of the tensor-core kernels are padded by 16 bytes (8
-// bf16, 4 fp32) so that the 16 rows of a wmma tile fall on different banks
-constexpr int kPadB = 8;
-constexpr int kPadF = 4;
-constexpr int kStageLd = kCols + kPadF;     // fp32 logits rows, forward
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename Elem>
-__device__ __forceinline__ Elem from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <typename Elem>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<Elem>(x));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -133,31 +120,27 @@ __device__ __forceinline__ Row split_row(long long r, const Dims& d) {
   return w;
 }
 
-template <typename Elem>
-__device__ __forceinline__ float h_fp32(const Elem* f, const Elem* g,
+__device__ __forceinline__ float h_fp32(const float* f, const float* g,
                                         const Row& w, int k, const Dims& d) {
-  return tanhf(to_f32(f[(size_t)w.bt * d.J + k]) +
-               to_f32(g[((size_t)w.b * d.U1 + w.u) * d.J + k]));
+  return tanhf(f[(size_t)w.bt * d.J + k] +
+               g[((size_t)w.b * d.U1 + w.u) * d.J + k]);
 }
 
-// hs[rr * J + k] = h of rows r0 .. r0 + R - 1 (rows >= end read as 0), in
-// W's dtype as the products take it.
-template <typename Elem>
-__device__ void fill_h(float* hs, const Elem* f, const Elem* g, long long r0,
+// hs[rr * J + k] = h of rows r0 .. r0 + R - 1 (rows >= end read as 0)
+__device__ void fill_h(float* hs, const float* f, const float* g, long long r0,
                        int R, long long end, const Dims& d) {
   for (int i = threadIdx.x; i < R * d.J; i += blockDim.x) {
     const int rr = i / d.J;
     const int k = i - rr * d.J;
     const long long r = r0 + rr;
-    hs[i] = r < end ? round_to<Elem>(h_fp32(f, g, split_row(r, d), k, d))
-                    : 0.0f;
+    hs[i] = r < end ? h_fp32(f, g, split_row(r, d), k, d) : 0.0f;
   }
 }
 
 // logits of RPW rows (hs rows row0 ..) at columns c0 + lane + 32 j
-template <typename Elem, int RPW>
+template <int RPW>
 __device__ __forceinline__ void warp_logits(const float* hs, int row0,
-                                            const Elem* wt,
+                                            const float* wt,
                                             const float* bias, int c0,
                                             const Dims& d,
                                             float acc[RPW][4]) {
@@ -171,7 +154,7 @@ __device__ __forceinline__ void warp_logits(const float* hs, int row0,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + lane + 32 * j;
-      wv[j] = c < d.V ? to_f32(wt[(size_t)k * d.V + c]) : 0.0f;
+      wv[j] = c < d.V ? wt[(size_t)k * d.V + c] : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
@@ -198,10 +181,10 @@ __device__ __forceinline__ int row_label(const int* labels, const Row& w,
 // K7 forward
 // ---------------------------------------------------------------------------
 
-template <typename Elem, int RPW>
+template <int RPW>
 __global__ void __launch_bounds__(kThreads)
-joint_lse_fwd_kernel(const Elem* __restrict__ f, const Elem* __restrict__ g,
-                     const Elem* __restrict__ wt,
+joint_lse_fwd_kernel(const float* __restrict__ f, const float* __restrict__ g,
+                     const float* __restrict__ wt,
                      const float* __restrict__ bias,
                      const int* __restrict__ labels,
                      float* __restrict__ blank_out,
@@ -228,7 +211,7 @@ joint_lse_fwd_kernel(const Elem* __restrict__ f, const Elem* __restrict__ g,
   }
   for (int c0 = 0; c0 < d.V; c0 += kCols) {
     float acc[RPW][4];
-    warp_logits<Elem, RPW>(hs, row0, wt, bias, c0, d, acc);
+    warp_logits<RPW>(hs, row0, wt, bias, c0, d, acc);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       float cm = -CUDART_INF_F, pb = 0.0f, pl = 0.0f;
@@ -269,8 +252,7 @@ joint_lse_fwd_kernel(const Elem* __restrict__ f, const Elem* __restrict__ g,
 // da = dh (1 - h^2) with fp32 h for rows r0 .. r0 + R - 1 (dhs[rr * J + k]);
 // df summed over the tile's rows of one (b, t) before its atomic, dg one
 // atomic per row
-template <typename Elem>
-__device__ void dh_epilogue(const float* dhs, const Elem* f, const Elem* g,
+__device__ void dh_epilogue(const float* dhs, const float* f, const float* g,
                             long long r0, int R, const Dims& d, float* df,
                             float* dg) {
   for (int k = threadIdx.x; k < d.J; k += blockDim.x) {
@@ -294,33 +276,16 @@ __device__ void dh_epilogue(const float* dhs, const Elem* f, const Elem* g,
   }
 }
 
-// h of rows r0 .. r0 + R - 1 in bf16, columns 0 .. width - 1 of rows ld
-// apart (rows >= end and k >= J read as 0): one warp per row, lanes along J
-__device__ void fill_h_bf16(__nv_bfloat16* hs, const __nv_bfloat16* f,
-                            const __nv_bfloat16* g, long long r0, int R,
-                            long long end, int width, int ld, const Dims& d) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int rr = warp; rr < R; rr += blockDim.x >> 5) {
-    const long long r = r0 + rr;
-    const bool ok = r < end;
-    const Row rw = split_row(ok ? r : 0, d);
-    for (int k = lane; k < width; k += 32)
-      hs[rr * ld + k] = __float2bfloat16(
-          ok && k < d.J ? h_fp32(f, g, rw, k, d) : 0.0f);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K8 backward: dh → df, dg
 // ---------------------------------------------------------------------------
 
-template <typename Elem, int RPW>
+template <int RPW>
 __global__ void __launch_bounds__(kThreads)
-joint_lse_bwd_dh_kernel(const Elem* __restrict__ f,
-                        const Elem* __restrict__ g,
-                        const Elem* __restrict__ wt,
-                        const Elem* __restrict__ w,
+joint_lse_bwd_dh_kernel(const float* __restrict__ f,
+                        const float* __restrict__ g,
+                        const float* __restrict__ wt,
+                        const float* __restrict__ w,
                         const float* __restrict__ bias,
                         const int* __restrict__ labels,
                         const float* __restrict__ lse,
@@ -359,7 +324,7 @@ joint_lse_bwd_dh_kernel(const Elem* __restrict__ f,
   }
   for (int c0 = 0; c0 < d.V; c0 += kCols) {
     float acc[RPW][4];
-    warp_logits<Elem, RPW>(hs, row0, wt, bias, c0, d, acc);
+    warp_logits<RPW>(hs, row0, wt, bias, c0, d, acc);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
 #pragma unroll
@@ -371,7 +336,7 @@ joint_lse_bwd_dh_kernel(const Elem* __restrict__ f,
           v = (c == d.blank ? db[i] : 0.0f) + (c == lbl[i] ? dl[i] : 0.0f) -
               (db[i] + dl[i]) * p;
         }
-        dls[(row0 + i) * kCols + lane + 32 * j] = round_to<Elem>(v);
+        dls[(row0 + i) * kCols + lane + 32 * j] = v;
       }
     }
     __syncwarp();
@@ -381,7 +346,7 @@ joint_lse_bwd_dh_kernel(const Elem* __restrict__ f,
 #pragma unroll
       for (int i = 0; i < RPW; ++i) a[i] = 0.0f;
       for (int cc = 0; cc < ncol; ++cc) {
-        const float wv = to_f32(w[(size_t)(c0 + cc) * d.J + k]);
+        const float wv = w[(size_t)(c0 + cc) * d.J + k];
 #pragma unroll
         for (int i = 0; i < RPW; ++i)
           a[i] = fmaf(dls[(row0 + i) * kCols + cc], wv, a[i]);
@@ -399,11 +364,10 @@ joint_lse_bwd_dh_kernel(const Elem* __restrict__ f,
 // K8 backward: dW^T, dbias
 // ---------------------------------------------------------------------------
 
-template <typename Elem>
 __global__ void __launch_bounds__(kThreads)
-joint_lse_bwd_dw_kernel(const Elem* __restrict__ f,
-                        const Elem* __restrict__ g,
-                        const Elem* __restrict__ wt,
+joint_lse_bwd_dw_kernel(const float* __restrict__ f,
+                        const float* __restrict__ g,
+                        const float* __restrict__ wt,
                         const float* __restrict__ bias,
                         const int* __restrict__ labels,
                         const float* __restrict__ lse,
@@ -455,7 +419,7 @@ joint_lse_bwd_dw_kernel(const Elem* __restrict__ f,
 #pragma unroll
     for (int i = 0; i < RPW; ++i) acc[i] = 0.0f;
     for (int k = 0; k < d.J; ++k) {
-      const float wv = col < d.V ? to_f32(wt[(size_t)k * d.V + col]) : 0.0f;
+      const float wv = col < d.V ? wt[(size_t)k * d.V + col] : 0.0f;
 #pragma unroll
       for (int i = 0; i < RPW; ++i)
         acc[i] = fmaf(hs[(warp * RPW + i) * d.J + k], wv, acc[i]);
@@ -471,7 +435,7 @@ joint_lse_bwd_dw_kernel(const Elem* __restrict__ f,
             (db + dl) * p;
       }
       db_acc += v;
-      dls[rr * kStrip + lane] = round_to<Elem>(v);
+      dls[rr * kStrip + lane] = v;
     }
     __syncthreads();
     for (int k = warp; k < d.J; k += kWarps) {
@@ -491,118 +455,6 @@ joint_lse_bwd_dw_kernel(const Elem* __restrict__ f,
     float s = 0.0f;
     for (int i = 0; i < kWarps; ++i) s += red[i * 32 + lane];
     atomicAdd(&dbias[col], s);
-  }
-}
-
-// logits of rows 0..31 (hs, R x J bf16) at columns c0 .. c0 + 127 into
-// stage (R x kCols fp32) on the tensor cores: warp w takes the 16-row tile
-// w & 1 and the 16-column tiles w >> 1 and (w >> 1) + 4; tiles at or past V
-// are skipped (their stage entries are never read)
-__device__ __forceinline__ void wmma_logits_chunk(
-    const __nv_bfloat16* hs, int ldh, const __nv_bfloat16* wt, int c0,
-    float* stage, const Dims& d) {
-  using namespace nvcuda;
-  typedef __nv_bfloat16 bf16;
-  const int warp = threadIdx.x >> 5;
-  const int rt = warp & 1;
-  const int ct[2] = {warp >> 1, (warp >> 1) + 4};
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> lg[2];
-  wmma::fill_fragment(lg[0], 0.0f);
-  wmma::fill_fragment(lg[1], 0.0f);
-  const bool on[2] = {c0 + ct[0] * 16 < d.V, c0 + ct[1] * 16 < d.V};
-  for (int kt = 0; kt < d.J / 16; ++kt) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, hs + rt * 16 * ldh + kt * 16, ldh);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      if (!on[q]) continue;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, wt + (size_t)kt * 16 * d.V + c0 + ct[q] * 16,
-                             d.V);
-      wmma::mma_sync(lg[q], a, b, lg[q]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    if (on[q])
-      wmma::store_matrix_sync(stage + rt * 16 * kStageLd + ct[q] * 16, lg[q],
-                              kStageLd, wmma::mem_row_major);
-}
-
-// K7 in bf16 on the tensor cores (J and V multiples of 16): 32 rows per
-// block, each 128-column logits chunk through wmma into shared memory, then
-// the same online logsumexp and gathers as joint_lse_fwd_kernel
-__global__ void __launch_bounds__(kThreads)
-joint_lse_fwd_wmma_kernel(const __nv_bfloat16* __restrict__ f,
-                          const __nv_bfloat16* __restrict__ g,
-                          const __nv_bfloat16* __restrict__ wt,
-                          const float* __restrict__ bias,
-                          const int* __restrict__ labels,
-                          float* __restrict__ blank_out,
-                          float* __restrict__ label_out,
-                          float* __restrict__ lse_out, Dims d) {
-  constexpr int R = 32;
-  constexpr int RPW = R / kWarps;
-  extern __shared__ __align__(128) unsigned char sraw[];
-  const int ldh = d.J + kPadB;
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(sraw);  // R x J
-  float* stage = reinterpret_cast<float*>(hs + R * ldh);        // R x kCols
-  const long long r0 = (long long)blockIdx.x * R;
-  fill_h_bf16(hs, f, g, r0, R, d.N, d.J, ldh, d);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int lbl[RPW];
-  float m[RPW], s[RPW], bv[RPW], lv[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const long long r = r0 + warp * RPW + i;
-    lbl[i] = r < d.N ? row_label(labels, split_row(r, d), d) : d.blank;
-    m[i] = -CUDART_INF_F;
-    s[i] = 0.0f;
-    bv[i] = 0.0f;
-    lv[i] = 0.0f;
-  }
-  __syncthreads();
-  for (int c0 = 0; c0 < d.V; c0 += kCols) {
-    wmma_logits_chunk(hs, ldh, wt, c0, stage, d);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int rr = warp * RPW + i;
-      float x[4];
-      float cm = -CUDART_INF_F, pb = 0.0f, pl = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + lane + 32 * j;
-        x[j] = c < d.V ? stage[rr * kStageLd + lane + 32 * j] + bias[c]
-                       : -CUDART_INF_F;
-        cm = fmaxf(cm, x[j]);
-        if (c == d.blank) pb += x[j];
-        if (c == lbl[i]) pl += x[j];
-      }
-      const float mn = fmaxf(m[i], warp_max(cm));
-      float cs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c0 + lane + 32 * j < d.V) cs += expf(x[j] - mn);
-      s[i] = s[i] * expf(m[i] - mn) + warp_sum(cs);
-      m[i] = mn;
-      bv[i] += warp_sum(pb);
-      lv[i] += warp_sum(pl);
-    }
-    __syncthreads();
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const long long r = r0 + warp * RPW + i;
-      if (r >= d.N) continue;
-      const Row w = split_row(r, d);
-      const float lse = m[i] + logf(s[i]);
-      blank_out[r] = bv[i] - lse;
-      lse_out[r] = lse;
-      if (w.u < d.U) label_out[(size_t)w.bt * d.U + w.u] = lv[i] - lse;
-    }
   }
 }
 
@@ -675,25 +527,28 @@ __device__ __forceinline__ void stage_tile(bf16* dst, int ld, const bf16* src,
 // mma.sync m16n8k16 through ldmatrix from a 3-stage cp.async ring in `sm`.
 // A is (M, K): stored [m][k] (A_KM false, element (m, k) at a[m * lda + k])
 // or [k][m] (A_KM true, at a[k * lda + m]); B is (K, N): stored [n][k]
-// (B_KN false) or [k][n] (B_KN true). Warp (wm, wn) owns rows wm * 64 ..
-// + 64 and columns wn * 32 .. + 32: acc[i][j] is the m16n8 tile at rows
-// wm * 64 + 16 i, columns wn * 32 + 8 j, element 2 h + e at row + gid + 8 h,
-// column + 2 tig + e.
-template <bool A_KM, bool B_KN>
+// (B_KN false) or [k][n] (B_KN true). With A_RES, A is the block's own 128
+// rows already in shared memory ([m][k], rows lda apart, m0 and m_end
+// unused, zero up to k0 + a whole number of stages) and the ring holds B
+// alone. Warp (wm, wn) owns rows wm * 64 .. + 64 and columns wn * 32 ..
+// + 32: acc[i][j] is the m16n8 tile at rows wm * 64 + 16 i, columns wn * 32
+// + 8 j, element 2 h + e at row + gid + 8 h, column + 2 tig + e.
+template <bool A_KM, bool B_KN, bool A_RES = false>
 __device__ __forceinline__ void gemm_block(
     float (&acc)[4][4][4], const bf16* a, int lda, long long m0,
     long long m_end, const bf16* b, int ldb, int n0, int n_end,
     long long k0, long long k_end, bf16* sm) {
+  static_assert(!(A_RES && A_KM), "a resident A is stored [m][k]");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 2, wn = warp & 3;
   bf16* as = sm;
-  bf16* bs = sm + kGStages * kStageElems;
+  bf16* bs = A_RES ? sm : sm + kGStages * kStageElems;
   auto stage = [&](int buf, long long k) {
     bf16* ad = as + buf * kStageElems;
     bf16* bd = bs + buf * kStageElems;
-    if (A_KM)
+    if constexpr (A_KM)
       stage_tile<kGk, kGm>(ad, kLdKm, a, lda, k, k_end, (int)m0, (int)m_end);
-    else
+    else if constexpr (!A_RES)
       stage_tile<kGm, kGk>(ad, kLdMk, a, lda, m0, m_end, (int)k, (int)k_end);
     if (B_KN)
       stage_tile<kGk, kGn>(bd, kLdKm, b, ldb, k, k_end, n0, n_end);
@@ -720,7 +575,10 @@ __device__ __forceinline__ void gemm_block(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int mo = wm * 64 + i * 16;
-        if (A_KM)
+        if constexpr (A_RES)
+          ldmatrix_x4(af[i], a + (mo + (lane & 15)) * lda + k0 +
+                                 (long long)kt * kGk + kk + (lane >> 4) * 8);
+        else if constexpr (A_KM)
           ldmatrix_x4_trans(af[i], ab + (kk + (lane & 7) + ((lane >> 4) << 3)) *
                                             kLdKm +
                                         mo + ((lane >> 3) & 1) * 8);
@@ -765,15 +623,16 @@ __device__ __forceinline__ void zero_acc(float (&acc)[4][4][4]) {
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
 }
 
-// 1. h of the slab's tiles (one block each) in bf16, rows of invalid cells
+// h of the slab's tiles (one block each) in bf16, rows of invalid cells
 // zero: the tile's r_t f-rows and r_u g-rows are loaded once into shared
 // memory, kHCols columns at a time, and tanh(f + g) is taken once per cell
-// in fp32.
-__global__ void __launch_bounds__(kThreads)
-joint_lse_bwd_h_kernel(const bf16* __restrict__ f, const bf16* __restrict__ g,
-                       bf16* __restrict__ hs, Lattice L, long long tile0) {
-  extern __shared__ __align__(16) unsigned char k8_smem[];
-  bf16* fs = reinterpret_cast<bf16*>(k8_smem);   // r_t x kc, then r_u x kc
+// in fp32. Tile tile0 + blockIdx.x is written to rows blockIdx.x * 64 ..
+// of hs.
+__device__ __forceinline__ void tile_h(const bf16* __restrict__ f,
+                                       const bf16* __restrict__ g,
+                                       bf16* __restrict__ hs,
+                                       const Lattice& L, long long tile0,
+                                       bf16* fs) {
   const long long tile = tile0 + blockIdx.x;
   const Cell c0 = tile_cell(L, tile, 0);
   for (int k0 = 0; k0 < L.J; k0 += kHCols) {
@@ -812,6 +671,14 @@ joint_lse_bwd_h_kernel(const bf16* __restrict__ f, const bf16* __restrict__ g,
           *reinterpret_cast<const uint4*>(out);
     }
   }
+}
+
+// 1. K8's h launch (tile_h)
+__global__ void __launch_bounds__(kThreads)
+joint_lse_bwd_h_kernel(const bf16* __restrict__ f, const bf16* __restrict__ g,
+                       bf16* __restrict__ hs, Lattice L, long long tile0) {
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  tile_h(f, g, hs, L, tile0, reinterpret_cast<bf16*>(k8_smem));
 }
 
 // 2. dlogits (rows, V) = softmax gradient of h . W^T + bias, in bf16, rows
@@ -1034,8 +901,211 @@ joint_lse_bwd_reduce_kernel(const float* __restrict__ dw_part,
   }
 }
 
-size_t fwd_wmma_smem(int J) {
-  return (size_t)32 * (J + kPadB) * 2 + (size_t)32 * kStageLd * sizeof(float);
+// ---------------------------------------------------------------------------
+// K7 in bf16 on the tensor cores (J and V multiples of 16): two lattice
+// tiles (128 rows) a block, one pass over W^T (launch plan:
+// ops/joint_lse_plan.py fwd_plan)
+// ---------------------------------------------------------------------------
+
+constexpr int kRingElems = kGStages * kStageElems;   // one operand's ring
+
+// h of the block's two tiles (first tile t0) into hs (128 rows, ldh apart,
+// columns J .. ldh - 8 zero), rows of invalid cells zero: each tile's r_t
+// f-rows and r_u g-rows are staged once in `buf` (bf16, `buf_elems`), as
+// many columns at a time as fit, and tanh(f + g) is taken once per cell in
+// fp32.
+__device__ void fill_h_resident(bf16* hs, int ldh, bf16* buf, int buf_elems,
+                                const bf16* __restrict__ f,
+                                const bf16* __restrict__ g, const Lattice& L,
+                                long long t0) {
+  const int rows = L.r_t + L.r_u;            // staged rows per tile
+  const int kc = min(L.J, buf_elems / (2 * rows) / 8 * 8);
+  for (int k0 = 0; k0 < L.J; k0 += kc) {
+    const int w = min(kc, L.J - k0), groups = w / 8;
+    if (k0 > 0) __syncthreads();             // the previous chunk is consumed
+    for (int i = threadIdx.x; i < 2 * rows * groups; i += kGThreads) {
+      const int r = i / groups, c = (i - r * groups) * 8;
+      const int q = r / rows, rr = r - q * rows;
+      const Cell c0 = tile_cell(L, t0 + q, 0);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (c0.b < L.B) {
+        if (rr < L.r_t) {
+          if (c0.t + rr < L.T)
+            v = *reinterpret_cast<const uint4*>(
+                f + ((size_t)c0.b * L.T + c0.t + rr) * L.J + k0 + c);
+        } else if (c0.u + rr - L.r_t < L.U1) {
+          v = *reinterpret_cast<const uint4*>(
+              g + ((size_t)c0.b * L.U1 + c0.u + rr - L.r_t) * L.J + k0 + c);
+        }
+      }
+      *reinterpret_cast<uint4*>(buf + r * kc + c) = v;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kGm * groups; i += kGThreads) {
+      const int lm = i / groups, c = (i - lm * groups) * 8;
+      const int q = lm / kTileCells, lr = lm - q * kTileCells;
+      const Cell cell = tile_cell(L, t0 + q, lr);
+      const bf16* fr = buf + (q * rows + lr / L.r_u) * kc + c;
+      const bf16* gr = buf + (q * rows + L.r_t + lr % L.r_u) * kc + c;
+      __align__(16) bf16 out[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        out[e] = __float2bfloat16(
+            cell.ok ? tanhf(__bfloat162float(fr[e]) + __bfloat162float(gr[e]))
+                    : 0.0f);
+      *reinterpret_cast<uint4*>(hs + lm * ldh + k0 + c) =
+          *reinterpret_cast<const uint4*>(out);
+    }
+  }
+  const int pad = (ldh - 8 - L.J) / 8;      // columns J .. : read as zero
+  for (int i = threadIdx.x; i < kGm * pad; i += kGThreads)
+    *reinterpret_cast<uint4*>(hs + (i / pad) * ldh + L.J + (i % pad) * 8) =
+        make_uint4(0, 0, 0, 0);
+  __syncthreads();
+}
+
+// (m, s) <- the logsumexp pair of (m, s) and (m2, s2): s is a sum of
+// exp(x - m); a pair with m = -inf is empty
+__device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
+                                          float s2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -CUDART_INF_F) return;
+  s = s * expf(m - mn) + s2 * expf(m2 - mn);
+  m = mn;
+}
+
+// K7: block x takes tiles t0 = tile0 + 2x and t0 + 1. RES: their h is
+// formed here and stays in shared memory (ldh = J rounded up to 64, + 8);
+// else h comes from the slab scratch hsg (rows of the slab, `rows` of them,
+// the block's from 128 x on). Then, for every 128 columns of V: the block
+// product with W^T (B [k][n]), and each thread folds its 8 rows x 8 columns
+// into running (max, sum of exp, blank logit, label logit).
+template <bool RES>
+__global__ void __launch_bounds__(kGThreads)
+joint_lse_fwd_mma_kernel(const bf16* __restrict__ f,
+                         const bf16* __restrict__ g,
+                         const bf16* __restrict__ wt,
+                         const float* __restrict__ bias,
+                         const int* __restrict__ labels,
+                         const bf16* __restrict__ hsg,
+                         float* __restrict__ blank_out,
+                         float* __restrict__ label_out,
+                         float* __restrict__ lse_out, Lattice L,
+                         long long tile0, long long rows, int ldh) {
+  extern __shared__ __align__(16) unsigned char k7_smem[];
+  bf16* hs = reinterpret_cast<bf16*>(k7_smem);
+  bf16* ring = RES ? hs + kGm * ldh : hs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const long long t0 = tile0 + 2LL * blockIdx.x;
+  const long long m0 = (long long)blockIdx.x * kGm;
+  if constexpr (RES) fill_h_resident(hs, ldh, ring, kRingElems, f, g, L, t0);
+  // the thread's 8 rows (i, h): row wm * 64 + 16 i + gid + 8 h
+  int lbl[4][2];
+  float m[4][2], s[4][2], bl[4][2], la[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lm = wm * 64 + i * 16 + gid + 8 * h;
+      const Cell c = tile_cell(L, t0 + lm / kTileCells, lm % kTileCells);
+      lbl[i][h] = c.ok && c.u < L.U ? labels[(size_t)c.b * L.U + c.u]
+                                    : L.blank;
+      m[i][h] = -CUDART_INF_F;
+      s[i][h] = bl[i][h] = la[i][h] = 0.0f;
+    }
+  for (int n0 = 0; n0 < L.V; n0 += kGn) {
+    float acc[4][4][4];
+    zero_acc(acc);
+    if constexpr (RES)
+      gemm_block<false, true, true>(acc, hs, ldh, 0, kGm, wt, L.V, n0, L.V,
+                                    0, L.J, ring);
+    else
+      gemm_block<false, true>(acc, hsg, L.J, m0, rows, wt, L.V, n0, L.V, 0,
+                              L.J, ring);
+    // the bias of the thread's 8 columns, -inf past V (their accumulators
+    // are 0: W^T is staged as zero there)
+    float bc[4][2];
+    int col[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        col[j][e] = n0 + wn * 32 + j * 8 + tig * 2 + e;
+        bc[j][e] = col[j][e] < L.V ? bias[col[j][e]] : -CUDART_INF_F;
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x[4][2], cm = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[j][e] = acc[i][j][2 * h + e] + bc[j][e];
+            cm = fmaxf(cm, x[j][e]);
+            if (col[j][e] == L.blank) bl[i][h] += x[j][e];
+            if (col[j][e] == lbl[i][h]) la[i][h] += x[j][e];
+          }
+        const float mn = fmaxf(m[i][h], cm);
+        if (mn == -CUDART_INF_F) continue;
+        float cs = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) cs += expf(x[j][e] - mn);
+        s[i][h] = s[i][h] * expf(m[i][h] - mn) + cs;
+        m[i][h] = mn;
+      }
+  }
+  // the 4 lanes of a row (tig), then the 4 column warps (wn) in order
+  float4* red = reinterpret_cast<float4*>(ring);   // kGm x 4: (m, s, bl, la)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m[i][h], off);
+        const float s2 = __shfl_xor_sync(0xffffffffu, s[i][h], off);
+        bl[i][h] += __shfl_xor_sync(0xffffffffu, bl[i][h], off);
+        la[i][h] += __shfl_xor_sync(0xffffffffu, la[i][h], off);
+        lse_merge(m[i][h], s[i][h], m2, s2);
+      }
+      if (tig == 0)
+        red[(wm * 64 + i * 16 + gid + 8 * h) * 4 + wn] =
+            make_float4(m[i][h], s[i][h], bl[i][h], la[i][h]);
+    }
+  __syncthreads();
+  if (threadIdx.x < kGm) {
+    const int lm = threadIdx.x;
+    const Cell c = tile_cell(L, t0 + lm / kTileCells, lm % kTileCells);
+    if (c.ok && (RES || m0 + lm < rows)) {
+      float4 a = red[lm * 4];
+      for (int q = 1; q < 4; ++q) {
+        const float4 p = red[lm * 4 + q];
+        lse_merge(a.x, a.y, p.x, p.y);
+        a.z += p.z;
+        a.w += p.w;
+      }
+      const float lse = a.x + logf(a.y);
+      const size_t cell = ((size_t)c.b * L.T + c.t) * L.U1 + c.u;
+      blank_out[cell] = a.z - lse;
+      lse_out[cell] = lse;
+      if (c.u < L.U)
+        label_out[((size_t)c.b * L.T + c.t) * L.U + c.u] = a.w - lse;
+    }
+  }
+}
+
+// K7's h launch where h is not resident (tile_h, as K8's)
+__global__ void __launch_bounds__(kThreads)
+joint_lse_fwd_h_kernel(const bf16* __restrict__ f, const bf16* __restrict__ g,
+                       bf16* __restrict__ hs, Lattice L, long long tile0) {
+  extern __shared__ __align__(16) unsigned char k7_smem[];
+  tile_h(f, g, hs, L, tile0, reinterpret_cast<bf16*>(k7_smem));
 }
 
 size_t fwd_smem(int rpw, int J) {
@@ -1074,50 +1144,49 @@ Dims make_dims(int B, int T, int U1, int J, int V, int blank) {
   return d;
 }
 
-template <typename Elem, int RPW>
+template <int RPW>
 cudaError_t launch_fwd(const void* f, const void* g, const void* wt,
                        const void* bias, const void* labels, void* blank_out,
                        void* label_out, void* lse_out, const Dims& d,
                        cudaStream_t s) {
   const size_t smem = fwd_smem(RPW, d.J);
-  cudaError_t e = allow_smem(joint_lse_fwd_kernel<Elem, RPW>, smem);
+  cudaError_t e = allow_smem(joint_lse_fwd_kernel<RPW>, smem);
   if (e != cudaSuccess) return e;
   const long long rows = kWarps * RPW;
   const unsigned grid = (unsigned)((d.N + rows - 1) / rows);
-  joint_lse_fwd_kernel<Elem, RPW><<<grid, kThreads, smem, s>>>(
-      static_cast<const Elem*>(f), static_cast<const Elem*>(g),
-      static_cast<const Elem*>(wt), static_cast<const float*>(bias),
+  joint_lse_fwd_kernel<RPW><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(f), static_cast<const float*>(g),
+      static_cast<const float*>(wt), static_cast<const float*>(bias),
       static_cast<const int*>(labels), static_cast<float*>(blank_out),
       static_cast<float*>(label_out), static_cast<float*>(lse_out), d);
   return cudaGetLastError();
 }
 
-template <typename Elem>
 cudaError_t run_fwd(const void* f, const void* g, const void* wt,
                     const void* bias, const void* labels, void* blank_out,
                     void* label_out, void* lse_out, const Dims& d,
                     cudaStream_t s) {
   if (fwd_smem(4, d.J) <= kMaxSmem)
-    return launch_fwd<Elem, 4>(f, g, wt, bias, labels, blank_out, label_out,
+    return launch_fwd<4>(f, g, wt, bias, labels, blank_out, label_out,
                                lse_out, d, s);
-  return launch_fwd<Elem, 1>(f, g, wt, bias, labels, blank_out, label_out,
+  return launch_fwd<1>(f, g, wt, bias, labels, blank_out, label_out,
                              lse_out, d, s);
 }
 
-template <typename Elem, int RPW>
+template <int RPW>
 cudaError_t launch_dh(const void* f, const void* g, const void* wt,
                       const void* w, const void* bias, const void* labels,
                       const void* lse, const void* d_blank,
                       const void* d_label, void* df, void* dg, const Dims& d,
                       cudaStream_t s) {
   const size_t smem = dh_smem(RPW, d.J);
-  cudaError_t e = allow_smem(joint_lse_bwd_dh_kernel<Elem, RPW>, smem);
+  cudaError_t e = allow_smem(joint_lse_bwd_dh_kernel<RPW>, smem);
   if (e != cudaSuccess) return e;
   const long long rows = kWarps * RPW;
   const unsigned grid = (unsigned)((d.N + rows - 1) / rows);
-  joint_lse_bwd_dh_kernel<Elem, RPW><<<grid, kThreads, smem, s>>>(
-      static_cast<const Elem*>(f), static_cast<const Elem*>(g),
-      static_cast<const Elem*>(wt), static_cast<const Elem*>(w),
+  joint_lse_bwd_dh_kernel<RPW><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(f), static_cast<const float*>(g),
+      static_cast<const float*>(wt), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(labels),
       static_cast<const float*>(lse), static_cast<const float*>(d_blank),
       static_cast<const float*>(d_label), static_cast<float*>(df),
@@ -1125,48 +1194,17 @@ cudaError_t launch_dh(const void* f, const void* g, const void* wt,
   return cudaGetLastError();
 }
 
-template <typename Elem>
 cudaError_t run_dh(const void* f, const void* g, const void* wt,
                    const void* w, const void* bias, const void* labels,
                    const void* lse, const void* d_blank, const void* d_label,
                    void* df, void* dg, const Dims& d, cudaStream_t s) {
   return dh_smem(4, d.J) <= kMaxSmem
-             ? launch_dh<Elem, 4>(f, g, wt, w, bias, labels, lse, d_blank,
+             ? launch_dh<4>(f, g, wt, w, bias, labels, lse, d_blank,
                                   d_label, df, dg, d, s)
-             : launch_dh<Elem, 1>(f, g, wt, w, bias, labels, lse, d_blank,
+             : launch_dh<1>(f, g, wt, w, bias, labels, lse, d_blank,
                                   d_label, df, dg, d, s);
 }
 
-bool wmma_shapes(const Dims& d) {
-  return d.J % 16 == 0 && d.V % 16 == 0 && d.J <= 1024;
-}
-
-template <>
-cudaError_t run_fwd<__nv_bfloat16>(const void* f, const void* g,
-                                   const void* wt, const void* bias,
-                                   const void* labels, void* blank_out,
-                                   void* label_out, void* lse_out,
-                                   const Dims& d, cudaStream_t s) {
-  typedef __nv_bfloat16 bf16;
-  if (!wmma_shapes(d))
-    return fwd_smem(4, d.J) <= kMaxSmem
-               ? launch_fwd<bf16, 4>(f, g, wt, bias, labels, blank_out,
-                                     label_out, lse_out, d, s)
-               : launch_fwd<bf16, 1>(f, g, wt, bias, labels, blank_out,
-                                     label_out, lse_out, d, s);
-  const size_t smem = fwd_wmma_smem(d.J);
-  const cudaError_t e = allow_smem(joint_lse_fwd_wmma_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const unsigned grid = (unsigned)((d.N + 31) / 32);
-  joint_lse_fwd_wmma_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(wt), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<float*>(blank_out),
-      static_cast<float*>(label_out), static_cast<float*>(lse_out), d);
-  return cudaGetLastError();
-}
-
-template <typename Elem>
 cudaError_t launch_dw(const void* f, const void* g, const void* wt,
                       const void* bias, const void* labels, const void* lse,
                       const void* d_blank, const void* d_label, void* dw,
@@ -1174,30 +1212,29 @@ cudaError_t launch_dw(const void* f, const void* g, const void* wt,
                       cudaStream_t s) {
   const size_t smem = dw_smem(d.J);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(joint_lse_bwd_dw_kernel<Elem>, smem);
+  const cudaError_t e = allow_smem(joint_lse_bwd_dw_kernel, smem);
   if (e != cudaSuccess) return e;
   const long long per = (d.N + n_split - 1) / n_split;
   const dim3 grid((d.V + kStrip - 1) / kStrip, n_split);
-  joint_lse_bwd_dw_kernel<Elem><<<grid, kThreads, smem, s>>>(
-      static_cast<const Elem*>(f), static_cast<const Elem*>(g),
-      static_cast<const Elem*>(wt), static_cast<const float*>(bias),
+  joint_lse_bwd_dw_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(f), static_cast<const float*>(g),
+      static_cast<const float*>(wt), static_cast<const float*>(bias),
       static_cast<const int*>(labels), static_cast<const float*>(lse),
       static_cast<const float*>(d_blank), static_cast<const float*>(d_label),
       static_cast<float*>(dw), static_cast<float*>(dbias), d, per);
   return cudaGetLastError();
 }
 
-template <typename Elem>
 cudaError_t run_bwd(const void* f, const void* g, const void* wt,
                     const void* w, const void* bias, const void* labels,
                     const void* lse, const void* d_blank,
                     const void* d_label, void* df, void* dg, void* dw,
                     void* dbias, const Dims& d, int n_split,
                     cudaStream_t s) {
-  cudaError_t e = run_dh<Elem>(f, g, wt, w, bias, labels, lse, d_blank,
+  cudaError_t e = run_dh(f, g, wt, w, bias, labels, lse, d_blank,
                                d_label, df, dg, d, s);
   if (e != cudaSuccess) return e;
-  return launch_dw<Elem>(f, g, wt, bias, labels, lse, d_blank, d_label, dw,
+  return launch_dw(f, g, wt, bias, labels, lse, d_blank, d_label, dw,
                          dbias, d, n_split, s);
 }
 
@@ -1256,23 +1293,109 @@ cudaError_t run_bwd_mma(const bf16* f, const bf16* g, const bf16* wt,
   return cudaGetLastError();
 }
 
+size_t fwd_res_smem(int ldh) {
+  return ((size_t)kGm * ldh + kRingElems) * 2;
+}
+
+// K7, bf16: resident (ldh > 0), one launch over every tile pair; else slab
+// by slab, K8's h kernel into the scratch hs, then the same product reading
+// it
+cudaError_t run_fwd_mma(const bf16* f, const bf16* g, const bf16* wt,
+                        const float* bias, const int* labels, bf16* hs,
+                        float* blank_out, float* label_out, float* lse_out,
+                        const Lattice& L, int ldh, int slab_tiles,
+                        cudaStream_t s) {
+  if (ldh > 0) {
+    const size_t smem = fwd_res_smem(ldh);
+    if (smem > kMaxSmem || ldh % 8 || ldh - 8 < L.J)
+      return cudaErrorInvalidValue;
+    const cudaError_t e = allow_smem(joint_lse_fwd_mma_kernel<true>, smem);
+    if (e != cudaSuccess) return e;
+    joint_lse_fwd_mma_kernel<true>
+        <<<(unsigned)((L.tiles + 1) / 2), kGThreads, smem, s>>>(
+            f, g, wt, bias, labels, nullptr, blank_out, label_out, lse_out, L,
+            0, 0, ldh);
+    return cudaGetLastError();
+  }
+  const size_t smem_h =
+      (size_t)(L.r_t + L.r_u) * (L.J < kHCols ? L.J : kHCols) * 2;
+  if (smem_h > kMaxSmem || slab_tiles < 2 || slab_tiles % 2)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(joint_lse_fwd_h_kernel, smem_h);
+  if (e == cudaSuccess)
+    e = allow_smem(joint_lse_fwd_mma_kernel<false>, gemm_smem());
+  if (e != cudaSuccess) return e;
+  for (long long t0 = 0; t0 < L.tiles; t0 += slab_tiles) {
+    const long long n = L.tiles - t0 < slab_tiles ? L.tiles - t0 : slab_tiles;
+    joint_lse_fwd_h_kernel<<<(unsigned)n, kThreads, smem_h, s>>>(f, g, hs, L,
+                                                                  t0);
+    joint_lse_fwd_mma_kernel<false>
+        <<<(unsigned)((n + 1) / 2), kGThreads, gemm_smem(), s>>>(
+            f, g, wt, bias, labels, hs, blank_out, label_out, lse_out, L, t0,
+            n * kTileCells, 0);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+Lattice make_lattice(int B, int T, int U1, int J, int V, int blank, int r_t,
+                     int r_u) {
+  Lattice L;
+  L.B = B;
+  L.T = T;
+  L.U1 = U1;
+  L.U = U1 - 1;
+  L.J = J;
+  L.V = V;
+  L.blank = blank;
+  L.r_t = r_t;
+  L.r_u = r_u;
+  L.n_tt = (T + r_t - 1) / r_t;
+  L.n_tu = (U1 + r_u - 1) / r_u;
+  L.tiles = (long long)B * L.n_tt * L.n_tu;
+  return L;
+}
+
 }  // namespace
 
-// f (B, T, J), g (B, U1, J), wt = W^T (J, V) in fp32 (bf16 == 0) or bf16;
-// bias (V) fp32; labels (B, U1 - 1) int32 → blank_lp (B, T, U1), label_lp
-// (B, T, U1 - 1), lse (B, T, U1) fp32.
+// K7 in fp32, on the CUDA cores: f (B, T, J), g (B, U1, J), wt = W^T (J, V)
+// fp32; bias (V) fp32; labels (B, U1 - 1) int32 → blank_lp (B, T, U1),
+// label_lp (B, T, U1 - 1), lse (B, T, U1) fp32.
 extern "C" int edd_joint_lse_fwd(const void* f, const void* g, const void* wt,
                                  const void* bias, const void* labels,
                                  void* blank_out, void* label_out,
                                  void* lse_out, int B, int T, int U1, int J,
-                                 int V, int blank, int bf16, void* stream) {
+                                 int V, int blank, void* stream) {
   const Dims d = make_dims(B, T, U1, J, V, blank);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      bf16 ? run_fwd<__nv_bfloat16>(f, g, wt, bias, labels, blank_out,
-                                    label_out, lse_out, d, s)
-           : run_fwd<float>(f, g, wt, bias, labels, blank_out, label_out,
-                            lse_out, d, s);
+      run_fwd(f, g, wt, bias, labels, blank_out, label_out, lse_out, d,
+                     static_cast<cudaStream_t>(stream));
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// K7 in bf16 with J, V multiples of 16 (ops/joint_lse_plan.py fwd_plan): f,
+// g, wt bf16 (16-byte aligned), the rest as edd_joint_lse_fwd; lattice
+// tiles of r_t x r_u = 64 cells. ldh > 0: h resident in shared memory, rows
+// ldh bf16 apart (hs unused); ldh = 0: slabs of slab_tiles tiles through
+// the scratch hs (slab_tiles * 64, J) bf16.
+extern "C" int edd_joint_lse_fwd_mma(const void* f, const void* g,
+                                     const void* wt, const void* bias,
+                                     const void* labels, void* blank_out,
+                                     void* label_out, void* lse_out, void* hs,
+                                     int B, int T, int U1, int J, int V,
+                                     int blank, int r_t, int r_u, int ldh,
+                                     int slab_tiles, void* stream) {
+  if (r_t * r_u != kTileCells || J % 16 || V % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = run_fwd_mma(
+      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
+      static_cast<const bf16*>(wt), static_cast<const float*>(bias),
+      static_cast<const int*>(labels), static_cast<bf16*>(hs),
+      static_cast<float*>(blank_out), static_cast<float*>(label_out),
+      static_cast<float*>(lse_out),
+      make_lattice(B, T, U1, J, V, blank, r_t, r_u), ldh, slab_tiles,
+      static_cast<cudaStream_t>(stream));
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -1291,7 +1414,7 @@ extern "C" int edd_joint_lse_bwd(const void* f, const void* g, const void* wt,
   const Dims d = make_dims(B, T, U1, J, V, blank);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      run_bwd<float>(f, g, wt, w, bias, labels, lse, d_blank, d_label, df,
+      run_bwd(f, g, wt, w, bias, labels, lse, d_blank, d_label, df,
                      dg, dw, dbias, d, n_split, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
@@ -1311,19 +1434,6 @@ extern "C" int edd_joint_lse_bwd_mma(
     int dw_split, void* stream) {
   if (r_t * r_u != kTileCells || J % 16 || V % 16)
     return (int)cudaErrorInvalidValue;
-  Lattice L;
-  L.B = B;
-  L.T = T;
-  L.U1 = U1;
-  L.U = U1 - 1;
-  L.J = J;
-  L.V = V;
-  L.blank = blank;
-  L.r_t = r_t;
-  L.r_u = r_u;
-  L.n_tt = (T + r_t - 1) / r_t;
-  L.n_tu = (U1 + r_u - 1) / r_u;
-  L.tiles = (long long)B * L.n_tt * L.n_tu;
   const cudaError_t e = run_bwd_mma(
       static_cast<const bf16*>(f), static_cast<const bf16*>(g),
       static_cast<const bf16*>(wt), static_cast<const bf16*>(w),
@@ -1333,7 +1443,8 @@ extern "C" int edd_joint_lse_bwd_mma(
       static_cast<float*>(dg), static_cast<float*>(dw),
       static_cast<float*>(dbias), static_cast<bf16*>(hs),
       static_cast<bf16*>(dls), static_cast<float*>(dw_part),
-      static_cast<float*>(dbias_part), L, slab_tiles, dw_split,
+      static_cast<float*>(dbias_part),
+      make_lattice(B, T, U1, J, V, blank, r_t, r_u), slab_tiles, dw_split,
       static_cast<cudaStream_t>(stream));
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -7,7 +7,8 @@ synchronous greedy loop over precomputed joint encoder projections f
 re-argmax, and — on non-blank frames — the prediction net advances.  CPU
 tensors run the plain loop below (the `lax.scan` body of
 edgedict_tpu/stream.py:173-196, written against the cache); CUDA tensors
-launch the kernel, one block per stream for all T frames.
+launch the kernel once for all T frames, spread over the whole card (plan
+ops/decode_plan.py).
 
 The cache (`build_decode_cache`) holds every weight in right-multiply
 layout, fp32, built once per decoder: the frame loop always runs in fp32
@@ -15,13 +16,13 @@ layout, fp32, built once per decoder: the frame loop always runs in fp32
 """
 
 import ctypes
+import functools
 
 import torch
 
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.ops import decode_plan, rnn_bwd
 from edgedict_tpu_torch.tokenizer import PAD
-
-MAX_LAYERS = 4      # csrc/greedy_decode.cu:kMaxLayers
 
 
 def build_decode_cache(model):
@@ -107,9 +108,31 @@ def greedy_frame_loop_plain(cache, f, h_dec, hs, cs, blank, unk,
     return tokens, logp, h_dec, torch.stack(hs), torch.stack(cs)
 
 
+def card_plan(cache, f, hs):
+    """K3's launch plan for f (T, B, J) and hs (L, B, H) on their card."""
+    dev = f.device
+    return _card_plan(
+        torch.cuda.current_device() if dev.index is None else dev.index,
+        f.shape[1], f.shape[2], *cache['table'].shape, hs.shape[0],
+        hs.shape[2], cache['w_proj_t'].shape[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(index, b, j, v, e, n_layers, hid, d):
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    smem, _ = decode_plan.layout_floats(
+        b, j, v, e, n_layers, hid, d, decode_plan.BLOCKS_PER_SM * sms,
+        min(b, decode_plan.STREAM_CHUNK))
+    n = 0
+    if 4 * smem <= decode_plan.SMEM_PER_BLOCK:
+        n = rnn_bwd.card_blocks_per_sm('edd_greedy_decode_blocks_per_sm',
+                                       index, 0, False, 4 * smem)
+    return decode_plan.decode_plan(b, j, v, e, n_layers, hid, d, sms, n)
+
+
 def greedy_frame_loop(cache, f, h_dec, hs, cs, blank, unk, emit_logp=False):
     """See greedy_frame_loop_plain; CUDA tensors launch
-    csrc/greedy_decode.cu once for all T frames."""
+    csrc/greedy_decode.cu once for all T frames (one count per launch)."""
     if f.device.type == 'cpu':
         return greedy_frame_loop_plain(cache, f, h_dec, hs, cs, blank, unk,
                                        emit_logp)
@@ -127,13 +150,15 @@ def greedy_frame_loop(cache, f, h_dec, hs, cs, blank, unk, emit_logp=False):
     n_layers, _, hid = hs.shape
     d = cache['w_proj_t'].shape[1]
     v, e = cache['table'].shape
-    if not 1 <= n_layers <= MAX_LAYERS or len(layers) != n_layers \
+    if not 1 <= n_layers <= decode_plan.MAX_LAYERS \
+            or len(layers) != n_layers \
             or h_dec.shape != (b, d) or cs.shape != hs.shape \
             or hs.shape[1] != b or cache['w_out_t'].shape != (j, v) \
             or cache['w_dec_t'].shape != (d, j):
         raise ValueError(f'greedy_frame_loop: shapes f {tuple(f.shape)} '
                          f'h_dec {tuple(h_dec.shape)} hs {tuple(hs.shape)} '
                          f'layers {len(layers)}')
+    plan = card_plan(cache, f, hs)
     dev = f.device
     tokens = torch.empty((t, b), dtype=torch.int32, device=dev)
     logp = torch.empty((t, b), dtype=torch.float32, device=dev) \
@@ -141,19 +166,21 @@ def greedy_frame_loop(cache, f, h_dec, hs, cs, blank, unk, emit_logp=False):
     h_out = torch.empty_like(h_dec)
     hs_out = torch.empty_like(hs)
     cs_out = torch.empty_like(cs)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=dev)
     p = _build.ptr
     arr = ctypes.c_void_p * n_layers
     w_ih = arr(*[lp['w_ih_t'].data_ptr() for lp in layers])
     w_hh = arr(*[lp['w_hh_t'].data_ptr() for lp in layers])
     bias = arr(*[lp['bias'].data_ptr() for lp in layers])
-    lib = _build.library()
-    _build.check(lib.edd_greedy_decode(
+    _build.check(_build.library().edd_greedy_decode(
         p(f), t, b, j, p(cache['w_dec_t']), p(cache['b_joint']),
         p(cache['w_out_t']), p(cache['b_out']), v, p(cache['table']), e,
         n_layers, w_ih, w_hh, bias, hid, p(cache['w_proj_t']),
         p(cache['b_proj']), d, p(h_dec), p(hs), p(cs), p(tokens), p(logp),
         p(h_out), p(hs_out), p(cs_out), int(blank),
-        -1 if unk is None else int(unk), _build.stream_ptr(dev)),
+        -1 if unk is None else int(unk), p(scratch), plan.scratch_floats,
+        plan.blocks, plan.stream_chunk, plan.smem, _build.stream_ptr(dev)),
         'greedy_decode')
     greedy_frame_loop.launches += 1
     return tokens, logp, h_out, hs_out, cs_out

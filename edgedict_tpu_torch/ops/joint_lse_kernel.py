@@ -6,7 +6,7 @@ csrc/joint_lse.cu).
 label_lp (B,T,U)) without ever materialising the whole (B,T,U+1,V) logits:
 for CUDA tensors an autograd.Function whose forward is K7 (saving only the
 per-cell logsumexp) and whose backward is K8 (dlogits, dW, dbias, df, dg;
-bf16 launch plan in ops/joint_lse_plan.py); for CPU tensors
+the bf16 launch plans of both in ops/joint_lse_plan.py); for CPU tensors
 `fused_joint_lse_plain`, the same math in plain PyTorch, differentiated by
 autograd.  Products run in f's dtype (bf16 in
 training) with fp32 accumulation; W and the bias gradients come back fp32.
@@ -56,19 +56,38 @@ def _dims(f, g, w_t, bias, labels):
     return b, t, u1, j, v
 
 
-def joint_lse_fwd(f, g, w_t, bias, labels, blank):
+def joint_lse_fwd(f, g, w_t, bias, labels, blank, staged=False):
     """K7: → (blank_lp (B,T,U+1), label_lp (B,T,U), lse (B,T,U+1)), fp32;
-    f, g, w_t in one dtype (fp32 or bf16), all contiguous CUDA tensors."""
+    f, g, w_t in one dtype (fp32 or bf16), all contiguous CUDA tensors.
+    bf16 runs the tensor-core lattice tiles (ops/joint_lse_plan.py
+    fwd_plan) on the problem padded by pad16, with h in shared memory where
+    it fits (`staged` forces the slab scratch, for measurement); fp32 the
+    CUDA-core kernel.  One launch is counted per call."""
     b, t, u1, j, v = _dims(f, g, w_t, bias, labels)
     dev = f.device
     blank_lp = torch.empty((b, t, u1), dtype=torch.float32, device=dev)
     label_lp = torch.empty((b, t, u1 - 1), dtype=torch.float32, device=dev)
     lse = torch.empty((b, t, u1), dtype=torch.float32, device=dev)
     p = _build.ptr
-    _build.check(_build.library().edd_joint_lse_fwd(
-        p(f), p(g), p(w_t), p(bias), p(labels), p(blank_lp), p(label_lp),
-        p(lse), b, t, u1, j, v, int(blank), int(f.dtype == torch.bfloat16),
-        _build.stream_ptr(dev)), 'joint_lse_fwd')
+    if f.dtype == torch.bfloat16:
+        f, g, w_t, bias = (x if x.data_ptr() % 16 == 0 else x.clone()
+                           for x in pad16(f, g, w_t, bias))
+        j, v = w_t.shape
+        plan = joint_lse_plan.fwd_plan(b, t, u1, j, v, _build.sm_count(dev),
+                                       staged)
+        hs = None if plan.resident else torch.empty(
+            (plan.slab_tiles * joint_lse_plan.TILE_CELLS, j),
+            dtype=torch.bfloat16, device=dev)
+        _build.check(_build.library().edd_joint_lse_fwd_mma(
+            p(f), p(g), p(w_t), p(bias), p(labels), p(blank_lp), p(label_lp),
+            p(lse), p(hs), b, t, u1, j, v, int(blank), plan.r_t, plan.r_u,
+            plan.ldh, plan.slab_tiles, _build.stream_ptr(dev)),
+            'joint_lse_fwd')
+    else:
+        _build.check(_build.library().edd_joint_lse_fwd(
+            p(f), p(g), p(w_t), p(bias), p(labels), p(blank_lp), p(label_lp),
+            p(lse), b, t, u1, j, v, int(blank), _build.stream_ptr(dev)),
+            'joint_lse_fwd')
     joint_lse_fwd.launches += 1
     return blank_lp, label_lp, lse
 
@@ -98,11 +117,11 @@ def joint_lse_bwd(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
 
 def pad16(f, g, w_t, bias):
     """(f, g, w_t, bias) with J and V padded to multiples of 16, as the
-    tensor-core backward takes them: zero columns of f and g (h = 0 there)
+    tensor-core kernels take them: zero columns of f and g (h = 0 there)
     and zero rows of W^T add nothing to the products, and a padded vocab
-    column's bias of -inf gives it a softmax of 0, so dlogits 0 there.  The
-    gradients of the padded problem, cut back to J and V, are the
-    original's."""
+    column's bias of -inf gives it a softmax of 0: it adds 0 to the sum of
+    exp of the forward and dlogits 0 to the backward.  The outputs of the
+    padded problem, cut back to J and V, are the original's."""
     j0, v0 = w_t.shape
     j, v = -(-j0 // 16) * 16, -(-v0 // 16) * 16
     if (j, v) == (j0, v0):

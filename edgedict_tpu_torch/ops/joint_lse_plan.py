@@ -1,12 +1,24 @@
-"""The launch plan of K8's tensor-core backward (csrc/joint_lse.cu, bf16
-with J and V multiples of 16).
+"""The launch plans of K7 and K8's tensor-core kernels (csrc/joint_lse.cu,
+bf16 with J and V multiples of 16).
 
 The lattice of cells (b, t, u) is cut into tiles of TILE_CELLS = r_t x r_u
 cells (r_t frames by r_u label slots, ragged T and U+1 masked); a tile's
 cells are 64 consecutive "tile rows", cell (t0 + i // r_u, u0 + i % r_u) at
-row i.  Consecutive tiles (b-major, then t, then u) form slabs of
-`slab_tiles` tiles, and each slab runs four launches over a scratch that
-holds the slab alone:
+row i.  Both directions share one block product of GEMM_ROWS = 128 rows
+(two tiles) x GEMM_COLS columns, a ring of STAGES cp.async stages BK deep.
+
+K7, the forward (`fwd_plan`): a block takes two whole tiles.  Where their
+h fits in shared memory beside one operand's ring (J rounded up to BK, + 8
+bf16 of padding, x 128 rows: J up to 640), the block forms h itself (the
+tiles' r_t f-rows and r_u g-rows loaded once, tanh once per cell) and
+streams only W^T through the ring, GEMM_COLS columns at a time, folding
+each chunk into a per-row online logsumexp and the two gathered logits:
+one launch, no scratch.  Wider J stages h slab by slab through a bounded
+scratch with the h launch K8 uses, and the same product reads it.
+
+K8, the backward (`bwd_plan`): consecutive tiles (b-major, then t, then u)
+form slabs of `slab_tiles` tiles, and each slab runs four launches over a
+scratch that holds the slab alone:
   1. h: one block per tile loads its r_t f-rows and r_u g-rows once (H_COLS
      columns at a time) and writes h = tanh(f + g) in bf16 to the slab's
      (rows, J) scratch;
@@ -22,9 +34,9 @@ holds the slab alone:
 One last launch sums the dW^T and dbias partials in a fixed order, so dW and
 dbias are the same bits from run to run; df and dg take fp32 atomics.  The
 scratch does not grow with B·T·U: the slab is cut to SLAB_BYTES.
-`bwd_plan` raises ValueError for a shape outside the plan; the wrapper
-(ops/joint_lse_kernel.py) pads J and V to multiples of 16 and routes fp32
-to the CUDA-core kernels.
+`fwd_plan` and `bwd_plan` raise ValueError for a shape outside the plan;
+the wrapper (ops/joint_lse_kernel.py) pads J and V to multiples of 16 and
+routes fp32 to the CUDA-core kernels.
 """
 
 import dataclasses
@@ -114,6 +126,66 @@ def bwd_plan(b, t, u1, j, v, n_sms):
     return BwdPlan(r_t, r_u, n_tt, n_tu, tiles, slab_tiles,
                    -(-tiles // slab_tiles), dw_split, smem_h, smem_dl,
                    smem_dh, smem_dw, scratch)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    r_t: int              # frames per tile
+    r_u: int              # label slots per tile
+    n_tt: int             # tiles along T
+    n_tu: int             # tiles along U+1
+    tiles: int            # B * n_tt * n_tu
+    rows_per_block: int   # GEMM_ROWS: two tiles
+    resident: bool        # h formed in shared memory (else slab scratch)
+    ldh: int              # resident h's row, bf16 (0 when staged)
+    blocks: int           # blocks of the product, over every slab
+    waves: float          # blocks over the card's SMs (one block per SM)
+    slab_tiles: int       # staged: tiles per slab (even); resident: tiles
+    slabs: int
+    smem: int             # dynamic shared memory of the product's block
+    smem_h: int           # staged: of the h launch's block (else 0)
+    scratch_bytes: int    # staged: the slab's h (else 0)
+
+
+def resident_ldh(j):
+    """The resident h's row in bf16: J rounded up to a whole BK-deep stage
+    (the columns past J read as zero), + 8 against bank conflicts."""
+    return -(-j // BK) * BK + 8
+
+
+def fwd_smem_resident(j):
+    """The resident block: 128 rows of h and one operand's ring (W^T)."""
+    return (GEMM_ROWS * resident_ldh(j) + STAGES * GEMM_ROWS * (BK + 8)) * 2
+
+
+def fwd_plan(b, t, u1, j, v, n_sms, staged=False):
+    """→ FwdPlan for K7 on the (b, t, u1) lattice at joint width j and vocab
+    v on a card of n_sms SMs: h resident in shared memory where it fits
+    (and `staged` is False), else slabs of at most SLAB_BYTES of h.
+    ValueError when the shape is empty or J or V is not a multiple of 16:
+    every other shape has a plan."""
+    if min(b, t, u1, j, v) < 1 or j % 16 or v % 16:
+        raise ValueError(f'joint_lse_fwd: no tensor-core plan for B={b} '
+                         f'T={t} U+1={u1} J={j} V={v}')
+    r_t, r_u = tile_shape(t, u1)
+    n_tt, n_tu = -(-t // r_t), -(-u1 // r_u)
+    tiles = b * n_tt * n_tu
+    resident = not staged and fwd_smem_resident(j) <= SMEM_PER_BLOCK
+    if resident:
+        slab_tiles, smem_h, scratch = tiles, 0, 0
+        ldh, smem = resident_ldh(j), fwd_smem_resident(j)
+    else:
+        per_slab = max(2, SLAB_BYTES // (TILE_CELLS * j * 2) // 2 * 2)
+        slab_tiles = min(per_slab, tiles + tiles % 2)
+        smem_h = (r_t + r_u) * min(j, H_COLS) * 2
+        scratch = slab_tiles * TILE_CELLS * j * 2
+        ldh, smem = 0, gemm_smem()
+    slabs = -(-tiles // slab_tiles)
+    blocks = sum(-(-min(slab_tiles, tiles - s * slab_tiles) // 2)
+                 for s in range(slabs))
+    return FwdPlan(r_t, r_u, n_tt, n_tu, tiles, GEMM_ROWS, resident, ldh,
+                   blocks, blocks / n_sms, slab_tiles, slabs, smem, smem_h,
+                   scratch)
 
 
 def tile_cells(plan, b, t, u1, tile):

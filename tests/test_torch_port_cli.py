@@ -174,3 +174,60 @@ def test_profile_stream_cpu(capsys):
         assert set(r['kernel_device_ms_per_chunk']) == {
             'lstm_fwd', 'mel_power', 'greedy_decode'}
         assert set(r['stage_ms']) == {'featurize', 'encoder', 'frame_loop'}
+
+
+def _global_kernels():
+    """(names of the __global__ functions, names of the structs) in the
+    port's CUDA sources."""
+    import glob
+    import re
+    names, structs = set(), set()
+    for path in glob.glob(os.path.join(
+            os.path.dirname(__file__), '..', 'edgedict_tpu_torch', 'csrc',
+            '*.cu')):
+        with open(path) as fh:
+            src = fh.read()
+        names |= set(re.findall(
+            r'__global__\s+void\s+(?:__launch_bounds__\(\w+\)\s+)?'
+            r'(\w+)\s*\(', src))
+        structs |= set(re.findall(r'struct\s+(\w+)\s*\{', src))
+    return names, structs
+
+
+@pytest.mark.parametrize('module', ['profile_stream', 'profile_train'])
+def test_profiler_patterns_name_kernels_of_the_sources(module):
+    """Every pattern of the profilers' kernel maps is part of the name of a
+    __global__ function of csrc/ (the trace names a kernel as it is
+    declared), so a renamed kernel cannot leave a map reading zero."""
+    import importlib
+    kernels = importlib.import_module(
+        f'edgedict_tpu_torch.cli.{module}').KERNELS
+    names, structs = _global_kernels()
+    assert 'greedy_frame_kernel' in names
+    assert 'joint_lse_fwd_mma_kernel' in names
+    for key, subs in kernels.items():
+        # capitalised parts name a template argument (the cell's struct)
+        funcs = [sub for sub in subs if not sub[0].isupper()]
+        assert all(sub in structs for sub in subs if sub[0].isupper())
+        assert any(all(sub in n for sub in funcs) for n in names), (key, subs)
+
+
+def test_profiler_maps_split_k7_and_k3():
+    """K3's one launch is the stream profiler's greedy_decode; K7's h
+    launch and its product are apart in the train profiler, both inside
+    joint_lse_fwd, and none of them is read as a K8 part."""
+    from edgedict_tpu_torch.cli import profile_stream, profile_train
+    k3 = 'void (anonymous namespace)::greedy_frame_kernel((anonymous ' \
+         'namespace)::Args)'
+    assert profile_stream.kernel_of(k3, 'greedy_decode')
+    maps = profile_train.KERNELS
+
+    def hits(name):
+        return {k for k, subs in maps.items()
+                if all(sub in name for sub in subs)}
+    res = 'void (anonymous namespace)::joint_lse_fwd_mma_kernel<true>(...)'
+    h = 'void (anonymous namespace)::joint_lse_fwd_h_kernel(...)'
+    k8h = 'void (anonymous namespace)::joint_lse_bwd_h_kernel(...)'
+    assert hits(res) == {'joint_lse_fwd', 'joint_lse_fwd_mma'}
+    assert hits(h) == {'joint_lse_fwd', 'joint_lse_fwd_h'}
+    assert hits(k8h) == {'joint_lse_bwd_h'}

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and at the E6D2 main paths' shapes (serving: K1-K3, K5,
 K11-K13; training: K1, K4, K5, K6 at H=1024 B=32 T=427 bf16, K7/K8 in fp32
-and bf16, K8's tensor-core path at the E6D2 step and across slabs,
-K9/K10), K11's tiled kernels, the launch plans' refusals, plus the
+and bf16, K7's and K8's tensor-core paths at the E6D2 step, K3's one launch
+over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
+plans' refusals, plus the
 streaming decoder and a GRU train step on CUDA against the CPU.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
@@ -364,6 +365,193 @@ def test_k8_wide_joint_with_one_label_slot_matches_plain(cuda):
         assert _rel_err(a, r) <= 2e-2
 
 
+def _traced(case):
+    """{'kernels': [(name, grid)] of the device kernels of one call, by
+    torch.profiler in this process, 'blocks': K3's planned grid or None} for
+    `case`: (cell, dtype name) for K1 / K5 at H=256 B=8 T=16, ('k7',) for
+    bf16 K7 at the E6D2 joint (J 640, V 2048), ('k3',) for K3 at E6D2's
+    decoder widths, B=1 T=16."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    cuda, blocks = torch.device('cuda'), None
+    if case[0] in ('LSTM', 'GRU'):
+        from edgedict_tpu_torch.ops import gru_kernel as K5
+        args = _fwd_case(cuda, case[0], 256, 8, 16, getattr(torch, case[1]),
+                         16)
+        fn = K1.lstm_recurrence if case[0] == 'LSTM' else K5.gru_recurrence
+    elif case[0] == 'k7':
+        from edgedict_tpu_torch.ops import joint_lse_kernel as K
+        f, g, w_t, bias, labels, _, _ = _joint_case(
+            cuda, 2, 20, 65, 640, 2048, torch.bfloat16, 3)
+        args, fn = (f, g, w_t.bfloat16(), bias, labels, 0), K.joint_lse_fwd
+    else:
+        cfg, model = _k3_model(cuda, 1.8)
+        cache = K3.build_decode_cache(model)
+        args = (cache, *_k3_args(cuda, cfg, model, 1, 16, 5), 0, 3, False)
+        fn = K3.greedy_frame_loop
+        blocks = K3.card_plan(cache, args[1], args[3]).blocks
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    return {'kernels': [(e['name'], e.get('args', {}).get('grid'))
+                        for e in trace['traceEvents']
+                        if e.get('cat') == 'kernel'],
+            'blocks': blocks}
+
+
+def _kernel_events(case):
+    """_traced(case) in a fresh interpreter.  In the long pytest process on
+    the card machine, torch.profiler recorded no kernel of some calls, on
+    repeated runs too, where a fresh process recorded every launch
+    (PERF.md §7)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f'import json, sys; sys.path[:0] = [{here!r}, '
+            f'{os.path.dirname(here)!r}]; import test_torch_port_cuda as t; '
+            f'print(json.dumps(t._traced({case!r})))')
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize('b,t,u1,j,v,dtype,staged', [
+    (32, 214, 65, 640, 2048, torch.bfloat16, False),  # E6D2 step, resident
+    (32, 214, 65, 640, 2048, torch.bfloat16, True),   # through the scratch
+    (33, 214, 65, 640, 2048, torch.bfloat16, False),  # ragged B
+    (4, 50, 1, 640, 2048, torch.bfloat16, False),     # U+1 = 1
+    (2, 20, 300, 640, 2048, torch.bfloat16, False),   # U+1 = 300
+    (2, 6, 1100, 640, 2048, torch.bfloat16, False),   # U+1 = 1100
+    (2, 9, 33, 600, 2000, torch.bfloat16, False),     # J, V padded to 16
+    (2, 6, 33, 768, 400, torch.bfloat16, False),      # wide J: staged
+    (2, 20, 65, 640, 2048, torch.float32, False),     # CUDA cores
+])
+def test_k7_forward_matches_plain_and_is_bit_stable(cuda, b, t, u1, j, v,
+                                                    dtype, staged):
+    """K7 within 1e-4 of max(1, |ref|) of its plain version (blank and
+    label log-probs and the logsumexp), labels equal to blank included,
+    one count per call, and the same bits on a second call."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as K
+    f, g, w_t, bias, labels, _, _ = _joint_case(cuda, b, t, u1, j, v, dtype,
+                                                b + t + u1 + j)
+    labels[:, ::3] = 0
+    wt_e = w_t.to(dtype)
+    before = K.joint_lse_fwd.launches
+    out = K.joint_lse_fwd(f, g, wt_e, bias, labels, 0, staged)
+    assert K.joint_lse_fwd.launches == before + 1
+    again = K.joint_lse_fwd(f, g, wt_e, bias, labels, 0, staged)
+    ref = K.fused_joint_lse_plain(f, g, w_t, bias, labels, 0)
+    h = torch.tanh(f.float()[:, :, None] + g.float()[:, None])
+    lse = torch.logsumexp(h.to(dtype).float() @ wt_e.float() + bias, -1)
+    del h
+    for a, r in zip(out, (*ref, lse)):
+        assert a.shape == r.shape
+        if r.numel():
+            assert _max_abs(a, r) <= 1e-4 * max(1.0, float(r.abs().max()))
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+
+
+def test_k7_resident_path_is_one_launch(cuda):
+    """At the E6D2 joint (J = 640) the bf16 forward is one launch of the
+    resident kernel and no h launch."""
+    names = [n for n, _ in _kernel_events(('k7',))['kernels']
+             if 'joint_lse' in n]
+    assert len(names) == 1 and 'joint_lse_fwd_mma_kernel' in names[0]
+
+
+def _k3_model(cuda, blank_bias, seed=1):
+    """E6D2's joint and prediction net (V 2048, J 640, 2 x 256 LSTM, D 256,
+    E 64) with seeded random weights; blank biased by `blank_bias`, and
+    <unk> (3) by 4 where blank is not."""
+    cfg, model = _decoder_model(cuda, 2048, 640, 256, 64, 256, 2, seed)
+    with torch.no_grad():
+        model.joint.out.bias[0] += blank_bias
+        model.joint.out.bias[3] += 0.0 if blank_bias else 4.0
+    return cfg, model
+
+
+def _k3_args(cuda, cfg, model, b, t, seed):
+    with torch.no_grad():
+        h_dec, (hs, cs) = T.decoder_apply(
+            model.decoder, cfg, torch.zeros((b, 0), dtype=torch.long,
+                                            device=cuda))
+    f = torch.randn(t, b, 640, generator=torch.Generator().manual_seed(
+        seed)).to(cuda)
+    return f, h_dec[:, 0].contiguous(), hs, cs
+
+
+def _k3_check(out, ref):
+    assert torch.equal(out[0], ref[0])
+    for a, r in zip(out[1:], ref[1:]):
+        if r is not None:
+            both_nan = torch.isnan(a) & torch.isnan(r)
+            assert torch.equal(torch.isnan(a), torch.isnan(r))
+            assert _max_abs(a[~both_nan], r[~both_nan]) <= 1e-4
+
+
+@pytest.mark.parametrize('blank_bias', [0.0, 1.8, 6.0])
+@pytest.mark.parametrize('t', [1, 16, 214])
+@pytest.mark.parametrize('b', [1, 8, 64, 256])
+def test_k3_one_launch_over_the_card_matches_plain(cuda, b, t, blank_bias):
+    """K3 at E6D2's widths: tokens equal to the plain loop's, log-probs and
+    state within 1e-4, <unk> re-argmaxed; blank bias 0 (every frame
+    emits), 1.8 (about half), 6 (all blank)."""
+    cfg, model = _k3_model(cuda, blank_bias)
+    cache = K3.build_decode_cache(model)
+    args = (cache, *_k3_args(cuda, cfg, model, b, t, b + t), 0, 3, True)
+    before = K3.greedy_frame_loop.launches
+    out = K3.greedy_frame_loop(*args)
+    assert K3.greedy_frame_loop.launches == before + 1
+    ref = K3.greedy_frame_loop_plain(*args)
+    _k3_check(out, ref)
+    assert not (out[0] == 3).any()
+    if blank_bias == 6.0:
+        assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize('case', ['tie', 'nan'])
+def test_k3_cross_slice_tie_and_nan(cuda, case):
+    """Column 100 (another block's slice) made equal to column 5 and both
+    lifted: the token is 5 every frame; a NaN logit at column 2000 (a
+    later slice) is the token every frame with a NaN log-prob."""
+    cfg, model = _k3_model(cuda, 0.0)
+    cache = K3.build_decode_cache(model)
+    plan = K3.card_plan(cache, torch.zeros(1, 3, 640, device=cuda),
+                        torch.zeros(2, 3, 256, device=cuda))
+    from edgedict_tpu_torch.ops import decode_plan as DP
+    slice_of = [g for g in range(plan.blocks)
+                if DP.split(2048, g, plan.blocks) <= 100
+                < DP.split(2048, g + 1, plan.blocks)]
+    assert slice_of[0] > 0
+    if case == 'tie':
+        cache['w_out_t'][:, 100] = cache['w_out_t'][:, 5]
+        cache['b_out'][5] += 30.0
+        cache['b_out'][100] = cache['b_out'][5]
+        want = 5
+    else:
+        cache['b_out'][2000] = float('nan')
+        want = 2000
+    args = (cache, *_k3_args(cuda, cfg, model, 3, 6, 7), 0, 3, True)
+    out = K3.greedy_frame_loop(*args)
+    ref = K3.greedy_frame_loop_plain(*args)
+    _k3_check(out, ref)
+    assert (out[0] == want).all()
+    assert torch.isnan(out[1]).all() == (case == 'nan')
+
+
 @pytest.mark.parametrize('b,t,u1,edge', [
     (4, 30, 20, 'mixed'), (3, 7, 1, 'full'), (2, 12, 9, 'xlen0'),
     (32, 214, 65, 'mixed'), (2, 6, 1100, 'full'),
@@ -655,18 +843,8 @@ def test_k1_k5_training_shape_held_step_by_step(cuda, cell):
 def test_k1_k5_one_launch_per_call(cuda, cell, dtype):
     """One K1 or K5 call of T steps is one launch of the persistent kernel
     (torch.profiler's device trace), not T, and no per-step kernel runs."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from edgedict_tpu_torch.ops import gru_kernel as K5
-    args = _fwd_case(cuda, cell, 256, 8, 16, dtype, 16)
-    fn = K1.lstm_recurrence if cell == 'LSTM' else K5.gru_recurrence
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [n for n, _ in _kernel_events(
+        (cell, str(dtype).split('.')[-1]))['kernels']]
     step = 'LstmStep' if cell == 'LSTM' else 'GruStep'
     assert sum('recur_fwd_kernel' in n and step in n for n in names) == 1
     assert not any('step_kernel' in n for n in names)
@@ -762,3 +940,12 @@ def test_gru_and_int8_streaming_cuda_equals_cpu(cuda, module_type, quantize):
             ('GRU', None): [0, layers, 0, 0, 0],
             ('GRU', 'int8'): [0, 0, layers + n_chunks, 0, layers]}
     assert counts == want[module_type, quantize]
+
+
+def test_k3_is_one_launch_over_many_blocks(cuda):
+    """One K3 call of 16 frames at B=1 is one launch (torch.profiler's
+    device trace) whose grid is the plan's, more than one block."""
+    out = _kernel_events(('k3',))
+    events = [e for e in out['kernels'] if 'greedy_frame_kernel' in e[0]]
+    assert len(events) == 1
+    assert out['blocks'] > 1 and events[0][1] == [out['blocks'], 1, 1]
