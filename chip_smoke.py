@@ -28,7 +28,14 @@ Phases, each printing JSON or text lines:
              shape (H=1024 B=32 T=427 bf16, held step by step from the
              kernel's own state) beside cuDNN's layer forward and the port's
              own layer; K12/K13 beside dequantize + one cuDNN layer
-             forward and the port's own int8 layer; K7 (bf16: two lattice
+             forward and the port's own int8 layer, K12 (K1's persistent
+             launch with an int8 prologue) also at B=64 T=2 and B=1 T=16 in
+             both dtypes, each bit-stable, with its plan, its device ms and
+             the profiler's kernel records per call; K2 (one launch, plan
+             ops/features_plan.py) at the chunk for 1, 8 and 64 streams,
+             4 s, the train step's 32 x 16 s, the shortest legal row and
+             one off the hop grid, each bit-stable, with its plan and, at
+             the chunk and the train step, its device ms; K7 (bf16: two lattice
              tiles a block, h resident in shared memory, plan
              ops/joint_lse_plan.py fwd_plan) at the E6D2 step also with h
              staged through the slab scratch (both timed, the same bits),
@@ -217,12 +224,13 @@ def _close(a, b, atol, rtol):
     return ok, float(diff.max()) if diff.numel() else 0.0
 
 
-def fwd_plan(x_proj, gates):
-    """K1/K5's launch plan for x_proj (ops/rnn_fwd.py, from the card)."""
+def fwd_plan(x_proj, gates, quant=False):
+    """K1/K5/K12's launch plan for x_proj (ops/rnn_fwd.py, from the
+    card)."""
     import dataclasses
 
     from edgedict_tpu_torch.ops import rnn_fwd
-    return dataclasses.asdict(rnn_fwd.card_plan(x_proj, gates))
+    return dataclasses.asdict(rnn_fwd.card_plan(x_proj, gates, quant))
 
 
 def lstm_steps_plain(torch, K1, xp, w, h0, c0, ys, cs):
@@ -251,26 +259,37 @@ def phase_kernels(torch):
     summary = {}
 
     def record(name, err, ms=None, plain_ms=None, bounds=None,
-               library_ms=None):
+               library_ms=None, device_ms=None):
         """Keep the largest error, and the times and bound of the first
-        timed main-path case."""
+        timed main-path case (its device time by torch.profiler where
+        given)."""
         s = summary.setdefault(name, {'max_abs_err': 0.0})
         s['max_abs_err'] = max(s['max_abs_err'], err)
         if ms is not None and 'ms' not in s:
             s['ms'], s['plain_ms'], s['library_ms'] = ms, plain_ms, library_ms
             s['bound_ms'], s['bound_by'] = bounds
+            if device_ms is not None:
+                s['device_ms'] = device_ms
 
     # K2 — mel power, E6D2 featurizer (n_fft 512, win 320, hop 200, 80 mels)
+    # at the chunk (1, 8 and 64 streams), 4 s, the train step's 32 x 16 s,
+    # the shortest legal row and one off the hop grid: both splits of its
+    # plan (ops/features_plan.py), each bit-stable across two calls; device
+    # time by torch.profiler at the chunk and the train step
+    from edgedict_tpu_torch.ops import features_plan as KP
     cfg = F.FeatureConfig(feature_type='logfbank', feature_size=80,
                           n_fft=512, win_length=320, hop_length=200,
                           downsample=3, pad_to_divisible=False)
     pipe = F.FeaturePipeline(cfg, dev)
-    for b, length in ((1, 1320), (8, 1320), (1, 64000), (8, 64000)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, length in ((1, 1320), (8, 1320), (64, 1320), (1, 64000),
+                      (8, 64000), (32, 256000), (1, 257), (1, 1399)):
         audio = torch.as_tensor(
             (rng.randn(b, length) * 0.1).astype(np.float32), device=dev)
         audio[:, : length // 4] *= 1e-4           # near-silent stretch
         audio = F.preemphasis(audio)
         ker = K2.mel_power(audio, pipe.tables)
+        again = K2.mel_power(audio, pipe.tables)
         ref = K2.mel_power_plain(audio, pipe.tables)
         torch.cuda.synchronize()
         ok, err = _close(torch.log(ker + F.LOG_GUARD),
@@ -278,23 +297,40 @@ def phase_kernels(torch):
         _, perr = _close(ker, ref, 0.0, 0.0)
         case = {'kernel': 'K2 mel_power', 'B': b, 'samples': length,
                 'frames': ker.shape[1], 'logmel_max_abs': err,
-                'power_max_abs': perr, 'tol': 'log-mel atol 5e-3 rtol 1e-3'}
-        if length == 1320 or b == 1:
+                'power_max_abs': perr, 'bit_stable': torch.equal(ker, again),
+                'tol': 'log-mel atol 5e-3 rtol 1e-3',
+                'plan': dataclasses.asdict(KP.mel_plan(
+                    b, length, cfg.n_fft, cfg.hop_length, 80, sms))}
+        if length in (1320, 256000) or b == 1:
             ms, pms = time_pair(torch,
                                 lambda: K2.mel_power_plain(audio, pipe.tables),
                                 lambda: K2.mel_power(audio, pipe.tables))
             case.update(ms=ms, plain_ms=pms)
-        n_freq, n_mels = pipe.tables.mel_t.shape
+        if (b, length) in ((1, 1320), (32, 256000)):
+            dms, n = device_ms_per_launch(
+                torch, lambda: K2.mel_power(audio, pipe.tables),
+                'mel_power_kernel')
+            case.update(device_ms=dms, profiled_launches_per_call=n / 5)
+        # what the function needs, not what the kernel's DFT-as-a-product
+        # does: bytes of the audio, the window, the filterbank's nonzero
+        # weights (each mel's band) and the output; operations per frame of
+        # the window, a real FFT (2.5·n·log2 n flop), the power and each
+        # mel over its band
+        n_freq = pipe.tables.mel_t.shape[0]
+        band = pipe.tables.mel_band
+        weights = int((band[:, 1] - band[:, 0]).sum())
         frames = b * ker.shape[1]
-        bounds = bound(nbytes(audio, pipe.tables.wcos, pipe.tables.wsin,
-                              pipe.tables.mel_t, ker),
-                       frames * (4 * cfg.n_fft * n_freq + 3 * n_freq
-                                 + 2 * n_freq * n_mels), 'fp32')
+        bounds = bound(nbytes(audio, pipe.tables.window, band, ker)
+                       + 4 * weights,
+                       frames * (cfg.n_fft + 2.5 * cfg.n_fft * np.log2(
+                           cfg.n_fft) + 3 * n_freq + 2 * weights), 'fp32')
         case.update(bound_ms=bounds[0], bound_by=bounds[1])
         emit(case)
-        require(ok, f'K2 disagrees: {case}')
+        require(ok and case['bit_stable'], f'K2 disagrees: {case}')
         record('mel_power', err, case.get('ms') if (b, length) == (1, 1320)
-               else None, case.get('plain_ms'), bounds)
+               else None, case.get('plain_ms'), bounds,
+               device_ms=case.get('device_ms'))
+        del audio, ker, again, ref
 
     # K1 — LSTM recurrence, encoder (H=1024) and prediction net (H=256, and
     # E6D2_LARGE_Batch's 512); the persistent kernel's 32-row slabs at the
@@ -1018,12 +1054,15 @@ def serving_kernels_q(torch, rng, dev, record):
     # one rounding flip of h feeds every later step; so bf16 is also held
     # step by step from the kernel's own carried state: ys to one bf16 ulp
     # (2^-7 of |ys|, or 1e-2), the LSTM's cs to 1e-4
-    hid, t = 1024, 2
+    hid = 1024
     kw = 1.0 / hid ** 0.5
-    for name, b, dt in [(nm, b, dt) for nm in ('gru_fwd', 'lstm_fwd_q',
-                                                'gru_fwd_q')
-                        for b in (1, 64) for dt in (fp32, bf16)] + [
-                            ('gru_fwd', 33, bf16), ('gru_fwd', 256, fp32)]:
+    for name, b, t, dt in [(nm, b, 2, dt) for nm in ('gru_fwd', 'lstm_fwd_q',
+                                                     'gru_fwd_q')
+                           for b in (1, 64) for dt in (fp32, bf16)] + [
+                               ('lstm_fwd_q', 1, 16, fp32),
+                               ('lstm_fwd_q', 1, 16, bf16),
+                               ('gru_fwd', 33, 2, bf16),
+                               ('gru_fwd', 256, 2, fp32)]:
         gates = 4 if name == 'lstm_fwd_q' else 3
         xp = t_(t, b, gates * hid, dtype=dt)
         w = torch.as_tensor(rng.uniform(-kw, kw, (gates * hid, hid))
@@ -1090,9 +1129,20 @@ def serving_kernels_q(torch, rng, dev, record):
                 'tol': f'run atol/rtol {run_tol}; per step ys atol '
                        f'{step_tol[0]} rtol {step_tol[1]:.3g}'
                        + (', cs 1e-4' if name == 'lstm_fwd_q' else '')}
-        main = (b, dt) == (1, fp32)
+        main = (b, t, dt) == (1, 2, fp32)
         if name == 'gru_fwd':
             case['plan'] = fwd_plan(xp, 3)
+        if name == 'lstm_fwd_q':
+            # one persistent launch per call: its plan, its device time by
+            # torch.profiler and the launches the profiler recorded per call
+            # (it has lost records on the card machine: PERF.md §7)
+            case['plan'] = fwd_plan(xp, 4, quant=True)
+            again = kernel()
+            case['bit_stable'] = all(torch.equal(a, c)
+                                     for a, c in zip(out, again))
+            ok = ok and case['bit_stable']
+            dms, n = device_ms_per_launch(torch, kernel, 'recur_fwd_q_kernel')
+            case.update(device_ms=dms, profiled_launches_per_call=n / 5)
         if main and name == 'gru_fwd':
             case.update(layer_times(torch, 'GRU', hid, b, t, dt, False))
         if main and name in ('lstm_fwd_q', 'gru_fwd_q'):
@@ -1101,7 +1151,7 @@ def serving_kernels_q(torch, rng, dev, record):
         emit(case)
         require(ok, f'{label} disagrees: {case}')
         record(name, max(errs + steps), ms if main else None, pms,
-               (b_ms, b_by), case.get('library_ms'))
+               (b_ms, b_by), case.get('library_ms'), case.get('device_ms'))
     return tile_cases
 
 
@@ -1731,7 +1781,7 @@ SOURCES = {
                      'edgedict_tpu/ops/quant.py:162'),
     'quant_matmul_tile': ('edgedict_tpu_torch/csrc/quant_matmul.cu',
                           'edgedict_tpu/ops/quant.py:162'),
-    'lstm_fwd_q': ('edgedict_tpu_torch/csrc/lstm_fwd.cu',
+    'lstm_fwd_q': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                    'edgedict_tpu/ops/quant.py:287'),
     'gru_fwd_q': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
                   'edgedict_tpu/ops/quant.py:361'),

@@ -35,7 +35,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
-SOURCES = ('rnn_fwd.cu', 'rnn_bwd.cu', 'lstm_fwd.cu', 'gru_fwd.cu',
+SOURCES = ('rnn_fwd.cu', 'rnn_bwd.cu', 'gru_fwd.cu',
            'mel_power.cu', 'greedy_decode.cu', 'joint_lse.cu', 'rnnt_loss.cu',
            'quant_matmul.cu')
 HEADERS = ('rnn_common.cuh', 'mma_tile.cuh')
@@ -48,11 +48,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # xp, w_hh, h0e, c0, ys, cs, hT, T, B, H, bf16, grid, smem, stream
     'edd_lstm_fwd': (_P,) * 7 + (_I,) * 6 + (_P,),
-    # xp, w_q, w_scale, h0, c0, ys, cs, hbuf, T, B, H, bf16, stream
-    'edd_lstm_fwd_q': (_P,) * 8 + (_I,) * 4 + (_P,),
+    # xp, w_q, w_scale, h0e, c0, ys, cs, hT, T, B, H, bf16, grid, smem,
+    # stream
+    'edd_lstm_fwd_q': (_P,) * 8 + (_I,) * 6 + (_P,),
     # xp, w_hh, b_hh, h0e, h0, ys, T, B, H, bf16, grid, smem, stream
     'edd_gru_fwd': (_P,) * 6 + (_I,) * 6 + (_P,),
-    # gru, bf16, smem, out (int*)
+    # cell (0 LSTM, 1 GRU, 2 int8 LSTM), bf16, smem, out (int*)
     'edd_rnn_fwd_blocks_per_sm': (_I, _I, _I, _P),
     # xp, w_q, w_scale, b_hh, h0, ys, hbuf, T, B, H, bf16, stream
     'edd_gru_fwd_q': (_P,) * 7 + (_I,) * 4 + (_P,),
@@ -83,9 +84,9 @@ _SIGNATURES = {
     'edd_lattice_alpha': (_P,) * 6 + (_I, _I, _I, _P),
     # blank, label, alpha, logz, xlen, ylen, beta, gb, gl, B, T, U1, stream
     'edd_lattice_beta_grad': (_P,) * 9 + (_I, _I, _I, _P),
-    # audio_p, Lp, wcos, wsin, mel_t, out, B, T, n_fft, hop, n_freq,
-    # n_mels, stream
-    'edd_mel_power': (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # audio, dft, mel_t, band, out, part, count, L, T, n_fft, hop, M, rg,
+    # cg, S, passes, slices, kc, tiles_per_row, span, blocks, smem, stream
+    'edd_mel_power': (_P,) * 7 + (_I,) * 15 + (_P,),
     # f, T, B, J, w_dec_t, b_joint, w_out_t, b_out, V, table, E,
     # L, w_ih_t[L], w_hh_t[L], bias[L], H, w_proj_t, b_proj, D,
     # h_dec0, hs0, cs0, tokens, logp, h_dec, hs, cs, blank, unk,

@@ -2,7 +2,7 @@
 
   python -m edgedict_tpu_torch.cli.profile_stream \
       --flagfile flagfiles/E6D2.txt [--seconds 8] [--device cuda|cpu] \
-      [--quantize int8] [--enc_type GRU]
+      [--quantize int8] [--enc_type GRU] [--streams N]
 
 --quantize int8 profiles the int8 weight-only encoder, --enc_type GRU the
 GRU encoder (the flags of cli/stream.py).
@@ -21,6 +21,11 @@ prints one JSON line per dtype with
   stage_ms                featurize / encoder / frame loop, each closed by a
                           device synchronise (the chunk step run piecewise);
   block_ms                per layer-major block of --block_chunks chunks.
+With --streams N (N > 1) it profiles the server's round instead:
+MultiStreamDecoder at N streams, one seeded utterance of --seconds a
+stream, and prints per dtype wall_ms_per_round (unprofiled mean of the
+decoder's round clock), device_ms_per_round, device_busy_share and
+kernel_device_ms_per_round as above.
 On the CPU the device fields are null: the profiler sees no device there.
 """
 
@@ -39,13 +44,15 @@ from edgedict_tpu_torch.config import (
     transducer_config_from_flags)
 from edgedict_tpu_torch.models import transducer as T
 from edgedict_tpu_torch.stream import (
-    StreamingDecoder, StreamState, _audio_tensor, _chunks, resolve_device)
+    MultiStreamDecoder, StreamingDecoder, StreamState, _audio_tensor, _chunks,
+    resolve_device)
 
 # the hand-written kernels in the profiler's trace: every substring of a
-# value is in the kernel's name (K1/K5: the persistent recurrence, K12/K13:
-# the int8 step kernels, K3: its one cooperative launch)
+# value is in the kernel's name (K1/K5: the persistent recurrence, K12: its
+# int8 entry under a name of its own, K13: the int8 step kernel, K3: its one
+# cooperative launch)
 KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
-           'lstm_fwd_q': ('lstm_step_kernel',),
+           'lstm_fwd_q': ('recur_fwd_q_kernel',),
            'gru_fwd': ('recur_fwd_kernel', 'GruStep'),
            'gru_fwd_q': ('gru_step_kernel',),
            'quant_matmul': ('qmm_',),
@@ -139,9 +146,38 @@ def stage_ms(dec, chunks, dtype):
                     map(float, mean)))
 
 
+def profile_run(run, device):
+    """(wall s, {kernel or copy name: device µs}) of one call of `run`
+    under torch.profiler, ended by a device synchronise."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(device)
+        wall = time.perf_counter() - t0
+    return wall, device_times_us(prof) if device.type == 'cuda' else {}
+
+
+def device_fields(wall, dev_us, n, unit, variant):
+    """The profiled run's fields per `unit` (chunk or round) of n."""
+    total_us = sum(dev_us.values())
+    return {
+        f'profiled_wall_ms_per_{unit}': 1e3 * wall / n,
+        f'device_ms_per_{unit}': total_us / 1e3 / n if total_us else None,
+        'device_busy_share': total_us / 1e6 / wall if total_us else None,
+        f'kernel_device_ms_per_{unit}': {
+            name: sum(us for key, us in dev_us.items()
+                      if kernel_of(key, name)) / 1e3 / n
+            if total_us else None
+            for name in ENCODER_KERNELS[variant]
+            + ('mel_power', 'greedy_decode')}}
+
+
 def profile_dtype(model, cfg, feat, tok, audio, device, dtype, block_chunks,
                   quantize=None):
-    from torch.profiler import ProfilerActivity, profile
     dec = StreamingDecoder(model, cfg, feat, tok, device=device,
                            compute_dtype=dtype, quantize=quantize)
     dec.decode_wav(audio)                               # warm-up
@@ -151,25 +187,9 @@ def profile_dtype(model, cfg, feat, tok, audio, device, dtype, block_chunks,
     res = {'dtype': 'bf16' if dtype is not None else 'fp32',
            'quantize': quantize, 'enc_type': cfg.module_type, 'chunks': n,
            'wall_ms_per_chunk': 1e3 * float(np.mean(dec.elapsed))}
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == 'cuda':
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        dec.decode_wav(audio)
-        _sync(device)
-        wall = time.perf_counter() - t0
-    dev_us = device_times_us(prof) if device.type == 'cuda' else {}
-    total_us = sum(dev_us.values())
-    res['profiled_wall_ms_per_chunk'] = 1e3 * wall / n
-    res['device_ms_per_chunk'] = total_us / 1e3 / n if total_us else None
-    res['device_busy_share'] = total_us / 1e6 / wall if total_us else None
-    res['kernel_device_ms_per_chunk'] = {
-        name: sum(us for key, us in dev_us.items() if kernel_of(key, name))
-        / 1e3 / n if total_us else None
-        for name in ENCODER_KERNELS[cfg.module_type, quantize]
-        + ('mel_power', 'greedy_decode')}
+    wall, dev_us = profile_run(lambda: dec.decode_wav(audio), device)
+    res.update(device_fields(wall, dev_us, n, 'chunk',
+                             (cfg.module_type, quantize)))
     res['stage_ms'] = stage_ms(
         dec, _chunks(audio, dec.win_size, dec.hop_size), dtype)
 
@@ -186,6 +206,35 @@ def profile_dtype(model, cfg, feat, tok, audio, device, dtype, block_chunks,
     return res
 
 
+def profile_rounds(model, cfg, feat, tok, seconds, device, dtype, n_streams,
+                   quantize=None):
+    """The server's round: MultiStreamDecoder at n_streams (as
+    cli/serve.py builds it), one seeded utterance a stream, one chunk of
+    every stream a round."""
+    dec = MultiStreamDecoder(model, cfg, feat, tok, n_streams=n_streams,
+                             device=device, compute_dtype=dtype,
+                             quantize=quantize)
+    rounds = np.stack([_chunks(synthetic_audio(i, seconds), dec.win_size,
+                               dec.hop_size) for i in range(n_streams)], 1)
+
+    def run():
+        dec.reset()
+        for frames in rounds:
+            dec.decode(frames)
+
+    run()                                               # warm-up
+    dec.elapsed = []
+    run()
+    res = {'dtype': 'bf16' if dtype is not None else 'fp32',
+           'quantize': quantize, 'enc_type': cfg.module_type,
+           'streams': n_streams, 'rounds': len(rounds),
+           'wall_ms_per_round': 1e3 * float(np.mean(dec.elapsed))}
+    wall, dev_us = profile_run(run, device)
+    res.update(device_fields(wall, dev_us, len(rounds), 'round',
+                             (cfg.module_type, quantize)))
+    return res
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     add_model_flags(parser)
@@ -197,6 +246,9 @@ def main(argv=None):
                         help='chunks per layer-major block for block_ms')
     parser.add_argument('--quantize', default=None, choices=('int8',),
                         help="'int8' = weight-only int8 encoder")
+    parser.add_argument('--streams', type=int, default=1,
+                        help='above 1: the server round of that many '
+                        'streams instead of the B=1 chunk')
     flags = parse_flags(parser, sys.argv[1:] if argv is None else argv)
     set_numerics()
     device = resolve_device(flags.device)
@@ -218,10 +270,14 @@ def main(argv=None):
     print(json.dumps(head), flush=True)
     audio = synthetic_audio(0, flags.seconds)
     for dtype in (None, torch.bfloat16):
-        print(json.dumps(profile_dtype(model, cfg, feat, tok, audio, device,
-                                       dtype, flags.block_chunks,
-                                       flags.quantize)),
-              flush=True)
+        if flags.streams > 1:
+            res = profile_rounds(model, cfg, feat, tok, flags.seconds,
+                                 device, dtype, flags.streams,
+                                 flags.quantize)
+        else:
+            res = profile_dtype(model, cfg, feat, tok, audio, device, dtype,
+                                flags.block_chunks, flags.quantize)
+        print(json.dumps(res), flush=True)
 
 
 if __name__ == '__main__':

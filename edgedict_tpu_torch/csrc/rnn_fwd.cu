@@ -1,8 +1,13 @@
-// K1 and K5 — the LSTM and GRU recurrences, forward.
+// K1, K5 and K12 — the LSTM and GRU recurrences, forward, and the int8
+// LSTM recurrence.
 //
 // Replaces edgedict_tpu/ops/rnn_pallas.py:_fwd_kernel (K1, launched by
-// _run_fwd under the custom-vjp lstm_recurrence_tm) and _gru_fwd_kernel (K5,
-// _gru_run_fwd under gru_recurrence_tm). Given the hoisted input projection
+// _run_fwd under the custom-vjp lstm_recurrence_tm), _gru_fwd_kernel (K5,
+// _gru_run_fwd under gru_recurrence_tm) and edgedict_tpu/ops/quant.py:
+// _fwd_kernel_q (K12, _run_fwd_q: W_hh stored int8 beside one fp32 scale
+// per gate row, dequantized once as q * scale in fp32 rounded to the
+// compute dtype, then K1's recurrence; not scale-after-accumulate, which
+// differs in bf16). Given the hoisted input projection
 // x_proj for every step (LSTM: x W_ih^T + b_ih + b_hh; GRU: x W_ih^T + b_ih),
 // run t = 0 .. T-1 with fp32 carries and fp32 accumulation:
 //   LSTM: gates = x_proj[t] + h W_hh^T (i, f, g, o); c = σ(f) c + σ(i) tanh(g),
@@ -39,6 +44,14 @@
 // refused by the cooperative launch. The kernel is named recur_fwd_kernel so
 // that the profilers' patterns for K4/K6 ('chain_kernel', 'remat_', the
 // cells LstmCell / GruCell) do not catch it.
+//
+// K12 is the same kernel body under a name of its own, recur_fwd_q_kernel
+// (so that the profilers' K1 pattern does not catch it): only the prologue
+// that fills the shared slice differs. It reads the block's 4 x 8 int8 gate
+// rows (32 KB at H=1024, 4 MB over the grid once per call instead of once
+// per step) with 16-byte loads and their 32 scales, forms q * scale in
+// fp32, rounds it to the compute dtype and writes it into the layout
+// ws_index gives K1, the stores spread over the banks.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -68,6 +81,7 @@ struct FwdArgs {
   float* cs;             // (T, B, H) out (LSTM)
   float* hT;             // (B, H) out, or null
   int T, B, H;
+  const float* w_scale;  // (G·H) fp32 scale of each int8 row of w (K12)
 };
 
 // The cells' forward for one (b, unit) item: x = its G x_proj values, hp =
@@ -265,9 +279,112 @@ __device__ void load_slice(const Elem* w, Elem* ws, int unit0, int H,
   }
 }
 
-template <typename Elem, typename Cell>
-__global__ void __launch_bounds__(kThreads)
-recur_fwd_kernel(FwdArgs a) {
+// K12's prologue: the block's G·8 int8 gate rows of W_hh, dequantized as
+// q * scale in fp32 and rounded to Elem, into the slice K1's load_slice
+// fills (zero past H). Rows of 16-byte multiples go in 16-byte loads.
+// bf16: a thread takes 16 k of one row (two 16-byte units of the slice),
+// storing them in an order that puts a quarter warp's stores on distinct
+// banks. fp32: a thread takes 16 k of 4 rows (the 4 columns of a float4 of
+// the slice) and stores its 16 float4 rotated by its k chunk.
+__device__ __forceinline__ float dq(uint32_t word, int byte, float sc) {
+  return static_cast<float>(static_cast<int8_t>(word >> (8 * byte))) * sc;
+}
+// two floats rounded to bf16 (as from_f32), a in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <typename Elem, int G>
+__device__ void load_slice_q(const int8_t* w, const float* scale, Elem* ws,
+                             int unit0, int H, int K32) {
+  constexpr int N = G * kUnits;
+  if (H % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+    if constexpr (sizeof(Elem) == 2) {
+      const int items = K32 / 32 * G * 16;
+#pragma unroll 4
+      for (int i = threadIdx.x; i < items; i += kThreads) {
+        const int h = i & 1, j = (i >> 1) & 7, q = (i >> 4) % G;
+        const int c = (i >> 4) / G, un = unit0 + j, k = 32 * c + 16 * h;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        float sc = 0.0f;
+        if (k < H && un < H) {
+          v = __ldg(reinterpret_cast<const uint4*>(
+              w + ((size_t)q * H + un) * H + k));
+          sc = __ldg(scale + q * H + un);
+        }
+        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+        uint32_t pk[8];                   // bf16 pairs, k ascending
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          pk[e] = pack_bf16(dq(words[e / 2], 2 * (e % 2), sc),
+                            dq(words[e / 2], 2 * (e % 2) + 1, sc));
+        const uint4 lo = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+        const uint4 hi = make_uint4(pk[4], pk[5], pk[6], pk[7]);
+        uint4* dst = reinterpret_cast<uint4*>(ws) + (c * G + q) * 32 +
+                     j * 4 + 2 * h;
+        if ((j >> 1) & 1) {
+          dst[1] = hi;
+          dst[0] = lo;
+        } else {
+          dst[0] = lo;
+          dst[1] = hi;
+        }
+      }
+    } else {
+      const int nm = K32 / 16, items = N / 4 * nm;
+      for (int i = threadIdx.x; i < items; i += kThreads) {
+        const int m = i % nm, grp = i / nm, k = 16 * m;
+        uint32_t words[4][4];
+        float sc[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 4 * grp + r, q = n / kUnits;
+          const int un = unit0 + n % kUnits;
+          uint4 v = make_uint4(0, 0, 0, 0);
+          sc[r] = 0.0f;
+          if (k < H && un < H) {
+            v = __ldg(reinterpret_cast<const uint4*>(
+                w + ((size_t)q * H + un) * H + k));
+            sc[r] = __ldg(scale + q * H + un);
+          }
+          words[r][0] = v.x, words[r][1] = v.y, words[r][2] = v.z;
+          words[r][3] = v.w;
+        }
+        float4* dst = reinterpret_cast<float4*>(ws) + (size_t)grp * K32 + k;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int ee = (e + m) & 15, wd = ee >> 2, by = ee & 3;
+          float col[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const uint32_t word = wd == 0 ? words[r][0]
+                                  : wd == 1 ? words[r][1]
+                                  : wd == 2 ? words[r][2] : words[r][3];
+            col[r] = dq(word, by, sc[r]);
+          }
+          dst[ee] = make_float4(col[0], col[1], col[2], col[3]);
+        }
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < N * K32; i += kThreads) {
+    const int n = i / K32, k = i % K32, un = unit0 + n % kUnits;
+    const int row = (n / kUnits) * H + un;
+    ws[ws_index<Elem>(k, n, G, K32)] =
+        k < H && un < H
+            ? from_f32<Elem>(static_cast<float>(w[(size_t)row * H + k]) *
+                             scale[row])
+            : from_f32<Elem>(0.0f);
+  }
+}
+
+// The recurrence of K1 / K5 (kQuant false: W_hh in the compute dtype) and
+// K12 (kQuant: int8 W_hh and its scales): the block's slice into shared
+// memory, then T steps with a grid barrier between them.
+template <typename Elem, typename Cell, bool kQuant>
+__device__ __forceinline__ void recur_fwd(const FwdArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   constexpr int G = Cell::G, N = G * kUnits;
@@ -280,7 +397,11 @@ recur_fwd_kernel(FwdArgs a) {
   const int tid = threadIdx.x, r = tid / kUnits, j = tid % kUnits;
   const int unit0 = blockIdx.x * kUnits, u = unit0 + j;
 
-  load_slice<Elem, G>(static_cast<const Elem*>(a.w), ws, unit0, H, K32);
+  if constexpr (kQuant)
+    load_slice_q<Elem, G>(static_cast<const int8_t*>(a.w), a.w_scale, ws,
+                          unit0, H, K32);
+  else
+    load_slice<Elem, G>(static_cast<const Elem*>(a.w), ws, unit0, H, K32);
   for (int i = tid; i < B * kUnits; i += kThreads) {
     const int un = unit0 + i % kUnits;
     carry[i] = un < H ? a.carry0[(size_t)(i / kUnits) * H + un] : 0.0f;
@@ -327,9 +448,29 @@ recur_fwd_kernel(FwdArgs a) {
 }
 
 template <typename Elem, typename Cell>
+__global__ void __launch_bounds__(kThreads)
+recur_fwd_kernel(FwdArgs a) {
+  recur_fwd<Elem, Cell, false>(a);
+}
+
+template <typename Elem>
+__global__ void __launch_bounds__(kThreads)
+recur_fwd_q_kernel(FwdArgs a) {
+  recur_fwd<Elem, LstmStep, true>(a);
+}
+
+template <typename Elem, typename Cell, bool kQuant>
+const void* kernel_fn() {
+  if constexpr (kQuant)
+    return reinterpret_cast<const void*>(recur_fwd_q_kernel<Elem>);
+  else
+    return reinterpret_cast<const void*>(recur_fwd_kernel<Elem, Cell>);
+}
+
+template <typename Elem, typename Cell, bool kQuant = false>
 cudaError_t launch(const FwdArgs& a, int grid, int smem,
                    cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(recur_fwd_kernel<Elem, Cell>);
+  const void* fn = kernel_fn<Elem, Cell, kQuant>();
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -339,12 +480,10 @@ cudaError_t launch(const FwdArgs& a, int grid, int smem,
                                      (size_t)smem, stream);
 }
 
-template <typename Cell>
+template <typename Cell, bool kQuant = false>
 cudaError_t blocks_per_sm(int bf16, int smem, int* out) {
-  const void* fn =
-      bf16 ? reinterpret_cast<const void*>(
-                 recur_fwd_kernel<__nv_bfloat16, Cell>)
-           : reinterpret_cast<const void*>(recur_fwd_kernel<float, Cell>);
+  const void* fn = bf16 ? kernel_fn<__nv_bfloat16, Cell, kQuant>()
+                        : kernel_fn<float, Cell, kQuant>();
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -354,13 +493,14 @@ cudaError_t blocks_per_sm(int bf16, int smem, int* out) {
 
 }  // namespace
 
-// How many forward blocks of `smem` dynamic bytes one SM holds at once
-// (gru != 0: the GRU's kernel). → *out.
-extern "C" int edd_rnn_fwd_blocks_per_sm(int gru, int bf16, int smem,
+// How many forward blocks of `smem` dynamic bytes one SM holds at once, of
+// the kernel of `cell`: 0 K1 (LSTM), 1 K5 (GRU), 2 K12 (int8 LSTM). → *out.
+extern "C" int edd_rnn_fwd_blocks_per_sm(int cell, int bf16, int smem,
                                          void* out) {
   int* n = static_cast<int*>(out);
-  return (int)(gru ? blocks_per_sm<GruStep>(bf16, smem, n)
-                   : blocks_per_sm<LstmStep>(bf16, smem, n));
+  return (int)(cell == 2   ? blocks_per_sm<LstmStep, true>(bf16, smem, n)
+               : cell == 1 ? blocks_per_sm<GruStep>(bf16, smem, n)
+                           : blocks_per_sm<LstmStep>(bf16, smem, n));
 }
 
 // K1. x_proj (T, B, 4H) incl. both biases, w_hh (4H, H) and h0e (B, H, h0
@@ -373,7 +513,8 @@ extern "C" int edd_lstm_fwd(const void* xp, const void* w_hh, const void* h0e,
                             int T, int B, int H, int bf16, int grid, int smem,
                             void* stream) {
   const FwdArgs a{xp, w_hh, nullptr, h0e, static_cast<const float*>(c0), ys,
-                  static_cast<float*>(cs), static_cast<float*>(hT), T, B, H};
+                  static_cast<float*>(cs), static_cast<float*>(hT), T, B, H,
+                  nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       bf16 ? launch<__nv_bfloat16, LstmStep>(a, grid, smem, s)
@@ -390,10 +531,29 @@ extern "C" int edd_gru_fwd(const void* xp, const void* w_hh, const void* b_hh,
                            void* stream) {
   const FwdArgs a{xp, w_hh, static_cast<const float*>(b_hh), h0e,
                   static_cast<const float*>(h0), ys, nullptr, nullptr, T, B,
-                  H};
+                  H, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       bf16 ? launch<__nv_bfloat16, GruStep>(a, grid, smem, s)
            : launch<float, GruStep>(a, grid, smem, s);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// K12. x_proj (T, B, 4H) incl. both biases and h0e (B, H, h0 in x_proj's
+// dtype) in fp32 (bf16 == 0) or bf16, w_q (4H, H) int8, w_scale (4H) and
+// c0 (B, H) fp32. Outputs as edd_lstm_fwd's; `grid` and `smem` from the
+// same plan (ops/rnn_fwd.py, its int8 case).
+extern "C" int edd_lstm_fwd_q(const void* xp, const void* w_q,
+                              const void* w_scale, const void* h0e,
+                              const void* c0, void* ys, void* cs, void* hT,
+                              int T, int B, int H, int bf16, int grid,
+                              int smem, void* stream) {
+  const FwdArgs a{xp, w_q, nullptr, h0e, static_cast<const float*>(c0), ys,
+                  static_cast<float*>(cs), static_cast<float*>(hT), T, B, H,
+                  static_cast<const float*>(w_scale)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? launch<__nv_bfloat16, LstmStep, true>(a, grid, smem, s)
+           : launch<float, LstmStep, true>(a, grid, smem, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

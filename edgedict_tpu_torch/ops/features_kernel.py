@@ -5,30 +5,39 @@ edgedict_tpu/ops/features_pallas.py; kernel in csrc/mel_power.cu).
 (B, 1 + L // hop, n_mels) with torch.stft's center=True convention
 (reflect padding of n_fft // 2 per side).  CPU tensors take the plain path
 (frame gather, rfft, |.|², filterbank matmul — features.py:stft_power and
-the einsum of the JAX pipeline); CUDA tensors launch the kernel, which
-reads the window-folded DFT tables of `MelTables`.
+the einsum of the JAX pipeline); CUDA tensors launch the kernel once per
+call, with the launch plan of ops/features_plan.py, reading the unpadded
+audio (the reflection is index arithmetic in the kernel) and the
+window-folded DFT pair table of `MelTables`.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.ops import features_plan
 
 
 @dataclasses.dataclass(frozen=True)
 class MelTables:
     """Per-pipeline constants on one device, all fp32: the analysis window
     zero-padded to n_fft, the mel filterbank (n_mels, n_freq), and for the
-    kernel the window-folded DFT tables (n_fft, n_freq) and the transposed
-    filterbank (n_freq, n_mels)."""
+    kernel the window-folded DFT pair table `dft` (n_fft, 2 · (n_fft //
+    2)): [cos of bins 0 .. n_fft/2 - 1 | sin of the same bins], the sine
+    column of bin 0 (zero) holding the cosine of the Nyquist bin
+    (ops/features_plan.py), the transposed filterbank (n_freq, n_mels) and
+    each mel's band (n_mels, 2) int32: the bins [lo, hi) that hold its
+    nonzero weights (0, 0 for an all-zero filter), so that the kernel skips
+    the filterbank's zeros."""
     window: torch.Tensor
     mel: torch.Tensor
-    wcos: torch.Tensor
-    wsin: torch.Tensor
+    dft: torch.Tensor
     mel_t: torch.Tensor
+    mel_band: torch.Tensor
     n_fft: int
     hop: int
 
@@ -41,10 +50,18 @@ class MelTables:
         ang = -2.0 * np.pi * np.outer(np.arange(n_fft), np.arange(n_freq)) \
             / n_fft
         win = np.asarray(window, np.float32).astype(np.float64)[:, None]
+        nb = n_fft // 2
+        cos, sin = np.cos(ang) * win, np.sin(ang) * win
+        sin[:, 0] = cos[:, nb]
         f32 = lambda a: torch.as_tensor(  # noqa: E731
             np.ascontiguousarray(a, np.float32), device=device)
-        return cls(window=f32(window), mel=f32(mel),
-                   wcos=f32(np.cos(ang) * win), wsin=f32(np.sin(ang) * win),
+        nz = np.asarray(mel, np.float32) != 0
+        lo = np.where(nz.any(1), nz.argmax(1), 0)
+        hi = np.where(nz.any(1), nz.shape[1] - nz[:, ::-1].argmax(1), 0)
+        band = torch.as_tensor(np.stack([lo, hi], 1).astype(np.int32),
+                               device=device)
+        return cls(window=f32(window), mel=f32(mel), mel_band=band,
+                   dft=f32(np.concatenate([cos[:, :nb], sin[:, :nb]], 1)),
                    mel_t=f32(np.asarray(mel).T), n_fft=n_fft, hop=hop)
 
 
@@ -73,30 +90,57 @@ def mel_power_plain(audio, tables: MelTables):
     return torch.einsum('btf,mf->btm', spec, tables.mel)
 
 
+@functools.lru_cache(maxsize=64)
+def _plan(batch, length, n_fft, hop, n_mels, n_sms):
+    return features_plan.mel_plan(batch, length, n_fft, hop, n_mels, n_sms)
+
+
+_COUNTS = {}   # (device, stream) → the split's tile counters
+
+
+def _counts(device, n):
+    """The few-frame split's tile counters of the current stream on
+    `device` (int32, at least n): zeroed once when made, left at 0 by every
+    launch.  One buffer per stream, so that calls overlapping on two
+    streams never count into the same counters."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    c = _COUNTS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                       device=device)
+    return c
+
+
 def mel_power(audio, tables: MelTables):
     """audio (B, L) fp32, preemphasized → mel power (B, 1 + L // hop,
-    n_mels) fp32."""
+    n_mels) fp32.  CUDA tensors launch csrc/mel_power.cu once (K2);
+    ValueError for a shape outside ops/features_plan.py's plan."""
     if audio.device.type == 'cpu':
         return mel_power_plain(audio, tables)
     _build.require_cuda(audio, 'audio', (torch.float32,))
-    for name in ('wcos', 'wsin', 'mel_t'):
+    for name in ('dft', 'mel_t'):
         _build.require_cuda(getattr(tables, name), name, (torch.float32,))
+    _build.require_cuda(tables.mel_band, 'mel_band', (torch.int32,))
     b, length = audio.shape
     n_fft, hop = tables.n_fft, tables.hop
-    if length <= n_fft // 2:
-        raise ValueError(f'mel_power: {length} samples cannot be reflect-'
-                         f'padded by {n_fft // 2}')
-    n_freq, n_mels = tables.mel_t.shape
-    t = 1 + length // hop
-    audio_p = reflect_pad(audio, n_fft).contiguous()
-    out = torch.empty((b, t, n_mels), dtype=torch.float32,
-                      device=audio.device)
-    lib = _build.library()
+    n_mels = tables.mel_t.shape[1]
+    dev = audio.device
+    plan = _plan(b, length, n_fft, hop, n_mels, _build.sm_count(dev))
+    t = features_plan.frames_of(length, hop)
+    out = torch.empty((b, t, n_mels), dtype=torch.float32, device=dev)
+    part = count = None
+    if plan.split:
+        part = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                           device=dev)
+        count = _counts(dev, plan.tiles)
     p = _build.ptr
-    _build.check(lib.edd_mel_power(
-        p(audio_p), audio_p.shape[1], p(tables.wcos), p(tables.wsin),
-        p(tables.mel_t), p(out), b, t, n_fft, hop, n_freq, n_mels,
-        _build.stream_ptr(audio.device)), 'mel_power')
+    _build.check(_build.library().edd_mel_power(
+        p(audio), p(tables.dft), p(tables.mel_t), p(tables.mel_band), p(out),
+        p(part), p(count), length, t, n_fft, hop, n_mels, plan.row_groups,
+        plan.col_groups, plan.depth_split, plan.passes, plan.slices,
+        plan.chunk_rows, plan.tiles_per_row, plan.span, plan.blocks,
+        plan.smem,
+        _build.stream_ptr(dev)), 'mel_power')
     mel_power.launches += 1
     return out
 

@@ -1,6 +1,7 @@
 """Int8 weight-only serving of the encoder (counterpart of
 edgedict_tpu/ops/quant.py): K11 (int8-weight matrix product,
-csrc/quant_matmul.cu), K12 (int8 LSTM recurrence, csrc/lstm_fwd.cu) and K13
+csrc/quant_matmul.cu), K12 (int8 LSTM recurrence, csrc/rnn_fwd.cu's
+persistent recurrence with an int8 prologue, plan ops/rnn_fwd.py) and K13
 (int8 GRU recurrence, csrc/gru_fwd.cu).
 
 Symmetric per-output-channel int8 weights: scale = absmax / 127 (1 for an
@@ -25,13 +26,15 @@ tensors launch the kernel.  The weights keep torch's (out, in) layout: one
 row, and one scale, per output channel (the JAX package stores the
 transpose).  Inference only.  The TPU kernels' padding (int8 sublane rows,
 batch rows to 8), their shape gates and the route to XLA above 4096 rows
-have no counterpart: the CUDA kernels take any shape.
+have no counterpart: K11 and K13 take any shape, K12 any shape of K1's
+launch plan (ops/rnn_fwd.py; ValueError outside it).
 """
 
 import torch
 import torch.nn as nn
 
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.ops import rnn_fwd
 from edgedict_tpu_torch.ops.gru_kernel import (
     check_gru_args, gru_recurrence_plain)
 from edgedict_tpu_torch.ops.rnn_kernel import lstm_recurrence_plain
@@ -227,6 +230,9 @@ def lstm_recurrence_q_plain(x_proj, w_q, w_scale, h0, c0):
 
 
 def _lstm_fwd_q_kernel(x_proj, w_q, w_scale, h0, c0):
+    """K12: one persistent cooperative launch for all T steps, K1's
+    (ops/rnn_fwd.py plans its grid); the recurrent product reads h0
+    rounded to x_proj's dtype at t = 0, then ys[t-1]."""
     _build.require_cuda(x_proj, 'x_proj', FLOATS)
     _build.require_cuda(w_q, 'w_q', (torch.int8,))
     _build.require_cuda(w_scale, 'w_scale', (torch.float32,))
@@ -241,22 +247,24 @@ def _lstm_fwd_q_kernel(x_proj, w_q, w_scale, h0, c0):
                          f'{tuple(x_proj.shape)} w_q {tuple(w_q.shape)} '
                          f'w_scale {tuple(w_scale.shape)} h0 '
                          f'{tuple(h0.shape)} c0 {tuple(c0.shape)}')
+    plan = rnn_fwd.card_plan(x_proj, 4, quant=True)
     dev = x_proj.device
+    h0e = h0.to(x_proj.dtype).contiguous()
     ys = torch.empty((t, b, hid), dtype=x_proj.dtype, device=dev)
     cs = torch.empty((t, b, hid), dtype=torch.float32, device=dev)
-    hbuf = torch.empty((2, b, hid), dtype=torch.float32, device=dev)
+    hT = torch.empty((b, hid), dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.check(_build.library().edd_lstm_fwd_q(
-        p(x_proj), p(w_q), p(w_scale), p(h0), p(c0), p(ys), p(cs), p(hbuf),
-        t, b, hid, int(x_proj.dtype == torch.bfloat16),
-        _build.stream_ptr(dev)), 'lstm_fwd_q')
+        p(x_proj), p(w_q), p(w_scale), p(h0e), p(c0), p(ys), p(cs), p(hT),
+        t, b, hid, int(x_proj.dtype == torch.bfloat16), plan.blocks,
+        plan.smem, _build.stream_ptr(dev)), 'lstm_fwd_q')
     lstm_recurrence_q.launches += 1
-    return ys, cs, hbuf[(t - 1) % 2]
+    return ys, cs, hT
 
 
 def lstm_recurrence_q(x_proj, w_q, w_scale, h0, c0):
-    """See lstm_recurrence_q_plain; CUDA tensors launch csrc/lstm_fwd.cu's
-    int8 entry (K12)."""
+    """See lstm_recurrence_q_plain; CUDA tensors launch csrc/rnn_fwd.cu's
+    int8 entry (K12, one launch per call)."""
     if x_proj.device.type == 'cpu':
         return lstm_recurrence_q_plain(x_proj, w_q, w_scale, h0, c0)
     return _lstm_fwd_q_kernel(x_proj, w_q, w_scale, h0, c0)

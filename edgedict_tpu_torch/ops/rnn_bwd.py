@@ -81,16 +81,17 @@ def chain_plan(hid, gates, batch, elem_bytes, n_sms, blocks_per_sm):
 
 
 @functools.lru_cache(maxsize=None)
-def card_blocks_per_sm(entry, device_index, gates, bf16, smem_bytes):
+def card_blocks_per_sm(entry, device_index, cell, bf16, smem_bytes):
     """How many blocks of `smem_bytes` the kernel behind the C entry
-    `entry` (edd_rnn_bwd_blocks_per_sm or edd_rnn_fwd_blocks_per_sm) fits
-    on one SM of the card, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
-    cached per shape, off the host path of every call."""
+    `entry` (edd_rnn_bwd_blocks_per_sm, edd_rnn_fwd_blocks_per_sm, ...)
+    for `cell` (its first argument: 0 the LSTM, 1 the GRU, 2 the forward's
+    int8 LSTM) fits on one SM of the card, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; cached per shape, off
+    the host path of every call."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         _build.check(getattr(_build.library(), entry)(
-            int(gates == 3), int(bf16), smem_bytes, ctypes.addressof(out)),
-            entry)
+            cell, int(bf16), smem_bytes, ctypes.addressof(out)), entry)
     return out.value
 
 
@@ -104,6 +105,6 @@ def card_plan(x_proj, gates):
     n = 0
     if smem <= SMEM_PER_BLOCK:
         n = card_blocks_per_sm('edd_rnn_bwd_blocks_per_sm', dev.index,
-                               gates, elem == 2, smem)
+                               int(gates == 3), elem == 2, smem)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return chain_plan(hid, gates, batch, elem, sms, n)

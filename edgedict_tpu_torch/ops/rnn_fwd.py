@@ -1,4 +1,7 @@
-"""The launch plan of K1 and K5, the recurrent forward (csrc/rnn_fwd.cu).
+"""The launch plan of K1, K5 and K12, the recurrent forward
+(csrc/rnn_fwd.cu; K12 the int8 LSTM, whose block dequantizes its int8 slice
+of W_hh once into the same shared layout: its shared memory is K1's at the
+compute dtype).
 
 Each call is one persistent cooperative launch whose block i owns UNITS
 hidden units and holds the G·UNITS gate rows of W_hh that feed them (G·H
@@ -57,8 +60,9 @@ def fwd_plan(hid, gates, batch, elem_bytes, n_sms, blocks_per_sm):
                    smem, blocks_per_sm)
 
 
-def card_plan(x_proj, gates):
-    """The plan for x_proj (T, B, G·H) on its card."""
+def card_plan(x_proj, gates, quant=False):
+    """The plan for x_proj (T, B, G·H) on its card; quant: K12's int8
+    kernel (the LSTM), whose occupancy the card is asked for itself."""
     _, batch, gh = x_proj.shape
     hid = gh // gates
     elem = x_proj.element_size()
@@ -66,7 +70,8 @@ def card_plan(x_proj, gates):
     dev = x_proj.device
     n = 0
     if smem <= SMEM_PER_BLOCK:
+        cell = 2 if quant else int(gates == 3)
         n = rnn_bwd.card_blocks_per_sm('edd_rnn_fwd_blocks_per_sm',
-                                       dev.index, gates, elem == 2, smem)
+                                       dev.index, cell, elem == 2, smem)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return fwd_plan(hid, gates, batch, elem, sms, n)

@@ -176,6 +176,28 @@ def test_profile_stream_cpu(capsys):
         assert set(r['stage_ms']) == {'featurize', 'encoder', 'frame_loop'}
 
 
+def test_profile_stream_rounds_cpu(capsys):
+    """--streams profiles the server's round: every stream's chunks in
+    lockstep, one JSON line per dtype with the round's host clock filled
+    and, on the CPU, its device fields null."""
+    from edgedict_tpu_torch.cli import profile_stream
+    profile_stream.main(['--device', 'cpu', '--seconds', '1.2',
+                         '--bpe_size', '32', '--streams', '3',
+                         '--quantize', 'int8'] + TINY)
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith('{')]
+    assert rows[0]['quantize'] == 'int8' and len(rows) == 3
+    assert [r['dtype'] for r in rows[1:]] == ['fp32', 'bf16']
+    for r in rows[1:]:
+        assert r['streams'] == 3
+        assert r['rounds'] == (19200 - 896) // 768 + 1   # win 896, hop 768
+        assert r['wall_ms_per_round'] > 0
+        assert r['profiled_wall_ms_per_round'] > 0
+        assert r['device_ms_per_round'] is None
+        assert set(r['kernel_device_ms_per_round']) == {
+            'quant_matmul', 'lstm_fwd_q', 'mel_power', 'greedy_decode'}
+
+
 def _global_kernels():
     """(names of the __global__ functions, names of the structs) in the
     port's CUDA sources."""
@@ -188,7 +210,7 @@ def _global_kernels():
         with open(path) as fh:
             src = fh.read()
         names |= set(re.findall(
-            r'__global__\s+void\s+(?:__launch_bounds__\(\w+\)\s+)?'
+            r'__global__\s+void\s+(?:__launch_bounds__\([\w, ]+\)\s+)?'
             r'(\w+)\s*\(', src))
         structs |= set(re.findall(r'struct\s+(\w+)\s*\{', src))
     return names, structs
@@ -231,3 +253,18 @@ def test_profiler_maps_split_k7_and_k3():
     assert hits(res) == {'joint_lse_fwd', 'joint_lse_fwd_mma'}
     assert hits(h) == {'joint_lse_fwd', 'joint_lse_fwd_h'}
     assert hits(k8h) == {'joint_lse_bwd_h'}
+
+
+@pytest.mark.parametrize('dtype', ['float', '__nv_bfloat16'])
+def test_profiler_map_tells_k12_from_k1(dtype):
+    """K12 runs K1's kernel body under a name of its own: the stream
+    profiler reads its launches as lstm_fwd_q and never as K1's."""
+    from edgedict_tpu_torch.cli import profile_stream
+    k1 = (f'void (anonymous namespace)::recur_fwd_kernel<{dtype}, '
+          '(anonymous namespace)::LstmStep>((anonymous namespace)::FwdArgs)')
+    k12 = (f'void (anonymous namespace)::recur_fwd_q_kernel<{dtype}>('
+           '(anonymous namespace)::FwdArgs)')
+    hits = {name: [profile_stream.kernel_of(k, name) for k in (k1, k12)]
+            for name in ('lstm_fwd', 'lstm_fwd_q', 'gru_fwd')}
+    assert hits == {'lstm_fwd': [True, False], 'lstm_fwd_q': [False, True],
+                    'gru_fwd': [False, False]}

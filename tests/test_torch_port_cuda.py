@@ -83,20 +83,53 @@ def test_k1_lstm_fwd_matches_plain(cuda, hid, b, t, dtype):
 
 
 @pytest.mark.parametrize('b,n,n_fft,hop,mels', [
-    (1, 1320, 512, 200, 80), (8, 64000, 512, 200, 80), (3, 999, 64, 20, 8),
+    (1, 1320, 512, 200, 80), (8, 1320, 512, 200, 80),
+    (64, 1320, 512, 200, 80), (1, 64000, 512, 200, 80),
+    (8, 64000, 512, 200, 80), (32, 256000, 512, 200, 80),
+    (1, 257, 512, 200, 80), (1, 1399, 512, 200, 80), (3, 999, 64, 20, 8),
 ])
 def test_k2_mel_power_matches_plain(cuda, b, n, n_fft, hop, mels):
+    """Both splits of ops/features_plan.py (few frames: chunks and servers;
+    many: the train step's 32 x 16 s), the shortest legal row and one off
+    the hop grid: log-mel within 5e-3 of the plain version, one launch per
+    call and the same bits on a second call."""
     cfg = F.FeatureConfig(feature_size=mels, n_fft=n_fft,
                           win_length=n_fft * 5 // 8, hop_length=hop)
     pipe = F.FeaturePipeline(cfg, cuda)
     x = torch.randn(b, n, generator=torch.Generator().manual_seed(n))
     x[:, : n // 4] *= 1e-4
     x = F.preemphasis(x.to(cuda))
+    before = K2.mel_power.launches
     out = K2.mel_power(x, pipe.tables)
+    again = K2.mel_power(x, pipe.tables)
+    assert K2.mel_power.launches == before + 2
     ref = K2.mel_power_plain(x, pipe.tables)
     assert out.shape == ref.shape == (b, 1 + n // hop, mels)
     diff = (torch.log(out + 1e-20) - torch.log(ref + 1e-20)).abs()
     assert float(diff.max()) <= 5e-3
+    assert torch.equal(out, again)
+
+
+def test_k2_two_streams_keep_their_own_counters(cuda):
+    """Few-frame calls issued on two streams without waiting for each other
+    (each stream has its own tile counters) give the same bits as one call
+    on the default stream."""
+    cfg = F.FeatureConfig(feature_size=80, n_fft=512, win_length=320,
+                          hop_length=200)
+    pipe = F.FeaturePipeline(cfg, cuda)
+    x = torch.randn(8, 1320, generator=torch.Generator().manual_seed(8))
+    x = F.preemphasis(x.to(cuda))
+    ref = K2.mel_power(x, pipe.tables)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[], []]
+    for _ in range(20):
+        for s, out in zip(streams, outs):
+            with torch.cuda.stream(s):
+                out.append(K2.mel_power(x, pipe.tables))
+    torch.cuda.synchronize(cuda)
+    assert all(torch.equal(o, ref) for out in outs for o in out)
 
 
 def _decoder_model(cuda, v, j, d, e, hid, layers, seed=1):
@@ -370,7 +403,8 @@ def _traced(case):
     torch.profiler in this process, 'blocks': K3's planned grid or None} for
     `case`: (cell, dtype name) for K1 / K5 at H=256 B=8 T=16, ('k7',) for
     bf16 K7 at the E6D2 joint (J 640, V 2048), ('k3',) for K3 at E6D2's
-    decoder widths, B=1 T=16."""
+    decoder widths, B=1 T=16, ('k12', dtype name) for K12 at H=1024 B=1
+    T=16, ('k2',) for K2 at a 75 ms chunk."""
     import json
     import os
     import tempfile
@@ -382,6 +416,18 @@ def _traced(case):
         args = _fwd_case(cuda, case[0], 256, 8, 16, getattr(torch, case[1]),
                          16)
         fn = K1.lstm_recurrence if case[0] == 'LSTM' else K5.gru_recurrence
+    elif case[0] == 'k12':
+        from edgedict_tpu_torch.ops import quant as Q
+        xp, w, h0, c0 = _fwd_case(cuda, 'LSTM', 1024, 1, 16,
+                                  getattr(torch, case[1]), 12)
+        q, sc = Q.quantize_int8(w.float())
+        args, fn = (xp, q, sc, h0, c0), Q.lstm_recurrence_q
+    elif case[0] == 'k2':
+        cfg = F.FeatureConfig(feature_size=80, n_fft=512, win_length=320,
+                              hop_length=200)
+        x = torch.randn(1, 1320, generator=torch.Generator().manual_seed(2))
+        args = (x.to(cuda), F.FeaturePipeline(cfg, cuda).tables)
+        fn = K2.mel_power
     elif case[0] == 'k7':
         from edgedict_tpu_torch.ops import joint_lse_kernel as K
         f, g, w_t, bias, labels, _, _ = _joint_case(
@@ -654,9 +700,17 @@ def test_k5_k13_gru_fwd_matches_plain(cuda, hid, b, t, dtype, int8):
 
 @pytest.mark.parametrize('hid,b,t,dtype', [
     (1024, 1, 2, torch.float32), (1024, 64, 2, torch.bfloat16),
+    (1024, 64, 2, torch.float32), (1024, 1, 2, torch.bfloat16),
+    (1024, 1, 16, torch.float32), (1024, 1, 16, torch.bfloat16),
+    (1024, 64, 16, torch.float32), (1024, 64, 16, torch.bfloat16),
     (16, 3, 5, torch.float32), (1030, 11, 3, torch.float32),
+    (1030, 11, 3, torch.bfloat16), (1024, 33, 3, torch.bfloat16),
 ])
 def test_k12_lstm_fwd_q_matches_plain(cuda, hid, b, t, dtype):
+    """K12 free-running to 1e-4 (fp32) / 2e-2 (bf16) of its plain version,
+    each step from its own carried state (cs to 1e-4, bf16 ys to one ulp),
+    hT the last step's fp32 h, one count per call, the same bits on a
+    second call.  H=1030 and H=16 take the scalar prologue."""
     from edgedict_tpu_torch.ops import quant as Q
     g = torch.Generator(device='cpu').manual_seed(hid * 3 + b + t)
     k = 1.0 / hid ** 0.5
@@ -667,16 +721,46 @@ def test_k12_lstm_fwd_q_matches_plain(cuda, hid, b, t, dtype):
     c0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
     before = Q.lstm_recurrence_q.launches
     ys, cs, hT = Q.lstm_recurrence_q(xp, q, s, h0, c0)
+    again = Q.lstm_recurrence_q(xp, q, s, h0, c0)
     ref = Q.lstm_recurrence_q_plain(xp, q, s, h0, c0)
-    assert Q.lstm_recurrence_q.launches == before + 1
+    assert Q.lstm_recurrence_q.launches == before + 2
+    assert ys.dtype == dtype and hT.dtype == torch.float32
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, r in zip((ys, cs, hT), ref):
         assert _max_abs(a, r) <= tol
+    assert all(torch.equal(a, c) for a, c in zip((ys, cs, hT), again))
+    assert _max_abs(hT.to(dtype), ys[-1]) == 0.0
     h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b, hid)
     c_prev = torch.cat([c0[None], cs[:-1]]).reshape(t * b, hid)
     step = Q.lstm_recurrence_q_plain(xp.reshape(1, t * b, 4 * hid), q, s,
                                      h_prev, c_prev)
     assert _max_abs(cs, step[1].reshape(cs.shape)) <= 1e-4
+    sy = step[0].reshape(ys.shape).float()
+    assert bool(((ys.float() - sy).abs()
+                 <= (1e-4 if dtype == torch.float32 else 1e-2)
+                 + (0.0 if dtype == torch.float32 else 2.0 ** -7)
+                 * sy.abs()).all())
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_k12_is_one_launch_per_call_under_its_own_name(cuda, dtype):
+    """One K12 call of T=16 steps is one launch of recur_fwd_q_kernel
+    (torch.profiler's device trace), which the profilers' K1 pattern
+    ('recur_fwd_kernel' with 'LstmStep') does not match."""
+    from edgedict_tpu_torch.cli import profile_stream
+    names = [n for n, _ in _kernel_events(('k12', dtype))['kernels']]
+    assert sum('recur_fwd_q_kernel' in n for n in names) == 1, names
+    assert [n for n in names if profile_stream.kernel_of(n, 'lstm_fwd_q')] \
+        and not any(profile_stream.kernel_of(n, 'lstm_fwd') for n in names)
+    assert not any('step_kernel' in n for n in names)
+
+
+def test_k2_is_one_launch_per_call(cuda):
+    """One K2 call (the 75 ms chunk: the few-frame split) is one kernel
+    launch on the card: no padding copy, no memset."""
+    names = [n for n, _ in _kernel_events(('k2',))['kernels']]
+    assert names and all('mel_power_kernel' in n for n in names), names
+    assert len(names) == 1
 
 
 @pytest.mark.parametrize('r,k,n,dtype', [

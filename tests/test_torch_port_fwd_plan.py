@@ -86,3 +86,89 @@ def test_grid_not_co_resident_raises():
 def test_degenerate_shapes_raise(hid, gates, batch, elem):
     with pytest.raises(ValueError, match=f'H={hid}'):
         P.fwd_plan(hid, gates, batch, elem, H100_SMS, 1)
+
+
+# K12, the int8 LSTM: the same kernel body and shared slice as K1, so the
+# same plan at the compute dtype (its occupancy asked of its own kernel)
+
+@pytest.mark.parametrize('batch', [1, 64])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_int8_plan_at_the_serving_shapes(batch, elem):
+    plan = _plan(1024, 4, batch, elem)
+    assert plan.blocks == 128 <= H100_SMS * plan.blocks_per_sm
+    assert plan.smem == P.fwd_smem_bytes(1024, 4, batch, elem) \
+        <= P.SMEM_PER_BLOCK
+    if (batch, elem) == (64, 4):
+        # the fp32 slice (128 KB), one slab's partials and 64 x 8 carries
+        assert plan.smem == 174080 and plan.blocks_per_sm == 1
+
+
+@pytest.mark.parametrize('hid,batch,elem', [(2048, 1, 4), (1024, 8192, 4),
+                                            (4096, 64, 2)])
+def test_int8_shape_that_does_not_fit_raises(hid, batch, elem):
+    with pytest.raises(ValueError, match=f'H={hid}'):
+        _plan(hid, 4, batch, elem)
+
+
+def _ws_index(k, n, gates, k32, elem):
+    """rnn_fwd.cu:ws_index, the slot of W_hh[n-th row of the block, k]."""
+    if elem == 2:
+        return ((((k >> 5) * gates + n // P.UNITS) * 32 + (n % P.UNITS) * 4
+                 + ((k & 31) >> 3)) << 3) + (k & 7)
+    return (n >> 2) * k32 * 4 + k * 4 + (n & 3)
+
+
+def _q_prologue_slots(hid, elem, gates=4):
+    """K12's vector prologue (rnn_fwd.cu:load_slice_q) written out: for
+    each thread's item, the (slot, row n, k) of every value it stores, in
+    store order, and the 16-byte unit its first store writes."""
+    k32 = -(-hid // 32) * 32
+    items = []
+    if elem == 2:
+        for i in range(k32 // 32 * gates * 16):
+            h, j = i & 1, (i >> 1) & 7
+            q, c = (i >> 4) % gates, (i >> 4) // gates
+            k, n = 32 * c + 16 * h, q * P.UNITS + j
+            unit = (c * gates + q) * 32 + j * 4 + 2 * h
+            order = (1, 0) if (j >> 1) & 1 else (0, 1)
+            stores = [((unit + u) * 8 + e, n, k + 8 * u + e)
+                      for u in order for e in range(8)]
+            items.append((stores, unit + order[0]))
+    else:
+        nm = k32 // 16
+        for i in range(gates * P.UNITS // 4 * nm):
+            m, grp = i % nm, i // nm
+            stores, first = [], None
+            for e in range(16):
+                ee = (e + m) & 15
+                f4 = grp * k32 + 16 * m + ee
+                first = f4 if first is None else first
+                stores += [(4 * f4 + r, 4 * grp + r, 16 * m + ee)
+                           for r in range(4)]
+            items.append((stores, first))
+    return items, k32
+
+
+@pytest.mark.parametrize('hid', [16, 1024])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_int8_prologue_fills_k1_layout_once(hid, elem):
+    """Every value the int8 prologue stores goes to the slot K1's
+    ws_index gives it, and the slice is filled exactly once."""
+    items, k32 = _q_prologue_slots(hid, elem)
+    seen = {}
+    for stores, _ in items:
+        for slot, n, k in stores:
+            assert slot == _ws_index(k, n, 4, k32, elem)
+            seen[slot] = seen.get(slot, 0) + 1
+    assert sorted(seen) == list(range(4 * P.UNITS * k32))
+    assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize('elem', [2, 4])
+def test_int8_prologue_stores_spread_over_the_banks(elem):
+    """A quarter warp's first 16-byte stores (8 threads, 128 bytes) land on
+    8 distinct 16-byte bank groups at H=1024, so they take one pass."""
+    items, _ = _q_prologue_slots(1024, elem)
+    for quarter in range(0, 64, 8):
+        units = [first % 8 for _, first in items[quarter:quarter + 8]]
+        assert sorted(units) == list(range(8))
