@@ -28,10 +28,15 @@ Phases, each printing JSON or text lines:
              shape (H=1024 B=32 T=427 bf16, held step by step from the
              kernel's own state) beside cuDNN's layer forward and the port's
              own layer; K12/K13 beside dequantize + one cuDNN layer
-             forward and the port's own int8 layer, K12 (K1's persistent
-             launch with an int8 prologue) also at B=64 T=2 and B=1 T=16 in
-             both dtypes, each bit-stable, with its plan, its device ms and
-             the profiler's kernel records per call; K2 (one launch, plan
+             forward and the port's own int8 layer, K12 and K13 (K1's / K5's
+             persistent launch with an int8 prologue) at B=1 and B=64 T=2
+             and B=1 T=16 in both dtypes, K13 also at H=72 (the scalar
+             prologue), each bit-stable, with its plan, its device ms and
+             the profiler's kernel records per call; K10 (one register-
+             wavefront launch, plan ops/rnnt_loss_kernel.py beta_plan)
+             against its plain version given the same alpha and logZ at the
+             E6D2 step and at U+1 = 1, 7, 300, 1100, T=1 and xlen=0, each
+             bit-stable, one kernel record per call; K2 (one launch, plan
              ops/features_plan.py) at the chunk for 1, 8 and 64 streams,
              4 s, the train step's 32 x 16 s, the shortest legal row and
              one off the hop grid, each bit-stable, with its plan and, at
@@ -874,28 +879,97 @@ def train_kernels(torch, rng, dev, record):
     ams, apms = time_pair(
         torch, lambda: PL.lattice_alpha_plain(blank, label, xlen, ylen),
         lambda: KL.lattice_alpha(blank, label, xlen, ylen))
-    bms, bpms = time_pair(
-        torch, lambda: PL.lattice_beta_grad_plain(blank, label, alpha, logz,
-                                                  xlen, ylen),
-        lambda: KL.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen))
     case = {'kernel': 'K9/K10 lattice', 'B': b, 'T': t, 'U1': u1,
             'logz_rel': logz_err, 'occupancy_max_abs': occ_err,
             'tol': f'logz 1e-5 of max(1, |logz|); occupancy {occ_tol:.2e} '
-                   '(1e-6 |logZ|)', 'alpha_ms': ams, 'alpha_plain_ms': apms,
-            'beta_grad_ms': bms, 'beta_grad_plain_ms': bpms}
+                   '(1e-6 |logZ|)', 'alpha_ms': ams, 'alpha_plain_ms': apms}
     # the cells this data needs: t < xlen, u <= ylen (fp32 in and out)
     cells = int((xlen.long() * (ylen.long() + 1)).sum())
     alpha_bound = bound(cells * 4 * 3 + nbytes(xlen, ylen, logz), cells * 10,
                         'fp32')
-    beta_bound = bound(cells * 4 * 5 + nbytes(xlen, ylen, logz), cells * 20,
-                       'fp32')
-    case.update(alpha_bound_ms=alpha_bound[0],
-                beta_grad_bound_ms=beta_bound[0])
+    case.update(alpha_bound_ms=alpha_bound[0])
     emit(case)
     require(logz_err <= 1e-5 and occ_err <= occ_tol,
             f'K9/K10 disagree: {case}')
     record('lattice_alpha', logz_err, ams, apms, alpha_bound)
-    record('lattice_beta_grad', occ_err, bms, bpms, beta_bound)
+    k10_cases(torch, dev, record, (blank, label, xlen, ylen, alpha, logz))
+
+
+def k10_cases(torch, dev, record, e6d2):
+    """K10 (one register-wavefront launch, plan ops/rnnt_loss_kernel.py
+    beta_plan) against its plain version given the same alpha and logZ
+    (K9's), at the E6D2 step (timed, with its device ms by torch.profiler)
+    and at U+1 = 1, 7, 300 and 1100, T = 1 and an empty utterance (xlen =
+    0): occupancies to max(1e-5, 1e-6 |logZ|), the same bits on a second
+    call, one kernel launch per call on the card."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import rnnt_loss as PL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+    rng = np.random.RandomState(10)
+    cases = [e6d2]
+    for b, t, u1, edge in ((4, 9, 1, 'full'), (3, 6, 7, 'ragged'),
+                           (2, 3, 300, 'ragged'), (2, 6, 1100, 'full'),
+                           (3, 1, 65, 'ragged'), (3, 20, 65, 'xlen0')):
+        logits = torch.as_tensor(rng.randn(b, t, u1, 2).astype(np.float32),
+                                 device=dev)
+        lp = logits - torch.logsumexp(logits, -1, keepdim=True)
+        xlen = np.full(b, t, np.int32)
+        ylen = np.full(b, u1 - 1, np.int32)
+        if edge == 'ragged':
+            xlen = rng.randint(max(1, t - 3), t + 1, b).astype(np.int32)
+            ylen = rng.randint(0, u1, b).astype(np.int32)
+        elif edge == 'xlen0':
+            xlen[0], ylen[0] = 0, 0
+        blank, label = lp[..., 0].contiguous(), lp[:, :, :-1, 1].contiguous()
+        xlen, ylen = (torch.as_tensor(x, device=dev) for x in (xlen, ylen))
+        cases.append((blank, label, xlen, ylen,
+                      *KL.lattice_alpha(blank, label, xlen, ylen)))
+    for i, (blank, label, xlen, ylen, alpha, logz) in enumerate(cases):
+        b, t, u1 = blank.shape
+        args = (blank, label, alpha, logz, xlen, ylen)
+        gb, gl = KL.lattice_beta_grad(*args)
+        again = KL.lattice_beta_grad(*args)
+        r_gb, r_gl = PL.lattice_beta_grad_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((gb - r_gb).abs().max()),
+                  float((gl - r_gl).abs().max()) if gl.numel() else 0.0)
+        tol = max(1e-5, 1e-6 * float(logz.abs().max()))
+        prof = _profiled_us(torch, lambda: KL.lattice_beta_grad(*args), 5)
+        case = {'kernel': 'K10 lattice_beta_grad', 'B': b, 'T': t, 'U1': u1,
+                'plan': dataclasses.asdict(KL.beta_plan(u1)),
+                'xlen_min': int(xlen.min()), 'occupancy_max_abs': err,
+                'tol': f'occupancy {tol:.2e} (max(1e-5, 1e-6 |logZ|)), '
+                       'plain given the same alpha and logZ',
+                'bit_stable': torch.equal(gb, again[0])
+                and torch.equal(gl, again[1]),
+                'profiled_launches_per_call':
+                    sum(c for _, c in prof.values()) / 5,
+                'profiled_kernels': sorted(prof)}
+        bounds = None
+        if i == 0:
+            # the cells this data needs: t < xlen, u <= ylen; blank, label,
+            # alpha in, gb, gl out (fp32)
+            cells = int((xlen.long() * (ylen.long() + 1)).sum())
+            bounds = bound(cells * 4 * 5 + nbytes(xlen, ylen, logz),
+                           cells * 20, 'fp32')
+            ms, pms = time_pair(torch,
+                                lambda: PL.lattice_beta_grad_plain(*args),
+                                lambda: KL.lattice_beta_grad(*args))
+            dms, _ = device_ms_per_launch(
+                torch, lambda: KL.lattice_beta_grad(*args),
+                'lattice_beta_grad_kernel')
+            case.update(ms=ms, plain_ms=pms, device_ms=dms,
+                        bound_ms=bounds[0], bound_by=bounds[1])
+        emit(case)
+        # a profiled run may lose records (PERF.md §7): fewer than one a
+        # call is that, more than one is a second launch
+        require(err <= tol and case['bit_stable']
+                and case['profiled_launches_per_call'] <= 1
+                and all('lattice_beta_grad_kernel' in k for k in prof),
+                f'K10 disagrees: {case}')
+        record('lattice_beta_grad', err, case.get('ms'),
+               case.get('plain_ms'), bounds, None, case.get('device_ms'))
 
 
 def k7_cases(torch, rng, dev, record):
@@ -989,6 +1063,11 @@ def quant_layer_times(torch, cell, hid, b, t, n_in=ENC_IN):
             'layer_ms': _median_ms(torch, port, iters=10, warmup=2)}
 
 
+# K12's and K13's __global__ names (csrc/rnn_fwd.cu); neither holds the other
+Q_KERNELS = {'lstm_fwd_q': 'recur_fwd_q_kernel',
+             'gru_fwd_q': 'recur_fwd_gru_q_kernel'}
+
+
 def serving_kernels_q(torch, rng, dev, record):
     """K5 (GRU forward), K11 (int8-weight matmul), K12 / K13 (int8 LSTM /
     GRU recurrences) against their plain versions at E6D2's serving shapes
@@ -1054,15 +1133,18 @@ def serving_kernels_q(torch, rng, dev, record):
     # one rounding flip of h feeds every later step; so bf16 is also held
     # step by step from the kernel's own carried state: ys to one bf16 ulp
     # (2^-7 of |ys|, or 1e-2), the LSTM's cs to 1e-4
-    hid = 1024
-    kw = 1.0 / hid ** 0.5
-    for name, b, t, dt in [(nm, b, 2, dt) for nm in ('gru_fwd', 'lstm_fwd_q',
-                                                     'gru_fwd_q')
-                           for b in (1, 64) for dt in (fp32, bf16)] + [
-                               ('lstm_fwd_q', 1, 16, fp32),
-                               ('lstm_fwd_q', 1, 16, bf16),
-                               ('gru_fwd', 33, 2, bf16),
-                               ('gru_fwd', 256, 2, fp32)]:
+    for name, hid, b, t, dt in [(nm, 1024, b, 2, dt)
+                                for nm in ('gru_fwd', 'lstm_fwd_q',
+                                           'gru_fwd_q')
+                                for b in (1, 64) for dt in (fp32, bf16)] + [
+                                    ('lstm_fwd_q', 1024, 1, 16, fp32),
+                                    ('lstm_fwd_q', 1024, 1, 16, bf16),
+                                    ('gru_fwd_q', 1024, 1, 16, fp32),
+                                    ('gru_fwd_q', 1024, 1, 16, bf16),
+                                    ('gru_fwd_q', 72, 9, 4, fp32),
+                                    ('gru_fwd', 1024, 33, 2, bf16),
+                                    ('gru_fwd', 1024, 256, 2, fp32)]:
+        kw = 1.0 / hid ** 0.5
         gates = 4 if name == 'lstm_fwd_q' else 3
         xp = t_(t, b, gates * hid, dtype=dt)
         w = torch.as_tensor(rng.uniform(-kw, kw, (gates * hid, hid))
@@ -1129,19 +1211,21 @@ def serving_kernels_q(torch, rng, dev, record):
                 'tol': f'run atol/rtol {run_tol}; per step ys atol '
                        f'{step_tol[0]} rtol {step_tol[1]:.3g}'
                        + (', cs 1e-4' if name == 'lstm_fwd_q' else '')}
-        main = (b, t, dt) == (1, 2, fp32)
+        main = (hid, b, t, dt) == (1024, 1, 2, fp32)
         if name == 'gru_fwd':
             case['plan'] = fwd_plan(xp, 3)
-        if name == 'lstm_fwd_q':
-            # one persistent launch per call: its plan, its device time by
-            # torch.profiler and the launches the profiler recorded per call
-            # (it has lost records on the card machine: PERF.md §7)
-            case['plan'] = fwd_plan(xp, 4, quant=True)
+        if name in ('lstm_fwd_q', 'gru_fwd_q'):
+            # one persistent launch per call under the kernel's own name:
+            # its plan, its device time by torch.profiler and the launches
+            # the profiler recorded per call (it has lost records on the
+            # card machine: PERF.md §7)
+            case['plan'] = fwd_plan(xp, gates, quant=True)
             again = kernel()
-            case['bit_stable'] = all(torch.equal(a, c)
-                                     for a, c in zip(out, again))
+            pairs = zip(out, again) if name == 'lstm_fwd_q' else \
+                [(out, again)]
+            case['bit_stable'] = all(torch.equal(a, c) for a, c in pairs)
             ok = ok and case['bit_stable']
-            dms, n = device_ms_per_launch(torch, kernel, 'recur_fwd_q_kernel')
+            dms, n = device_ms_per_launch(torch, kernel, Q_KERNELS[name])
             case.update(device_ms=dms, profiled_launches_per_call=n / 5)
         if main and name == 'gru_fwd':
             case.update(layer_times(torch, 'GRU', hid, b, t, dt, False))
@@ -1783,7 +1867,7 @@ SOURCES = {
                           'edgedict_tpu/ops/quant.py:162'),
     'lstm_fwd_q': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                    'edgedict_tpu/ops/quant.py:287'),
-    'gru_fwd_q': ('edgedict_tpu_torch/csrc/gru_fwd.cu',
+    'gru_fwd_q': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                   'edgedict_tpu/ops/quant.py:361'),
 }
 SERVING = ('mel_power', 'greedy_decode')

@@ -35,9 +35,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
-SOURCES = ('rnn_fwd.cu', 'rnn_bwd.cu', 'gru_fwd.cu',
-           'mel_power.cu', 'greedy_decode.cu', 'joint_lse.cu', 'rnnt_loss.cu',
-           'quant_matmul.cu')
+SOURCES = ('rnn_fwd.cu', 'rnn_bwd.cu', 'mel_power.cu', 'greedy_decode.cu',
+           'joint_lse.cu', 'rnnt_loss.cu', 'quant_matmul.cu')
 HEADERS = ('rnn_common.cuh', 'mma_tile.cuh')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
@@ -53,10 +52,11 @@ _SIGNATURES = {
     'edd_lstm_fwd_q': (_P,) * 8 + (_I,) * 6 + (_P,),
     # xp, w_hh, b_hh, h0e, h0, ys, T, B, H, bf16, grid, smem, stream
     'edd_gru_fwd': (_P,) * 6 + (_I,) * 6 + (_P,),
-    # cell (0 LSTM, 1 GRU, 2 int8 LSTM), bf16, smem, out (int*)
+    # xp, w_q, w_scale, b_hh, h0e, h0, ys, T, B, H, bf16, grid, smem,
+    # stream
+    'edd_gru_fwd_q': (_P,) * 7 + (_I,) * 6 + (_P,),
+    # cell (0 LSTM, 1 GRU, 2 int8 LSTM, 3 int8 GRU), bf16, smem, out (int*)
     'edd_rnn_fwd_blocks_per_sm': (_I, _I, _I, _P),
-    # xp, w_q, w_scale, b_hh, h0, ys, hbuf, T, B, H, bf16, stream
-    'edd_gru_fwd_q': (_P,) * 7 + (_I,) * 4 + (_P,),
     # x, wq, scale, bias, out, R, K, N, bf16, tiled, stream
     'edd_quant_matmul': (_P,) * 5 + (_I,) * 5 + (_P,),
     # xp, w_hh, h0e, c0, ys, cs, dys, dcs, dhT, hproj, dgates, dh0, dc0,
@@ -82,8 +82,9 @@ _SIGNATURES = {
     'edd_joint_lse_bwd_mma': (_P,) * 17 + (_I,) * 10 + (_P,),
     # blank, label, xlen, ylen, alpha, logz, B, T, U1, stream
     'edd_lattice_alpha': (_P,) * 6 + (_I, _I, _I, _P),
-    # blank, label, alpha, logz, xlen, ylen, beta, gb, gl, B, T, U1, stream
-    'edd_lattice_beta_grad': (_P,) * 9 + (_I, _I, _I, _P),
+    # blank, label, alpha, logz, xlen, ylen, gb, gl, B, T, U1, warps,
+    # items, stream
+    'edd_lattice_beta_grad': (_P,) * 8 + (_I,) * 5 + (_P,),
     # audio, dft, mel_t, band, out, part, count, L, T, n_fft, hop, M, rg,
     # cg, S, passes, slices, kc, tiles_per_row, span, blocks, smem, stream
     'edd_mel_power': (_P,) * 7 + (_I,) * 15 + (_P,),

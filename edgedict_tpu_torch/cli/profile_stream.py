@@ -48,13 +48,13 @@ from edgedict_tpu_torch.stream import (
     resolve_device)
 
 # the hand-written kernels in the profiler's trace: every substring of a
-# value is in the kernel's name (K1/K5: the persistent recurrence, K12: its
-# int8 entry under a name of its own, K13: the int8 step kernel, K3: its one
+# value is in the kernel's name (K1/K5: the persistent recurrence, K12 / K13:
+# its int8 LSTM / GRU entries under names of their own, K3: its one
 # cooperative launch)
 KERNELS = {'lstm_fwd': ('recur_fwd_kernel', 'LstmStep'),
            'lstm_fwd_q': ('recur_fwd_q_kernel',),
            'gru_fwd': ('recur_fwd_kernel', 'GruStep'),
-           'gru_fwd_q': ('gru_step_kernel',),
+           'gru_fwd_q': ('recur_fwd_gru_q_kernel',),
            'quant_matmul': ('qmm_',),
            'mel_power': ('mel_power_kernel',),
            'greedy_decode': ('greedy_frame_kernel',)}

@@ -1,6 +1,6 @@
 // Device helpers shared by the recurrences' kernels: the persistent
-// forward (rnn_fwd.cu, K12 included) and backward (rnn_bwd.cu) launches and
-// the int8 GRU step kernel (gru_fwd.cu). Each source includes this header
+// forward (rnn_fwd.cu, the int8 K12 and K13 included) and backward
+// (rnn_bwd.cu) launches. Each source includes this header
 // inside its own translation unit; the helpers live in an unnamed namespace,
 // so each object file keeps its own copy.
 

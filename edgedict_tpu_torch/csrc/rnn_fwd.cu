@@ -1,13 +1,14 @@
-// K1, K5 and K12 — the LSTM and GRU recurrences, forward, and the int8
-// LSTM recurrence.
+// K1, K5, K12 and K13 — the LSTM and GRU recurrences, forward, and their
+// int8 counterparts.
 //
 // Replaces edgedict_tpu/ops/rnn_pallas.py:_fwd_kernel (K1, launched by
 // _run_fwd under the custom-vjp lstm_recurrence_tm), _gru_fwd_kernel (K5,
 // _gru_run_fwd under gru_recurrence_tm) and edgedict_tpu/ops/quant.py:
-// _fwd_kernel_q (K12, _run_fwd_q: W_hh stored int8 beside one fp32 scale
-// per gate row, dequantized once as q * scale in fp32 rounded to the
-// compute dtype, then K1's recurrence; not scale-after-accumulate, which
-// differs in bf16). Given the hoisted input projection
+// _fwd_kernel_q (K12, _run_fwd_q) and _gru_fwd_kernel_q (K13,
+// _gru_run_fwd_q): K12 / K13 hold W_hh int8 beside one fp32 scale per gate
+// row, dequantized once as q * scale in fp32 rounded to the compute dtype,
+// then K1's / K5's recurrence; not scale-after-accumulate, which differs in
+// bf16. Given the hoisted input projection
 // x_proj for every step (LSTM: x W_ih^T + b_ih + b_hh; GRU: x W_ih^T + b_ih),
 // run t = 0 .. T-1 with fp32 carries and fp32 accumulation:
 //   LSTM: gates = x_proj[t] + h W_hh^T (i, f, g, o); c = σ(f) c + σ(i) tanh(g),
@@ -45,13 +46,19 @@
 // that the profilers' patterns for K4/K6 ('chain_kernel', 'remat_', the
 // cells LstmCell / GruCell) do not catch it.
 //
-// K12 is the same kernel body under a name of its own, recur_fwd_q_kernel
-// (so that the profilers' K1 pattern does not catch it): only the prologue
-// that fills the shared slice differs. It reads the block's 4 x 8 int8 gate
-// rows (32 KB at H=1024, 4 MB over the grid once per call instead of once
-// per step) with 16-byte loads and their 32 scales, forms q * scale in
-// fp32, rounds it to the compute dtype and writes it into the layout
-// ws_index gives K1, the stores spread over the banks.
+// K12 and K13 are the same kernel body under names of their own,
+// recur_fwd_q_kernel (LSTM) and recur_fwd_gru_q_kernel (GRU), so that the
+// profilers' K1 / K5 patterns do not catch them and neither name holds the
+// other: only the prologue that fills the shared slice differs. It reads
+// the block's G x 8 int8 gate rows (32 KB for the LSTM at H=1024, 24 KB for
+// the GRU; the whole W_hh once per call instead of once per step) with
+// 16-byte loads and their G·8 scales, forms q * scale in fp32, rounds it to
+// the compute dtype and writes it into the layout ws_index gives K1 / K5,
+// the stores spread over the banks. K13 fills both b_hh and w_scale of
+// FwdArgs, the only entry that does.
+//
+// Host work per launch: cudaFuncSetAttribute (the dynamic shared memory
+// ceiling) runs once per kernel, device and larger size, not on every call.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -59,6 +66,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 
 #include "rnn_common.cuh"
 
@@ -279,7 +287,7 @@ __device__ void load_slice(const Elem* w, Elem* ws, int unit0, int H,
   }
 }
 
-// K12's prologue: the block's G·8 int8 gate rows of W_hh, dequantized as
+// K12's and K13's prologue: the block's G·8 int8 gate rows of W_hh, dequantized as
 // q * scale in fp32 and rounded to Elem, into the slice K1's load_slice
 // fills (zero past H). Rows of 16-byte multiples go in 16-byte loads.
 // bf16: a thread takes 16 k of one row (two 16-byte units of the slice),
@@ -381,7 +389,7 @@ __device__ void load_slice_q(const int8_t* w, const float* scale, Elem* ws,
 }
 
 // The recurrence of K1 / K5 (kQuant false: W_hh in the compute dtype) and
-// K12 (kQuant: int8 W_hh and its scales): the block's slice into shared
+// K12 / K13 (kQuant: int8 W_hh and its scales): the block's slice into shared
 // memory, then T steps with a grid barrier between them.
 template <typename Elem, typename Cell, bool kQuant>
 __device__ __forceinline__ void recur_fwd(const FwdArgs& a) {
@@ -459,20 +467,49 @@ recur_fwd_q_kernel(FwdArgs a) {
   recur_fwd<Elem, LstmStep, true>(a);
 }
 
+template <typename Elem>
+__global__ void __launch_bounds__(kThreads)
+recur_fwd_gru_q_kernel(FwdArgs a) {
+  recur_fwd<Elem, GruStep, true>(a);
+}
+
 template <typename Elem, typename Cell, bool kQuant>
 const void* kernel_fn() {
-  if constexpr (kQuant)
+  if constexpr (!kQuant)
+    return reinterpret_cast<const void*>(recur_fwd_kernel<Elem, Cell>);
+  else if constexpr (Cell::G == 4)
     return reinterpret_cast<const void*>(recur_fwd_q_kernel<Elem>);
   else
-    return reinterpret_cast<const void*>(recur_fwd_kernel<Elem, Cell>);
+    return reinterpret_cast<const void*>(recur_fwd_gru_q_kernel<Elem>);
+}
+
+// Raise fn's dynamic shared memory ceiling to `smem` on the current device,
+// once per kernel, device and larger size: the calls after the first skip
+// cudaFuncSetAttribute. The lock keeps two host threads from lowering a
+// ceiling the other has just raised.
+constexpr int kMaxDevices = 64;
+
+template <typename Elem, typename Cell, bool kQuant>
+cudaError_t reserve_smem(const void* fn, int smem) {
+  static std::mutex mu;
+  static int ceiling[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cached && smem <= ceiling[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess && cached) ceiling[dev] = smem;
+  return e;
 }
 
 template <typename Elem, typename Cell, bool kQuant = false>
 cudaError_t launch(const FwdArgs& a, int grid, int smem,
                    cudaStream_t stream) {
   const void* fn = kernel_fn<Elem, Cell, kQuant>();
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e = reserve_smem<Elem, Cell, kQuant>(fn, smem);
   if (e != cudaSuccess) return e;
   FwdArgs args = a;
   void* params[] = {&args};
@@ -484,8 +521,9 @@ template <typename Cell, bool kQuant = false>
 cudaError_t blocks_per_sm(int bf16, int smem, int* out) {
   const void* fn = bf16 ? kernel_fn<__nv_bfloat16, Cell, kQuant>()
                         : kernel_fn<float, Cell, kQuant>();
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      bf16 ? reserve_smem<__nv_bfloat16, Cell, kQuant>(fn, smem)
+           : reserve_smem<float, Cell, kQuant>(fn, smem);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, kThreads,
                                                        (size_t)smem);
@@ -494,11 +532,13 @@ cudaError_t blocks_per_sm(int bf16, int smem, int* out) {
 }  // namespace
 
 // How many forward blocks of `smem` dynamic bytes one SM holds at once, of
-// the kernel of `cell`: 0 K1 (LSTM), 1 K5 (GRU), 2 K12 (int8 LSTM). → *out.
+// the kernel of `cell`: 0 K1 (LSTM), 1 K5 (GRU), 2 K12 (int8 LSTM), 3 K13
+// (int8 GRU). → *out.
 extern "C" int edd_rnn_fwd_blocks_per_sm(int cell, int bf16, int smem,
                                          void* out) {
   int* n = static_cast<int*>(out);
-  return (int)(cell == 2   ? blocks_per_sm<LstmStep, true>(bf16, smem, n)
+  return (int)(cell == 3   ? blocks_per_sm<GruStep, true>(bf16, smem, n)
+               : cell == 2 ? blocks_per_sm<LstmStep, true>(bf16, smem, n)
                : cell == 1 ? blocks_per_sm<GruStep>(bf16, smem, n)
                            : blocks_per_sm<LstmStep>(bf16, smem, n));
 }
@@ -555,5 +595,24 @@ extern "C" int edd_lstm_fwd_q(const void* xp, const void* w_q,
   const cudaError_t e =
       bf16 ? launch<__nv_bfloat16, LstmStep, true>(a, grid, smem, s)
            : launch<float, LstmStep, true>(a, grid, smem, s);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// K13. x_proj (T, B, 3H) incl. b_ih and h0e (B, H, h0 in x_proj's dtype) in
+// fp32 (bf16 == 0) or bf16, w_q (3H, H) int8, w_scale (3H), b_hh (3H) and
+// h0 (B, H) fp32. Output ys (T, B, H) in x_proj's dtype; `grid` and `smem`
+// from K5's plan (ops/rnn_fwd.py, its int8 GRU case).
+extern "C" int edd_gru_fwd_q(const void* xp, const void* w_q,
+                             const void* w_scale, const void* b_hh,
+                             const void* h0e, const void* h0, void* ys,
+                             int T, int B, int H, int bf16, int grid,
+                             int smem, void* stream) {
+  const FwdArgs a{xp, w_q, static_cast<const float*>(b_hh), h0e,
+                  static_cast<const float*>(h0), ys, nullptr, nullptr, T, B,
+                  H, static_cast<const float*>(w_scale)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? launch<__nv_bfloat16, GruStep, true>(a, grid, smem, s)
+           : launch<float, GruStep, true>(a, grid, smem, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 """Int8 weight-only serving of the encoder (counterpart of
 edgedict_tpu/ops/quant.py): K11 (int8-weight matrix product,
-csrc/quant_matmul.cu), K12 (int8 LSTM recurrence, csrc/rnn_fwd.cu's
-persistent recurrence with an int8 prologue, plan ops/rnn_fwd.py) and K13
-(int8 GRU recurrence, csrc/gru_fwd.cu).
+csrc/quant_matmul.cu), K12 and K13 (int8 LSTM and GRU recurrences:
+csrc/rnn_fwd.cu's persistent recurrence of K1 / K5 with an int8 prologue,
+plan ops/rnn_fwd.py).
 
 Symmetric per-output-channel int8 weights: scale = absmax / 127 (1 for an
 all-zero channel), q = round(w / scale) in [-127, 127], from the fp32
@@ -26,8 +26,12 @@ tensors launch the kernel.  The weights keep torch's (out, in) layout: one
 row, and one scale, per output channel (the JAX package stores the
 transpose).  Inference only.  The TPU kernels' padding (int8 sublane rows,
 batch rows to 8), their shape gates and the route to XLA above 4096 rows
-have no counterpart: K11 and K13 take any shape, K12 any shape of K1's
-launch plan (ops/rnn_fwd.py; ValueError outside it).
+have no counterpart: K11 takes any shape, K12 any shape of K1's launch
+plan and K13 any shape of K5's (ops/rnn_fwd.py: ceil(H / 8) blocks, one
+or two per SM, so H up to 1056 or 2112 on the H100's 132 SMs, and the
+slice and carries within one block's shared memory; ValueError outside
+it).  Every preset fits: E6D2 and E6D2_LARGE_Batch at H=1024, E4D1 at
+256.
 """
 
 import torch
@@ -287,25 +291,30 @@ def gru_recurrence_q_plain(x_proj, w_q, w_scale, b_hh, h0):
 
 
 def _gru_fwd_q_kernel(x_proj, w_q, w_scale, b_hh, h0):
+    """K13: one persistent cooperative launch for all T steps, K5's
+    (ops/rnn_fwd.py plans its grid); the fp32 h is carried in the kernel,
+    the recurrent product reads h0 rounded to x_proj's dtype at t = 0, then
+    ys[t-1]."""
     t, b, hid = check_gru_args(x_proj, w_q, b_hh, h0, (torch.int8,))
     _build.require_cuda(w_scale, 'w_scale', (torch.float32,))
     if w_scale.shape != (3 * hid,):
         raise ValueError(f'gru_recurrence_q: w_scale {tuple(w_scale.shape)}')
+    plan = rnn_fwd.card_plan(x_proj, 3, quant=True)
     dev = x_proj.device
+    h0e = h0.to(x_proj.dtype).contiguous()
     ys = torch.empty((t, b, hid), dtype=x_proj.dtype, device=dev)
-    hbuf = torch.empty((2, b, hid), dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.check(_build.library().edd_gru_fwd_q(
-        p(x_proj), p(w_q), p(w_scale), p(b_hh), p(h0), p(ys), p(hbuf), t, b,
-        hid, int(x_proj.dtype == torch.bfloat16), _build.stream_ptr(dev)),
-        'gru_fwd_q')
+        p(x_proj), p(w_q), p(w_scale), p(b_hh), p(h0e), p(h0), p(ys), t, b,
+        hid, int(x_proj.dtype == torch.bfloat16), plan.blocks, plan.smem,
+        _build.stream_ptr(dev)), 'gru_fwd_q')
     gru_recurrence_q.launches += 1
     return ys
 
 
 def gru_recurrence_q(x_proj, w_q, w_scale, b_hh, h0):
-    """See gru_recurrence_q_plain; CUDA tensors launch csrc/gru_fwd.cu's
-    int8 entry (K13)."""
+    """See gru_recurrence_q_plain; CUDA tensors launch csrc/rnn_fwd.cu's
+    int8 GRU entry (K13, one launch per call)."""
     if x_proj.device.type == 'cpu':
         return gru_recurrence_q_plain(x_proj, w_q, w_scale, b_hh, h0)
     return _gru_fwd_q_kernel(x_proj, w_q, w_scale, b_hh, h0)

@@ -84,8 +84,8 @@ def chain_plan(hid, gates, batch, elem_bytes, n_sms, blocks_per_sm):
 def card_blocks_per_sm(entry, device_index, cell, bf16, smem_bytes):
     """How many blocks of `smem_bytes` the kernel behind the C entry
     `entry` (edd_rnn_bwd_blocks_per_sm, edd_rnn_fwd_blocks_per_sm, ...)
-    for `cell` (its first argument: 0 the LSTM, 1 the GRU, 2 the forward's
-    int8 LSTM) fits on one SM of the card, from
+    for `cell` (its first argument: 0 the LSTM, 1 the GRU, 2 and 3 the
+    forward's int8 LSTM and GRU) fits on one SM of the card, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor; cached per shape, off
     the host path of every call."""
     out = ctypes.c_int(0)

@@ -1,7 +1,8 @@
-"""The launch plan of K1, K5 and K12, the recurrent forward
-(csrc/rnn_fwd.cu; K12 the int8 LSTM, whose block dequantizes its int8 slice
-of W_hh once into the same shared layout: its shared memory is K1's at the
-compute dtype).
+"""The launch plan of K1, K5, K12 and K13, the recurrent forward
+(csrc/rnn_fwd.cu; K12 / K13 the int8 LSTM / GRU, whose block dequantizes
+its int8 slice of W_hh once into the same shared layout: their shared
+memory is K1's / K5's at the compute dtype, their occupancy asked of their
+own kernels).
 
 Each call is one persistent cooperative launch whose block i owns UNITS
 hidden units and holds the G·UNITS gate rows of W_hh that feed them (G·H
@@ -16,13 +17,17 @@ shares with K4/K6's plan (ops/rnn_bwd.py).  Its co-residency limit is
 K4/K6's: ceil(H / UNITS) blocks, one or two per SM (H up to 1056 or 2112
 on the H100's 132 SMs), so a hidden size whose backward is refused may be
 refused here too.  There is no second path: a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  `card_plan` caches each plan by (device, shape, dtype,
+kernel): a call after the first reads no card property and asks no
+occupancy.
 """
 
 import dataclasses
+import functools
 
 import torch
 
+from edgedict_tpu_torch import _build
 from edgedict_tpu_torch.ops import rnn_bwd
 from edgedict_tpu_torch.ops.rnn_bwd import SMEM_PER_BLOCK, THREADS, UNITS
 
@@ -60,18 +65,24 @@ def fwd_plan(hid, gates, batch, elem_bytes, n_sms, blocks_per_sm):
                    smem, blocks_per_sm)
 
 
+# the kernel of each (gates, quant): the `cell` of edd_rnn_fwd_blocks_per_sm
+CELLS = {(4, False): 0, (3, False): 1, (4, True): 2, (3, True): 3}
+
+
 def card_plan(x_proj, gates, quant=False):
-    """The plan for x_proj (T, B, G·H) on its card; quant: K12's int8
-    kernel (the LSTM), whose occupancy the card is asked for itself."""
+    """The plan for x_proj (T, B, G·H) on its card; quant: the int8 kernel
+    of the cell (K12 for the LSTM, K13 for the GRU)."""
     _, batch, gh = x_proj.shape
-    hid = gh // gates
-    elem = x_proj.element_size()
+    return _card_plan(x_proj.device.index, gh // gates, gates, batch,
+                      x_proj.element_size(), CELLS[gates, bool(quant)])
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(index, hid, gates, batch, elem, cell):
     smem = fwd_smem_bytes(hid, gates, batch, elem)
-    dev = x_proj.device
     n = 0
     if smem <= SMEM_PER_BLOCK:
-        cell = 2 if quant else int(gates == 3)
-        n = rnn_bwd.card_blocks_per_sm('edd_rnn_fwd_blocks_per_sm',
-                                       dev.index, cell, elem == 2, smem)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return fwd_plan(hid, gates, batch, elem, sms, n)
+        n = rnn_bwd.card_blocks_per_sm('edd_rnn_fwd_blocks_per_sm', index,
+                                       cell, elem == 2, smem)
+    return fwd_plan(hid, gates, batch, elem,
+                    _build.sm_count(torch.device('cuda', index)), n)

@@ -6,11 +6,44 @@ is an autograd.Function whose forward is K9 (`lattice_alpha`) and whose
 backward is K10 (`lattice_beta_grad`), the occupancies scaled by −g
 outside.  CPU tensors take the plain versions in ops/rnnt_loss.py (row loop
 over t, doubling over u); CUDA tensors launch the kernels.
+
+K10 is a register wavefront (csrc/rnnt_loss.cu): beta lives in registers,
+one diagonal at a time, so the call allocates only its two outputs, with
+no (B, T+1, U+1) beta scratch.  `beta_plan` picks its block geometry from
+U+1: W warps of 32 lanes, each lane owning K columns; U+1 up to 4096, a
+ValueError above.
 """
+
+import dataclasses
 
 import torch
 
 from edgedict_tpu_torch import _build
+
+MAX_WARPS = 16        # warps along u in one K10 block (csrc: kMaxWarps)
+RING = 32             # diagonals of edge values in flight between warps
+
+
+@dataclasses.dataclass(frozen=True)
+class BetaPlan:
+    warps: int        # W: warps of one utterance's block, along u
+    items: int        # K: columns a lane owns, u = 32 K w + 32 k + lane
+
+
+def beta_plan(u1):
+    """K10's geometry for U+1 = `u1` columns → BetaPlan: as many warps as
+    it takes at one column a lane, up to 16 warps (512 columns; the warps
+    run on the SM's four schedulers side by side, where one warp walking
+    several columns a lane is bound by its own instruction latency), then
+    2, 4 and 8 columns a lane (1024, 2048, 4096).  ValueError for no
+    column or more than 4096."""
+    if u1 >= 1:
+        for items in (1, 2, 4, 8):
+            warps = -(-u1 // (32 * items))
+            if warps <= MAX_WARPS:
+                return BetaPlan(warps, items)
+    raise ValueError(f'rnnt lattice: no beta plan for U+1={u1} (1 to '
+                     f'{32 * 8 * MAX_WARPS})')
 from edgedict_tpu_torch.ops.rnnt_loss import (
     lattice_alpha_plain, lattice_beta_grad_plain, make_core)
 
@@ -53,7 +86,7 @@ lattice_alpha.launches = 0
 
 def lattice_beta_grad(blank_lp, label_lp, alpha, logz, xlen, ylen):
     """→ (gb (B,T,U+1), gl (B,T,U)) transition occupancies.  CUDA tensors
-    launch K10."""
+    launch K10 once (plan `beta_plan`)."""
     if blank_lp.device.type == 'cpu':
         return lattice_beta_grad_plain(blank_lp, label_lp, alpha, logz, xlen,
                                        ylen)
@@ -65,15 +98,14 @@ def lattice_beta_grad(blank_lp, label_lp, alpha, logz, xlen, ylen):
     if alpha.shape != (b, t + 1, u1) or logz.shape != (b,):
         raise ValueError(f'rnnt lattice: alpha {tuple(alpha.shape)} logz '
                          f'{tuple(logz.shape)}')
-    dev = blank_lp.device
-    beta = torch.empty_like(alpha)
+    plan = beta_plan(u1)
     gb = torch.empty_like(blank_lp)
     gl = torch.empty_like(label_lp)
     p = _build.ptr
     _build.check(_build.library().edd_lattice_beta_grad(
         p(blank_lp), p(label_lp), p(alpha), p(logz), p(xlen), p(ylen),
-        p(beta), p(gb), p(gl), b, t, u1, _build.stream_ptr(dev)),
-        'lattice_beta_grad')
+        p(gb), p(gl), b, t, u1, plan.warps, plan.items,
+        _build.stream_ptr(blank_lp.device)), 'lattice_beta_grad')
     lattice_beta_grad.launches += 1
     return gb, gl
 

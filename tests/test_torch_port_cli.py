@@ -268,3 +268,23 @@ def test_profiler_map_tells_k12_from_k1(dtype):
             for name in ('lstm_fwd', 'lstm_fwd_q', 'gru_fwd')}
     assert hits == {'lstm_fwd': [True, False], 'lstm_fwd_q': [False, True],
                     'gru_fwd': [False, False]}
+
+
+@pytest.mark.parametrize('dtype', ['float', '__nv_bfloat16'])
+def test_profiler_map_tells_k13_from_k12(dtype):
+    """K13 runs K5's kernel body under a name of its own: the stream
+    profiler reads its launches as gru_fwd_q, never as K12's or K5's, and
+    K12's and K5's launches never as K13's."""
+    from edgedict_tpu_torch.cli import profile_stream
+    k5 = (f'void (anonymous namespace)::recur_fwd_kernel<{dtype}, '
+          '(anonymous namespace)::GruStep>((anonymous namespace)::FwdArgs)')
+    k12 = (f'void (anonymous namespace)::recur_fwd_q_kernel<{dtype}>('
+           '(anonymous namespace)::FwdArgs)')
+    k13 = (f'void (anonymous namespace)::recur_fwd_gru_q_kernel<{dtype}>('
+           '(anonymous namespace)::FwdArgs)')
+    hits = {name: [profile_stream.kernel_of(k, name) for k in (k5, k12, k13)]
+            for name in ('gru_fwd', 'lstm_fwd_q', 'gru_fwd_q', 'lstm_fwd')}
+    assert hits == {'gru_fwd': [True, False, False],
+                    'lstm_fwd_q': [False, True, False],
+                    'gru_fwd_q': [False, False, True],
+                    'lstm_fwd': [False, False, False]}

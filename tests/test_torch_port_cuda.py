@@ -404,7 +404,9 @@ def _traced(case):
     `case`: (cell, dtype name) for K1 / K5 at H=256 B=8 T=16, ('k7',) for
     bf16 K7 at the E6D2 joint (J 640, V 2048), ('k3',) for K3 at E6D2's
     decoder widths, B=1 T=16, ('k12', dtype name) for K12 at H=1024 B=1
-    T=16, ('k2',) for K2 at a 75 ms chunk."""
+    T=16, ('k13', dtype name) for K13 at the same shape, ('k10',) for K10
+    at the E6D2 lattice (B=32 T=214 U+1=65), ('k2',) for K2 at a 75 ms
+    chunk."""
     import json
     import os
     import tempfile
@@ -422,6 +424,18 @@ def _traced(case):
                                   getattr(torch, case[1]), 12)
         q, sc = Q.quantize_int8(w.float())
         args, fn = (xp, q, sc, h0, c0), Q.lstm_recurrence_q
+    elif case[0] == 'k13':
+        from edgedict_tpu_torch.ops import quant as Q
+        xp, w, b_hh, h0 = _fwd_case(cuda, 'GRU', 1024, 1, 16,
+                                    getattr(torch, case[1]), 13)
+        q, sc = Q.quantize_int8(w.float())
+        args, fn = (xp, q, sc, b_hh, h0), Q.gru_recurrence_q
+    elif case[0] == 'k10':
+        from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+        blank, label, xlen, ylen = _lattice_case(cuda, 32, 214, 65, 'mixed')
+        alpha, logz = KL.lattice_alpha(blank, label, xlen, ylen)
+        args = (blank, label, alpha, logz, xlen, ylen)
+        fn = KL.lattice_beta_grad
     elif case[0] == 'k2':
         cfg = F.FeatureConfig(feature_size=80, n_fft=512, win_length=320,
                               hop_length=200)
@@ -598,13 +612,10 @@ def test_k3_cross_slice_tie_and_nan(cuda, case):
     assert torch.isnan(out[1]).all() == (case == 'nan')
 
 
-@pytest.mark.parametrize('b,t,u1,edge', [
-    (4, 30, 20, 'mixed'), (3, 7, 1, 'full'), (2, 12, 9, 'xlen0'),
-    (32, 214, 65, 'mixed'), (2, 6, 1100, 'full'),
-])
-def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
-    from edgedict_tpu_torch.ops import rnnt_loss as PL
-    from edgedict_tpu_torch.ops import rnnt_loss_kernel as K
+def _lattice_case(cuda, b, t, u1, edge):
+    """Seeded blank / label log-probs (B, T, U+1), (B, T, U) and lengths on
+    the card: 'mixed' ragged (xlen within 5 of T, any ylen), 'xlen0' the
+    first utterance empty, 'full' xlen = T and ylen = U."""
     g = torch.Generator(device='cpu').manual_seed(b * t + u1)
     logits = torch.randn(b, t, u1, 2, generator=g)
     lp = logits - torch.logsumexp(logits, -1, keepdim=True)
@@ -618,12 +629,26 @@ def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
         ylen = torch.randint(0, u1, (b,), generator=g, dtype=torch.int32)
     elif edge == 'xlen0':
         xlen[0], ylen[0] = 0, 0
-    xlen, ylen = xlen.to(cuda), ylen.to(cuda)
+    return blank, label, xlen.to(cuda), ylen.to(cuda)
+
+
+@pytest.mark.parametrize('b,t,u1,edge', [
+    (4, 30, 20, 'mixed'), (3, 7, 1, 'full'), (2, 12, 9, 'xlen0'),
+    (32, 214, 65, 'mixed'), (2, 6, 1100, 'full'),
+    # K10's other geometries: 2 and 10 warps of one column a lane
+    (3, 7, 49, 'mixed'), (2, 3, 300, 'mixed'),
+])
+def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
+    from edgedict_tpu_torch.ops import rnnt_loss as PL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as K
+    blank, label, xlen, ylen = _lattice_case(cuda, b, t, u1, edge)
     alpha, logz = K.lattice_alpha(blank, label, xlen, ylen)
     r_alpha, r_logz = PL.lattice_alpha_plain(blank, label, xlen, ylen)
     assert _max_abs(logz, r_logz) <= 1e-4 * max(1.0, float(r_logz.abs()
                                                            .max()))
     gb, gl = K.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
+    again = K.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
+    assert torch.equal(gb, again[0]) and torch.equal(gl, again[1])
     r_gb, r_gl = PL.lattice_beta_grad_plain(blank, label, r_alpha, r_logz,
                                             xlen, ylen)
     # an occupancy exp(alpha + beta - logZ) carries the absolute rounding of
@@ -635,6 +660,48 @@ def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
     valid = torch.arange(t, device=cuda)[None] < xlen[:, None]
     assert _max_abs(per_frame[valid], torch.ones_like(per_frame[valid])) \
         <= 1e-3
+
+
+@pytest.mark.parametrize('b,t,u1,edge', [
+    (32, 214, 65, 'mixed'), (4, 9, 1, 'full'), (3, 1, 7, 'full'),
+    (2, 12, 9, 'xlen0'), (3, 7, 33, 'mixed'), (2, 1, 65, 'full'),
+    (2, 6, 128, 'mixed'), (2, 3, 300, 'mixed'), (2, 4, 512, 'mixed'),
+    (2, 3, 600, 'mixed'), (2, 2, 1100, 'full'), (2, 1, 1100, 'xlen0'),
+    (1, 2, 2100, 'full'),
+])
+def test_k10_matches_plain_on_the_same_alpha(cuda, b, t, u1, edge):
+    """K10 alone, every geometry of its plan (1 to 16 warps of one column a
+    lane, 9 warps of 2, of 4 and of 8), T = 1, xlen = 0:
+    its occupancies within max(1e-5, 1e-6 |logZ|) of its plain version
+    given the same alpha and logZ (K9's), one count per call, the same
+    bits on a second call, and no memory past its two outputs."""
+    from edgedict_tpu_torch.ops import rnnt_loss as PL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as K
+    blank, label, xlen, ylen = _lattice_case(cuda, b, t, u1, edge)
+    alpha, logz = K.lattice_alpha(blank, label, xlen, ylen)
+    torch.cuda.synchronize()
+    before = K.lattice_beta_grad.launches
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gb, gl = K.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert K.lattice_beta_grad.launches == before + 1
+    # the outputs, each rounded up to the allocator's 512-byte blocks
+    assert extra <= sum(-(-x.numel() * 4 // 512) * 512 for x in (gb, gl))
+    again = K.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
+    assert torch.equal(gb, again[0]) and torch.equal(gl, again[1])
+    r_gb, r_gl = PL.lattice_beta_grad_plain(blank, label, alpha, logz, xlen,
+                                            ylen)
+    occ_tol = max(1e-5, 1e-6 * float(logz.abs().max()))
+    assert _max_abs(gb, r_gb) <= occ_tol and _max_abs(gl, r_gl) <= occ_tol
+
+
+def test_k10_is_one_launch_per_call(cuda):
+    """One K10 call at the E6D2 lattice is one launch of the wavefront
+    kernel and nothing else on the card: no beta scratch, no memset."""
+    names = [n for n, _ in _kernel_events(('k10',))['kernels']]
+    assert len(names) == 1 and 'lattice_beta_grad_kernel' in names[0], names
 
 
 # ---------------------------------------------------------------------------
@@ -659,6 +726,10 @@ def _step_from_own_state(plain, xp, ys, h0, *args):
     (1024, 33, 3, torch.bfloat16, False), (1024, 256, 2, torch.float32, False),
     (512, 8, 4, torch.bfloat16, False), (256, 33, 1, torch.float32, False),
     (1024, 4, 1, torch.bfloat16, False), (1030, 11, 3, torch.bfloat16, False),
+    # K13 on K5's persistent launch: the int8 server's B=64 in fp32, a
+    # 16-step call in both dtypes
+    (1024, 64, 2, torch.float32, True), (1024, 1, 16, torch.float32, True),
+    (1024, 1, 16, torch.bfloat16, True),
 ])
 def test_k5_k13_gru_fwd_matches_plain(cuda, hid, b, t, dtype, int8):
     from edgedict_tpu_torch.ops import gru_kernel as K5
@@ -752,6 +823,21 @@ def test_k12_is_one_launch_per_call_under_its_own_name(cuda, dtype):
     assert sum('recur_fwd_q_kernel' in n for n in names) == 1, names
     assert [n for n in names if profile_stream.kernel_of(n, 'lstm_fwd_q')] \
         and not any(profile_stream.kernel_of(n, 'lstm_fwd') for n in names)
+    assert not any('step_kernel' in n for n in names)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_k13_is_one_launch_per_call_under_its_own_name(cuda, dtype):
+    """One K13 call of T=16 steps is one launch of recur_fwd_gru_q_kernel
+    (torch.profiler's device trace), which neither the profilers' K5
+    pattern ('recur_fwd_kernel' with 'GruStep') nor K12's matches; no
+    per-step kernel runs."""
+    from edgedict_tpu_torch.cli import profile_stream
+    names = [n for n, _ in _kernel_events(('k13', dtype))['kernels']]
+    assert sum('recur_fwd_gru_q_kernel' in n for n in names) == 1, names
+    assert [n for n in names if profile_stream.kernel_of(n, 'gru_fwd_q')]
+    assert not any(profile_stream.kernel_of(n, k) for n in names
+                   for k in ('gru_fwd', 'lstm_fwd_q', 'lstm_fwd'))
     assert not any('step_kernel' in n for n in names)
 
 

@@ -172,3 +172,90 @@ def test_int8_prologue_stores_spread_over_the_banks(elem):
     for quarter in range(0, 64, 8):
         units = [first % 8 for _, first in items[quarter:quarter + 8]]
         assert sorted(units) == list(range(8))
+
+
+# K13, the int8 GRU: K5's kernel body and shared slice with the int8
+# prologue at G = 3, so K5's plan at the compute dtype, its occupancy asked
+# of its own kernel (cell 3)
+
+@pytest.mark.parametrize('batch', [1, 64])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_int8_gru_plan_at_the_serving_shapes(batch, elem):
+    plan = _plan(1024, 3, batch, elem)
+    assert plan.blocks == 128 <= H100_SMS * plan.blocks_per_sm
+    assert plan.smem == P.fwd_smem_bytes(1024, 3, batch, elem) \
+        <= P.SMEM_PER_BLOCK
+    if (batch, elem) == (64, 4):
+        # the fp32 slice (96 KB), one slab's partials and 64 x 8 carries
+        assert plan.smem == 1024 * 24 * 4 + 8 * 32 * 24 * 4 + 64 * 8 * 4
+    # every preset's GRU encoder fits: E4D1 at H=256, E6D2 at 1024
+    assert _plan(256, 3, batch, elem).blocks == 32
+
+
+@pytest.mark.parametrize('hid,batch,elem', [(2120, 1, 2), (3000, 1, 4),
+                                            (1024, 8192, 4),
+                                            (8192, 64, 2)])
+def test_int8_gru_shape_that_does_not_fit_raises(hid, batch, elem):
+    with pytest.raises(ValueError, match=f'H={hid}'):
+        _plan(hid, 3, batch, elem)
+
+
+@pytest.mark.parametrize('gates,quant,cell', [(4, False, 0), (3, False, 1),
+                                              (4, True, 2), (3, True, 3)])
+def test_card_plan_asks_the_occupancy_of_the_cells_kernel(monkeypatch, gates,
+                                                          quant, cell):
+    """card_plan asks edd_rnn_fwd_blocks_per_sm for the kernel of (gates,
+    quant): K1 0, K5 1, K12 2, K13 3, so K13 is not planned with K12's
+    occupancy; a second call of the same shape asks nothing."""
+    import types
+
+    from edgedict_tpu_torch import _build
+    from edgedict_tpu_torch.ops import rnn_bwd
+    asked = []
+
+    def blocks_per_sm(entry, index, cell_, bf16, smem):
+        asked.append((entry, index, cell_, bf16, smem))
+        return 1
+    monkeypatch.setattr(rnn_bwd, 'card_blocks_per_sm', blocks_per_sm)
+    monkeypatch.setattr(_build, 'sm_count', lambda dev: H100_SMS)
+    P._card_plan.cache_clear()
+    x_proj = types.SimpleNamespace(
+        shape=(2, 1, gates * 1024), device=types.SimpleNamespace(index=0),
+        element_size=lambda: 4)
+    try:
+        plan = P.card_plan(x_proj, gates, quant)
+        again = P.card_plan(x_proj, gates, quant)
+    finally:
+        P._card_plan.cache_clear()
+    smem = P.fwd_smem_bytes(1024, gates, 1, 4)
+    assert asked == [('edd_rnn_fwd_blocks_per_sm', 0, cell, False, smem)]
+    assert plan == again == P.FwdPlan(128, smem, 1)
+    assert P.CELLS[gates, quant] == cell
+
+
+@pytest.mark.parametrize('hid', [16, 72, 1024])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_int8_gru_prologue_fills_k5_layout_once(hid, elem):
+    """At G = 3 (K13) every value the int8 prologue stores goes to the
+    slot K5's ws_index gives it, and the slice is filled exactly once (the
+    16-byte path's model; H=72, not a multiple of 16, takes the scalar
+    path on the card, which writes each slot by ws_index itself)."""
+    items, k32 = _q_prologue_slots(hid, elem, gates=3)
+    seen = {}
+    for stores, _ in items:
+        for slot, n, k in stores:
+            assert slot == _ws_index(k, n, 3, k32, elem)
+            seen[slot] = seen.get(slot, 0) + 1
+    assert sorted(seen) == list(range(3 * P.UNITS * k32))
+    assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize('gates', [3, 4])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_int8_prologue_bank_spread_at_either_gate_count(gates, elem):
+    """At G = 3 as at G = 4, a quarter warp's first 16-byte stores land on
+    8 distinct 16-byte bank groups at H=1024."""
+    items, _ = _q_prologue_slots(1024, elem, gates=gates)
+    for quarter in range(0, 64, 8):
+        units = [first % 8 for _, first in items[quarter:quarter + 8]]
+        assert sorted(units) == list(range(8))
