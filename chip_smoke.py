@@ -32,11 +32,16 @@ Phases, each printing JSON or text lines:
              persistent launch with an int8 prologue) at B=1 and B=64 T=2
              and B=1 T=16 in both dtypes, K13 also at H=72 (the scalar
              prologue), each bit-stable, with its plan, its device ms and
-             the profiler's kernel records per call; K10 (one register-
-             wavefront launch, plan ops/rnnt_loss_kernel.py beta_plan)
-             against its plain version given the same alpha and logZ at the
-             E6D2 step and at U+1 = 1, 7, 300, 1100, T=1 and xlen=0, each
-             bit-stable, one kernel record per call; K2 (one launch, plan
+             the profiler's kernel records per call; K9 and K10 (one
+             register-wavefront launch each, one plan,
+             ops/rnnt_loss_kernel.py beta_plan), K9 against its plain
+             version in fp64 (alpha on the cells t <= xlen, u <= ylen;
+             logZ = alpha[xlen, ylen] bit for bit; no memory past its
+             outputs), K10 against its plain version given the same alpha
+             and logZ, at the E6D2 step (timed, with device ms) and at U+1
+             = 1, 7, 300, 1100, 2100, T=1 and xlen=0, each bit-stable, one
+             kernel record per call, and the K9 -> K10 chain against the
+             plain chain in fp64; K2 (one launch, plan
              ops/features_plan.py) at the chunk for 1, 8 and 64 streams,
              4 s, the train step's 32 x 16 s, the shortest legal row and
              one off the hop grid, each bit-stable, with its plan and, at
@@ -868,49 +873,40 @@ def train_kernels(torch, rng, dev, record):
                            device=dev)
     alpha, logz = KL.lattice_alpha(blank, label, xlen, ylen)
     gb, gl = KL.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
-    r_alpha, r_logz = PL.lattice_alpha_plain(blank, label, xlen, ylen)
-    r_gb, r_gl = PL.lattice_beta_grad_plain(blank, label, r_alpha, r_logz,
-                                            xlen, ylen)
+    # the plain chain in fp64: in fp32 its own occupancies are ~2e-4 off
+    # here, over the tolerance, where K9 and K10 (fp64 chains) are ~1e-5 off
+    wide = (blank.double(), label.double())
+    r_alpha, r_logz = PL.lattice_alpha_plain(*wide, xlen, ylen)
+    r_gb, r_gl = PL.lattice_beta_grad_plain(*wide, r_alpha, r_logz, xlen,
+                                            ylen)
     torch.cuda.synchronize()
     logz_err = _rel(torch, logz, r_logz)
     occ_err = max(float((gb - r_gb).abs().max()),
                   float((gl - r_gl).abs().max()))
     occ_tol = max(1e-5, 1e-6 * float(r_logz.abs().max()))
-    ams, apms = time_pair(
-        torch, lambda: PL.lattice_alpha_plain(blank, label, xlen, ylen),
-        lambda: KL.lattice_alpha(blank, label, xlen, ylen))
     case = {'kernel': 'K9/K10 lattice', 'B': b, 'T': t, 'U1': u1,
             'logz_rel': logz_err, 'occupancy_max_abs': occ_err,
             'tol': f'logz 1e-5 of max(1, |logz|); occupancy {occ_tol:.2e} '
-                   '(1e-6 |logZ|)', 'alpha_ms': ams, 'alpha_plain_ms': apms}
-    # the cells this data needs: t < xlen, u <= ylen (fp32 in and out)
-    cells = int((xlen.long() * (ylen.long() + 1)).sum())
-    alpha_bound = bound(cells * 4 * 3 + nbytes(xlen, ylen, logz), cells * 10,
-                        'fp32')
-    case.update(alpha_bound_ms=alpha_bound[0])
+                   '(1e-6 |logZ|), of the plain chain in fp64'}
     emit(case)
     require(logz_err <= 1e-5 and occ_err <= occ_tol,
             f'K9/K10 disagree: {case}')
-    record('lattice_alpha', logz_err, ams, apms, alpha_bound)
-    k10_cases(torch, dev, record, (blank, label, xlen, ylen, alpha, logz))
+    cases = [(blank, label, xlen, ylen)] + lattice_cases(torch, dev)
+    k9_cases(torch, record, cases)
+    k10_cases(torch, record, [
+        (*c, *KL.lattice_alpha(*c)) for c in cases])
 
 
-def k10_cases(torch, dev, record, e6d2):
-    """K10 (one register-wavefront launch, plan ops/rnnt_loss_kernel.py
-    beta_plan) against its plain version given the same alpha and logZ
-    (K9's), at the E6D2 step (timed, with its device ms by torch.profiler)
-    and at U+1 = 1, 7, 300 and 1100, T = 1 and an empty utterance (xlen =
-    0): occupancies to max(1e-5, 1e-6 |logZ|), the same bits on a second
-    call, one kernel launch per call on the card."""
-    import dataclasses
-
-    from edgedict_tpu_torch.ops import rnnt_loss as PL
-    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+def lattice_cases(torch, dev):
+    """Seeded blank / label log-probs and lengths on the card at U+1 = 1,
+    7, 300, 1100 and 2100 (the plan's geometries of one, two, four and
+    eight columns a lane), T = 1 and an empty utterance (xlen = 0)."""
     rng = np.random.RandomState(10)
-    cases = [e6d2]
+    cases = []
     for b, t, u1, edge in ((4, 9, 1, 'full'), (3, 6, 7, 'ragged'),
                            (2, 3, 300, 'ragged'), (2, 6, 1100, 'full'),
-                           (3, 1, 65, 'ragged'), (3, 20, 65, 'xlen0')):
+                           (3, 1, 65, 'ragged'), (3, 20, 65, 'xlen0'),
+                           (1, 2, 2100, 'full')):
         logits = torch.as_tensor(rng.randn(b, t, u1, 2).astype(np.float32),
                                  device=dev)
         lp = logits - torch.logsumexp(logits, -1, keepdim=True)
@@ -922,9 +918,106 @@ def k10_cases(torch, dev, record, e6d2):
         elif edge == 'xlen0':
             xlen[0], ylen[0] = 0, 0
         blank, label = lp[..., 0].contiguous(), lp[:, :, :-1, 1].contiguous()
-        xlen, ylen = (torch.as_tensor(x, device=dev) for x in (xlen, ylen))
-        cases.append((blank, label, xlen, ylen,
-                      *KL.lattice_alpha(blank, label, xlen, ylen)))
+        cases.append((blank, label,
+                      *(torch.as_tensor(x, device=dev) for x in (xlen,
+                                                                  ylen))))
+    return cases
+
+
+def k9_cases(torch, record, cases):
+    """K9 (one register-wavefront launch, plan ops/rnnt_loss_kernel.py
+    beta_plan) at the E6D2 step (the first case: timed, with its device ms
+    by torch.profiler) and at lattice_cases' geometries: alpha on the cells
+    t <= xlen, u <= ylen and logZ within max(1e-5, 1e-6 |logZ|) of the
+    plain version run in fp64 (the fp32 plain version's own error beside
+    it), logZ the stored alpha[xlen, ylen] bit for bit, the same bits on a
+    second call, one kernel launch per call and no memory past alpha and
+    logz."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import rnnt_loss as PL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+    for i, (blank, label, xlen, ylen) in enumerate(cases):
+        b, t, u1 = blank.shape
+        args = (blank, label, xlen, ylen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        alpha, logz = KL.lattice_alpha(*args)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        again = KL.lattice_alpha(*args)
+        wide = (blank.double(), label.double(), xlen, ylen)
+        r_alpha, r_logz = PL.lattice_alpha_plain(*wide)
+        p_alpha, p_logz = PL.lattice_alpha_plain(*args)
+        valid = (torch.arange(t + 1, device=blank.device)[None, :, None]
+                 <= xlen.long()[:, None, None]) \
+            & (torch.arange(u1, device=blank.device)[None, None, :]
+               <= ylen.long()[:, None, None])
+
+        def err(a, z):
+            return max(float((a.double() - r_alpha)[valid].abs().max()),
+                       float((z.double() - r_logz).abs().max()))
+        tol = max(1e-5, 1e-6 * float(r_logz.abs().max()))
+        idx = torch.arange(b, device=blank.device)
+        prof = _profiled_us(torch, lambda: KL.lattice_alpha(*args), 5)
+        case = {'kernel': 'K9 lattice_alpha', 'B': b, 'T': t, 'U1': u1,
+                'plan': dataclasses.asdict(KL.beta_plan(u1)),
+                'xlen_min': int(xlen.min()), 'ylen_min': int(ylen.min()),
+                'max_abs_err': err(alpha, logz),
+                'plain_fp32_max_abs_err': err(p_alpha, p_logz),
+                'tol': f'alpha (t <= xlen, u <= ylen) and logZ {tol:.2e} '
+                       '(max(1e-5, 1e-6 |logZ|)) of the plain version in '
+                       'fp64',
+                'fp64_reference': r_alpha.dtype == r_logz.dtype
+                == torch.float64,
+                'logz_is_alpha': torch.equal(
+                    logz, alpha[idx, xlen.long(), ylen.long()]),
+                'bit_stable': torch.equal(alpha, again[0])
+                and torch.equal(logz, again[1]),
+                'extra_bytes': extra,
+                'profiled_launches_per_call':
+                    sum(c for _, c in prof.values()) / 5,
+                'profiled_kernels': sorted(prof)}
+        bounds = None
+        if i == 0:
+            # the cells this data needs: t < xlen, u <= ylen (fp32 in and
+            # out)
+            cells = int((xlen.long() * (ylen.long() + 1)).sum())
+            bounds = bound(cells * 4 * 3 + nbytes(xlen, ylen, logz),
+                           cells * 10, 'fp32')
+            ms, pms = time_pair(torch, lambda: PL.lattice_alpha_plain(*args),
+                                lambda: KL.lattice_alpha(*args))
+            dms, _ = device_ms_per_launch(
+                torch, lambda: KL.lattice_alpha(*args),
+                'lattice_alpha_kernel')
+            case.update(ms=ms, plain_ms=pms, device_ms=dms,
+                        bound_ms=bounds[0], bound_by=bounds[1])
+        emit(case)
+        # a profiled run may lose records (PERF.md §7): fewer than one a
+        # call is that, more than one is a second launch
+        require(case['max_abs_err'] <= tol and case['fp64_reference']
+                and case['logz_is_alpha'] and case['bit_stable']
+                and extra <= sum(-(-x.numel() * 4 // 512) * 512
+                                 for x in (alpha, logz))
+                and case['profiled_launches_per_call'] <= 1
+                and all('lattice_alpha_kernel' in k for k in prof),
+                f'K9 disagrees: {case}')
+        record('lattice_alpha', case['max_abs_err'], case.get('ms'),
+               case.get('plain_ms'), bounds, None, case.get('device_ms'))
+
+
+def k10_cases(torch, record, cases):
+    """K10 (one register-wavefront launch, plan ops/rnnt_loss_kernel.py
+    beta_plan) against its plain version given the same alpha and logZ
+    (K9's), at the E6D2 step (the first case: timed, with its device ms by
+    torch.profiler) and at lattice_cases' geometries: occupancies to
+    max(1e-5, 1e-6 |logZ|), the same bits on a second call, one kernel
+    launch per call on the card."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import rnnt_loss as PL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
     for i, (blank, label, xlen, ylen, alpha, logz) in enumerate(cases):
         b, t, u1 = blank.shape
         args = (blank, label, alpha, logz, xlen, ylen)

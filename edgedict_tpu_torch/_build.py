@@ -80,8 +80,8 @@ _SIGNATURES = {
     # hs, dls, dw_part, dbias_part, B, T, U1, J, V, blank, r_t, r_u,
     # slab_tiles, dw_split, stream
     'edd_joint_lse_bwd_mma': (_P,) * 17 + (_I,) * 10 + (_P,),
-    # blank, label, xlen, ylen, alpha, logz, B, T, U1, stream
-    'edd_lattice_alpha': (_P,) * 6 + (_I, _I, _I, _P),
+    # blank, label, xlen, ylen, alpha, logz, B, T, U1, warps, items, stream
+    'edd_lattice_alpha': (_P,) * 6 + (_I,) * 5 + (_P,),
     # blank, label, alpha, logz, xlen, ylen, gb, gl, B, T, U1, warps,
     # items, stream
     'edd_lattice_beta_grad': (_P,) * 8 + (_I,) * 5 + (_P,),

@@ -15,11 +15,11 @@ For each case, at the shape its main path gives it (seeded random inputs):
 Cases: the persistent recurrences K1 (LSTM), K5 (GRU), K12 (int8 LSTM) and
 K13 (int8 GRU) at H=1024 B=1 T=2 fp32 (a streaming chunk's layer), K12 and
 K13 at B=64 T=2 (the int8 server) in fp32 and bf16 and at B=1 T=16, and
-K10 (the lattice beta + gradients) at the E6D2 train step (B=32 T=214
-U+1=65).  Prints one JSON line per case, then the card's `nvidia-smi
---query-gpu=name,power.limit` line.  Needs a CUDA card; only the wrappers'
-public entry points are called, so the script runs against any version of
-the port that has them.
+K9 (the lattice alpha) and K10 (the lattice beta + gradients) at the E6D2
+train step (B=32 T=214 U+1=65).  Prints one JSON line per case, then the
+card's `nvidia-smi --query-gpu=name,power.limit` line.  Needs a CUDA card;
+only the wrappers' public entry points are called, so the script runs
+against any version of the port that has them.
 """
 
 import argparse
@@ -113,6 +113,8 @@ def cases(dev):
     ylen = torch.as_tensor(rng.randint(40, u1, b).astype(np.int32),
                            device=dev)
     alpha, logz = KL.lattice_alpha(blank, label, xlen, ylen)
+    out.append(('K9', {'B': b, 'T': t, 'U1': u1},
+                partial(KL.lattice_alpha, blank, label, xlen, ylen)))
     out.append(('K10', {'B': b, 'T': t, 'U1': u1},
                 partial(KL.lattice_beta_grad, blank, label, alpha, logz,
                         xlen, ylen)))

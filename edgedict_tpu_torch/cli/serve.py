@@ -3,12 +3,13 @@ device): N concurrent PCM streams over TCP through serving.StreamServer,
 one chunk step of the port's MultiStreamDecoder per round.
 
   python -m edgedict_tpu_torch.cli.serve --flagfile flagfiles/E6D2.txt \
-      --port 8765 --n_streams 64 [--pt_path reference.pt] \
-      [--quantize int8] [--enc_type GRU]
+      --port 8765 --n_streams 64 [--pt_path reference.pt | --model_name \
+      <step>.ckpt] [--quantize int8] [--enc_type GRU]
 
 Clients speak the protocol of serving.py (the JAX package's, unchanged); a
 minimal client is edgedict_tpu_torch.serving.stream_client.  Beam search
-and multi-device serving are not ported yet.
+and multi-device serving are not ported yet.  The weights are loaded as
+cli/stream.py loads them: --pt_path, else the run's checkpoint.
 """
 
 import asyncio

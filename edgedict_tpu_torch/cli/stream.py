@@ -3,15 +3,17 @@ mode): decode a wav file chunk by chunk and print the transcript and the
 throughput line.
 
   python -m edgedict_tpu_torch.cli.stream --flagfile flagfiles/E6D2.txt \
-      --path x.wav [--pt_path reference.pt] [--device cuda|cpu] \
-      [--quantize int8] [--enc_type GRU]
+      --path x.wav [--pt_path reference.pt | --model_name <step>.ckpt] \
+      [--device cuda|cpu] [--quantize int8] [--enc_type GRU]
 
 --device defaults to cuda and fails without a card; the CPU runs only when
 asked with --device cpu.  --infer_dtype auto is bf16 on CUDA (bf16 encoder,
 fp32 joint and prediction net) and fp32 on the CPU.  --quantize int8 serves
 an int8 weight-only encoder (ops/quant.py); --enc_type GRU a GRU encoder.
-Without --pt_path the weights are random (seed 0).  Microphone input
-(--mic) is not ported yet.
+Without --pt_path the weights are the run's checkpoint, as in the JAX
+package's CLI: logs/<name>/models/<--model_name>, else the latest step's
+<step>.ckpt, else random (seed 0).  Microphone input (--mic) is not
+ported yet.
 """
 
 import argparse
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from edgedict_tpu_torch.config import (
-    add_model_flags, feature_config_from_flags, parse_flags,
+    TRAIN_FLAGS, add_model_flags, feature_config_from_flags, parse_flags,
     transducer_config_from_flags)
 from edgedict_tpu_torch.stream import resolve_device
 
@@ -43,7 +45,13 @@ def build_parser(description):
                         help="torch device: 'cuda' (default) or 'cpu'")
     parser.add_argument('--pt_path', default=None,
                         help='reference PyTorch checkpoint (.pt, plain or '
-                             'lightning)')
+                             "lightning); unset = the run's checkpoint")
+    run_name = next(d for n, _, d in TRAIN_FLAGS if n == 'name')
+    parser.add_argument('--name', default=run_name,
+                        help="the training run's name (the trainer's --name)")
+    parser.add_argument('--model_name', default=None,
+                        help='checkpoint file under <logdir_root>/<name>/'
+                             'models; unset = the latest step')
     parser.add_argument('--infer_dtype', default='auto',
                         choices=('auto', 'bf16', 'bfloat16', 'fp32',
                                  'float32'),
@@ -81,6 +89,20 @@ def build_tokenizer(flags):
     return tok
 
 
+def run_checkpoint(flags):
+    """logs/<name>/models/<--model_name>, else the latest step's
+    checkpoint; None when that file does not exist (cli/stream.py:83-97 of
+    the JAX package)."""
+    from edgedict_tpu_torch.checkpoint import checkpoint_path, latest_step
+    logdir = os.path.join(flags.logdir_root, flags.name)
+    if flags.model_name:
+        path = os.path.join(logdir, 'models', flags.model_name)
+    else:
+        step = latest_step(logdir)
+        path = None if step is None else checkpoint_path(logdir, step)
+    return path if path and os.path.exists(path) else None
+
+
 def load_inference_bundle(flags):
     """(model on the CPU, cfg, feature_cfg, tokenizer, compute dtype,
     device) from parsed flags — shared by the stream and serve CLIs."""
@@ -97,9 +119,10 @@ def load_inference_bundle(flags):
     feature_cfg = feature_config_from_flags(flags, pad_to_divisible=False)
     cfg = transducer_config_from_flags(flags, tokenizer.vocab_size,
                                        feature_cfg.input_size)
-    if flags.pt_path:
-        model = load_reference_checkpoint(flags.pt_path, cfg, 'cpu')
-        print(f'loaded {flags.pt_path}')
+    path = flags.pt_path or run_checkpoint(flags)
+    if path:
+        model = load_reference_checkpoint(path, cfg, 'cpu')
+        print(f'loaded {path}')
     else:
         print('WARNING: no checkpoint found — using random weights')
         model = Transducer(cfg, device='cpu', seed=0)

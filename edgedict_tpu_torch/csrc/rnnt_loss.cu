@@ -14,33 +14,44 @@
 // after its anti-diagonal predecessor; the work per cell is one logaddexp.
 // Both kernels walk the T+U+1 anti-diagonals t + u = d one after another.
 //
-// K9 (alpha): one block per utterance (the TPU kernel took 8 per grid
-// step), one thread per u, one __syncthreads per diagonal: every cell of a
-// diagonal reads only cells of the previous one, which the block wrote to
-// global memory before the barrier.
+// Both are register wavefronts, with no block barrier on the chain and no
+// lattice scratch. A block of W warps takes one utterance; lane l of warp w
+// owns the K columns u = 32 K w + 32 k + l (k < K; K = 1 up to 512 columns,
+// so that the warps share out a diagonal's work over the SM's four
+// schedulers), keeps in a register the value of each of its cells on the
+// diagonal before, and gets its neighbour column's by one __shfl_sync per k.
+// Across warps the edge column's value goes through a ring in shared memory
+// (a flag per warp says how far it got; the warps of one utterance run a
+// diagonal or more apart, and a producer never overwrites a slot its
+// consumer has yet to read). Each lane loads its cells' inputs a few
+// diagonals ahead of the chain into registers, and the cell is branch-free.
+// The plan (ops/rnnt_loss_kernel.py beta_plan) picks (W, K) from U+1 for
+// both; tests/test_torch_port_lattice_plan.py models both walks with the ring
+// and the lane wrap on the CPU.
 //
-// K10 (beta + gradients): a register wavefront, with no beta in global memory
-// and no block barrier on the chain. A block of W warps takes one utterance;
-// lane l of warp w owns the K columns u = 32 K w + 32 k + l (k < K; K = 1 up to
-// 512 columns, so that the warps share out a diagonal's work over the SM's four
-// schedulers) and walks the diagonals backwards, keeping in a register the beta
-// of each of its cells on the diagonal before: that is beta[t+1, u] for its
-// cell (t, u) on this one. beta[t, u+1] is the value of column u+1 on the
-// diagonal before, which one __shfl_sync per k brings from lane l+1; lane 31
-// takes lane 0's item k+1, and for k = K-1 the value warp w+1 handed over
-// through a ring in shared memory (a flag per warp says how far it got; the
-// warps of one utterance run a diagonal apart, no barrier). blank, label and
-// alpha of each cell are loaded Depth diagonals ahead of the chain into
-// registers, and the two occupancies of a cell are written as soon as its two
-// betas are known. No beta is stored: a call allocates only gb and gl. The cell
-// is log_add(log_add(term, bm + b'), lm + b_right) with log_add = max +
-// log1pf(expf(-|a - b|)), with beta carried in fp64 (the correction term and
-// the occupancies' expf stay fp32): a serial fp32 chain over U+1 = 1100 columns
-// drifts ~1e-3 in an occupancy near 1, ten times the row-doubling plain
-// version's error and over the 1e-6 |logZ| it is held to; fp64 sums keep it
-// below the plain version's. The plan (ops/rnnt_loss_kernel.py beta_plan) picks
-// (W, K) from U+1; tests/test_torch_port_lattice_plan.py models the walk with
-// the ring and the lane-31 wrap on the CPU.
+// K9 (alpha + logZ) walks the diagonals forwards: step s forms t + u = s.
+// alpha[t-1, u] is the lane's own register, alpha[t, u-1] lane l-1's (lane 0
+// takes lane 31's item k-1 and, for k = 0, the value warp w-1 handed over).
+// Every cell of the (T+1) x (U+1) lattice is stored in fp32, the masked ones
+// NEG-ish as the plain version gives them (K10 reads every row t < T), and
+// the lane owning column ylen writes logZ at t = xlen from the same fp32
+// value it stores, so logZ is alpha[xlen, ylen] bit for bit. A call
+// allocates only alpha and logz.
+//
+// K10 (beta + gradients) walks them backwards, keeping beta[t+1, u] for its
+// cell (t, u); beta[t, u+1] comes from lane l+1 (lane 31 takes lane 0's item
+// k+1, and for k = K-1 the value warp w+1 handed over). blank, label and
+// alpha of each cell are loaded ahead, and the two occupancies of a cell are
+// written as soon as its two betas are known. No beta is stored: a call
+// allocates only gb and gl. The cell is log_add(log_add(term, bm + b'), lm +
+// b_right).
+//
+// Both carry the chain in fp64, with log_add = max + log1pf(expf(-|a - b|))
+// whose correction term (and the occupancies' expf) stays fp32: a serial
+// fp32 chain over U+1 = 1100 columns drifts ~1e-3 in an occupancy near 1,
+// ten times the row-doubling plain version's error and over the 1e-6 |logZ|
+// it is held to; fp64 sums keep it below the plain version's. alpha is
+// stored in fp32, which K10 reads.
 
 #include <cuda_runtime.h>
 
@@ -49,64 +60,6 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float log_add(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
-
-__device__ __forceinline__ float blank_m(const float* blank, int t, int u,
-                                         int U1, int xl, int yl) {
-  return (t < xl && u <= yl) ? blank[(size_t)t * U1 + u] : kNeg;
-}
-
-__device__ __forceinline__ float label_m(const float* label, int t, int u,
-                                         int U, int xl, int yl) {
-  return (t < xl && u < yl) ? label[(size_t)t * U + u] : kNeg;
-}
-
-__global__ void lattice_alpha_kernel(const float* __restrict__ blank,
-                                     const float* __restrict__ label,
-                                     const int* __restrict__ xlen,
-                                     const int* __restrict__ ylen,
-                                     float* __restrict__ alpha,
-                                     float* __restrict__ logz, int T,
-                                     int U1) {
-  const int b = blockIdx.x;
-  const int U = U1 - 1;
-  const float* bl = blank + (size_t)b * T * U1;
-  const float* la = label + (size_t)b * T * U;
-  float* al = alpha + (size_t)b * (T + 1) * U1;
-  const int xl = xlen[b];
-  const int yl = ylen[b];
-  for (int d = 0; d <= T + U; ++d) {
-    for (int u = threadIdx.x; u < U1; u += blockDim.x) {
-      const int t = d - u;
-      if (t < 0 || t > T) continue;
-      float v;
-      if (d == 0) {
-        v = 0.0f;
-      } else {
-        const float from_blank =
-            t > 0 ? al[(size_t)(t - 1) * U1 + u] +
-                        blank_m(bl, t - 1, u, U1, xl, yl)
-                  : kNeg;
-        const float from_label =
-            (u > 0 && t < T) ? al[(size_t)t * U1 + u - 1] +
-                                   label_m(la, t, u - 1, U, xl, yl)
-                             : kNeg;
-        v = log_add(from_blank, from_label);
-      }
-      al[(size_t)t * U1 + u] = v;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const int t = min(max(xl, 0), T);
-    const int u = min(max(yl, 0), U);
-    logz[b] = al[(size_t)t * U1 + u];
-  }
-}
 
 constexpr int kRing = 32;      // diagonals of edge values in flight
 constexpr int kMaxWarps = 16;  // warps along u in one block
@@ -117,8 +70,8 @@ __device__ __forceinline__ V ld_volatile(const V* p) {
   return *static_cast<const volatile V*>(p);
 }
 
-// log_add on beta in fp64 (see the note at the top), the correction term
-// log1pf(expf(-|a - b|)) of the fp32 difference
+// log_add on alpha and beta in fp64 (see the note at the top), the
+// correction term log1pf(expf(-|a - b|)) of the fp32 difference
 __device__ __forceinline__ double log_add_d(double a, double b) {
   const double m = fmax(a, b);
   return m + (double)log1pf(expf((float)(-fabs(a - b))));
@@ -154,6 +107,150 @@ template <int K>
 struct Depth {
   static constexpr int value = K >= 8 ? 2 : 4;
 };
+
+// One cell (t, u) of the alpha walk, 0 <= t <= T: up = alpha[t-1, u] (NEG
+// above the lattice), left = alpha[t, u-1] (NEG left of it), the cell's raw
+// blank[t-1, u] and label[t, u-1] (masked here as masked_transitions masks
+// them: blank at t - 1 < xl, u <= yl; label at t < xl, u - 1 < yl, so no
+// label transition at t = T) → alpha[t, u]. No branch. A masked transition
+// adds nothing to the bit: log_add(x, NEG-ish) is x, expf of the difference
+// being 0. The chain takes one log_add a cell.
+struct AlphaCell {
+  int xl, yl;
+  __device__ __forceinline__ double operator()(int t, int u, float blank,
+                                               float label, double up,
+                                               double left) const {
+    const float bm = (t >= 1 && t <= xl && u <= yl) ? blank : kNeg;
+    const float lm = (t < xl && u >= 1 && u <= yl) ? label : kNeg;
+    const double v = log_add_d(up + bm, left + lm);
+    return (t == 0 && u == 0) ? 0.0 : v;
+  }
+};
+
+// K9, the alpha walk: K10's wavefront run forwards (see the note at the top)
+template <int K>
+__global__ void __launch_bounds__(kMaxThreads)
+lattice_alpha_kernel(const float* __restrict__ blank,
+                     const float* __restrict__ label,
+                     const int* __restrict__ xlen,
+                     const int* __restrict__ ylen,
+                     float* __restrict__ alpha, float* __restrict__ logz,
+                     int T, int U1) {
+  // diagonals loaded ahead: two steps of the chain (~1 us) outlast the
+  // loads, and ran 4 % faster than four at the E6D2 lattice on the H100
+  // (PERF.md §6)
+  constexpr int P = 2;
+  __shared__ double ring[kMaxWarps][kRing];
+  __shared__ int done[kMaxWarps];
+  const int b = blockIdx.x;
+  const int U = U1 - 1;
+  const int W = blockDim.x >> 5, w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // one utterance's lattice: int offsets within it
+  const float* bl = blank + (size_t)b * T * U1;
+  const float* la = label + (size_t)b * T * U;
+  float* al = alpha + (size_t)b * (T + 1) * U1;
+  // clamped as logZ's index is; the masks are the same as the raw lengths'
+  const int xl = min(max(xlen[b], 0), T), yl = min(max(ylen[b], 0), U);
+  const AlphaCell cell{xl, yl};
+  const int u0 = 32 * K * w + lane;       // the lane's item k: u0 + 32 k
+  const int steps = T + U + 1;            // step s forms diagonal t + u = s
+  if (lane == 0) done[w] = 0;
+  __syncthreads();
+
+  int ahead = 0, behind = 0;  // the neighbours' flags as last read
+  // this warp's items that exist at all (warp-uniform)
+  int live = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) live += 32 * K * w + 32 * k <= U;
+  // item k: whether its column exists, its row t on the current step (one
+  // more each step), the offsets of its cell's blank[t-1, u] and label[t,
+  // u-1], and alpha[t-1, u]
+  bool col[K];
+  int t[K], ob_off[K], ol_off[K];
+  double up[K];
+  float pb[P][K] = {}, pl[P][K] = {};
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int u = u0 + 32 * k;
+    col[k] = u <= U;
+    t[k] = -u;
+    ob_off[k] = (t[k] - 1) * U1 + u;
+    ol_off[k] = t[k] * U + u - 1;
+    up[k] = kNeg;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int tf = t[k] + p;
+      if (col[k] && tf >= 1 && tf <= T)
+        pb[p][k] = __ldg(bl + ob_off[k] + p * U1);
+      if (col[k] && u >= 1 && tf >= 0 && tf < T)
+        pl[p][k] = __ldg(la + ol_off[k] + p * U);
+    }
+  }
+
+  for (int s0 = 0; s0 < steps; s0 += P) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int s = s0 + p;
+      if (s >= steps) break;
+      // warp w-1's lane-31 item-(K-1) alpha of the diagonal before; the flag
+      // is read again only when the steps it last showed are used up
+      double edge = kNeg;
+      if (w > 0 && s > 0) {
+        while (ahead < s) ahead = ld_volatile(&done[w - 1]);
+        __threadfence_block();
+        edge = ld_volatile(&ring[w - 1][(s - 1) & (kRing - 1)]);
+      }
+      // alpha[t, u-1]: lane l-1's item k, lane 0 lane 31's item k-1
+      double left[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const double prev = k > 0 ? up[k - 1] : edge;
+        const double send = lane == 31 ? prev : up[k];
+        left[k] = __shfl_sync(0xffffffffu, send, (lane + 31) & 31);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k >= live) break;             // warp-uniform
+        // the item's 32 columns from c have cells (0 <= t <= T) on steps
+        // c .. c + 31 + T only (warp-uniform)
+        const int c = 32 * K * w + 32 * k, u = u0 + 32 * k, tk = t[k];
+        if (s >= c && s <= c + 31 + T) {
+          const bool in = col[k] && tk >= 0 && tk <= T;
+          const double v = cell(tk, u, pb[p][k], pl[p][k], up[k], left[k]);
+          if (in) {
+            const float v32 = (float)v;
+            al[ob_off[k] + U1] = v32;
+            // logZ is the stored alpha[xl, yl], bit for bit
+            if (tk == xl && u == yl) logz[b] = v32;
+          }
+          up[k] = in ? v : up[k];
+        }
+        // the inputs of the cell P steps on, into this step's slot
+        const int tf = tk + P;
+        if (col[k] && tf >= 1 && tf <= T)
+          pb[p][k] = __ldg(bl + ob_off[k] + P * U1);
+        if (col[k] && u >= 1 && tf >= 0 && tf < T)
+          pl[p][k] = __ldg(la + ol_off[k] + P * U);
+        t[k] = tk + 1;
+        ob_off[k] += U1;
+        ol_off[k] += U;
+      }
+      if (W > 1) {
+        if (lane == 31) {
+          if (w + 1 < W) {
+            // the slot's last reader, warp w+1 at step s - kRing + 1, is done
+            while (behind < s - kRing + 2) behind = ld_volatile(&done[w + 1]);
+            ring[w][s & (kRing - 1)] = up[K - 1];
+          }
+          __threadfence_block();
+          *static_cast<volatile int*>(&done[w]) = s + 1;
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
 
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -280,24 +377,46 @@ lattice_beta_grad_kernel(const float* __restrict__ blank,
   }
 }
 
-int threads_for(int U1) {
-  const int n = ((U1 + 31) / 32) * 32;
-  return n < 1024 ? n : 1024;
-}
-
 }  // namespace
 
 // blank (B, T, U1), label (B, T, U1 - 1) fp32 raw log-probs (masked here),
-// xlen/ylen (B) int32 → alpha (B, T + 1, U1), logz (B) fp32.
+// xlen/ylen (B) int32 → alpha (B, T + 1, U1), logz (B) fp32. `warps` x 32 x
+// `items` >= U1 columns per block, from the wrapper's plan (ops/
+// rnnt_loss_kernel.py beta_plan, K10's).
 extern "C" int edd_lattice_alpha(const void* blank, const void* label,
                                  const void* xlen, const void* ylen,
                                  void* alpha, void* logz, int B, int T,
-                                 int U1, void* stream) {
-  lattice_alpha_kernel<<<B, threads_for(U1), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(blank), static_cast<const float*>(label),
-      static_cast<const int*>(xlen), static_cast<const int*>(ylen),
-      static_cast<float*>(alpha), static_cast<float*>(logz), T, U1);
+                                 int U1, int warps, int items, void* stream) {
+  if (warps < 1 || warps > kMaxWarps || 32 * warps * items < U1)
+    return (int)cudaErrorInvalidValue;
+  const float* bl = static_cast<const float*>(blank);
+  const float* la = static_cast<const float*>(label);
+  const int* xl = static_cast<const int*>(xlen);
+  const int* yl = static_cast<const int*>(ylen);
+  float* al = static_cast<float*>(alpha);
+  float* lz = static_cast<float*>(logz);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B), block(32 * warps);
+  switch (items) {
+    case 1:
+      lattice_alpha_kernel<1><<<grid, block, 0, s>>>(bl, la, xl, yl, al, lz,
+                                                      T, U1);
+      break;
+    case 2:
+      lattice_alpha_kernel<2><<<grid, block, 0, s>>>(bl, la, xl, yl, al, lz,
+                                                      T, U1);
+      break;
+    case 4:
+      lattice_alpha_kernel<4><<<grid, block, 0, s>>>(bl, la, xl, yl, al, lz,
+                                                      T, U1);
+      break;
+    case 8:
+      lattice_alpha_kernel<8><<<grid, block, 0, s>>>(bl, la, xl, yl, al, lz,
+                                                      T, U1);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

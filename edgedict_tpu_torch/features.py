@@ -212,7 +212,7 @@ def time_warp(feat, warp_param, generator, method='linear'):
     if method == 'spline':
         raise NotImplementedError(
             "time_warp(method='spline') needs ops/image_warp.py, which is "
-            'not ported yet (ROADMAP.md, Queue 13)')
+            'not ported yet (ROADMAP.md, Queue 1 item 13)')
     b, t, _ = feat.shape
     if t <= 2 * warp_param + 1:
         return feat

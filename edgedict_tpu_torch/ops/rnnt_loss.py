@@ -32,17 +32,19 @@ NEG = -1e30  # effectively log(0), finite to avoid inf−inf NaNs
 
 def masked_transitions(blank_lp, label_lp, xlen, ylen):
     """Validity masks: blank_lp (B,T,U+1), label_lp (B,T,U) → fp32 copies
-    with NEG at invalid transitions (rnnt_loss.py:92-104)."""
+    (fp64 for fp64 inputs) with NEG at invalid transitions
+    (rnnt_loss.py:92-104)."""
     _, t_len, u1 = blank_lp.shape
     dev = blank_lp.device
+    dt = torch.promote_types(blank_lp.dtype, torch.float32)
     t_ids = torch.arange(t_len, device=dev)[None, :, None]
     u_ids = torch.arange(u1, device=dev)[None, None, :]
     xl = xlen.to(dev).long()[:, None, None]
     yl = ylen.to(dev).long()[:, None, None]
-    blank_m = torch.where((t_ids < xl) & (u_ids <= yl), blank_lp.float(),
+    blank_m = torch.where((t_ids < xl) & (u_ids <= yl), blank_lp.to(dt),
                           NEG)
     label_m = torch.where((t_ids < xl) & (u_ids[..., :u1 - 1] < yl),
-                          label_lp.float(), NEG)
+                          label_lp.to(dt), NEG)
     return blank_m, label_m
 
 
@@ -78,12 +80,14 @@ def _row_scan_rev(b, c):
 def lattice_alpha_plain(blank_lp, label_lp, xlen, ylen):
     """Forward lattice: (blank (B,T,U+1), label (B,T,U) log-probs, xlen,
     ylen) → (alpha (B, T+1, U+1), logz (B,)), masking included (the
-    plain version of K9, rnnt_loss_pallas.py:_alpha_kernel)."""
+    plain version of K9, rnnt_loss_pallas.py:_alpha_kernel), in fp32, or
+    in fp64 throughout for fp64 inputs (the card tests' reference)."""
     blank_m, label_m = masked_transitions(blank_lp, label_lp, xlen, ylen)
     b, t_len, u1 = blank_m.shape
     # labsh[t, u] = label[t, u−1]: NEG at u = 0, and no row at t = T
     labsh = torch.cat([torch.full_like(blank_m[..., :1], NEG), label_m], -1)
-    first = torch.full((b, u1), NEG, device=blank_m.device)
+    first = torch.full((b, u1), NEG, dtype=blank_m.dtype,
+                       device=blank_m.device)
     first[:, 0] = 0.0
     row = _row_scan_fwd(first, labsh[:, 0])
     rows = [row]

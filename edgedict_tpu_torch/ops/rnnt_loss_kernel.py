@@ -7,11 +7,12 @@ backward is K10 (`lattice_beta_grad`), the occupancies scaled by −g
 outside.  CPU tensors take the plain versions in ops/rnnt_loss.py (row loop
 over t, doubling over u); CUDA tensors launch the kernels.
 
-K10 is a register wavefront (csrc/rnnt_loss.cu): beta lives in registers,
-one diagonal at a time, so the call allocates only its two outputs, with
-no (B, T+1, U+1) beta scratch.  `beta_plan` picks its block geometry from
-U+1: W warps of 32 lanes, each lane owning K columns; U+1 up to 4096, a
-ValueError above.
+Both are register wavefronts (csrc/rnnt_loss.cu), K9 walking the
+lattice's diagonals forwards and K10 backwards: alpha and beta live in
+registers, one diagonal at a time, so a call allocates only its outputs,
+with no (B, T+1, U+1) scratch.  `beta_plan` picks the block geometry of
+both from U+1: W warps of 32 lanes, each lane owning K columns; U+1 up to
+4096, a ValueError above.
 """
 
 import dataclasses
@@ -19,8 +20,10 @@ import dataclasses
 import torch
 
 from edgedict_tpu_torch import _build
+from edgedict_tpu_torch.ops.rnnt_loss import (
+    lattice_alpha_plain, lattice_beta_grad_plain, make_core)
 
-MAX_WARPS = 16        # warps along u in one K10 block (csrc: kMaxWarps)
+MAX_WARPS = 16        # warps along u in one block (csrc: kMaxWarps)
 RING = 32             # diagonals of edge values in flight between warps
 
 
@@ -31,21 +34,19 @@ class BetaPlan:
 
 
 def beta_plan(u1):
-    """K10's geometry for U+1 = `u1` columns → BetaPlan: as many warps as
-    it takes at one column a lane, up to 16 warps (512 columns; the warps
-    run on the SM's four schedulers side by side, where one warp walking
-    several columns a lane is bound by its own instruction latency), then
-    2, 4 and 8 columns a lane (1024, 2048, 4096).  ValueError for no
-    column or more than 4096."""
+    """K9's and K10's geometry for U+1 = `u1` columns → BetaPlan: as many
+    warps as it takes at one column a lane, up to 16 warps (512 columns;
+    the warps run on the SM's four schedulers side by side, where one warp
+    walking several columns a lane is bound by its own instruction
+    latency), then 2, 4 and 8 columns a lane (1024, 2048, 4096).
+    ValueError for no column or more than 4096."""
     if u1 >= 1:
         for items in (1, 2, 4, 8):
             warps = -(-u1 // (32 * items))
             if warps <= MAX_WARPS:
                 return BetaPlan(warps, items)
-    raise ValueError(f'rnnt lattice: no beta plan for U+1={u1} (1 to '
+    raise ValueError(f'rnnt lattice: no plan for U+1={u1} (1 to '
                      f'{32 * 8 * MAX_WARPS})')
-from edgedict_tpu_torch.ops.rnnt_loss import (
-    lattice_alpha_plain, lattice_beta_grad_plain, make_core)
 
 
 def _check(blank_lp, label_lp, xlen, ylen):
@@ -64,19 +65,21 @@ def _check(blank_lp, label_lp, xlen, ylen):
 
 def lattice_alpha(blank_lp, label_lp, xlen, ylen):
     """(blank (B,T,U+1), label (B,T,U) fp32, xlen/ylen (B,) int32) →
-    (alpha (B, T+1, U+1), logz (B,)).  CUDA tensors launch K9."""
+    (alpha (B, T+1, U+1), logz (B,)).  CUDA tensors launch K9 once (plan
+    `beta_plan`)."""
     if blank_lp.device.type == 'cpu':
         return lattice_alpha_plain(blank_lp, label_lp, xlen, ylen)
     blank_lp, label_lp = blank_lp.contiguous(), label_lp.contiguous()
     xlen, ylen = xlen.contiguous(), ylen.contiguous()
     b, t, u1 = _check(blank_lp, label_lp, xlen, ylen)
+    plan = beta_plan(u1)
     dev = blank_lp.device
     alpha = torch.empty((b, t + 1, u1), dtype=torch.float32, device=dev)
     logz = torch.empty((b,), dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.check(_build.library().edd_lattice_alpha(
         p(blank_lp), p(label_lp), p(xlen), p(ylen), p(alpha), p(logz), b, t,
-        u1, _build.stream_ptr(dev)), 'lattice_alpha')
+        u1, plan.warps, plan.items, _build.stream_ptr(dev)), 'lattice_alpha')
     lattice_alpha.launches += 1
     return alpha, logz
 

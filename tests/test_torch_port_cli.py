@@ -147,6 +147,68 @@ def test_cli_stream_transcript_equals_decode_wav(tmp_path):
         'WARNING: no checkpoint found — using random weights'
 
 
+def test_cli_stream_and_serve_load_the_run_checkpoint(tmp_path, capsys):
+    """Without --pt_path the stream CLI loads the run's checkpoint, as the
+    JAX package's CLI does (cli/stream.py:83-97): logs/<name>/models/<the
+    latest step>.ckpt, or the --model_name file, and prints `loaded
+    <path>`; its transcript equals decode_wav on that checkpoint's state
+    dict, and the server's decoder (cli/serve.py build_decoder) holds the
+    same weights."""
+    from test_torch_port_train import _cli_args, _write_corpus
+
+    from edgedict_tpu_torch import checkpoint as CK
+    from edgedict_tpu_torch.cli import baseline, serve, stream
+    from edgedict_tpu_torch.compat import transducer_from_state_dict
+    corpus = _write_corpus(str(tmp_path / 'libri'), n=4)
+    logs = str(tmp_path / 'logs')
+    args = _cli_args(corpus, logs, 'run')
+    args[args.index('--epochs') + 1] = '1'
+    trainer = baseline.main(args + ['--mode', 'train'], log_fn=lambda *_: 0)
+    step = trainer.state.step
+    trained = CK.checkpoint_path(trainer.logdir, step)
+    # a later step whose weights emit blanks only
+    later = CK.load_checkpoint(trained)['model']
+    later['joint.joint.2.bias'] = later['joint.joint.2.bias'].clone()
+    later['joint.joint.2.bias'][0] += 30.0
+    latest = CK.save_checkpoint(trainer.logdir, step + 1, later)
+    _, wav = _setup(tmp_path / 'audio')
+    audio, _ = load_audio(wav)
+    argv = ['--flagfile', os.path.join(trainer.logdir, 'flagfile.txt'),
+            '--device', 'cpu']
+    flags = C.parse_flags(stream.build_parser(''), argv)
+    argv += ['--path', wav]
+    assert (flags.logdir_root, flags.name) == (logs, 'run')
+    tok = stream.build_tokenizer(flags)
+    feat = C.feature_config_from_flags(flags, pad_to_divisible=False)
+    cfg = C.transducer_config_from_flags(flags, tok.vocab_size,
+                                         feat.input_size)
+
+    def expect(path):
+        model = transducer_from_state_dict(
+            CK.load_checkpoint(path)['model'], cfg, 'cpu')
+        return StreamingDecoder(model, cfg, feat, tok,
+                                device='cpu').decode_wav(audio)
+
+    def run(extra):
+        capsys.readouterr()
+        stream.main(argv + extra)
+        return capsys.readouterr().out.splitlines()
+
+    out = run([])
+    assert out[0] == f'loaded {latest}'
+    assert out[1] == expect(latest)
+    out = run(['--model_name', f'{step}.ckpt'])
+    assert out[0] == f'loaded {trained}'
+    assert out[1] == expect(trained) and out[1].strip()
+    assert expect(trained) != expect(latest)
+
+    flags.n_streams = 2
+    held = serve.build_decoder(flags).model.state_dict()
+    assert capsys.readouterr().out.splitlines()[0] == f'loaded {latest}'
+    for key, value in later.items():
+        assert torch.equal(held[key], value), key
+
+
 def test_cli_cuda_without_card_fails_loudly(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present')
@@ -288,3 +350,20 @@ def test_profiler_map_tells_k13_from_k12(dtype):
                     'lstm_fwd_q': [False, True, False],
                     'gru_fwd_q': [False, False, True],
                     'lstm_fwd': [False, False, False]}
+
+
+def test_profile_lattice_ablations_edit_k9_alone():
+    """Each ablation of cli/profile_lattice.py finds its text once in K9's
+    part of csrc/rnnt_loss.cu and leaves the rest of the source, K10's
+    walk included, as it is."""
+    from edgedict_tpu_torch import _build
+    from edgedict_tpu_torch.cli import profile_lattice
+    with open(os.path.join(_build.CSRC, 'rnnt_loss.cu')) as fh:
+        src = fh.read()
+    start, end = profile_lattice.k9_region(src)
+    for name, edits in profile_lattice.ABLATIONS.items():
+        out = profile_lattice.ablated_source(src, edits)
+        assert out[:start] == src[:start] and out.endswith(src[end:])
+        assert (out == src) == (name == 'shipped'), name
+    with pytest.raises(ValueError, match='not found once'):
+        profile_lattice.ablated_source(src, (('no such text', ''),))

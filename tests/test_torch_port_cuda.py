@@ -404,9 +404,9 @@ def _traced(case):
     `case`: (cell, dtype name) for K1 / K5 at H=256 B=8 T=16, ('k7',) for
     bf16 K7 at the E6D2 joint (J 640, V 2048), ('k3',) for K3 at E6D2's
     decoder widths, B=1 T=16, ('k12', dtype name) for K12 at H=1024 B=1
-    T=16, ('k13', dtype name) for K13 at the same shape, ('k10',) for K10
-    at the E6D2 lattice (B=32 T=214 U+1=65), ('k2',) for K2 at a 75 ms
-    chunk."""
+    T=16, ('k13', dtype name) for K13 at the same shape, ('k9',) and
+    ('k10',) for K9 and K10 at the E6D2 lattice (B=32 T=214 U+1=65),
+    ('k2',) for K2 at a 75 ms chunk."""
     import json
     import os
     import tempfile
@@ -430,6 +430,10 @@ def _traced(case):
                                     getattr(torch, case[1]), 13)
         q, sc = Q.quantize_int8(w.float())
         args, fn = (xp, q, sc, b_hh, h0), Q.gru_recurrence_q
+    elif case[0] == 'k9':
+        from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+        args = _lattice_case(cuda, 32, 214, 65, 'mixed')
+        fn = KL.lattice_alpha
     elif case[0] == 'k10':
         from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
         blank, label, xlen, ylen = _lattice_case(cuda, 32, 214, 65, 'mixed')
@@ -643,14 +647,18 @@ def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
     from edgedict_tpu_torch.ops import rnnt_loss_kernel as K
     blank, label, xlen, ylen = _lattice_case(cuda, b, t, u1, edge)
     alpha, logz = K.lattice_alpha(blank, label, xlen, ylen)
-    r_alpha, r_logz = PL.lattice_alpha_plain(blank, label, xlen, ylen)
+    # the plain chain in fp64: in fp32 its own occupancies are 2.0e-4 off
+    # at the E6D2 lattice, over the tolerance, where K9 and K10, both
+    # carrying their chains in fp64, are ~1e-5 off
+    wide = (blank.double(), label.double())
+    r_alpha, r_logz = PL.lattice_alpha_plain(*wide, xlen, ylen)
     assert _max_abs(logz, r_logz) <= 1e-4 * max(1.0, float(r_logz.abs()
                                                            .max()))
     gb, gl = K.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
     again = K.lattice_beta_grad(blank, label, alpha, logz, xlen, ylen)
     assert torch.equal(gb, again[0]) and torch.equal(gl, again[1])
-    r_gb, r_gl = PL.lattice_beta_grad_plain(blank, label, r_alpha, r_logz,
-                                            xlen, ylen)
+    r_gb, r_gl = PL.lattice_beta_grad_plain(*wide, r_alpha, r_logz, xlen,
+                                            ylen)
     # an occupancy exp(alpha + beta - logZ) carries the absolute rounding of
     # its O(|logZ|) exponent: a few fp32 ulps of |logZ|
     occ_tol = max(1e-5, 1e-6 * float(r_logz.abs().max()))
@@ -662,13 +670,68 @@ def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
         <= 1e-3
 
 
-@pytest.mark.parametrize('b,t,u1,edge', [
+# every geometry of the lattice plan (beta_plan: 1 to 16 warps of one
+# column a lane, 9 warps of 2, of 4 and of 8), T = 1, xlen = 0
+LATTICE_CASES = [
     (32, 214, 65, 'mixed'), (4, 9, 1, 'full'), (3, 1, 7, 'full'),
     (2, 12, 9, 'xlen0'), (3, 7, 33, 'mixed'), (2, 1, 65, 'full'),
     (2, 6, 128, 'mixed'), (2, 3, 300, 'mixed'), (2, 4, 512, 'mixed'),
     (2, 3, 600, 'mixed'), (2, 2, 1100, 'full'), (2, 1, 1100, 'xlen0'),
     (1, 2, 2100, 'full'),
-])
+]
+
+
+@pytest.mark.parametrize('b,t,u1,edge', LATTICE_CASES)
+def test_k9_matches_plain(cuda, b, t, u1, edge):
+    """K9 alone, every geometry of its plan: alpha on the cells t <=
+    xlen, u <= ylen and logZ within max(1e-5, 1e-6 |logZ|) of its plain
+    version run in fp64 throughout (the fp32 plain version's own error
+    against it stated beside K9's), logZ the stored alpha[xlen, ylen] bit
+    for bit, one count per call, the same bits on a second call, and no
+    memory past alpha and logz."""
+    from edgedict_tpu_torch.ops import rnnt_loss as PL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as K
+    blank, label, xlen, ylen = _lattice_case(cuda, b, t, u1, edge)
+    torch.cuda.synchronize()
+    before = K.lattice_alpha.launches
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    alpha, logz = K.lattice_alpha(blank, label, xlen, ylen)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert K.lattice_alpha.launches == before + 1
+    # the outputs, each rounded up to the allocator's 512-byte blocks
+    assert extra <= sum(-(-x.numel() * 4 // 512) * 512 for x in (alpha, logz))
+    again = K.lattice_alpha(blank, label, xlen, ylen)
+    assert torch.equal(alpha, again[0]) and torch.equal(logz, again[1])
+    idx = torch.arange(b, device=cuda)
+    assert torch.equal(logz, alpha[idx, xlen.long(), ylen.long()])
+    wide = (blank.double(), label.double(), xlen, ylen)
+    assert all(m.dtype == torch.float64 for m in PL.masked_transitions(*wide))
+    r_alpha, r_logz = PL.lattice_alpha_plain(*wide)
+    assert r_alpha.dtype == r_logz.dtype == torch.float64
+    p_alpha, p_logz = PL.lattice_alpha_plain(blank, label, xlen, ylen)
+    valid = (torch.arange(t + 1, device=cuda)[None, :, None]
+             <= xlen.long()[:, None, None]) \
+        & (torch.arange(u1, device=cuda)[None, None, :]
+           <= ylen.long()[:, None, None])
+
+    def err(a, z):
+        return max(float((a.double() - r_alpha)[valid].abs().max()),
+                   float((z.double() - r_logz).abs().max()))
+    tol = max(1e-5, 1e-6 * float(r_logz.abs().max()))
+    k9, plain = err(alpha, logz), err(p_alpha, p_logz)
+    assert k9 <= tol, f'K9 {k9:.3e}, fp32 plain {plain:.3e}, tol {tol:.3e}'
+
+
+def test_k9_is_one_launch_per_call(cuda):
+    """One K9 call at the E6D2 lattice is one launch of the wavefront
+    kernel and nothing else on the card: no scratch, no memset."""
+    names = [n for n, _ in _kernel_events(('k9',))['kernels']]
+    assert len(names) == 1 and 'lattice_alpha_kernel' in names[0], names
+
+
+@pytest.mark.parametrize('b,t,u1,edge', LATTICE_CASES)
 def test_k10_matches_plain_on_the_same_alpha(cuda, b, t, u1, edge):
     """K10 alone, every geometry of its plan (1 to 16 warps of one column a
     lane, 9 warps of 2, of 4 and of 8), T = 1, xlen = 0:
