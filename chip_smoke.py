@@ -19,8 +19,14 @@ Phases, each printing JSON or text lines:
              case), the recurrences
              K1/K4/K5/K6 beside one cuDNN nn.LSTM / nn.GRU layer (forward,
              or forward+backward) and the port's own layer timed the same
-             way (library_ms, layer_ms); K4/K6 also split into their two
-             launches, the gate remat and the dh chain (torch.profiler
+             way (library_ms, layer_ms); K1 also at the beam search's
+             steps (T=1: H=256 B=4, 16 and 32, H=512 B=4 fp32 and bf16 and
+             B=32 fp32, the rows of slice_beam, train_run's beam eval and
+             server_beam; the B=4 ones beside a cuDNN layer, with device
+             ms) and lm_train's H=512 B=32 T=64 (K4 too), the K1 ones
+             bit-stable, all after every other case on their own seed;
+             K4/K6 also split into their two launches, the gate remat
+             and the dh chain (torch.profiler
              device ms), and K8 into its tensor-core launches (h, dlogits,
              dh, dW, the partials' reduction) with its launch plan; K1 and
              K5 (one persistent launch per call) with their launch plan
@@ -84,18 +90,39 @@ Phases, each printing JSON or text lines:
              a repeated small batch, one --mode eval pass (val_loss, WER)
  12 train_run_gru  the same with --enc_type GRU on the same corpus and
              BPE model, plus one step of a Trainer with --time_warp_w 80
-             --optim novograd (finite loss)
- 13 launches every kernel launched by the main paths themselves: the counts
+             --optim novograd (finite loss); the LSTM run's eval pass also
+             has --eval_beam_width 4 and must print a finite beam_WER
+ 13 lm_train cli.train_lm at LMConfig's defaults (V=2048, 256 / 512 / 2
+             layers) on that corpus's texts with its BPE 2048, at E6D2's
+             batch 32, ~20 steps: finite, falling loss, lm.ckpt written
+ 14 slice_beam  StreamingBeamDecoder.decode_wav (E6D2, W=4, 3 expansions a
+             frame, prefix merging, 200 tokens; seeded weights made peaky,
+             see _beam_models) of the slice's 4 s without LM, with a seeded
+             LM (weight 0.2) and with quantize='int8': cuda best tokens ==
+             the CPU run's, best logp within rel 1e-4, non-empty; bf16
+             agreement, the smallest prune gap, per-chunk wall ms, profiled
+             device ms and busy share; then cli.stream --beam_width 4
+             --lm_path <lm_train's lm.ckpt> == decode_wav with that LM
+ 15 server_beam  StreamServer over MultiStreamBeamDecoder(n_streams=8,
+             W=4, the LM) as cli/serve.py --beam_width 4 builds it ('='
+             messages); 4 clients, each final transcript == decode_wav;
+             the same rounds driven directly under the profiler (device
+             ms and busy share a round)
+ 16 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
-             fp32 / int8, GRU fp32 / int8), just before the clients of each
-             server connect and just before the measured train steps, and
-             read just after each, so no warm-up, reference or comparison
-             call is counted; the decodes' counts must equal what their
-             encoder calls imply (per call: int8 LSTM K11 7, K12 6, K1 0;
-             GRU K5 6; int8 GRU K11 7, K13 6, K5 0), the train counts what
-             the steps imply (per micro-step: LSTM 8 K1 and 8 K4, GRU 6 K5,
-             6 K6, 2 K1 and 2 K4; one of K2 and K7-K10 each); every K11
-             launch of the int8 server is a tiled one
+             fp32 / int8, GRU fp32 / int8, the three beam runs), just
+             before the clients of each server connect, just before the
+             measured train steps and cli.train_lm, and read just after
+             each, so no warm-up, reference or comparison call is counted;
+             the decodes' counts must equal what their encoder calls imply
+             (per call: int8 LSTM K11 7, K12 6, K1 0; GRU K5 6; int8 GRU
+             K11 7, K13 6, K5 0), the beam decodes' K2 = chunks, K3 = 0 and
+             K1 = the encoder's + frames x 3 expansions x (2 prediction-net
+             + 2 LM layers with fusion), the train counts what the steps
+             imply (per micro-step: LSTM 8 K1 and 8 K4, GRU 6 K5, 6 K6, 2
+             K1 and 2 K4; one of K2 and K7-K10 each), cli.train_lm's 2 K1
+             and 2 K4 a step; every K11 launch of the int8 server is a
+             tiled one; the beam server launches K1 and K2 and no K3
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -262,7 +289,6 @@ def phase_kernels(torch):
     from edgedict_tpu_torch import features as F
     from edgedict_tpu_torch.ops import decode_kernel as K3
     from edgedict_tpu_torch.ops import features_kernel as K2
-    from edgedict_tpu_torch.ops import rnn_kernel as K1
     from edgedict_tpu_torch.models import transducer as T
     dev = torch.device('cuda')
     rng = np.random.RandomState(0)
@@ -351,51 +377,7 @@ def phase_kernels(torch):
     cases += [(1024, 33, 3, torch.bfloat16), (1024, 256, 2, torch.float32),
               (512, 32, 2, torch.bfloat16)]
     for hid, b, t, dt in cases:
-        k = 1.0 / hid ** 0.5
-        xp = torch.as_tensor(rng.randn(t, b, 4 * hid).astype(np.float32),
-                             device=dev).to(dt)
-        w = torch.as_tensor(rng.uniform(-k, k, (4 * hid, hid))
-                            .astype(np.float32), device=dev).to(dt)
-        h0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
-                             device=dev)
-        c0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
-                             device=dev)
-        ys, cs, hT = K1.lstm_recurrence(xp, w, h0, c0)
-        rys, rcs, rhT = K1.lstm_recurrence_plain(xp, w, h0, c0)
-        step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w, h0, c0, ys, cs)
-        torch.cuda.synchronize()
-        # free-running, bf16 drifts: a one-ulp flip of h's bf16 rounding
-        # feeds every later step.  Step by step from the kernel's own state,
-        # cs is held to the fp32 bound, so a kernel that fed fp32 h to the
-        # dot (no bf16 cast) fails; bf16 ys may still differ by one ulp
-        run_tol = (1e-4, 1e-4) if dt == torch.float32 else (2e-2, 2e-2)
-        ys_tol = (1e-4, 1e-4) if dt == torch.float32 else (1e-2, 0.0)
-        oks, errs = zip(*[_close(a, r, *tol) for a, r, tol in
-                          ((ys, rys, run_tol), (cs, rcs, run_tol),
-                           (hT, rhT, run_tol), (ys, step_ys, ys_tol),
-                           (cs, step_cs, (1e-4, 1e-4)))])
-        case = {'kernel': 'K1 lstm_fwd', 'H': hid, 'B': b, 'T': t,
-                'dtype': str(dt).split('.')[-1], 'ys_max_abs': errs[0],
-                'cs_max_abs': errs[1], 'hT_max_abs': errs[2],
-                'step_ys_max_abs': errs[3], 'step_cs_max_abs': errs[4],
-                'tol': f'run atol {run_tol[0]} rtol {run_tol[1]}; per step '
-                       f'ys atol {ys_tol[0]} rtol {ys_tol[1]}, cs atol 1e-4 '
-                       'rtol 1e-4', 'plan': fwd_plan(xp, 4)}
-        main = (hid, b, t, dt) == (1024, 1, 2, torch.float32)
-        if t != 16 or b == 1:
-            ms, pms = time_pair(
-                torch, lambda: K1.lstm_recurrence_plain(xp, w, h0, c0),
-                lambda: K1.lstm_recurrence(xp, w, h0, c0))
-            case.update(ms=ms, plain_ms=pms)
-        if main:
-            case.update(layer_times(torch, 'LSTM', hid, b, t, dt, False))
-        bounds = bound(nbytes(xp, w, h0, c0, ys, cs, hT),
-                       2 * t * b * 4 * hid * hid, kind_of(torch, xp))
-        case.update(bound_ms=bounds[0], bound_by=bounds[1])
-        emit(case)
-        require(all(oks), f'K1 disagrees: {case}')
-        record('lstm_fwd', max(errs), case.get('ms') if main else None,
-               case.get('plain_ms'), bounds, case.get('library_ms'))
+        lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt)
 
     # K3 — greedy frame loop at E6D2's joint / prediction-net widths: one
     # stream (T=1: a streaming chunk), the fp32 server's 8 and the int8
@@ -473,7 +455,143 @@ def phase_kernels(torch):
               'profiled_launches': n})
         if key == {'B': 1, 'T': 1, 'blank_bias': 0.0}:
             summary['greedy_decode']['device_ms'] = ms
+    beam_kernels(torch, dev, record)
     STATE['kernels'] = summary
+
+
+def lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt, beam_step=False,
+                  bit_stable=False):
+    """K1 against its plain version at (H, B, T, dtype), free-running and
+    step by step from the kernel's own state, with its plan, timed where
+    T < 16 or B = 1; a beam step also beside one cuDNN layer with the
+    beam's input width and with its device ms; bit_stable: the same bits
+    on a second call."""
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    k = 1.0 / hid ** 0.5
+    xp = torch.as_tensor(rng.randn(t, b, 4 * hid).astype(np.float32),
+                         device=dev).to(dt)
+    w = torch.as_tensor(rng.uniform(-k, k, (4 * hid, hid))
+                        .astype(np.float32), device=dev).to(dt)
+    h0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
+                         device=dev)
+    c0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
+                         device=dev)
+    ys, cs, hT = K1.lstm_recurrence(xp, w, h0, c0)
+    rys, rcs, rhT = K1.lstm_recurrence_plain(xp, w, h0, c0)
+    step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w, h0, c0, ys, cs)
+    torch.cuda.synchronize()
+    # free-running, bf16 drifts: a one-ulp flip of h's bf16 rounding
+    # feeds every later step.  Step by step from the kernel's own state,
+    # cs is held to the fp32 bound, so a kernel that fed fp32 h to the
+    # dot (no bf16 cast) fails; bf16 ys may still differ by one ulp
+    run_tol = (1e-4, 1e-4) if dt == torch.float32 else (2e-2, 2e-2)
+    ys_tol = (1e-4, 1e-4) if dt == torch.float32 else (1e-2, 0.0)
+    oks, errs = zip(*[_close(a, r, *tol) for a, r, tol in
+                      ((ys, rys, run_tol), (cs, rcs, run_tol),
+                       (hT, rhT, run_tol), (ys, step_ys, ys_tol),
+                       (cs, step_cs, (1e-4, 1e-4)))])
+    case = {'kernel': 'K1 lstm_fwd', 'H': hid, 'B': b, 'T': t,
+            'dtype': str(dt).split('.')[-1], 'ys_max_abs': errs[0],
+            'cs_max_abs': errs[1], 'hT_max_abs': errs[2],
+            'step_ys_max_abs': errs[3], 'step_cs_max_abs': errs[4],
+            'tol': f'run atol {run_tol[0]} rtol {run_tol[1]}; per step '
+                   f'ys atol {ys_tol[0]} rtol {ys_tol[1]}, cs atol 1e-4 '
+                   'rtol 1e-4', 'plan': fwd_plan(xp, 4)}
+    main = (hid, b, t, dt) == (1024, 1, 2, torch.float32)
+    if t != 16 or b == 1:
+        ms, pms = time_pair(
+            torch, lambda: K1.lstm_recurrence_plain(xp, w, h0, c0),
+            lambda: K1.lstm_recurrence(xp, w, h0, c0))
+        case.update(ms=ms, plain_ms=pms)
+    if main:
+        case.update(layer_times(torch, 'LSTM', hid, b, t, dt, False))
+    if beam_step:
+        # the layer's input: E6D2's 64-wide label embedding, the LM's
+        # 256-wide one
+        case.update(layer_times(torch, 'LSTM', hid, b, t, dt, False,
+                                n_in=64 if hid == 256 else 256))
+        case['device_ms'], _ = device_ms_per_launch(
+            torch, lambda: K1.lstm_recurrence(xp, w, h0, c0),
+            'recur_fwd_kernel')
+    if bit_stable:
+        again = K1.lstm_recurrence(xp, w, h0, c0)
+        case['bit_stable'] = all(torch.equal(a, c) for a, c in
+                                 zip((ys, cs, hT), again))
+        oks += (case['bit_stable'],)
+    bounds = bound(nbytes(xp, w, h0, c0, ys, cs, hT),
+                   2 * t * b * 4 * hid * hid, kind_of(torch, xp))
+    case.update(bound_ms=bounds[0], bound_by=bounds[1])
+    emit(case)
+    require(all(oks), f'K1 disagrees: {case}')
+    record('lstm_fwd', max(errs), case.get('ms') if main else None,
+           case.get('plain_ms'), bounds, case.get('library_ms'))
+
+
+def lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt):
+    """K4 against its plain version at (H, B, T, dtype), timed, split into
+    its two launches by the profiler; the E6D2 encoder's also beside one
+    cuDNN layer."""
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    fp32 = torch.float32
+
+    def t_(*shape, scale=1.0, dtype=fp32):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
+                               device=dev).to(dtype)
+
+    k = 1.0 / hid ** 0.5
+    xp = t_(t, b, 4 * hid, dtype=dt)
+    w = torch.as_tensor(rng.uniform(-k, k, (4 * hid, hid))
+                        .astype(np.float32), device=dev).to(dt)
+    h0, c0 = t_(b, hid, scale=0.5), t_(b, hid, scale=0.5)
+    ys, cs, _ = K1.lstm_recurrence(xp, w, h0, c0)
+    dys = t_(t, b, hid, dtype=dt)
+    args = (xp, w, h0, c0, ys, cs, dys, None, None)
+    out = K1.lstm_recurrence_bwd(*args)
+    ref = K1.lstm_recurrence_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [_rel(torch, a, r) for a, r in zip(out, ref)]
+    tol = 1e-4 if dt == fp32 else 2e-2
+    case = {'kernel': 'K4 lstm_bwd', 'H': hid, 'B': b, 'T': t,
+            'dtype': str(dt).split('.')[-1], 'dgates_rel': errs[0],
+            'dh0_rel': errs[1], 'dc0_rel': errs[2],
+            'tol': f'max|d| / max(1, max|ref|) <= {tol}'}
+    ms, pms = time_pair(torch, lambda: K1.lstm_recurrence_bwd_plain(*args),
+                        lambda: K1.lstm_recurrence_bwd(*args))
+    bounds = bound(nbytes(xp, w, h0, c0, ys, cs, dys, *out),
+                   4 * t * b * 4 * hid * hid, kind_of(torch, xp))
+    case.update(ms=ms, plain_ms=pms, bound_ms=bounds[0],
+                bound_by=bounds[1])
+    main = (hid, t) == (1024, 427)
+    case.update(kernel_split_ms(
+        torch, lambda: K1.lstm_recurrence_bwd(*args), BWD_PARTS))
+    if main:
+        case.update(layer_times(torch, 'LSTM', hid, b, t, dt, True))
+    emit(case)
+    require(max(errs) <= tol, f'K4 disagrees: {case}')
+    record('lstm_bwd', max(errs), ms if main else None, pms, bounds,
+           case.get('library_ms'))
+
+
+def beam_kernels(torch, dev, record):
+    """K1 at the beam paths' shapes, B·W rows (W=4) and T = 1: the
+    prediction net (H=256) of one stream, of train_run's beam eval (eval
+    batch 4) and of server_beam's 8 streams; the LM (H=512) of one stream
+    in fp32 and bf16 and of server_beam's 8 streams; K1 and K4 at
+    lm_train's LM_TRAIN (H=512, E6D2's batch 32, T=64).  Each K1 case
+    bit-stable; run after every other kernel case, on data of its own
+    seed, so the earlier cases see the data and the allocator they saw
+    before the beam was ported."""
+    fp32 = torch.float32
+    rng = np.random.RandomState(12)
+    w_ = BEAM['beam_width']
+    steps = ((256, w_, 1, fp32), (512, w_, 1, fp32))
+    for case in (*steps, (256, w_ * EVAL_BATCH, 1, fp32),
+                 (256, w_ * SERVER_BEAM_STREAMS, 1, fp32),
+                 (512, w_ * SERVER_BEAM_STREAMS, 1, fp32),
+                 (512, w_, 1, torch.bfloat16), (*LM_TRAIN, fp32)):
+        lstm_fwd_case(torch, rng, dev, record, *case,
+                      beam_step=case in steps, bit_stable=True)
+    lstm_bwd_case(torch, rng, dev, record, *LM_TRAIN, fp32)
 
 
 def k3_bound(torch, cfg, cache, args, out):
@@ -690,7 +808,6 @@ def train_kernels(torch, rng, dev, record):
 
     from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
     from edgedict_tpu_torch.ops import joint_lse_plan as JP
-    from edgedict_tpu_torch.ops import rnn_kernel as K1
     from edgedict_tpu_torch.ops import rnnt_loss as PL
     from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -703,38 +820,7 @@ def train_kernels(torch, rng, dev, record):
     # shorter encoder layer in fp32, the prediction net in bf16
     for hid, b, t, dt in ((1024, 32, 427, bf16), (1024, 32, 64, fp32),
                           (256, 32, 65, bf16)):
-        k = 1.0 / hid ** 0.5
-        xp = t_(t, b, 4 * hid, dtype=dt)
-        w = torch.as_tensor(rng.uniform(-k, k, (4 * hid, hid))
-                            .astype(np.float32), device=dev).to(dt)
-        h0, c0 = t_(b, hid, scale=0.5), t_(b, hid, scale=0.5)
-        ys, cs, _ = K1.lstm_recurrence(xp, w, h0, c0)
-        dys = t_(t, b, hid, dtype=dt)
-        args = (xp, w, h0, c0, ys, cs, dys, None, None)
-        out = K1.lstm_recurrence_bwd(*args)
-        ref = K1.lstm_recurrence_bwd_plain(*args)
-        torch.cuda.synchronize()
-        errs = [_rel(torch, a, r) for a, r in zip(out, ref)]
-        tol = 1e-4 if dt == fp32 else 2e-2
-        case = {'kernel': 'K4 lstm_bwd', 'H': hid, 'B': b, 'T': t,
-                'dtype': str(dt).split('.')[-1], 'dgates_rel': errs[0],
-                'dh0_rel': errs[1], 'dc0_rel': errs[2],
-                'tol': f'max|d| / max(1, max|ref|) <= {tol}'}
-        ms, pms = time_pair(torch, lambda: K1.lstm_recurrence_bwd_plain(*args),
-                            lambda: K1.lstm_recurrence_bwd(*args))
-        bounds = bound(nbytes(xp, w, h0, c0, ys, cs, dys, *out),
-                       4 * t * b * 4 * hid * hid, kind_of(torch, xp))
-        case.update(ms=ms, plain_ms=pms, bound_ms=bounds[0],
-                    bound_by=bounds[1])
-        main = (hid, t) == (1024, 427)
-        case.update(kernel_split_ms(
-            torch, lambda: K1.lstm_recurrence_bwd(*args), BWD_PARTS))
-        if main:
-            case.update(layer_times(torch, 'LSTM', hid, b, t, dt, True))
-        emit(case)
-        require(max(errs) <= tol, f'K4 disagrees: {case}')
-        record('lstm_bwd', max(errs), ms if main else None, pms, bounds,
-               case.get('library_ms'))
+        lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt)
 
     # K6 — GRU backward: encoder layer 0 in bf16 (the training dtype), a
     # shorter encoder layer in fp32, and odd small shapes
@@ -1566,27 +1652,15 @@ def phase_slice_gru(torch):
     require(res['nonblank_frames'] > 0, 'no token emitted')
 
 
-def phase_server(torch, quantize=None, n_streams=8):
-    """StreamServer over MultiStreamDecoder(n_streams, cuda, quantize) as
-    cli/serve.py builds it; 4 concurrent clients, each transcript ==
-    decode_wav of its audio."""
+def _serve(torch, dec, audios, run):
+    """StreamServer over `dec`, built as cli/serve.py builds it (lockstep
+    rounds); one concurrent client per audio, the launch counts of the
+    clients' rounds alone to STATE['launches_' + run] → (transcripts,
+    server)."""
     import asyncio
 
-    from edgedict_tpu_torch import stream as S
-    from edgedict_tpu_torch.cli.profile_stream import (
-        StandInTokenizer, synthetic_audio)
     from edgedict_tpu_torch.cli.serve import build_server
-    from edgedict_tpu_torch.models import transducer as T
     from edgedict_tpu_torch.serving import stream_client
-    cfg, feat = _e6d2()
-    tok = StandInTokenizer(cfg.vocab_size)
-    model = STATE.get('model') or T.Transducer(cfg, device='cpu', seed=0)
-    audios = [synthetic_audio(10 + i, seconds=3.0) for i in range(4)]
-    single = S.StreamingDecoder(model, cfg, feat, tok, device='cuda',
-                                quantize=quantize)
-    expected = [single.decode_wav(a) for a in audios]
-    dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=n_streams,
-                               device='cuda', quantize=quantize)
     server = build_server(dec, port=0, round_timeout_ms=0)   # lockstep
     loop = asyncio.new_event_loop()
     started = threading.Event()
@@ -1613,13 +1687,34 @@ def phase_server(torch, quantize=None, n_streams=8):
             c.start()
         for c in clients:
             c.join(600)
-        run = 'server' if quantize is None else f'server_{quantize}'
         STATE['launches_' + run] = _launches()
         require(not any(c.is_alive() for c in clients), 'client timed out')
     finally:
         asyncio.run_coroutine_threadsafe(server.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
         th.join(60)
+    return results, server
+
+
+def phase_server(torch, quantize=None, n_streams=8):
+    """StreamServer over MultiStreamDecoder(n_streams, cuda, quantize) as
+    cli/serve.py builds it; 4 concurrent clients, each transcript ==
+    decode_wav of its audio."""
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    from edgedict_tpu_torch.models import transducer as T
+    cfg, feat = _e6d2()
+    tok = StandInTokenizer(cfg.vocab_size)
+    model = STATE.get('model') or T.Transducer(cfg, device='cpu', seed=0)
+    audios = [synthetic_audio(10 + i, seconds=3.0) for i in range(4)]
+    single = S.StreamingDecoder(model, cfg, feat, tok, device='cuda',
+                                quantize=quantize)
+    expected = [single.decode_wav(a) for a in audios]
+    dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=n_streams,
+                               device='cuda', quantize=quantize)
+    run = 'server' if quantize is None else f'server_{quantize}'
+    results, server = _serve(torch, dec, audios, run)
     match = [r == e for r, e in zip(results, expected)]
     res = {'phase': run, 'n_streams': dec.n, 'clients': len(audios),
            'rounds': server.rounds,
@@ -1892,7 +1987,12 @@ def phase_train_run(torch, enc_type='LSTM'):
 
         trainer.save()
         lines = []
-        baseline.main(argv + ['--mode', 'eval'], log_fn=lines.append)
+        # the LSTM run's eval pass also decodes with a W=4 beam
+        beam = [] if gru else ['--eval_beam_width', str(BEAM['beam_width'])]
+        require(flags.eval_batch_size == EVAL_BATCH,
+                f'eval batch {flags.eval_batch_size}: phase_kernels holds K1 '
+                f'at the beam eval\'s {EVAL_BATCH} x W rows')
+        baseline.main(argv + ['--mode', 'eval'] + beam, log_fn=lines.append)
         val = [ln for ln in lines if ln.startswith('val_loss')]
         res['eval'] = val[0] if val else None
         if gru:
@@ -1903,6 +2003,11 @@ def phase_train_run(torch, enc_type='LSTM'):
         require(fall[-1] < fall[0], f'loss did not fall: {fall}')
         require(bool(val) and np.isfinite(float(val[0].split()[1])),
                 f'eval printed no finite val_loss: {lines}')
+        if beam:
+            words = val[0].split()
+            require(words[4:5] == ['beam_WER']
+                    and np.isfinite(float(words[5])),
+                    f'eval printed no finite beam_WER: {val[0]}')
         if gru:
             w = res['warp_novograd']
             require(np.isfinite(w['loss']) and w['skipped'] == 0.0,
@@ -1931,6 +2036,337 @@ def _warp_novograd_step(torch, argv, batch):
     return {'flags': '--time_warp_w 80 --optim novograd', 'loss': loss,
             'skipped': float(m['skipped']),
             'step_ms': 1e3 * (time.perf_counter() - t1)}
+
+
+# the beam of the slice: E6D2, W=4, 3 label expansions a frame, prefix
+# merging, 200 tokens; shallow fusion at cli/stream.py's default weight
+BEAM = dict(beam_width=4, max_sym_per_frame=3, max_tokens=200)
+LM_WEIGHT = 0.2
+# the beam paths' K1 / K4 shapes that phase_kernels and train_kernels hold
+# against plain: server_beam's streams, train_run's eval batch (its beam
+# eval runs W=4 too), lm_train's (H, B, T) at E6D2's batch
+SERVER_BEAM_STREAMS = 8
+EVAL_BATCH = 4
+LM_TRAIN = (512, 32, 64)
+
+
+def _beam_models(torch):
+    """(model, lm triple) of the beam phases: the slice's seeded E6D2 model
+    and a seeded LM at LMConfig's defaults (V=2048, 256 / 512 / 2 layers).
+    Seeded random weights give near-uniform posteriors over 2048 labels,
+    under which the all-blank path wins every beam (every frame pays one
+    blank, each label costs ~7 nats more): the joint's output layer x32,
+    its prediction-net columns x6 and the label embedding x4 make the
+    posteriors peaky and the prediction net move them, as training does;
+    the LM's output layer x4 makes it peaky too."""
+    import copy
+
+    from edgedict_tpu_torch.models import transducer as T
+    from edgedict_tpu_torch.models.lm import LMConfig, LMModel
+    if 'beam_model' not in STATE:
+        cfg, _ = _e6d2()
+        model = copy.deepcopy(STATE.get('model')
+                              or T.Transducer(cfg, device='cpu', seed=0))
+        lm = LMModel(LMConfig(vocab_size=cfg.vocab_size), 'cpu', seed=0)
+        with torch.no_grad():
+            model.joint.out.weight *= 32.0
+            model.joint.joint[0].weight[:, cfg.enc_proj_size:] *= 6.0
+            model.decoder.embed.weight *= 4.0
+            lm.out.weight *= 4.0
+        STATE['beam_model'] = model
+        STATE['beam_lm'] = (lm, lm.cfg, LM_WEIGHT)
+    return STATE['beam_model'], STATE['beam_lm']
+
+
+def _beam_decode(torch, model, cfg, feat, tok, audio, device, dtype=None,
+                 quantize=None, lm=None, count=None, warm=True):
+    """StreamingBeamDecoder.decode_wav (after a warm-up one when `warm`) →
+    (decoder, best tokens, best logp); with `count`, the launch counts of
+    the measured decode alone go to STATE['launches_' + count]."""
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.models.beam_search import best_hypothesis
+    dec = S.StreamingBeamDecoder(model, cfg, feat, tok, device=device,
+                                 compute_dtype=dtype, quantize=quantize,
+                                 lm=lm, **BEAM)
+    if warm:
+        dec.decode_wav(audio)
+        dec.elapsed = []
+    if count:
+        _reset_launches()
+    dec.decode_wav(audio)
+    if count:
+        STATE['launches_' + count] = _launches()
+        STATE['chunks_' + count] = len(dec.elapsed)
+        # encoder frames: each chunk's feature frames over the time scale
+        per_chunk = -(-dec.rt.pipeline.num_frames(dec.win_size)
+                      // cfg.time_scale)
+        STATE['frames_' + count] = per_chunk * len(dec.elapsed)
+    toks, n_tok, logp = best_hypothesis(dec.beam)
+    return dec, toks[0, :int(n_tok[0])].cpu().numpy(), float(logp[0])
+
+
+def _prune_gap(torch, dec, audio):
+    """The smallest gap between the W-th and the (W+1)-th candidate, both
+    live, at any prune of one decode_wav (top_k wrapped for this decode
+    alone; its minima fetched once at the end)."""
+    from edgedict_tpu_torch.models import beam_search as B
+    plain, gaps = B.top_k, []
+
+    def top_k(x, k):
+        vals, idx = plain(x, k + 1)
+        live = vals[..., k] > B.NEG / 2
+        gaps.append(torch.where(live, vals[..., k - 1] - vals[..., k],
+                                float('inf')).min())
+        return vals[..., :k], idx[..., :k]
+
+    B.top_k = top_k
+    try:
+        dec.decode_wav(audio)
+    finally:
+        B.top_k = plain
+    return float(torch.stack(gaps).min())
+
+
+def _device_profile(torch, run, n, unit):
+    """One call of run() (n chunks or rounds) under torch.profiler: device
+    ms, kernel and copy records and K1's device ms per `unit`, the busy
+    share of the call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us = records = k1 = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us += e.device_time_total
+            records += e.count
+            if 'recur_fwd_kernel' in e.key:
+                k1 += e.device_time_total
+    return {f'profiled_wall_ms_per_{unit}': 1e3 * wall / n,
+            f'device_ms_per_{unit}': us / 1e3 / n,
+            'device_busy_share': us / 1e6 / wall,
+            f'device_records_per_{unit}': records / n,
+            f'k1_device_ms_per_{unit}': k1 / 1e3 / n}
+
+
+def _token_agreement(a, b):
+    """Positions where two token sequences agree, over the longer one."""
+    n = max(len(a), len(b))
+    m = min(len(a), len(b))
+    return float((a[:m] == b[:m]).sum()) / n if n else 1.0
+
+
+def phase_slice_beam(torch):
+    """E6D2 StreamingBeamDecoder.decode_wav (W=4, fp32) of the slice's 4 s
+    without LM, with LM and with quantize='int8': the cuda best hypothesis
+    == the CPU run's, its logp within rel 1e-4, non-empty; bf16 agreement,
+    the smallest prune gap, per-chunk wall ms and the profiled device ms;
+    then cli.stream --beam_width 4 --lm_path <lm_train's lm.ckpt> on the
+    same audio == decode_wav with that LM."""
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    cfg, feat = _e6d2()
+    tok = StandInTokenizer(cfg.vocab_size)
+    model, lm = _beam_models(torch)
+    audio = synthetic_audio(0)
+    emit({'phase': 'slice_beam', 'config': 'flagfiles/E6D2.txt', **BEAM,
+          'merge_prefixes': True, 'lm': 'LMConfig defaults (V=2048, 256 / '
+          f'512 / 2), random seed 0, weight {LM_WEIGHT}',
+          'weights': 'random, seed 0, joint output x32, prediction-net '
+          'columns x6, label embedding x4, LM output x4'})
+    for run, run_lm, quantize in (('beam', None, None),
+                                  ('beam_lm', lm, None),
+                                  ('beam_int8', None, 'int8')):
+        cuda, t_cuda, lp_cuda = _beam_decode(
+            torch, model, cfg, feat, tok, audio, 'cuda', quantize=quantize,
+            lm=run_lm, count=run)
+        cpu, t_cpu, lp_cpu = _beam_decode(
+            torch, model, cfg, feat, tok, audio, 'cpu', quantize=quantize,
+            lm=run_lm, warm=False)
+        _, t16, lp16 = _beam_decode(torch, model, cfg, feat, tok, audio,
+                                    'cuda', torch.bfloat16,
+                                    quantize=quantize, lm=run_lm,
+                                    warm=False)
+        equal = t_cuda.shape == t_cpu.shape and bool((t_cuda == t_cpu).all())
+        rel = abs(lp_cuda - lp_cpu) / max(1.0, abs(lp_cpu))
+        res = {'phase': 'slice_beam', 'run': run, 'quantize': quantize,
+               'lm': run_lm is not None, 'chunks': len(cuda.elapsed),
+               'frames': STATE['frames_' + run], 'tokens': len(t_cuda),
+               'cuda_equals_cpu': equal, 'logp_cuda': lp_cuda,
+               'logp_cpu': lp_cpu, 'logp_rel': rel,
+               'tol': 'tokens exact, logp rel 1e-4',
+               'bf16_tokens_equal': t16.shape == t_cuda.shape
+               and bool((t16 == t_cuda).all()),
+               'bf16_token_agreement': _token_agreement(t16, t_cuda),
+               'logp_bf16': lp16,
+               'chunk_ms_cuda': 1e3 * float(np.mean(cuda.elapsed)),
+               'chunk_ms_cpu': 1e3 * float(np.mean(cpu.elapsed)),
+               'min_prune_gap': _prune_gap(torch, cuda, audio)}
+        res.update(_device_profile(torch, lambda: cuda.decode_wav(audio),
+                                   res['chunks'], 'chunk'))
+        res['k1_launches_per_chunk'] = \
+            STATE['launches_' + run]['lstm_fwd'] / res['chunks']
+        emit(res)
+        require(equal, f'{run}: cuda tokens differ from the CPU run')
+        require(rel <= 1e-4, f'{run}: best logp {lp_cuda} vs CPU {lp_cpu}')
+        require(len(t_cuda) > 0, f'{run}: empty best hypothesis')
+    res = _cli_beam_run(torch, model, cfg, feat, audio)
+    emit(res)
+    require(res['lm_fusion_line'] and res['transcript_equals_decode_wav'],
+            f'cli.stream --beam_width 4 --lm_path disagrees: {res}')
+
+
+def _cli_beam_run(torch, model, cfg, feat, audio):
+    """cli.stream --beam_width 4 --lm_path <lm_train's lm.ckpt> --pt_path
+    <the beam model> on a wav of `audio` (fp32, the corpus's BPE 2048
+    tokenizer), against StreamingBeamDecoder.decode_wav with that LM."""
+    import contextlib
+    import io
+
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.cli import stream as CS
+    from edgedict_tpu_torch.data.audio_io import load_audio, save_wav
+    from edgedict_tpu_torch.models.lm import load_lm_checkpoint
+    tmp, _ = _train_corpus()
+    pt = os.path.join(tmp, 'beam_model.pt')
+    torch.save({'model': model.state_dict()}, pt)
+    wav = os.path.join(tmp, 'beam.wav')
+    save_wav(wav, audio, 16000)
+    lm_path = STATE['lm_path']
+    cwd = os.getcwd()
+    os.chdir(tmp)                 # the BPE-2048/ cache of the corpus
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            CS.main([f'--flagfile={REPO}/flagfiles/E6D2.txt',
+                     '--logdir_root', os.path.join(tmp, 'logs'),
+                     '--pt_path', pt, '--path', wav, '--device', 'cuda',
+                     '--infer_dtype', 'fp32', '--beam_width', '4',
+                     '--lm_path', lm_path])
+        lines = out.getvalue().splitlines()
+        tok = CS.build_tokenizer(argparse.Namespace(tokenizer='bpe',
+                                                    bpe_size=2048))
+        lm_model, lm_cfg = load_lm_checkpoint(lm_path)
+        samples, _ = load_audio(wav)
+        expect = S.StreamingBeamDecoder(
+            model, cfg, feat, tok, device='cuda',
+            lm=(lm_model, lm_cfg, LM_WEIGHT), **BEAM).decode_wav(samples)
+    finally:
+        os.chdir(cwd)
+    return {'phase': 'slice_beam', 'run': 'cli.stream --beam_width 4 '
+            '--lm_path', 'lm_path': os.path.relpath(lm_path, tmp),
+            'lines': lines[:2] + lines[3:],
+            'lm_fusion_line': len(lines) > 2 and lines[1]
+            == f'LM fusion: {lm_path} (lambda={LM_WEIGHT})',
+            'transcript_chars': len(expect),
+            'transcript_equals_decode_wav': len(lines) > 2
+            and lines[2] == expect}
+
+
+def phase_server_beam(torch):
+    """StreamServer over MultiStreamBeamDecoder(n_streams=8, W=4, the LM)
+    as cli/serve.py --beam_width 4 --lm_path builds it ('=' replace
+    messages); 4 clients, each final transcript == decode_wav."""
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    cfg, feat = _e6d2()
+    tok = StandInTokenizer(cfg.vocab_size)
+    model, lm = _beam_models(torch)
+    audios = [synthetic_audio(10 + i, seconds=3.0) for i in range(4)]
+    single = S.StreamingBeamDecoder(model, cfg, feat, tok, device='cuda',
+                                    lm=lm, **BEAM)
+    expected = [single.decode_wav(a) for a in audios]
+    dec = S.MultiStreamBeamDecoder(model, cfg, feat, tok,
+                                   n_streams=SERVER_BEAM_STREAMS,
+                                   device='cuda', lm=lm, **BEAM)
+    results, server = _serve(torch, dec, audios, 'server_beam')
+    match = [r == e for r, e in zip(results, expected)]
+    res = {'phase': 'server_beam', 'n_streams': dec.n, 'clients':
+           len(audios), 'beam_width': BEAM['beam_width'], 'lm': True,
+           'full_hypothesis': server.full_hypothesis,
+           'rounds': server.rounds,
+           'round_ms_mean': 1e3 * float(np.mean(dec.elapsed)),
+           'transcripts_match': match,
+           'transcript_chars': [len(r or '') for r in results]}
+    # the same rounds driven directly (4 streams of audio, 4 of silence),
+    # under the profiler
+    chunks = [S._chunks(a, dec.win_size, dec.hop_size) for a in audios]
+    frames = np.zeros((len(chunks[0]), dec.n, dec.win_size), np.float32)
+    for i, c in enumerate(chunks):
+        frames[:, i] = c
+
+    def rounds():
+        dec.reset()
+        for f in frames:
+            dec.decode(f)
+
+    res.update(_device_profile(torch, rounds, len(frames), 'round'))
+    emit(res)
+    require(server.full_hypothesis, 'the beam server sends no = messages')
+    require(all(match), 'a beam server transcript differs from decode_wav')
+    require(any(results), 'every beam server transcript is empty')
+
+
+def phase_lm_train(torch):
+    """cli.train_lm at LMConfig's defaults (256 / 512 / 2, V=2048) on the
+    train_run corpus's texts with its BPE 2048, at E6D2's batch 32 and
+    lm_seq_len 64 (LM_TRAIN, the K1 / K4 shape held against plain), lr
+    1e-3, for about 20 steps: the loss is finite and falls, lm.ckpt is
+    written (slice_beam's CLI run loads it); K1 and K4 per LSTM layer and
+    step."""
+    import dataclasses
+
+    from edgedict_tpu_torch.cli import train_lm
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.trainer import build_datasets, build_tokenizer
+    tmp, base = _train_corpus()
+    cwd = os.getcwd()
+    os.chdir(tmp)                 # the BPE-2048/ cache of the corpus
+    try:
+        argv = base + ['--name', 'lm', '--lr', '1e-3', '--loss_step', '1',
+                       '--save_step', '5']
+        flags = parse_flags(train_lm.build_parser(), argv)
+        require((flags.lm_hidden_size, flags.batch_size, flags.lm_seq_len)
+                == LM_TRAIN, f'cli.train_lm does not run at {LM_TRAIN}')
+        tok = build_tokenizer(flags)
+        texts = [t for d in build_datasets(flags, tok)[0] for t in d.texts()]
+        per_epoch = sum(1 for _ in train_lm.batch_texts(
+            texts, tok, flags.lm_seq_len, flags.batch_size,
+            np.random.RandomState(0)))
+        require(per_epoch > 0, 'the corpus gives no LM batch')
+        epochs = -(-20 // per_epoch)
+        lines = []
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm, cfg = train_lm.main(argv + ['--epochs', str(epochs)],
+                                log_fn=lines.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        STATE['launches_lm_train'] = _launches()
+        losses = [float(ln.split()[5]) for ln in lines]
+        STATE['lm_train_expect'] = {'lstm_fwd': cfg.num_layers * len(losses),
+                                    'lstm_bwd': cfg.num_layers * len(losses)}
+        STATE['lm_path'] = os.path.join(tmp, 'logs', 'lm', 'lm.ckpt')
+        res = {'phase': 'lm_train', 'lm_cfg': dataclasses.asdict(cfg),
+               'params': sum(p.numel() for p in lm.parameters()),
+               'batch_size': flags.batch_size, 'seq_len': flags.lm_seq_len,
+               'epochs': epochs, 'steps': len(losses), 'losses': losses,
+               'wall_s': wall, 'ms_per_step': 1e3 * wall / len(losses),
+               'lm_ckpt': os.path.isfile(STATE['lm_path'])}
+        emit(res)
+        require((cfg.vocab_size, cfg.embed_size, cfg.hidden_size,
+                 cfg.num_layers) == (2048, 256, 512, 2),
+                f'the LM is not at the defaults: {cfg}')
+        require(all(np.isfinite(losses)), 'an LM loss is not finite')
+        require(losses[-1] < losses[0], f'LM loss did not fall: {losses}')
+        require(res['lm_ckpt'], 'cli.train_lm wrote no lm.ckpt')
+    finally:
+        os.chdir(cwd)
 
 
 SOURCES = {
@@ -1980,20 +2416,46 @@ DECODE_RUNS = {
 }
 
 
+# each measured beam decode: (the greedy decode whose encoder kernels it
+# shares per chunk, LM fusion on); per encoder frame it adds K1 for every
+# prediction-net (and LM) layer at each of max_sym_per_frame expansions
+BEAM_RUNS = {'beam': ('decode_wav', False), 'beam_lm': ('decode_wav', True),
+             'beam_int8': ('decode_wav_int8', False)}
+
+
 def check_launches():
     """The launch counts of every main-path run against what it implies."""
     runs = {run: STATE['launches_' + run] for run in
-            (*DECODE_RUNS, 'server', 'server_int8', 'train', 'train_gru')}
+            (*DECODE_RUNS, 'server', 'server_int8', 'train', 'train_gru',
+             *BEAM_RUNS, 'server_beam', 'lm_train')}
     expect = {}
     for run, per_call in DECODE_RUNS.items():
         n = STATE['chunks_' + run]      # one encoder call per chunk
         expect[run] = {k: c * n for k, c in per_call.items()}
         expect[run].update(mel_power=n, greedy_decode=n)
+    cfg, _ = _e6d2()
+    lm_layers = STATE['beam_lm'][1].num_layers
+    for run, (enc_run, lm) in BEAM_RUNS.items():
+        n = STATE['chunks_' + run]
+        layers = cfg.dec_layers + (lm_layers if lm else 0)
+        expect[run] = {k: c * n for k, c in DECODE_RUNS[enc_run].items()}
+        expect[run]['lstm_fwd'] += (STATE['frames_' + run]
+                                    * BEAM['max_sym_per_frame'] * layers)
+        expect[run].update(mel_power=n, greedy_decode=0)
     emit({'phase': 'launches', **runs, 'decode_expected': expect,
-          'train_expected': STATE['train_expect']})
+          'train_expected': STATE['train_expect'],
+          'lm_train_expected': STATE['lm_train_expect']})
     for run, want in expect.items():
         require(all(runs[run][k] == c for k, c in want.items()),
                 f'{run} launches {runs[run]} != {want}')
+    require(all(runs['server_beam'][k] > 0 for k in ('mel_power',
+                                                     'lstm_fwd'))
+            and runs['server_beam']['greedy_decode'] == 0,
+            f'server_beam launches {runs["server_beam"]}')
+    require(all(runs['lm_train'][k] == n for k, n in
+                STATE['lm_train_expect'].items()),
+            f'lm_train launches {runs["lm_train"]} != '
+            f'{STATE["lm_train_expect"]}')
     for run, kernels in (('server', ('lstm_fwd',)),
                          ('server_int8', ('quant_matmul', 'lstm_fwd_q'))):
         require(all(runs[run][k] > 0 for k in SERVING + kernels),
@@ -2034,7 +2496,9 @@ def main():
               ('train_parity_gru',
                lambda torch: phase_train_parity(torch, 'GRU')),
               ('train_run', phase_train_run),
-              ('train_run_gru', lambda torch: phase_train_run(torch, 'GRU')))
+              ('train_run_gru', lambda torch: phase_train_run(torch, 'GRU')),
+              ('lm_train', phase_lm_train), ('slice_beam', phase_slice_beam),
+              ('server_beam', phase_server_beam))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

@@ -6,7 +6,8 @@
 Modes:
   train        fresh run; snapshots flags to logs/<name>/flagfile.txt
   resume       reload logs/<name>/models/<resume_step or latest>.ckpt, go on
-  eval         one evaluation pass (val_loss + greedy WER) and exit
+  eval         one evaluation pass (val_loss + greedy WER, and beam_WER with
+               --eval_beam_width > 0) and exit
   device_rate  the device step rate of this config: one real batch from the
                loader, re-fed for 100 steps after one warm-up step
 
@@ -73,7 +74,8 @@ def main(argv=None, log_fn=print):
     if flags.mode == 'eval':
         trainer.load(flags.resume_step)
         loss, wer = trainer.evaluate()
-        log_fn(f'val_loss {loss:.4f} WER {wer:.4f}')
+        log_fn(f'val_loss {loss:.4f} WER {wer:.4f}'
+               f'{trainer.beam_wer_text()}')
         return trainer
     if flags.mode == 'device_rate':
         device_rate(trainer, log_fn=log_fn)

@@ -1,46 +1,50 @@
-"""Serving CLI of the port (counterpart of cli/serve.py, greedy, one
-device): N concurrent PCM streams over TCP through serving.StreamServer,
-one chunk step of the port's MultiStreamDecoder per round.
+"""Serving CLI of the port (counterpart of cli/serve.py, one device): N
+concurrent PCM streams over TCP through serving.StreamServer, one chunk
+step of the port's MultiStreamDecoder per round, or with --beam_width > 1
+of its MultiStreamBeamDecoder (with --lm_path, shallow fusion), whose
+rounds send each stream's current best hypothesis as '=' replace messages.
 
   python -m edgedict_tpu_torch.cli.serve --flagfile flagfiles/E6D2.txt \
       --port 8765 --n_streams 64 [--pt_path reference.pt | --model_name \
-      <step>.ckpt] [--quantize int8] [--enc_type GRU]
+      <step>.ckpt] [--quantize int8] [--enc_type GRU] [--beam_width 4 \
+      [--lm_path logs/<lm run>/lm.ckpt]]
 
 Clients speak the protocol of serving.py (the JAX package's, unchanged); a
-minimal client is edgedict_tpu_torch.serving.stream_client.  Beam search
-and multi-device serving are not ported yet.  The weights are loaded as
-cli/stream.py loads them: --pt_path, else the run's checkpoint.
+minimal client is edgedict_tpu_torch.serving.stream_client.  Multi-device
+serving is not ported yet.  The weights are loaded as cli/stream.py loads
+them: --pt_path, else the run's checkpoint.
 """
 
 import asyncio
 import sys
 
 from edgedict_tpu_torch.cli.stream import (
-    build_parser, load_inference_bundle, set_numerics)
+    build_parser, make_decoder, set_numerics)
 from edgedict_tpu_torch.config import parse_flags
 from edgedict_tpu_torch.serving import StreamServer
-from edgedict_tpu_torch.stream import MultiStreamDecoder
+from edgedict_tpu_torch.stream import (
+    MultiStreamBeamDecoder, MultiStreamDecoder)
 
 
 def build_decoder(flags):
-    model, cfg, feature_cfg, tokenizer, dtype, device = \
-        load_inference_bundle(flags)
-    return MultiStreamDecoder(model, cfg, feature_cfg, tokenizer,
-                              n_streams=flags.n_streams, device=device,
-                              step_n_frame=flags.step_n_frame,
-                              compute_dtype=dtype, quantize=flags.quantize)
+    return make_decoder(flags, MultiStreamDecoder, MultiStreamBeamDecoder,
+                        n_streams=flags.n_streams)
 
 
 def build_server(decoder, host='127.0.0.1', port=0, round_timeout_ms=75,
                  pcm_int16=False):
-    """StreamServer over `decoder`; round_timeout_ms 0 = lockstep rounds."""
+    """StreamServer over `decoder`; round_timeout_ms 0 = lockstep rounds.
+    A beam decoder's rounds replace each client's transcript with its
+    stream's current best hypothesis ('=' messages)."""
     timeout = round_timeout_ms / 1e3 if round_timeout_ms > 0 else None
-    return StreamServer(decoder, host=host, port=port, round_timeout=timeout,
-                        pcm='int16' if pcm_int16 else 'float32')
+    return StreamServer(
+        decoder, host=host, port=port, round_timeout=timeout,
+        full_hypothesis=isinstance(decoder, MultiStreamBeamDecoder),
+        pcm='int16' if pcm_int16 else 'float32')
 
 
 def main(argv=None):
-    parser = build_parser('multi-stream greedy decode server')
+    parser = build_parser('multi-stream decode server')
     parser.add_argument('--serve_host', default='127.0.0.1')
     parser.add_argument('--port', type=int, default=8765,
                         help='listen port (0 = ephemeral)')

@@ -4,7 +4,8 @@ throughput line.
 
   python -m edgedict_tpu_torch.cli.stream --flagfile flagfiles/E6D2.txt \
       --path x.wav [--pt_path reference.pt | --model_name <step>.ckpt] \
-      [--device cuda|cpu] [--quantize int8] [--enc_type GRU]
+      [--device cuda|cpu] [--quantize int8] [--enc_type GRU] \
+      [--beam_width 4 [--lm_path logs/<lm run>/lm.ckpt --lm_weight 0.2]]
 
 --device defaults to cuda and fails without a card; the CPU runs only when
 asked with --device cpu.  --infer_dtype auto is bf16 on CUDA (bf16 encoder,
@@ -12,8 +13,11 @@ fp32 joint and prediction net) and fp32 on the CPU.  --quantize int8 serves
 an int8 weight-only encoder (ops/quant.py); --enc_type GRU a GRU encoder.
 Without --pt_path the weights are the run's checkpoint, as in the JAX
 package's CLI: logs/<name>/models/<--model_name>, else the latest step's
-<step>.ckpt, else random (seed 0).  Microphone input (--mic) is not
-ported yet.
+<step>.ckpt, else random (seed 0).  --beam_width > 1 switches to the
+streaming beam search (StreamingBeamDecoder: --max_sym_per_frame label
+expansions a frame, --merge_prefixes Graves prefix merging), and
+--lm_path adds shallow fusion with an LM that the port's cli.train_lm wrote
+(weight --lm_weight).  Microphone input (--mic) is not ported yet.
 """
 
 import argparse
@@ -24,8 +28,8 @@ import numpy as np
 import torch
 
 from edgedict_tpu_torch.config import (
-    TRAIN_FLAGS, add_model_flags, feature_config_from_flags, parse_flags,
-    transducer_config_from_flags)
+    TRAIN_FLAGS, add_model_flags, feature_config_from_flags, parse_bool,
+    parse_flags, transducer_config_from_flags)
 from edgedict_tpu_torch.stream import resolve_device
 
 
@@ -63,6 +67,20 @@ def build_parser(description):
                         help="'int8' = weight-only int8 encoder "
                              '(per-channel symmetric scales; ops/quant.py); '
                              'unset = serve at --infer_dtype precision')
+    parser.add_argument('--beam_width', type=int, default=1,
+                        help='>1 switches to streaming beam search')
+    parser.add_argument('--merge_prefixes', type=parse_bool, default=True,
+                        help='Graves prefix-probability summation in beam '
+                             'search')
+    parser.add_argument('--max_sym_per_frame', type=int, default=3,
+                        help='beam search label expansions per encoder '
+                             'frame')
+    parser.add_argument('--lm_path', default=None,
+                        help="an LM checkpoint of the port's cli.train_lm "
+                             '(logs/<name>/lm.ckpt): shallow fusion when '
+                             'beam_width > 1')
+    parser.add_argument('--lm_weight', type=float, default=0.2,
+                        help='shallow-fusion LM weight')
     return parser
 
 
@@ -130,24 +148,54 @@ def load_inference_bundle(flags):
     return model, cfg, feature_cfg, tokenizer, dtype, device
 
 
+def load_lm_fusion(flags):
+    """--lm_path / --lm_weight → the (LMModel, LMConfig, weight) triple the
+    beam decoders take for shallow fusion, or None."""
+    if not flags.lm_path:
+        return None
+    from edgedict_tpu_torch.models.lm import load_lm_checkpoint
+    lm, lm_cfg = load_lm_checkpoint(flags.lm_path)
+    print(f'LM fusion: {flags.lm_path} (lambda={flags.lm_weight})')
+    return lm, lm_cfg, float(flags.lm_weight)
+
+
+def make_decoder(flags, greedy_cls, beam_cls, **kw):
+    """greedy_cls, or beam_cls when --beam_width > 1 (with the LM of
+    --lm_path), over load_inference_bundle's model; kw go to either (the
+    stream and serve CLIs)."""
+    model, cfg, feature_cfg, tokenizer, dtype, device = \
+        load_inference_bundle(flags)
+    kw.update(device=device, step_n_frame=flags.step_n_frame,
+              compute_dtype=dtype, quantize=flags.quantize)
+    if flags.beam_width > 1:
+        return beam_cls(
+            model, cfg, feature_cfg, tokenizer, beam_width=flags.beam_width,
+            max_sym_per_frame=flags.max_sym_per_frame,
+            merge_prefixes=flags.merge_prefixes, lm=load_lm_fusion(flags),
+            **kw)
+    return greedy_cls(model, cfg, feature_cfg, tokenizer, **kw)
+
+
+def build_stream_decoder(flags):
+    """StreamingBeamDecoder when --beam_width > 1 (with the LM of
+    --lm_path), else StreamingDecoder."""
+    from edgedict_tpu_torch.stream import (
+        StreamingBeamDecoder, StreamingDecoder)
+    return make_decoder(flags, StreamingDecoder, StreamingBeamDecoder,
+                        block_chunks=flags.block_chunks)
+
+
 def main(argv=None):
     from edgedict_tpu_torch.data.audio_io import load_audio
-    from edgedict_tpu_torch.stream import StreamingDecoder
 
-    parser = build_parser('streaming greedy decode of a wav file')
+    parser = build_parser('streaming decode of a wav file')
     parser.add_argument('--path', required=True, help='wav file to decode')
     parser.add_argument('--block_chunks', type=int, default=1,
                         help='>1 decodes N chunks per layer-major group '
                              'step (same output)')
     flags = parse_flags(parser, sys.argv[1:] if argv is None else argv)
     set_numerics()
-    model, cfg, feature_cfg, tokenizer, dtype, device = \
-        load_inference_bundle(flags)
-    decoder = StreamingDecoder(model, cfg, feature_cfg, tokenizer,
-                               device=device,
-                               step_n_frame=flags.step_n_frame,
-                               block_chunks=flags.block_chunks,
-                               compute_dtype=dtype, quantize=flags.quantize)
+    decoder = build_stream_decoder(flags)
     audio, sr = load_audio(flags.path)
     if sr != 16000:
         raise SystemExit(f'expected 16 kHz audio, got {sr}')

@@ -71,6 +71,27 @@ def state_dict_from_jax_params(params):
     return sd
 
 
+def lm_state_dict_from_jax_params(params):
+    """edgedict_tpu LM params (models/lm.py:lm_init; numpy or array-likes)
+    → the state dict of the port's LMModel, fp32 CPU tensors: untied
+    (`out`) or tied (`out_b`, the table as the output weight)."""
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    sd = {'embed.weight': t(params['embed']['table'])}
+    for k, layer in enumerate(params['lstm']['layers']):
+        sd[f'lstm.weight_ih_l{k}'] = t(layer['w_ih'])
+        sd[f'lstm.weight_hh_l{k}'] = t(layer['w_hh'])
+        sd[f'lstm.bias_ih_l{k}'] = t(layer['b_ih'])
+        sd[f'lstm.bias_hh_l{k}'] = t(layer['b_hh'])
+    if 'out_b' in params:
+        sd['out_b'] = t(params['out_b'])
+    else:
+        sd['out.weight'] = t(params['out']['w'])
+        sd['out.bias'] = t(params['out']['b'])
+    return sd
+
+
 def transducer_from_state_dict(state_dict, cfg: TransducerConfig, device):
     """Reference state_dict → the port's Transducer on `device` (strict:
     a missing or unexpected key raises)."""

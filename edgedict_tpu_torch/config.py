@@ -106,6 +106,7 @@ TRAIN_FLAGS = (
     ('save_step', int, 10000),
     ('keep_checkpoints', int, 0),
     ('eval_step', int, 10000),
+    ('eval_beam_width', int, 0),
     ('sample_size', int, 20),
     ('bf16', parse_bool, True),
     ('audio_bucket_frames', int, 128),
@@ -124,7 +125,6 @@ _IGNORABLE = UNREAD | {name for name, _, _ in TRAIN_FLAGS}
 # flags of edgedict_tpu/config.py whose work the port does not do yet:
 # (name, type, the values that ask for nothing, ROADMAP.md Queue 1 item)
 REFUSED = (
-    ('eval_beam_width', int, (0,), '9, beam search'),
     ('device_corpus', parse_bool, (False,), '15, trainer features'),
     ('use_pretrained', parse_bool, (False,), '11, wav2vec'),
     ('dp_size', int, (-1, 1), '14, multi-GPU'),

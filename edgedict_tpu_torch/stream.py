@@ -1,13 +1,16 @@
-"""Streaming greedy decode runtime (counterpart of edgedict_tpu/stream.py,
-greedy parts).
+"""Streaming decode runtime (counterpart of edgedict_tpu/stream.py): greedy
+and beam search, one stream or N in server mode.
 
-A decoder carries the encoder state (LSTM (h, c), or GRU h),
+A greedy decoder carries the encoder state (LSTM (h, c), or GRU h),
 prediction-net (h, c) and the last prediction-net output across fixed-size
 audio chunks; each chunk is featurized (K2), run through one encoder step
 (per layer K1 for the LSTM, K5 for the GRU) and every
 resulting encoder frame emits at most one token through the fused frame
 loop (K3): argmax of the joint, `<unk>` re-argmaxed, the prediction net
-advanced only on non-blank (reference rnnt/stream.py:28-120).
+advanced only on non-blank (reference rnnt/stream.py:28-120).  A beam
+decoder carries the fixed-shape beam of models/beam_search.py instead and
+returns the current best full hypothesis per chunk; its frames run the
+prediction net (and the LM of shallow fusion) through K1 at B·W rows.
 
 Chunk geometry (reference youtube_live.py:26-30):
   win_size = win_length + hop_length * (downsample * step_n_frame - 1)
@@ -275,9 +278,7 @@ class MultiStreamDecoder:
         frames_idx, stream_idx = np.nonzero(flat > UNK)
         for s in np.unique(stream_idx):
             rows = frames_idx[stream_idx == s]
-            out[int(s)] = ''.join(
-                self.tokenizer.id_to_token(int(flat[f, s]))
-                .replace('</w>', ' ') for f in rows)
+            out[int(s)] = detokenize(self.tokenizer, flat[rows, s])
         return out
 
     def decode_pipelined(self, frames):
@@ -296,6 +297,12 @@ class MultiStreamDecoder:
         """Drain the pipelined decoder: text of the last dispatched round."""
         prev, self._pending = self._pending, None
         return self._render(_fetch_done(prev)) if prev is not None else None
+
+
+def detokenize(tokenizer, tokens):
+    """Token ids → text, NUL/PAD/BOS/UNK left out."""
+    return ''.join(tokenizer.id_to_token(int(t)).replace('</w>', ' ')
+                   for t in tokens if t > UNK)
 
 
 class StreamingDecoder:
@@ -344,12 +351,7 @@ class StreamingDecoder:
         self.elapsed = []
 
     def _detok(self, tokens):
-        out = []
-        for t in tokens:
-            if t > UNK:   # never emit NUL/PAD/BOS/UNK as text
-                out.append(self.tokenizer.id_to_token(int(t))
-                           .replace('</w>', ' '))
-        return ''.join(out)
+        return detokenize(self.tokenizer, tokens)
 
     def _after(self, n_chunks):
         self._steps += n_chunks
@@ -430,3 +432,226 @@ class StreamingDecoder:
             done.append(_fetch_done(pending))
         self.elapsed.append(time.perf_counter() - start)
         return ''.join(self._detok(t.reshape(-1)) for t in done)
+
+
+# ---------------------------------------------------------------------------
+# beam search (models/beam_search.py), single stream and server mode
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def prepare_lm(lm, dtype=None, device=None):
+    """(LMModel, LMConfig, weight) → the same triple with a frozen copy of
+    the LM on `device`, every floating weight in `dtype` when one is given
+    (prepare_inference_params(lm[0], compute_dtype) of the JAX package);
+    None stays None."""
+    if lm is None:
+        return None
+    model, cfg, weight = lm
+    prepared = copy.deepcopy(model).requires_grad_(False)
+    prepared.to(device=device, dtype=dtype)
+    return prepared, cfg, float(weight)
+
+
+class _BeamRuntime:
+    """What both beam decoders share: the prepared model and LM, the
+    feature pipeline, the beam machinery for `batch` streams and the chunk
+    step.  run_frames(enc_state, beam, xs) runs the encoder over xs
+    (B, T, feat) with the carried state (K1 per layer, or K11 + K12 /
+    K5 / K13), then every encoder frame through the beam; it returns
+    (enc_state, beam, best tokens (B, U_cap), n_tok (B,), logp (B,))."""
+
+    def __init__(self, model, cfg, feature_cfg, batch, device, step_n_frame,
+                 beam_width, max_sym_per_frame, max_tokens, lm,
+                 merge_prefixes, compute_dtype, quantize):
+        from edgedict_tpu_torch.models.beam_search import make_beam_machinery
+        assert not feature_cfg.pad_to_divisible
+        self.device = resolve_device(device)
+        self.model = prepare_inference_params(model, compute_dtype, quantize,
+                                              device=self.device)
+        self.lm = prepare_lm(lm, compute_dtype, self.device)
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.pipeline = FeaturePipeline(feature_cfg, self.device)
+        self.win_size, self.hop_size = stream_chunk_geometry(
+            feature_cfg.win_length, feature_cfg.hop_length,
+            feature_cfg.downsample, step_n_frame)
+        self.init_beam, self.frame_step = make_beam_machinery(
+            self.model, cfg, batch, beam_width=beam_width,
+            max_sym_per_frame=max_sym_per_frame, max_tokens=max_tokens,
+            lm=self.lm, merge_prefixes=merge_prefixes, device=self.device)
+        self.fresh_enc = T.encoder_zero_state(cfg, batch, self.device)
+
+    @torch.no_grad()
+    def run_frames(self, enc_state, beam, xs):
+        from edgedict_tpu_torch.models.beam_search import best_hypothesis
+        if self.compute_dtype is not None:
+            xs = xs.to(self.compute_dtype)
+        enc_xs, enc_state = T.encoder_apply(self.model.encoder, self.cfg, xs,
+                                            enc_state)
+        for t in range(enc_xs.shape[1]):
+            beam = self.frame_step(beam, enc_xs[:, t])
+        return (enc_state, beam) + best_hypothesis(beam)
+
+    @torch.no_grad()
+    def chunk_step(self, enc_state, beam, audio):
+        """audio (B, chunk) → run_frames over its features."""
+        lens = torch.full((audio.shape[0],), audio.shape[1],
+                          dtype=torch.int32, device=audio.device)
+        xs, _ = self.pipeline(audio, lens)
+        return self.run_frames(enc_state, beam, xs)
+
+    @torch.no_grad()
+    def group_step(self, enc_state, beam, chunks):
+        """Layer-major block, as the greedy group step: the n chunks
+        featurized as one batch, their frames concatenated along time,
+        the encoder once over them, then the beam over every frame."""
+        n = chunks.shape[0]
+        lens = torch.full((n,), chunks.shape[1], dtype=torch.int32,
+                          device=chunks.device)
+        xs, _ = self.pipeline(chunks, lens)
+        return self.run_frames(enc_state, beam,
+                               xs.reshape(1, n * xs.shape[1], -1))
+
+
+class StreamingBeamDecoder:
+    """Online beam search: the fixed-shape beam is carried across chunks
+    beside the encoder state.  decode(chunk) returns the CURRENT best full
+    hypothesis (beam search may revise earlier output, unlike greedy);
+    per-call wall times (ending in the hypothesis fetch) go to `elapsed`.
+    lm: optional (LMModel, LMConfig, weight) for shallow fusion; its
+    weights follow `compute_dtype`, the prediction net and joint stay
+    fp32, `logp` is fp32."""
+
+    def __init__(self, model, cfg, feature_cfg: FeatureConfig, tokenizer, *,
+                 device, step_n_frame=2, beam_width=4, max_sym_per_frame=3,
+                 max_tokens=200, lm=None, merge_prefixes=True,
+                 block_chunks=1, compute_dtype=None, quantize=None,
+                 mesh=None):
+        _not_ported(mesh)
+        self.rt = _BeamRuntime(model, cfg, feature_cfg, 1, device,
+                               step_n_frame, beam_width, max_sym_per_frame,
+                               max_tokens, lm, merge_prefixes, compute_dtype,
+                               quantize)
+        self.device = self.rt.device
+        self.model = self.rt.model
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.win_size, self.hop_size = self.rt.win_size, self.rt.hop_size
+        self.block_chunks = max(1, block_chunks)
+        self.elapsed = []
+        self.reset()
+
+    def reset(self):
+        """Fresh encoder state and the initial beam (no launch)."""
+        self.enc_state = self.rt.fresh_enc
+        self.beam = self.rt.init_beam()
+
+    def _finish(self, out, start):
+        self.enc_state, self.beam, toks, n_tok, _ = out
+        text = detokenize(self.tokenizer,
+                          toks[0].cpu().numpy()[:int(n_tok[0])])
+        self.elapsed.append(time.perf_counter() - start)
+        return text
+
+    def decode(self, frame) -> str:
+        """frame: (win_size,) samples → the current best full hypothesis."""
+        start = time.perf_counter()
+        audio = _audio_tensor(np.asarray(frame, np.float32)[None, :],
+                              self.device)
+        return self._finish(self.rt.chunk_step(self.enc_state, self.beam,
+                                               audio), start)
+
+    def decode_block(self, chunks) -> str:
+        """`block_chunks` consecutive chunks in one layer-major group step
+        (the same math as that many decode() calls)."""
+        start = time.perf_counter()
+        audio = _audio_tensor(np.asarray(chunks, np.float32), self.device)
+        return self._finish(self.rt.group_step(self.enc_state, self.beam,
+                                               audio), start)
+
+    def decode_wav(self, audio) -> str:
+        """Offline one-shot decode: every chunk, block-grouped while whole
+        blocks remain when block_chunks > 1; → the final best
+        hypothesis."""
+        self.reset()
+        chunks = _chunks(audio, self.win_size, self.hop_size)
+        n = len(chunks)
+        text = ''
+        i = 0
+        if self.block_chunks > 1:
+            while i + self.block_chunks <= n:
+                text = self.decode_block(chunks[i:i + self.block_chunks])
+                i += self.block_chunks
+        for j in range(i, n):
+            text = self.decode(chunks[j])
+        return text
+
+
+class MultiStreamBeamDecoder:
+    """Server-mode beam search: N independent streams, each with its own
+    beam, advanced in one chunk step per round (the batch axis carries the
+    streams, as in MultiStreamDecoder).  decode(frames) returns the
+    current best hypothesis text per stream; the server sends it as '='
+    replace messages (serving.StreamServer(full_hypothesis=True))."""
+
+    def __init__(self, model, cfg, feature_cfg: FeatureConfig, tokenizer,
+                 n_streams, *, device, step_n_frame=2, beam_width=4,
+                 max_sym_per_frame=3, max_tokens=200, lm=None,
+                 merge_prefixes=True, compute_dtype=None, quantize=None,
+                 mesh=None):
+        _not_ported(mesh)
+        self.rt = _BeamRuntime(model, cfg, feature_cfg, n_streams, device,
+                               step_n_frame, beam_width, max_sym_per_frame,
+                               max_tokens, lm, merge_prefixes, compute_dtype,
+                               quantize)
+        self.device = self.rt.device
+        self.model = self.rt.model
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.n = n_streams
+        self.win_size, self.hop_size = self.rt.win_size, self.rt.hop_size
+        self.elapsed = []
+        self.reset()
+
+    def reset(self):
+        self.enc_state = self.rt.fresh_enc
+        self.beam = self.rt.init_beam()
+
+    def reset_stream(self, i):
+        """Reset stream i's encoder state and beam, leaving the others."""
+        def blend(axis):
+            def f(new, old):
+                out = old.clone()
+                out.select(axis, i).copy_(new.select(axis, i))
+                return out
+            return f
+
+        fresh_enc = self.rt.fresh_enc
+        if isinstance(fresh_enc, torch.Tensor):            # GRU (L, B, H)
+            self.enc_state = blend(1)(fresh_enc, self.enc_state)
+        else:                                              # LSTM (h, c)
+            self.enc_state = tuple(map(blend(1), fresh_enc, self.enc_state))
+        # the batch axis is 1 for the (L, B, W, H) network states, 0 for
+        # everything else
+        fresh, b = self.rt.init_beam(), self.beam
+        self.beam = b._replace(
+            tokens=blend(0)(fresh.tokens, b.tokens),
+            n_tok=blend(0)(fresh.n_tok, b.n_tok),
+            logp=blend(0)(fresh.logp, b.logp),
+            dec_out=blend(0)(fresh.dec_out, b.dec_out),
+            dec_state=tuple(map(blend(1), fresh.dec_state, b.dec_state)),
+            lm_state=(tuple(map(blend(1), fresh.lm_state, b.lm_state))
+                      if b.lm_state is not None else None),
+            lm_next=(blend(0)(fresh.lm_next, b.lm_next)
+                     if b.lm_next is not None else None))
+
+    def decode(self, frames):
+        """frames (n_streams, win_size), float or int16 PCM (int16 is
+        scaled on the device) → the current best text per stream."""
+        start = time.perf_counter()
+        self.enc_state, self.beam, toks, n_tok, _ = self.rt.chunk_step(
+            self.enc_state, self.beam, _audio_tensor(frames, self.device))
+        toks, n_tok = toks.cpu().numpy(), n_tok.cpu().numpy()
+        self.elapsed.append(time.perf_counter() - start)
+        return [detokenize(self.tokenizer, toks[s][:int(n_tok[s])])
+                for s in range(self.n)]

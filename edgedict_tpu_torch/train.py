@@ -16,7 +16,9 @@ clipping), skipped.
 
 `make_eval_step` returns `eval(model, batch)` → (loss, y_seq, out_len) for
 an 'audio', 'alen', 'ys', 'ylen' batch: the deterministic fp32 loss and the
-greedy decode (K3 on CUDA).
+greedy decode (K3 on CUDA).  `make_beam_eval_step` returns `beam(model,
+batch)` → (tokens, n_tok) of the fixed-shape beam search on the same batch
+(models/beam_search.py; the trainer's --eval_beam_width).
 """
 
 import dataclasses
@@ -98,6 +100,25 @@ def make_eval_step(cfg, feature_pipeline):
         return loss, y_seq, out_len
 
     return eval_step
+
+
+def make_beam_eval_step(cfg, beam_width, feature_pipeline, max_sym_per_frame=3,
+                        max_tokens=200, lm=None):
+    """Beam-search eval step (parallel/train.py:283-307): (model, batch) →
+    (tokens (B, max_tokens) int32, n_tok (B,)), fp32 features as the
+    greedy eval; lm: optional (LMModel, LMConfig, weight)."""
+    from edgedict_tpu_torch.models.beam_search import transducer_beam_search
+
+    @torch.no_grad()
+    def beam_step(model, batch):
+        xs, xlen = feature_pipeline(batch['audio'], batch['alen'])
+        toks, n_tok, _ = transducer_beam_search(
+            model, cfg, xs, xlen, beam_width=beam_width,
+            max_sym_per_frame=max_sym_per_frame, max_tokens=max_tokens,
+            lm=lm)
+        return toks, n_tok
+
+    return beam_step
 
 
 def device_batch(batch, accum_steps, device):

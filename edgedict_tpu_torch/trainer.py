@@ -5,9 +5,10 @@ Flags → tokenizer → datasets (data/: LibriSpeech / TEDLIUM /
 CommonVoice / YouTube layouts, host loader with length bucketing) → seeded
 Transducer + optimizer + plateau scheduler → step loop with linear warmup,
 the grad-accumulated train step (train.py), periodic eval (loss + greedy
-WER), step-numbered checkpoints and a best-WER copy.  A resumed run replays
-the batch order of an uninterrupted one: the checkpoint holds the
-augmentation generator's state, and the loader's epoch counter and
+WER, and the beam search's WER with --eval_beam_width > 0), step-numbered
+checkpoints and a best-WER copy.  A resumed run replays the batch order
+of an uninterrupted one: the checkpoint holds the augmentation generator's
+state, and the loader's epoch counter and
 in-epoch position are restored (trainer.py:463-494).
 """
 
@@ -32,7 +33,8 @@ from edgedict_tpu_torch.metrics import wer as wer_fn
 from edgedict_tpu_torch.stream import resolve_device
 from edgedict_tpu_torch.tokenizer import CharTokenizer, HuggingFaceTokenizer
 from edgedict_tpu_torch.train import (
-    device_batch, make_eval_step, make_train_state, make_train_step)
+    device_batch, make_beam_eval_step, make_eval_step, make_train_state,
+    make_train_step)
 
 AUGMENT_SEED = 1234
 
@@ -123,6 +125,10 @@ class Trainer:
                                           bf16=flags.bf16,
                                           feature_pipeline=self.pipeline)
         self.eval_step = make_eval_step(self.cfg, self.pipeline)
+        self.beam_eval_step = make_beam_eval_step(
+            self.cfg, flags.eval_beam_width, self.pipeline) \
+            if flags.eval_beam_width > 0 else None
+        self.last_beam_wer = None
         self.sched = optim.ReduceLROnPlateau(
             base_lr=flags.lr, factor=flags.sched_factor,
             patience=flags.sched_patience, min_lr=flags.sched_min_lr) \
@@ -184,7 +190,7 @@ class Trainer:
                     if self.sched is not None:
                         self.sched.step(val_loss)
                     log_fn(f'eval @ {step}: loss {val_loss:.4f} '
-                           f'WER {val_wer:.4f}')
+                           f'WER {val_wer:.4f}{self.beam_wer_text()}')
                     if val_wer < self._best_wer:
                         self._best_wer = val_wer
                         shutil.copy(self.save(),
@@ -194,9 +200,17 @@ class Trainer:
         self.save()
 
     # ------------------------------------------------------------------
+    def beam_wer_text(self):
+        """' beam_WER x' after an evaluate() that decoded with beam, else
+        '' (the JAX package's eval log format)."""
+        return (f' beam_WER {self.last_beam_wer:.4f}'
+                if self.last_beam_wer is not None else '')
+
     def evaluate(self, max_batches=None):
-        """→ (mean loss, corpus WER of the greedy decode)."""
-        losses, refs, hyps = [], [], []
+        """→ (mean loss, corpus WER of the greedy decode); with
+        --eval_beam_width > 0 the beam decode's WER goes to
+        last_beam_wer."""
+        losses, refs, hyps, beam_hyps = [], [], [], []
         model = self.state.model
         for i, batch in enumerate(self.eval_loader):
             if max_batches is not None and i >= max_batches:
@@ -211,9 +225,18 @@ class Trainer:
             refs.extend(self.tokenizer.decode_plus(
                 [y[:n] for y, n in zip(np.asarray(batch['ys']),
                                        np.asarray(batch['ylen']))]))
+            if self.beam_eval_step is not None:
+                toks, n_tok = self.beam_eval_step(model, dev)
+                beam_hyps.extend(self.tokenizer.decode_plus(
+                    [t[:n] for t, n in zip(toks.cpu().numpy(),
+                                           n_tok.cpu().numpy())]))
         pairs = [(r, h) for r, h in zip(refs, hyps) if r.strip()]
         val_wer = wer_fn([r for r, _ in pairs], [h for _, h in pairs]) \
             if pairs else 1.0
+        bpairs = [(r, h) for r, h in zip(refs, beam_hyps) if r.strip()]
+        self.last_beam_wer = wer_fn([r for r, _ in bpairs],
+                                    [h for _, h in bpairs]) \
+            if bpairs else None
         return float(np.mean(losses) if losses else np.nan), val_wer
 
     # ------------------------------------------------------------------

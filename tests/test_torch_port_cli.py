@@ -367,3 +367,88 @@ def test_profile_lattice_ablations_edit_k9_alone():
         assert (out == src) == (name == 'shipped'), name
     with pytest.raises(ValueError, match='not found once'):
         profile_lattice.ablated_source(src, (('no such text', ''),))
+
+
+def test_cli_train_lm_then_stream_beam_with_lm_fusion(tmp_path):
+    """cli.train_lm --device cpu writes logs/<name>/lm.ckpt; cli.stream
+    --beam_width 3 --lm_path <that file> prints the `LM fusion:` line and
+    the transcript of StreamingBeamDecoder.decode_wav with that LM."""
+    from test_torch_port_train import _write_corpus
+
+    from edgedict_tpu_torch.cli import train_lm
+    from edgedict_tpu_torch.models.lm import load_lm_checkpoint
+    from edgedict_tpu_torch.stream import StreamingBeamDecoder
+    logs, wav = _setup(tmp_path)
+    corpus = _write_corpus(str(tmp_path / 'libri'), n=4)
+    none = str(tmp_path / 'none')
+    lines = []
+    lm, lm_cfg = train_lm.main(
+        ['--LibriSpeech_train_100', corpus, '--LibriSpeech_train_360', none,
+         '--LibriSpeech_train_500', none, '--LibriSpeech_test', none,
+         '--TEDLIUM_train', none, '--CommonVoice', none, '--YT_bloomberg2',
+         none, '--YT_life', none, '--logdir_root', logs, '--name', 'lm',
+         '--tokenizer', 'char', '--device', 'cpu', '--lr', '1e-3',
+         '--lm_embed_size', '8', '--lm_hidden_size', '16', '--lm_layers',
+         '2', '--lm_seq_len', '8', '--batch_size', '2', '--epochs', '2',
+         '--loss_step', '1', '--save_step', '2'], log_fn=lines.append)
+    assert len(lines) >= 4 and all('ppl' in ln for ln in lines)
+    losses = [float(ln.split()[5]) for ln in lines]
+    assert np.isfinite(losses).all()
+    lm_path = os.path.join(logs, 'lm', 'lm.ckpt')
+    assert os.path.isfile(lm_path)
+    assert os.listdir(os.path.join(logs, 'lm', 'models'))
+    loaded, loaded_cfg = load_lm_checkpoint(lm_path)
+    assert loaded_cfg == lm_cfg and lm_cfg.hidden_size == 16
+
+    flags = _parse(TINY + ['--logdir_root', logs])
+    tok = CharTokenizer(os.path.join(logs, 'char'))
+    tok.load()
+    assert lm_cfg.vocab_size == tok.vocab_size
+    feat = C.feature_config_from_flags(flags, pad_to_divisible=False)
+    cfg = C.transducer_config_from_flags(flags, tok.vocab_size,
+                                         feat.input_size)
+    model = Transducer(cfg, 'cpu', seed=7)
+    with torch.no_grad():
+        model.joint.out.weight *= 8.0             # emit some text
+    pt = str(tmp_path / 'model.pt')
+    torch.save({'model': model.state_dict()}, pt)
+    r = _run(['--device', 'cpu', '--path', wav, '--logdir_root', logs,
+              '--pt_path', pt, '--beam_width', '3', '--lm_path', lm_path,
+              '--lm_weight', '0.1'] + TINY, tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout.splitlines()
+    assert out[0] == f'loaded {pt}'
+    assert out[1] == f'LM fusion: {lm_path} (lambda=0.1)'
+    assert out[-1].startswith('[chunks ') and 'throughput' in out[-1]
+    audio, _ = load_audio(wav)
+    expect = StreamingBeamDecoder(
+        load_reference_checkpoint(pt, cfg, 'cpu'), cfg, feat, tok,
+        device='cpu', beam_width=3,
+        lm=(loaded, loaded_cfg, 0.1)).decode_wav(audio)
+    assert expect.strip()
+    assert out[2] == expect
+
+
+def test_cli_baseline_eval_beam_width_prints_beam_wer(tmp_path):
+    """--eval_beam_width 2 reaches the trainer: the train loop's eval line
+    and --mode eval's line carry a finite beam_WER, in the JAX package's
+    format."""
+    from test_torch_port_train import _cli_args, _write_corpus
+
+    from edgedict_tpu_torch.cli import baseline
+    corpus = _write_corpus(str(tmp_path / 'libri'), n=4)
+    args = _cli_args(corpus, str(tmp_path / 'logs'), 'beam') + [
+        '--eval_beam_width', '2']
+    args[args.index('--epochs') + 1] = '1'
+    args[args.index('--eval_step') + 1] = '1'
+    lines = []
+    trainer = baseline.main(args + ['--mode', 'train'], log_fn=lines.append)
+    assert trainer.beam_eval_step is not None
+    evals = [ln for ln in lines if ln.startswith('eval @')]
+    assert evals and ' beam_WER ' in evals[0]
+    assert np.isfinite(float(evals[0].split()[-1]))
+    lines = []
+    baseline.main(args + ['--mode', 'eval'], log_fn=lines.append)
+    val = [ln for ln in lines if ln.startswith('val_loss')]
+    assert val and val[0].split()[4] == 'beam_WER'
+    assert np.isfinite(float(val[0].split()[5]))

@@ -3,7 +3,8 @@ does not do yet (edgedict_tpu_torch/config.py REFUSED): a value other
 than the default stops the parse (parser.error, SystemExit 2) with a
 message naming the flag and its ROADMAP.md Queue 1 item, under every
 CLI's parser.  The defaults, the flags the JAX package itself ignores and
-the three preset flagfiles still parse."""
+the three preset flagfiles still parse; --eval_beam_width, ported, is
+accepted."""
 
 import os
 
@@ -29,7 +30,6 @@ PARSERS = {'baseline': baseline.build_parser,
 
 
 @pytest.mark.parametrize('arg,name,item', [
-    ('--eval_beam_width=4', 'eval_beam_width', '9'),
     ('--device_corpus', 'device_corpus', '15'),
     ('--use_pretrained=true', 'use_pretrained', '11'),
     ('--dp_size=2', 'dp_size', '14'),
@@ -53,12 +53,27 @@ def test_every_refused_flag_is_named_at_once(capsys):
     with pytest.raises(SystemExit):
         C.parse_flags(baseline.build_parser(), [
             '--flagfile', f'{REPO}/flagfiles/E6D2.txt',
-            '--eval_beam_width=4', '--tp_size=2', '--use_pretrained',
-            '--device_corpus'])
+            '--tp_size=2', '--use_pretrained', '--device_corpus'])
     err = capsys.readouterr().err
-    for name in ('eval_beam_width', 'tp_size', 'use_pretrained',
-                 'device_corpus'):
+    for name in ('tp_size', 'use_pretrained', 'device_corpus'):
         assert f'--{name}=' in err
+
+
+@pytest.mark.parametrize('cli', sorted(PARSERS))
+def test_eval_beam_width_is_accepted(tmp_path, cli):
+    """--eval_beam_width is a trainer flag now (beam search is ported):
+    the trainer's parser takes it, and a flagfile that carries it (a run's
+    snapshot) still parses under the stream and serve parsers, which
+    ignore it as they ignore the trainer's other flags."""
+    flagfile = tmp_path / 'run.txt'
+    flagfile.write_text(f'--flagfile={REPO}/flagfiles/E6D2.txt\n'
+                        '--eval_beam_width=4\n')
+    flags = C.parse_flags(PARSERS[cli](), [f'--flagfile={flagfile}'])
+    if cli == 'baseline':
+        assert flags.eval_beam_width == 4
+    else:
+        assert not hasattr(flags, 'eval_beam_width')
+        assert flags.enc_layers == 6
 
 
 @pytest.mark.parametrize('preset', PRESETS)
@@ -74,9 +89,11 @@ def test_presets_defaults_and_ignored_flags_parse(cli, preset):
         '--apex', '--noapex', '--opt_level=O2', '--multi_gpu',
         '--LibriSpeech_dev=dev', '--TEDLIUM_test=test',
         '--compilation_cache_dir=cache'])
-    assert (flags.eval_beam_width, flags.device_corpus, flags.use_pretrained,
-            flags.dp_size, flags.tp_size, flags.pp_size) == \
-        (0, False, False, 1, 1, 1)
+    assert (flags.device_corpus, flags.use_pretrained, flags.dp_size,
+            flags.tp_size, flags.pp_size) == (False, False, 1, 1, 1)
+    # a trainer flag: only the trainer's parser keeps it
+    assert getattr(flags, 'eval_beam_width', 0) == 0
+    assert hasattr(flags, 'eval_beam_width') == (cli == 'baseline')
     assert flags.profile_dir == ''
     assert not hasattr(flags, 'apex') and not hasattr(flags, 'opt_level')
     assert flags.enc_layers in (4, 6) and flags.tokenizer == 'bpe'

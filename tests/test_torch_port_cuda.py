@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and at the E6D2 main paths' shapes (serving: K1-K3, K5,
-K11-K13; training: K1, K4, K5, K6 at H=1024 B=32 T=427 bf16, K7/K8 in fp32
+K11-K13; beam search: K1 at the prediction net's and the LM's B·W rows and
+T = 1, K1/K4 at cli.train_lm's H=512 B=32 T=64; training: K1, K4, K5, K6
+at H=1024 B=32 T=427 bf16, K7/K8 in fp32
 and bf16, K7's and K8's tensor-core paths at the E6D2 step, K3's one launch
 over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
 plans' refusals, plus the
@@ -221,6 +223,90 @@ def test_pipelined_fetch_on_cuda(cuda):
     piped = [ms.decode_pipelined(r) for r in rounds] + [ms.flush()]
     assert piped[0] is None
     assert [p[0] for p in piped[1:]] == sync
+
+
+# ---------------------------------------------------------------------------
+# beam search: K1 at the prediction net's and the LM's rows (B·W, T = 1),
+# K1 + K4 at cli.train_lm's step, the beam decoders on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('hid,b,dtype', [
+    (256, 4, torch.float32),      # E6D2's prediction net, W=4, one stream
+    (256, 16, torch.float32),     # the trainer's beam eval (batch 4)
+    (256, 32, torch.float32),     # the 8-stream beam server
+    (512, 4, torch.float32),      # the LM (LMConfig's defaults)
+    (512, 4, torch.bfloat16),     # the LM under bf16 serving
+    (512, 32, torch.float32),     # the LM of the 8-stream beam server
+])
+def test_k1_beam_step_shapes_match_plain_and_are_bit_stable(cuda, hid, b,
+                                                            dtype):
+    g = torch.Generator(device='cpu').manual_seed(hid + b)
+    k = 1.0 / hid ** 0.5
+    xp = torch.randn(1, b, 4 * hid, generator=g).to(cuda, dtype)
+    w = (torch.rand(4 * hid, hid, generator=g) * 2 * k - k).to(cuda, dtype)
+    h0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
+    c0 = torch.randn(b, hid, generator=g).to(cuda) * 0.5
+    before = K1.lstm_recurrence.launches
+    out = K1.lstm_recurrence(xp, w, h0, c0)
+    again = K1.lstm_recurrence(xp, w, h0, c0)
+    ref = K1.lstm_recurrence_plain(xp, w, h0, c0)
+    assert K1.lstm_recurrence.launches == before + 2
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, c, r in zip(out, again, ref):
+        assert torch.equal(a, c)
+        assert _max_abs(a, r) <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k1_k4_train_lm_shape_match_plain_and_are_bit_stable(cuda, dtype):
+    """cli.train_lm's step at LMConfig's defaults: H=512, B=32, T=64."""
+    from edgedict_tpu_torch.ops import rnn_kernel as K
+    hid, b, t = 512, 32, 64
+    g = torch.Generator(device='cpu').manual_seed(7)
+    k = 1.0 / hid ** 0.5
+    xp = torch.randn(t, b, 4 * hid, generator=g).to(cuda, dtype)
+    w = (torch.rand(4 * hid, hid, generator=g) * 2 * k - k).to(cuda, dtype)
+    h0 = torch.zeros(b, hid, device=cuda)
+    c0 = torch.zeros(b, hid, device=cuda)
+    out = K.lstm_recurrence(xp, w, h0, c0)
+    again = K.lstm_recurrence(xp, w, h0, c0)
+    ref = K.lstm_recurrence_plain(xp, w, h0, c0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, c, r in zip(out, again, ref):
+        assert torch.equal(a, c)
+        assert _max_abs(a, r) <= tol
+    ys, cs, _ = out
+    dys = torch.randn(t, b, hid, generator=g).to(cuda, dtype)
+    bwd = K.lstm_recurrence_bwd(xp, w, h0, c0, ys, cs, dys, None, None)
+    bwd2 = K.lstm_recurrence_bwd(xp, w, h0, c0, ys, cs, dys, None, None)
+    bref = K.lstm_recurrence_bwd_plain(xp, w, h0, c0, ys, cs, dys, None,
+                                       None)
+    for a, c, r in zip(bwd, bwd2, bref):
+        assert torch.equal(a, c)
+        assert _rel_err(a, r) <= tol
+
+
+def test_beam_decoders_cuda_equal_cpu(cuda):
+    """The streaming beam decoder with LM fusion on the card gives the
+    CPU run's text; the multi-stream one at 2 streams agrees with it."""
+    from edgedict_tpu_torch.models.lm import LMConfig, LMModel
+    cfg, feat, model, audio = _small_stream()
+    lm_model = LMModel(LMConfig(vocab_size=cfg.vocab_size, embed_size=16,
+                                hidden_size=32), 'cpu', seed=3)
+    lm = (lm_model, lm_model.cfg, 0.05)
+    texts = {}
+    for device in ('cpu', 'cuda'):
+        dec = S.StreamingBeamDecoder(model, cfg, feat, _Tok(), device=device,
+                                     beam_width=4, lm=lm)
+        texts[device] = dec.decode_wav(audio)
+        assert dec.beam.logp.device.type == device
+    assert texts['cuda'] == texts['cpu'] and texts['cpu']
+    ms = S.MultiStreamBeamDecoder(model, cfg, feat, _Tok(), 2, device='cuda',
+                                  beam_width=4, lm=lm)
+    for i in range(len(S._chunks(audio, ms.win_size, ms.hop_size))):
+        frame = audio[i * ms.hop_size:i * ms.hop_size + ms.win_size]
+        out = ms.decode(np.stack([frame, frame]))
+    assert out == [texts['cpu']] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,7 @@ def test_importing_the_port_adds_no_jax_module():
         'ops.quant', 'ops.features_kernel',
         'ops.decode_kernel', 'ops.rnnt_loss', 'ops.rnnt_loss_kernel',
         'ops.joint_lse_kernel', 'models.transducer', 'models.decoding',
+        'models.lm', 'models.beam_search', 'cli.train_lm',
         'optim', 'train', 'checkpoint', 'trainer', 'cli.stream', 'cli.serve',
         'cli.baseline', 'cli.profile_stream', 'cli.profile_train')]
     banned = sorted(BANNED | {'edgedict_tpu'})
