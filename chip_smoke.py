@@ -60,6 +60,13 @@ Phases, each printing JSON or text lines:
              cooperative launch over the card, plan ops/decode_plan.py) at
              B=1/8 T=1/16, the int8 server's B=64 and the eval decode's B=4
              T=214, bit-stable, with its device time by torch.profiler;
+             then, on their own seed after every other case, a 16 s raw
+             fine-tune step at E6D2's U+1 = 65 (wav2vec_kernels; the
+             wav2vec runs' own shapes are phase 19's): K1 bf16 held step
+             by step and K4 at B=32 T=1597, each beside one cuDNN layer of
+             input 128, K9/K10 and K7/K8 at B=32 T=1597 U+1=65 (the joint
+             against the plain joint by time chunks), and one library call
+             beside the shapes that had none (library_rows);
              each kernel's bound
              (bytes once over 3.35 TB/s, or operations over the peak of
              their type, whichever is larger) from the timed inputs
@@ -87,7 +94,8 @@ Phases, each printing JSON or text lines:
              flagfiles/E6D2.txt (batch 32, bf16, BPE 2048) on a seeded
              synthetic corpus of 8-16 s utterances: 2 warm-up and 5 measured
              steps (median step ms, audio s/s, peak memory), loss falling on
-             a repeated small batch, one --mode eval pass (val_loss, WER)
+             a repeated small batch, one --mode eval pass (val_loss, WER;
+             its launches counted)
  12 train_run_gru  the same with --enc_type GRU on the same corpus and
              BPE model, plus one step of a Trainer with --time_warp_w 80
              --optim novograd (finite loss); the LSTM run's eval pass also
@@ -108,7 +116,34 @@ Phases, each printing JSON or text lines:
              messages); 4 clients, each final transcript == decode_wav;
              the same rounds driven directly under the profiler (device
              ms and busy share a round)
- 16 launches every kernel launched by the main paths themselves: the counts
+ 16 pretrain_parity  one fp32 step of the full-width wav2vec model (E6D2's
+             encoder, input 128, pretrain_config's defaults) through
+             Wav2VecPretrainer.run_step at batch 8 x 48,000 samples on
+             cuda against the CPU plain path: the same weights, crops,
+             masks and injected draws, the pretrainer's lr and temperature
+             at host step 1; loss, grad_norm, grads and the params after
+             the AdamW-without-LN-decay step
+ 17 pretrain_run  the pretrainer as cli.pretrain_wav2vec builds it
+             (batch 32 x 48,000 samples, fp32) on the train_run corpus:
+             measured steps (step ms, audio s/s, busy share, peak
+             memory), then cli.pretrain_wav2vec for one epoch: finite
+             losses, accuracies in [0, 1], pretrained.ckpt written
+ 18 raw_train_run  cli.train --flagfile flagfiles/E6D2.txt --use_pretrained
+             as it builds the RawTrainer (batch 32, bf16, 8-16 s, T up to
+             1601): the spliced FrontEnd and encoder equal pretrained.ckpt
+             bit for bit, measured steps, loss falling on a repeated
+             batch, then cli.train --mode eval reloads the run and prints
+             a finite val_loss and WER; the eval timed whole (wall and
+             device ms a batch, each kernel's device ms)
+ 19 wav2vec_kernels  each kernel of phases 17 and 18 against its plain
+             version at the shapes those runs gave it (their micro-batch
+             and eval-batch B, frames and U+1, the lattice at their own
+             xlen / ylen): pretraining's K1 / K4 fp32 and its eval's K1;
+             the fine-tune's encoder K1 / K4 bf16 (K1 held step by step),
+             prediction-net K1 / K4 fp32, K7-K10 bf16; its eval's K1 fp32
+             (encoder, prediction net, the decode's T=1 priming), K7 fp32,
+             K9 and K3, each timed with its bound
+ 20 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -122,7 +157,16 @@ Phases, each printing JSON or text lines:
              imply (per micro-step: LSTM 8 K1 and 8 K4, GRU 6 K5, 6 K6, 2
              K1 and 2 K4; one of K2 and K7-K10 each), cli.train_lm's 2 K1
              and 2 K4 a step; every K11 launch of the int8 server is a
-             tiled one; the beam server launches K1 and K2 and no K3
+             tiled one; the beam server launches K1 and K2 and no K3;
+             the wav2vec runs exactly what their steps imply, every other
+             kernel 0 (pretraining: 6 K1 and 6 K4 a micro-step, 6 K1 an
+             eval batch; the fine-tune: 8 K1, 8 K4 and one of K7-K10 a
+             micro-step; its eval: 16 K1 and one of K3, K7 and K9 a
+             batch); the train_run phases' --mode eval passes exactly what
+             evaluate() implies (per batch K2, K3, K7, K9 once, the
+             encoder's and the prediction net's layers twice; the LSTM
+             run's W=4 beam adds K2 and 8 K1 a batch and 6 K1 an encoder
+             frame)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -191,13 +235,23 @@ def _median_ms(torch, fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+# a plain version slower than this a call is timed twice, not 20 times (the
+# long cases' plain versions take seconds)
+LONG_PLAIN_MS = 100.0
+
+
 def time_pair(torch, plain, kernel):
     """(kernel ms, plain ms), each the mean of two medians taken in the
-    order plain, kernel, kernel, plain."""
-    p1 = _median_ms(torch, plain)
+    order plain, kernel, kernel, plain: medians of 20 timings after 3
+    warm-up calls, the plain version's of 2 where one call of it (after
+    one warm-up call) takes over LONG_PLAIN_MS."""
+    plain()
+    iters, warm = ((2, 0) if _median_ms(torch, plain, 1, 0) > LONG_PLAIN_MS
+                   else (20, 3))
+    p1 = _median_ms(torch, plain, iters, warm)
     k1 = _median_ms(torch, kernel)
     k2 = _median_ms(torch, kernel)
-    p2 = _median_ms(torch, plain)
+    p2 = _median_ms(torch, plain, iters, warm)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -443,7 +497,7 @@ def phase_kernels(torch):
                        case.get('ms') if main else None,
                        case.get('plain_ms'), bounds)
     train_kernels(torch, rng, dev, record)
-    train_shape_forward(torch, rng, dev)
+    train_shape_forward(torch, rng, dev, record)
     summary['quant_matmul_tile']['cases'] = serving_kernels_q(torch, rng, dev,
                                                               record)
     # K3's device time by torch.profiler (None where no profiled run
@@ -456,16 +510,19 @@ def phase_kernels(torch):
         if key == {'B': 1, 'T': 1, 'blank_bias': 0.0}:
             summary['greedy_decode']['device_ms'] = ms
     beam_kernels(torch, dev, record)
+    wav2vec_kernels(torch, dev, record)
     STATE['kernels'] = summary
+    STATE['record'] = record            # phase_wav2vec_kernels' cases
 
 
 def lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt, beam_step=False,
-                  bit_stable=False):
+                  bit_stable=False, n_in=None):
     """K1 against its plain version at (H, B, T, dtype), free-running and
     step by step from the kernel's own state, with its plan, timed where
     T < 16 or B = 1; a beam step also beside one cuDNN layer with the
     beam's input width and with its device ms; bit_stable: the same bits
-    on a second call."""
+    on a second call; n_in: the layer's input width, given where the case
+    is also timed beside one cuDNN layer of that width."""
     from edgedict_tpu_torch.ops import rnn_kernel as K1
     k = 1.0 / hid ** 0.5
     xp = torch.as_tensor(rng.randn(t, b, 4 * hid).astype(np.float32),
@@ -505,6 +562,8 @@ def lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt, beam_step=False,
         case.update(ms=ms, plain_ms=pms)
     if main:
         case.update(layer_times(torch, 'LSTM', hid, b, t, dt, False))
+    if n_in:
+        case.update(layer_times(torch, 'LSTM', hid, b, t, dt, False, n_in))
     if beam_step:
         # the layer's input: E6D2's 64-wide label embedding, the LM's
         # 256-wide one
@@ -527,10 +586,11 @@ def lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt, beam_step=False,
            case.get('plain_ms'), bounds, case.get('library_ms'))
 
 
-def lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt):
+def lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt, n_in=None):
     """K4 against its plain version at (H, B, T, dtype), timed, split into
     its two launches by the profiler; the E6D2 encoder's also beside one
-    cuDNN layer."""
+    cuDNN layer, and given the layer's input width n_in beside one of that
+    width."""
     from edgedict_tpu_torch.ops import rnn_kernel as K1
     fp32 = torch.float32
 
@@ -566,6 +626,8 @@ def lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt):
         torch, lambda: K1.lstm_recurrence_bwd(*args), BWD_PARTS))
     if main:
         case.update(layer_times(torch, 'LSTM', hid, b, t, dt, True))
+    if n_in:
+        case.update(layer_times(torch, 'LSTM', hid, b, t, dt, True, n_in))
     emit(case)
     require(max(errs) <= tol, f'K4 disagrees: {case}')
     record('lstm_bwd', max(errs), ms if main else None, pms, bounds,
@@ -592,6 +654,240 @@ def beam_kernels(torch, dev, record):
         lstm_fwd_case(torch, rng, dev, record, *case,
                       beam_step=case in steps, bit_stable=True)
     lstm_bwd_case(torch, rng, dev, record, *LM_TRAIN, fp32)
+
+
+# the wav2vec slice: the FrontEnd's 128 channels are the first encoder
+# layer's input; phase_wav2vec_kernels holds each kernel at the shapes the
+# pretraining and raw fine-tune runs gave it, wav2vec_kernels beside them
+# at a 16 s lattice of E6D2's U+1 = 65
+FRONTEND_C = 128
+RAW_T = 1597               # FrontEnd frames of 256,000 samples (16 s)
+RAW_U1 = 65
+
+
+def wav2vec_kernels(torch, dev, record):
+    """K1, K4 and K7-K10 at a 16 s raw fine-tune step with E6D2's U+1 = 65
+    (B=32 T=1597, after every other case, on their own seed), beside the
+    shapes of the runs themselves (phase_wav2vec_kernels): K1 bf16 held
+    step by step and K4, each beside one cuDNN layer of input 128; the
+    lattice (K9, K10); the joint (K7, K8) against the plain joint by time
+    chunks; then library_rows."""
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(13)
+    bf16_forward_case(torch, rng, dev, record, 'LSTM', 32, RAW_T, FRONTEND_C)
+    lstm_bwd_case(torch, rng, dev, record, 1024, 32, RAW_T, bf16,
+                  n_in=FRONTEND_C)
+    xlen = rng.randint(RAW_T * 3 // 4, RAW_T + 1, 32)
+    ylen = rng.randint(40, RAW_U1, 32)
+    lattice_long_cases(torch, rng, dev, record, 32, RAW_T, RAW_U1, xlen,
+                       ylen)
+    joint_long_case(torch, rng, dev, record, 32, RAW_T, RAW_U1, bf16)
+    library_rows(torch)
+
+
+def lattice_long_cases(torch, rng, dev, record, b, t, u1, xlen, ylen,
+                       backward=True):
+    """K9 (and with backward K10 on its alpha) at a long lattice of seeded
+    log-probs and the given lengths, the plain versions in fp64; run
+    before the joint's GB-sized references, the allocator's cache emptied
+    first (K9's no-extra-memory check counts allocated blocks)."""
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+    logits = torch.as_tensor(rng.randn(b, t, u1, 2).astype(np.float32),
+                             device=dev)
+    lp = logits - torch.logsumexp(logits, -1, keepdim=True)
+    case = (lp[..., 0].contiguous(), lp[:, :, :-1, 1].contiguous(),
+            *(torch.as_tensor(np.asarray(x, np.int32), device=dev)
+              for x in (xlen, ylen)))
+    del logits, lp
+    torch.cuda.empty_cache()
+    k9_cases(torch, record, [case])
+    if backward:
+        k10_cases(torch, record, [(*case, *KL.lattice_alpha(*case))],
+                  wide=True)
+
+
+def _plain_joint_by_chunks(torch, KJ, f, g, w_t, bias, labels, chunk,
+                           cot=None):
+    """The plain joint (fused_joint_lse_plain) over `chunk` frames at a
+    time, as rnnt_loss_from_joint's CPU path runs it: → (blank_lp,
+    label_lp), and with cot = (d_b, d_l) also the gradients of f, g, w_t
+    and bias (each chunk's forward recomputed under autograd)."""
+    parts, df, rest = [], [], None
+    for s0 in range(0, f.shape[1], chunk):
+        f_c = f[:, s0:s0 + chunk]
+        if cot is None:
+            with torch.no_grad():
+                parts.append(KJ.fused_joint_lse_plain(f_c, g, w_t, bias,
+                                                      labels, 0))
+            continue
+        leaves = [x.detach().clone().requires_grad_()
+                  for x in (f_c, g, w_t, bias)]
+        out = KJ.fused_joint_lse_plain(*leaves, labels, 0)
+        gr = torch.autograd.grad(out, leaves, (cot[0][:, s0:s0 + chunk],
+                                               cot[1][:, s0:s0 + chunk]))
+        df.append(gr[0])
+        rest = list(gr[1:]) if rest is None else [
+            a + c for a, c in zip(rest, gr[1:])]
+    if cot is None:
+        return tuple(torch.cat(p, 1) for p in zip(*parts))
+    return (torch.cat(df, 1), *rest)
+
+
+def joint_long_case(torch, rng, dev, record, b, t, u1, dt):
+    """K7 (and in bf16 K8) at the raw fine-tune's lattice, J=640 V=2048,
+    against the plain joint run 100 frames at a time (the whole
+    (B, T, U+1, V) logits of this shape do not fit the card), timed in
+    turns with the plain version twice: log-probs to 1e-4 and gradients to
+    2e-2 of max(1, max|ref|), as at the E6D2 step."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    j, v, chunk = 640, 2048, 100
+
+    def t_(*shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
+                               device=dev)
+    f, g = t_(b, t, j).to(dt), t_(b, u1, j).to(dt)
+    w_t, bias = t_(j, v, scale=j ** -0.5), t_(v, scale=0.1)
+    labels = torch.as_tensor(rng.randint(4, v, (b, u1 - 1)).astype(np.int32),
+                             device=dev)
+    d_b, d_l = t_(b, t, u1, scale=0.1), t_(b, t, u1 - 1, scale=0.1)
+    wt_e = w_t.to(dt).contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    blank_lp, label_lp, lse = KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0)
+    fwd_extra = torch.cuda.max_memory_allocated() - base
+    plain = lambda: _plain_joint_by_chunks(  # noqa: E731
+        torch, KJ, f, g, w_t, bias, labels, chunk)
+    ref = plain()
+    torch.cuda.synchronize()
+    fwd_err = max(_rel(torch, blank_lp, ref[0]), _rel(torch, label_lp, ref[1]))
+    again = KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0)
+    ms, pms = time_pair(torch, plain, lambda: KJ.joint_lse_fwd(
+        f, g, wt_e, bias, labels, 0))
+    lattice_ops = 2 * b * t * u1 * j * v
+    fwd_bound = bound(nbytes(f, g, wt_e, bias, labels, blank_lp, label_lp,
+                             lse), lattice_ops, kind_of(torch, f))
+    case = {'kernel': 'K7 joint_lse_fwd', 'B': b, 'T': t, 'U1': u1, 'J': j,
+            'V': v, 'dtype': str(dt).split('.')[-1], 'fwd_rel': fwd_err,
+            'bit_stable': all(torch.equal(a, c) for a, c in
+                              zip((blank_lp, label_lp, lse), again)),
+            'fwd_ms': ms, 'fwd_plain_ms': pms,
+            'fwd_plain': f'fused_joint_lse_plain by {chunk} frames',
+            'fwd_bound_ms': fwd_bound[0], 'fwd_bound_by': fwd_bound[1],
+            'fwd_extra_mb': fwd_extra / 2 ** 20,
+            'tol': 'lp 1e-4, grads 2e-2, of max(1, max|ref|)'}
+    del ref, again
+    ok = fwd_err <= 1e-4 and case['bit_stable']
+    record('joint_lse_fwd', fwd_err)
+    if dt == torch.bfloat16:
+        case['kernel'] = 'K7/K8 joint_lse'
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads = KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse, d_b, d_l)
+        bwd_extra = torch.cuda.max_memory_allocated() - base
+        ref_g = _plain_joint_by_chunks(torch, KJ, f, g, w_t, bias, labels,
+                                       chunk, (d_b, d_l))
+        torch.cuda.synchronize()
+        errs = [_rel(torch, a, r) for a, r in zip(grads, ref_g)]
+        del ref_g
+        bms, bpms = time_pair(
+            torch, lambda: _plain_joint_by_chunks(
+                torch, KJ, f, g, w_t, bias, labels, chunk, (d_b, d_l)),
+            lambda: KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse, d_b,
+                                     d_l))
+        bwd_bound = bound(nbytes(f, g, wt_e, bias, labels, lse, d_b, d_l,
+                                 *grads), 3 * lattice_ops, kind_of(torch, f))
+        case.update(df_rel=errs[0], dg_rel=errs[1], dw_rel=errs[2],
+                    dbias_rel=errs[3], bwd_ms=bms, bwd_plain_ms=bpms,
+                    bwd_plain='the same by chunks, forward recomputed',
+                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+                    bwd_extra_mb=bwd_extra / 2 ** 20,
+                    bwd_parts_ms=kernel_split_ms(
+                        torch, lambda: KJ.joint_lse_bwd(
+                            f, g, wt_e, bias, labels, 0, lse, d_b, d_l),
+                        K8_PARTS, n=2))
+        ok = ok and max(errs) <= 2e-2
+        record('joint_lse_bwd', max(errs))
+    emit(case)
+    require(ok, f'K7/K8 disagree at the raw lattice: {case}')
+
+
+def k3_long_case(torch, rng, dev, record, b, t):
+    """K3 at a long decode, (B, T) at E6D2's joint and prediction-net
+    widths (blank bias 1.8 as the E6D2 eval case: most frames blank, as a
+    trained model's), called as models/decoding.py's greedy decode calls
+    it (no <unk> id, log-probs emitted): tokens exact, states and
+    log-probs to 1e-4, bit-stable, timed in turns, device ms by the
+    profiler."""
+    import dataclasses
+
+    from edgedict_tpu_torch.models import transducer as T
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    dcfg = T.TransducerConfig(vocab_size=2048, vocab_embed_size=64,
+                              enc_hidden_size=8, enc_layers=1,
+                              enc_proj_size=640, dec_hidden_size=256,
+                              dec_layers=2, dec_proj_size=256,
+                              joint_size=640)
+    model = T.Transducer(dcfg, device=dev, seed=1)
+    with torch.no_grad():
+        model.joint.out.bias[dcfg.blank] += 1.8
+    cache = K3.build_decode_cache(model)
+    with torch.no_grad():
+        h_dec0, (hs, cs) = T.decoder_apply(
+            model.decoder, dcfg, torch.zeros((b, 0), dtype=torch.long,
+                                             device=dev))
+    f = torch.as_tensor(rng.randn(t, b, 640).astype(np.float32), device=dev)
+    args = (cache, f, h_dec0[:, 0].contiguous(), hs, cs, 0, None, True)
+    out = K3.greedy_frame_loop(*args)
+    again = K3.greedy_frame_loop(*args)
+    ref = K3.greedy_frame_loop_plain(*args)
+    torch.cuda.synchronize()
+    tok_eq = bool(torch.equal(out[0], ref[0]))
+    errs = [_close(a, r, 1e-4, 1e-4) for a, r in zip(out[1:], ref[1:])
+            if a is not None]
+    ms, pms = time_pair(torch, lambda: K3.greedy_frame_loop_plain(*args),
+                        lambda: K3.greedy_frame_loop(*args))
+    dms, n = device_ms_per_launch(torch, lambda: K3.greedy_frame_loop(*args),
+                                  'greedy_frame_kernel', n=2)
+    bounds = k3_bound(torch, dcfg, cache, args, out)
+    case = {'kernel': 'K3 greedy_decode', 'B': b, 'T': t, 'blank_bias': 1.8,
+            'tokens_equal': tok_eq,
+            'blank_share': float((ref[0] == 0).float().mean()),
+            'state_max_abs': max(e for _, e in errs),
+            'bit_stable': all(torch.equal(a, c) for a, c in zip(out, again)
+                              if a is not None),
+            'ms': ms, 'plain_ms': pms, 'device_ms': dms,
+            'profiled_launches': n, 'bound_ms': bounds[0],
+            'bound_by': bounds[1], 'tol': 'tokens exact, atol 1e-4 rtol 1e-4',
+            'plan': dataclasses.asdict(K3.card_plan(cache, f, hs))}
+    emit(case)
+    require(tok_eq and all(ok for ok, _ in errs) and case['bit_stable'],
+            f'K3 disagrees at a long decode: {case}')
+    record('greedy_decode', case['state_max_abs'])
+
+
+def library_rows(torch):
+    """One library call beside the kernel cases that had none: one cuDNN
+    layer (K1: forward; K4, K6: forward + backward) at K1's beam and LM
+    shapes (H=256 B=16/32 T=1 input 64, H=512 B=32 T=1 and T=64 input
+    256), K4 at H=1024 B=32 T=64 fp32 (input 240) and H=512 B=32 T=64
+    (input 256), K6 at H=1024 B=32 T=64 fp32; dequantize + one cuDNN layer
+    at K12's / K13's int8-server shape (B=64 T=2)."""
+    fp32 = torch.float32
+    for kernel, cell, hid, b, t, n_in, backward in (
+            ('K1', 'LSTM', 256, 16, 1, 64, False),
+            ('K1', 'LSTM', 256, 32, 1, 64, False),
+            ('K1', 'LSTM', 512, 32, 1, 256, False),
+            ('K1', 'LSTM', 512, 32, 64, 256, False),
+            ('K4', 'LSTM', 1024, 32, 64, ENC_IN, True),
+            ('K4', 'LSTM', 512, 32, 64, 256, True),
+            ('K6', 'GRU', 1024, 32, 64, ENC_IN, True)):
+        emit({'library_row': kernel, 'H': hid, 'B': b, 'T': t,
+              'input': n_in, 'dtype': 'float32',
+              **layer_times(torch, cell, hid, b, t, fp32, backward, n_in)})
+    for kernel, cell in (('K12', 'LSTM'), ('K13', 'GRU')):
+        emit({'library_row': kernel, 'H': 1024, 'B': 64, 'T': 2,
+              'dtype': 'float32', 'library': 'dequantize + cuDNN layer',
+              **quant_layer_times(torch, cell, 1024, 64, 2)})
 
 
 def k3_bound(torch, cfg, cache, args, out):
@@ -737,67 +1033,75 @@ K8_PARTS = {'h_ms': ('joint_lse_bwd_h_',),
             'reduce_ms': ('joint_lse_bwd_reduce',)}
 
 
-def train_shape_forward(torch, rng, dev):
+def train_shape_forward(torch, rng, dev, record):
     """K1 and K5 at the training step's encoder shape (H=1024 B=32 T=427
-    bf16) beside one cuDNN layer's forward (the next redesign's yardstick).
-    Free-running bf16 drifts over 427 steps (a one-ulp flip of h feeds every
-    later step), so each step is held from the kernel's own carried state:
-    ys to one bf16 ulp, the LSTM's cs to 1e-4; the free-running error is
+    bf16) beside one cuDNN layer's forward (the next redesign's
+    yardstick)."""
+    for cell in ('LSTM', 'GRU'):
+        bf16_forward_case(torch, rng, dev, record, cell, 32, 427, ENC_IN)
+
+
+def bf16_forward_case(torch, rng, dev, record, cell, b, t, n_in):
+    """K1 (cell 'LSTM') or K5 ('GRU') at H=1024 (B, T) in bf16 beside one
+    cuDNN layer's forward of input width n_in.  Free-running bf16 drifts
+    over hundreds of steps (a one-ulp flip of h feeds every later step),
+    so each step is held from the kernel's own carried state: ys to one
+    bf16 ulp, the LSTM's cs to 1e-4; the free-running error is
     reported."""
     from edgedict_tpu_torch.ops import gru_kernel as K5
     from edgedict_tpu_torch.ops import rnn_kernel as K1
-    hid, b, t, dt = 1024, 32, 427, torch.bfloat16
+    hid, dt = 1024, torch.bfloat16
+    gates = 4 if cell == 'LSTM' else 3
     k = 1.0 / hid ** 0.5
-    for cell, gates in (('LSTM', 4), ('GRU', 3)):
-        xp = torch.as_tensor(rng.randn(t, b, gates * hid).astype(np.float32),
-                             device=dev).to(dt)
-        w = torch.as_tensor(rng.uniform(-k, k, (gates * hid, hid))
-                            .astype(np.float32), device=dev).to(dt)
-        h0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
+    xp = torch.as_tensor(rng.randn(t, b, gates * hid).astype(np.float32),
+                         device=dev).to(dt)
+    w = torch.as_tensor(rng.uniform(-k, k, (gates * hid, hid))
+                        .astype(np.float32), device=dev).to(dt)
+    h0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
+                         device=dev)
+    if cell == 'LSTM':
+        c0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
                              device=dev)
-        if cell == 'LSTM':
-            c0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
-                                 device=dev)
-            inputs = (xp, w, h0, c0)
-            kernel = lambda: K1.lstm_recurrence(*inputs)  # noqa: E731
-            plain = lambda: K1.lstm_recurrence_plain(*inputs)  # noqa: E731
-            ys, cs, hT = kernel()
-            outs = (ys, cs, hT)
-            step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w, h0, c0, ys,
-                                                cs)
-            steps = [_close(ys, step_ys, 1e-2, 2.0 ** -7),
-                     _close(cs, step_cs, 1e-4, 1e-4)]
-            run_err = _close(ys, plain()[0], 0.0, 0.0)[1]
-        else:
-            b_hh = torch.as_tensor(rng.randn(gates * hid).astype(np.float32)
-                                   * 0.1, device=dev)
-            inputs = (xp, w, b_hh, h0)
-            kernel = lambda: K5.gru_recurrence(*inputs)[0]  # noqa: E731
-            plain = lambda: K5.gru_recurrence_plain(*inputs)  # noqa: E731
-            ys = kernel()
-            outs = (ys,)
-            h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b,
-                                                                    hid)
-            step_ys = K5.gru_recurrence_plain(
-                xp.reshape(1, t * b, gates * hid), w, b_hh,
-                h_prev).reshape(ys.shape)
-            steps = [_close(ys, step_ys, 1e-2, 2.0 ** -7)]
-            run_err = _close(ys, plain(), 0.0, 0.0)[1]
-        torch.cuda.synchronize()
-        ms, pms = time_pair(torch, plain, kernel)
-        b_ms, b_by = bound(nbytes(*inputs, *outs),
-                           2 * t * b * gates * hid * hid, 'bf16')
-        label = 'K1 lstm_fwd' if cell == 'LSTM' else 'K5 gru_fwd'
-        case = {'kernel': label, 'H': hid, 'B': b, 'T': t, 'dtype': 'bfloat16',
-                'shape': 'training', 'plan': fwd_plan(xp, gates),
-                'step_max_abs': [e for _, e in steps],
-                'run_max_abs': run_err, 'ms': ms, 'plain_ms': pms,
-                'bound_ms': b_ms, 'bound_by': b_by,
-                'tol': 'per step ys atol 1e-2 rtol 2^-7'
-                       + (', cs 1e-4' if cell == 'LSTM' else '')}
-        case.update(layer_times(torch, cell, hid, b, t, dt, False))
-        emit(case)
-        require(all(ok for ok, _ in steps), f'{label} disagrees: {case}')
+        inputs = (xp, w, h0, c0)
+        kernel = lambda: K1.lstm_recurrence(*inputs)  # noqa: E731
+        plain = lambda: K1.lstm_recurrence_plain(*inputs)  # noqa: E731
+        ys, cs, hT = kernel()
+        outs = (ys, cs, hT)
+        step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w, h0, c0, ys, cs)
+        steps = [_close(ys, step_ys, 1e-2, 2.0 ** -7),
+                 _close(cs, step_cs, 1e-4, 1e-4)]
+        run_err = _close(ys, plain()[0], 0.0, 0.0)[1]
+    else:
+        b_hh = torch.as_tensor(rng.randn(gates * hid).astype(np.float32)
+                               * 0.1, device=dev)
+        inputs = (xp, w, b_hh, h0)
+        kernel = lambda: K5.gru_recurrence(*inputs)[0]  # noqa: E731
+        plain = lambda: K5.gru_recurrence_plain(*inputs)  # noqa: E731
+        ys = kernel()
+        outs = (ys,)
+        h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b, hid)
+        step_ys = K5.gru_recurrence_plain(
+            xp.reshape(1, t * b, gates * hid), w, b_hh,
+            h_prev).reshape(ys.shape)
+        steps = [_close(ys, step_ys, 1e-2, 2.0 ** -7)]
+        run_err = _close(ys, plain(), 0.0, 0.0)[1]
+    torch.cuda.synchronize()
+    ms, pms = time_pair(torch, plain, kernel)
+    b_ms, b_by = bound(nbytes(*inputs, *outs),
+                       2 * t * b * gates * hid * hid, 'bf16')
+    label = 'K1 lstm_fwd' if cell == 'LSTM' else 'K5 gru_fwd'
+    case = {'kernel': label, 'H': hid, 'B': b, 'T': t, 'dtype': 'bfloat16',
+            'shape': 'training', 'plan': fwd_plan(xp, gates),
+            'step_max_abs': [e for _, e in steps],
+            'run_max_abs': run_err, 'ms': ms, 'plain_ms': pms,
+            'bound_ms': b_ms, 'bound_by': b_by,
+            'tol': 'per step ys atol 1e-2 rtol 2^-7'
+                   + (', cs 1e-4' if cell == 'LSTM' else '')}
+    case.update(layer_times(torch, cell, hid, b, t, dt, False, n_in))
+    emit(case)
+    require(all(ok for ok, _ in steps), f'{label} disagrees: {case}')
+    record('lstm_fwd' if cell == 'LSTM' else 'gru_fwd',
+           max(e for _, e in steps))
 
 
 def train_kernels(torch, rng, dev, record):
@@ -1093,13 +1397,16 @@ def k9_cases(torch, record, cases):
                case.get('plain_ms'), bounds, None, case.get('device_ms'))
 
 
-def k10_cases(torch, record, cases):
+def k10_cases(torch, record, cases, wide=False):
     """K10 (one register-wavefront launch, plan ops/rnnt_loss_kernel.py
     beta_plan) against its plain version given the same alpha and logZ
     (K9's), at the E6D2 step (the first case: timed, with its device ms by
     torch.profiler) and at lattice_cases' geometries: occupancies to
     max(1e-5, 1e-6 |logZ|), the same bits on a second call, one kernel
-    launch per call on the card."""
+    launch per call on the card.  wide: the plain version run in fp64 on
+    the same inputs (over the raw fine-tune's 1597 frames its fp32 beta
+    chain drifts past the tolerance, 3.8e-3, where K10 carries beta in
+    fp64), the fp32 plain version's own error beside it."""
     import dataclasses
 
     from edgedict_tpu_torch.ops import rnnt_loss as PL
@@ -1111,8 +1418,17 @@ def k10_cases(torch, record, cases):
         again = KL.lattice_beta_grad(*args)
         r_gb, r_gl = PL.lattice_beta_grad_plain(*args)
         torch.cuda.synchronize()
-        err = max(float((gb - r_gb).abs().max()),
-                  float((gl - r_gl).abs().max()) if gl.numel() else 0.0)
+
+        def occ_err(a, c):
+            return max(float((a[0] - c[0]).abs().max()),
+                       float((a[1] - c[1]).abs().max()) if gl.numel()
+                       else 0.0)
+        err = occ_err((gb, gl), (r_gb, r_gl))
+        if wide:
+            plain_fp32_err = err
+            w_gb, w_gl = PL.lattice_beta_grad_plain(
+                *(x.double() for x in args[:4]), xlen, ylen)
+            err = occ_err((gb.double(), gl.double()), (w_gb, w_gl))
         tol = max(1e-5, 1e-6 * float(logz.abs().max()))
         prof = _profiled_us(torch, lambda: KL.lattice_beta_grad(*args), 5)
         case = {'kernel': 'K10 lattice_beta_grad', 'B': b, 'T': t, 'U1': u1,
@@ -1125,6 +1441,9 @@ def k10_cases(torch, record, cases):
                 'profiled_launches_per_call':
                     sum(c for _, c in prof.values()) / 5,
                 'profiled_kernels': sorted(prof)}
+        if wide:
+            case.update(tol=case['tol'] + ', the plain version in fp64',
+                        plain_fp32_max_abs_err=plain_fp32_err)
         bounds = None
         if i == 0:
             # the cells this data needs: t < xlen, u <= ylen; blank, label,
@@ -1992,7 +2311,14 @@ def phase_train_run(torch, enc_type='LSTM'):
         require(flags.eval_batch_size == EVAL_BATCH,
                 f'eval batch {flags.eval_batch_size}: phase_kernels holds K1 '
                 f'at the beam eval\'s {EVAL_BATCH} x W rows')
-        baseline.main(argv + ['--mode', 'eval'] + beam, log_fn=lines.append)
+        _reset_launches()
+        evaluated = baseline.main(argv + ['--mode', 'eval'] + beam,
+                                  log_fn=lines.append)
+        torch.cuda.synchronize()
+        STATE[f'launches_{run}_eval'] = _launches()
+        STATE.setdefault('run_expect', {})[run + '_eval'] = _eval_expect(
+            torch, evaluated, BEAM['beam_width'] if beam else 0)
+        del evaluated
         val = [ln for ln in lines if ln.startswith('val_loss')]
         res['eval'] = val[0] if val else None
         if gru:
@@ -2369,6 +2695,477 @@ def phase_lm_train(torch):
         os.chdir(cwd)
 
 
+# ---------------------------------------------------------------------------
+# wav2vec 2.0 pretraining and the raw-waveform fine-tune
+# ---------------------------------------------------------------------------
+
+W2V_NAME = 'w2v'         # one run name: cli.train --use_pretrained reads
+                         # logs/<name>/pretrained.ckpt
+
+
+def _expect(**counts):
+    """Launch counts of a run: the named kernels, every other one 0."""
+    return {k: counts.get(k, 0) for k in SOURCES}
+
+
+# the kernels of an eval pass, for its device ms by torch.profiler
+EVAL_PARTS = {'K1': ('recur_fwd_kernel',), 'K3': ('greedy_frame_kernel',),
+              'K7': ('joint_lse_fwd',), 'K9': ('lattice_alpha_kernel',)}
+
+
+def _raw_lattices(batches, accum, spec):
+    """{(B, T, U+1): (xlen, ylen) of its first micro-batch} of the raw
+    fine-tune's host batches, each split into accum micro-batches as
+    train.device_batch splits it: T the FrontEnd frames of the padded
+    audio, xlen raw_trainer.frame_lengths'."""
+    import torch
+
+    from edgedict_tpu_torch.models.wav2vec import frontend_output_length
+    from edgedict_tpu_torch.raw_trainer import frame_lengths
+    out = {}
+    for batch in batches:
+        n = batch['audio'].shape[1]
+        t = frontend_output_length(spec, n)
+        xlen = frame_lengths(torch.as_tensor(batch['alen']), n, t).numpy()
+        ylen = np.asarray(batch['ylen'])
+        b = batch['audio'].shape[0] // accum
+        for i in range(accum):
+            out.setdefault((b, t, batch['ys'].shape[1] + 1),
+                           (xlen[i * b:(i + 1) * b], ylen[i * b:(i + 1) * b]))
+    return out
+
+
+def _eval_expect(torch, trainer, beam_width):
+    """What a feature Trainer's evaluate() launches: per eval batch K2
+    once, the encoder's K1 (K5 for GRU) twice per layer (the loss, the
+    greedy decode), the prediction net's K1 twice per layer (the loss, the
+    decode's priming step), K7, K9 and K3 once; a beam of width W adds per
+    batch K2 and the encoder once more, the initial beam's prediction net,
+    and at B·W rows, T = 1, the prediction net for each of
+    max_sym_per_frame expansions of every encoder frame.  Runs the
+    pipeline (K2) for the frame counts: call it after reading the
+    counts."""
+    cfg = trainer.cfg
+    batches = list(trainer.eval_loader)
+    n = len(batches)
+    enc = 'gru_fwd' if cfg.module_type == 'GRU' else 'lstm_fwd'
+    counts = {'mel_power': n, 'greedy_decode': n, 'joint_lse_fwd': n,
+              'lattice_alpha': n, 'lstm_fwd': 2 * n * cfg.dec_layers}
+    counts[enc] = counts.get(enc, 0) + 2 * n * cfg.enc_layers
+    if beam_width:
+        frames = sum(-(-trainer.pipeline(
+            torch.as_tensor(x['audio']).to(trainer.device),
+            torch.as_tensor(x['alen']).to(trainer.device))[0].shape[1]
+            // cfg.time_scale) for x in batches)
+        counts['mel_power'] += n
+        counts['lstm_fwd'] += (n * (cfg.enc_layers + cfg.dec_layers)
+                               + frames * BEAM['max_sym_per_frame']
+                               * cfg.dec_layers)
+    return _expect(**counts)
+
+
+def phase_pretrain_parity(torch):
+    """One fp32 step of the full-width wav2vec model (E6D2's encoder, 6 x
+    1024 LSTM, projection 640, input 128; final_dim 256, 2 x 320 codebook,
+    100 negatives: pretrain_config.py's defaults) through
+    Wav2VecPretrainer.run_step on CUDA and on the CPU plain path: two
+    pretrainers from the same flags (batch 8; their seeded init, crops of
+    longer utterances to 48,000 samples and masks by make_batch), the same
+    injected draws (Gumbel noise, negative indices), at host step 1 of a
+    one-step warmup (lr and Gumbel temperature from the pretrainer's own
+    schedules); loss, grad_norm, the grads of the pretrainer's loss_fn and
+    the params after its AdamW without decay of 1-D params."""
+    from edgedict_tpu_torch.cli import pretrain_wav2vec as CP
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.models import wav2vec as W
+    from edgedict_tpu_torch.pretrainer import Wav2VecPretrainer
+    from edgedict_tpu_torch.train import device_batch
+    tmp, _ = _train_corpus()
+    b, step = 8, 1
+    samples = [(synthetic_audio(30 + i, 3.5), None) for i in range(b)]
+    pres, res = {}, {}
+    for dev in ('cpu', 'cuda'):
+        flags = parse_flags(CP.build_parser(), [
+            f'--flagfile={REPO}/flagfiles/E6D2.txt', '--batch_size', str(b),
+            '--sub_batch_size', str(b), '--warmup_step', '1',
+            '--logdir_root', os.path.join(tmp, 'logs'), '--name',
+            'w2v-parity', '--device', dev])
+        pres[dev] = pre = Wav2VecPretrainer(flags, samples)
+        pre.host_step = step
+    cfg, pre = pres['cpu'].cfg, pres['cpu']
+    require((cfg.enc_layers, cfg.enc_hidden_size, cfg.enc_proj_size,
+             cfg.input_size, cfg.final_dim, cfg.latent_vars,
+             cfg.latent_groups, cfg.num_negatives) ==
+            (6, 1024, 640, 128, 256, 320, 2, 100),
+            f'the pretraining config is not at full width: {cfg}')
+    hosts = {dev: p.make_batch(samples) for dev, p in pres.items()}
+    require(all(np.array_equal(hosts['cpu'][k], hosts['cuda'][k])
+                for k in hosts['cpu']),
+            'the two pretrainers cropped or masked differently')
+    host = hosts['cpu']
+    n = host['audio'].shape[1]
+    t = W.frontend_output_length(cfg.frontend_params, n)
+    m = host['mask_idx'].shape[1]
+    draws = W.make_draws(cfg, b, t, m, torch.Generator().manual_seed(5),
+                         'cpu')
+    pres['cuda'].state.model.load_state_dict(pre.state.model.state_dict())
+    init = {k: v.clone() for k, v in pre.state.model.state_dict().items()}
+    lr, temp = pre.learning_rate(step), pre.temperature(step)
+    for dev in ('cuda', 'cpu'):
+        p = pres[dev]
+        dd = {k: v.to(dev) for k, v in draws.items()}
+        micro = {k: v[0] for k, v in device_batch(host, 1, dev).items()}
+        loss, _ = p.loss_fn(p.state.model, micro, None,
+                            {'temp': temp, 'draws': dd})
+        loss.backward()
+        grads = {k: q.grad.detach().cpu()
+                 for k, q in p.state.model.named_parameters()}
+        for q in p.state.model.parameters():
+            q.grad = None
+        t0 = time.perf_counter()
+        met = p.run_step(host, draws=dd)
+        res[dev] = {'loss': float(met['loss']),
+                    'grad_norm': float(met['grad_norm']),
+                    'skipped': float(met['skipped']),
+                    'correct': float(met['correct']),
+                    'step_s': time.perf_counter() - t0, 'grads': grads,
+                    'params': {k: v.detach().cpu() for k, v in
+                               p.state.model.state_dict().items()}}
+    a, c = res['cuda'], res['cpu']
+    grad_rel = max(float((a['grads'][k] - g).abs().max())
+                   / max(1e-30, float(g.abs().max()))
+                   for k, g in c['grads'].items())
+    diffs = [(a['params'][k] - q).abs() for k, q in c['params'].items()]
+    moved = max(float((c['params'][k] - init[k]).abs().max())
+                for k in c['params'])
+    n_params = sum(d.numel() for d in diffs)
+    out = {'phase': 'pretrain_parity',
+           'config': 'flagfiles/E6D2.txt encoder, pretrain_config defaults, '
+                     'fp32', 'params': sum(q.numel() for q in
+                                           pre.state.model.parameters()),
+           'B': b, 'samples': n, 'T': t, 'masked': m, 'host_step': step,
+           'lr': lr, 'temp': temp, 'bf16_flag': pre.flags.bf16,
+           'loss_cuda': a['loss'], 'loss_cpu': c['loss'],
+           'loss_rel': abs(a['loss'] - c['loss']) / abs(c['loss']),
+           'grad_norm_rel': abs(a['grad_norm'] - c['grad_norm'])
+           / c['grad_norm'], 'grad_max_rel': grad_rel,
+           'correct_cuda': a['correct'], 'correct_cpu': c['correct'],
+           'param_max_abs_diff': max(float(d.max()) for d in diffs),
+           'param_share_diff_over_0.01lr':
+               sum(int((d > 0.01 * lr).sum()) for d in diffs) / n_params,
+           'param_max_update': moved,
+           'step_s_cuda': a['step_s'], 'step_s_cpu': c['step_s'],
+           'bounds': 'loss 1e-5 rel, grad_norm 1e-4 rel, each grad 1e-3 of '
+                     'its max, params max 2 lr and > 0.01 lr on < 1e-3 of '
+                     'them (as train_parity)'}
+    emit(out)
+    require(a['skipped'] == c['skipped'] == 0.0, 'a parity step was skipped')
+    require(out['loss_rel'] <= 1e-5 and out['grad_norm_rel'] <= 1e-4
+            and grad_rel <= 1e-3, 'CUDA pretraining step differs from the CPU')
+    require(out['param_max_abs_diff'] <= 2 * lr + 1e-6 and moved > 0
+            and out['param_share_diff_over_0.01lr'] <= 1e-3,
+            'params after the pretraining step differ between CUDA and CPU')
+
+
+def phase_pretrain_run(torch):
+    """The wav2vec pretrainer, built as cli.pretrain_wav2vec builds it,
+    from flagfiles/E6D2.txt (batch 32 of 48,000-sample crops, fp32) on the
+    train_run corpus: a warm-up step, then measured steps (step ms,
+    audio-s/s, peak memory, busy share of one more step); then
+    cli.pretrain_wav2vec itself for one epoch (3 steps, one eval of the
+    held-out set): finite losses, accuracies in [0, 1], pretrained.ckpt
+    written.  K1 and K4: one per encoder layer and micro-step, K1 also per
+    layer and eval batch."""
+    from edgedict_tpu_torch.cli import pretrain_wav2vec as CP
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.data import DataLoader, MergedDataset
+    from edgedict_tpu_torch.models import wav2vec as W
+    from edgedict_tpu_torch.pretrainer import Wav2VecPretrainer
+    from edgedict_tpu_torch.trainer import build_datasets
+    tmp, base = _train_corpus()
+    argv = base + ['--name', W2V_NAME, '--loss_step', '1',
+                   '--eval_iteration', '3', '--epochs', '1']
+    t0 = time.perf_counter()
+    flags = parse_flags(CP.build_parser(), argv)
+    train_sets, eval_set = build_datasets(flags, CP.NullTokenizer())
+    pre = Wav2VecPretrainer(flags, MergedDataset(train_sets), eval_set)
+    loader = DataLoader(pre.train_dataset, flags.batch_size, prefetch=0,
+                        collate_fn=pre.make_batch, workers=flags.num_workers)
+    batches = list(loader)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    float(pre.run_step(batches[0])['loss'])                  # warm-up
+    _reset_launches()
+    times, metrics = [], []
+    for batch in batches * 2:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = pre.run_step(batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        times.append(time.perf_counter() - t1)
+    STATE['launches_pretrain'] = _launches()
+    n = pre.accum_steps * len(times)
+    enc = pre.cfg.enc_layers
+    frames = W.frontend_output_length(pre.cfg.frontend_params,
+                                      flags.pretrain_audio_samples)
+    shapes = STATE.setdefault('w2v_shapes', {})
+    shapes['pretrain'] = sorted({
+        (x['audio'].shape[0] // pre.accum_steps,
+         W.frontend_output_length(pre.cfg.frontend_params,
+                                  x['audio'].shape[1])) for x in batches})
+    expect = STATE.setdefault('run_expect', {})
+    expect['pretrain'] = _expect(lstm_fwd=enc * n, lstm_bwd=enc * n)
+    audio_s = pre.flags.batch_size * flags.pretrain_audio_samples / 16000
+    med = statistics.median(times)
+    res = {'phase': 'pretrain_run',
+           'config': 'flagfiles/E6D2.txt, pretrain_config defaults',
+           'params': sum(p.numel() for p in pre.state.model.parameters()),
+           'batch_size': flags.batch_size, 'accum': pre.accum_steps,
+           'samples': flags.pretrain_audio_samples, 'setup_s': setup_s,
+           'utterances': len(pre.train_dataset),
+           'step_ms': [1e3 * x for x in times], 'step_ms_median': 1e3 * med,
+           'audio_s_per_s_median': audio_s / med,
+           'losses': [x['loss'] for x in metrics],
+           'accuracy': [x['correct'] / x['count'] for x in metrics],
+           'prob_perplexity': [x['prob_perplexity'] for x in metrics],
+           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
+    res.update(_device_profile(torch, lambda: float(
+        pre.run_step(batches[0])['loss']), 1, 'step'))
+    del pre, loader, batches
+    lines = []
+    _reset_launches()
+    cli = CP.main(argv, log_fn=lines.append)
+    STATE['launches_pretrain_cli'] = _launches()
+    evals = [ln for ln in lines if ln.startswith('eval @')]
+    bs = flags.eval_batch_size
+    n_eval = len(evals) * (min(len(cli.eval_dataset), 8 * bs) // bs)
+    expect['pretrain_cli'] = _expect(
+        lstm_fwd=enc * (cli.accum_steps * cli.host_step + n_eval),
+        lstm_bwd=enc * cli.accum_steps * cli.host_step)
+    # the CLI's steps crop as the measured ones; its eval batches crop to
+    # the same samples at the eval batch
+    shapes['pretrain'] = sorted(set(shapes['pretrain']) | {
+        (flags.batch_size // cli.accum_steps, frames)})
+    shapes['pretrain_eval'] = [(bs, frames)] if n_eval else []
+    STATE['pretrained'] = os.path.join(cli.logdir, 'pretrained.ckpt')
+    res.update(cli_steps=cli.host_step, cli_log=lines,
+               pretrained_ckpt=os.path.isfile(STATE['pretrained']))
+    emit(res)
+    losses = res['losses'] + [float(ln.split()[5]) for ln in lines
+                              if ln.startswith('epoch')]
+    accs = res['accuracy'] + [float(ln.split()[7]) for ln in lines
+                              if ln.startswith('epoch')] \
+        + [float(ln.split()[4]) for ln in evals]
+    require(all(np.isfinite(losses)), 'a pretraining loss is not finite')
+    require(all(0.0 <= a <= 1.0 for a in accs), f'an accuracy is off: {accs}')
+    require(evals and res['pretrained_ckpt'],
+            'cli.pretrain_wav2vec ran no eval or wrote no pretrained.ckpt')
+
+
+def phase_raw_train_run(torch):
+    """The raw-waveform fine-tune as cli.train --use_pretrained builds it
+    (RawTrainer from flagfiles/E6D2.txt, batch 32, bf16, BPE 2048, the
+    FrontEnd and encoder spliced from pretrain_run's pretrained.ckpt) on
+    the train_run corpus (8-16 s, T up to 1601 FrontEnd frames, no time
+    reduction): the spliced keys equal the checkpoint's bit for bit;
+    warm-up, then measured steps (step ms, audio-s/s, peak memory, busy
+    share of one more step); loss falling on a repeated small batch from
+    a fresh init; cli.train --mode eval reloads the run (the saved
+    weights, bit for bit) and prints a finite val_loss and WER.  Launches:
+    per micro-step K1 and K4 one per LSTM layer (6 + 2), K7-K10 one each;
+    per eval batch K1 twice per layer (the loss's encoder and prediction
+    net, the decode's again), K3, K7 and K9 one each.  The shapes of the
+    measured micro-batches and of the eval batches go to
+    phase_wav2vec_kernels; the eval is also timed whole (wall and device
+    ms a batch, each kernel's device ms)."""
+    from edgedict_tpu_torch.checkpoint import (
+        checkpoint_path, load_checkpoint)
+    from edgedict_tpu_torch.cli import train as CT
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.models.wav2vec import (
+        RawTransducer, frontend_output_length)
+    from edgedict_tpu_torch.raw_trainer import RawTrainer
+    from edgedict_tpu_torch.train import TrainState, device_batch
+    cwd = os.getcwd()
+    tmp, base = _train_corpus()
+    os.chdir(tmp)                 # the BPE-2048/ cache of the corpus
+    try:
+        argv = base + ['--name', W2V_NAME, '--use_pretrained']
+        t0 = time.perf_counter()
+        flags = parse_flags(CT.build_parser(), argv)
+        trainer = RawTrainer(flags)
+        copied = trainer.load_pretrained(STATE['pretrained'])   # as cli.train
+        setup_s = time.perf_counter() - t0
+        src = load_checkpoint(STATE['pretrained'])['model']
+        sd = trainer.state.model.state_dict()
+        want = [k for k in src if k.split('.')[0] in ('frontend', 'encoder')]
+        spliced = sorted(copied) == sorted(want) and all(
+            torch.equal(sd[k].cpu(), src[k]) for k in want)
+        cfg = trainer.cfg
+        require(trainer.tokenizer.vocab_size == 2048
+                and cfg.enc_time_reductions == () and cfg.input_size == 128
+                and (cfg.enc_layers, cfg.enc_hidden_size) == (6, 1024),
+                f'the raw trainer is not E6D2 on the FrontEnd: {cfg}')
+
+        def batches():
+            while True:
+                yield from trainer.loader
+
+        it = batches()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):                                  # warm-up
+            float(trainer.run_step(next(it))['loss'])
+        _reset_launches()
+        times, audio_s, losses, shapes, measured = [], [], [], [], []
+        for _ in range(3):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(trainer.run_step(batch)['loss']))
+            times.append(time.perf_counter() - t1)
+            audio_s.append(float(batch['alen'].sum()) / 16000.0)
+            shapes.append([int(x) for x in batch['audio'].shape[1:]]
+                          + [int(batch['ys'].shape[1]) + 1])
+            measured.append(batch)
+        STATE['launches_raw_train'] = _launches()
+        STATE.setdefault('w2v_shapes', {})['raw_train'] = _raw_lattices(
+            measured, trainer.accum_steps, trainer.FRONTEND_SPEC)
+        n = trainer.accum_steps * len(times)
+        layers = cfg.enc_layers + cfg.dec_layers
+        expect = STATE.setdefault('run_expect', {})
+        expect['raw_train'] = _expect(
+            lstm_fwd=layers * n, lstm_bwd=layers * n, joint_lse_fwd=n,
+            joint_lse_bwd=n, lattice_alpha=n, lattice_beta_grad=n)
+        med = statistics.median(times)
+        res = {'phase': 'raw_train_run',
+               'config': 'flagfiles/E6D2.txt --use_pretrained (cli.train)',
+               'params': sum(p.numel() for p in
+                             trainer.state.model.parameters()),
+               'batch_size': flags.batch_size, 'accum': trainer.accum_steps,
+               'bf16': flags.bf16, 'setup_s': setup_s,
+               'spliced_keys': len(copied), 'spliced_equal': spliced,
+               'batch_samples_U1': shapes,
+               'frames': [frontend_output_length(trainer.FRONTEND_SPEC,
+                                                 s_[0]) for s_ in shapes],
+               'step_ms': [1e3 * x for x in times],
+               'step_ms_median': 1e3 * med,
+               'audio_s_per_s_median': statistics.median(
+                   a / x for a, x in zip(audio_s, times)),
+               'losses': losses,
+               'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
+        res.update(_device_profile(torch, lambda: float(
+            trainer.run_step(next(it))['loss']), 1, 'step'))
+        it.close()
+
+        # loss falls on a repeated small batch (fresh weights, lr 1e-3)
+        small = {k: v[:4] for k, v in next(iter(trainer.loader)).items()}
+        dev_small = device_batch(small, 1, trainer.device)
+        model = RawTransducer(cfg, trainer.device, seed=1)
+        state = TrainState(model, trainer.optimizer.init(
+            dict(model.named_parameters())))
+        fall = []
+        for _ in range(10):
+            state, m = trainer.train_step(state, dev_small, 1e-3,
+                                          trainer.generator)
+            fall.append(float(m['loss']))
+        res['repeated_batch_losses'] = fall
+        del state, model
+
+        path = trainer.save()
+        step = trainer.state.step
+        del trainer
+        lines = []
+        _reset_launches()
+        # the step by name: pretraining's best checkpoints share
+        # logs/<name>/models/ with the fine-tune's (as in the JAX package)
+        evaluated = CT.main(argv + ['--mode', 'eval', '--resume_step',
+                                    str(step)], log_fn=lines.append)
+        STATE['launches_raw_eval'] = _launches()
+        n_eval = len(evaluated.eval_loader)
+        expect['raw_eval'] = _expect(
+            lstm_fwd=2 * layers * n_eval, greedy_decode=n_eval,
+            joint_lse_fwd=n_eval, lattice_alpha=n_eval)
+        STATE.setdefault('w2v_shapes', {})['raw_eval'] = _raw_lattices(
+            list(evaluated.eval_loader), 1, evaluated.FRONTEND_SPEC)
+        # the whole eval: wall and device ms a batch, its kernels' share
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        evaluated.evaluate()
+        torch.cuda.synchronize()
+        res['eval_wall_ms_per_batch'] = 1e3 * (time.perf_counter()
+                                               - t1) / n_eval
+        res.update({'eval_' + k: v for k, v in _device_profile(
+            torch, evaluated.evaluate, n_eval, 'batch').items()})
+        res['eval_kernel_device_ms_per_batch'] = {
+            k: v / n_eval for k, v in kernel_split_ms(
+                torch, evaluated.evaluate, EVAL_PARTS, n=1).items()}
+        saved = load_checkpoint(path)['model']
+        res['eval_reloaded_equal'] = path == checkpoint_path(
+            evaluated.logdir, step) and all(
+                torch.equal(v.cpu(), saved[k]) for k, v in
+                evaluated.state.model.state_dict().items())
+        val = [ln for ln in lines if ln.startswith('val_loss')]
+        res['eval'] = val[0] if val else None
+        res['eval_batches'] = n_eval
+        del evaluated
+        emit(res)
+        require(spliced, 'the spliced FrontEnd / encoder differ from '
+                         'pretrained.ckpt')
+        require(all(np.isfinite(losses)), 'a fine-tune loss is not finite')
+        require(fall[-1] < fall[0], f'loss did not fall: {fall}')
+        require(bool(val) and np.isfinite(float(val[0].split()[1]))
+                and val[0].split()[2] == 'WER'
+                and np.isfinite(float(val[0].split()[3])),
+                f'eval printed no finite val_loss and WER: {lines}')
+        require(res['eval_reloaded_equal'],
+                '--mode eval did not reload the saved run')
+    finally:
+        os.chdir(cwd)
+
+
+def phase_wav2vec_kernels(torch):
+    """Each kernel of the wav2vec runs against its plain version at the
+    shapes those runs gave it (pretrain_run's and raw_train_run's batches,
+    STATE['w2v_shapes']; seeded data, the lattice at the run's own xlen
+    and ylen), after every other case: pretraining's encoder K1 / K4 fp32
+    (H=1024, input 128) and its eval's K1; for each micro-batch shape of
+    the fine-tune's measured steps the encoder K1 bf16 held step by step
+    and K4 bf16 (input 128), the prediction net's K1 / K4 fp32 (H=256,
+    T=U+1: the raw loss casts the features alone, so the prediction net
+    keeps fp32 weights), K9 / K10 and K7 / K8 bf16; for each eval batch
+    shape the encoder and prediction-net K1 fp32 (and the decode's
+    priming step, T=1), K9, K7 fp32 and K3."""
+    record, dev = STATE['record'], torch.device('cuda')
+    fp32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.RandomState(14)
+    shapes = STATE['w2v_shapes']
+    emit({'phase': 'wav2vec_kernels', 'shapes': {
+        run: [list(k) for k in cases] for run, cases in shapes.items()}})
+    for b, t in shapes['pretrain']:
+        lstm_fwd_case(torch, rng, dev, record, 1024, b, t, fp32,
+                      n_in=FRONTEND_C)
+        lstm_bwd_case(torch, rng, dev, record, 1024, b, t, fp32,
+                      n_in=FRONTEND_C)
+    for b, t in shapes['pretrain_eval']:
+        lstm_fwd_case(torch, rng, dev, record, 1024, b, t, fp32)
+    for (b, t, u1), (xlen, ylen) in shapes['raw_train'].items():
+        bf16_forward_case(torch, rng, dev, record, 'LSTM', b, t, FRONTEND_C)
+        lstm_bwd_case(torch, rng, dev, record, 1024, b, t, bf16,
+                      n_in=FRONTEND_C)
+        lstm_fwd_case(torch, rng, dev, record, 256, b, u1, fp32)
+        lstm_bwd_case(torch, rng, dev, record, 256, b, u1, fp32)
+        lattice_long_cases(torch, rng, dev, record, b, t, u1, xlen, ylen)
+        joint_long_case(torch, rng, dev, record, b, t, u1, bf16)
+    for (b, t, u1), (xlen, ylen) in shapes['raw_eval'].items():
+        for hid, steps in ((1024, t), (256, u1), (256, 1)):
+            lstm_fwd_case(torch, rng, dev, record, hid, b, steps, fp32)
+        lattice_long_cases(torch, rng, dev, record, b, t, u1, xlen, ylen,
+                           backward=False)
+        joint_long_case(torch, rng, dev, record, b, t, u1, fp32)
+        k3_long_case(torch, rng, dev, record, b, t)
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -2427,7 +3224,7 @@ def check_launches():
     """The launch counts of every main-path run against what it implies."""
     runs = {run: STATE['launches_' + run] for run in
             (*DECODE_RUNS, 'server', 'server_int8', 'train', 'train_gru',
-             *BEAM_RUNS, 'server_beam', 'lm_train')}
+             *BEAM_RUNS, 'server_beam', 'lm_train', *STATE['run_expect'])}
     expect = {}
     for run, per_call in DECODE_RUNS.items():
         n = STATE['chunks_' + run]      # one encoder call per chunk
@@ -2444,7 +3241,10 @@ def check_launches():
         expect[run].update(mel_power=n, greedy_decode=0)
     emit({'phase': 'launches', **runs, 'decode_expected': expect,
           'train_expected': STATE['train_expect'],
-          'lm_train_expected': STATE['lm_train_expect']})
+          'lm_train_expected': STATE['lm_train_expect'],
+          'exact_expected': STATE['run_expect']})
+    for run, want in STATE['run_expect'].items():
+        require(runs[run] == want, f'{run} launches {runs[run]} != {want}')
     for run, want in expect.items():
         require(all(runs[run][k] == c for k, c in want.items()),
                 f'{run} launches {runs[run]} != {want}')
@@ -2498,7 +3298,11 @@ def main():
               ('train_run', phase_train_run),
               ('train_run_gru', lambda torch: phase_train_run(torch, 'GRU')),
               ('lm_train', phase_lm_train), ('slice_beam', phase_slice_beam),
-              ('server_beam', phase_server_beam))
+              ('server_beam', phase_server_beam),
+              ('pretrain_parity', phase_pretrain_parity),
+              ('pretrain_run', phase_pretrain_run),
+              ('raw_train_run', phase_raw_train_run),
+              ('wav2vec_kernels', phase_wav2vec_kernels))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

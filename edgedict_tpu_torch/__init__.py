@@ -3,9 +3,10 @@
 The JAX package `edgedict_tpu/` stays the reference; every module here has
 a counterpart of the same name there (`features.py` ↔ `features.py`,
 `ops/rnn.py` ↔ `ops/rnn.py`, ...).  The port runs the streaming greedy
-serving path, beam search with RNN-LM shallow fusion and the training step
-of the reference presets on an NVIDIA H100 (LSTM or GRU encoder, fp32,
-bf16 or int8 weight-only): the Pallas
+serving path, beam search with RNN-LM shallow fusion, the training step of
+the reference presets, wav2vec 2.0 pretraining and the raw-waveform
+fine-tune on an NVIDIA H100 (LSTM or GRU encoder, fp32, bf16 or int8
+weight-only): the Pallas
 kernels on those paths are hand-written CUDA kernels for `sm_90a`
 (`csrc/*.cu`), built with nvcc at first use (`_build.py`) and bound with
 ctypes.  Each kernel wrapper runs its plain PyTorch version for CPU tensors

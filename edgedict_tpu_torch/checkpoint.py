@@ -16,7 +16,7 @@ import re
 
 import torch
 
-from edgedict_tpu_torch.config import MODEL_FLAGS, TRAIN_FLAGS
+from edgedict_tpu_torch.config import MODEL_FLAGS, PRETRAIN_FLAGS, TRAIN_FLAGS
 
 _STEP_FILE = re.compile(r'(\d+)\.ckpt')
 
@@ -82,12 +82,14 @@ def prune_checkpoints(logdir, keep):
 
 
 def snapshot_flags(flags, logdir):
-    """Write the run's model and trainer flags to logs/<name>/flagfile.txt,
-    one `--k=v` per line (booleans as true/false, unset flags left out),
-    readable by config.parse_flags in every CLI of the port."""
+    """Write the run's model, trainer and pretraining flags to
+    logs/<name>/flagfile.txt, one `--k=v` per line (booleans as
+    true/false, unset flags left out), readable by config.parse_flags in
+    every CLI of the port."""
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, 'flagfile.txt')
-    registry = {name for name, _, _ in MODEL_FLAGS + TRAIN_FLAGS}
+    registry = {name for name, _, _ in
+                MODEL_FLAGS + TRAIN_FLAGS + PRETRAIN_FLAGS}
     lines = []
     for key, value in sorted(vars(flags).items()):
         if value is None or key not in registry:

@@ -27,30 +27,63 @@ def convert_lightning2normal(checkpoint):
     return checkpoint
 
 
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _linear_sd(p, prefix):
+    return {prefix + 'weight': _t(p['w']), prefix + 'bias': _t(p['b'])}
+
+
+def _norm_sd(p, prefix):
+    return {prefix + 'weight': _t(p['scale']), prefix + 'bias': _t(p['bias'])}
+
+
+def _encoder_sd(enc):
+    """The encoder's keys (`encoder.*`) of a JAX encoder params dict."""
+    sd = _norm_sd(enc['norm'], 'encoder.norm.')
+    for i, layer in enumerate(enc['layers']):
+        p = f'encoder.lstm.lstms.{i}.'
+        rnn = layer['rnn']
+        sd[p + 'weight_ih_l0'] = _t(rnn['w_ih'])
+        sd[p + 'weight_hh_l0'] = _t(rnn['w_hh'])
+        sd[p + 'bias_ih_l0'] = _t(rnn['b_ih'])
+        sd[p + 'bias_hh_l0'] = _t(rnn['b_hh'])
+        sd.update(_norm_sd(layer['ln'], f'encoder.lstm.projs.{i}.0.'))
+    sd.update(_linear_sd(enc['proj'], 'encoder.proj.'))
+    return sd
+
+
+def _frontend_sd(fe, prefix='frontend.'):
+    """A JAX FrontEnd / conv extractor params dict (models/wav2vec.py)
+    → `frontend.layers.{i}.{weight, bias, gn.*, ln.*}` and
+    `frontend.ln.*`."""
+    sd = {}
+    for i, layer in enumerate(fe['layers']):
+        p = f'{prefix}layers.{i}.'
+        sd[p + 'weight'] = _t(layer['w'])
+        if 'b' in layer:
+            sd[p + 'bias'] = _t(layer['b'])
+        for norm in ('gn', 'ln'):
+            if norm in layer:
+                sd.update(_norm_sd(layer[norm], f'{p}{norm}.'))
+    if 'ln' in fe:
+        sd.update(_norm_sd(fe['ln'], prefix + 'ln.'))
+    return sd
+
+
 def state_dict_from_jax_params(params):
     """edgedict_tpu params pytree (numpy or array-likes) → reference
     state_dict of fp32 CPU tensors.  The joint's w_enc / w_dec are
     concatenated back into the single (J, E + D) first weight.  An LSTM
     encoder layer carries 4H gate rows, a GRU one 3H, under the same
-    `encoder.lstm.lstms.{i}.*` keys (compat/torch_import.py:58)."""
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
-    sd = {}
-    enc = params['encoder']
-    sd['encoder.norm.weight'] = t(enc['norm']['scale'])
-    sd['encoder.norm.bias'] = t(enc['norm']['bias'])
-    for i, layer in enumerate(enc['layers']):
-        p = f'encoder.lstm.lstms.{i}.'
-        rnn = layer['rnn']
-        sd[p + 'weight_ih_l0'] = t(rnn['w_ih'])
-        sd[p + 'weight_hh_l0'] = t(rnn['w_hh'])
-        sd[p + 'bias_ih_l0'] = t(rnn['b_ih'])
-        sd[p + 'bias_hh_l0'] = t(rnn['b_hh'])
-        sd[f'encoder.lstm.projs.{i}.0.weight'] = t(layer['ln']['scale'])
-        sd[f'encoder.lstm.projs.{i}.0.bias'] = t(layer['ln']['bias'])
-    sd['encoder.proj.weight'] = t(enc['proj']['w'])
-    sd['encoder.proj.bias'] = t(enc['proj']['b'])
+    `encoder.lstm.lstms.{i}.*` keys (compat/torch_import.py:58).  The raw
+    fine-tune's params (raw_trainer.py) add `frontend`, which maps to the
+    RawTransducer's `frontend.*` keys."""
+    t = _t
+    sd = _encoder_sd(params['encoder'])
+    if 'frontend' in params:
+        sd.update(_frontend_sd(params['frontend']))
 
     dec = params['decoder']
     sd['decoder.embed.weight'] = t(dec['embed']['table'])
@@ -68,6 +101,32 @@ def state_dict_from_jax_params(params):
     sd['joint.joint.0.bias'] = t(joint['b'])
     sd['joint.joint.2.weight'] = t(joint['out']['w'])
     sd['joint.joint.2.bias'] = t(joint['out']['b'])
+    return sd
+
+
+def _gumbel_vq_sd(p, prefix):
+    sd = {prefix + 'vars': _t(p['vars'])}
+    sd.update(_linear_sd(p['weight_proj'], prefix + 'weight_proj.'))
+    return sd
+
+
+def wav2vec_state_dict_from_jax_params(params):
+    """edgedict_tpu wav2vec params (models/wav2vec.py:wav2vec_init) → the
+    state dict of the port's Wav2Vec, fp32 CPU tensors: `frontend.*`,
+    `encoder.*` (the key layout of state_dict_from_jax_params),
+    `mask_emb`, `final_proj.*`, `project_q.*` and, where present,
+    `post_extract_proj.*`, `quantizer.{vars, weight_proj.*}`,
+    `input_quantizer.*` and `project_inp.*`."""
+    sd = _frontend_sd(params['frontend'])
+    sd.update(_encoder_sd(params['encoder']))
+    sd['mask_emb'] = _t(params['mask_emb'])
+    for name in ('final_proj', 'project_q', 'post_extract_proj',
+                 'project_inp'):
+        if name in params:
+            sd.update(_linear_sd(params[name], name + '.'))
+    for name in ('quantizer', 'input_quantizer'):
+        if name in params:
+            sd.update(_gumbel_vq_sd(params[name], name + '.'))
     return sd
 
 

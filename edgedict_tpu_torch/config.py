@@ -6,14 +6,15 @@ absl syntax they use: one flag per line, `--k=v`, `--flag`, `--noflag`,
 nested `--flagfile=path`, blank lines and `#` / `//` comments.  The flags
 each entry point reads are registered with the JAX package's defaults:
 `add_model_flags` for the model, features and tokenizer (every CLI),
-`add_train_flags` for the trainer (cli/baseline.py).  The other keys of the
-JAX registry that a preset or a run snapshot carries (`--apex`,
-`--opt_level`, the trainer's keys in a serving CLI, ...) are accepted and
-ignored.  The JAX package's flags whose work the port does not do yet
-(`REFUSED`) parse at their defaults, and any other value stops the parse
-with an error that names the flag and the ROADMAP.md Queue 1 item that
-brings it: nothing is dropped without a word.  Any other key is an error,
-as with absl.
+`add_train_flags` for the trainer (cli/baseline.py), `add_pretrain_flags`
+for wav2vec pretraining (cli/pretrain_wav2vec.py, cli/train.py).  The
+other keys of the JAX registry that a preset or a run snapshot carries
+(`--apex`, `--opt_level`, the trainer's keys in a serving CLI, ...) are
+accepted and ignored.  The JAX package's flags whose work the port does
+not do yet (`REFUSED`) parse at their defaults, and any other value stops
+the parse with an error that names the flag and the ROADMAP.md Queue 1
+item that brings it: nothing is dropped without a word.  Any other key is
+an error, as with absl.
 """
 
 import argparse
@@ -53,6 +54,9 @@ MODEL_FLAGS = (
     ('delta', parse_bool, False),
     ('cmvn', parse_bool, False),
     ('downsample', int, 3),
+    # the raw-waveform fine-tune's splice (cli/train.py); the JAX registry
+    # defines it for every entry point
+    ('use_pretrained', parse_bool, False),
 )
 
 def optional_float(text):
@@ -112,6 +116,27 @@ TRAIN_FLAGS = (
     ('audio_bucket_frames', int, 128),
     ('label_bucket', int, 16),
 )
+# wav2vec pretraining (edgedict_tpu/pretrain_config.py:15-36, the
+# reference's names and defaults): cli/pretrain_wav2vec.py and cli/train.py
+PRETRAIN_FLAGS = (
+    ('prob_perplex', float, 0.1),
+    ('code_perplex', float, 1.0),
+    ('features_pen', float, 10.0),
+    ('init_temp', float, 1.0),
+    ('min_temp', float, 0.1),
+    ('temp_decay', float, 0.999995),
+    ('eval_iteration', int, 1000),
+    ('beta1', float, 0.9),
+    ('beta2', float, 0.998),
+    ('weight_decay', float, 0.01),
+    ('num_negatives', int, 100),
+    ('mask_prob', float, 0.15),
+    ('mask_length', int, 10),
+    ('latent_vars', int, 320),
+    ('latent_groups', int, 2),
+    ('final_dim', int, 256),
+    ('pretrain_audio_samples', int, 48000),
+)
 MODES = ('train', 'resume', 'eval', 'device_rate')
 OPTIMIZERS = ('adam', 'adamw', 'sgd', 'sm3', 'novograd')
 
@@ -120,13 +145,12 @@ OPTIMIZERS = ('adam', 'adamw', 'sgd', 'sm3', 'novograd')
 UNREAD = frozenset(('LibriSpeech_dev', 'TEDLIUM_test', 'apex', 'opt_level',
                     'multi_gpu', 'compilation_cache_dir'))
 # keys a flagfile may carry that a parser may leave unregistered
-_IGNORABLE = UNREAD | {name for name, _, _ in TRAIN_FLAGS}
+_IGNORABLE = UNREAD | {name for name, _, _ in TRAIN_FLAGS + PRETRAIN_FLAGS}
 
 # flags of edgedict_tpu/config.py whose work the port does not do yet:
 # (name, type, the values that ask for nothing, ROADMAP.md Queue 1 item)
 REFUSED = (
     ('device_corpus', parse_bool, (False,), '15, trainer features'),
-    ('use_pretrained', parse_bool, (False,), '11, wav2vec'),
     ('dp_size', int, (-1, 1), '14, multi-GPU'),
     ('tp_size', int, (1,), '14, multi-GPU'),
     ('pp_size', int, (1,), '14, multi-GPU'),
@@ -158,6 +182,13 @@ def add_train_flags(parser):
         elif name == 'optim':
             kw['choices'] = OPTIMIZERS
         parser.add_argument(f'--{name}', type=typ, default=default, **kw)
+    return parser
+
+
+def add_pretrain_flags(parser):
+    """Register the wav2vec pretraining flags (PRETRAIN_FLAGS)."""
+    for name, typ, default in PRETRAIN_FLAGS:
+        parser.add_argument(f'--{name}', type=typ, default=default)
     return parser
 
 

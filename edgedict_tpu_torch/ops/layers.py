@@ -35,6 +35,19 @@ def layer_norm(x, scale, bias, eps=1e-5):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def group_norm(x, scale, bias, num_groups, eps=1e-5):
+    """GroupNorm over (B, C, T) computed in fp32 (layers.py:70-80): the
+    population variance (ddof 0) of each group of C / num_groups channels
+    over time, per-channel scale and bias; output in x's dtype."""
+    b, c, t = x.shape
+    x32 = x.float().reshape(b, num_groups, c // num_groups, t)
+    mean = x32.mean(dim=(2, 3), keepdim=True)
+    var = x32.var(dim=(2, 3), unbiased=False, keepdim=True)
+    y = ((x32 - mean) * torch.rsqrt(var + eps)).reshape(b, c, t)
+    y = y * scale.float()[None, :, None] + bias.float()[None, :, None]
+    return y.to(x.dtype)
+
+
 def embedding(table, ids, padding_idx=None):
     """Row lookup; the `padding_idx` row reads as zero on every call, also
     for a table whose stored row is not zero (torch's nn.Embedding only

@@ -6,6 +6,9 @@ math on dicts of tensors keyed by parameter name:
     clip_by_global_norm(gradclip) → scale_by_adam(b1 .9, b2 .999, eps 1e-8)
     [→ + weight_decay · param for adamw] → × (−lr)
 
+(the wav2vec pretrainer's adamw_no_ln_decay: the same with its own b1, b2
+and the decay only on params of two or more dims, pretrainer.py:28-41)
+
 (sgd: clip → momentum trace g + m·t → × (−lr); sm3: clip → scale_by_sm3
 with momentum 0.9 → × (−lr); novograd: clip → scale_by_novograd(
 weight_decay) → × (−lr); optim.py:30-129, 155-158).  `update` is
@@ -65,10 +68,11 @@ def novograd_update(g, m, v, p, weight_decay):
 
 class Optimizer:
     """One of adam / adamw / sgd / sm3 / novograd with optional
-    global-norm clipping."""
+    global-norm clipping.  adamw decays the params of at least
+    `decay_min_ndim` dims (0: all of them, as build_optimizer's adamw)."""
 
     def __init__(self, name, gradclip=None, weight_decay=0.0, momentum=0.9,
-                 b1=0.9, b2=0.999, eps=1e-8):
+                 b1=0.9, b2=0.999, eps=1e-8, decay_min_ndim=0):
         if name not in ('adam', 'adamw', 'sgd', 'sm3', 'novograd'):
             raise ValueError(f'unknown optimizer {name}')
         self.name = name
@@ -76,6 +80,7 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.decay_min_ndim = decay_min_ndim
 
     def init(self, params):
         """params: {name: tensor} → state {'count': int32 scalar, and
@@ -127,6 +132,7 @@ class Optimizer:
                        for k in grads}
             if self.name == 'adamw' and self.weight_decay:
                 updates = {k: u + self.weight_decay * params[k]
+                           if params[k].ndim >= self.decay_min_ndim else u
                            for k, u in updates.items()}
         elif self.name == 'sm3':
             outs = {k: sm3_update(g, state['accs'][k], state['momentum'][k])
@@ -154,6 +160,21 @@ def build_optimizer(name, gradclip=None, weight_decay=0.0, momentum=0.9):
     """The optimizer by flag name (optim.py:build_optimizer)."""
     return Optimizer(name, gradclip=gradclip, weight_decay=weight_decay,
                      momentum=momentum)
+
+
+def adamw_no_ln_decay(b1, b2, weight_decay, gradclip=None):
+    """The pretrainer's AdamW (pretrainer.py:28-41): clip, Adam(b1, b2,
+    eps 1e-8), + weight_decay · p on params of two or more dims only (no
+    decay of biases, norm scales or other 1-D params), × (−lr)."""
+    return Optimizer('adamw', gradclip=gradclip, weight_decay=weight_decay,
+                     b1=b1, b2=b2, decay_min_ndim=2)
+
+
+def linear_warmup_decay(step, warmup, total):
+    """lr scale min(1, step / warmup) · max(0, 1 − step / total)
+    (pretrainer.py:44-48)."""
+    s = float(step)
+    return min(1.0, s / max(warmup, 1)) * max(0.0, 1.0 - s / max(total, 1))
 
 
 def select_state(ok, new, old):

@@ -1,24 +1,29 @@
 """The training step (counterpart of edgedict_tpu/parallel/train.py, one
 device, no mesh).
 
-`make_train_step` returns `step(state, batch, lr, generator)`.  The batch
-holds (accum, micro, ...) tensors on the model's device: 'audio', 'alen',
-'ys', 'ylen' when a feature pipeline is given (featurised inside the step,
-dither and SpecAugment on), else 'xs', 'xlen', 'ys', 'ylen'.  Each micro-batch
-runs forward + backward with bf16 activations when bf16=True (features cast
-to bf16, params stay fp32, each op casts its weights to the activation
-dtype); the gradients sum in fp32 in `param.grad` and are averaged over the
-micro-batches (train.py:171-194).  The optimizer update is applied only
-when the loss and the gradient norm are finite: a non-finite step leaves
-the params and the optimizer state, Adam's count included, as they were,
-without a host sync (train.py:201-211).  Metrics: loss, grad_norm (before
-clipping), skipped.
+`make_train_step` returns `step(state, batch, lr, generator, aux=None)`.
+The batch holds (accum, micro, ...) tensors on the model's device: 'audio',
+'alen', 'ys', 'ylen' when a feature pipeline is given (featurised inside
+the step, dither and SpecAugment on), else 'xs', 'xlen', 'ys', 'ylen'.
+Each micro-batch runs forward + backward with bf16 activations when
+bf16=True (features cast to bf16, params stay fp32, each op casts its
+weights to the activation dtype); the gradients sum in fp32 in
+`param.grad` and are averaged over the micro-batches (train.py:171-194).
+A custom `loss_fn(model, micro, generator, aux)` replaces the transducer
+loss (the raw-waveform and wav2vec paths) and takes no compute-dtype cast
+from the step (train.py:164); with loss_has_aux it returns (loss, metrics)
+and each metric is the mean over the micro-batches (train.py:216).  The
+optimizer update is applied only when the loss and the gradient norm are
+finite: a non-finite step leaves the params and the optimizer state, Adam's
+count included, as they were, without a host sync (train.py:201-211).
+Metrics: loss, grad_norm (before clipping), skipped.
 
 `make_eval_step` returns `eval(model, batch)` → (loss, y_seq, out_len) for
 an 'audio', 'alen', 'ys', 'ylen' batch: the deterministic fp32 loss and the
-greedy decode (K3 on CUDA).  `make_beam_eval_step` returns `beam(model,
-batch)` → (tokens, n_tok) of the fixed-shape beam search on the same batch
-(models/beam_search.py; the trainer's --eval_beam_width).
+greedy decode (K3 on CUDA), featurised by the pipeline or by
+`feature_fn(model, batch)` → (xs, xlen).  `make_beam_eval_step` returns
+`beam(model, batch)` → (tokens, n_tok) of the fixed-shape beam search on
+the same batch (models/beam_search.py; the trainer's --eval_beam_width).
 """
 
 import dataclasses
@@ -45,10 +50,13 @@ def make_train_state(cfg, optimizer, device, seed=0):
                       opt_state=optimizer.init(dict(model.named_parameters())))
 
 
-def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None):
+def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None,
+                    loss_fn=None, loss_has_aux=False):
     compute_dtype = torch.bfloat16 if bf16 else torch.float32
 
-    def micro_loss(model, micro, generator):
+    def micro_loss(model, micro, generator, aux):
+        if loss_fn is not None:
+            return loss_fn(model, micro, generator, aux)
         if feature_pipeline is not None:
             xs, xlen = feature_pipeline(micro['audio'], micro['alen'],
                                         train=True, generator=generator)
@@ -58,21 +66,28 @@ def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None):
                                  micro['ys'], xlen, micro['ylen'],
                                  deterministic=False, generator=generator)
 
-    def train_step(state, batch, lr, generator=None):
+    def train_step(state, batch, lr, generator=None, aux=None):
         model = state.model
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        accum = batch['ys'].shape[0]
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=batch['ys'].device)
+        first = next(iter(batch.values()))
+        accum = first.shape[0]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=first.device)
+        extras = []
         for i in range(accum):
             loss = micro_loss(model, {k: v[i] for k, v in batch.items()},
-                              generator)
+                              generator, aux)
+            if loss_has_aux:
+                loss, extra = loss
+                extras.append({k: torch.as_tensor(v).detach().float()
+                               for k, v in extra.items()})
             loss.backward()
             loss_sum = loss_sum + loss.detach().float()
         loss = loss_sum / accum
-        grads = {k: p.grad / accum for k, p in params.items()}
+        # a param no loss reached has a zero gradient, as under jax.grad
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 / accum for k, p in params.items()}
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 params, lr)
@@ -85,15 +100,19 @@ def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None):
             p.grad = None
         metrics = {'loss': loss, 'grad_norm': gnorm,
                    'skipped': (~ok).float()}
+        for k in extras[0] if extras else ():
+            metrics[k] = torch.stack([e[k].to(first.device)
+                                      for e in extras]).mean()
         return TrainState(model, new_opt, state.step + 1), metrics
 
     return train_step
 
 
-def make_eval_step(cfg, feature_pipeline):
+def make_eval_step(cfg, feature_pipeline=None, feature_fn=None):
     @torch.no_grad()
     def eval_step(model, batch):
-        xs, xlen = feature_pipeline(batch['audio'], batch['alen'])
+        xs, xlen = feature_fn(model, batch) if feature_fn is not None \
+            else feature_pipeline(batch['audio'], batch['alen'])
         loss = T.transducer_loss(model, cfg, xs, batch['ys'], xlen,
                                  batch['ylen'])
         y_seq, out_len, _ = transducer_greedy_decode(model, cfg, xs, xlen)

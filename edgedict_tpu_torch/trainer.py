@@ -116,18 +116,7 @@ class Trainer:
                                             flags.sub_batch_size)
         self.optimizer = optim.build_optimizer(flags.optim,
                                                gradclip=flags.gradclip)
-        self.feature_cfg = feature_config_from_flags(flags)
-        self.pipeline = FeaturePipeline(self.feature_cfg, self.device)
-        self.cfg = transducer_config_from_flags(
-            flags, self.tokenizer.vocab_size, self.feature_cfg.input_size)
-        self.state = make_train_state(self.cfg, self.optimizer, self.device)
-        self.train_step = make_train_step(self.cfg, self.optimizer,
-                                          bf16=flags.bf16,
-                                          feature_pipeline=self.pipeline)
-        self.eval_step = make_eval_step(self.cfg, self.pipeline)
-        self.beam_eval_step = make_beam_eval_step(
-            self.cfg, flags.eval_beam_width, self.pipeline) \
-            if flags.eval_beam_width > 0 else None
+        self._build_model_and_steps()
         self.last_beam_wer = None
         self.sched = optim.ReduceLROnPlateau(
             base_lr=flags.lr, factor=flags.sched_factor,
@@ -152,6 +141,23 @@ class Trainer:
             AUGMENT_SEED)
         self._skip_batches = 0
         self._best_wer = float('inf')
+
+    def _build_model_and_steps(self):
+        """Featurizer, model config, train state and the train / eval /
+        beam-eval steps (raw_trainer.py overrides this)."""
+        flags = self.flags
+        self.feature_cfg = feature_config_from_flags(flags)
+        self.pipeline = FeaturePipeline(self.feature_cfg, self.device)
+        self.cfg = transducer_config_from_flags(
+            flags, self.tokenizer.vocab_size, self.feature_cfg.input_size)
+        self.state = make_train_state(self.cfg, self.optimizer, self.device)
+        self.train_step = make_train_step(self.cfg, self.optimizer,
+                                          bf16=flags.bf16,
+                                          feature_pipeline=self.pipeline)
+        self.eval_step = make_eval_step(self.cfg, self.pipeline)
+        self.beam_eval_step = make_beam_eval_step(
+            self.cfg, flags.eval_beam_width, self.pipeline) \
+            if flags.eval_beam_width > 0 else None
 
     # ------------------------------------------------------------------
     def _lr(self, step):

@@ -452,3 +452,114 @@ def test_cli_baseline_eval_beam_width_prints_beam_wer(tmp_path):
     val = [ln for ln in lines if ln.startswith('val_loss')]
     assert val and val[0].split()[4] == 'beam_WER'
     assert np.isfinite(float(val[0].split()[5]))
+
+
+# wav2vec pretraining at the tiny widths of test_torch_port_train._cli_args
+W2V_PRETRAIN = ['--num_negatives', '4', '--latent_vars', '8',
+                '--final_dim', '8', '--pretrain_audio_samples', '4000',
+                '--mask_prob', '0.4', '--mask_length', '3',
+                '--eval_iteration', '1', '--epochs', '2']
+
+
+@pytest.fixture(scope='module')
+def w2v_run(tmp_path_factory):
+    """cli.pretrain_wav2vec --device cpu on a 4-utterance corpus, 2 steps
+    (batch 4 in micro-batches of 2): → (trainer argv, pretrainer, log)."""
+    from test_torch_port_train import _cli_args, _write_corpus
+
+    from edgedict_tpu_torch.cli import pretrain_wav2vec
+    tmp = tmp_path_factory.mktemp('w2v')
+    corpus = _write_corpus(str(tmp / 'libri'), n=4)
+    args = _cli_args(corpus, str(tmp / 'logs'), 'w2v')
+    lines = []
+    pre = pretrain_wav2vec.main(args + W2V_PRETRAIN, log_fn=lines.append)
+    return args, pre, lines
+
+
+def test_cli_pretrain_wav2vec_writes_pretrained_ckpt(w2v_run):
+    """Two steps, an eval after each, the best held-out accuracy kept as
+    logs/<name>/pretrained.ckpt: the model's state dict after the step
+    that made it."""
+    from edgedict_tpu_torch.checkpoint import load_checkpoint
+    args, pre, lines = w2v_run
+    assert pre.host_step == 2 and pre.accum_steps == 2
+    steps = [ln for ln in lines if ln.startswith('epoch ')]
+    evals = [ln for ln in lines if ln.startswith('eval @')]
+    assert len(steps) == len(evals) == 2
+    for ln in steps:
+        words = ln.split()
+        assert np.isfinite(float(words[5])) and 0 <= float(words[7]) <= 1
+    path = os.path.join(pre.logdir, 'pretrained.ckpt')
+    payload = load_checkpoint(path)
+    accs = [float(ln.split()[4]) for ln in evals]
+    assert payload['extra']['accuracy'] == pytest.approx(max(accs))
+    assert set(payload['model']) == set(pre.state.model.state_dict())
+    assert pre.cfg.input_size == 128 and pre.cfg.enc_layers == 2
+    assert os.path.isfile(os.path.join(pre.logdir, 'flagfile.txt'))
+
+
+def test_cli_train_use_pretrained_splices_equal_weights(w2v_run, capsys):
+    """cli.train --use_pretrained (zero epochs: the splice alone, then the
+    final save): the FrontEnd and encoder keys equal pretrained.ckpt's,
+    the fine-tune's own keys keep the seeded init."""
+    from edgedict_tpu_torch.checkpoint import load_checkpoint
+    from edgedict_tpu_torch.cli import train as cli_train
+    from edgedict_tpu_torch.models.wav2vec import RawTransducer
+    args, pre, _ = w2v_run
+    lines = []
+    trainer = cli_train.main(args + ['--use_pretrained', '--epochs', '0',
+                                     '--name', 'w2v'], log_fn=lines.append)
+    path = os.path.join(pre.logdir, 'pretrained.ckpt')
+    assert f'initialized frontend+encoder from {path}' in lines
+    src = load_checkpoint(path)['model']
+    sd = trainer.state.model.state_dict()
+    fresh = RawTransducer(trainer.cfg, 'cpu').state_dict()
+    spliced = [k for k in sd if k.split('.')[0] in ('frontend', 'encoder')
+               and k in src]
+    assert len(spliced) == len([k for k in src if k.split('.')[0] in
+                                ('frontend', 'encoder')])
+    for k, v in sd.items():
+        assert torch.equal(v, src[k] if k in spliced else fresh[k]), k
+
+
+def test_cli_train_resume_and_eval_reload_the_run(w2v_run):
+    """cli.train --use_pretrained trains one step and saves; --mode resume
+    reloads step 1 and goes on to 2; --mode eval reloads step 2 (its
+    weights, not the splice's) and prints a finite val_loss and WER.  The
+    steps are named: the pretraining run's best checkpoints share
+    logs/<name>/models/ with the fine-tune's, as in the JAX package."""
+    from edgedict_tpu_torch.checkpoint import load_checkpoint
+    from edgedict_tpu_torch.cli import train as cli_train
+    args, pre, _ = w2v_run
+    base = args + ['--use_pretrained', '--name', 'w2v', '--save_step', '1']
+    a = cli_train.main(base + ['--epochs', '1'], log_fn=lambda s: None)
+    assert a.state.step == 1
+    lines = []
+    b = cli_train.main(base + ['--epochs', '2', '--mode', 'resume',
+                               '--resume_step', '1'], log_fn=lines.append)
+    assert 'resumed from step 1' in lines and b.state.step == 2
+    lines = []
+    c = cli_train.main(base + ['--mode', 'eval', '--resume_step', '2'],
+                       log_fn=lines.append)
+    saved = load_checkpoint(os.path.join(c.logdir, 'models', '2.ckpt'))
+    for k, v in c.state.model.state_dict().items():
+        assert torch.equal(v, saved['model'][k]), k
+    val = [ln for ln in lines if ln.startswith('val_loss')]
+    assert val and np.isfinite(float(val[0].split()[1])) \
+        and val[0].split()[2] == 'WER' \
+        and np.isfinite(float(val[0].split()[3]))
+
+
+@pytest.mark.parametrize('cli', ['pretrain_wav2vec', 'train'])
+def test_cli_wav2vec_entry_points_default_to_cuda(w2v_run, cli):
+    """Both new CLIs default to --device cuda and, without a card, stop
+    naming torch.cuda.is_available() rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present')
+    import importlib
+    args, _, _ = w2v_run
+    args = list(args)
+    del args[args.index('--device'):args.index('--device') + 2]
+    main = importlib.import_module(f'edgedict_tpu_torch.cli.{cli}').main
+    with pytest.raises(RuntimeError, match='is_available'):
+        main(args + W2V_PRETRAIN, log_fn=lambda s: None)

@@ -3,15 +3,17 @@ does not do yet (edgedict_tpu_torch/config.py REFUSED): a value other
 than the default stops the parse (parser.error, SystemExit 2) with a
 message naming the flag and its ROADMAP.md Queue 1 item, under every
 CLI's parser.  The defaults, the flags the JAX package itself ignores and
-the three preset flagfiles still parse; --eval_beam_width, ported, is
-accepted."""
+the three preset flagfiles still parse; --eval_beam_width and
+--use_pretrained, ported, are accepted, and the wav2vec pretraining flags
+parse with the JAX package's defaults."""
 
 import os
 
 import pytest
 
 from edgedict_tpu_torch import config as C
-from edgedict_tpu_torch.cli import baseline, stream
+from edgedict_tpu_torch.cli import baseline, pretrain_wav2vec, stream
+from edgedict_tpu_torch.cli import train as cli_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = ['E6D2.txt', 'E4D1.txt', 'E6D2_LARGE_Batch.txt']
@@ -31,7 +33,6 @@ PARSERS = {'baseline': baseline.build_parser,
 
 @pytest.mark.parametrize('arg,name,item', [
     ('--device_corpus', 'device_corpus', '15'),
-    ('--use_pretrained=true', 'use_pretrained', '11'),
     ('--dp_size=2', 'dp_size', '14'),
     ('--tp_size=2', 'tp_size', '14'),
     ('--pp_size=4', 'pp_size', '14'),
@@ -53,10 +54,42 @@ def test_every_refused_flag_is_named_at_once(capsys):
     with pytest.raises(SystemExit):
         C.parse_flags(baseline.build_parser(), [
             '--flagfile', f'{REPO}/flagfiles/E6D2.txt',
-            '--tp_size=2', '--use_pretrained', '--device_corpus'])
+            '--tp_size=2', '--profile_dir=traces', '--device_corpus'])
     err = capsys.readouterr().err
-    for name in ('tp_size', 'use_pretrained', 'device_corpus'):
+    for name in ('tp_size', 'profile_dir', 'device_corpus'):
         assert f'--{name}=' in err
+
+
+@pytest.mark.parametrize('spelling', ['--use_pretrained=true',
+                                      '--use_pretrained'])
+@pytest.mark.parametrize('cli', sorted(PARSERS))
+def test_use_pretrained_is_accepted(cli, spelling):
+    """--use_pretrained is ported (cli/train.py splices the wav2vec
+    FrontEnd and encoder): every parser takes it, as the JAX registry
+    defines it for every entry point, and only cli.train acts on it."""
+    flags = C.parse_flags(PARSERS[cli](), [
+        f'--flagfile={REPO}/flagfiles/E6D2.txt', spelling])
+    assert flags.use_pretrained is True
+
+
+def test_pretrain_flags_parse_with_the_jax_defaults():
+    """cli.pretrain_wav2vec and cli.train register the pretraining flags
+    with the names and defaults of edgedict_tpu/pretrain_config.py; the
+    other parsers ignore them in a flagfile (a run's snapshot)."""
+    from edgedict_tpu.pretrain_config import FLAGS as JFLAGS
+    want = {name: JFLAGS[name].default for name, _, _ in C.PRETRAIN_FLAGS}
+    assert len(want) == 17
+    for build in (pretrain_wav2vec.build_parser, cli_train.build_parser):
+        flags = C.parse_flags(build(), [
+            f'--flagfile={REPO}/flagfiles/E6D2.txt'])
+        assert {k: getattr(flags, k) for k in want} == want
+        flags = C.parse_flags(build(), ['--mask_prob=0.3', '--final_dim',
+                                        '64', '--temp_decay=0.9'])
+        assert (flags.mask_prob, flags.final_dim, flags.temp_decay) == \
+            (0.3, 64, 0.9)
+    flags = C.parse_flags(baseline.build_parser(), [
+        f'--flagfile={REPO}/flagfiles/E6D2.txt', '--mask_prob=0.3'])
+    assert not hasattr(flags, 'mask_prob')
 
 
 @pytest.mark.parametrize('cli', sorted(PARSERS))

@@ -2,11 +2,14 @@
 at small shapes and at the E6D2 main paths' shapes (serving: K1-K3, K5,
 K11-K13; beam search: K1 at the prediction net's and the LM's B·W rows and
 T = 1, K1/K4 at cli.train_lm's H=512 B=32 T=64; training: K1, K4, K5, K6
-at H=1024 B=32 T=427 bf16, K7/K8 in fp32
+at H=1024 B=32 T=427 bf16; wav2vec pretraining's K1/K4 in fp32 at H=1024
+B=32 T=297 and the raw fine-tune's K1/K4 bf16 at T=1597, K7-K10 at its
+B=32 T=1597 U+1=65 lattice and K3 at its eval; K7/K8 in fp32
 and bf16, K7's and K8's tensor-core paths at the E6D2 step, K3's one launch
 over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
 plans' refusals, plus the
-streaming decoder and a GRU train step on CUDA against the CPU.  Marked `cuda`: every test skips where no
+streaming decoder, a GRU train step, a wav2vec pretraining step and a raw
+fine-tune step on CUDA against the CPU.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
 
@@ -727,6 +730,8 @@ def _lattice_case(cuda, b, t, u1, edge):
     (32, 214, 65, 'mixed'), (2, 6, 1100, 'full'),
     # K10's other geometries: 2 and 10 warps of one column a lane
     (3, 7, 49, 'mixed'), (2, 3, 300, 'mixed'),
+    # the raw-waveform fine-tune's lattice: 16 s, no time reduction
+    (32, 1597, 65, 'mixed'),
 ])
 def test_k9_k10_lattice_matches_plain(cuda, b, t, u1, edge):
     from edgedict_tpu_torch.ops import rnnt_loss as PL
@@ -1268,3 +1273,229 @@ def test_k3_is_one_launch_over_many_blocks(cuda):
     events = [e for e in out['kernels'] if 'greedy_frame_kernel' in e[0]]
     assert len(events) == 1
     assert out['blocks'] > 1 and events[0][1] == [out['blocks'], 1, 1]
+
+
+# ---------------------------------------------------------------------------
+# wav2vec pretraining and the raw-waveform fine-tune
+# ---------------------------------------------------------------------------
+
+def _lstm_case(cuda, hid, b, t, dtype, seed):
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    k = 1.0 / hid ** 0.5
+    xp = torch.randn(t, b, 4 * hid, generator=g).to(cuda, dtype)
+    w = (torch.rand(4 * hid, hid, generator=g) * 2 * k - k).to(cuda, dtype)
+    h0 = (torch.randn(b, hid, generator=g) * 0.5).to(cuda)
+    c0 = (torch.randn(b, hid, generator=g) * 0.5).to(cuda)
+    dys = torch.randn(t, b, hid, generator=g).to(cuda, dtype)
+    return xp, w, h0, c0, dys
+
+
+@pytest.mark.parametrize('b,t,backward', [(32, 297, True), (4, 297, False),
+                                          (4, 1597, False)])
+def test_k1_k4_wav2vec_fp32_shapes_match_plain(cuda, b, t, backward):
+    """Pretraining's encoder in fp32 (H=1024 B=32 T=297), its eval's B=4,
+    and the fine-tune eval's B=4 T=1597: K1 free-running to 1e-4, K4
+    given the same forward to 1e-4 of max(1, max|ref|)."""
+    xp, w, h0, c0, dys = _lstm_case(cuda, 1024, b, t, torch.float32, t + b)
+    out = K1.lstm_recurrence(xp, w, h0, c0)
+    ref = K1.lstm_recurrence_plain(xp, w, h0, c0)
+    for a, r in zip(out, ref):
+        assert _max_abs(a, r) <= 1e-4
+    if backward:
+        args = (xp, w, h0, c0, out[0], out[1], dys, None, None)
+        for a, r in zip(K1.lstm_recurrence_bwd(*args),
+                        K1.lstm_recurrence_bwd_plain(*args)):
+            assert _rel_err(a, r) <= 1e-4
+
+
+def test_k1_k4_raw_finetune_bf16_shape_match_plain(cuda):
+    """The fine-tune's encoder layer in bf16, H=1024 B=32 T=1597: K1 held
+    step by step from its own carried state (ys to one bf16 ulp, cs to
+    1e-4), K4 given that forward to 2e-2 of max(1, max|ref|)."""
+    hid, b, t = 1024, 32, 1597
+    xp, w, h0, c0, dys = _lstm_case(cuda, hid, b, t, torch.bfloat16, 11)
+    ys, cs, _ = K1.lstm_recurrence(xp, w, h0, c0)
+    h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b, hid)
+    c_prev = torch.cat([c0[None], cs[:-1]]).reshape(t * b, hid)
+    y1, c1, _ = K1.lstm_recurrence_plain(xp.reshape(1, t * b, 4 * hid), w,
+                                         h_prev, c_prev)
+    y1, c1 = y1.reshape(ys.shape), c1.reshape(cs.shape)
+    diff = (ys.float() - y1.float()).abs()
+    assert bool((diff <= 1e-2 + 2.0 ** -7 * y1.float().abs()).all())
+    assert _max_abs(cs, c1) <= 1e-4
+    args = (xp, w, h0, c0, ys, cs, dys, None, None)
+    for a, r in zip(K1.lstm_recurrence_bwd(*args),
+                    K1.lstm_recurrence_bwd_plain(*args)):
+        assert _rel_err(a, r) <= 2e-2
+
+
+def _joint_by_chunks(f, g, w_t, bias, labels, cot, chunk=100):
+    """The plain joint 100 frames at a time: → (blank_lp, label_lp) and
+    the gradients of (f, g, w_t, bias) under the cotangents `cot`."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    lps, df, rest = [], [], None
+    for s0 in range(0, f.shape[1], chunk):
+        leaves = [x.detach().clone().requires_grad_()
+                  for x in (f[:, s0:s0 + chunk], g, w_t, bias)]
+        out = KJ.fused_joint_lse_plain(*leaves, labels, 0)
+        gr = torch.autograd.grad(out, leaves, tuple(
+            c[:, s0:s0 + chunk] for c in cot))
+        lps.append([o.detach() for o in out])
+        df.append(gr[0])
+        rest = list(gr[1:]) if rest is None else [
+            a + c for a, c in zip(rest, gr[1:])]
+    return [torch.cat(p, 1) for p in zip(*lps)], [torch.cat(df, 1), *rest]
+
+
+@pytest.mark.parametrize('b,u1,dtype', [(32, 65, torch.bfloat16),
+                                        (4, 49, torch.float32)])
+def test_k7_k8_raw_finetune_lattice_match_plain_by_chunks(cuda, b, u1,
+                                                          dtype):
+    """The fused joint at the fine-tune's T=1597 (J=640, V=2048): the B=32
+    bf16 step (K7 and K8) and the eval's B=4 fp32 forward, against the
+    plain joint by time chunks (the whole logits do not fit the card):
+    log-probs to 1e-4 and grads to 2e-2 of max(1, max|ref|)."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    t = 1597
+    f, g, w_t, bias, labels, db, dl = _joint_case(cuda, b, t, u1, 640, 2048,
+                                                  dtype, 13)
+    wt_e = w_t.to(dtype).contiguous()
+    blank_lp, label_lp, lse = KJ.joint_lse_fwd(f, g, wt_e, bias, labels, 0)
+    (r_b, r_l), ref_g = _joint_by_chunks(f, g, w_t, bias, labels, (db, dl))
+    assert _rel_err(blank_lp, r_b) <= 1e-4 and _rel_err(label_lp, r_l) <= 1e-4
+    if dtype == torch.bfloat16:
+        grads = KJ.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse, db, dl)
+        for a, r in zip(grads, ref_g):
+            assert _rel_err(a, r) <= 2e-2
+
+
+def test_k3_raw_finetune_eval_decode_matches_plain(cuda):
+    """K3 at the fine-tune eval's decode: B=4 over T=1597 frames at E6D2's
+    joint and prediction-net widths, about half the frames blank."""
+    cfg, model = _decoder_model(cuda, 2048, 640, 256, 64, 256, 2)
+    b, t = 4, 1597
+    with torch.no_grad():
+        model.joint.out.bias[0] += 1.2
+        h_dec, (hs, cs) = T.decoder_apply(
+            model.decoder, cfg, torch.zeros((b, 0), dtype=torch.long,
+                                            device=cuda))
+    cache = K3.build_decode_cache(model)
+    f = torch.randn(t, b, 640, generator=torch.Generator().manual_seed(3)) \
+        .to(cuda)
+    args = (cache, f, h_dec[:, 0].contiguous(), hs, cs, 0, 3, True)
+    out = K3.greedy_frame_loop(*args)
+    ref = K3.greedy_frame_loop_plain(*args)
+    assert torch.equal(out[0], ref[0])
+    assert 0.1 < float((ref[0] == 0).float().mean()) < 0.9
+    for a, r in zip(out[1:], ref[1:]):
+        if r is not None:
+            assert _max_abs(a, r) <= 1e-4
+
+
+def _w2v_small():
+    from edgedict_tpu_torch.models import wav2vec as W
+    return W, W.Wav2VecConfig(input_size=128, enc_hidden_size=64,
+                              enc_layers=2, enc_dropout=0.0,
+                              enc_proj_size=32, num_negatives=10,
+                              latent_vars=16, final_dim=32)
+
+
+def test_pretrain_step_cuda_matches_cpu(cuda):
+    """One step of a small wav2vec model (the DEFAULT FrontEnd, 2 x 64
+    LSTM) with the pretrainer's loss under its AdamW without decay of 1-D
+    params (accum 2, bf16=True: the loss takes no cast) on CUDA against
+    the CPU from the same weights, masks and draws: loss 1e-5 rel,
+    grad_norm 1e-4 rel, params within 2 lr; K1 and K4 once per layer and
+    micro-batch."""
+    from edgedict_tpu_torch import optim
+    from edgedict_tpu_torch import train as TR
+    from edgedict_tpu_torch.pretrainer import plan_masks
+    W, cfg = _w2v_small()
+    b, n, lr = 4, 8000, 1e-3
+    t = W.frontend_output_length(cfg.frontend_params, n)
+    host = {'audio': np.random.RandomState(0).randn(b, n)
+            .astype(np.float32) * 0.1,
+            'alen': np.full((b,), n, np.int32),
+            'mask_idx': plan_masks(cfg, b, t, np.random.RandomState(1))}
+    m = host['mask_idx'].shape[1]
+    draws = [W.make_draws(cfg, b // 2, t, m, torch.Generator().manual_seed(i),
+                          'cpu') for i in range(2)]
+    opt = optim.adamw_no_ln_decay(0.9, 0.998, 0.01, 10.0)
+    res = []
+    for dev in ('cpu', cuda):
+        model = W.Wav2Vec(cfg, dev, seed=4)
+        queue = [{k: v.to(dev) for k, v in d.items()} for d in draws]
+
+        def loss_fn(model, micro, generator, aux):
+            out = W.wav2vec_forward(model, cfg, micro['audio'],
+                                    micro['mask_idx'], temp=aux['temp'],
+                                    draws=queue.pop(0), training=True)
+            loss, met = W.contrastive_loss(out)
+            return loss, {'correct': met['correct'], 'count': met['count']}
+        state = TR.TrainState(model, opt.init(dict(model.named_parameters())))
+        step = TR.make_train_step(cfg, opt, bf16=True, loss_fn=loss_fn,
+                                  loss_has_aux=True)
+        counts = (K1.lstm_recurrence.launches,
+                  K1.lstm_recurrence_bwd.launches)
+        state, met = step(state, TR.device_batch(host, 2, dev), lr, None,
+                          {'temp': 1.0})
+        counts = (K1.lstm_recurrence.launches - counts[0],
+                  K1.lstm_recurrence_bwd.launches - counts[1])
+        res.append((float(met['loss']), float(met['grad_norm']), counts,
+                    {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()}))
+    (l0, g0, c0, p0), (l1, g1, c1, p1) = res
+    assert c0 == (0, 0) and c1 == (2 * cfg.enc_layers, 2 * cfg.enc_layers)
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(g1 - g0) <= 1e-4 * g0
+    for k, v in p0.items():
+        assert _max_abs(p1[k], v) <= 2 * lr + 1e-6, k
+
+
+def test_raw_finetune_step_cuda_matches_cpu(cuda):
+    """One fp32 step of a small RawTransducer (the DEFAULT FrontEnd, 2 x 64
+    LSTM encoder without time reduction, int16 audio) with the raw
+    trainer's loss on CUDA against the CPU: loss 1e-5 rel, grad_norm 1e-4
+    rel, params within 2 lr; K7-K10 once per micro-batch."""
+    import dataclasses
+    from edgedict_tpu_torch import optim
+    from edgedict_tpu_torch import train as TR
+    from edgedict_tpu_torch.models.wav2vec import RawTransducer
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+    from edgedict_tpu_torch.raw_trainer import raw_features
+    from edgedict_tpu_torch.models.wav2vec import DEFAULT_FRONTEND
+    cfg, _, _, _ = _small_stream()
+    cfg = dataclasses.replace(cfg, vocab_size=40, input_size=128,
+                              enc_time_reductions=())
+    rng = np.random.RandomState(0)
+    host = {'audio': (rng.randn(4, 9600) * 3000).astype(np.int16),
+            'alen': np.array([9600, 8000, 9600, 7000], np.int32),
+            'ys': rng.randint(4, 40, (4, 5)).astype(np.int32),
+            'ylen': np.array([5, 4, 3, 5], np.int32)}
+
+    def loss_fn(model, micro, generator, aux):
+        xs, xlen = raw_features(model, DEFAULT_FRONTEND, micro['audio'],
+                                micro['alen'])
+        return T.transducer_loss(model, cfg, xs, micro['ys'], xlen,
+                                 micro['ylen'])
+    opt = optim.build_optimizer('adam', gradclip=1.0)
+    kernels = (KJ.joint_lse_fwd, KJ.joint_lse_bwd, KL.lattice_alpha,
+               KL.lattice_beta_grad)
+    lr, res = 1e-3, []
+    for dev in ('cpu', cuda):
+        model = RawTransducer(cfg, dev, seed=5)
+        state = TR.TrainState(model, opt.init(dict(model.named_parameters())))
+        step = TR.make_train_step(cfg, opt, bf16=False, loss_fn=loss_fn)
+        before = [k.launches for k in kernels]
+        state, met = step(state, TR.device_batch(host, 2, dev), lr)
+        res.append((float(met['loss']), float(met['grad_norm']),
+                    [k.launches - c for k, c in zip(kernels, before)],
+                    {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()}))
+    (l0, g0, c0, p0), (l1, g1, c1, p1) = res
+    assert c0 == [0] * 4 and c1 == [2] * 4
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert abs(g1 - g0) <= 1e-4 * g0
+    for k, v in p0.items():
+        assert _max_abs(p1[k], v) <= 2 * lr + 1e-6, k

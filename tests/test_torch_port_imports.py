@@ -60,6 +60,8 @@ def test_importing_the_port_adds_no_jax_module():
         'ops.decode_kernel', 'ops.rnnt_loss', 'ops.rnnt_loss_kernel',
         'ops.joint_lse_kernel', 'models.transducer', 'models.decoding',
         'models.lm', 'models.beam_search', 'cli.train_lm',
+        'models.wav2vec', 'pretrainer', 'raw_trainer', 'cli.train',
+        'cli.pretrain_wav2vec',
         'optim', 'train', 'checkpoint', 'trainer', 'cli.stream', 'cli.serve',
         'cli.baseline', 'cli.profile_stream', 'cli.profile_train')]
     banned = sorted(BANNED | {'edgedict_tpu'})
