@@ -143,7 +143,33 @@ Phases, each printing JSON or text lines:
              prediction-net K1 / K4 fp32, K7-K10 bf16; its eval's K1 fp32
              (encoder, prediction net, the decode's T=1 priming), K7 fp32,
              K9 and K3, each timed with its bound
- 20 launches every kernel launched by the main paths themselves: the counts
+ 20 train_features  the trainer's one-card features at E6D2 width (the
+             train_run corpus, batch 32, bf16): --device_corpus (its GB on
+             the card, the host loader's index order over two epochs, a
+             gathered batch against the host collation of its utterances);
+             turns of 5 steps, P D S S D P (P: the host loader's
+             page-locked batches copied one ahead on a side stream; D: the
+             device corpus; S: run_step's blocking copy), each turn timed
+             from its first batch to a synchronise after its last step,
+             with the busy share of 3 more steps and each mode's peak
+             memory; --profile_dir over 14 steps of Trainer.train (the
+             chrome trace must hold K1, K2, K4 and K7-K10 records; their
+             counts are printed); the background save of the full state
+             (~610 MB with Adam): blocking ms against a synchronous save,
+             the file equal to the state at the save bit for bit after
+             wait_for_checkpoints, the step taken meanwhile not in it
+ 21 jax_checkpoint  the JAX package's run in tests/data/jax_ckpt/
+             (flax-msgpack 2.ckpt with Adam state, its flag snapshot, char
+             tokenizer): cli.stream --device cuda --infer_dtype fp32 on it
+             emits the JAX package's token at every frame of utt.wav and
+             prints its transcript; cli.baseline --mode resume --device
+             cuda takes step 3 from it (finite loss, optimizer count 3);
+             both runs record the shape of every kernel call they make
+ 22 jax_kernels  each kernel those two runs launched (K1, K2, K3, K4,
+             K7-K10) against its plain version at the recorded shapes (the
+             fixture's H=16, J=16, V=22), after checking that the
+             recording saw every launch
+ 23 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -166,13 +192,17 @@ Phases, each printing JSON or text lines:
              evaluate() implies (per batch K2, K3, K7, K9 once, the
              encoder's and the prediction net's layers twice; the LSTM
              run's W=4 beam adds K2 and 8 K1 a batch and 6 K1 an encoder
-             frame)
+             frame); train_features' three modes and its profiled
+             Trainer.train what their micro-steps imply, as train_run; the
+             JAX run's decode K2 and K3 a chunk and K1 per encoder layer
+             a chunk, its resumed step what its micro-steps imply
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -342,7 +372,6 @@ def phase_kernels(torch):
 
     from edgedict_tpu_torch import features as F
     from edgedict_tpu_torch.ops import decode_kernel as K3
-    from edgedict_tpu_torch.ops import features_kernel as K2
     from edgedict_tpu_torch.models import transducer as T
     dev = torch.device('cuda')
     rng = np.random.RandomState(0)
@@ -366,61 +395,16 @@ def phase_kernels(torch):
     # the shortest legal row and one off the hop grid: both splits of its
     # plan (ops/features_plan.py), each bit-stable across two calls; device
     # time by torch.profiler at the chunk and the train step
-    from edgedict_tpu_torch.ops import features_plan as KP
     cfg = F.FeatureConfig(feature_type='logfbank', feature_size=80,
                           n_fft=512, win_length=320, hop_length=200,
                           downsample=3, pad_to_divisible=False)
     pipe = F.FeaturePipeline(cfg, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b, length in ((1, 1320), (8, 1320), (64, 1320), (1, 64000),
                       (8, 64000), (32, 256000), (1, 257), (1, 1399)):
-        audio = torch.as_tensor(
-            (rng.randn(b, length) * 0.1).astype(np.float32), device=dev)
-        audio[:, : length // 4] *= 1e-4           # near-silent stretch
-        audio = F.preemphasis(audio)
-        ker = K2.mel_power(audio, pipe.tables)
-        again = K2.mel_power(audio, pipe.tables)
-        ref = K2.mel_power_plain(audio, pipe.tables)
-        torch.cuda.synchronize()
-        ok, err = _close(torch.log(ker + F.LOG_GUARD),
-                         torch.log(ref + F.LOG_GUARD), 5e-3, 1e-3)
-        _, perr = _close(ker, ref, 0.0, 0.0)
-        case = {'kernel': 'K2 mel_power', 'B': b, 'samples': length,
-                'frames': ker.shape[1], 'logmel_max_abs': err,
-                'power_max_abs': perr, 'bit_stable': torch.equal(ker, again),
-                'tol': 'log-mel atol 5e-3 rtol 1e-3',
-                'plan': dataclasses.asdict(KP.mel_plan(
-                    b, length, cfg.n_fft, cfg.hop_length, 80, sms))}
-        if length in (1320, 256000) or b == 1:
-            ms, pms = time_pair(torch,
-                                lambda: K2.mel_power_plain(audio, pipe.tables),
-                                lambda: K2.mel_power(audio, pipe.tables))
-            case.update(ms=ms, plain_ms=pms)
-        if (b, length) in ((1, 1320), (32, 256000)):
-            dms, n = device_ms_per_launch(
-                torch, lambda: K2.mel_power(audio, pipe.tables),
-                'mel_power_kernel')
-            case.update(device_ms=dms, profiled_launches_per_call=n / 5)
-        # what the function needs, not what the kernel's DFT-as-a-product
-        # does: bytes of the audio, the window, the filterbank's nonzero
-        # weights (each mel's band) and the output; operations per frame of
-        # the window, a real FFT (2.5·n·log2 n flop), the power and each
-        # mel over its band
-        n_freq = pipe.tables.mel_t.shape[0]
-        band = pipe.tables.mel_band
-        weights = int((band[:, 1] - band[:, 0]).sum())
-        frames = b * ker.shape[1]
-        bounds = bound(nbytes(audio, pipe.tables.window, band, ker)
-                       + 4 * weights,
-                       frames * (cfg.n_fft + 2.5 * cfg.n_fft * np.log2(
-                           cfg.n_fft) + 3 * n_freq + 2 * weights), 'fp32')
-        case.update(bound_ms=bounds[0], bound_by=bounds[1])
-        emit(case)
-        require(ok and case['bit_stable'], f'K2 disagrees: {case}')
-        record('mel_power', err, case.get('ms') if (b, length) == (1, 1320)
-               else None, case.get('plain_ms'), bounds,
-               device_ms=case.get('device_ms'))
-        del audio, ker, again, ref
+        mel_case(torch, rng, dev, record, pipe.tables, b, length,
+                 timed=length in (1320, 256000) or b == 1,
+                 profiled=(b, length) in ((1, 1320), (32, 256000)),
+                 main=(b, length) == (1, 1320))
 
     # K1 — LSTM recurrence, encoder (H=1024) and prediction net (H=256, and
     # E6D2_LARGE_Batch's 512); the persistent kernel's 32-row slabs at the
@@ -488,7 +472,7 @@ def phase_kernels(torch):
                     if t == 1 or t == 214:
                         k3_timed.append(({key: case[key] for key in (
                             'B', 'T', 'blank_bias')}, args))
-                bounds = k3_bound(torch, dcfg, cache, args, out)
+                bounds = k3_bound(torch, cache, args, out)
                 case.update(bound_ms=bounds[0], bound_by=bounds[1])
                 emit(case)
                 require(tok_eq and all(ok for ok, _ in errs) and stable,
@@ -513,6 +497,66 @@ def phase_kernels(torch):
     wav2vec_kernels(torch, dev, record)
     STATE['kernels'] = summary
     STATE['record'] = record            # phase_wav2vec_kernels' cases
+
+
+def mel_case(torch, rng, dev, record, tables, b, length, timed=True,
+             profiled=False, main=False):
+    """K2 against its plain version on seeded audio (B, length) (a
+    near-silent first quarter) through the featurizer's tables: log-mel to
+    atol 5e-3 rtol 1e-3, bit-stable across two calls, with its plan (both
+    splits of ops/features_plan.py); timed in turns where `timed`, its
+    device ms by torch.profiler where `profiled`; `main`: the case whose
+    times stand in the kernels line."""
+    import dataclasses
+
+    from edgedict_tpu_torch import features as F
+    from edgedict_tpu_torch.ops import features_kernel as K2
+    from edgedict_tpu_torch.ops import features_plan as KP
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_freq, n_mels = tables.mel_t.shape
+    audio = torch.as_tensor(
+        (rng.randn(b, length) * 0.1).astype(np.float32), device=dev)
+    audio[:, : length // 4] *= 1e-4           # near-silent stretch
+    audio = F.preemphasis(audio)
+    ker = K2.mel_power(audio, tables)
+    again = K2.mel_power(audio, tables)
+    ref = K2.mel_power_plain(audio, tables)
+    torch.cuda.synchronize()
+    ok, err = _close(torch.log(ker + F.LOG_GUARD),
+                     torch.log(ref + F.LOG_GUARD), 5e-3, 1e-3)
+    _, perr = _close(ker, ref, 0.0, 0.0)
+    case = {'kernel': 'K2 mel_power', 'B': b, 'samples': length,
+            'n_fft': tables.n_fft, 'hop': tables.hop, 'mels': n_mels,
+            'frames': ker.shape[1], 'logmel_max_abs': err,
+            'power_max_abs': perr, 'bit_stable': torch.equal(ker, again),
+            'tol': 'log-mel atol 5e-3 rtol 1e-3',
+            'plan': dataclasses.asdict(KP.mel_plan(
+                b, length, tables.n_fft, tables.hop, n_mels, sms))}
+    if timed:
+        ms, pms = time_pair(torch, lambda: K2.mel_power_plain(audio, tables),
+                            lambda: K2.mel_power(audio, tables))
+        case.update(ms=ms, plain_ms=pms)
+    if profiled:
+        dms, n = device_ms_per_launch(
+            torch, lambda: K2.mel_power(audio, tables), 'mel_power_kernel')
+        case.update(device_ms=dms, profiled_launches_per_call=n / 5)
+    # what the function needs, not what the kernel's DFT-as-a-product
+    # does: bytes of the audio, the window, the filterbank's nonzero
+    # weights (each mel's band) and the output; operations per frame of
+    # the window, a real FFT (2.5·n·log2 n flop), the power and each
+    # mel over its band
+    band = tables.mel_band
+    weights = int((band[:, 1] - band[:, 0]).sum())
+    frames = b * ker.shape[1]
+    n_fft = tables.n_fft
+    bounds = bound(nbytes(audio, tables.window, band, ker) + 4 * weights,
+                   frames * (n_fft + 2.5 * n_fft * np.log2(n_fft)
+                             + 3 * n_freq + 2 * weights), 'fp32')
+    case.update(bound_ms=bounds[0], bound_by=bounds[1])
+    emit(case)
+    require(ok and case['bit_stable'], f'K2 disagrees: {case}')
+    record('mel_power', err, case.get('ms') if main else None,
+           case.get('plain_ms'), bounds, device_ms=case.get('device_ms'))
 
 
 def lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt, beam_step=False,
@@ -733,14 +777,15 @@ def _plain_joint_by_chunks(torch, KJ, f, g, w_t, bias, labels, chunk,
     return (torch.cat(df, 1), *rest)
 
 
-def joint_long_case(torch, rng, dev, record, b, t, u1, dt):
-    """K7 (and in bf16 K8) at the raw fine-tune's lattice, J=640 V=2048,
-    against the plain joint run 100 frames at a time (the whole
-    (B, T, U+1, V) logits of this shape do not fit the card), timed in
-    turns with the plain version twice: log-probs to 1e-4 and gradients to
-    2e-2 of max(1, max|ref|), as at the E6D2 step."""
+def joint_long_case(torch, rng, dev, record, b, t, u1, dt, j=640, v=2048):
+    """K7 (and in bf16 K8) at a lattice (B, T, U+1) and widths J, V (the raw
+    fine-tune's: E6D2's 640, 2048) against the plain joint run 100 frames
+    at a time (the whole (B, T, U+1, V) logits of the raw fine-tune do not
+    fit the card), timed in turns with the plain version twice: log-probs
+    to 1e-4 and gradients to 2e-2 of max(1, max|ref|), as at the E6D2
+    step."""
     from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
-    j, v, chunk = 640, 2048, 100
+    chunk = 100
 
     def t_(*shape, scale=1.0):
         return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
@@ -815,11 +860,7 @@ def k3_long_case(torch, rng, dev, record, b, t):
     """K3 at a long decode, (B, T) at E6D2's joint and prediction-net
     widths (blank bias 1.8 as the E6D2 eval case: most frames blank, as a
     trained model's), called as models/decoding.py's greedy decode calls
-    it (no <unk> id, log-probs emitted): tokens exact, states and
-    log-probs to 1e-4, bit-stable, timed in turns, device ms by the
-    profiler."""
-    import dataclasses
-
+    it (no <unk> id, log-probs emitted): k3_check."""
     from edgedict_tpu_torch.models import transducer as T
     from edgedict_tpu_torch.ops import decode_kernel as K3
     dcfg = T.TransducerConfig(vocab_size=2048, vocab_embed_size=64,
@@ -836,7 +877,18 @@ def k3_long_case(torch, rng, dev, record, b, t):
             model.decoder, dcfg, torch.zeros((b, 0), dtype=torch.long,
                                              device=dev))
     f = torch.as_tensor(rng.randn(t, b, 640).astype(np.float32), device=dev)
-    args = (cache, f, h_dec0[:, 0].contiguous(), hs, cs, 0, None, True)
+    k3_check(torch, record, (cache, f, h_dec0[:, 0].contiguous(), hs, cs, 0,
+                             None, True), blank_bias=1.8)
+
+
+def k3_check(torch, record, args, **info):
+    """K3 against its plain version on greedy_frame_loop's args: tokens
+    exact, states (and log-probs) to 1e-4, bit-stable, timed in turns,
+    device ms by the profiler; `info` goes into the printed case."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    cache, f, hs = args[0], args[1], args[3]
     out = K3.greedy_frame_loop(*args)
     again = K3.greedy_frame_loop(*args)
     ref = K3.greedy_frame_loop_plain(*args)
@@ -848,10 +900,11 @@ def k3_long_case(torch, rng, dev, record, b, t):
                         lambda: K3.greedy_frame_loop(*args))
     dms, n = device_ms_per_launch(torch, lambda: K3.greedy_frame_loop(*args),
                                   'greedy_frame_kernel', n=2)
-    bounds = k3_bound(torch, dcfg, cache, args, out)
-    case = {'kernel': 'K3 greedy_decode', 'B': b, 'T': t, 'blank_bias': 1.8,
-            'tokens_equal': tok_eq,
-            'blank_share': float((ref[0] == 0).float().mean()),
+    bounds = k3_bound(torch, cache, args, out)
+    j, v = cache['w_out_t'].shape
+    case = {'kernel': 'K3 greedy_decode', 'B': f.shape[1], 'T': f.shape[0],
+            'J': j, 'V': v, **info, 'tokens_equal': tok_eq,
+            'blank_share': float((ref[0] == args[5]).float().mean()),
             'state_max_abs': max(e for _, e in errs),
             'bit_stable': all(torch.equal(a, c) for a, c in zip(out, again)
                               if a is not None),
@@ -861,7 +914,7 @@ def k3_long_case(torch, rng, dev, record, b, t):
             'plan': dataclasses.asdict(K3.card_plan(cache, f, hs))}
     emit(case)
     require(tok_eq and all(ok for ok, _ in errs) and case['bit_stable'],
-            f'K3 disagrees at a long decode: {case}')
+            f'K3 disagrees: {case}')
     record('greedy_decode', case['state_max_abs'])
 
 
@@ -870,8 +923,10 @@ def library_rows(torch):
     layer (K1: forward; K4, K6: forward + backward) at K1's beam and LM
     shapes (H=256 B=16/32 T=1 input 64, H=512 B=32 T=1 and T=64 input
     256), K4 at H=1024 B=32 T=64 fp32 (input 240) and H=512 B=32 T=64
-    (input 256), K6 at H=1024 B=32 T=64 fp32; dequantize + one cuDNN layer
-    at K12's / K13's int8-server shape (B=64 T=2)."""
+    (input 256), K6 at H=1024 B=32 T=64 fp32; the wav2vec runs' K1 at
+    H=1024 B=4 T=297 and T=1437 (input 128), H=256 B=32 T=49 and B=4
+    T=33 / T=1 (input 64) and K4 at H=256 B=32 T=49; dequantize + one
+    cuDNN layer at K12's / K13's int8-server shape (B=64 T=2)."""
     fp32 = torch.float32
     for kernel, cell, hid, b, t, n_in, backward in (
             ('K1', 'LSTM', 256, 16, 1, 64, False),
@@ -880,7 +935,15 @@ def library_rows(torch):
             ('K1', 'LSTM', 512, 32, 64, 256, False),
             ('K4', 'LSTM', 1024, 32, 64, ENC_IN, True),
             ('K4', 'LSTM', 512, 32, 64, 256, True),
-            ('K6', 'GRU', 1024, 32, 64, ENC_IN, True)):
+            ('K6', 'GRU', 1024, 32, 64, ENC_IN, True),
+            # the wav2vec runs' rows: pretraining's eval, the fine-tune's
+            # prediction net, its eval's encoder and prediction net
+            ('K1', 'LSTM', 1024, 4, 297, FRONTEND_C, False),
+            ('K1', 'LSTM', 256, 32, 49, 64, False),
+            ('K4', 'LSTM', 256, 32, 49, 64, True),
+            ('K1', 'LSTM', 1024, 4, 1437, FRONTEND_C, False),
+            ('K1', 'LSTM', 256, 4, 33, 64, False),
+            ('K1', 'LSTM', 256, 4, 1, 64, False)):
         emit({'library_row': kernel, 'H': hid, 'B': b, 'T': t,
               'input': n_in, 'dtype': 'float32',
               **layer_times(torch, cell, hid, b, t, fp32, backward, n_in)})
@@ -890,7 +953,7 @@ def library_rows(torch):
               **quant_layer_times(torch, cell, 1024, 64, 2)})
 
 
-def k3_bound(torch, cfg, cache, args, out):
+def k3_bound(torch, cache, args, out):
     """K3's bound from this call's data: every frame's joint and logits,
     and the prediction net, its joint projection and an embedding row for
     each non-blank frame; the weights read once."""
@@ -1041,16 +1104,17 @@ def train_shape_forward(torch, rng, dev, record):
         bf16_forward_case(torch, rng, dev, record, cell, 32, 427, ENC_IN)
 
 
-def bf16_forward_case(torch, rng, dev, record, cell, b, t, n_in):
-    """K1 (cell 'LSTM') or K5 ('GRU') at H=1024 (B, T) in bf16 beside one
-    cuDNN layer's forward of input width n_in.  Free-running bf16 drifts
+def bf16_forward_case(torch, rng, dev, record, cell, b, t, n_in, hid=1024):
+    """K1 (cell 'LSTM') or K5 ('GRU') at (H, B, T) in bf16, beside one
+    cuDNN layer's forward of input width n_in where given.  Free-running
+    bf16 drifts
     over hundreds of steps (a one-ulp flip of h feeds every later step),
     so each step is held from the kernel's own carried state: ys to one
     bf16 ulp, the LSTM's cs to 1e-4; the free-running error is
     reported."""
     from edgedict_tpu_torch.ops import gru_kernel as K5
     from edgedict_tpu_torch.ops import rnn_kernel as K1
-    hid, dt = 1024, torch.bfloat16
+    dt = torch.bfloat16
     gates = 4 if cell == 'LSTM' else 3
     k = 1.0 / hid ** 0.5
     xp = torch.as_tensor(rng.randn(t, b, gates * hid).astype(np.float32),
@@ -1097,7 +1161,8 @@ def bf16_forward_case(torch, rng, dev, record, cell, b, t, n_in):
             'bound_ms': b_ms, 'bound_by': b_by,
             'tol': 'per step ys atol 1e-2 rtol 2^-7'
                    + (', cs 1e-4' if cell == 'LSTM' else '')}
-    case.update(layer_times(torch, cell, hid, b, t, dt, False, n_in))
+    if n_in:
+        case.update(layer_times(torch, cell, hid, b, t, dt, False, n_in))
     emit(case)
     require(all(ok for ok, _ in steps), f'{label} disagrees: {case}')
     record('lstm_fwd' if cell == 'LSTM' else 'gru_fwd',
@@ -3166,6 +3231,496 @@ def phase_wav2vec_kernels(torch):
         k3_long_case(torch, rng, dev, record, b, t)
 
 
+# ---------------------------------------------------------------------------
+# the trainer's one-card features, and a JAX package checkpoint on the card
+# ---------------------------------------------------------------------------
+
+FEATURE_STEPS = 5          # measured steps a turn
+FEATURE_TURNS = ('prefetch', 'device_corpus', 'sync', 'sync',
+                 'device_corpus', 'prefetch')
+# torch.profiler kernel names of the training kernels (the substrings of
+# cli/profile_train.py KERNELS): K8 is any of its five launches
+TRACE_KERNELS = {'K1': ('lstm_fwd',), 'K2': ('mel_power',),
+                 'K4': ('lstm_bwd',), 'K7': ('joint_lse_fwd',),
+                 'K8': ('joint_lse_bwd_h', 'joint_lse_bwd_dl',
+                        'joint_lse_bwd_dh', 'joint_lse_bwd_dw',
+                        'joint_lse_bwd_reduce'),
+                 'K9': ('lattice_alpha',), 'K10': ('lattice_beta_grad',)}
+
+
+def _train_expect(cfg, micro_steps):
+    """Launches of micro_steps feature-Trainer micro-steps (LSTM)."""
+    layers = (cfg.enc_layers + cfg.dec_layers) * micro_steps
+    return _expect(lstm_fwd=layers, lstm_bwd=layers,
+                   **dict.fromkeys(('mel_power', 'joint_lse_fwd',
+                                    'joint_lse_bwd', 'lattice_alpha',
+                                    'lattice_beta_grad'), micro_steps))
+
+
+def _step_source(trainer, mode):
+    """An endless generator of step thunks: 'prefetch' the host loader
+    through Trainer.device_batches (page-locked batches copied one ahead
+    on a side stream), 'device_corpus' the index loader gathered on the
+    card, 'sync' Trainer.run_step on each host batch (a blocking copy)."""
+    while True:
+        if mode == 'sync':
+            for batch in trainer.loader:
+                yield lambda b=batch: trainer.run_step(b)
+        else:
+            for dev in trainer.device_batches(trainer._loader_batches()):
+                yield lambda d=dev: trainer.run_device_step(d)
+
+
+def _state_snapshot(trainer):
+    """The trainer's model and optimizer state, copied to the host."""
+    from edgedict_tpu_torch.checkpoint import _to_cpu
+    return (_to_cpu(trainer.state.model.state_dict(), copy=True),
+            _to_cpu(trainer.state.opt_state, copy=True))
+
+
+def _tree_equal(torch, a, b):
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_tree_equal(torch, a[k], b[k])
+                                        for k in a)
+    return torch.equal(a, b)
+
+
+def phase_train_features(torch):
+    """The trainer's one-card features at E6D2 width (flagfiles/E6D2.txt,
+    batch 32, bf16, BPE 2048) on train_run's corpus: --device_corpus (its
+    size on the card, the host loader's index order over two epochs, its
+    batches equal to the host loader's where they are gathered); measured
+    turns of FEATURE_STEPS steps, P D S S D P (prefetch: the host loader
+    copied one ahead; device corpus; sync: run_step's blocking copy), each
+    turn timed whole from its first batch to a synchronise after its last
+    step, with the busy share of 3 more steps and the peak memory of each
+    mode; --profile_dir over 14 steps of Trainer.train (the chrome trace
+    holds K1, K2, K4 and K7-K10 records); the background save of the full
+    state (blocking ms against a synchronous save; the file equals the
+    state at the save bit for bit after wait_for_checkpoints, and the step
+    taken meanwhile is not in it)."""
+    from edgedict_tpu_torch.checkpoint import (
+        checkpoint_path, load_checkpoint, wait_for_checkpoints)
+    from edgedict_tpu_torch.cli import baseline
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.data import DataLoader
+    from edgedict_tpu_torch.train import device_batch
+    from edgedict_tpu_torch.trainer import IndexBatches, Trainer
+    cwd = os.getcwd()
+    tmp, base = _train_corpus()
+    os.chdir(tmp)                 # the BPE-2048/ cache of the corpus
+    try:
+        argv = base + ['--name', 'e6d2-features']
+        host = Trainer(parse_flags(baseline.build_parser(), argv))
+        t0 = time.perf_counter()
+        dc = Trainer(parse_flags(baseline.build_parser(),
+                                 argv + ['--device_corpus']))
+        corpus_s = time.perf_counter() - t0
+        corpus = dc.device_corpus
+        res = {'phase': 'train_features', 'config': 'flagfiles/E6D2.txt',
+               'device_corpus_gb': sum(v.numel() * v.element_size()
+                                       for v in corpus.values()) / 1e9,
+               'device_corpus_audio_gb': corpus['audio'].numel()
+               * corpus['audio'].element_size() / 1e9,
+               'device_corpus_shape': list(corpus['audio'].shape)
+               + [int(corpus['ys'].shape[1])],
+               'device_corpus_setup_s': corpus_s}
+        require(all(v.is_cuda for v in corpus.values()),
+                'the device corpus is not on the card')
+        require(isinstance(dc.loader, IndexBatches), 'no index loader')
+        ref = DataLoader(dc.train_dataset, dc.flags.batch_size,
+                         shuffle=True, drop_last=True)
+        for epoch in range(2):
+            want = [list(b) for b in ref._batches_indices()]
+            ref.epoch += 1
+            got = [list(b['idx']) for b in dc.loader]
+            require(got == want, f'epoch {epoch}: the index order is not '
+                                 "the host loader's")
+        dc.loader.epoch = 0
+        # uniform-length batches are the host loader's: check one whole
+        idx = next(iter(dc.loader))['idx']
+        dc.loader.epoch = 0
+        gathered = dc.gather(idx)
+        res['gather_checked'] = _gather_matches(torch, dc, host, idx,
+                                                gathered)
+
+        # turns P D S S D P
+        trainers = {'prefetch': host, 'device_corpus': dc, 'sync': host}
+        sources = {m: _step_source(t, m) for m, t in trainers.items()}
+        for mode, src in sources.items():         # warm-up
+            for _ in range(2):
+                float(next(src)()['loss'])
+        walls = {m: [] for m in sources}
+        peak = dict.fromkeys(sources, 0.0)
+        counts = {m: dict.fromkeys(SOURCES, 0) for m in sources}
+        for mode in FEATURE_TURNS:
+            src = sources[mode]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t1 = time.perf_counter()
+            for _ in range(FEATURE_STEPS):
+                m = next(src)()
+            torch.cuda.synchronize()
+            walls[mode].append(1e3 * (time.perf_counter() - t1)
+                               / FEATURE_STEPS)
+            for k, v in _launches().items():
+                if k in counts[mode]:
+                    counts[mode][k] += v
+            peak[mode] = max(peak[mode],
+                             torch.cuda.max_memory_allocated() / 1e9)
+            require(np.isfinite(float(m['loss'])), f'{mode}: loss not finite')
+        micro = host.accum_steps * FEATURE_STEPS * 2
+        for mode in sources:
+            STATE[f'launches_features_{mode}'] = counts[mode]
+            STATE.setdefault('run_expect', {})[f'features_{mode}'] = \
+                _train_expect(host.cfg, micro)
+            res[mode] = {'step_ms_turns': walls[mode],
+                         'step_ms_median': statistics.median(walls[mode]),
+                         'peak_mem_gb': peak[mode]}
+            res[mode].update(_device_profile(torch, lambda s=sources[mode]: [
+                float(next(s)()['loss']) for _ in range(3)], 3, 'step'))
+        for src in sources.values():
+            src.close()
+
+        # --profile_dir: 14 steps of Trainer.train
+        prof_dir = os.path.join(tmp, 'profile')
+        prof = Trainer(parse_flags(baseline.build_parser(), argv + [
+            '--name', 'e6d2-profile', '--profile_dir', prof_dir]))
+        _reset_launches()
+        t1 = time.perf_counter()
+        prof.train(total_steps=14, log_fn=lambda *_: 0)
+        torch.cuda.synchronize()
+        res['profile_train_s'] = time.perf_counter() - t1
+        STATE['launches_features_profile'] = _launches()
+        STATE['run_expect']['features_profile'] = _train_expect(
+            prof.cfg, prof.accum_steps * 14)
+        trace = os.path.join(prof_dir, 'trace_steps_11-13.json')
+        require(os.path.isfile(trace), f'no chrome trace in {prof_dir}: '
+                                       f'{os.listdir(prof_dir)}')
+        res['profile_records'] = _trace_kernel_records(trace)
+        del prof
+
+        # background save of the full state, against a synchronous one
+        res['save'] = _background_save(torch, host, checkpoint_path,
+                                       load_checkpoint,
+                                       wait_for_checkpoints)
+        del host, dc
+        emit(res)
+        missing = [k for k, n in res['profile_records'].items() if not n]
+        require(not missing, f'kernels missing from the trace: {missing}')
+    finally:
+        os.chdir(cwd)
+
+
+def _gather_matches(torch, dc, host, idx, gathered):
+    """The gathered batch against the host loader's collation of the same
+    utterances (padded to the corpus's (L_max, U_max) instead of the
+    batch's bucket: the valid parts and lengths must agree)."""
+    from edgedict_tpu_torch.data.collate import seq_collate
+    batch = seq_collate([dc.train_dataset[int(i)] for i in idx])
+    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])).cpu()
+            for k, v in gathered.items()}
+    require(torch.equal(flat['alen'], torch.as_tensor(batch['alen']))
+            and torch.equal(flat['ylen'], torch.as_tensor(batch['ylen'])),
+            'gathered lengths differ from the host batch')
+    for i, (n, u) in enumerate(zip(batch['alen'], batch['ylen'])):
+        require(torch.equal(flat['audio'][i, :n],
+                            torch.as_tensor(batch['audio'][i, :n]))
+                and torch.equal(flat['ys'][i, :u],
+                                torch.as_tensor(batch['ys'][i, :u])),
+                f'gathered utterance {i} differs from the host batch')
+    return {'utterances': len(idx), 'L': int(flat['audio'].shape[1]),
+            'host_L': int(batch['audio'].shape[1])}
+
+
+def _trace_kernel_records(path):
+    """{K#: kernel records of that kernel} in a torch.profiler chrome
+    trace (names matched as cli/profile_train.py matches them)."""
+    from edgedict_tpu_torch.cli.profile_train import KERNELS
+    with open(path) as f:
+        events = json.load(f).get('traceEvents', [])
+    names = [e.get('name', '') for e in events
+             if e.get('cat') == 'kernel']
+    return {k: sum(1 for n in names if any(all(s in n for s in KERNELS[p])
+                                           for p in parts))
+            for k, parts in TRACE_KERNELS.items()}
+
+
+def _background_save(torch, trainer, checkpoint_path, load_checkpoint,
+                     wait_for_checkpoints):
+    """Blocking ms of a synchronous and of a background save of the full
+    state; the background file equals the state at its save bit for bit,
+    and a step taken before wait_for_checkpoints is not in it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = trainer.save()
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    size = os.path.getsize(path)
+    want_model, want_opt = _state_snapshot(trainer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bg_path = trainer.save(background=True)
+    block_ms = 1e3 * (time.perf_counter() - t0)
+    batch = next(iter(trainer.loader))
+    float(trainer.run_step(batch)['loss'])          # while it writes
+    t0 = time.perf_counter()
+    wait_for_checkpoints()
+    wait_ms = 1e3 * (time.perf_counter() - t0)
+    payload = load_checkpoint(bg_path)
+    same = (_tree_equal(torch, payload['model'], want_model)
+            and _tree_equal(torch, payload['optim'], want_opt))
+    after = {k: v.cpu() for k, v in trainer.state.model.state_dict().items()}
+    leaked = _tree_equal(torch, payload['model'], after)
+    os.remove(bg_path)
+    res = {'bytes': size, 'sync_save_ms': sync_ms,
+           'background_block_ms': block_ms,
+           'wait_after_one_step_ms': wait_ms,
+           'reload_bit_equal': same, 'next_step_in_file': leaked}
+    require(bg_path == path == checkpoint_path(trainer.logdir,
+                                               trainer.state.step - 1),
+            'the background save wrote elsewhere')
+    require(same, 'the background checkpoint differs from the state')
+    require(not leaked, 'the step after the background save is in its file')
+    return res
+
+
+JAX_FIXTURE = os.path.join(REPO, 'tests', 'data', 'jax_ckpt')
+JAX_TEXTS = ('HELLO WORLD', 'THE CAT SAT', 'A B C D', 'SPEECH TEST')
+
+
+def phase_jax_checkpoint(torch):
+    """A run trained and saved by the JAX package (the committed
+    tests/data/jax_ckpt/: flax-msgpack 2.ckpt with Adam state, its flag
+    snapshot and char tokenizer) on the card: cli.stream --device cuda
+    --infer_dtype fp32 on the run directory (its decoder as the CLI builds
+    it) emits the JAX package's token at every frame of the fixture's
+    wav, and prints its transcript; cli.baseline --mode resume --device
+    cuda takes step 3 from it on 12 seeded utterances (finite loss, the
+    optimizer count at 3).  Launches: per chunk K2 and K3 once, K1 once
+    per encoder layer; the step's micro-steps as train_run's.  The shapes
+    of both runs' kernel calls are recorded as they run (_recorded_shapes)
+    for phase_jax_kernels."""
+    import contextlib
+    import io
+    import tempfile
+
+    from edgedict_tpu_torch.cli import baseline, stream
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.data.audio_io import load_audio, save_wav
+    with open(os.path.join(JAX_FIXTURE, 'expected.json')) as f:
+        want = json.load(f)
+    flagfile = os.path.join(JAX_FIXTURE, 'run', 'flagfile.txt')
+    argv = ['--flagfile', flagfile, '--logdir_root', JAX_FIXTURE, '--name',
+            'run', '--device', 'cuda', '--infer_dtype', 'fp32']
+    flags = parse_flags(stream.build_parser('stream'), argv)
+    flags.block_chunks = 1                  # cli.stream main's own flag
+    decoder = stream.build_stream_decoder(flags)
+    audio, _ = load_audio(os.path.join(JAX_FIXTURE, 'utt.wav'))
+    shapes = STATE['jax_shapes'] = {'jax_stream': {}, 'jax_resume': {}}
+    torch.cuda.synchronize()
+    _reset_launches()
+    with _recorded_shapes(shapes['jax_stream']):
+        text = decoder.decode_wav(audio)
+        torch.cuda.synchronize()
+    STATE['launches_jax_stream'] = _launches()
+    chunks = len(decoder.elapsed)
+    cfg = decoder.cfg
+    STATE.setdefault('run_expect', {})['jax_stream'] = _expect(
+        lstm_fwd=cfg.enc_layers * chunks, mel_power=chunks,
+        greedy_decode=chunks)
+    frames = [int(t) for chunk in decoder.emitted for t in chunk]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stream.main(argv + ['--path', os.path.join(JAX_FIXTURE, 'utt.wav')])
+    printed = out.getvalue().splitlines()
+
+    tmp = tempfile.mkdtemp(prefix='edd_jax_', dir=_train_corpus()[0])
+    logs = os.path.join(tmp, 'logs')
+    shutil.copytree(JAX_FIXTURE, logs,
+                    ignore=shutil.ignore_patterns('*.wav', '*.json'))
+    d = os.path.join(tmp, 'libri', '1', '2')
+    os.makedirs(d)
+    rng = np.random.RandomState(3)
+    lines = []
+    for i in range(12):
+        name = f'1-2-{i:04d}'
+        save_wav(os.path.join(d, name + '.wav'),
+                 0.3 * np.sin(np.arange(16000) * (0.05 + 0.01 * i))
+                 + 0.05 * rng.randn(16000), 16000)
+        lines.append(f'{name} {JAX_TEXTS[i % len(JAX_TEXTS)]}')
+    with open(os.path.join(d, '1-2.trans.txt'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    log = []
+    _reset_launches()
+    with _recorded_shapes(shapes['jax_resume']):
+        trainer = baseline.main([
+            '--flagfile', os.path.join(logs, 'run', 'flagfile.txt'),
+            '--logdir_root', logs, '--LibriSpeech_train_100',
+            os.path.join(tmp, 'libri'), '--mode', 'resume', '--loss_step',
+            '1', '--device', 'cuda'], log_fn=log.append)
+        torch.cuda.synchronize()
+    STATE['launches_jax_resume'] = _launches()
+    STATE['run_expect']['jax_resume'] = _train_expect(
+        trainer.cfg, trainer.accum_steps)
+    steps = [ln for ln in log if ln.startswith('step ')]
+    res = {'phase': 'jax_checkpoint',
+           'fixture': 'tests/data/jax_ckpt (tests/data/'
+                      'make_jax_ckpt_fixture.py)',
+           'chunks': chunks, 'frames': len(frames),
+           'frames_equal': frames == want['frame_tokens'],
+           'text': text, 'jax_text': want['text'], 'printed': printed,
+           'resume_log': log, 'resume_step': trainer.state.step,
+           'optimizer_count': int(trainer.state.opt_state['count']),
+           'device': str(trainer.device)}
+    emit(res)
+    require(frames == want['frame_tokens'],
+            f'cuda frame tokens differ from the JAX package\'s: {frames}')
+    require(text == want['text'] and want['text'] in printed,
+            f'cli.stream printed {printed}, the JAX package {want["text"]}')
+    require('resumed from step 2' in log and len(steps) == 1
+            and steps[0].startswith('step 3/3 loss ')
+            and np.isfinite(float(steps[0].split()[3])),
+            f'the resume did not take step 3: {log}')
+    require(res['optimizer_count'] == 3 and trainer.device.type == 'cuda',
+            f'optimizer count {res["optimizer_count"]} on {trainer.device}')
+
+
+class _ShapeSpy:
+    """Stands in for a kernel wrapper in the port's modules while a run
+    goes: counts the call, keeps its shape key (and, from the key's first
+    call, what that key's case needs), then calls the wrapper.  Its
+    `launches` is the wrapper's own attribute, so the count that the
+    wrapper keeps through its module's name is the same with the spy in
+    place."""
+
+    def __init__(self, fn, key, log):
+        self.fn, self.key, self.log = fn, key, log
+        log.update(calls=0, keys={})
+
+    def __call__(self, *args, **kwargs):
+        key, need = self.key(*args, **kwargs)
+        self.log['calls'] += 1
+        self.log['keys'].setdefault(key, need)
+        return self.fn(*args, **kwargs)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, 'launches', n))
+
+
+def _spied():
+    """{name: (module, wrapper's name, call → (shape key, what its case
+    needs))} of the kernels a JAX run launches: K1, K4, K2, K3, K7, K8,
+    and the lattice core, whose forward launches K9 and backward K10 (it
+    holds those two wrappers itself)."""
+    from edgedict_tpu_torch.ops import (
+        decode_kernel, features_kernel, joint_lse_kernel, rnn_kernel,
+        rnnt_loss_kernel)
+
+    def lstm(x_proj, w_hh, h0, *rest):
+        return (w_hh.shape[1], h0.shape[0], x_proj.shape[0],
+                x_proj.dtype), None
+
+    def joint(f, g, w_t, *rest):
+        return (*f.shape[:2], g.shape[1], *w_t.shape, f.dtype), None
+
+    def frames(cache, f, h_dec, hs, cs, blank, unk, emit_logp=False):
+        return (f.shape[1], f.shape[0], emit_logp), (
+            cache, f.clone(), h_dec.clone(), hs.clone(), cs.clone(), blank,
+            unk, emit_logp)
+
+    def lattice(blank_lp, label_lp, xlen, ylen):
+        return tuple(blank_lp.shape), (xlen.cpu().numpy(),
+                                       ylen.cpu().numpy())
+
+    return {'lstm_fwd': (rnn_kernel, 'lstm_recurrence', lstm),
+            'lstm_bwd': (rnn_kernel, 'lstm_recurrence_bwd', lstm),
+            'mel_power': (features_kernel, 'mel_power',
+                          lambda audio, tables: (tuple(audio.shape),
+                                                 tables)),
+            'greedy_decode': (decode_kernel, 'greedy_frame_loop', frames),
+            'joint_lse_fwd': (joint_lse_kernel, 'joint_lse_fwd', joint),
+            'joint_lse_bwd': (joint_lse_kernel, 'joint_lse_bwd', joint),
+            'lattice': (rnnt_loss_kernel, 'rnnt_loss_core', lattice)}
+
+
+def _port_modules():
+    return [m for name, m in list(sys.modules.items())
+            if m is not None and name.startswith('edgedict_tpu_torch')]
+
+
+@contextlib.contextmanager
+def _recorded_shapes(logs):
+    """Within: every name in the port's modules bound to a wrapper of
+    _spied() is bound to its _ShapeSpy, which fills logs[name]; on the
+    way out every spy is unbound again, also from a module that was first
+    imported within."""
+    spies = {}
+    for name, (mod, attr, key) in _spied().items():
+        fn = getattr(mod, attr)
+        spies[id(fn)] = (fn, _ShapeSpy(fn, key, logs.setdefault(name, {})))
+    try:
+        for mod in _port_modules():
+            for attr, val in list(vars(mod).items()):
+                if id(val) in spies and spies[id(val)][0] is val:
+                    setattr(mod, attr, spies[id(val)][1])
+        yield
+    finally:
+        for mod in _port_modules():
+            for attr, val in list(vars(mod).items()):
+                if isinstance(val, _ShapeSpy):
+                    setattr(mod, attr, val.fn)
+
+
+def phase_jax_kernels(torch):
+    """Each kernel that jax_checkpoint's two runs launched against its
+    plain version at the shapes those runs gave it (STATE['jax_shapes'],
+    recorded as they ran; the fixture's H=16 encoder and prediction net,
+    its char vocabulary of 22, J=16, 2 s utterances), on card tensors, at
+    the tolerances of the E6D2 cases: K1 fp32 (lstm_fwd_case) and bf16
+    held step by step (bf16_forward_case), K4 (lstm_bwd_case), K2 through
+    the fixture's own mel tables (mel_case), K3 on the first call's own
+    arguments (k3_check), K7 / K8 on seeded data at J=16 V=22
+    (joint_long_case: bf16 padded onto 16), K9 / K10 on seeded
+    log-probs at the run's own lengths (lattice_long_cases).  First each
+    run's recorded calls are held against its launch counts: the spies
+    saw every launch."""
+    record, dev = STATE['record'], torch.device('cuda')
+    rng = np.random.RandomState(15)
+    bf16 = torch.bfloat16
+    readable = {run: {name: [[str(x) for x in key] for key in log['keys']]
+                      for name, log in logs.items()}
+                for run, logs in STATE['jax_shapes'].items()}
+    emit({'phase': 'jax_kernels', 'shapes': readable})
+    for run, logs in STATE['jax_shapes'].items():
+        n = STATE['launches_' + run]
+        calls = {name: log['calls'] for name, log in logs.items()}
+        want = {name: n.get(name, n['lattice_alpha']) for name in calls}
+        require(calls == want and n['lattice_beta_grad'] <= calls['lattice'],
+                f'{run}: recorded calls {calls}, launches {n}')
+        for hid, b, t, dt in logs['lstm_fwd']['keys']:
+            if dt == bf16:
+                bf16_forward_case(torch, rng, dev, record, 'LSTM', b, t,
+                                  None, hid=hid)
+            else:
+                lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt)
+        for hid, b, t, dt in logs['lstm_bwd']['keys']:
+            lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt)
+        for (b, length), tables in logs['mel_power']['keys'].items():
+            mel_case(torch, rng, dev, record, tables, b, length)
+        for args in logs['greedy_decode']['keys'].values():
+            k3_check(torch, record, args, run=run)
+        fwd = logs['joint_lse_fwd']['keys']
+        require(all(k in fwd and k[-1] == bf16
+                    for k in logs['joint_lse_bwd']['keys']),
+                f'{run}: a K8 call without its bf16 K7 case')
+        for b, t, u1, j, v, dt in fwd:
+            joint_long_case(torch, rng, dev, record, b, t, u1, dt, j, v)
+        for (b, t, u1), (xlen, ylen) in logs['lattice']['keys'].items():
+            lattice_long_cases(torch, rng, dev, record, b, t, u1, xlen, ylen,
+                               backward=n['lattice_beta_grad'] > 0)
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -3302,7 +3857,10 @@ def main():
               ('pretrain_parity', phase_pretrain_parity),
               ('pretrain_run', phase_pretrain_run),
               ('raw_train_run', phase_raw_train_run),
-              ('wav2vec_kernels', phase_wav2vec_kernels))
+              ('wav2vec_kernels', phase_wav2vec_kernels),
+              ('train_features', phase_train_features),
+              ('jax_checkpoint', phase_jax_checkpoint),
+              ('jax_kernels', phase_jax_kernels))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

@@ -1,6 +1,7 @@
 """ctypes bindings for the repo's host-side C++ libraries in `native/`
 (the parts of edgedict_tpu/native.py the port uses: the CharBPE merge
-engine, the BPE trainer and the FLAC decoder).
+engine, the BPE trainer, the FLAC decoder and the CPU RNN-T loss, the
+cross-check of the loss).
 
 Build them with `make -C native`.  Each binding is optional: when a `.so`
 is missing, `available()` says so and the callers (tokenizer.py,
@@ -30,6 +31,7 @@ def _load(name):
 _bpe = _load('libchar_bpe.so')
 _flac = _load('libflac_decoder.so')
 _bpe_tr = _load('libbpe_trainer.so')
+_rnnt = _load('librnnt_loss.so')
 
 if _bpe is not None:
     _bpe.bpe_create.restype = ctypes.c_void_p
@@ -43,15 +45,46 @@ if _bpe_tr is not None:
     _bpe_tr.bpe_trainer_create.restype = ctypes.c_void_p
     _bpe_tr.bpe_trainer_add_symbol.restype = ctypes.c_int32
     _bpe_tr.bpe_trainer_train.restype = ctypes.c_int
+if _rnnt is not None:
+    _F32, _I32 = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+    _rnnt.rnnt_loss_cpu.restype = ctypes.c_int
+    _rnnt.rnnt_loss_cpu.argtypes = [_F32, _I32, _I32, _I32] + \
+        [ctypes.c_int] * 5 + [_F32, _F32]
 
 
 def available():
     return {'char_bpe': _bpe is not None, 'flac': _flac is not None,
-            'bpe_trainer': _bpe_tr is not None}
+            'bpe_trainer': _bpe_tr is not None,
+            'rnnt_loss': _rnnt is not None}
 
 
 def _ptr(a, ty):
     return a.ctypes.data_as(ctypes.POINTER(ty))
+
+
+def rnnt_loss_cpu(logits, labels, xlen, ylen):
+    """native/rnnt_loss.cpp: (per-sample loss (B,), its gradient (B, T,
+    U+1, V)) of (B, T, U+1, V) logits, blank id 0 (numpy, fp32)."""
+    assert _rnnt is not None, 'build native/librnnt_loss.so first'
+    logits = np.ascontiguousarray(logits, np.float32)
+    labels = np.ascontiguousarray(labels, np.int32)
+    xlen = np.ascontiguousarray(xlen, np.int32)
+    ylen = np.ascontiguousarray(ylen, np.int32)
+    b, t, u1, v = logits.shape
+    if labels.shape != (b, u1 - 1) or xlen.shape != (b,) or \
+            ylen.shape != (b,):
+        raise ValueError(f'labels {labels.shape}, xlen {xlen.shape}, ylen '
+                         f'{ylen.shape} do not fit logits {logits.shape}')
+    loss = np.zeros((b,), np.float32)
+    grad = np.zeros_like(logits)
+    ret = _rnnt.rnnt_loss_cpu(
+        _ptr(logits, ctypes.c_float), _ptr(labels, ctypes.c_int32),
+        _ptr(xlen, ctypes.c_int32), _ptr(ylen, ctypes.c_int32),
+        b, t, u1, v, 0, _ptr(loss, ctypes.c_float),
+        _ptr(grad, ctypes.c_float))
+    if ret != 0:
+        raise RuntimeError(f'rnnt_loss_cpu returned {ret}')
+    return loss, grad
 
 
 def train_bpe_merges(word_freqs, initial_symbols, max_merges,

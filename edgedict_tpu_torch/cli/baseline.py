@@ -42,12 +42,16 @@ def build_parser():
 
 
 def device_rate(trainer, steps=100, log_fn=print):
-    """Mean step ms over `steps` re-fed steps of one batch,
+    """Mean step ms over `steps` re-fed steps of one batch (on the device
+    once: gathered from the device corpus with --device_corpus),
     synchronised at both ends; → (step_ms, audio_s_per_s)."""
     from edgedict_tpu_torch.train import device_batch
     batch = next(iter(trainer.loader))
-    dev = device_batch(batch, trainer.accum_steps, trainer.device)
-    audio_s = float(batch['alen'].sum()) / 16000.0
+    if 'idx' in batch:
+        dev = trainer.gather(batch['idx'])
+    else:
+        dev = device_batch(batch, trainer.accum_steps, trainer.device)
+    audio_s = float(dev['alen'].sum()) / 16000.0
     lr = trainer._lr(0)
     state = trainer.state
     state, m = trainer.train_step(state, dev, lr, trainer.generator)
@@ -70,9 +74,10 @@ def main(argv=None, log_fn=print):
     trainer = Trainer(flags)
     log_fn(f'device: {trainer.device}')
     if flags.mode == 'resume':
-        log_fn(f'resumed from step {trainer.load(flags.resume_step)}')
+        log_fn(f'resumed from step '
+               f'{trainer.load(flags.resume_step, log_fn=log_fn)}')
     if flags.mode == 'eval':
-        trainer.load(flags.resume_step)
+        trainer.load(flags.resume_step, log_fn=log_fn)
         loss, wer = trainer.evaluate()
         log_fn(f'val_loss {loss:.4f} WER {wer:.4f}'
                f'{trainer.beam_wer_text()}')

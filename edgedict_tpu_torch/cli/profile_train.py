@@ -151,7 +151,7 @@ def profile(flags, device, log_fn=print):
     cfg = transducer_config_from_flags(flags, flags.bpe_size,
                                        feat.input_size)
     pipeline = FeaturePipeline(feat, device)
-    optimizer = optim.build_optimizer(flags.optim, gradclip=flags.gradclip)
+    optimizer = T.build_optimizer(cfg, flags.optim, gradclip=flags.gradclip)
     state = make_train_state(cfg, optimizer, device)
     step = make_train_step(cfg, optimizer, bf16=flags.bf16,
                            feature_pipeline=pipeline)

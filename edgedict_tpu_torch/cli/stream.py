@@ -48,8 +48,9 @@ def build_parser(description):
     parser.add_argument('--device', default='cuda',
                         help="torch device: 'cuda' (default) or 'cpu'")
     parser.add_argument('--pt_path', default=None,
-                        help='reference PyTorch checkpoint (.pt, plain or '
-                             "lightning); unset = the run's checkpoint")
+                        help='a reference PyTorch .pt (plain or lightning), '
+                             "the port's .ckpt or the JAX package's; unset "
+                             "= the run's checkpoint")
     run_name = next(d for n, _, d in TRAIN_FLAGS if n == 'name')
     parser.add_argument('--name', default=run_name,
                         help="the training run's name (the trainer's --name)")

@@ -46,9 +46,10 @@ def main(argv=None, log_fn=print):
         trainer.load_pretrained(path)
         log_fn(f'initialized frontend+encoder from {path}')
     if flags.mode == 'resume':
-        log_fn(f'resumed from step {trainer.load(flags.resume_step)}')
+        log_fn(f'resumed from step '
+               f'{trainer.load(flags.resume_step, log_fn=log_fn)}')
     if flags.mode == 'eval':
-        trainer.load(flags.resume_step)
+        trainer.load(flags.resume_step, log_fn=log_fn)
         loss, wer = trainer.evaluate()
         log_fn(f'val_loss {loss:.4f} WER {wer:.4f}')
         return trainer

@@ -5,7 +5,9 @@ The port's module tree already has the reference state_dict key layout
 (models/transducer.py), so a reference `.pt` loads with
 `load_state_dict`.  `state_dict_from_jax_params` is the inverse of the JAX
 package's `transducer_from_state_dict`: it lets the tests hand both
-packages the same weights.
+packages the same weights, and it reads the JAX package's checkpoints
+(jax_checkpoint.py) into the port; `optim_state_from_jax` carries their
+optax state over to the port's optimizer.
 """
 
 import numpy as np
@@ -160,8 +162,123 @@ def transducer_from_state_dict(state_dict, cfg: TransducerConfig, device):
     return model
 
 
-def load_reference_checkpoint(path, cfg: TransducerConfig, device):
-    """torch.load a reference .pt (plain or lightning) → Transducer."""
+def load_model_state(path):
+    """The model state dict of a reference .pt (plain or lightning), the
+    port's .ckpt or the JAX package's flax-msgpack .ckpt (its params
+    through state_dict_from_jax_params)."""
+    from edgedict_tpu_torch.jax_checkpoint import (
+        is_jax_checkpoint, load_jax_checkpoint)
+    if is_jax_checkpoint(path):
+        return state_dict_from_jax_params(load_jax_checkpoint(path)['model'])
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
-    sd = convert_lightning2normal(ckpt)['model']
-    return transducer_from_state_dict(sd, cfg, device)
+    return convert_lightning2normal(ckpt)['model']
+
+
+def load_reference_checkpoint(path, cfg: TransducerConfig, device):
+    """A reference .pt, the port's .ckpt or a JAX .ckpt → Transducer."""
+    return transducer_from_state_dict(load_model_state(path), cfg, device)
+
+
+def _leaf_sources(params):
+    """{port key: [JAX leaf paths]} of state_dict_from_jax_params on this
+    params tree, in the order it concatenates them (the joint's first
+    weight: w_enc, then w_dec): each leaf's index is passed through it."""
+    paths = []
+
+    def tag(tree, path):
+        if isinstance(tree, dict):
+            return {k: tag(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [tag(v, path + (i,)) for i, v in enumerate(tree)]
+        paths.append(path)
+        return np.array([[len(paths) - 1]], np.float32)
+
+    sd = state_dict_from_jax_params(tag(params, ()))
+    return {k: [paths[int(i)] for i in v.reshape(-1)] for k, v in sd.items()}
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _chain_entry(chain, keys):
+    """The entry of an optax chain state holding `keys` (its index moves
+    with clip_by_global_norm's empty entry)."""
+    for entry in chain:
+        if isinstance(entry, dict) and set(keys) <= set(entry):
+            return entry
+    raise ValueError(f'no entry with {sorted(keys)} in the optax chain '
+                     f'state {[sorted(e) for e in chain]}')
+
+
+def optim_state_from_jax(optax_state, optimizer, params):
+    """The JAX package's optax state (inject_hyperparams → {count,
+    hyperparams, inner_state: the chain of edgedict_tpu/optim.py:142-163},
+    as a JAX checkpoint holds it, keyed '0', '1', ...) → the port's
+    `optimizer.init` layout over `params` ({name: tensor}), CPU tensors.
+    The moments take the params' key mapping (elementwise, so the joint's
+    w_enc | w_dec concatenation holds for them); SM3's accumulators and
+    Novograd's second moments go to the pieces of optimizer.segments.
+    Raises ValueError when the state is not this optimizer's."""
+    from edgedict_tpu_torch.jax_checkpoint import unstate
+    from edgedict_tpu_torch.optim import split_segments
+    state = unstate(optax_state)
+    chain = state['inner_state']
+    name = optimizer.name
+
+    def moments(tree):
+        return split_segments(state_dict_from_jax_params(tree),
+                              optimizer.segments)
+
+    def per_tensor(tree, fn):
+        out = {}
+        for key, paths in sources.items():
+            leaves = [fn(_leaf(tree, p)) for p in paths]
+            if len(leaves) == 1:
+                out[key] = leaves[0]
+            elif key in optimizer.segments:
+                out.update({f'{key}[{i}]': v for i, v in enumerate(leaves)})
+            else:
+                raise ValueError(f'{key}: {len(leaves)} JAX tensors but no '
+                                 'segments for it')
+        return out
+
+    out = {'count': torch.as_tensor(np.asarray(state['count']),
+                                    dtype=torch.int32)}
+    if name in ('adam', 'adamw'):
+        entry = _chain_entry(chain, ('count', 'mu', 'nu'))
+        out['count'] = torch.as_tensor(np.asarray(entry['count']),
+                                       dtype=torch.int32)
+        out['mu'], out['nu'] = moments(entry['mu']), moments(entry['nu'])
+    elif name == 'sm3':
+        entry = _chain_entry(chain, ('accs', 'momentum'))
+        sources = _leaf_sources(entry['momentum'])
+        out['accs'] = per_tensor(entry['accs'], lambda accs: {
+            i: _t(a) for i, a in enumerate(accs)})
+        out['momentum'] = moments(entry['momentum'])
+    elif name == 'novograd':
+        entry = _chain_entry(chain, ('m', 'v'))
+        sources = _leaf_sources(entry['m'])
+        out['m'] = moments(entry['m'])
+        out['v'] = per_tensor(entry['v'], _t)
+    elif optimizer.momentum:
+        out['trace'] = moments(_chain_entry(chain, ('trace',))['trace'])
+    _check_like(out, optimizer.init({k: p.detach().to('cpu')
+                                     for k, p in params.items()}),
+                'optimizer state')
+    return out
+
+
+def _check_like(got, want, path):
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f'{path}: keys {sorted(got)} != '
+                             f'{sorted(want)}')
+        for k in want:
+            _check_like(got[k], want[k], f'{path}.{k}')
+    elif tuple(got.shape) != tuple(want.shape):
+        raise ValueError(f'{path}: shape {tuple(got.shape)} != '
+                         f'{tuple(want.shape)}')
+

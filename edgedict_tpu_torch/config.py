@@ -54,9 +54,12 @@ MODEL_FLAGS = (
     ('delta', parse_bool, False),
     ('cmvn', parse_bool, False),
     ('downsample', int, 3),
-    # the raw-waveform fine-tune's splice (cli/train.py); the JAX registry
-    # defines it for every entry point
+    # the trainers' (the raw-waveform fine-tune's splice, cli/train.py; the
+    # device-resident corpus and the profiler trace, trainer.py); the JAX
+    # registry defines them for every entry point
     ('use_pretrained', parse_bool, False),
+    ('device_corpus', parse_bool, False),
+    ('profile_dir', str, None),
 )
 
 def optional_float(text):
@@ -144,17 +147,27 @@ OPTIMIZERS = ('adam', 'adamw', 'sgd', 'sm3', 'novograd')
 # ignores (or that only steer XLA): dropped
 UNREAD = frozenset(('LibriSpeech_dev', 'TEDLIUM_test', 'apex', 'opt_level',
                     'multi_gpu', 'compilation_cache_dir'))
+# absl's own flags and those of the libraries the JAX package imports
+# (absl.app, absl.logging, absl.testing, chex): the JAX package's flag
+# snapshot (FLAGS.append_flags_into_file) carries them, and they are ignored
+ABSL_FLAGS = frozenset((
+    'only_check_args', 'pdb', 'pdb_post_mortem', 'run_with_pdb',
+    'run_with_profiling', 'profile_file', 'use_cprofile_for_profiling',
+    'alsologtostderr', 'log_dir', 'logger_levels', 'logtostderr',
+    'showprefixforinfo', 'stderrthreshold', 'verbosity', 'v',
+    'test_random_seed', 'test_randomize_ordering_seed', 'test_srcdir',
+    'test_tmpdir', 'xml_output_file', 'chex_assert_multiple_cpu_devices',
+    'chex_n_cpu_devices', 'chex_skip_pmap_variant_if_single_device'))
 # keys a flagfile may carry that a parser may leave unregistered
-_IGNORABLE = UNREAD | {name for name, _, _ in TRAIN_FLAGS + PRETRAIN_FLAGS}
+_IGNORABLE = UNREAD | ABSL_FLAGS | {
+    name for name, _, _ in TRAIN_FLAGS + PRETRAIN_FLAGS}
 
 # flags of edgedict_tpu/config.py whose work the port does not do yet:
 # (name, type, the values that ask for nothing, ROADMAP.md Queue 1 item)
 REFUSED = (
-    ('device_corpus', parse_bool, (False,), '15, trainer features'),
     ('dp_size', int, (-1, 1), '14, multi-GPU'),
     ('tp_size', int, (1,), '14, multi-GPU'),
     ('pp_size', int, (1,), '14, multi-GPU'),
-    ('profile_dir', str, (None, ''), '15, trainer features'),
 )
 
 

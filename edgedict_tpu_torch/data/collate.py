@@ -5,7 +5,9 @@ edgedict_tpu/data/collate.py).
 zero-pad audio to the batch max T (rounded up to a `BucketSpec` bucket),
 PAD-fill token ids to max U, emit audio/alen/ys/ylen.  `DataLoader` is a
 host-side loader: shuffling, length-sorted batching from pools, threaded
-sample fetch and prefetch.
+sample fetch and prefetch; with pin_memory=True (a CUDA trainer) its worker
+hands over each batch as page-locked torch tensors, ready for an
+asynchronous copy to the card.
 """
 
 import os
@@ -35,6 +37,13 @@ class BucketSpec:
     def round_u(self, u):
         u = -(-u // self.u_multiple) * self.u_multiple
         return min(u, self.u_max) if self.u_max else u
+
+
+def pin_batch(batch):
+    """A batch dict of arrays → page-locked CPU tensors."""
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            for k, v in batch.items()}
 
 
 def seq_collate(samples, bucket: BucketSpec = None, pad_id=PAD,
@@ -80,7 +89,8 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size, shuffle=True, bucket=None,
                  seed=0, drop_last=True, sort_pool=8, prefetch=2,
-                 collate_fn=None, audio_key='audio', workers=None):
+                 collate_fn=None, audio_key='audio', workers=None,
+                 pin_memory=False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -101,6 +111,7 @@ class DataLoader:
         self.collate_fn = collate_fn or (
             lambda s: seq_collate(s, bucket=self.bucket,
                                   audio_key=self.audio_key))
+        self.pin_memory = pin_memory
         self.epoch = 0
 
     def __len__(self):
@@ -141,6 +152,10 @@ class DataLoader:
                 pool.map(self.dataset.__getitem__, idxs))
         return None, lambda idxs: [self.dataset[i] for i in idxs]
 
+    def _load(self, fetch, idxs):
+        batch = self.collate_fn(fetch(idxs))
+        return pin_batch(batch) if self.pin_memory else batch
+
     def __iter__(self):
         batches = self._batches_indices()
         self.epoch += 1
@@ -148,7 +163,7 @@ class DataLoader:
         if self.prefetch <= 0:
             try:
                 for idxs in batches:
-                    yield self.collate_fn(fetch(idxs))
+                    yield self._load(fetch, idxs)
             finally:
                 if pool is not None:
                     pool.shutdown(wait=False)
@@ -161,7 +176,7 @@ class DataLoader:
         def worker():
             try:
                 for idxs in batches:
-                    q.put(self.collate_fn(fetch(idxs)))
+                    q.put(self._load(fetch, idxs))
             except BaseException as e:     # surface in the consumer
                 error.append(e)
             finally:

@@ -101,12 +101,22 @@ def lm_loss(model: LMModel, cfg: LMConfig, ys, ylen):
 
 
 def load_lm_checkpoint(path, device='cpu'):
-    """An LM checkpoint written by the port's cli.train_lm (the torch
-    payload of checkpoint.py with extra['lm_cfg']) → (LMModel on `device`,
-    LMConfig).  The JAX package's flax-msgpack lm.ckpt is not read."""
+    """An LM checkpoint → (LMModel on `device`, LMConfig): the port's
+    cli.train_lm payload (checkpoint.py, extra['lm_cfg']) or the JAX
+    package's flax-msgpack lm.ckpt (its params through
+    compat.lm_state_dict_from_jax_params, lm_cfg from its JSON extra;
+    edgedict_tpu/models/lm.py:85-100)."""
     from edgedict_tpu_torch.checkpoint import load_checkpoint
-    payload = load_checkpoint(path)
+    from edgedict_tpu_torch.jax_checkpoint import (
+        is_jax_checkpoint, load_jax_checkpoint)
+    if is_jax_checkpoint(path):
+        from edgedict_tpu_torch.compat import lm_state_dict_from_jax_params
+        payload = load_jax_checkpoint(path)
+        sd = lm_state_dict_from_jax_params(payload['model'])
+    else:
+        payload = load_checkpoint(path)
+        sd = payload['model']
     cfg = LMConfig(**payload['extra']['lm_cfg'])
     model = LMModel(cfg, device='cpu')
-    model.load_state_dict(payload['model'])
+    model.load_state_dict(sd)
     return model.to(device), cfg

@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from edgedict_tpu_torch import optim
 from edgedict_tpu_torch.ops import quant
 from edgedict_tpu_torch.ops import rnn as rnn_ops
 from edgedict_tpu_torch.ops.layers import (
@@ -189,6 +190,15 @@ class Joint(nn.Module):
     @property
     def out(self):
         return self.joint[2]
+
+
+def build_optimizer(cfg, name, gradclip=None):
+    """optim.build_optimizer for a Transducer of `cfg`: the joint's first
+    weight is cut into the JAX package's two tensors, w_enc | w_dec, so
+    that SM3 and Novograd keep their state per tensor as there."""
+    return optim.Optimizer(name, gradclip=gradclip, segments={
+        'joint.joint.0.weight': (1, (cfg.enc_proj_size,
+                                     cfg.dec_proj_size))})
 
 
 class Transducer(nn.Module):

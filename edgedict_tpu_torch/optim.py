@@ -66,13 +66,40 @@ def novograd_update(g, m, v, p, weight_decay):
     return NOVOGRAD_B1 * m + d, v
 
 
+def split_segments(tree, segments):
+    """{name: tensor} with each segmented name's tensor cut into its pieces
+    '<name>[i]' ({name: (dim, sizes)})."""
+    out = {}
+    for k, v in tree.items():
+        if k in segments:
+            dim, sizes = segments[k]
+            for i, piece in enumerate(torch.split(v, list(sizes), dim)):
+                out[f'{k}[{i}]'] = piece
+        else:
+            out[k] = v
+    return out
+
+
+def join_segments(tree, segments):
+    """The inverse of split_segments."""
+    out = {k: v for k, v in tree.items() if '[' not in k}
+    for k, (dim, sizes) in segments.items():
+        if f'{k}[0]' in tree:
+            out[k] = torch.cat([tree[f'{k}[{i}]'] for i in range(len(sizes))],
+                               dim)
+    return out
+
+
 class Optimizer:
     """One of adam / adamw / sgd / sm3 / novograd with optional
     global-norm clipping.  adamw decays the params of at least
-    `decay_min_ndim` dims (0: all of them, as build_optimizer's adamw)."""
+    `decay_min_ndim` dims (0: all of them, as build_optimizer's adamw).
+    segments {name: (dim, sizes)}: params whose SM3 / Novograd state is
+    kept per piece (the elementwise optimizers need no cut)."""
 
     def __init__(self, name, gradclip=None, weight_decay=0.0, momentum=0.9,
-                 b1=0.9, b2=0.999, eps=1e-8, decay_min_ndim=0):
+                 b1=0.9, b2=0.999, eps=1e-8, decay_min_ndim=0,
+                 segments=None):
         if name not in ('adam', 'adamw', 'sgd', 'sm3', 'novograd'):
             raise ValueError(f'unknown optimizer {name}')
         self.name = name
@@ -81,6 +108,8 @@ class Optimizer:
         self.momentum = momentum
         self.b1, self.b2, self.eps = b1, b2, eps
         self.decay_min_ndim = decay_min_ndim
+        self.segments = dict(segments or {}) \
+            if name in ('sm3', 'novograd') else {}
 
     def init(self, params):
         """params: {name: tensor} → state {'count': int32 scalar, and
@@ -88,6 +117,7 @@ class Optimizer:
         {dim: rank-1 accumulator}} / 'momentum' (sm3) or 'm' / 'v' fp32
         scalars (novograd)}."""
         dev = next(iter(params.values())).device
+        params = split_segments(params, self.segments)
         state = {'count': torch.zeros((), dtype=torch.int32, device=dev)}
         if self.name in ('adam', 'adamw'):
             state['mu'] = {k: torch.zeros_like(p) for k, p in params.items()}
@@ -116,6 +146,9 @@ class Optimizer:
             keep = norm < self.gradclip
             grads = {k: torch.where(keep, g, g / norm * self.gradclip)
                      for k, g in grads.items()}
+        if self.segments:
+            grads = split_segments(grads, self.segments)
+            params = split_segments(params, self.segments)
         count = state['count'] + 1
         new = {'count': count}
         if self.name in ('adam', 'adamw'):
@@ -153,11 +186,13 @@ class Optimizer:
             updates = dict(new['trace'])
         else:
             updates = dict(grads)
+        updates = join_segments(updates, self.segments)
         return {k: u * -lr for k, u in updates.items()}, new
 
 
 def build_optimizer(name, gradclip=None, weight_decay=0.0, momentum=0.9):
-    """The optimizer by flag name (optim.py:build_optimizer)."""
+    """The optimizer by flag name (optim.py:build_optimizer); a Transducer's
+    is models/transducer.py build_optimizer."""
     return Optimizer(name, gradclip=gradclip, weight_decay=weight_decay,
                      momentum=momentum)
 

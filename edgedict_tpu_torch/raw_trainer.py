@@ -7,9 +7,9 @@ has no time reduction (raw_trainer.py:54-57); frame lengths come from the
 conv stride ratio, xlen = min(ceil(alen / (L / T)), T) (:71-82); the loss
 casts the FrontEnd's fp32 output to the compute dtype (:84-88); eval is
 greedy only (:96-100).  `load_pretrained` splices the FrontEnd and encoder
-of a pretraining checkpoint (cli/pretrain_wav2vec.py's pretrained.ckpt)
-into the model key by key and re-initialises the optimizer state
-(:102-138).
+of a pretraining checkpoint (cli/pretrain_wav2vec.py's pretrained.ckpt,
+the port's or the JAX package's) into the model key by key and
+re-initialises the optimizer state (:102-138).
 """
 
 import dataclasses
@@ -17,8 +17,11 @@ import dataclasses
 import torch
 
 from edgedict_tpu_torch.checkpoint import load_checkpoint
+from edgedict_tpu_torch.compat import wav2vec_state_dict_from_jax_params
 from edgedict_tpu_torch.config import transducer_config_from_flags
 from edgedict_tpu_torch.features import pcm_to_float
+from edgedict_tpu_torch.jax_checkpoint import (
+    is_jax_checkpoint, load_jax_checkpoint)
 from edgedict_tpu_torch.models import transducer as T
 from edgedict_tpu_torch.models import wav2vec as W
 from edgedict_tpu_torch.train import (
@@ -84,6 +87,8 @@ class RawTrainer(Trainer):
         base = transducer_config_from_flags(
             flags, self.tokenizer.vocab_size, spec[-1][2])
         self.cfg = cfg = dataclasses.replace(base, enc_time_reductions=())
+        self.optimizer = T.build_optimizer(cfg, flags.optim,
+                                           gradclip=flags.gradclip)
         model = W.RawTransducer(cfg, self.device, seed=0, spec=spec)
         self.state = TrainState(
             model, self.optimizer.init(dict(model.named_parameters())))
@@ -110,8 +115,13 @@ class RawTrainer(Trainer):
     def load_pretrained(self, path):
         """Splice the FrontEnd and encoder of a pretraining checkpoint into
         the model (splice_state_dict) and re-initialise the optimizer
-        state.  → the copied keys."""
-        src = load_checkpoint(path)['model']
+        state.  A JAX pretrained.ckpt is read through
+        wav2vec_state_dict_from_jax_params.  → the copied keys."""
+        if is_jax_checkpoint(path):
+            src = wav2vec_state_dict_from_jax_params(
+                load_jax_checkpoint(path)['model'])
+        else:
+            src = load_checkpoint(path)['model']
         model = self.state.model
         sd, copied = splice_state_dict(model.state_dict(), src)
         model.load_state_dict(sd)

@@ -24,6 +24,10 @@ greedy decode (K3 on CUDA), featurised by the pipeline or by
 `feature_fn(model, batch)` → (xs, xlen).  `make_beam_eval_step` returns
 `beam(model, batch)` → (tokens, n_tok) of the fixed-shape beam search on
 the same batch (models/beam_search.py; the trainer's --eval_beam_width).
+
+`prefetch_batches` moves host batches to the device one ahead: on CUDA
+batch N+1's copy is issued on a side stream as soon as the consumer has
+enqueued step N, so it overlaps that step; elsewhere it is `device_batch`.
 """
 
 import dataclasses
@@ -140,7 +144,7 @@ def make_beam_eval_step(cfg, beam_width, feature_pipeline, max_sym_per_frame=3,
     return beam_step
 
 
-def device_batch(batch, accum_steps, device):
+def device_batch(batch, accum_steps, device, non_blocking=False):
     """Host batch dict of (B, ...) arrays → (accum, B / accum, ...) tensors
     on `device` (train.py:shard_batch, one device)."""
     out = {}
@@ -149,5 +153,34 @@ def device_batch(batch, accum_steps, device):
         if v.shape[0] % accum_steps:
             raise ValueError(f'{k}: batch {v.shape[0]} does not split into '
                              f'{accum_steps} micro-batches')
-        out[k] = v.reshape((accum_steps, -1) + tuple(v.shape[1:])).to(device)
+        out[k] = v.reshape((accum_steps, -1) + tuple(v.shape[1:])).to(
+            device, non_blocking=non_blocking)
     return out
+
+
+def prefetch_batches(batches, accum_steps, device):
+    """Host batches → device_batch's batches, in order.  On CUDA each copy
+    (from the loader's page-locked batches) runs on a side stream: the
+    generator issues batch N+1's copy when the consumer asks for it, right
+    after enqueuing step N, and the compute stream waits on the copy's
+    event alone.  A host batch stays referenced until its copy has
+    passed."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        for batch in batches:
+            yield device_batch(batch, accum_steps, device)
+        return
+    side = torch.cuda.Stream(device)
+    inflight = []                    # (copy event, host batch)
+    for batch in batches:
+        compute = torch.cuda.current_stream(device)
+        with torch.cuda.stream(side):
+            dev = device_batch(batch, accum_steps, device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        compute.wait_event(done)
+        for t in dev.values():
+            t.record_stream(compute)
+        inflight = [(e, b) for e, b in inflight if not e.query()]
+        inflight.append((done, batch))
+        yield dev

@@ -6,10 +6,20 @@ CommonVoice / YouTube layouts, host loader with length bucketing) → seeded
 Transducer + optimizer + plateau scheduler → step loop with linear warmup,
 the grad-accumulated train step (train.py), periodic eval (loss + greedy
 WER, and the beam search's WER with --eval_beam_width > 0), step-numbered
-checkpoints and a best-WER copy.  A resumed run replays the batch order
-of an uninterrupted one: the checkpoint holds the augmentation generator's
-state, and the loader's epoch counter and
-in-epoch position are restored (trainer.py:463-494).
+checkpoints (the periodic ones written on a background thread) and a
+best-WER copy.  A resumed run replays the batch order of an uninterrupted
+one: the checkpoint holds the augmentation generator's state, and the
+loader's epoch counter and in-epoch position are restored
+(trainer.py:463-494).  `load` also reads the JAX package's checkpoints:
+model, optax state (compat.optim_state_from_jax), step, plateau state and
+best WER.
+
+One-card extras of the JAX trainer: --device_corpus (the whole corpus
+padded to one (L_max, U_max) on the device once, batches gathered there
+by index in the host loader's order, :112-137, :249-311), --profile_dir
+(a torch.profiler chrome trace of steps 11-13, :347-360), tensorboard
+scalars and samples when tensorboardX imports (:199-205), and on CUDA
+page-locked loader batches copied one step ahead (train.prefetch_batches).
 """
 
 import os
@@ -22,21 +32,28 @@ import torch
 from edgedict_tpu_torch import optim
 from edgedict_tpu_torch.checkpoint import (
     checkpoint_path, latest_step, load_checkpoint, prune_checkpoints,
-    save_checkpoint, snapshot_flags)
+    save_checkpoint, snapshot_flags, wait_for_checkpoints)
+from edgedict_tpu_torch.compat import (
+    optim_state_from_jax, state_dict_from_jax_params)
 from edgedict_tpu_torch.config import (
     feature_config_from_flags, transducer_config_from_flags)
 from edgedict_tpu_torch.data import (
     BucketSpec, CommonVoice, DataLoader, Librispeech, MergedDataset,
     TEDLIUM, YoutubeCaption)
 from edgedict_tpu_torch.features import FeaturePipeline
+from edgedict_tpu_torch.jax_checkpoint import (
+    is_jax_checkpoint, load_jax_checkpoint)
+from edgedict_tpu_torch.models.transducer import build_optimizer
 from edgedict_tpu_torch.metrics import wer as wer_fn
 from edgedict_tpu_torch.stream import resolve_device
-from edgedict_tpu_torch.tokenizer import CharTokenizer, HuggingFaceTokenizer
+from edgedict_tpu_torch.tokenizer import (
+    PAD, CharTokenizer, HuggingFaceTokenizer)
 from edgedict_tpu_torch.train import (
     device_batch, make_beam_eval_step, make_eval_step, make_train_state,
-    make_train_step)
+    make_train_step, prefetch_batches)
 
 AUGMENT_SEED = 1234
+PROFILE_STEPS = (10, 13)     # the trace covers the steps after 10, to 13
 
 
 def build_tokenizer(flags):
@@ -97,6 +114,42 @@ def truncate_and_strip(y_seq, out_len, blank=0):
             for seq, n in zip(y_seq, out_len)]
 
 
+class IndexBatches:
+    """The --device_corpus loader: {'idx': (B,) int32} batches in the order
+    the wrapped DataLoader yields its host batches (its shuffle, pools and
+    epoch counter), so resume replay is unchanged (trainer.py:112-137)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    @property
+    def epoch(self):
+        return self.loader.epoch
+
+    @epoch.setter
+    def epoch(self, value):
+        self.loader.epoch = value
+
+    def __iter__(self):
+        batches = self.loader._batches_indices()
+        self.loader.epoch += 1
+        for idxs in batches:
+            yield {'idx': np.asarray(idxs, np.int32)}
+
+
+def summary_writer(logdir):
+    """A tensorboardX SummaryWriter on logdir, or None when tensorboardX
+    does not import (trainer.py:199-205)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(logdir)
+
+
 class Trainer:
     def __init__(self, flags):
         self.flags = flags
@@ -114,8 +167,6 @@ class Trainer:
 
         self.accum_steps = pick_accum_steps(flags.batch_size,
                                             flags.sub_batch_size)
-        self.optimizer = optim.build_optimizer(flags.optim,
-                                               gradclip=flags.gradclip)
         self._build_model_and_steps()
         self.last_beam_wer = None
         self.sched = optim.ReduceLROnPlateau(
@@ -131,11 +182,16 @@ class Trainer:
         self.loader = DataLoader(
             self.train_dataset, flags.batch_size, shuffle=True,
             bucket=self.bucket, drop_last=True,
-            workers=max(1, flags.num_workers))
+            workers=max(1, flags.num_workers),
+            pin_memory=self.device.type == 'cuda')
         self.eval_loader = DataLoader(
             self.eval_dataset, flags.eval_batch_size, shuffle=False,
             bucket=self.bucket, drop_last=True,
             prefetch=0) if self.eval_dataset is not None else None
+        self.device_corpus = None
+        if flags.device_corpus:
+            self._build_device_corpus()
+        self.writer = summary_writer(self.logdir)
         snapshot_flags(flags, self.logdir)
         self.generator = torch.Generator(device=self.device).manual_seed(
             AUGMENT_SEED)
@@ -150,6 +206,8 @@ class Trainer:
         self.pipeline = FeaturePipeline(self.feature_cfg, self.device)
         self.cfg = transducer_config_from_flags(
             flags, self.tokenizer.vocab_size, self.feature_cfg.input_size)
+        self.optimizer = build_optimizer(self.cfg, flags.optim,
+                                         gradclip=flags.gradclip)
         self.state = make_train_state(self.cfg, self.optimizer, self.device)
         self.train_step = make_train_step(self.cfg, self.optimizer,
                                           bf16=flags.bf16,
@@ -159,6 +217,53 @@ class Trainer:
             self.cfg, flags.eval_beam_width, self.pipeline) \
             if flags.eval_beam_width > 0 else None
 
+    def _build_device_corpus(self):
+        """Every training sample padded to one (L_max, U_max) (the bucket's
+        rounding; ys PAD-filled as seq_collate does, so a gathered batch
+        equals the host loader's where the lengths are uniform) and put on
+        the device once; the loader then yields index batches."""
+        ds = self.train_dataset
+        n = len(ds)
+        pool, fetch = self.loader._fetcher()
+        try:
+            items = fetch(list(range(n)))
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False)
+        l_max = self.bucket.round_t(max(len(a) for a, _ in items))
+        u_max = self.bucket.round_u(max(len(t) for _, t in items))
+        a_dtype = np.int16 if items[0][0].dtype == np.int16 else np.float32
+        audio = np.zeros((n, l_max), a_dtype)
+        alen = np.zeros((n,), np.int32)
+        ys = np.full((n, u_max), PAD, np.int32)
+        ylen = np.zeros((n,), np.int32)
+        for i, (a, t) in enumerate(items):
+            audio[i, :len(a)] = a
+            alen[i] = len(a)
+            ys[i, :len(t)] = t
+            ylen[i] = len(t)
+        print(f'device_corpus: {n} utts padded to L={l_max} U={u_max} '
+              f'({audio.nbytes / 1e9:.2f} GB audio on device)')
+        self.device_corpus = {
+            k: torch.from_numpy(v).to(self.device)
+            for k, v in (('audio', audio), ('alen', alen), ('ys', ys),
+                         ('ylen', ylen))}
+        self.loader = IndexBatches(self.loader)
+
+    def gather(self, idx):
+        """An index batch → the (accum, micro, ...) device batch, gathered
+        from the device corpus."""
+        idx = torch.as_tensor(np.asarray(idx).reshape(self.accum_steps, -1)
+                              ).to(self.device)
+        return {k: v[idx] for k, v in self.device_corpus.items()}
+
+    def device_batches(self, batches):
+        """Loader batches → device batches: gathered on the device
+        (--device_corpus), else copied one ahead (prefetch_batches)."""
+        if self.device_corpus is not None:
+            return (self.gather(b['idx']) for b in batches)
+        return prefetch_batches(batches, self.accum_steps, self.device)
+
     # ------------------------------------------------------------------
     def _lr(self, step):
         lr = self.flags.lr * optim.warmup_scale(step, self.flags.warmup_step)
@@ -167,43 +272,102 @@ class Trainer:
         return lr
 
     def run_step(self, batch):
-        """One optimizer step on a host batch dict (audio/alen/ys/ylen)."""
-        dev = device_batch(batch, self.accum_steps, self.device)
+        """One optimizer step on a host batch dict (audio/alen/ys/ylen) or,
+        with --device_corpus, an index batch {'idx': (B,)}."""
+        if self.device_corpus is not None and 'idx' in batch:
+            dev = self.gather(batch['idx'])
+        else:
+            dev = device_batch(batch, self.accum_steps, self.device)
+        return self.run_device_step(dev)
+
+    def run_device_step(self, dev):
+        """One optimizer step on an (accum, micro, ...) device batch."""
         self.state, metrics = self.train_step(
             self.state, dev, self._lr(self.state.step), self.generator)
         return metrics
+
+    def _loader_batches(self):
+        """The loader's batches after the resume's fast-forward."""
+        for batch in self.loader:
+            if self._skip_batches:
+                self._skip_batches -= 1     # resume: skip to the
+                continue                    # checkpointed position
+            yield batch
+
+    def _profiler(self):
+        """A torch.profiler of the card (and the host) writing a chrome
+        trace under --profile_dir when it stops."""
+        from torch.profiler import ProfilerActivity, profile
+        out = self.flags.profile_dir
+        os.makedirs(out, exist_ok=True)
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if self.device.type == 'cuda' else [])
+        first, last = PROFILE_STEPS
+        return profile(activities=acts, on_trace_ready=lambda p:
+                       p.export_chrome_trace(os.path.join(
+                           out, f'trace_steps_{first + 1}-{last}.json')))
 
     def train(self, total_steps=None, log_fn=print):
         f = self.flags
         total = total_steps or f.epochs * max(len(self.loader), 1)
         t0 = time.time()
-        while self.state.step < total:
-            for batch in self.loader:
-                if self._skip_batches:
-                    self._skip_batches -= 1     # resume: fast-forward to
-                    continue                    # the checkpointed position
-                metrics = self.run_step(batch)
-                step = self.state.step
-                if step % f.loss_step == 0:
-                    log_fn(f'step {step}/{total} loss '
-                           f'{float(metrics["loss"]):.4f} lr '
-                           f'{self._lr(step):.2e} ({time.time() - t0:.1f}s)')
-                if step % f.save_step == 0:
-                    self.save()
-                    prune_checkpoints(self.logdir, f.keep_checkpoints)
-                if step % f.eval_step == 0 and self.eval_loader:
-                    val_loss, val_wer = self.evaluate()
-                    if self.sched is not None:
-                        self.sched.step(val_loss)
-                    log_fn(f'eval @ {step}: loss {val_loss:.4f} '
-                           f'WER {val_wer:.4f}{self.beam_wer_text()}')
-                    if val_wer < self._best_wer:
-                        self._best_wer = val_wer
-                        shutil.copy(self.save(),
-                                    os.path.join(self.logdir, 'best.ckpt'))
-                if step >= total:
-                    break
+        prof, profiled = None, not f.profile_dir
+        try:
+            while self.state.step < total:
+                batches = self.device_batches(self._loader_batches())
+                for dev in batches:
+                    # a torch.profiler trace of steps 11-13
+                    if not profiled and self.state.step == PROFILE_STEPS[0]:
+                        prof, profiled = self._profiler(), True
+                        prof.start()
+                    metrics = self.run_device_step(dev)
+                    step = self.state.step
+                    if prof is not None and step == PROFILE_STEPS[1]:
+                        self._stop_profiler(prof)
+                        prof = None
+                    if step % f.loss_step == 0:
+                        loss = float(metrics['loss'])
+                        if self.writer:
+                            self.writer.add_scalar('train_loss', loss, step)
+                            self.writer.add_scalar('lr', self._lr(step),
+                                                   step)
+                        log_fn(f'step {step}/{total} loss {loss:.4f} lr '
+                               f'{self._lr(step):.2e} '
+                               f'({time.time() - t0:.1f}s)')
+                    if step % f.save_step == 0:
+                        # the snapshot is taken here, the write runs on
+                        # the writer thread
+                        self.save(background=True)
+                        prune_checkpoints(self.logdir, f.keep_checkpoints)
+                    if step % f.eval_step == 0 and self.eval_loader:
+                        self._eval_and_keep_best(step, log_fn)
+                    if step >= total:
+                        break
+                batches.close()
+        finally:
+            if prof is not None:       # the run ended inside the window
+                self._stop_profiler(prof)
         self.save()
+        wait_for_checkpoints()
+
+    def _stop_profiler(self, prof):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+
+    def _eval_and_keep_best(self, step, log_fn):
+        val_loss, val_wer = self.evaluate()
+        if self.sched is not None:
+            self.sched.step(val_loss)
+        if self.writer:
+            self.writer.add_scalar('val_loss', val_loss, step)
+            self.writer.add_scalar('WER', val_wer, step)
+        log_fn(f'eval @ {step}: loss {val_loss:.4f} '
+               f'WER {val_wer:.4f}{self.beam_wer_text()}')
+        if val_wer < self._best_wer:
+            # the best-WER copy is written synchronously, as in JAX
+            self._best_wer = val_wer
+            shutil.copy(self.save(), os.path.join(self.logdir, 'best.ckpt'))
 
     # ------------------------------------------------------------------
     def beam_wer_text(self):
@@ -243,26 +407,47 @@ class Trainer:
         self.last_beam_wer = wer_fn([r for r, _ in bpairs],
                                     [h for _, h in bpairs]) \
             if bpairs else None
+        if self.writer and self.last_beam_wer is not None:
+            self.writer.add_scalar('beam_WER', self.last_beam_wer,
+                                   self.state.step)
+        if self.writer and pairs:
+            sample = '\n\n'.join(f'REF: {r}\nHYP: {h}' for r, h in
+                                  pairs[:self.flags.sample_size])
+            self.writer.add_text('samples', sample, self.state.step)
         return float(np.mean(losses) if losses else np.nan), val_wer
 
     # ------------------------------------------------------------------
-    def save(self):
+    def save(self, background=False):
         return save_checkpoint(
             self.logdir, self.state.step, self.state.model.state_dict(),
             self.state.opt_state,
             self.sched.state_dict() if self.sched else None,
             extra={'generator': self.generator.get_state(),
-                   'best_wer': self._best_wer})
+                   'best_wer': self._best_wer},
+            background=background)
 
-    def load(self, step=None):
+    def load(self, step=None, log_fn=print):
+        wait_for_checkpoints()        # a resume in this process sees them
         step = step if step is not None else latest_step(self.logdir)
         if step is None:
             raise FileNotFoundError(f'no checkpoints under {self.logdir}')
-        payload = load_checkpoint(checkpoint_path(self.logdir, step))
+        path = checkpoint_path(self.logdir, step)
         model = self.state.model
-        model.load_state_dict(payload['model'])
-        params = dict(model.named_parameters())
-        opt_state = payload['optim']
+        if is_jax_checkpoint(path):
+            payload = load_jax_checkpoint(path)
+            model.load_state_dict(state_dict_from_jax_params(
+                payload['model']))
+            params = dict(model.named_parameters())
+            opt_state = None if payload['optim'] is None else \
+                optim_state_from_jax(payload['optim'], self.optimizer, params)
+            log_fn('JAX checkpoint: its augmentation rng cannot seed a '
+                   f'torch.Generator; augmentation restarts from seed '
+                   f'{AUGMENT_SEED}')
+        else:
+            payload = load_checkpoint(path)
+            model.load_state_dict(payload['model'])
+            params = dict(model.named_parameters())
+            opt_state = payload['optim']
         if opt_state is None:                   # model-only checkpoint
             opt_state = self.optimizer.init(params)
         opt_state = _to_device(opt_state, self.device)

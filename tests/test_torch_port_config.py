@@ -3,9 +3,10 @@ does not do yet (edgedict_tpu_torch/config.py REFUSED): a value other
 than the default stops the parse (parser.error, SystemExit 2) with a
 message naming the flag and its ROADMAP.md Queue 1 item, under every
 CLI's parser.  The defaults, the flags the JAX package itself ignores and
-the three preset flagfiles still parse; --eval_beam_width and
---use_pretrained, ported, are accepted, and the wav2vec pretraining flags
-parse with the JAX package's defaults."""
+the three preset flagfiles still parse; --eval_beam_width,
+--use_pretrained, --device_corpus and --profile_dir, ported, are
+accepted, and the wav2vec pretraining flags parse with the JAX package's
+defaults."""
 
 import os
 
@@ -32,11 +33,9 @@ PARSERS = {'baseline': baseline.build_parser,
 
 
 @pytest.mark.parametrize('arg,name,item', [
-    ('--device_corpus', 'device_corpus', '15'),
     ('--dp_size=2', 'dp_size', '14'),
     ('--tp_size=2', 'tp_size', '14'),
     ('--pp_size=4', 'pp_size', '14'),
-    ('--profile_dir=traces', 'profile_dir', '15'),
 ])
 @pytest.mark.parametrize('cli', sorted(PARSERS))
 def test_refused_flag_stops_the_parse(capsys, cli, arg, name, item):
@@ -54,10 +53,41 @@ def test_every_refused_flag_is_named_at_once(capsys):
     with pytest.raises(SystemExit):
         C.parse_flags(baseline.build_parser(), [
             '--flagfile', f'{REPO}/flagfiles/E6D2.txt',
-            '--tp_size=2', '--profile_dir=traces', '--device_corpus'])
+            '--tp_size=2', '--profile_dir=traces', '--device_corpus',
+            '--pp_size=2', '--dp_size=4'])
     err = capsys.readouterr().err
-    for name in ('tp_size', 'profile_dir', 'device_corpus'):
+    for name in ('tp_size', 'pp_size', 'dp_size'):
         assert f'--{name}=' in err
+    for name in ('profile_dir', 'device_corpus'):     # ported: not refused
+        assert f'--{name}=' not in err
+    assert [name for name, *_ in C.REFUSED] == ['dp_size', 'tp_size',
+                                                 'pp_size']
+
+
+@pytest.mark.parametrize('arg,name,value', [
+    ('--device_corpus', 'device_corpus', True),
+    ('--device_corpus=true', 'device_corpus', True),
+    ('--profile_dir=traces', 'profile_dir', 'traces'),
+])
+@pytest.mark.parametrize('cli', sorted(PARSERS))
+def test_trainer_feature_flags_parse(cli, arg, name, value):
+    """--device_corpus and --profile_dir are ported (trainer.py): every
+    parser takes them, as the JAX registry defines them for every entry
+    point, and only the trainers act on them."""
+    flags = C.parse_flags(PARSERS[cli](), [
+        f'--flagfile={REPO}/flagfiles/E6D2.txt', arg])
+    assert getattr(flags, name) == value
+
+
+def test_a_jax_flag_snapshot_parses():
+    """The JAX package's logs/<name>/flagfile.txt (its FLAGS written whole,
+    absl's own and chex's flags included) parses under the trainer's and
+    the stream parsers."""
+    snapshot = os.path.join(REPO, 'tests', 'data', 'jax_ckpt', 'run',
+                            'flagfile.txt')
+    for build in PARSERS.values():
+        flags = C.parse_flags(build(), [f'--flagfile={snapshot}'])
+        assert flags.enc_hidden_size == 16 and flags.device_corpus is False
 
 
 @pytest.mark.parametrize('spelling', ['--use_pretrained=true',

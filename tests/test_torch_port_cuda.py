@@ -9,7 +9,8 @@ and bf16, K7's and K8's tensor-core paths at the E6D2 step, K3's one launch
 over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
 plans' refusals, plus the
 streaming decoder, a GRU train step, a wav2vec pretraining step and a raw
-fine-tune step on CUDA against the CPU.  Marked `cuda`: every test skips where no
+fine-tune step on CUDA against the CPU, the trainer's side-stream batch
+prefetch and a background save of card tensors.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
 
@@ -1499,3 +1500,44 @@ def test_raw_finetune_step_cuda_matches_cpu(cuda):
     assert abs(g1 - g0) <= 1e-4 * g0
     for k, v in p0.items():
         assert _max_abs(p1[k], v) <= 2 * lr + 1e-6, k
+
+
+def test_prefetch_batches_on_cuda_equal_device_batch(cuda):
+    """The side-stream prefetch of page-locked batches hands over, in
+    order, the tensors device_batch makes, while the consumer's work on
+    the previous batch is still queued on the compute stream."""
+    from edgedict_tpu_torch.data.collate import pin_batch
+    from edgedict_tpu_torch.train import device_batch, prefetch_batches
+    rng = np.random.RandomState(0)
+    host = [{'audio': rng.randint(-2 ** 15, 2 ** 15, (8, 40000))
+             .astype(np.int16),
+             'ys': rng.randint(4, 40, (8, 9)).astype(np.int32)}
+            for _ in range(4)]
+    pinned = [pin_batch(b) for b in host]
+    assert all(v.is_pinned() for b in pinned for v in b.values())
+    sink = torch.zeros((), device=cuda)
+    for i, dev in enumerate(prefetch_batches(iter(pinned), 2, cuda)):
+        want = device_batch(host[i], 2, cuda)
+        for k in want:
+            assert dev[k].is_cuda and torch.equal(dev[k], want[k]), (i, k)
+        big = torch.randn(2048, 2048, device=cuda)
+        sink += (big @ big).sum() * 0 + dev['audio'].float().mean() * 0
+    torch.cuda.synchronize()
+    assert i == 3 and float(sink) == 0.0
+
+
+def test_background_save_snapshots_cuda_state(cuda, tmp_path):
+    """A background save of card tensors copies them off the card at
+    submit: an in-place update right after does not reach the file."""
+    from edgedict_tpu_torch import checkpoint as C
+    sd = {'w': torch.zeros(256, 256, device=cuda)}
+    opt = {'mu': {'w': torch.zeros(256, 256, device=cuda)},
+           'count': torch.zeros((), dtype=torch.int32, device=cuda)}
+    path = C.save_checkpoint(str(tmp_path), 1, sd, opt, background=True)
+    sd['w'].add_(5.0)
+    opt['mu']['w'].add_(5.0)
+    C.wait_for_checkpoints()
+    payload = C.load_checkpoint(path)
+    assert float(payload['model']['w'].abs().max()) == 0.0
+    assert float(payload['optim']['mu']['w'].abs().max()) == 0.0
+    assert payload['model']['w'].device.type == 'cpu'

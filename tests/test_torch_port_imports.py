@@ -15,7 +15,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = {'jax', 'jaxlib', 'flax', 'optax', 'absl'}
+BANNED = {'jax', 'jaxlib', 'flax', 'optax', 'absl', 'msgpack'}
 ALLOWED_REFERENCE = set()      # nothing of the JAX package
 
 
@@ -62,7 +62,8 @@ def test_importing_the_port_adds_no_jax_module():
         'models.lm', 'models.beam_search', 'cli.train_lm',
         'models.wav2vec', 'pretrainer', 'raw_trainer', 'cli.train',
         'cli.pretrain_wav2vec',
-        'optim', 'train', 'checkpoint', 'trainer', 'cli.stream', 'cli.serve',
+        'optim', 'train', 'checkpoint', 'jax_checkpoint', 'trainer',
+        'cli.stream', 'cli.serve', 'cli.import_checkpoint',
         'cli.baseline', 'cli.profile_stream', 'cli.profile_train')]
     banned = sorted(BANNED | {'edgedict_tpu'})
     code = ('import importlib, sys\n'
