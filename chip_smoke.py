@@ -169,7 +169,29 @@ Phases, each printing JSON or text lines:
              K7-K10) against its plain version at the recorded shapes (the
              fixture's H=16, J=16, V=22), after checking that the
              recording saw every launch
- 23 launches every kernel launched by the main paths themselves: the counts
+ 23 export  export_transducer (edgedict_tpu_torch/export.py) of the slice's
+             E6D2 model on cuda, fp32 and int8, its parity checks passing;
+             the ExportedStreamDecoder over the slice's 4 s == the live
+             StreamingDecoder on cuda (fp32: text for text with the stand-in
+             tokenizer; int8: against live int8), its measured decode's
+             launches exactly what its chunks and emitting frames imply (K2
+             a chunk; K1 per encoder layer, or K11 per layer and for the
+             projection and K12 per layer; the prediction net's K1 per layer
+             for the reset's BOS and every non-blank frame; no K3); every
+             edgedict op node of the three graphs against its plain
+             version on card tensors of the node's shapes; artifact bytes
+             (int8 encoder under 0.55x the fp32 one), exported and live
+             chunk ms, the host µs of one op dispatch beside a direct call
+             of K1's implementation
+ 24 apps     cli.wer_parity at E6D2 (the slice's weights saved as a
+             reference-layout .pt; train_run's eval corpus and BPE 2048;
+             --max_batches 1, eval batch 4) on cuda == on the CPU,
+             hypothesis for hypothesis, its launches one eval batch's;
+             cli.export of the .pt, then cli.wav_inference --backends
+             jit,exported,int8 --per_stage on 4 utterances (jit == exported;
+             K1, K2, K3, K11, K12 launched) and cli.youtube_live --wav
+             ('[jit]' == '[exported]')
+ 25 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -195,7 +217,9 @@ Phases, each printing JSON or text lines:
              frame); train_features' three modes and its profiled
              Trainer.train what their micro-steps imply, as train_run; the
              JAX run's decode K2 and K3 a chunk and K1 per encoder layer
-             a chunk, its resumed step what its micro-steps imply
+             a chunk, its resumed step what its micro-steps imply; the
+             exported decodes and wer_parity's cuda eval as phases 23 and 24
+             state
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -3721,6 +3745,337 @@ def phase_jax_kernels(torch):
                                backward=n['lattice_beta_grad'] > 0)
 
 
+
+# ---------------------------------------------------------------------------
+# export and the streaming apps
+# ---------------------------------------------------------------------------
+
+# the op of each edgedict graph node: (counter name, plain version's
+# module, its name)
+EXPORT_OPS = {'edgedict.lstm_fwd.default': ('lstm_fwd', 'rnn_kernel',
+                                            'lstm_recurrence_plain'),
+              'edgedict.quant_matmul.default': ('quant_matmul', 'quant',
+                                                'quant_matmul_plain'),
+              'edgedict.lstm_fwd_q.default': ('lstm_fwd_q', 'quant',
+                                              'lstm_recurrence_q_plain')}
+
+
+def _graph_op_shapes(path):
+    """{(op, ((shape, dtype) of each argument))} of the edgedict nodes of
+    a saved graph: the shapes its op calls launch with (static)."""
+    import torch
+    out = set()
+    for node in torch.export.load(path).graph.nodes:
+        if node.op == 'call_function' and str(node.target) in EXPORT_OPS:
+            out.add((str(node.target), tuple(
+                (tuple(a.meta['val'].shape), str(a.meta['val'].dtype))
+                for a in node.args)))
+    return out
+
+
+def _export_op_case(torch, record, op, specs):
+    """One edgedict op on seeded card tensors of its graph node's shapes
+    against its plain version on the same tensors: fp32 to atol 1e-4 rtol
+    1e-4 (K11: 1e-5 of max(1, |out|)), as phase 3 holds these kernels."""
+    import importlib
+    from edgedict_tpu_torch.ops import quant as Q
+    name, mod, plain = EXPORT_OPS[op]
+    plain = getattr(importlib.import_module('edgedict_tpu_torch.ops.' + mod),
+                    plain)
+    rng = np.random.RandomState(len(specs) + sum(s[0][-1] for s in specs))
+    dev = torch.device('cuda')
+
+    def t_(shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale)
+                               .astype(np.float32), device=dev)
+    (x_shape, _), (w_shape, _) = specs[0], specs[1]
+    if name == 'lstm_fwd':
+        args = (t_(x_shape), t_(w_shape, w_shape[1] ** -0.5),
+                t_(specs[2][0], 0.5), t_(specs[3][0], 0.5))
+    else:
+        q, sc = Q.quantize_int8(t_(w_shape, w_shape[1] ** -0.5))
+        args = ((t_(x_shape), q, sc, t_(specs[3][0], 0.1))
+                if name == 'quant_matmul' else
+                (t_(x_shape), q, sc, t_(specs[3][0], 0.5),
+                 t_(specs[4][0], 0.5)))
+    got = getattr(torch.ops.edgedict, op.split('.')[1])(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if name == 'quant_matmul':
+        err = _rel(torch, got[0], want[0])
+        ok = err <= 1e-5
+    else:
+        oks, errs = zip(*[_close(g, w, 1e-4, 1e-4)
+                          for g, w in zip(got, want)])
+        ok, err = all(oks), max(errs)
+    case = {'kernel': f'{name} (edgedict op, export graph)',
+            'shapes': [list(s) for s, _ in specs], 'max_err': err}
+    emit(case)
+    require(ok, f'{op} disagrees with its plain version: {case}')
+    record(name, err)
+
+
+def _export_decode(dec, audio, win, hop):
+    """The exported decoder over every chunk of `audio` after a reset →
+    text."""
+    dec.reset()
+    dec.reset_profile()
+    n = (len(audio) - win) // hop + 1
+    return ''.join(dec.decode(audio[i * hop:i * hop + win]) for i in range(n))
+
+
+def _op_dispatch_us(torch, n=300):
+    """Host µs a call of the edgedict::lstm_fwd op adds over calling its
+    CUDA implementation directly, at the B=1 chunk's encoder layer (H=1024
+    B=1 T=2 fp32), each timed over n enqueues after a warm-up, in turns
+    direct, op, op, direct → (op µs, direct µs)."""
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    rng = np.random.RandomState(4)
+    dev = torch.device('cuda')
+    xp = torch.as_tensor(rng.randn(2, 1, 4096).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.randn(4096, 1024).astype(np.float32) / 32,
+                        device=dev)
+    h0 = torch.zeros((1, 1024), device=dev)
+    fns = {'direct': lambda: K1._lstm_fwd_kernel(xp, w, h0, h0),
+           'op': lambda: torch.ops.edgedict.lstm_fwd(xp, w, h0, h0)}
+    times = {k: [] for k in fns}
+    for key in ('direct', 'op', 'op', 'direct'):
+        fns[key]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fns[key]()
+        times[key].append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return (float(np.mean(times['op'])), float(np.mean(times['direct'])))
+
+
+def phase_export(torch):
+    """export_transducer at E6D2 (the slice's seeded weights) on cuda, fp32
+    and int8, with its parity checks; the ExportedStreamDecoder over the
+    slice's 4 s == the live StreamingDecoder on cuda text for text (the
+    stand-in tokenizer has one character per id; fp32 with TF32 off; int8
+    against live int8), the launches of the measured exported decode
+    (exactly: per chunk K2 once and the encoder's K1 per layer, int8 K11
+    per layer and for the projection and K12 per layer; the prediction
+    net's K1 per layer for the reset's BOS step and every non-blank
+    frame; no K3), each graph's
+    edgedict op nodes (one per layer) and each op held against its plain
+    version on card tensors of its node's shapes; artifact bytes, the
+    exported and live chunk ms, and the host µs of one op dispatch over a
+    direct call of K1's implementation."""
+    import tempfile
+
+    from edgedict_tpu_torch import export as E
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    from edgedict_tpu_torch.features import FeaturePipeline
+    from edgedict_tpu_torch.stream import detokenize, stream_chunk_geometry
+    cfg, feat = _e6d2()
+    tok = StandInTokenizer(cfg.vocab_size)
+    model, record = STATE['model'], STATE['record']
+    audio = synthetic_audio(0)
+    win, hop = stream_chunk_geometry(feat.win_length, feat.hop_length,
+                                     feat.downsample, 2)
+    tmp = tempfile.mkdtemp(prefix='edd_export_', dir=_train_corpus()[0])
+    res = {'phase': 'export', 'config': 'flagfiles/E6D2.txt',
+           'weights': 'random, seed 0 (the slice\'s)'}
+    for quantize in (None, 'int8'):
+        tag = quantize or 'fp32'
+        t0 = time.perf_counter()
+        out = E.export_transducer(model, cfg, os.path.join(tmp, tag),
+                                  quantize=quantize, device='cuda')
+        export_s = time.perf_counter() - t0
+        dec = E.ExportedStreamDecoder(out, FeaturePipeline(feat, 'cuda'),
+                                      tok, device='cuda')
+        _export_decode(dec, audio, win, hop)                  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        text = _export_decode(dec, audio, win, hop)
+        torch.cuda.synchronize()
+        run = 'export' + ('_int8' if quantize else '')
+        STATE['launches_' + run] = _launches()
+        live, live_tok = _decode(model, cfg, feat, tok, audio, 'cuda',
+                                 quantize=quantize)
+        live_text = detokenize(tok, live_tok)
+        chunks = len(dec.elapsed)
+        emitting = int((live_tok != cfg.blank).sum())
+        enc = {'lstm_fwd': cfg.enc_layers * chunks} if not quantize else {
+            'quant_matmul': (cfg.enc_layers + 1) * chunks,
+            'lstm_fwd_q': cfg.enc_layers * chunks}
+        expect = dict(enc, mel_power=chunks)
+        # the prediction net: the reset's BOS step, then one step for
+        # every non-blank frame
+        expect['lstm_fwd'] = expect.get('lstm_fwd', 0) \
+            + cfg.dec_layers * (1 + emitting)
+        STATE.setdefault('run_expect', {})[run] = _expect(**expect)
+        graphs = {name: _graph_op_shapes(os.path.join(out, f'{name}.pt2'))
+                  for name in E.COMPONENTS}
+        sizes = {name: os.path.getsize(os.path.join(out, f'{name}.pt2'))
+                 for name in E.COMPONENTS}
+        res[tag] = {
+            'export_s': export_s, 'artifact_bytes': sizes,
+            'chunks': chunks, 'emitting_frames': emitting,
+            'text_equals_live': text == live_text, 'text_chars': len(text),
+            'chunk_ms_exported': 1e3 * float(np.mean(dec.elapsed)),
+            'chunk_ms_live': 1e3 * float(np.mean(live.elapsed)),
+            'launches': {k: v for k, v in STATE['launches_' + run].items()
+                         if v},
+            'graph_ops': {name: sorted({op for op, _ in g})
+                          for name, g in graphs.items()}}
+        emit({'phase': 'export', 'variant': tag, **res[tag]})
+        require(text == live_text and text,
+                f'{tag}: the exported decoder\'s text differs from the live '
+                f'decoder\'s (or is empty)')
+        require(STATE['launches_' + run] == STATE['run_expect'][run],
+                f'{tag}: exported decode launches '
+                f'{STATE["launches_" + run]} != {STATE["run_expect"][run]}')
+        for op, specs in sorted(set().union(*graphs.values())):
+            _export_op_case(torch, record, op, specs)
+    res['encoder_bytes_int8_over_fp32'] = \
+        res['int8']['artifact_bytes']['encoder'] / \
+        res['fp32']['artifact_bytes']['encoder']
+    res['op_dispatch_us'], res['direct_call_us'] = _op_dispatch_us(torch)
+    emit({key: res[key] for key in ('phase', 'config', 'weights',
+                                    'encoder_bytes_int8_over_fp32',
+                                    'op_dispatch_us', 'direct_call_us')})
+    require(res['encoder_bytes_int8_over_fp32'] < 0.55,
+            'the int8 encoder artifact is not under 0.55x the fp32 one')
+
+
+@contextlib.contextmanager
+def _timed_eval_steps():
+    """Within: every eval step that train.make_eval_step makes is timed
+    (wall ms, between device synchronises) into the yielded list."""
+    import torch
+    from edgedict_tpu_torch import train
+    real, times = train.make_eval_step, []
+
+    def make_timed(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(model, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(model, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    train.make_eval_step = make_timed
+    try:
+        yield times
+    finally:
+        train.make_eval_step = real
+
+
+def phase_apps(torch):
+    """The apps on the card at E6D2 (the slice's seeded weights saved as a
+    reference-layout .pt; train_run's eval corpus, 8 utterances of 8-16 s,
+    and its BPE 2048): cli.wer_parity --max_batches 1 --eval_batch_size 4
+    on cuda (its launches exactly what one eval batch implies) == the same
+    on the CPU, hypothesis for hypothesis, and its JSON line; cli.export
+    --pt_path of the .pt, then cli.wav_inference --backends
+    jit,exported,int8 --per_stage --infer_dtype fp32 on 4 utterances (jit
+    == exported hypothesis for hypothesis; K1, K2, K3, K11, K12 launched);
+    cli.youtube_live --wav on the first: '[jit]' == '[exported]'; the
+    eval step's wall ms a batch on each device."""
+    import io
+
+    from edgedict_tpu_torch.cli import (
+        export as export_cli, wav_inference, wer_parity, youtube_live)
+    tmp, _ = _train_corpus()
+    pt = os.path.join(tmp, 'e6d2_seed0.pt')
+    torch.save({'model': STATE['model'].state_dict()}, pt)
+    test = os.path.join(tmp, 'test')
+    common = [f'--flagfile={REPO}/flagfiles/E6D2.txt', '--pt_path', pt]
+    cwd = os.getcwd()
+    os.chdir(tmp)                 # the BPE-2048/ cache of the corpus
+    try:
+        res = {'phase': 'apps'}
+        wer_argv = common + ['--LibriSpeech_test', test, '--max_batches',
+                             '1', '--eval_batch_size', str(EVAL_BATCH)]
+        hyps, out = {}, io.StringIO()
+        for device in ('cuda', 'cpu'):
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), _timed_eval_steps() as ms:
+                result, hyps[device] = wer_parity.main(
+                    wer_argv + ['--device', device])
+            torch.cuda.synchronize()
+            res[f'wer_parity_{device}_s'] = time.perf_counter() - t0
+            res[f'wer_parity_{device}_batch_ms'] = ms
+            if device == 'cuda':
+                STATE['launches_wer_parity'] = _launches()
+        cfg, _ = _e6d2()
+        STATE.setdefault('run_expect', {})['wer_parity'] = _expect(
+            mel_power=1, greedy_decode=1, joint_lse_fwd=1, lattice_alpha=1,
+            lstm_fwd=2 * (cfg.enc_layers + cfg.dec_layers))
+        res['wer_parity_lines'] = out.getvalue().splitlines()
+        res['wer_parity_hyps_equal'] = hyps['cuda'] == hyps['cpu']
+        res['wer_parity_hyp_words'] = [len(h.split()) for h in hyps['cuda']]
+        emit(res)
+        require(res['wer_parity_hyps_equal'],
+                'wer_parity: cuda hypotheses differ from the CPU\'s')
+        require(len(hyps['cuda']) == EVAL_BATCH
+                and json.loads(res['wer_parity_lines'][-1])['n_utts']
+                == EVAL_BATCH, f'wer_parity: {res["wer_parity_lines"]}')
+        require(STATE['launches_wer_parity'] ==
+                STATE['run_expect']['wer_parity'],
+                f'wer_parity launches {STATE["launches_wer_parity"]}')
+
+        run = ['--logdir_root', os.path.join(tmp, 'logs'), '--name',
+               'apps', '--device', 'cuda']
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            export_cli.main(common + run)
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            backends = wav_inference.main(
+                common + run + ['--wav_dir', test, '--n_samples', '4',
+                                '--backends', 'jit,exported,int8',
+                                '--per_stage', '--infer_dtype', 'fp32'])
+        torch.cuda.synchronize()
+        wav_s = time.perf_counter() - t0
+        launched = _launches()
+        wav = sorted(os.path.join(test, '1', '1', f) for f in
+                     os.listdir(os.path.join(test, '1', '1'))
+                     if f.endswith('.wav'))[0]
+        lines = out.getvalue().splitlines()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            youtube_live.main(common + run + ['--wav', wav,
+                                              '--infer_dtype', 'fp32'])
+        ab = dict(ln.split(' ', 1) for ln in out.getvalue().splitlines()
+                  if ln.startswith(('[jit] ', '[exported] ')))
+        res = {'phase': 'apps', 'wav_inference_s': wav_s,
+               'wav_inference_lines': [ln for ln in lines if ln.startswith(
+                   ('[jit', '[int8', '[exported', 'benchmarking',
+                    'exported '))],
+               'wav_inference_launches': {k: v for k, v in launched.items()
+                                          if v},
+               'jit_equals_exported': backends['jit'][2]
+               == backends['exported'][2],
+               'youtube_live_ab_equal': ab.get('[jit]') == ab.get(
+                   '[exported]') and '[jit]' in ab,
+               'youtube_live_chars': len(ab.get('[jit]', ''))}
+        emit(res)
+        require(res['jit_equals_exported'],
+                'wav_inference: exported hypotheses differ from jit')
+        require(all(launched[k] > 0 for k in (
+            'lstm_fwd', 'mel_power', 'greedy_decode', 'quant_matmul',
+            'lstm_fwd_q')), f'wav_inference launches {launched}')
+        require(res['youtube_live_ab_equal'],
+                f'youtube_live --wav: {ab}')
+    finally:
+        os.chdir(cwd)
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -3860,7 +4215,8 @@ def main():
               ('wav2vec_kernels', phase_wav2vec_kernels),
               ('train_features', phase_train_features),
               ('jax_checkpoint', phase_jax_checkpoint),
-              ('jax_kernels', phase_jax_kernels))
+              ('jax_kernels', phase_jax_kernels),
+              ('export', phase_export), ('apps', phase_apps))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

@@ -1,11 +1,13 @@
-"""Streaming decode CLI of the port (counterpart of cli/stream.py, --path
-mode): decode a wav file chunk by chunk and print the transcript and the
-throughput line.
+"""Streaming decode CLI of the port (counterpart of cli/stream.py): decode
+a wav file chunk by chunk and print the transcript and the throughput
+line, or stream from the microphone.
 
   python -m edgedict_tpu_torch.cli.stream --flagfile flagfiles/E6D2.txt \
       --path x.wav [--pt_path reference.pt | --model_name <step>.ckpt] \
       [--device cuda|cpu] [--quantize int8] [--enc_type GRU] \
       [--beam_width 4 [--lm_path logs/<lm run>/lm.ckpt --lm_weight 0.2]]
+  python -m edgedict_tpu_torch.cli.stream --flagfile ... --mic \
+      [--reset_after 35]                          (needs sounddevice)
 
 --device defaults to cuda and fails without a card; the CPU runs only when
 asked with --device cpu.  --infer_dtype auto is bf16 on CUDA (bf16 encoder,
@@ -17,12 +19,16 @@ package's CLI: logs/<name>/models/<--model_name>, else the latest step's
 streaming beam search (StreamingBeamDecoder: --max_sym_per_frame label
 expansions a frame, --merge_prefixes Graves prefix merging), and
 --lm_path adds shallow fusion with an LM that the port's cli.train_lm wrote
-(weight --lm_weight).  Microphone input (--mic) is not ported yet.
+(weight --lm_weight).  --mic: after --reset_after consecutive chunks
+without progress the decoder state is reset and "[Background]" printed
+(reference stream.py:92-98); a beam decoder re-renders its full
+hypothesis, and an unchanged hypothesis counts as no progress.
 """
 
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -122,9 +128,10 @@ def run_checkpoint(flags):
     return path if path and os.path.exists(path) else None
 
 
-def load_inference_bundle(flags):
-    """(model on the CPU, cfg, feature_cfg, tokenizer, compute dtype,
-    device) from parsed flags — shared by the stream and serve CLIs."""
+def load_model(flags):
+    """(model on the CPU, cfg, feature_cfg, tokenizer, device) from parsed
+    flags: the weights of --pt_path, else the run's checkpoint, else
+    random (seed 0) — shared by the stream, serve and export CLIs."""
     from edgedict_tpu_torch.compat import load_reference_checkpoint
     from edgedict_tpu_torch.models.transducer import Transducer
 
@@ -145,6 +152,13 @@ def load_inference_bundle(flags):
     else:
         print('WARNING: no checkpoint found — using random weights')
         model = Transducer(cfg, device='cpu', seed=0)
+    return model, cfg, feature_cfg, tokenizer, device
+
+
+def load_inference_bundle(flags):
+    """load_model's (model, cfg, feature_cfg, tokenizer, compute dtype,
+    device): the dtype of --infer_dtype on that device."""
+    model, cfg, feature_cfg, tokenizer, device = load_model(flags)
     dtype = resolve_infer_dtype(flags.infer_dtype, device)
     return model, cfg, feature_cfg, tokenizer, dtype, device
 
@@ -183,20 +197,83 @@ def build_stream_decoder(flags):
     from edgedict_tpu_torch.stream import (
         StreamingBeamDecoder, StreamingDecoder)
     return make_decoder(flags, StreamingDecoder, StreamingBeamDecoder,
-                        block_chunks=flags.block_chunks)
+                        block_chunks=getattr(flags, 'block_chunks', 1))
+
+
+def print_now(text, end=''):
+    print(text, end=end, flush=True)
+
+
+def mic_callback(decoder, reset_after, emit=print_now):
+    """The sounddevice callback of --mic (cli/stream.py:167-207 of the JAX
+    package): incoming samples join a buffer; every win_size of them are
+    decoded and the buffer moves on by hop_size.  Greedy decode() gives
+    the NEW text (printed as it comes), beam decode() the current FULL
+    hypothesis (the line re-rendered); a chunk with no new text, or an
+    unchanged hypothesis, counts as silence, and `reset_after` of them in a
+    row reset the decoder and print '[Background]'."""
+    buf = np.zeros(0, np.float32)
+    blank_count = 0
+    is_beam = hasattr(decoder, 'beam')
+    last = ''
+
+    def callback(indata, frames, t, status):
+        nonlocal buf, blank_count, last
+        buf = np.concatenate([buf, indata[:, 0].astype(np.float32)])
+        while len(buf) >= decoder.win_size:
+            text = decoder.decode(buf[:decoder.win_size])
+            buf = buf[decoder.hop_size:]
+            progressed = text != last if is_beam else bool(text)
+            if is_beam and progressed:
+                emit('\r' + text + ' ' * max(len(last) - len(text), 0))
+            elif progressed:
+                emit(text)
+            last = text
+            if progressed:
+                blank_count = 0
+            else:
+                blank_count += 1
+                if blank_count >= reset_after:
+                    emit('\n[Background]', end='\n')
+                    decoder.reset()
+                    blank_count = 0
+                    last = ''
+
+    return callback
+
+
+def listen(callback):
+    """Feed the microphone (16 kHz mono, sounddevice) to `callback` until
+    interrupted (ctrl-c)."""
+    import sounddevice as sd
+    with sd.InputStream(samplerate=16000, channels=1, callback=callback):
+        print('listening (ctrl-c to stop)', flush=True)
+        while True:
+            time.sleep(0.1)
 
 
 def main(argv=None):
     from edgedict_tpu_torch.data.audio_io import load_audio
 
-    parser = build_parser('streaming decode of a wav file')
-    parser.add_argument('--path', required=True, help='wav file to decode')
+    parser = build_parser('streaming decode of a wav file or the '
+                          'microphone')
+    parser.add_argument('--path', default=None, help='wav file to decode')
+    parser.add_argument('--mic', type=parse_bool, default=False,
+                        help='stream from the microphone (sounddevice)')
+    parser.add_argument('--reset_after', type=int, default=35,
+                        help='--mic: reset the state after N consecutive '
+                             'chunks without new text')
     parser.add_argument('--block_chunks', type=int, default=1,
                         help='>1 decodes N chunks per layer-major group '
                              'step (same output)')
     flags = parse_flags(parser, sys.argv[1:] if argv is None else argv)
+    if not flags.path and not flags.mic:
+        parser.error('pass --path <wav> or --mic')
     set_numerics()
     decoder = build_stream_decoder(flags)
+    if not flags.path:
+        listen(mic_callback(decoder, flags.reset_after))
+        return
     audio, sr = load_audio(flags.path)
     if sr != 16000:
         raise SystemExit(f'expected 16 kHz audio, got {sr}')

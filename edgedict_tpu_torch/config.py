@@ -234,15 +234,20 @@ def _bool_flags(parser):
 def normalize_argv(argv, parser):
     """absl spellings → argparse: `--flag` / `--noflag` of a bool flag
     become `--flag=true/false`; keys of the JAX registry this parser does
-    not register are dropped."""
+    not register are dropped, with their value where it is the next
+    argument (`--name x`; no CLI of the port takes a positional)."""
     bools = _bool_flags(parser)
     ignore = _IGNORABLE - {a.dest for a in parser._actions}
     out = []
-    for arg in argv:
+    args = iter(enumerate(argv))
+    for i, arg in args:
         if arg.startswith('--'):
             key = arg[2:].split('=', 1)[0]
             if key in ignore or (key.startswith('no')
                                  and key[2:] in ignore):
+                if '=' not in arg and i + 1 < len(argv) \
+                        and not argv[i + 1].startswith('--'):
+                    next(args)
                 continue
             if '=' not in arg:
                 if key in bools:

@@ -22,16 +22,19 @@ Numerics, as the TPU kernels define them:
     with fp32 accumulation (not scale-after-accumulate: in bf16 the two
     differ).
 Each kernel has its plain PyTorch version here; CPU tensors run it, CUDA
-tensors launch the kernel.  The weights keep torch's (out, in) layout: one
-row, and one scale, per output channel (the JAX package stores the
-transpose).  Inference only.  The TPU kernels' padding (int8 sublane rows,
-batch rows to 8), their shape gates and the route to XLA above 4096 rows
-have no counterpart: K11 takes any shape, K12 any shape of K1's launch
-plan and K13 any shape of K5's (ops/rnn_fwd.py: ceil(H / 8) blocks, one
-or two per SM, so H up to 1056 or 2112 on the H100's 132 SMs, and the
-slice and carries within one block's shared memory; ValueError outside
-it).  Every preset fits: E6D2 and E6D2_LARGE_Batch at H=1024, E4D1 at
-256.
+tensors launch the kernel.  K11 and K12 are the registered ops
+`edgedict::quant_matmul` and `edgedict::lstm_fwd_q` (beside K1's
+`edgedict::lstm_fwd`, ops/rnn_kernel.py), so that torch.export traces each
+as one graph node; K13 is not an op (the export is LSTM-only).  The
+weights keep torch's (out, in) layout: one row, and one scale, per output
+channel (the JAX package stores the transpose).  Inference only.  The
+TPU kernels' padding (int8 sublane rows, batch rows to 8), their shape
+gates and the route to XLA above 4096 rows have no counterpart: K11 takes
+any shape, K12 any shape of K1's launch plan and K13 any shape of K5's
+(ops/rnn_fwd.py: ceil(H / 8) blocks, one or two per SM, so H up to 1056
+or 2112 on the H100's 132 SMs, and the slice and carries within one
+block's shared memory; ValueError outside it).  Every preset fits: E6D2
+and E6D2_LARGE_Batch at H=1024, E4D1 at 256.
 """
 
 import torch
@@ -41,7 +44,8 @@ from edgedict_tpu_torch import _build
 from edgedict_tpu_torch.ops import rnn_fwd
 from edgedict_tpu_torch.ops.gru_kernel import (
     check_gru_args, gru_recurrence_plain)
-from edgedict_tpu_torch.ops.rnn_kernel import lstm_recurrence_plain
+from edgedict_tpu_torch.ops.rnn_kernel import (
+    lstm_fwd_fake, lstm_recurrence_plain)
 
 FLOATS = (torch.float32, torch.bfloat16)
 
@@ -198,13 +202,20 @@ def _quant_matmul_kernel(x2d, wq, scale, bias):
     return out
 
 
+torch.library.define('edgedict::quant_matmul', '(Tensor x2d, Tensor wq, '
+                     'Tensor scale, Tensor bias) -> Tensor')
+torch.library.impl('edgedict::quant_matmul', 'cpu', quant_matmul_plain)
+torch.library.impl('edgedict::quant_matmul', 'cuda', _quant_matmul_kernel)
+torch.library.register_fake(
+    'edgedict::quant_matmul',
+    lambda x2d, wq, scale, bias: x2d.new_empty((x2d.shape[0], wq.shape[0])))
+
+
 def quant_matmul(x2d, wq, scale, bias):
-    """See quant_matmul_plain; CUDA tensors launch csrc/quant_matmul.cu
-    (K11).  `launches` counts every launch, `tile_launches` those of the
-    tiled kernels (rows > 32)."""
-    if x2d.device.type == 'cpu':
-        return quant_matmul_plain(x2d, wq, scale, bias)
-    return _quant_matmul_kernel(x2d, wq, scale, bias)
+    """See quant_matmul_plain; the op edgedict::quant_matmul, whose CUDA
+    tensors launch csrc/quant_matmul.cu (K11).  `launches` counts every
+    launch, `tile_launches` those of the tiled kernels (rows > 32)."""
+    return torch.ops.edgedict.quant_matmul(x2d, wq, scale, bias)
 
 
 quant_matmul.launches = 0
@@ -266,12 +277,21 @@ def _lstm_fwd_q_kernel(x_proj, w_q, w_scale, h0, c0):
     return ys, cs, hT
 
 
+torch.library.define('edgedict::lstm_fwd_q', '(Tensor x_proj, Tensor w_q, '
+                     'Tensor w_scale, Tensor h0, Tensor c0) -> '
+                     '(Tensor, Tensor, Tensor)')
+torch.library.impl('edgedict::lstm_fwd_q', 'cpu', lstm_recurrence_q_plain)
+torch.library.impl('edgedict::lstm_fwd_q', 'cuda', _lstm_fwd_q_kernel)
+torch.library.register_fake(
+    'edgedict::lstm_fwd_q',
+    lambda x_proj, w_q, w_scale, h0, c0: lstm_fwd_fake(x_proj, w_q, h0, c0))
+
+
 def lstm_recurrence_q(x_proj, w_q, w_scale, h0, c0):
-    """See lstm_recurrence_q_plain; CUDA tensors launch csrc/rnn_fwd.cu's
-    int8 entry (K12, one launch per call)."""
-    if x_proj.device.type == 'cpu':
-        return lstm_recurrence_q_plain(x_proj, w_q, w_scale, h0, c0)
-    return _lstm_fwd_q_kernel(x_proj, w_q, w_scale, h0, c0)
+    """See lstm_recurrence_q_plain; the op edgedict::lstm_fwd_q, whose CUDA
+    tensors launch csrc/rnn_fwd.cu's int8 entry (K12, one launch per
+    call)."""
+    return torch.ops.edgedict.lstm_fwd_q(x_proj, w_q, w_scale, h0, c0)
 
 
 lstm_recurrence_q.launches = 0

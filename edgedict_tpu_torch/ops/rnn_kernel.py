@@ -9,6 +9,12 @@ rematerialised from the saved ys in one product, then the dh/dc chain), and
 dW_hh is one matmul over all steps outside the kernel.  The plain PyTorch loops below run for CPU tensors, the kernels for
 CUDA tensors.  The device of the tensors decides; there is no fallback from
 one to the other.
+
+The forward is the registered op `edgedict::lstm_fwd` (CPU: the plain
+loop, CUDA: K1, and a fake that gives its output shapes), so that
+torch.export traces it as one graph node; the live path and an exported
+graph launch the same op.  It registers when this module is imported and
+builds nothing then.
 """
 
 import torch
@@ -66,6 +72,21 @@ def _lstm_fwd_kernel(x_proj, w_hh, h0, c0):
         _build.stream_ptr(dev)), 'lstm_fwd')
     lstm_recurrence.launches += 1
     return ys, cs, hT
+
+
+def lstm_fwd_fake(x_proj, w_hh, h0, c0):
+    """The op's outputs' shapes and dtypes (ys, cs, hT), for tracing."""
+    t, b, h4 = x_proj.shape
+    return (x_proj.new_empty((t, b, h4 // 4)),
+            x_proj.new_empty((t, b, h4 // 4), dtype=torch.float32),
+            x_proj.new_empty((b, h4 // 4), dtype=torch.float32))
+
+
+torch.library.define('edgedict::lstm_fwd', '(Tensor x_proj, Tensor w_hh, '
+                     'Tensor h0, Tensor c0) -> (Tensor, Tensor, Tensor)')
+torch.library.impl('edgedict::lstm_fwd', 'cpu', lstm_recurrence_plain)
+torch.library.impl('edgedict::lstm_fwd', 'cuda', _lstm_fwd_kernel)
+torch.library.register_fake('edgedict::lstm_fwd', lstm_fwd_fake)
 
 
 def lstm_recurrence_bwd_plain(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
@@ -162,14 +183,12 @@ lstm_recurrence_bwd.launches = 0
 
 
 class _LSTMRecurrence(torch.autograd.Function):
-    """Forward K1 (plain on CPU), backward K4 + one matmul for dW_hh."""
+    """Forward the op edgedict::lstm_fwd (K1, plain on CPU), backward K4 +
+    one matmul for dW_hh."""
 
     @staticmethod
     def forward(ctx, x_proj, w_hh, h0, c0):
-        if x_proj.device.type == 'cpu':
-            ys, cs, h = lstm_recurrence_plain(x_proj, w_hh, h0, c0)
-        else:
-            ys, cs, h = _lstm_fwd_kernel(x_proj, w_hh, h0, c0)
+        ys, cs, h = torch.ops.edgedict.lstm_fwd(x_proj, w_hh, h0, c0)
         ctx.save_for_backward(x_proj, w_hh, h0, c0, ys, cs)
         ctx.set_materialize_grads(False)
         return ys, cs, h

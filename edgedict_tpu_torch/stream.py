@@ -338,6 +338,7 @@ class StreamingDecoder:
                                                  self.pipeline)
                            if self.block_chunks > 1 else None)
         self.reset_step = reset_step
+        self.compute_dtype = compute_dtype
         self._fresh = make_stream_state(self.model, cfg, 1, self.device)
         self.emitted = []
         self.reset_profile()
@@ -406,6 +407,52 @@ class StreamingDecoder:
         for j in range(i, n):
             text.append(self.decode(chunks[j]))
         return ''.join(text)
+
+    @torch.no_grad()
+    def profile_components(self, audio, max_chunks=50):
+        """Per-stage wall ms (stream.py:803-855 of the JAX package; the
+        reference README latency table): the featurizer, the encoder, the
+        joint and the prediction net run as SEPARATE calls over the first
+        `max_chunks` chunks of `audio`, each ended by a synchronise on
+        CUDA, greedy without <unk> masking → {'featurize', 'encoder',
+        'joint', 'decoder'}: the mean ms of each, its first two samples
+        (warm-up) left out where it has more.  The decode path runs all
+        four in one chunk step; this mode exists to compare with the
+        reference."""
+        cfg, model, dev = self.cfg, self.model, self.device
+
+        def synced(fn, key):
+            t0 = time.perf_counter()
+            out = fn()
+            if dev.type == 'cuda':
+                torch.cuda.synchronize(dev)
+            times[key].append(time.perf_counter() - t0)
+            return out
+
+        times = {'featurize': [], 'encoder': [], 'joint': [], 'decoder': []}
+        enc_state, dec_state, h_dec = make_stream_state(model, cfg, 1, dev)
+        for chunk in _chunks(audio, self.win_size,
+                             self.hop_size)[:max_chunks]:
+            x = _audio_tensor(chunk[None], dev)
+            lens = torch.full((1,), x.shape[1], dtype=torch.int32,
+                              device=dev)
+            xs = synced(lambda: self.pipeline(x, lens)[0], 'featurize')
+            if self.compute_dtype is not None:
+                xs = xs.to(self.compute_dtype)
+            enc_xs, enc_state = synced(lambda: T.encoder_apply(
+                model.encoder, cfg, xs, enc_state), 'encoder')
+            for k in range(enc_xs.shape[1]):
+                pred = synced(lambda: int(T.joint_apply(
+                    model.joint, enc_xs[:, k].float(), h_dec)[0].argmax()),
+                    'joint')
+                if pred != cfg.blank:
+                    token = torch.full((1, 1), pred, dtype=torch.long,
+                                       device=dev)
+                    h_new, dec_state = synced(lambda: T.decoder_apply(
+                        model.decoder, cfg, token, dec_state), 'decoder')
+                    h_dec = h_new[:, 0]
+        return {k: float(np.mean(v[2:] if len(v) > 2 else v)) * 1e3
+                if v else 0.0 for k, v in times.items()}
 
     def decode_wav_pipelined(self, audio) -> str:
         """decode_wav over whole blocks with a lag-1 token fetch: block i's

@@ -160,3 +160,16 @@ def test_presets_defaults_and_ignored_flags_parse(cli, preset):
     assert flags.profile_dir == ''
     assert not hasattr(flags, 'apex') and not hasattr(flags, 'opt_level')
     assert flags.enc_layers in (4, 6) and flags.tokenizer == 'bpe'
+
+
+def test_an_ignored_flag_takes_its_value_along():
+    """A JAX registry key that a CLI does not register is dropped with its
+    value, in either spelling (`--name x`, `--name=x`), bare bools too."""
+    from edgedict_tpu_torch.cli import wer_parity
+    for argv in (['--name', 'tiny', '--sched', '--lr', '3e-4'],
+                 ['--name=tiny', '--nosched', '--lr=3e-4']):
+        flags = C.parse_flags(wer_parity.build_parser(),
+                              argv + ['--pt_path', 'x.pt', '--enc_layers',
+                                      '3'])
+        assert (flags.pt_path, flags.enc_layers) == ('x.pt', 3)
+        assert not hasattr(flags, 'name') and not hasattr(flags, 'lr')

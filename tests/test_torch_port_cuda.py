@@ -10,7 +10,8 @@ over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
 plans' refusals, plus the
 streaming decoder, a GRU train step, a wav2vec pretraining step and a raw
 fine-tune step on CUDA against the CPU, the trainer's side-stream batch
-prefetch and a background save of card tensors.  Marked `cuda`: every test skips where no
+prefetch, a background save of card tensors, and the edgedict ops (K1,
+K11, K12 through torch.library) and torch.export on the card.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
 
@@ -1541,3 +1542,105 @@ def test_background_save_snapshots_cuda_state(cuda, tmp_path):
     assert float(payload['model']['w'].abs().max()) == 0.0
     assert float(payload['optim']['mu']['w'].abs().max()) == 0.0
     assert payload['model']['w'].device.type == 'cpu'
+
+
+# ---------------------------------------------------------------------------
+# the edgedict ops (K1, K11, K12 registered with torch.library) and export
+# ---------------------------------------------------------------------------
+
+def _edgedict_op_args(name, hid, b, t):
+    from edgedict_tpu_torch.ops import quant as Q
+    g = torch.Generator().manual_seed(hid + b + t)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+    h0, c0 = r(b, hid), r(b, hid)
+    if name == 'quant_matmul':
+        q, s = Q.quantize_int8(r(4 * hid, hid))
+        return (torch.ops.edgedict.quant_matmul.default, Q.quant_matmul,
+                (r(b * t, hid), q, s, r(4 * hid)))
+    if name == 'lstm_fwd_q':
+        q, s = Q.quantize_int8(r(4 * hid, hid))
+        return (torch.ops.edgedict.lstm_fwd_q.default, Q.lstm_recurrence_q,
+                (r(t, b, 4 * hid), q, s, h0, c0))
+    return (torch.ops.edgedict.lstm_fwd.default, K1.lstm_recurrence,
+            (r(t, b, 4 * hid), r(4 * hid, hid) / hid ** 0.5, h0, c0))
+
+
+@pytest.mark.parametrize('name', ['lstm_fwd', 'quant_matmul', 'lstm_fwd_q'])
+@pytest.mark.parametrize('hid,b,t', [(16, 3, 5), (1024, 1, 2)])
+def test_edgedict_op_on_cuda_matches_its_cpu_implementation(cuda, name, hid,
+                                                            b, t):
+    """Each op on card tensors launches its kernel once (its counter) and
+    agrees with the op on the same CPU tensors (the plain version), at
+    fp32's kernel tolerance; torch.library.opcheck passes on the card."""
+    op, wrapper, args = _edgedict_op_args(name, hid, b, t)
+    want = op(*args)
+    dev_args = tuple(a.to(cuda) for a in args)
+    before = wrapper.launches
+    got = op(*dev_args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for g_, w_ in zip(*(x if isinstance(x, tuple) else (x,)
+                        for x in (got, want))):
+        assert g_.device.type == 'cuda'
+        torch.testing.assert_close(g_.cpu(), w_, rtol=1e-4, atol=1e-5)
+    torch.library.opcheck(op, dev_args)
+
+
+def test_edgedict_op_mixed_devices_raises(cuda):
+    """A CUDA tensor reaching an op launches its kernel or raises: never
+    the CPU version."""
+    op, _, args = _edgedict_op_args('lstm_fwd', 16, 3, 5)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        op(args[0].to(cuda), *args[1:])
+
+
+@pytest.mark.parametrize('quantize', [None, 'int8'])
+def test_export_and_reload_on_cuda(cuda, tmp_path, quantize):
+    """export_transducer on the card (E6D2 layer widths, 2 layers): the
+    reloaded artifacts launch K1 (int8: K11 and K12) and the exported
+    decoder's text equals the live decoder's on the card; an artifact of
+    the card does not load for the CPU."""
+    from edgedict_tpu_torch import export as E
+    from edgedict_tpu_torch.ops import quant as Q
+    cfg = T.TransducerConfig(vocab_size=64, vocab_embed_size=16,
+                             input_size=240, enc_hidden_size=1024,
+                             enc_layers=2, enc_proj_size=640,
+                             dec_hidden_size=256, dec_layers=2,
+                             dec_proj_size=256, joint_size=640)
+    feat = F.FeatureConfig(feature_type='logfbank', feature_size=80,
+                           n_fft=512, win_length=320, hop_length=200,
+                           downsample=3, pad_to_divisible=False)
+    model = T.Transducer(cfg, 'cpu', seed=3)
+    with torch.no_grad():
+        model.joint.out.bias[0] -= 1.0
+        model.joint.out.bias[3] -= 100.0
+
+    class Tok:
+        def id_to_token(self, i):
+            return chr(0x100 + int(i))
+    out = E.export_transducer(model, cfg, str(tmp_path / 'e'),
+                              quantize=quantize, device='cuda')
+    dec = E.ExportedStreamDecoder(out, F.FeaturePipeline(feat, cuda),
+                                  Tok(), device='cuda')
+    live = S.StreamingDecoder(model, cfg, feat, Tok(), device='cuda',
+                              quantize=quantize)
+    audio = (np.random.RandomState(0).randn(16000) * 0.3).astype(np.float32)
+    n = (len(audio) - live.win_size) // live.hop_size + 1
+    counters = (Q.quant_matmul, Q.lstm_recurrence_q, K1.lstm_recurrence,
+                K2.mel_power)
+    before = [c.launches for c in counters]
+    text = ''.join(dec.decode(audio[i * live.hop_size:
+                                    i * live.hop_size + live.win_size])
+                   for i in range(n))
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched[3] == n
+    if quantize:
+        assert launched[0] == 3 * n and launched[1] == 2 * n
+    else:
+        assert launched[:2] == [0, 0] and launched[2] >= 2 * n
+    assert text == live.decode_wav(audio)
+    with pytest.raises(ValueError, match="exported for 'cuda'"):
+        E.ExportedStreamDecoder(out, F.FeaturePipeline(feat, 'cpu'), Tok(),
+                                device='cpu')

@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package: no JAX-family
 and no edgedict_tpu import anywhere in edgedict_tpu_torch/ or
 chip_smoke.py, and neither appears in sys.modules when the port is
-imported.  The port's own copies of the JAX package's JAX-free modules
+imported, nor do the audio packages of the apps (sounddevice, PyAV,
+yt-dlp), which only the modes that use them import.  The port's own copies of the JAX package's JAX-free modules
 (tokenizer, serving) agree with them.  Without a card, every CUDA entry
 point fails loudly."""
 
@@ -17,6 +18,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = {'jax', 'jaxlib', 'flax', 'optax', 'absl', 'msgpack'}
 ALLOWED_REFERENCE = set()      # nothing of the JAX package
+AUDIO_IO = {'sounddevice', 'av', 'yt_dlp', 'youtube_dl'}
 
 
 def _port_files():
@@ -64,8 +66,12 @@ def test_importing_the_port_adds_no_jax_module():
         'cli.pretrain_wav2vec',
         'optim', 'train', 'checkpoint', 'jax_checkpoint', 'trainer',
         'cli.stream', 'cli.serve', 'cli.import_checkpoint',
-        'cli.baseline', 'cli.profile_stream', 'cli.profile_train')]
-    banned = sorted(BANNED | {'edgedict_tpu'})
+        'cli.baseline', 'cli.profile_stream', 'cli.profile_train',
+        'export', 'cli.export', 'cli.demo', 'cli.youtube_live',
+        'cli.wav_inference', 'cli.wer_parity')]
+    # the apps' audio packages are imported only in the modes that need
+    # them (--mic, youtube_live --url)
+    banned = sorted(BANNED | {'edgedict_tpu'} | AUDIO_IO)
     code = ('import importlib, sys\n'
             'fam = lambda: {m for m in sys.modules if m.split(".")[0] in '
             f'{banned!r}}}\n'
