@@ -191,7 +191,34 @@ Phases, each printing JSON or text lines:
              jit,exported,int8 --per_stage on 4 utterances (jit == exported;
              K1, K2, K3, K11, K12 launched) and cli.youtube_live --wav
              ('[jit]' == '[exported]')
- 25 launches every kernel launched by the main paths themselves: the counts
+ 25 ctc      the CTC model (models/ctc.py) at the JAX defaults (4 x 600
+             LSTM, projection 600, a time reduction after layer 1; input
+             240, E6D2's 80 log-mels stacked 3 times from the port's
+             pipeline on the card; V=2048) at batch 32 of 8-16 s: one fp32
+             loss + gradient on cuda against the CPU port on the same
+             weights and batch, one item's labels longer than its frames
+             allow (the optax recursion's finite loss; each utterance's
+             loss 1e-5 rel, each grad 1e-3 of its max); greedy decode
+             tokens == the CPU's; one warm-up and 5 measured bf16 Adam steps (optim.py; step
+             ms, audio s/s, the loss falling)
+ 26 legacy   the legacy v1 family (models/legacy.py) at width 600 against
+             the CPU port: legacy_mfcc with CMVN per utterance (stacked 3
+             into input 120), the legacy transducer (encoder 4 x 600 with
+             its 600 head, prediction net 1 x 600, embedding 16, V=73) at
+             batch 8 of 8-16 s (loss + gradients through K1/K4 and K9/K10;
+             greedy decode tokens exact, K1 at T=1 a frame), RNNModel
+             (4 x 600) with the CTC prefix beam search of two utterances
+             (labels exact), the spline time warp (W=80) of ctc's (32, T,
+             80) log-mels on the card against the CPU's on the same draws
+ 27 legacy_kernels  each K1 / K4 / K9 / K10 shape that phases 25 and 26
+             launched (recorded by _recorded_shapes, the spies first held
+             against the launch counts) against its plain version with the
+             E6D2 cases' tolerances: K1 fp32 and bf16 (held step by step),
+             K4, at H=600 (T=422, 211, the prediction net's U+1 and the
+             greedy decode's T=1), each beside one cuDNN layer at each
+             input width its layers had (recorded with the shapes),
+             K9 / K10 at the legacy lattice
+ 28 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -219,7 +246,12 @@ Phases, each printing JSON or text lines:
              JAX run's decode K2 and K3 a chunk and K1 per encoder layer
              a chunk, its resumed step what its micro-steps imply; the
              exported decodes and wer_parity's cuda eval as phases 23 and 24
-             state
+             state; the ctc and legacy runs exactly what their layers
+             imply (a CTC step: K1 and K4 per encoder layer; its decode K1
+             per layer; the legacy loss: K1 and K4 per encoder and
+             prediction-net layer, one K9 and one K10; its decode: K1 per
+             encoder layer, once for the BOS priming and once a frame;
+             RNNModel: K1 per layer)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -3632,13 +3664,15 @@ class _ShapeSpy:
                         lambda self, n: setattr(self.fn, 'launches', n))
 
 
-def _spied():
+def _spied(layer_widths=False):
     """{name: (module, wrapper's name, call → (shape key, what its case
     needs))} of the kernels a JAX run launches: K1, K4, K2, K3, K7, K8,
     and the lattice core, whose forward launches K9 and backward K10 (it
-    holds those two wrappers itself)."""
+    holds those two wrappers itself).  layer_widths: also the port's LSTM
+    layer (ops/rnn.py lstm_layer_tm; no kernel), keyed (H, B, T, input
+    width): the width of the cuDNN layer beside each K1 / K4 shape."""
     from edgedict_tpu_torch.ops import (
-        decode_kernel, features_kernel, joint_lse_kernel, rnn_kernel,
+        decode_kernel, features_kernel, joint_lse_kernel, rnn, rnn_kernel,
         rnnt_loss_kernel)
 
     def lstm(x_proj, w_hh, h0, *rest):
@@ -3657,15 +3691,21 @@ def _spied():
         return tuple(blank_lp.shape), (xlen.cpu().numpy(),
                                        ylen.cpu().numpy())
 
-    return {'lstm_fwd': (rnn_kernel, 'lstm_recurrence', lstm),
-            'lstm_bwd': (rnn_kernel, 'lstm_recurrence_bwd', lstm),
-            'mel_power': (features_kernel, 'mel_power',
-                          lambda audio, tables: (tuple(audio.shape),
-                                                 tables)),
-            'greedy_decode': (decode_kernel, 'greedy_frame_loop', frames),
-            'joint_lse_fwd': (joint_lse_kernel, 'joint_lse_fwd', joint),
-            'joint_lse_bwd': (joint_lse_kernel, 'joint_lse_bwd', joint),
-            'lattice': (rnnt_loss_kernel, 'rnnt_loss_core', lattice)}
+    def layer(params, xs, state):
+        return (params['w_hh'].shape[1], *xs.shape[1::-1], xs.shape[2]), None
+
+    spied = {'lstm_fwd': (rnn_kernel, 'lstm_recurrence', lstm),
+             'lstm_bwd': (rnn_kernel, 'lstm_recurrence_bwd', lstm),
+             'mel_power': (features_kernel, 'mel_power',
+                           lambda audio, tables: (tuple(audio.shape),
+                                                  tables)),
+             'greedy_decode': (decode_kernel, 'greedy_frame_loop', frames),
+             'joint_lse_fwd': (joint_lse_kernel, 'joint_lse_fwd', joint),
+             'joint_lse_bwd': (joint_lse_kernel, 'joint_lse_bwd', joint),
+             'lattice': (rnnt_loss_kernel, 'rnnt_loss_core', lattice)}
+    if layer_widths:
+        spied['lstm_layer'] = (rnn, 'lstm_layer_tm', layer)
+    return spied
 
 
 def _port_modules():
@@ -3674,13 +3714,13 @@ def _port_modules():
 
 
 @contextlib.contextmanager
-def _recorded_shapes(logs):
+def _recorded_shapes(logs, layer_widths=False):
     """Within: every name in the port's modules bound to a wrapper of
-    _spied() is bound to its _ShapeSpy, which fills logs[name]; on the
-    way out every spy is unbound again, also from a module that was first
-    imported within."""
+    _spied(layer_widths) is bound to its _ShapeSpy, which fills
+    logs[name]; on the way out every spy is unbound again, also from a
+    module that was first imported within."""
     spies = {}
-    for name, (mod, attr, key) in _spied().items():
+    for name, (mod, attr, key) in _spied(layer_widths).items():
         fn = getattr(mod, attr)
         spies[id(fn)] = (fn, _ShapeSpy(fn, key, logs.setdefault(name, {})))
     try:
@@ -3694,6 +3734,14 @@ def _recorded_shapes(logs):
             for attr, val in list(vars(mod).items()):
                 if isinstance(val, _ShapeSpy):
                     setattr(mod, attr, val.fn)
+
+
+def _legacy_shapes(run):
+    """_recorded_shapes of one run of the ctc / legacy phases, into
+    STATE['legacy_shapes'][run], with the LSTM layers' input widths."""
+    return _recorded_shapes(
+        STATE.setdefault('legacy_shapes', {}).setdefault(run, {}),
+        layer_widths=True)
 
 
 def phase_jax_kernels(torch):
@@ -4076,6 +4124,439 @@ def phase_apps(torch):
         os.chdir(cwd)
 
 
+# ---------------------------------------------------------------------------
+# the CTC model, the legacy v1 models and the spline time warp
+# ---------------------------------------------------------------------------
+
+CTC_BATCH = 32
+CTC_STEPS = 5              # measured Adam steps (after one warm-up step)
+LEGACY_BATCH = 8           # the legacy joint's fp32 hidden is B·T·(U+1)·H
+LEGACY_STACK = 3           # MFCC_ frames stacked (ConcatFeature)
+PREFIX_BEAM = 8
+SPLINE_W = 80              # the legacy TimeWrap's warp parameter
+LEGACY_CHARS = 15.0        # characters a second of the synthetic texts
+
+
+def _utterances(torch, seed, n, lo=8.0, hi=16.0):
+    """n seeded synthetic utterances of lo..hi s → (audio (n, L) fp32
+    zero-padded, lengths (n,) int64), on the CPU."""
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    rng = np.random.RandomState(seed)
+    clips = [synthetic_audio(seed + i, rng.uniform(lo, hi))
+             for i in range(n)]
+    audio = np.zeros((n, max(len(c) for c in clips)), np.float32)
+    for i, c in enumerate(clips):
+        audio[i, :len(c)] = c
+    return (torch.from_numpy(audio),
+            torch.tensor([len(c) for c in clips], dtype=torch.int64))
+
+
+def _grad_rel(torch, got, want):
+    """max over tensors of max|got - want| / max|want|."""
+    return max(float((got[k] - g).abs().max())
+               / max(1e-30, float(g.abs().max())) for k, g in want.items())
+
+
+def _loss_and_grads(torch, model, loss_fn, *args):
+    model.zero_grad()
+    loss = loss_fn(model, *args)
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().cpu()
+                         for k, p in model.named_parameters()}
+
+
+def _token_gap(torch, logp_cpu, frame):
+    """The CPU's top-two log-prob gap at (batch row, frame)."""
+    top = torch.topk(logp_cpu[frame], 2).values
+    return float(top[0] - top[1])
+
+
+def phase_ctc(torch):
+    """The CTC model (models/ctc.py) at the JAX defaults: 4 x 600 LSTM,
+    projection 600, a time reduction after layer 1, input 240 (E6D2's 80
+    log-mels stacked 3 times, featurized by the port's pipeline on the
+    card), V=2048 as BPE-2048, batch 32 of 8-16 s synthetic utterances.
+    (1) One fp32 loss + gradient on cuda against the CPU port on the same
+    weights and batch (item 0's labels need more frames than it has: the
+    optax recursion's finite loss): each utterance's loss (ctc_losses on
+    the log-probs of a second forward) 1e-5 rel, the mean as a summary,
+    each gradient 1e-3 of its max.  (2) Greedy decode on cuda (TF32 off)
+    == the CPU's, tokens exact.  (3) Adam (the port's optim.py, lr 1e-3) in bf16 on the batch
+    with item 0's labels cut to fit: one warm-up step, then CTC_STEPS
+    measured (median step ms, audio s/s), the loss falling.  Launches:
+    K1 and K4 once per encoder layer a step, K1 per layer a decode; the
+    shapes are recorded (_recorded_shapes) for phase_legacy_kernels."""
+    from edgedict_tpu_torch import features as F
+    from edgedict_tpu_torch.models import ctc as C
+    from edgedict_tpu_torch.models.transducer import scale_length
+    from edgedict_tpu_torch.optim import Optimizer
+    dev = torch.device('cuda')
+    _, fcfg = _e6d2()
+    audio, alen = _utterances(torch, 160, CTC_BATCH)
+    with torch.no_grad():
+        xs, xlen = F.FeaturePipeline(fcfg, dev)(audio.to(dev), alen.to(dev))
+    STATE['ctc_feats'] = xs
+    cfg = C.CTCConfig(vocab_size=2048, input_size=fcfg.input_size)
+    require(cfg.input_size == 240 and (cfg.enc_layers, cfg.enc_hidden_size,
+                                       cfg.enc_proj_size) == (4, 600, 600),
+            f'CTC config {cfg}')
+    model = C.CTCModel(cfg, dev, seed=0)
+    cpu = C.CTCModel(cfg, 'cpu', seed=0)
+    t_enc = -(-xs.shape[1] // 2)
+    xlen_s = scale_length(cfg.encoder_cfg, xlen, xs.shape[1], t_enc).cpu()
+    rng = np.random.RandomState(161)
+    ylen = (alen.numpy() / 16000 * 3.5).astype(np.int64)   # ~BPE-2048
+    ylen[0] = int(xlen_s[0]) + 20                           # infeasible
+    ys = rng.randint(4, cfg.vocab_size, (CTC_BATCH, ylen.max()))
+    ys[np.arange(ys.shape[1])[None] >= ylen[:, None]] = 0
+    ys, ylen = torch.from_numpy(ys), torch.from_numpy(ylen)
+    need = C.ctc_frames_needed(ys, ylen)
+    require(bool(need[0] > xlen_s[0]) and bool((need[1:] <= xlen_s[1:]).all()),
+            'the CTC batch should hold exactly one infeasible item')
+    expect = STATE.setdefault('run_expect', {})
+    on = [a.to(dev) for a in (ys, xlen, ylen)]
+
+    _reset_launches()
+    with _legacy_shapes('ctc_parity'):
+        t0 = time.perf_counter()
+        l_gpu, g_gpu = _loss_and_grads(torch, model, C.ctc_loss, xs, *on)
+        torch.cuda.synchronize()
+        parity_ms = (time.perf_counter() - t0) * 1e3
+    STATE['launches_ctc_parity'] = _launches()
+    expect['ctc_parity'] = _expect(lstm_fwd=cfg.enc_layers,
+                                   lstm_bwd=cfg.enc_layers)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = _loss_and_grads(torch, cpu, C.ctc_loss, xs.cpu(), ys,
+                                   xlen.cpu(), ylen)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    grad_rel = _grad_rel(torch, g_gpu, g_cpu)
+    # each utterance's loss (the infeasible item's ~1e5 would set the mean)
+    per_utt = []
+    with torch.no_grad():
+        for m, x, args in ((model, xs, on), (cpu, xs.cpu(),
+                                             (ys, xlen.cpu(), ylen))):
+            logp = C.ctc_apply(m, x)
+            xl = scale_length(cfg.encoder_cfg, args[1], x.shape[1],
+                              logp.shape[1])
+            per_utt.append(C.ctc_losses(logp, xl, args[0], args[2],
+                                        cfg.blank).cpu())
+    utt_rel = ((per_utt[0] - per_utt[1]).abs() / per_utt[1].abs()).numpy()
+
+    _reset_launches()
+    with torch.no_grad(), _legacy_shapes('ctc_decode'):
+        seqs_gpu, neg_gpu = C.ctc_greedy_decode(model, xs, xlen)
+        torch.cuda.synchronize()
+    STATE['launches_ctc_decode'] = _launches()
+    expect['ctc_decode'] = _expect(lstm_fwd=cfg.enc_layers)
+    with torch.no_grad():
+        seqs_cpu, neg_cpu = C.ctc_greedy_decode(cpu, xs.cpu(), xlen.cpu())
+    differ = [i for i, (a, b) in enumerate(zip(seqs_gpu, seqs_cpu))
+              if not np.array_equal(a, b)]
+
+    # Adam in bf16 on the batch whose item 0 fits its frames
+    ylen_t = ylen.clone()
+    ylen_t[0] = int(xlen_s[0]) // 2
+    train = [xs.to(torch.bfloat16), ys.to(dev), xlen, ylen_t.to(dev)]
+    opt = Optimizer('adam')
+    params = dict(model.named_parameters())
+    ostate = [opt.init(params)]
+
+    def step():
+        model.zero_grad()
+        loss = C.ctc_loss(model, *train)
+        loss.backward()
+        updates, ostate[0] = opt.update(
+            {k: p.grad for k, p in params.items()}, ostate[0], params, 1e-3)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.add_(updates[k])
+        return loss.detach()
+
+    losses = [step().item()]                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _reset_launches()
+    with _legacy_shapes('ctc_train'):
+        for _ in range(CTC_STEPS):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+    STATE['launches_ctc_train'] = _launches()
+    expect['ctc_train'] = _expect(lstm_fwd=cfg.enc_layers * CTC_STEPS,
+                                  lstm_bwd=cfg.enc_layers * CTC_STEPS)
+    step_ms = statistics.median(times)
+    res = {'phase': 'ctc', 'B': CTC_BATCH, 'T': xs.shape[1],
+           'T_enc': t_enc, 'U_max': int(ylen.max()),
+           'audio_s': float(alen.sum()) / 16000,
+           'infeasible_items': 1, 'loss_cuda': l_gpu, 'loss_cpu': l_cpu,
+           'loss_rel': abs(l_gpu - l_cpu) / abs(l_cpu),
+           'utt_loss_max_rel': float(utt_rel.max()),
+           'utt_loss_max_rel_feasible': float(utt_rel[1:].max()),
+           'utt_loss_infeasible': float(per_utt[1][0]),
+           'grad_max_rel': grad_rel, 'parity_step_ms_cuda': parity_ms,
+           'parity_step_ms_cpu': cpu_ms,
+           'tokens_equal': not differ, 'rows_differing': differ,
+           'emitted_tokens': int(sum(len(s) for s in seqs_gpu)),
+           'neg_logp_rel': float(np.abs(neg_gpu - neg_cpu).max()
+                                 / np.abs(neg_cpu).max()),
+           'bf16_losses': losses, 'step_ms': step_ms, 'step_ms_all': times,
+           'audio_s_per_s': float(alen.sum()) / 16000 / step_ms * 1e3,
+           'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'bounds': 'each utterance\'s loss 1e-5 rel, each grad 1e-3 '
+                     'of its max, tokens '
+                     'exact, neg_logp 1e-4 rel, bf16 loss falling'}
+    if differ:
+        with torch.no_grad():
+            logp = C.ctc_apply(cpu, xs.cpu())
+        i = differ[0]
+        res['first_row_top2_gaps'] = sorted(
+            _token_gap(torch, logp[i], f) for f in range(int(xlen_s[i])))[:3]
+    emit(res)
+    require(res['utt_loss_max_rel'] <= 1e-5 and grad_rel <= 1e-3,
+            'the CTC loss or its gradients on cuda differ from the CPU')
+    require(not differ and res['neg_logp_rel'] <= 1e-4,
+            f'CTC greedy decode on cuda differs from the CPU in rows {differ}')
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f'CTC bf16 Adam steps did not lower the loss: {losses}')
+
+
+def _legacy_batch(torch, dev, tok):
+    """LEGACY_BATCH synthetic utterances of 8-16 s → MFCC_ with CMVN
+    (legacy_mfcc, normalize=True) per utterance on the card, each against
+    the CPU's; stacked LEGACY_STACK frames (ConcatFeature) → (xs (B, T,
+    120), xlen); labels: LegacyCharTokenizer ids of LEGACY_CHARS random
+    characters a second (BOS dropped) → (ys, ylen); and the MFCCs' largest
+    error relative to each utterance's largest magnitude."""
+    from edgedict_tpu_torch import features as F
+    from edgedict_tpu_torch.models import legacy as L
+    audio, alen = _utterances(torch, 170, LEGACY_BATCH)
+    feats, errs = [], []
+    for a, n in zip(audio, alen):
+        m = L.legacy_mfcc(a[:n].to(dev), normalize=True)
+        ref = L.legacy_mfcc(a[:n], normalize=True)
+        errs.append(float((m.cpu() - ref).abs().max() / ref.abs().max()))
+        feats.append(m)
+    t = max(f.shape[0] for f in feats)
+    mfcc = torch.zeros((len(feats), t, feats[0].shape[1]), device=dev)
+    for i, f in enumerate(feats):
+        mfcc[i, :f.shape[0]] = f
+    lens = torch.tensor([f.shape[0] for f in feats], device=dev)
+    xs, xlen = F.downsample_stack(mfcc, lens, LEGACY_STACK)
+    rng = np.random.RandomState(171)
+    chars = list('abcdefghijklmnopqrstuvwxyz      .,\'0123456789')
+    ids = [tok.encode(''.join(rng.choice(chars, int(n / 16000
+                                                   * LEGACY_CHARS))))[1:]
+           for n in alen.numpy()]
+    ylen = torch.tensor([len(i) for i in ids])
+    ys = torch.zeros((len(ids), int(ylen.max())), dtype=torch.int64)
+    for i, row in enumerate(ids):
+        ys[i, :len(row)] = torch.tensor(row)
+    return xs, xlen, ys, ylen, errs, audio, alen
+
+
+def phase_legacy(torch):
+    """The legacy v1 family (models/legacy.py) at width 600 on the card
+    against the CPU port on the same weights and inputs: the MFCC_
+    featurizer with CMVN (per utterance, 1e-4 of its largest magnitude),
+    stacked 3 into input 120; the legacy transducer (encoder 4 x 600 with
+    its 600 head, prediction net 1 x 600, vocab_embed_size 16, V=73 from
+    LegacyCharTokenizer.legacy_vocab_size) at batch LEGACY_BATCH of 8-16 s:
+    loss + gradients (K1/K4, the lattice's K9/K10; 1e-5 rel, each grad
+    1e-3 of its max) and the greedy decode (tokens exact; K1 at T=1 a
+    frame); RNNModel (4 x 600, V=73) with the CTC prefix beam search
+    (width PREFIX_BEAM) of two utterances: labels exact, -logp 1e-6 rel;
+    the spline time warp (features.time_warp method='spline', W=80) of the
+    CTC phase's (32, T, 80) log-mels on the card == its resample on the
+    same draws, and within the flow's fp32 error of the CPU's resample.
+    Each run's launches counted and its kernel shapes recorded."""
+    from edgedict_tpu_torch import features as F
+    from edgedict_tpu_torch.models import legacy as L
+    from edgedict_tpu_torch.ops import image_warp as W
+    from edgedict_tpu_torch.tokenizer import LegacyCharTokenizer
+    dev = torch.device('cuda')
+    tok = LegacyCharTokenizer()
+    xs, xlen, ys, ylen, mfcc_errs, _, alen = _legacy_batch(torch, dev, tok)
+    cfg = L.LegacyTransducerConfig(
+        input_size=xs.shape[2], vocab_size=tok.legacy_vocab_size(),
+        vocab_embed_size=16, hidden_size=600, num_layers=4)
+    model = L.LegacyTransducer(cfg, dev, seed=0)
+    cpu = L.LegacyTransducer(cfg, 'cpu', seed=0)
+    expect = STATE.setdefault('run_expect', {})
+    on = [a.to(dev) for a in (ys, xlen, ylen)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with _legacy_shapes('legacy_loss'):
+        t0 = time.perf_counter()
+        l_gpu, g_gpu = _loss_and_grads(torch, model, L.legacy_transducer_loss,
+                                       xs, *on)
+        torch.cuda.synchronize()
+        loss_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    STATE['launches_legacy_loss'] = _launches()
+    layers = cfg.num_layers + cfg.pred_num_layers
+    expect['legacy_loss'] = _expect(lstm_fwd=layers, lstm_bwd=layers,
+                                    lattice_alpha=1, lattice_beta_grad=1)
+    l_cpu, g_cpu = _loss_and_grads(torch, cpu, L.legacy_transducer_loss,
+                                   xs.cpu(), ys, xlen.cpu(), ylen)
+    grad_rel = _grad_rel(torch, g_gpu, g_cpu)
+
+    _reset_launches()
+    with torch.no_grad(), _legacy_shapes('legacy_decode'):
+        t0 = time.perf_counter()
+        y_gpu, neg_gpu = L.legacy_greedy_decode(model, xs, xlen)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+    STATE['launches_legacy_decode'] = _launches()
+    expect['legacy_decode'] = _expect(
+        lstm_fwd=cfg.num_layers + cfg.pred_num_layers * (1 + xs.shape[1]))
+    with torch.no_grad():
+        y_cpu, neg_cpu = L.legacy_greedy_decode(cpu, xs.cpu(), xlen.cpu())
+    tokens_equal = torch.equal(y_gpu.cpu(), y_cpu)
+
+    rnn = L.RNNModel(xs.shape[2], cfg.vocab_size, 600, 4, dev, seed=1)
+    rnn_cpu = L.RNNModel(xs.shape[2], cfg.vocab_size, 600, 4, 'cpu', seed=1)
+    _reset_launches()
+    with torch.no_grad(), _legacy_shapes('legacy_rnn'):
+        logits, _ = L.rnn_model_apply(rnn, xs)
+        torch.cuda.synchronize()
+    STATE['launches_legacy_rnn'] = _launches()
+    expect['legacy_rnn'] = _expect(lstm_fwd=4)
+    with torch.no_grad():
+        logits_cpu, _ = L.rnn_model_apply(rnn_cpu, xs.cpu())
+    beams = []
+    for i in range(2):
+        n = int(xlen[i])
+        got = L.ctc_prefix_beam_search(
+            torch.log_softmax(logits[i, :n], -1), PREFIX_BEAM)
+        want = L.ctc_prefix_beam_search(
+            torch.log_softmax(logits_cpu[i, :n], -1), PREFIX_BEAM)
+        beams.append({'labels_equal': got[0] == want[0],
+                      'labels': len(got[0]),
+                      'neg_logp_rel': abs(got[1] - want[1]) / abs(want[1])})
+
+    feat = STATE['ctc_feats'][..., :80].contiguous()
+    b, t, _ = feat.shape
+    g = torch.Generator(device=dev).manual_seed(172)
+    t0 = time.perf_counter()
+    warped = F.time_warp(feat, SPLINE_W, g, method='spline')
+    torch.cuda.synchronize()
+    warp_first_ms = (time.perf_counter() - t0) * 1e3
+    warp_ms = _median_ms(torch, lambda: F.time_warp(feat, SPLINE_W, g,
+                                                    method='spline'),
+                         iters=5, warmup=1)
+    g = torch.Generator(device=dev).manual_seed(172)
+    center = torch.randint(SPLINE_W, t - SPLINE_W, (b,), generator=g,
+                           device=dev)
+    shift = torch.randint(-SPLINE_W, SPLINE_W + 1, (b,), generator=g,
+                          device=dev)
+    again = W.time_warp_spline_resample(feat, center, shift)
+    ref = W.time_warp_spline_resample(feat.cpu(), center.cpu(), shift.cpu())
+    step = max(float(feat.diff(dim=1).abs().max()),
+               float(feat.diff(dim=2).abs().max()))
+    warp_tol = (1e-4 * (SPLINE_W + 1) + 1e-5) * step + 1e-5
+    warp_err = float((warped.cpu() - ref).abs().max())
+    res = {'phase': 'legacy', 'B': LEGACY_BATCH, 'T': xs.shape[1],
+           'input': xs.shape[2], 'U_max': int(ylen.max()),
+           'V': cfg.vocab_size, 'audio_s': float(alen.sum()) / 16000,
+           'mfcc_max_rel': max(mfcc_errs),
+           'loss_cuda': l_gpu, 'loss_cpu': l_cpu,
+           'loss_rel': abs(l_gpu - l_cpu) / abs(l_cpu),
+           'grad_max_rel': grad_rel, 'loss_step_ms': loss_ms,
+           'peak_gb': peak, 'decode_ms': decode_ms,
+           'tokens_equal': tokens_equal,
+           'emitted_share': float((y_gpu != 0).float().mean()),
+           'neg_logp_rel': float((neg_gpu.cpu() - neg_cpu).abs().max()
+                                 / neg_cpu.abs().max()),
+           'rnn_model_logits_max_abs': float((logits.cpu()
+                                              - logits_cpu).abs().max()),
+           'prefix_beam': beams, 'spline_B_T_F': [b, t, 80],
+           'spline_first_call_ms': warp_first_ms, 'spline_ms': warp_ms,
+           'spline_max_abs': warp_err,
+           'spline_tol': warp_tol,
+           'spline_equals_resample': torch.equal(warped, again),
+           'bounds': 'mfcc 1e-4 of max, loss 1e-5 rel, each grad 1e-3 of '
+                     'its max, tokens and prefix-beam labels exact, '
+                     'neg_logp 1e-4 rel (beam 1e-6), spline (1e-4 (W+1) '
+                     '+ 1e-5) x the largest neighbour step'}
+    emit(res)
+    require(max(mfcc_errs) <= 1e-4, 'legacy_mfcc on cuda differs')
+    require(res['loss_rel'] <= 1e-5 and grad_rel <= 1e-3,
+            'the legacy transducer loss or its gradients on cuda differ')
+    require(tokens_equal and res['neg_logp_rel'] <= 1e-4,
+            'the legacy greedy decode on cuda differs from the CPU')
+    require(res['rnn_model_logits_max_abs'] <= 1e-4
+            and all(x['labels_equal'] and x['neg_logp_rel'] <= 1e-6
+                    for x in beams), f'prefix beam search differs: {beams}')
+    require(res['spline_equals_resample'] and warp_err <= warp_tol
+            and float((warped - feat).abs().max()) > 1e-2,
+            'the spline time warp on cuda differs from the CPU')
+
+
+def phase_legacy_kernels(torch):
+    """Each kernel that the ctc and legacy phases launched (K1, K4, and the
+    lattice's K9 / K10) against its plain version at the shapes those runs
+    gave it (STATE['legacy_shapes']; H=600, each shape once): K1 fp32
+    (lstm_fwd_case) and bf16 held step by step (bf16_forward_case), K4
+    (lstm_bwd_case); K9 / K10 on seeded log-probs at the run's own
+    lengths (lattice_long_cases).  First each run's recorded calls are held
+    against its launch counts: the spies saw every launch.  Beside each
+    K1 / K4 shape, one cuDNN layer (layer_times, forward or forward +
+    backward) at each input width that the runs' layers of that shape had
+    (the CTC's 240 and 600, the legacy encoders' 120 and 600, the
+    prediction net's 16)."""
+    record, dev = STATE['record'], torch.device('cuda')
+    rng = np.random.RandomState(16)
+    logs_of = STATE['legacy_shapes']
+    readable = {run: {name: [[str(x) for x in key] for key in log['keys']]
+                      for name, log in logs.items() if log['calls']}
+                for run, logs in logs_of.items()}
+    emit({'phase': 'legacy_kernels', 'shapes': readable})
+    fwd, bwd, lattice, widths = {}, {}, {}, {}
+    for run, logs in logs_of.items():
+        n = STATE['launches_' + run]
+        calls = {name: logs[name]['calls'] for name in ('lstm_fwd',
+                                                        'lstm_bwd',
+                                                        'lattice')}
+        want = {'lstm_fwd': n['lstm_fwd'], 'lstm_bwd': n['lstm_bwd'],
+                'lattice': n['lattice_alpha']}
+        require(calls == want and n['lattice_beta_grad'] <= calls['lattice'],
+                f'{run}: recorded calls {calls}, launches {n}')
+        require(all(not logs[name]['calls'] for name in logs
+                    if name not in calls and name != 'lstm_layer'),
+                f'{run} called a kernel outside K1, K4, K9, K10')
+        for hid, b, t, n_in in logs['lstm_layer']['keys']:
+            widths.setdefault((hid, b, t), set()).add(n_in)
+        fwd.update(logs['lstm_fwd']['keys'])
+        bwd.update(logs['lstm_bwd']['keys'])
+        for key, lens in logs['lattice']['keys'].items():
+            lattice.setdefault(key, (lens, n['lattice_beta_grad'] > 0))
+    require(all(key[:3] in widths for key in (*fwd, *bwd)),
+            f'a K1 / K4 shape without its layer: {sorted(widths)}')
+    for hid, b, t, dt in fwd:
+        if dt == torch.bfloat16:
+            bf16_forward_case(torch, rng, dev, record, 'LSTM', b, t, None,
+                              hid=hid)
+        else:
+            lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt)
+    for hid, b, t, dt in bwd:
+        lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt)
+    for backward, keys in ((False, fwd), (True, bwd)):
+        for hid, b, t, dt in keys:
+            for n_in in sorted(widths[hid, b, t]):
+                emit({'phase': 'legacy_layer', 'H': hid, 'B': b, 'T': t,
+                      'dtype': str(dt).split('.')[-1], 'n_in': n_in,
+                      'backward': backward,
+                      **layer_times(torch, 'LSTM', hid, b, t, dt, backward,
+                                    n_in)})
+    for (b, t, u1), ((xlen, ylen), backward) in lattice.items():
+        lattice_long_cases(torch, rng, dev, record, b, t, u1, xlen, ylen,
+                           backward=backward)
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -4216,7 +4697,9 @@ def main():
               ('train_features', phase_train_features),
               ('jax_checkpoint', phase_jax_checkpoint),
               ('jax_kernels', phase_jax_kernels),
-              ('export', phase_export), ('apps', phase_apps))
+              ('export', phase_export), ('apps', phase_apps),
+              ('ctc', phase_ctc), ('legacy', phase_legacy),
+              ('legacy_kernels', phase_legacy_kernels))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

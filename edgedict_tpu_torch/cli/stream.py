@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from edgedict_tpu_torch.config import (
-    TRAIN_FLAGS, add_model_flags, feature_config_from_flags, parse_bool,
-    parse_flags, transducer_config_from_flags)
+    SERVE_REFUSED, TRAIN_FLAGS, add_model_flags, add_refused_flags,
+    feature_config_from_flags, parse_bool, parse_flags,
+    transducer_config_from_flags)
 from edgedict_tpu_torch.stream import resolve_device
 
 
@@ -51,6 +52,7 @@ def set_numerics():
 def build_parser(description):
     parser = argparse.ArgumentParser(description=description)
     add_model_flags(parser)
+    add_refused_flags(parser, SERVE_REFUSED)
     parser.add_argument('--device', default='cuda',
                         help="torch device: 'cuda' (default) or 'cpu'")
     parser.add_argument('--pt_path', default=None,

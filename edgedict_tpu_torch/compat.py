@@ -7,7 +7,9 @@ The port's module tree already has the reference state_dict key layout
 package's `transducer_from_state_dict`: it lets the tests hand both
 packages the same weights, and it reads the JAX package's checkpoints
 (jax_checkpoint.py) into the port; `optim_state_from_jax` carries their
-optax state over to the port's optimizer.
+optax state over to the port's optimizer.  The other models' converters
+(wav2vec, LM, CTC, the legacy v1 family) map their JAX params trees the
+same way.
 """
 
 import numpy as np
@@ -41,16 +43,23 @@ def _norm_sd(p, prefix):
     return {prefix + 'weight': _t(p['scale']), prefix + 'bias': _t(p['bias'])}
 
 
+def _lstm_sd(layers, prefix):
+    """A JAX recurrent stack's layers (ops/rnn.py lstm_init / gru_init
+    dicts) → torch nn.LSTM / nn.GRU keys `{prefix}{weight_ih, weight_hh,
+    bias_ih, bias_hh}_l{k}`."""
+    sd = {}
+    for k, layer in enumerate(layers):
+        for name, leaf in (('weight_ih', 'w_ih'), ('weight_hh', 'w_hh'),
+                           ('bias_ih', 'b_ih'), ('bias_hh', 'b_hh')):
+            sd[f'{prefix}{name}_l{k}'] = _t(layer[leaf])
+    return sd
+
+
 def _encoder_sd(enc):
     """The encoder's keys (`encoder.*`) of a JAX encoder params dict."""
     sd = _norm_sd(enc['norm'], 'encoder.norm.')
     for i, layer in enumerate(enc['layers']):
-        p = f'encoder.lstm.lstms.{i}.'
-        rnn = layer['rnn']
-        sd[p + 'weight_ih_l0'] = _t(rnn['w_ih'])
-        sd[p + 'weight_hh_l0'] = _t(rnn['w_hh'])
-        sd[p + 'bias_ih_l0'] = _t(rnn['b_ih'])
-        sd[p + 'bias_hh_l0'] = _t(rnn['b_hh'])
+        sd.update(_lstm_sd([layer['rnn']], f'encoder.lstm.lstms.{i}.'))
         sd.update(_norm_sd(layer['ln'], f'encoder.lstm.projs.{i}.0.'))
     sd.update(_linear_sd(enc['proj'], 'encoder.proj.'))
     return sd
@@ -89,11 +98,7 @@ def state_dict_from_jax_params(params):
 
     dec = params['decoder']
     sd['decoder.embed.weight'] = t(dec['embed']['table'])
-    for k, layer in enumerate(dec['lstm']['layers']):
-        sd[f'decoder.lstm.weight_ih_l{k}'] = t(layer['w_ih'])
-        sd[f'decoder.lstm.weight_hh_l{k}'] = t(layer['w_hh'])
-        sd[f'decoder.lstm.bias_ih_l{k}'] = t(layer['b_ih'])
-        sd[f'decoder.lstm.bias_hh_l{k}'] = t(layer['b_hh'])
+    sd.update(_lstm_sd(dec['lstm']['layers'], 'decoder.lstm.'))
     sd['decoder.proj.weight'] = t(dec['proj']['w'])
     sd['decoder.proj.bias'] = t(dec['proj']['b'])
 
@@ -136,21 +141,68 @@ def lm_state_dict_from_jax_params(params):
     """edgedict_tpu LM params (models/lm.py:lm_init; numpy or array-likes)
     → the state dict of the port's LMModel, fp32 CPU tensors: untied
     (`out`) or tied (`out_b`, the table as the output weight)."""
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
-    sd = {'embed.weight': t(params['embed']['table'])}
-    for k, layer in enumerate(params['lstm']['layers']):
-        sd[f'lstm.weight_ih_l{k}'] = t(layer['w_ih'])
-        sd[f'lstm.weight_hh_l{k}'] = t(layer['w_hh'])
-        sd[f'lstm.bias_ih_l{k}'] = t(layer['b_ih'])
-        sd[f'lstm.bias_hh_l{k}'] = t(layer['b_hh'])
+    sd = {'embed.weight': _t(params['embed']['table'])}
+    sd.update(_lstm_sd(params['lstm']['layers'], 'lstm.'))
     if 'out_b' in params:
-        sd['out_b'] = t(params['out_b'])
+        sd['out_b'] = _t(params['out_b'])
     else:
-        sd['out.weight'] = t(params['out']['w'])
-        sd['out.bias'] = t(params['out']['b'])
+        sd.update(_linear_sd(params['out'], 'out.'))
     return sd
+
+
+def ctc_state_dict_from_jax_params(params):
+    """edgedict_tpu CTC params (models/ctc.py:ctc_init) → the state dict of
+    the port's CTCModel, fp32 CPU tensors: `encoder.*` (the key layout of
+    state_dict_from_jax_params) and `tovocab.{weight, bias}`."""
+    sd = _encoder_sd(params['encoder'])
+    sd.update(_linear_sd(params['tovocab'], 'tovocab.'))
+    return sd
+
+
+def _residual_rnn_sd(p, prefix=''):
+    sd = _norm_sd(p['ln_in'], prefix + 'ln_in.')
+    for i, layer in enumerate(p['layers']):
+        sd.update(_lstm_sd([layer], f'{prefix}layers.{i}.'))
+    for i, ln in enumerate(p['lns']):
+        sd.update(_norm_sd(ln, f'{prefix}lns.{i}.'))
+    if 'head' in p:
+        sd.update(_linear_sd(p['head'], prefix + 'head.'))
+    return sd
+
+
+def legacy_state_dict_from_jax_params(params):
+    """edgedict_tpu legacy params (models/legacy.py) → the state dict of
+    the port's module, fp32 CPU tensors, by the tree's kind:
+    residual_rnn_init → ResidualRNN, residual_proj_init → ResidualProj,
+    rnn_model_init → RNNModel (`norm.{weight, bias, running_mean,
+    running_var}` from gamma, beta, mean, var), legacy_transducer_init →
+    LegacyTransducer (`encoder.*`, `embed.weight`, `decoder.*`, `fc1.*`,
+    `fc2.*`)."""
+    if 'fc1' in params:
+        sd = _residual_rnn_sd(params['encoder'], 'encoder.')
+        sd['embed.weight'] = _t(params['embed']['table'])
+        sd.update(_lstm_sd(params['decoder']['layers'], 'decoder.'))
+        sd.update(_linear_sd(params['fc1'], 'fc1.'))
+        sd.update(_linear_sd(params['fc2'], 'fc2.'))
+        return sd
+    if 'blocks' in params:
+        sd = {}
+        for i, blk in enumerate(params['blocks']):
+            p = f'blocks.{i}.'
+            sd.update(_lstm_sd([blk['rnn']], p + 'rnn.'))
+            sd.update(_linear_sd(blk['proj_out'], p + 'proj_out.'))
+            if 'proj_in' in blk:
+                sd.update(_linear_sd(blk['proj_in'], p + 'proj_in.'))
+        return sd
+    if 'norm' in params:
+        norm = params['norm']
+        sd = {'norm.weight': _t(norm['gamma']), 'norm.bias': _t(norm['beta']),
+              'norm.running_mean': _t(norm['mean']),
+              'norm.running_var': _t(norm['var'])}
+        sd.update(_lstm_sd(params['lstm']['layers'], 'lstm.'))
+        sd.update(_linear_sd(params['head'], 'head.'))
+        return sd
+    return _residual_rnn_sd(params)
 
 
 def transducer_from_state_dict(state_dict, cfg: TransducerConfig, device):

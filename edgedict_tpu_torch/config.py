@@ -169,6 +169,21 @@ REFUSED = (
     ('tp_size', int, (1,), '14, multi-GPU'),
     ('pp_size', int, (1,), '14, multi-GPU'),
 )
+# the same for the server's flags (root cli/serve.py:41 defines
+# --serve_dp_size, default 0): registered by the stream / serve parser
+SERVE_REFUSED = (
+    ('serve_dp_size', int, (0, 1), '14, multi-GPU'),
+)
+
+
+def add_refused_flags(parser, refused):
+    """Register the flags of `refused` at their first allowed value
+    (parse_flags checks them)."""
+    for name, typ, allowed, item in refused:
+        parser.add_argument(f'--{name}', type=typ, default=allowed[0],
+                            help=f'not ported yet (ROADMAP.md Queue 1 item '
+                                 f'{item}): only {allowed} are accepted')
+    return parser
 
 
 def add_model_flags(parser):
@@ -178,11 +193,7 @@ def add_model_flags(parser):
                         help='read flags from this file (absl syntax)')
     for name, typ, default in MODEL_FLAGS:
         parser.add_argument(f'--{name}', type=typ, default=default)
-    for name, typ, allowed, item in REFUSED:
-        parser.add_argument(f'--{name}', type=typ, default=allowed[0],
-                            help=f'not ported yet (ROADMAP.md Queue 1 item '
-                                 f'{item}): only the default is accepted')
-    return parser
+    return add_refused_flags(parser, REFUSED)
 
 
 def add_train_flags(parser):
@@ -264,7 +275,8 @@ def parse_flags(parser, argv):
     parse (parser.error: SystemExit 2) and names the flag."""
     flags = parser.parse_args(normalize_argv(expand_argv(list(argv)), parser))
     refused = [f'--{name}={getattr(flags, name)} (ROADMAP.md Queue 1 item '
-               f'{item})' for name, _, allowed, item in REFUSED
+               f'{item})'
+               for name, _, allowed, item in REFUSED + SERVE_REFUSED
                if getattr(flags, name, allowed[0]) not in allowed]
     if refused:
         parser.error('not ported yet, only the default is accepted: '

@@ -6,7 +6,8 @@ device the pipeline was built for.  The mel power stage is K2
 normalization, deltas and frame stacking stay plain tensor code.  With
 train=True and a torch.Generator, dither is added to the waveform, and
 the stacked features are time-warped (W_warp > 0, the linear warp) and
-then masked by SpecAugment.
+then masked by SpecAugment; time_warp(method='spline') is the legacy
+models' spline warp.
 
 The numpy constant builders (Hann window, Slaney/HTK mel filterbank, DCT)
 are copies of the JAX package's, so both packages featurize with the same
@@ -20,6 +21,7 @@ import torch
 
 from edgedict_tpu_torch.ops.features_kernel import (  # noqa: F401
     MelTables, frame_signal, mel_power, stft_power)
+from edgedict_tpu_torch.ops.image_warp import time_warp_spline_resample
 
 LOG_GUARD = 1e-20        # reference rnnt/features.py:130
 MFCC_LOG_GUARD = 1e-6    # torchaudio MFCC(log_mels=True) guard
@@ -207,12 +209,11 @@ def time_warp_resample(feat, center, shift):
 def time_warp(feat, warp_param, generator, method='linear'):
     """SpecAugment time warp on (B, T, F) (features.py:234-273): an anchor
     center ~ U[W, T-W) per sample moves by shift ~ U[-W, W], drawn from
-    `generator` on feat's device; T <= 2W+1 returns feat unchanged.  The
-    spline warp of the legacy models is not ported."""
-    if method == 'spline':
-        raise NotImplementedError(
-            "time_warp(method='spline') needs ops/image_warp.py, which is "
-            'not ported yet (ROADMAP.md, Queue 1 item 13)')
+    `generator` on feat's device; T <= 2W+1 returns feat unchanged.
+    method='linear' stretches the time axis piecewise linearly
+    (time_warp_resample); method='spline' is the legacy 2-D polyharmonic
+    warp (ops/image_warp.py time_warp_spline_resample, one boundary anchor
+    per edge), on the same draws."""
     b, t, _ = feat.shape
     if t <= 2 * warp_param + 1:
         return feat
@@ -220,6 +221,8 @@ def time_warp(feat, warp_param, generator, method='linear'):
                            generator=generator, device=feat.device)
     shift = torch.randint(-warp_param, warp_param + 1, (b,),
                           generator=generator, device=feat.device)
+    if method == 'spline':
+        return time_warp_spline_resample(feat, center, shift)
     return time_warp_resample(feat, center, shift)
 
 

@@ -1,5 +1,6 @@
 """Batched greedy transducer decode (counterpart of
-edgedict_tpu/models/decoding.py, greedy part).
+edgedict_tpu/models/decoding.py, greedy part), and the host-side CTC
+collapse of the CTC and legacy models.
 
 The frame loop is K3 (ops/decode_kernel.py: plain loop on CPU, the CUDA
 kernel on CUDA) with per-frame max log-probs.  Emitted sequences keep
@@ -7,6 +8,7 @@ blanks in place, one slot per frame, like the reference
 (rnnt/models.py:243-269).
 """
 
+import numpy as np
 import torch
 
 from edgedict_tpu_torch.models import transducer as T
@@ -40,3 +42,22 @@ def greedy_decode_from_encoder(model, cfg, h_enc, cache=None):
         h_dec0[:, 0].float().contiguous(), hs, cs, int(cfg.blank), None,
         emit_logp=True)
     return tokens.t(), -logp.sum(dim=0)
+
+
+def ctc_greedy_decode_postprocess(y_seq, logprob, xlen, blank=0):
+    """Host-side CTC collapse (decoding.py:101 of the JAX package;
+    reference CTCEncoder.greedy_decode, rnnt/models.py:294-310): per
+    sample, keep frames < xlen, drop consecutive repeats, then blanks.
+    y_seq / logprob (B, T) (tensors or arrays), xlen (B,) → (list of 1-D
+    int arrays, neg_logp (B,) = -sum of the kept frames' log-probs)."""
+    y_seq, logprob, xlen = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                            for x in (y_seq, logprob, xlen))
+    seqs, neg_logp = [], []
+    for seq, lp, n in zip(y_seq, logprob, xlen):
+        seq, lp = seq[:int(n)], lp[:int(n)]
+        unique = np.ones(len(seq), dtype=bool)
+        unique[1:] = seq[1:] != seq[:-1]
+        mask = unique & (seq != blank)
+        seqs.append(seq[mask])
+        neg_logp.append(-lp[mask].sum())
+    return seqs, np.asarray(neg_logp)

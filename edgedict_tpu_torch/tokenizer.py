@@ -17,12 +17,14 @@ natively through `_native.py` when `make -C native` has built
 `libchar_bpe.so` / `libbpe_trainer.so`, with identical results; without
 them the pure-Python paths run.  Training prefers the HF rust trainer when
 the `tokenizers` package is importable.  The legacy v1 id scheme
-(<blank>=0, <bos>=1, <unk>=2) is detected on load.
+(<blank>=0, <bos>=1, <unk>=2) is detected on load; LegacyCharTokenizer is
+the v1 character tokenizer of the legacy models (models/legacy.py).
 """
 
 import json
 import os
 import pickle
+import string
 import unicodedata
 
 NUL = 0   # blank
@@ -103,6 +105,62 @@ class CharTokenizer:
 
     def id_to_token(self, idx):
         return self.id2token[int(idx)]
+
+
+class LegacyCharTokenizer:
+    """v1 character tokenizer (tokenizer.py:108 of the JAX package;
+    reference modules/tokenizer.py:33-74), the same ids.
+
+    v1 id scheme: <blank>=0, <bos>=1, <unk>=2, characters from id 4 (id 3
+    is never assigned).  encode() prepends BOS and maps out-of-vocab
+    characters to BOS; decode() drops unknown ids and special tokens.  The
+    charset is ASCII lowercase + punctuation + space + digits.
+
+    Kept as the JAX class has it: `vocab_size` counts the 72 entries of
+    token2id, but with id 3 unassigned the last character, '9', encodes to
+    id 72 (encode('a9') == [1, 4, 72]).  A model sized by vocab_size has
+    no row for '9'; legacy_vocab_size() (max id + 1 = 73) sizes one that
+    has.
+    """
+
+    def __init__(self):
+        valid = (string.ascii_lowercase + string.punctuation
+                 + ' 0123456789')
+        self.token2id = {'<blank>': 0, '<bos>': 1, '<unk>': 2}
+        for idx, token in enumerate(valid):
+            self.token2id[token] = idx + 4
+        self.id2token = {i: t for t, i in self.token2id.items()}
+        self.vocab_size = len(self.token2id)
+
+    def __str__(self):
+        return 'LegacyCharTokenizer'
+
+    def encode(self, text, max_length=-1):
+        text = str(text).lower()
+        if max_length > 1:
+            text = text[:max_length]
+        return [1] + [self.token2id.get(ch, 1) for ch in text]
+
+    def decode(self, tokens):
+        text = ''.join(self.id2token.get(int(t), '') for t in tokens)
+        for tok in ('<pad>', '<blank>', '<eos>', '<bos>', '<unk>'):
+            text = text.replace(tok, '')
+        return text
+
+    def decode_plus(self, token_batch):
+        return [self.decode(tokens) for tokens in token_batch]
+
+    @property
+    def unk_id(self):
+        return 2
+
+    def id_to_token(self, idx):
+        return self.id2token.get(int(idx), '')
+
+    def legacy_vocab_size(self):
+        """Rows a legacy model needs for every id encode() can give: the
+        largest id + 1 (73; vocab_size is 72, see the class note)."""
+        return max(self.token2id.values()) + 1
 
 
 class CharBPE:

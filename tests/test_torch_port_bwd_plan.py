@@ -25,7 +25,7 @@ def resident_blocks_per_sm(smem, regs_per_thread=128):
 
 
 SHAPES = [(1024, 4), (1024, 3), (256, 4), (1030, 4), (1030, 3), (40, 3),
-          (40, 4), (16, 4), (16, 3), (64, 4)]
+          (40, 4), (16, 4), (16, 3), (64, 4), (600, 4)]
 
 
 def _plan(hid, gates, batch, elem):
@@ -80,3 +80,14 @@ def test_grid_not_co_resident_raises():
 def test_degenerate_shapes_raise(hid, gates, batch, elem):
     with pytest.raises(ValueError, match=f'H={hid}'):
         P.chain_plan(hid, gates, batch, elem, H100_SMS, 1)
+
+
+@pytest.mark.parametrize('batch', [1, 8, 32])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_chain_plan_at_the_legacy_and_ctc_width(batch, elem):
+    """The CTC and legacy models' H=600: 75 chain blocks, co-resident on
+    the H100, each holding its 2400 gate rows of W_hh (a multiple of 32)."""
+    plan = _plan(600, 4, batch, elem)
+    assert plan.blocks == 75 <= H100_SMS
+    assert plan.smem == P.chain_smem_bytes(600, 4, batch, elem)
+    assert plan.smem >= 2400 * P.UNITS * elem

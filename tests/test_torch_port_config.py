@@ -173,3 +173,32 @@ def test_an_ignored_flag_takes_its_value_along():
                                       '3'])
         assert (flags.pt_path, flags.enc_layers) == ('x.pt', 3)
         assert not hasattr(flags, 'name') and not hasattr(flags, 'lr')
+
+
+@pytest.mark.parametrize('value', ['0', '1'])
+@pytest.mark.parametrize('cli', ['stream', 'serve'])
+def test_serve_dp_size_asking_for_one_device_parses(cli, value):
+    """--serve_dp_size (root cli/serve.py:41, default 0) is registered by
+    the stream / serve parser: 0 and 1 ask for one device and parse."""
+    for argv in ([f'--serve_dp_size={value}'], ['--serve_dp_size', value]):
+        flags = C.parse_flags(PARSERS[cli](), [
+            f'--flagfile={REPO}/flagfiles/E6D2.txt', *argv])
+        assert flags.serve_dp_size == int(value)
+    flags = C.parse_flags(PARSERS[cli](), [
+        f'--flagfile={REPO}/flagfiles/E6D2.txt'])
+    assert flags.serve_dp_size == 0
+
+
+@pytest.mark.parametrize('value', ['2', '8'])
+@pytest.mark.parametrize('cli', ['stream', 'serve'])
+def test_serve_dp_size_over_one_is_refused(capsys, cli, value):
+    """Sharded serving is Queue 1 item 14: --serve_dp_size > 1 stops the
+    parse naming the flag and the item, as --dp_size 2 does."""
+    with pytest.raises(SystemExit) as exc:
+        C.parse_flags(PARSERS[cli](), [
+            f'--flagfile={REPO}/flagfiles/E6D2.txt', '--serve_dp_size',
+            value])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert f'--serve_dp_size={value}' in err
+    assert 'Queue 1 item 14' in err

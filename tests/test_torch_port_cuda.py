@@ -58,6 +58,11 @@ def _max_abs(a, b):
     (256, 256, 2, torch.bfloat16), (512, 8, 4, torch.bfloat16),
     (512, 33, 2, torch.float32), (1024, 4, 1, torch.bfloat16),
     (1024, 1, 2, torch.bfloat16), (1030, 11, 3, torch.bfloat16),
+    # the CTC and legacy models' H=600 (not a multiple of the bf16 mma's
+    # K of 16) over hundreds of steps, and the legacy greedy decode's T=1
+    (600, 32, 214, torch.float32), (600, 32, 214, torch.bfloat16),
+    (600, 1, 214, torch.float32), (600, 1, 214, torch.bfloat16),
+    (600, 8, 1, torch.float32),
 ])
 def test_k1_lstm_fwd_matches_plain(cuda, hid, b, t, dtype):
     g = torch.Generator(device='cpu').manual_seed(hid + b + t)
@@ -337,6 +342,10 @@ BWD_CASES = [
     (1030, 11, 3, torch.bfloat16, 'all'), (40, 5, 7, torch.bfloat16, 'dys'),
     (1024, 8, 6, torch.float32, 'dys'), (1024, 8, 6, torch.bfloat16, 'dhT'),
     (64, 33, 4, torch.float32, 'dhT'),
+    # the CTC and legacy models' H=600 over hundreds of steps
+    (600, 32, 214, torch.float32, 'all'),
+    (600, 32, 214, torch.bfloat16, 'all'),
+    (600, 1, 214, torch.float32, 'all'), (600, 1, 214, torch.bfloat16, 'all'),
 ]
 
 
@@ -1644,3 +1653,107 @@ def test_export_and_reload_on_cuda(cuda, tmp_path, quantize):
     with pytest.raises(ValueError, match="exported for 'cuda'"):
         E.ExportedStreamDecoder(out, F.FeaturePipeline(feat, 'cpu'), Tok(),
                                 device='cpu')
+
+
+def test_ctc_step_and_decode_cuda_match_cpu(cuda):
+    """A small CTC model (models/ctc.py) on CUDA against the CPU from the
+    same weights and batch, one utterance whose labels need more frames
+    than it has among them: each utterance's loss 1e-5 rel (the
+    infeasible one's ~1e5 would set the mean), gradients within 1e-3 of
+    their largest entry, K1 and K4 once per encoder layer; greedy tokens
+    equal."""
+    from edgedict_tpu_torch.models import ctc as C
+    from edgedict_tpu_torch.ops import rnn_kernel as K
+    cfg = C.CTCConfig(vocab_size=40, input_size=24, enc_hidden_size=64,
+                      enc_layers=3, enc_proj_size=48)
+    rng = np.random.RandomState(0)
+    xs = rng.randn(4, 30, 24).astype(np.float32)
+    ys = rng.randint(1, 40, (4, 18)).astype(np.int32)
+    xlen = np.array([30, 26, 30, 21])
+    ylen = np.array([8, 5, 18, 3])            # item 2: 18 labels, 15 frames
+    res = []
+    for dev in ('cpu', cuda):
+        model = C.CTCModel(cfg, dev, seed=2)
+        args = [torch.as_tensor(a, device=dev) for a in (xs, ys, xlen, ylen)]
+        counts = (K.lstm_recurrence.launches, K.lstm_recurrence_bwd.launches)
+        loss = C.ctc_loss(model, *args)
+        loss.backward()
+        counts = (K.lstm_recurrence.launches - counts[0],
+                  K.lstm_recurrence_bwd.launches - counts[1])
+        with torch.no_grad():
+            seqs, _ = C.ctc_greedy_decode(model, args[0], args[2])
+            logp = C.ctc_apply(model, args[0])
+            xl = T.scale_length(cfg.encoder_cfg, args[2], xs.shape[1],
+                                logp.shape[1])
+            per_utt = C.ctc_losses(logp, xl, args[1], args[3]).cpu()
+        res.append((loss.item(), counts, seqs, per_utt,
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (l0, c0, s0, u0, g0), (l1, c1, s1, u1, g1) = res
+    assert c0 == (0, 0) and c1 == (cfg.enc_layers, cfg.enc_layers)
+    assert l0 > 1e5 / 4 and float(u0[2]) > 1e5
+    assert abs(float(u0.mean()) - l0) <= 1e-6 * abs(l0)
+    for i in range(len(xlen)):
+        assert abs(float(u1[i] - u0[i])) <= 1e-5 * abs(float(u0[i])), i
+    for k, v in g0.items():
+        assert _max_abs(g1[k], v) <= 1e-3 * float(v.abs().max()) + 1e-7, k
+    assert all(np.array_equal(a, b) for a, b in zip(s0, s1))
+
+
+def test_legacy_transducer_cuda_matches_cpu(cuda):
+    """A small legacy transducer (models/legacy.py, H=600 as the legacy
+    family's width) on CUDA against the CPU: loss 1e-5 rel and gradients
+    within 1e-3 of their largest entry, through K1/K4 and the lattice's
+    K9/K10; its greedy decode's tokens equal, K1 at T=1 each frame."""
+    from edgedict_tpu_torch.models import legacy as L
+    from edgedict_tpu_torch.ops import rnn_kernel as K
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+    cfg = L.LegacyTransducerConfig(input_size=20, vocab_size=73,
+                                   vocab_embed_size=16, hidden_size=600,
+                                   num_layers=2)
+    rng = np.random.RandomState(1)
+    xs = rng.randn(3, 40, 20).astype(np.float32)
+    ys = rng.randint(4, 73, (3, 12)).astype(np.int32)
+    xlen = np.array([40, 33, 37])
+    ylen = np.array([12, 7, 0])
+    res = []
+    for dev in ('cpu', cuda):
+        model = L.LegacyTransducer(cfg, dev, seed=4)
+        args = [torch.as_tensor(a, device=dev) for a in (xs, ys, xlen, ylen)]
+        before = (K.lstm_recurrence.launches, KL.lattice_alpha.launches,
+                  KL.lattice_beta_grad.launches)
+        loss = L.legacy_transducer_loss(model, *args)
+        loss.backward()
+        counts = (K.lstm_recurrence.launches - before[0],
+                  KL.lattice_alpha.launches - before[1],
+                  KL.lattice_beta_grad.launches - before[2])
+        with torch.no_grad():
+            y_seq, neg = L.legacy_greedy_decode(model, args[0], args[2])
+        res.append((loss.item(), counts, y_seq.cpu(), neg.cpu(),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (l0, c0, y0, n0, g0), (l1, c1, y1, n1, g1) = res
+    assert c0 == (0, 0, 0) and c1 == (cfg.num_layers + 1, 1, 1)
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for k, v in g0.items():
+        assert _max_abs(g1[k], v) <= 1e-3 * float(v.abs().max()) + 1e-7, k
+    assert torch.equal(y0, y1)
+    assert _max_abs(n1, n0) <= 1e-4 * float(n0.abs().max())
+
+
+def test_spline_time_warp_cuda_matches_cpu(cuda):
+    """features.time_warp(method='spline') on a (32, 427, 80) batch on
+    CUDA (cuSOLVER's fp32 solve) against the CPU's resample on the same
+    draws, within the flow's fp32 error (1e-4 of W + 1e-5) times the
+    largest neighbour step."""
+    from edgedict_tpu_torch.ops import image_warp as W
+    w = 80
+    feat = torch.randn(32, 427, 80, generator=torch.Generator().manual_seed(5))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    out = F.time_warp(feat.to(cuda), w, g, method='spline')
+    g = torch.Generator(device=cuda).manual_seed(9)
+    center = torch.randint(w, 427 - w, (32,), generator=g, device=cuda)
+    shift = torch.randint(-w, w + 1, (32,), generator=g, device=cuda)
+    ref = W.time_warp_spline_resample(feat, center.cpu(), shift.cpu())
+    step = max(float(feat.diff(dim=1).abs().max()),
+               float(feat.diff(dim=2).abs().max()))
+    assert _max_abs(out.cpu(), ref) <= (1e-4 * (w + 1) + 1e-5) * step + 1e-5
+    assert _max_abs(out.cpu(), feat) > 1e-2

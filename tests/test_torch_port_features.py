@@ -1,7 +1,9 @@
 """Port featurizer (edgedict_tpu_torch/features.py, K2's plain version in
 ops/features_kernel.py) == the JAX featurizer: the XLA stft path and the
 Pallas mel-power kernel in interpret mode, on the same numpy audio; the
-linear time warp == JAX's resample exactly, given JAX's draws."""
+linear time warp == JAX's resample exactly, given JAX's draws, and the
+spline warp == JAX's on the same draws (to the scale of its fp32 spline
+solve, tests/test_torch_port_image_warp.py)."""
 
 import numpy as np
 import pytest
@@ -175,5 +177,18 @@ def test_time_warp_resample_equals_jax(b, t, w):
     b2 = PF.time_warp(torch.from_numpy(feat),
                       w, torch.Generator().manual_seed(1))
     assert torch.equal(a, b2)
-    with pytest.raises(NotImplementedError, match='image_warp'):
-        PF.time_warp(torch.from_numpy(feat), w, g, method='spline')
+    # the legacy spline warp on the same draws == JAX's time_warp(method=
+    # 'spline'), the flow's fp32 error times the largest neighbour step
+    from edgedict_tpu_torch.ops.image_warp import time_warp_spline_resample
+    ref_s = np.asarray(JF.time_warp(key, jnp.asarray(feat), w,
+                                    method='spline'))
+    out_s = time_warp_spline_resample(torch.from_numpy(feat),
+                                      torch.from_numpy(center),
+                                      torch.from_numpy(shift))
+    step = max(np.abs(np.diff(feat, axis=1)).max(),
+               np.abs(np.diff(feat, axis=2)).max())
+    np.testing.assert_allclose(out_s.numpy(), ref_s, 0,
+                               (1e-4 * (w + 1) + 1e-5) * step + 1e-5)
+    spline = PF.time_warp(torch.from_numpy(feat), w,
+                          torch.Generator().manual_seed(1), method='spline')
+    assert spline.shape == feat.shape and not torch.equal(spline, a)

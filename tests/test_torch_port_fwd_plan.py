@@ -31,7 +31,7 @@ def _plan(hid, gates, batch, elem):
                       resident_blocks_per_sm(smem))
 
 
-@pytest.mark.parametrize('hid', [16, 40, 64, 256, 512, 1024, 1030])
+@pytest.mark.parametrize('hid', [16, 40, 64, 256, 512, 600, 1024, 1030])
 @pytest.mark.parametrize('gates', [3, 4])
 @pytest.mark.parametrize('batch', [1, 5, 11, 32, 33, 256])
 @pytest.mark.parametrize('elem', [2, 4])
@@ -259,3 +259,15 @@ def test_int8_prologue_bank_spread_at_either_gate_count(gates, elem):
     for quarter in range(0, 64, 8):
         units = [first % 8 for _, first in items[quarter:quarter + 8]]
         assert sorted(units) == list(range(8))
+
+
+@pytest.mark.parametrize('batch', [1, 8, 32])
+@pytest.mark.parametrize('elem', [2, 4])
+def test_plan_at_the_legacy_and_ctc_width(batch, elem):
+    """The CTC and legacy models' H=600 (not a multiple of the bf16 mma's
+    K of 16: the slice is padded to 608): 75 blocks, all co-resident on
+    the H100 at one block an SM."""
+    plan = _plan(600, 4, batch, elem)
+    assert plan.blocks == 75 <= H100_SMS
+    assert plan.smem == P.fwd_smem_bytes(600, 4, batch, elem)
+    assert plan.smem >= 608 * 4 * P.UNITS * elem

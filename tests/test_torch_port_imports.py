@@ -60,7 +60,8 @@ def test_importing_the_port_adds_no_jax_module():
         'ops.layers', 'ops.rnn', 'ops.rnn_kernel', 'ops.gru_kernel',
         'ops.quant', 'ops.features_kernel',
         'ops.decode_kernel', 'ops.rnnt_loss', 'ops.rnnt_loss_kernel',
-        'ops.joint_lse_kernel', 'models.transducer', 'models.decoding',
+        'ops.joint_lse_kernel', 'ops.image_warp', 'models.transducer',
+        'models.decoding', 'models.ctc', 'models.legacy',
         'models.lm', 'models.beam_search', 'cli.train_lm',
         'models.wav2vec', 'pretrainer', 'raw_trainer', 'cli.train',
         'cli.pretrain_wav2vec',
@@ -247,3 +248,26 @@ def test_stream_client_wire_format_round_trips(server_pkg, client_pkg,
         th.join(30)
     assert out == [_echo_expected(a) for a in audios]
     assert all(out)
+
+
+def test_pyproject_ships_every_port_package_and_kernel_source():
+    """pyproject.toml names every package of edgedict_tpu_torch/ (each
+    directory holding an __init__.py) and its package data covers every
+    kernel source and header that _build compiles and hashes."""
+    import fnmatch
+    import tomllib
+
+    from edgedict_tpu_torch import _build
+    with open(os.path.join(REPO, 'pyproject.toml'), 'rb') as f:
+        tool = tomllib.load(f)['tool']['setuptools']
+    root = os.path.join(REPO, 'edgedict_tpu_torch')
+    have = {os.path.relpath(d, REPO).replace(os.sep, '.')
+            for d, _, files in os.walk(root) if '__init__.py' in files}
+    assert {'edgedict_tpu_torch', 'edgedict_tpu_torch.data'} <= have
+    named = {p for p in tool['packages']
+             if p.split('.')[0] == 'edgedict_tpu_torch'}
+    assert named == have
+    globs = tool['package-data']['edgedict_tpu_torch']
+    for name in _build.SOURCES + _build.HEADERS:
+        assert os.path.exists(os.path.join(_build.CSRC, name)), name
+        assert any(fnmatch.fnmatch('csrc/' + name, g) for g in globs), name

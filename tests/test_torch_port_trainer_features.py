@@ -39,6 +39,23 @@ def _sd():
     return {'w': torch.arange(12.0).reshape(3, 4), 'b': torch.ones(4)}
 
 
+def _drain_writer():
+    """Block until the background writer has finished every queued write
+    (its error, if one failed, is then recorded; nothing is raised)."""
+    if C._WRITER is not None:
+        C._WRITER._q.join()
+
+
+@pytest.fixture(autouse=True)
+def _fresh_writer():
+    """After each test: drain the writer and drop an error it left, so a
+    failed test's write cannot fail the next test's first submit."""
+    yield
+    _drain_writer()
+    if C._WRITER is not None:
+        C._WRITER._error = None
+
+
 # ---------------------------------------------------------------------------
 # background checkpoint writes
 # ---------------------------------------------------------------------------
@@ -90,8 +107,10 @@ def test_background_write_error_propagates(tmp_path, monkeypatch):
     C.save_checkpoint(str(tmp_path / 'x'), 1, _sd(), background=True)
     with pytest.raises(RuntimeError, match='background checkpoint'):
         C.wait_for_checkpoints()
-    # a failed write also surfaces at the next submit
+    # a failed write also surfaces at the next submit, once the writer has
+    # recorded it (the submit itself does not wait for earlier writes)
     C.save_checkpoint(str(tmp_path / 'x'), 2, _sd(), background=True)
+    _drain_writer()
     with pytest.raises(RuntimeError, match='background checkpoint'):
         C.save_checkpoint(str(tmp_path / 'y'), 3, _sd(), background=True)
     C.wait_for_checkpoints()
