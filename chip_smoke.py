@@ -218,7 +218,24 @@ Phases, each printing JSON or text lines:
              greedy decode's T=1), each beside one cuDNN layer at each
              input width its layers had (recorded with the shapes),
              K9 / K10 at the legacy lattice
- 28 launches every kernel launched by the main paths themselves: the counts
+ 28 surface  the JAX-free featurizers (Queue 1 item 13b) on the card:
+             NvidiaFilterbankFeatures and SpectrogramFeatures (plain
+             torch.fft) at B=4 x 16 s, 64 filters, fp32, against the CPU
+             (max abs 1e-3 / 2e-2 on log features); build_transform's test
+             pipeline at E6D2's features (K2, one launch) against plain
+ 29 dp_train (a) two ranks spawned on cuda:0 over gloo run the shared fp32
+             train step at full-width E6D2, 8 rows a rank, 3 Adam steps:
+             both ranks' parameters bit-equal, and equal to one process
+             over the 16 rows with accum_steps=2 (rtol 1e-4 / atol 1e-5),
+             the losses too; (b) python -m torch.distributed.run
+             --standalone --nproc_per_node 1 -m
+             edgedict_tpu_torch.cli.distributed (NCCL) on train_run's
+             corpus: 3 steps, one eval, rank 0's checkpoint loads
+ 30 server_dp  MultiStreamDecoder and MultiStreamBeamDecoder (W=4) at E6D2,
+             fp32 and int8, 8 streams over devices=[cuda:0, cuda:0] (two
+             replicas) against one device: tokens bit-equal, round ms of
+             both; cli.serve --serve_dp_size 2 exits 2 on one card
+ 31 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -251,7 +268,11 @@ Phases, each printing JSON or text lines:
              per layer; the legacy loss: K1 and K4 per encoder and
              prediction-net layer, one K9 and one K10; its decode: K1 per
              encoder layer, once for the BOS priming and once a frame;
-             RNNModel: K1 per layer)
+             RNNModel: K1 per layer); surface's one K2; each dp rank what its
+             3 micro-steps imply (as train_run); the sharded servers'
+             rounds what two replicas of 4 streams imply (per round and
+             replica: K2, the encoder's kernels as the decodes, K3 for
+             greedy, the beam's K1 a frame as the beam runs))
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -259,6 +280,7 @@ non-zero; without a CUDA card nothing runs.
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -4557,6 +4579,433 @@ def phase_legacy_kernels(torch):
                            backward=backward)
 
 
+
+# ---------------------------------------------------------------------------
+# the JAX-free surface, data parallelism and sharded serving
+# ---------------------------------------------------------------------------
+
+SURFACE_BATCH = 4
+SURFACE_SECONDS = 16.0
+# cuFFT against the CPU's pocketfft, both fp32, on log features: the
+# filterbank's (64 mel sums) within 1e-3, the log magnitude spectrogram's
+# within 2e-2 (its bins near the noise floor carry the fp32 STFT's
+# rounding into the log: 2.1e-3 against fp64 on the CPU); build_transform's
+# log-mel at JAX's own Pallas-vs-XLA bound (tests/test_features.py:213)
+SURFACE_ATOL = {'NvidiaFilterbankFeatures': 1e-3, 'SpectrogramFeatures': 2e-2}
+LOG_MEL_RTOL, LOG_MEL_ATOL = 1e-3, 5e-3
+
+
+def phase_surface(torch):
+    """The JAX-free featurizers of Queue 1 item 13b on the card:
+    NvidiaFilterbankFeatures and SpectrogramFeatures (plain torch.fft) on
+    cuda against the CPU at B=4 x 16 s, 64 filters, fp32 (TF32 off); and
+    build_transform's test pipeline at E6D2's features on cuda (K2, one
+    launch, counted) against its plain version on the CPU."""
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    from edgedict_tpu_torch.data import nvidia_features as NV
+    from edgedict_tpu_torch.features import build_transform
+    n = int(SURFACE_SECONDS * 16000)
+    audio = torch.as_tensor(np.stack([synthetic_audio(200 + i,
+                                                      SURFACE_SECONDS)
+                                      for i in range(SURFACE_BATCH)]))
+    lens = torch.tensor([n, n - 16000, n - 56000, n - 96000])
+    res = {'phase': 'surface', 'B': SURFACE_BATCH,
+           'seconds': SURFACE_SECONDS}
+    cfg = NV.NvidiaFeatConfig(sample_rate=16000, window_size=0.02,
+                              window_stride=0.01, nfilt=64, dither=0.0,
+                              pad_to=8)
+    audio_dev, lens_dev = audio.cuda(), lens.cuda()
+    for name in SURFACE_ATOL:
+        feat = getattr(NV, name)(cfg)
+        want = feat(audio, lens)
+        dev = feat.to('cuda')
+        got = dev(audio_dev, lens_dev)
+        ms = _median_ms(torch, lambda: dev(audio_dev, lens_dev))
+        err = float((got.cpu() - want).abs().max())
+        res[name] = {'shape': list(got.shape), 'max_abs_err': err,
+                     'atol': SURFACE_ATOL[name], 'ms': ms,
+                     'finite': bool(torch.isfinite(got).all())}
+        require(got.shape == want.shape and res[name]['finite']
+                and err <= SURFACE_ATOL[name],
+                f'{name} on cuda differs from the CPU: {res[name]}')
+    _, e6d2 = _e6d2_train_cfg()
+    kw = dict(feature_type=e6d2.feature_type,
+              feature_size=e6d2.feature_size, n_fft=e6d2.n_fft,
+              win_length=e6d2.win_length, hop_length=e6d2.hop_length,
+              downsample=e6d2.downsample)
+    _, test_cpu, size = build_transform(device='cpu', **kw)
+    _, test_cuda, _ = build_transform(device='cuda', **kw)
+    want, want_len = test_cpu(audio, lens)
+    _reset_launches()
+    got, got_len = test_cuda(audio_dev, lens_dev)
+    torch.cuda.synchronize()
+    STATE['launches_surface'] = _launches()
+    STATE.setdefault('run_expect', {})['surface'] = _expect(mel_power=1)
+    close = torch.isclose(got.cpu(), want, rtol=LOG_MEL_RTOL,
+                          atol=LOG_MEL_ATOL)
+    res['build_transform'] = {
+        'features': 'E6D2 logfbank 80 x 3 stacked', 'input_size': size,
+        'shape': list(got.shape),
+        'max_abs_err': float((got.cpu() - want).abs().max()),
+        'rtol': LOG_MEL_RTOL, 'atol': LOG_MEL_ATOL,
+        'lengths_equal': bool(torch.equal(got_len.cpu(), want_len))}
+    emit(res)
+    require(bool(close.all()) and res['build_transform']['lengths_equal']
+            and got.shape[-1] == size,
+            f'build_transform on cuda differs from plain: '
+            f'{res["build_transform"]}')
+
+
+DP_RANKS = 2
+DP_ROWS = 8               # rows a rank
+DP_STEPS = 3
+DP_LRS = (5e-4, 4e-4, 3e-4)
+# the two ranks' parameters after the steps against the one-process run
+DP_RTOL, DP_ATOL = 1e-4, 1e-5
+
+
+def _dp_host_batches():
+    """DP_STEPS host batches of DP_RANKS x DP_ROWS rows of seeded synthetic
+    audio (1.5-2.5 s, padded to one length) and labels."""
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    rng = np.random.RandomState(17)
+    rows = DP_RANKS * DP_ROWS
+    secs = rng.uniform(1.5, 2.5, (DP_STEPS, rows))
+    audio = np.zeros((DP_STEPS, rows, int(2.5 * 16000)), np.float32)
+    for s in range(DP_STEPS):
+        for r in range(rows):
+            a = synthetic_audio(300 + s * rows + r, secs[s, r])
+            audio[s, r, :len(a)] = a
+    return {'audio': audio,
+            'alen': (secs * 16000).astype(np.int32),
+            'ys': rng.randint(4, 2048, (DP_STEPS, rows, 16)).astype(
+                np.int32),
+            'ylen': rng.randint(8, 17, (DP_STEPS, rows)).astype(np.int32)}
+
+
+def _dp_steps(torch, model_seed, batches, rows, accum):
+    """The shared fp32 train step (E6D2, the trainer's features without
+    dither or SpecAugment) on cuda over `rows` of each host batch in
+    `accum` micro-batches, from make_train_state(seed) (broadcast from rank
+    0 under a process group) → (losses, grad norms, skips, step s, launch
+    counts of the steps, params)."""
+    from edgedict_tpu_torch import optim
+    from edgedict_tpu_torch import train as TR
+    from edgedict_tpu_torch.features import FeaturePipeline
+    cfg, feat = _e6d2_train_cfg()
+    opt = optim.build_optimizer('adam')
+    state = TR.make_train_state(cfg, opt, 'cuda', seed=model_seed)
+    TR.broadcast_module(state.model)
+    state.opt_state = opt.init(dict(state.model.named_parameters()))
+    pipe = FeaturePipeline(feat, 'cuda')
+    step = TR.make_train_step(cfg, opt, bf16=False, feature_pipeline=pipe)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    out = {'losses': [], 'grad_norms': [], 'skipped': [], 'step_s': []}
+    _reset_launches()
+    for s, lr in enumerate(DP_LRS):
+        dev = TR.device_batch({k: v[s, rows] for k, v in batches.items()},
+                              accum, 'cuda')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, dev, lr, gen)
+        out['losses'].append(float(m['loss']))
+        out['step_s'].append(time.perf_counter() - t0)
+        out['grad_norms'].append(float(m['grad_norm']))
+        out['skipped'].append(float(m['skipped']))
+    out['launches'] = _launches()
+    out['params'] = {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()}
+    return out
+
+
+def dp_rank(rank, rendezvous, batches_path, out_path):
+    """One rank of phase dp_train (a), spawned by it: a gloo process group
+    on cuda:0 (file:// rendezvous), first a probe that gloo all-reduces a
+    CUDA tensor, then _dp_steps on this rank's rows; torch.save's its
+    results to out_path."""
+    import torch
+    import torch.distributed as dist
+    set_numerics(torch)
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=f'file://{rendezvous}',
+                            rank=rank, world_size=DP_RANKS)
+    try:
+        probe = torch.ones(4, device='cuda')
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:
+            torch.save({'gloo_cuda': False, 'error': str(e)}, out_path)
+            return
+        with np.load(batches_path) as f:
+            batches = {k: f[k] for k in f.files}
+        rows = slice(rank * DP_ROWS, (rank + 1) * DP_ROWS)
+        out = _dp_steps(torch, rank, batches, rows, 1)
+        out['gloo_cuda'] = bool((probe == DP_RANKS).all())
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(torch, tmp, batches):
+    """Two dp_rank processes on cuda:0; → their results."""
+    path = os.path.join(tmp, 'batches.npz')
+    np.savez(path, **batches)
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    procs = []
+    for r in range(DP_RANKS):
+        code = (f'import chip_smoke; chip_smoke.dp_rank({r}, '
+                f'{os.path.join(tmp, "rendezvous")!r}, {path!r}, '
+                f'{os.path.join(tmp, f"rank{r}.pt")!r})')
+        procs.append(subprocess.Popen([sys.executable, '-c', code],
+                                      cwd=REPO, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        require(p.returncode == 0, f'a dp rank failed:\n{log[-3000:]}')
+    return [torch.load(os.path.join(tmp, f'rank{r}.pt'))
+            for r in range(DP_RANKS)]
+
+
+def _dp_cli(torch):
+    """(b): python -m torch.distributed.run --standalone --nproc_per_node 1
+    -m edgedict_tpu_torch.cli.distributed on train_run's corpus (E6D2,
+    batch 32, bf16: one epoch of 3 steps, an eval at step 3, NCCL); rank
+    0's checkpoint loads into the E6D2 model."""
+    from edgedict_tpu_torch import config as C
+    from edgedict_tpu_torch.checkpoint import checkpoint_path, load_checkpoint
+    from edgedict_tpu_torch.cli import distributed
+    from edgedict_tpu_torch.compat import transducer_from_state_dict
+    tmp, base = _train_corpus()
+    argv = base + ['--name', 'dp-cli', '--epochs', '1', '--loss_step', '1',
+                   '--save_step', '3', '--eval_step', '3', '--dp_size', '1']
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, '-m', 'torch.distributed.run',
+                        '--standalone', '--nproc_per_node', '1', '-m',
+                        'edgedict_tpu_torch.cli.distributed', *argv],
+                       cwd=tmp, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    require(r.returncode == 0, f'cli.distributed under torchrun failed:\n'
+            f'{r.stdout[-2000:]}\n{r.stderr[-3000:]}')
+    flags = C.parse_flags(distributed.build_parser(), argv)
+    path = checkpoint_path(os.path.join(flags.logdir_root, flags.name), 3)
+    cfg, _ = _e6d2_train_cfg()
+    model = transducer_from_state_dict(load_checkpoint(path)['model'], cfg,
+                                       'cpu')
+    evals = [ln for ln in lines if ln.startswith('eval @ 3:')]
+    res = {'command': 'python -m torch.distributed.run --standalone '
+                      '--nproc_per_node 1 -m '
+                      'edgedict_tpu_torch.cli.distributed',
+           'wall_s': wall, 'process': [ln for ln in lines
+                                       if ln.startswith('process ')],
+           'steps': [ln for ln in lines if ln.startswith('step ')],
+           'eval': evals, 'checkpoint': os.path.basename(path),
+           'params': sum(p.numel() for p in model.parameters())}
+    require(res['process'] == ['process 0/1 on cuda:0 (nccl)']
+            and len(res['steps']) == 3 and len(evals) == 1
+            and np.isfinite(float(evals[0].split()[4])),
+            f'cli.distributed did not train and evaluate: {res}')
+    return res
+
+
+def phase_dp_train(torch):
+    """Data-parallel training on the one card.  (a) two ranks spawned on
+    cuda:0 over gloo (NCCL refuses two ranks on one device) run the shared
+    fp32 step on the full-width E6D2 model with 8 rows each for 3 Adam
+    steps (rank 1 starts from its own seed and takes rank 0's parameters
+    by broadcast); their parameters and losses must equal a one-process
+    run over the same 16 rows in rank order with accum_steps=2 (rtol 1e-4
+    / atol 1e-5).  Each rank's launch counts join the kernels line.  (b)
+    cli.distributed under torchrun with NCCL (_dp_cli).  Two ranks on one
+    card share it: their step times measure no scaling."""
+    import tempfile
+    batches = _dp_host_batches()
+    tmp = tempfile.mkdtemp(prefix='edd_dp_')
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(torch, tmp, batches)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {'phase': 'dp_train', 'config': 'flagfiles/E6D2.txt fp32',
+           'ranks': DP_RANKS, 'rows_a_rank': DP_ROWS, 'steps': DP_STEPS,
+           'gloo_cuda': [r['gloo_cuda'] for r in ranks]}
+    if all(r['gloo_cuda'] for r in ranks):
+        one = _dp_steps(torch, 0, batches, slice(None), 2)
+        diffs = {}
+        for r, out in enumerate(ranks):
+            diffs[r] = max(float(((p - one['params'][k]).abs()
+                                  - DP_RTOL * one['params'][k].abs()).max())
+                           for k, p in out['params'].items())
+        ranks_equal = all(torch.equal(p, ranks[0]['params'][k])
+                          for k, p in ranks[1]['params'].items())
+        res.update({
+            'spawn_wall_s': spawn_s,
+            'losses': [r['losses'] for r in ranks],
+            'losses_one_process': one['losses'],
+            'grad_norms': [r['grad_norms'] for r in ranks],
+            'grad_norms_one_process': one['grad_norms'],
+            'skipped': [r['skipped'] for r in ranks],
+            'step_ms': [[1e3 * s for s in r['step_s']] for r in ranks],
+            'step_ms_one_process': [1e3 * s for s in one['step_s']],
+            'param_excess_over_rtol': diffs, 'ranks_bit_equal': ranks_equal,
+            'bounds': f'params rtol {DP_RTOL} atol {DP_ATOL}, losses rtol '
+                      f'{DP_RTOL}'})
+        for r, out in enumerate(ranks):
+            STATE['launches_dp_rank%d' % r] = out['launches']
+            STATE.setdefault('run_expect', {})['dp_rank%d' % r] = \
+                _train_expect(_e6d2_train_cfg()[0], DP_STEPS)
+        require(all(not any(r['skipped']) for r in ranks),
+                f'a dp step was skipped: {res["skipped"]}')
+        require(ranks_equal, 'the two ranks hold different parameters')
+        require(all(d <= DP_ATOL for d in diffs.values()),
+                f'dp params differ from the one-process run: {diffs}')
+        require(all(np.allclose(r['losses'], one['losses'], rtol=DP_RTOL,
+                                atol=0) for r in ranks),
+                'dp losses differ from the one-process run')
+    else:
+        res['gloo_cuda_error'] = [r.get('error') for r in ranks]
+    res['cli'] = _dp_cli(torch)
+    emit(res)
+
+
+SERVER_DP_STREAMS = 8
+SERVER_DP_DEVICES = ('cuda:0', 'cuda:0')
+
+
+def _dp_rounds(dec, frames, count):
+    """Every round of `frames` through dec (greedy: tokens a round; beam:
+    the best hypotheses after the last) → (outputs, round ms); with
+    `count`, the rounds' launches to STATE['launches_' + count]."""
+    import torch
+    dec.reset()
+    if count:
+        _reset_launches()
+    times, out = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        if hasattr(dec, 'replicas'):
+            out.append(dec._tokens(dec._launch(f)))
+        else:
+            dec.decode(f)
+        times.append(1e3 * (time.perf_counter() - t0))
+    if not hasattr(dec, 'replicas'):
+        from edgedict_tpu_torch.models.beam_search import best_hypothesis
+        for beam in dec.beams:
+            toks, n_tok, logp = best_hypothesis(beam)
+            out.append((toks.cpu().numpy(), n_tok.cpu().numpy(),
+                        logp.cpu().numpy()))
+        out = [np.concatenate([o[i] for o in out]) for i in range(3)]
+    torch.cuda.synchronize()
+    if count:
+        STATE['launches_' + count] = _launches()
+    return out, times
+
+
+def phase_server_dp(torch):
+    """Sharded serving on the card: MultiStreamDecoder and
+    MultiStreamBeamDecoder (W=4, no LM), both on the beam phases' peaky
+    weights, at E6D2 in fp32 and int8, 8 streams over devices=[cuda:0,
+    cuda:0] (two replicas of 4 streams; one card cannot show a second
+    device) against
+    the one-device decoder over the same rounds: tokens bit-equal (beam:
+    the best hypotheses' tokens and lengths; their log-probs beside).  The
+    sharded rounds' launches are counted exactly.  cli.serve
+    --serve_dp_size 2 is refused on a one-card machine."""
+    from edgedict_tpu_torch import config as C
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.cli import serve
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    cfg, feat = _e6d2()
+    tok = StandInTokenizer(cfg.vocab_size)
+    model, _ = _beam_models(torch)
+    audios = [synthetic_audio(40 + i, seconds=3.0)
+              for i in range(SERVER_DP_STREAMS)]
+    res = {'phase': 'server_dp', 'n_streams': SERVER_DP_STREAMS,
+           'devices': list(SERVER_DP_DEVICES)}
+    replicas = len(SERVER_DP_DEVICES)
+    for beam in (False, True):
+        for quantize in (None, 'int8'):
+            cls = S.MultiStreamBeamDecoder if beam else S.MultiStreamDecoder
+            kw = dict(quantize=quantize, **(BEAM if beam else {}))
+            one = cls(model, cfg, feat, tok, SERVER_DP_STREAMS,
+                      device='cuda', **kw)
+            two = cls(model, cfg, feat, tok, SERVER_DP_STREAMS,
+                      devices=list(SERVER_DP_DEVICES), **kw)
+            chunks = [S._chunks(a, one.win_size, one.hop_size)
+                      for a in audios]
+            frames = np.stack(chunks, 1)
+            run = 'server_dp' + ('_beam' if beam else '') + (
+                '_int8' if quantize else '')
+            _dp_rounds(two, frames[:1], None)              # warm-up
+            got, two_ms = _dp_rounds(two, frames, run)
+            want, one_ms = _dp_rounds(one, frames, None)
+            if beam:
+                equal = all(np.array_equal(g, w) for g, w in
+                            zip(got[:2], want[:2]))
+                extra = {'logp_max_abs_diff': float(np.abs(
+                    got[2] - want[2]).max()),
+                    'tokens': [int(n) for n in got[1]]}
+            else:
+                equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+                extra = {'emitted': int(sum((g > 3).sum() for g in got))}
+            n = len(frames)
+            per = {'mel_power': n * replicas}
+            if quantize:
+                per.update(quant_matmul=7 * n * replicas,
+                           lstm_fwd_q=6 * n * replicas)
+            else:
+                per['lstm_fwd'] = 6 * n * replicas
+            if beam:
+                frames_per_chunk = -(-two.rt.pipeline.num_frames(
+                    two.win_size) // cfg.time_scale)
+                per['lstm_fwd'] = per.get('lstm_fwd', 0) + (
+                    frames_per_chunk * n * BEAM['max_sym_per_frame']
+                    * cfg.dec_layers * replicas)
+            else:
+                per['greedy_decode'] = n * replicas
+            STATE.setdefault('run_expect', {})[run] = _expect(**per)
+            res[run] = {'rounds': n, 'tokens_equal': equal,
+                        'round_ms_sharded': statistics.median(two_ms),
+                        'round_ms_one_device': statistics.median(one_ms),
+                        **extra}
+            require(equal, f'{run}: the sharded decoder\'s tokens differ '
+                           'from the one-device decoder\'s')
+            del one, two
+    # one visible card: --serve_dp_size 2 stops the parse (exit 2)
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            C.parse_flags(serve.build_parser(), [
+                f'--flagfile={REPO}/flagfiles/E6D2.txt', '--serve_dp_size',
+                '2'])
+        refused = None
+    except SystemExit as e:
+        refused = e.code
+    res['cli_serve_dp_size_2_exit'] = refused
+    res['cli_serve_dp_size_2_error'] = err.getvalue().splitlines()[-1:]
+    emit(res)
+    require(refused == 2 or torch.cuda.device_count() >= 2,
+            'cli.serve took --serve_dp_size 2 on a one-card machine')
+    require(all(res[r]['emitted'] > 0 for r in ('server_dp',
+                                                 'server_dp_int8')),
+            'the sharded greedy decoder emitted nothing')
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -4699,7 +5148,9 @@ def main():
               ('jax_kernels', phase_jax_kernels),
               ('export', phase_export), ('apps', phase_apps),
               ('ctc', phase_ctc), ('legacy', phase_legacy),
-              ('legacy_kernels', phase_legacy_kernels))
+              ('legacy_kernels', phase_legacy_kernels),
+              ('surface', phase_surface), ('dp_train', phase_dp_train),
+              ('server_dp', phase_server_dp))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

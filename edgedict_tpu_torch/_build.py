@@ -17,10 +17,14 @@ an unchanged tree reuses the build.  A missing nvcc or a failed compile
 raises; nothing is downloaded.
 
 Every C entry returns `cudaGetLastError()` after its launches; `check`
-raises when it is not 0.  Pointers and the stream go in as
+raises when it is not 0.  The entries launch on the CUDA runtime's
+current device, so every wrapper that calls one runs under
+`on_tensor_device` (its tensors' card made current, as a replica on
+cuda:1 needs).  Pointers and the stream go in as
 `ctypes.c_void_p` (a plain int argument would be cut to 32 bits).
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -207,6 +211,31 @@ def check(err, name):
 def ptr(t):
     """Device pointer of a tensor (None → NULL)."""
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def on_device(device):
+    """A context that makes `device` the current CUDA device (a null
+    context for a CPU device)."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def on_tensor_device(fn):
+    """Decorator of a kernel wrapper: run it with the device of its first
+    tensor argument current, so its launches, plan queries and the stream
+    of stream_ptr all belong to that card."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                if a.device.type != 'cuda':
+                    break
+                with torch.cuda.device(a.device):
+                    return fn(*args, **kwargs)
+        return fn(*args, **kwargs)
+    return wrapper
 
 
 def stream_ptr(device):

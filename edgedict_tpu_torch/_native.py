@@ -1,7 +1,7 @@
 """ctypes bindings for the repo's host-side C++ libraries in `native/`
-(the parts of edgedict_tpu/native.py the port uses: the CharBPE merge
-engine, the BPE trainer, the FLAC decoder and the CPU RNN-T loss, the
-cross-check of the loss).
+(counterpart of edgedict_tpu/native.py: the CharBPE merge engine, the
+BPE trainer, the FLAC decoder, the CPU RNN-T loss, the cross-check of the
+loss, and the token-budget / fixed-shape bucketing).
 
 Build them with `make -C native`.  Each binding is optional: when a `.so`
 is missing, `available()` says so and the callers (tokenizer.py,
@@ -32,6 +32,7 @@ _bpe = _load('libchar_bpe.so')
 _flac = _load('libflac_decoder.so')
 _bpe_tr = _load('libbpe_trainer.so')
 _rnnt = _load('librnnt_loss.so')
+_bucket = _load('libbucketing.so')
 
 if _bpe is not None:
     _bpe.bpe_create.restype = ctypes.c_void_p
@@ -45,6 +46,9 @@ if _bpe_tr is not None:
     _bpe_tr.bpe_trainer_create.restype = ctypes.c_void_p
     _bpe_tr.bpe_trainer_add_symbol.restype = ctypes.c_int32
     _bpe_tr.bpe_trainer_train.restype = ctypes.c_int
+if _bucket is not None:
+    _bucket.batch_by_size.restype = ctypes.c_int
+    _bucket.batch_fixed_shapes.restype = ctypes.c_int
 if _rnnt is not None:
     _F32, _I32 = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
     _rnnt.rnnt_loss_cpu.restype = ctypes.c_int
@@ -55,7 +59,8 @@ if _rnnt is not None:
 def available():
     return {'char_bpe': _bpe is not None, 'flac': _flac is not None,
             'bpe_trainer': _bpe_tr is not None,
-            'rnnt_loss': _rnnt is not None}
+            'rnnt_loss': _rnnt is not None,
+            'bucketing': _bucket is not None}
 
 
 def _ptr(a, ty):
@@ -177,3 +182,55 @@ class NativeBPE:
         if _bpe is not None and getattr(self, '_handle', None):
             _bpe.bpe_destroy(self._handle)
             self._handle = None
+
+
+# ---------------------------------------------------------------------------
+# bucketing (native/bucketing.cpp)
+# ---------------------------------------------------------------------------
+
+def batch_by_size(indices, num_tokens, max_tokens=None, max_sentences=None,
+                  bsz_mult=1):
+    """Greedy token-budget batching → list of index lists."""
+    assert _bucket is not None, 'build native/libbucketing.so first'
+    indices = np.ascontiguousarray(indices, np.int64)
+    num_tokens = np.ascontiguousarray(num_tokens, np.int64)
+    n = len(indices)
+    out_idx = np.zeros((n,), np.int64)
+    out_sizes = np.zeros((n,), np.int64)
+    nb = _bucket.batch_by_size(
+        _ptr(indices, ctypes.c_int64), _ptr(num_tokens, ctypes.c_int64),
+        n, max_tokens or -1, max_sentences or -1, bsz_mult,
+        _ptr(out_idx, ctypes.c_int64), _ptr(out_sizes, ctypes.c_int64))
+    batches, pos = [], 0
+    for i in range(nb):
+        sz = int(out_sizes[i])
+        batches.append(out_idx[pos:pos + sz].tolist())
+        pos += sz
+    return batches
+
+
+def batch_fixed_shapes(indices, num_tokens, shapes):
+    """Pack into a menu of (batch_size, max_len) shapes → list of
+    (index_list, shape_row)."""
+    assert _bucket is not None, 'build native/libbucketing.so first'
+    indices = np.ascontiguousarray(indices, np.int64)
+    num_tokens = np.ascontiguousarray(num_tokens, np.int64)
+    shapes_a = np.ascontiguousarray(shapes, np.int64).reshape(-1, 2)
+    # the C side walks the menu by max_len ascending
+    shapes_a = shapes_a[np.argsort(shapes_a[:, 1])]
+    n = len(indices)
+    out_idx = np.zeros((n,), np.int64)
+    out_sizes = np.zeros((n,), np.int64)
+    out_shape_ids = np.zeros((n,), np.int64)
+    nb = _bucket.batch_fixed_shapes(
+        _ptr(indices, ctypes.c_int64), _ptr(num_tokens, ctypes.c_int64),
+        n, _ptr(shapes_a, ctypes.c_int64), len(shapes_a),
+        _ptr(out_idx, ctypes.c_int64), _ptr(out_sizes, ctypes.c_int64),
+        _ptr(out_shape_ids, ctypes.c_int64))
+    batches, pos = [], 0
+    for i in range(nb):
+        sz = int(out_sizes[i])
+        batches.append((out_idx[pos:pos + sz].tolist(),
+                        tuple(shapes_a[int(out_shape_ids[i])])))
+        pos += sz
+    return batches

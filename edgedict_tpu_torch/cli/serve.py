@@ -10,25 +10,42 @@ rounds send each stream's current best hypothesis as '=' replace messages.
       [--lm_path logs/<lm run>/lm.ckpt]]
 
 Clients speak the protocol of serving.py (the JAX package's, unchanged); a
-minimal client is edgedict_tpu_torch.serving.stream_client.  Multi-device
-serving is not ported yet.  The weights are loaded as cli/stream.py loads
-them: --pt_path, else the run's checkpoint.
+minimal client is edgedict_tpu_torch.serving.stream_client.
+--serve_dp_size N > 1 splits the stream slots over the local GPUs cuda:0
+... cuda:N-1, one replica of the model each (fewer visible cards stop the
+parse); under --device cpu it makes N CPU replicas.  The weights are
+loaded as cli/stream.py loads them: --pt_path, else the run's checkpoint.
 """
 
 import asyncio
 import sys
 
-from edgedict_tpu_torch.cli.stream import (
-    build_parser, make_decoder, set_numerics)
+import torch
+
+from edgedict_tpu_torch.cli.stream import build_parser as stream_parser
+from edgedict_tpu_torch.cli.stream import make_decoder, set_numerics
 from edgedict_tpu_torch.config import parse_flags
 from edgedict_tpu_torch.serving import StreamServer
 from edgedict_tpu_torch.stream import (
-    MultiStreamBeamDecoder, MultiStreamDecoder)
+    MultiStreamBeamDecoder, MultiStreamDecoder, resolve_device)
+
+
+def serve_devices(flags):
+    """The replicas' devices of --serve_dp_size N > 1: cuda:0 ...
+    cuda:N-1, or N times the CPU; None for one device."""
+    n = flags.serve_dp_size
+    if n <= 1:
+        return None
+    device = resolve_device(flags.device)
+    if device.type == 'cuda':
+        return [torch.device('cuda', i) for i in range(n)]
+    return [device] * n
 
 
 def build_decoder(flags):
     return make_decoder(flags, MultiStreamDecoder, MultiStreamBeamDecoder,
-                        n_streams=flags.n_streams)
+                        n_streams=flags.n_streams,
+                        devices=serve_devices(flags))
 
 
 def build_server(decoder, host='127.0.0.1', port=0, round_timeout_ms=75,
@@ -43,8 +60,9 @@ def build_server(decoder, host='127.0.0.1', port=0, round_timeout_ms=75,
         pcm='int16' if pcm_int16 else 'float32')
 
 
-def main(argv=None):
-    parser = build_parser('multi-stream decode server')
+def build_parser():
+    """cli/stream.py's parser plus the server's own flags."""
+    parser = stream_parser('multi-stream decode server')
     parser.add_argument('--serve_host', default='127.0.0.1')
     parser.add_argument('--port', type=int, default=8765,
                         help='listen port (0 = ephemeral)')
@@ -56,7 +74,12 @@ def main(argv=None):
     parser.add_argument('--pcm_int16', action='store_true',
                         help='keep PCM int16 through the round buffers and '
                              'the host→device copy')
-    flags = parse_flags(parser, sys.argv[1:] if argv is None else argv)
+    return parser
+
+
+def main(argv=None):
+    flags = parse_flags(build_parser(), sys.argv[1:] if argv is None
+                        else argv)
     set_numerics()
     server = build_server(build_decoder(flags), flags.serve_host, flags.port,
                           flags.round_timeout_ms, flags.pcm_int16)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from edgedict_tpu_torch.config import (
-    SERVE_REFUSED, TRAIN_FLAGS, add_model_flags, add_refused_flags,
+    TRAIN_FLAGS, add_model_flags, add_serve_flags,
     feature_config_from_flags, parse_bool, parse_flags,
     transducer_config_from_flags)
 from edgedict_tpu_torch.stream import resolve_device
@@ -52,7 +52,7 @@ def set_numerics():
 def build_parser(description):
     parser = argparse.ArgumentParser(description=description)
     add_model_flags(parser)
-    add_refused_flags(parser, SERVE_REFUSED)
+    add_serve_flags(parser)
     parser.add_argument('--device', default='cuda',
                         help="torch device: 'cuda' (default) or 'cpu'")
     parser.add_argument('--pt_path', default=None,
@@ -271,6 +271,9 @@ def main(argv=None):
     flags = parse_flags(parser, sys.argv[1:] if argv is None else argv)
     if not flags.path and not flags.mic:
         parser.error('pass --path <wav> or --mic')
+    if flags.serve_dp_size > 1:
+        parser.error('--serve_dp_size splits the streams of cli.serve over '
+                     'devices; cli.stream decodes one stream')
     set_numerics()
     decoder = build_stream_decoder(flags)
     if not flags.path:

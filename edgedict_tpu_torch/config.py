@@ -15,6 +15,13 @@ not do yet (`REFUSED`) parse at their defaults, and any other value stops
 the parse with an error that names the flag and the ROADMAP.md Queue 1
 item that brings it: nothing is dropped without a word.  Any other key is
 an error, as with absl.
+
+--dp_size is data parallelism over processes (cli/distributed.py, one
+process a GPU): -1 and the default process group's world size parse (1
+without a group), anything else stops the parse naming the launcher or
+the world size.  --serve_dp_size N (the stream / serve parser) asks for N
+local devices; over --device cuda, N larger than the visible cards stops
+the parse as the JAX server's assertion does (root cli/serve.py:58-67).
 """
 
 import argparse
@@ -165,15 +172,10 @@ _IGNORABLE = UNREAD | ABSL_FLAGS | {
 # flags of edgedict_tpu/config.py whose work the port does not do yet:
 # (name, type, the values that ask for nothing, ROADMAP.md Queue 1 item)
 REFUSED = (
-    ('dp_size', int, (-1, 1), '14, multi-GPU'),
-    ('tp_size', int, (1,), '14, multi-GPU'),
-    ('pp_size', int, (1,), '14, multi-GPU'),
+    ('tp_size', int, (1,), '14b, tensor parallelism'),
+    ('pp_size', int, (1,), '14b, pipeline parallelism'),
 )
-# the same for the server's flags (root cli/serve.py:41 defines
-# --serve_dp_size, default 0): registered by the stream / serve parser
-SERVE_REFUSED = (
-    ('serve_dp_size', int, (0, 1), '14, multi-GPU'),
-)
+LAUNCHER = 'python -m edgedict_tpu_torch.cli.distributed'
 
 
 def add_refused_flags(parser, refused):
@@ -187,13 +189,52 @@ def add_refused_flags(parser, refused):
 
 
 def add_model_flags(parser):
-    """Register --flagfile, the model/feature/tokenizer flags and the
-    refused ones (parse_flags checks those)."""
+    """Register --flagfile, the model/feature/tokenizer flags, --dp_size
+    and the refused ones (parse_flags checks those)."""
     parser.add_argument('--flagfile', action='append', default=[],
                         help='read flags from this file (absl syntax)')
     for name, typ, default in MODEL_FLAGS:
         parser.add_argument(f'--{name}', type=typ, default=default)
+    parser.add_argument('--dp_size', type=int, default=-1,
+                        help='data-parallel processes: -1 or the process '
+                             f"group's world size (launch with {LAUNCHER})")
     return add_refused_flags(parser, REFUSED)
+
+
+def add_serve_flags(parser):
+    """Register --serve_dp_size (root cli/serve.py:41) on the stream /
+    serve parser."""
+    parser.add_argument('--serve_dp_size', type=int, default=0,
+                        help='>1: shard the server\'s streams over this many '
+                             'local devices (cuda:0 ... cuda:N-1, or N CPU '
+                             'replicas under --device cpu)')
+    return parser
+
+
+def _parallel_errors(flags):
+    """The --dp_size and --serve_dp_size values this process cannot
+    honour, as messages."""
+    from edgedict_tpu_torch import train
+    errors = []
+    world = train.world()[1]
+    dp = getattr(flags, 'dp_size', -1)
+    if dp not in (-1, world):
+        errors.append(
+            f'--dp_size={dp}: data parallelism runs one process a GPU; '
+            f'launch {LAUNCHER} under torchrun (--nproc_per_node {dp}) or '
+            'with --coordinator_address, --num_processes and --process_id'
+            if world == 1 else
+            f'--dp_size={dp} but the process group has world size {world}')
+    n = getattr(flags, 'serve_dp_size', 0)
+    if n > 1 and str(getattr(flags, 'device', 'cuda')).startswith('cuda'):
+        import torch
+        n_dev = torch.cuda.device_count()
+        if n > n_dev:
+            errors.append(
+                f'--serve_dp_size {n} but only {n_dev} devices — a silently '
+                'smaller mesh would miss real-time deadlines at the planned '
+                'stream count')
+    return errors
 
 
 def add_train_flags(parser):
@@ -271,16 +312,20 @@ def normalize_argv(argv, parser):
 
 def parse_flags(parser, argv):
     """argv (without the program name) → argparse Namespace.  A refused
-    flag at a value that asks for work the port does not do stops the
-    parse (parser.error: SystemExit 2) and names the flag."""
+    flag at a value that asks for work the port does not do, and a
+    --dp_size / --serve_dp_size this process cannot honour, stop the parse
+    (parser.error: SystemExit 2) naming the flag."""
     flags = parser.parse_args(normalize_argv(expand_argv(list(argv)), parser))
     refused = [f'--{name}={getattr(flags, name)} (ROADMAP.md Queue 1 item '
                f'{item})'
-               for name, _, allowed, item in REFUSED + SERVE_REFUSED
+               for name, _, allowed, item in REFUSED
                if getattr(flags, name, allowed[0]) not in allowed]
+    errors = _parallel_errors(flags)
     if refused:
-        parser.error('not ported yet, only the default is accepted: '
-                     + '; '.join(refused))
+        errors.insert(0, 'not ported yet, only the default is accepted: '
+                      + '; '.join(refused))
+    if errors:
+        parser.error('; '.join(errors))
     return flags
 
 

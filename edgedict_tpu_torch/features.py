@@ -7,7 +7,9 @@ normalization, deltas and frame stacking stay plain tensor code.  With
 train=True and a torch.Generator, dither is added to the waveform, and
 the stacked features are time-warped (W_warp > 0, the linear warp) and
 then masked by SpecAugment; time_warp(method='spline') is the legacy
-models' spline warp.
+models' spline warp.  trim_audio cuts raw audio to a duration and
+build_transform builds the reference's (train, test, input size) triple
+over one pipeline.
 
 The numpy constant builders (Hann window, Slaney/HTK mel filterbank, DCT)
 are copies of the JAX package's, so both packages featurize with the same
@@ -226,6 +228,17 @@ def time_warp(feat, warp_param, generator, method='linear'):
     return time_warp_resample(feat, center, shift)
 
 
+def trim_audio(audio, lengths, sample_rate, max_seconds, truncate_end=True):
+    """Raw-audio trim of (B, L) audio to max_seconds, from the end or, with
+    truncate_end=False, from the start (features.py:276 of the JAX
+    package; reference TrimAudio, rnnt/transforms.py:149-163)."""
+    max_len = int(sample_rate * max_seconds)
+    if audio.shape[1] <= max_len:
+        return audio, lengths
+    audio = audio[:, :max_len] if truncate_end else audio[:, -max_len:]
+    return audio, torch.clamp(lengths, max=max_len)
+
+
 def pcm_to_float(audio):
     """int16 PCM → float32 in [-1, 1) on the tensor's device (1/32768 is a
     power of two: exact); float input passes through as float32."""
@@ -350,3 +363,30 @@ class FeaturePipeline:
             feat = spec_augment(feat, c.T_mask, c.T_num_mask, c.F_mask,
                                 c.F_num_mask, generator)
         return feat, feat_len
+
+
+def build_transform(feature_type, feature_size, n_fft=512, win_length=400,
+                    hop_length=200, delta=False, cmvn=False, downsample=1,
+                    T_mask=0, T_num_mask=0, F_mask=0, F_num_mask=0,
+                    pad_to_divisible=True, device='cuda'):
+    """The reference's transform factory (features.py:460 of the JAX package;
+    rnnt/transforms.py:165-203) → (train_fn, test_fn, input_size) over one
+    FeaturePipeline on `device`: train_fn(audio, lengths, generator) adds
+    dither and SpecAugment drawn from the torch.Generator, test_fn(audio,
+    lengths) does not."""
+    cfg = FeatureConfig(
+        feature_type=feature_type, feature_size=feature_size, n_fft=n_fft,
+        win_length=win_length, hop_length=hop_length, delta=delta,
+        normalize='per_feature' if cmvn else 'none', downsample=downsample,
+        pad_to_divisible=pad_to_divisible,
+        T_mask=T_mask, T_num_mask=T_num_mask,
+        F_mask=F_mask, F_num_mask=F_num_mask)
+    pipeline = FeaturePipeline(cfg, device)
+
+    def train_fn(audio, lengths, generator):
+        return pipeline(audio, lengths, train=True, generator=generator)
+
+    def test_fn(audio, lengths):
+        return pipeline(audio, lengths)
+
+    return train_fn, test_fn, cfg.input_size

@@ -130,6 +130,7 @@ def _card_plan(index, b, j, v, e, n_layers, hid, d):
     return decode_plan.decode_plan(b, j, v, e, n_layers, hid, d, sms, n)
 
 
+@_build.on_tensor_device
 def greedy_frame_loop(cache, f, h_dec, hs, cs, blank, unk, emit_logp=False):
     """See greedy_frame_loop_plain; CUDA tensors launch
     csrc/greedy_decode.cu once for all T frames (one count per launch)."""

@@ -111,6 +111,7 @@ def _counts(device, n):
     return c
 
 
+@_build.on_tensor_device
 def mel_power(audio, tables: MelTables):
     """audio (B, L) fp32, preemphasized → mel power (B, 1 + L // hop,
     n_mels) fp32.  CUDA tensors launch csrc/mel_power.cu once (K2);

@@ -58,6 +58,7 @@ def check_gru_args(x_proj, w_hh, b_hh, h0, w_dtypes):
     return t, b, hid
 
 
+@_build.on_tensor_device
 def _gru_fwd_kernel(x_proj, w_hh, b_hh, h0):
     """K5: one persistent cooperative launch for all T steps
     (ops/rnn_fwd.py plans its grid); the fp32 h is carried in the kernel,
@@ -119,6 +120,7 @@ def gru_recurrence_bwd_plain(x_proj, w_hh, b_hh, h0, ys, dys, dhT):
     return torch.stack(dgx), torch.stack(dgh), dh
 
 
+@_build.on_tensor_device
 def _gru_bwd_kernel(x_proj, w_hh, b_hh, h0, ys, dys, dhT):
     """K6: the gate remat over all steps into an fp32 scratch, then the
     persistent chain kernel (ops/rnn_bwd.py plans its grid)."""

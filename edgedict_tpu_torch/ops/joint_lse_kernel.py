@@ -56,6 +56,7 @@ def _dims(f, g, w_t, bias, labels):
     return b, t, u1, j, v
 
 
+@_build.on_tensor_device
 def joint_lse_fwd(f, g, w_t, bias, labels, blank, staged=False):
     """K7: → (blank_lp (B,T,U+1), label_lp (B,T,U), lse (B,T,U+1)), fp32;
     f, g, w_t in one dtype (fp32 or bf16), all contiguous CUDA tensors.
@@ -131,6 +132,7 @@ def pad16(f, g, w_t, bias):
             F.pad(bias, (0, v - v0), value=float('-inf')))
 
 
+@_build.on_tensor_device
 def _bwd_mma(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
     """The tensor-core kernels, slab by slab (ops/joint_lse_plan.py), on
     the problem padded by pad16."""
@@ -159,6 +161,7 @@ def _bwd_mma(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
     return df[..., :j0], dg[..., :j0], dw_t[:j0, :v0], dbias[:v0]
 
 
+@_build.on_tensor_device
 def _bwd_cuda_cores(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
     """fp32: the row-tiled kernels with fp32 atomics."""
     (b, t, j), u1, v = f.shape, g.shape[1], w_t.shape[1]

@@ -177,6 +177,7 @@ def quant_plan(rows, k, n):
     return rows > GEMV_MAX_ROWS
 
 
+@_build.on_tensor_device
 def _quant_matmul_kernel(x2d, wq, scale, bias):
     _build.require_cuda(x2d, 'x', FLOATS)
     _build.require_cuda(wq, 'w_q', (torch.int8,))
@@ -244,6 +245,7 @@ def lstm_recurrence_q_plain(x_proj, w_q, w_scale, h0, c0):
                                                     x_proj.dtype), h0, c0)
 
 
+@_build.on_tensor_device
 def _lstm_fwd_q_kernel(x_proj, w_q, w_scale, h0, c0):
     """K12: one persistent cooperative launch for all T steps, K1's
     (ops/rnn_fwd.py plans its grid); the recurrent product reads h0
@@ -310,6 +312,7 @@ def gru_recurrence_q_plain(x_proj, w_q, w_scale, b_hh, h0):
                                                    x_proj.dtype), b_hh, h0)
 
 
+@_build.on_tensor_device
 def _gru_fwd_q_kernel(x_proj, w_q, w_scale, b_hh, h0):
     """K13: one persistent cooperative launch for all T steps, K5's
     (ops/rnn_fwd.py plans its grid); the fp32 h is carried in the kernel,

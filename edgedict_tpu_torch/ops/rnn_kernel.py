@@ -42,6 +42,7 @@ def lstm_recurrence_plain(x_proj, w_hh, h0, c0):
     return torch.stack(ys), torch.stack(cs), h
 
 
+@_build.on_tensor_device
 def _lstm_fwd_kernel(x_proj, w_hh, h0, c0):
     """K1: one persistent cooperative launch for all T steps
     (ops/rnn_fwd.py plans its grid); the recurrent product reads h0
@@ -130,6 +131,7 @@ def lstm_recurrence_bwd_plain(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
     return torch.stack(out), dh, dc
 
 
+@_build.on_tensor_device
 def _lstm_bwd_kernel(x_proj, w_hh, h0, c0, ys, cs, dys, dcs, dhT):
     """K4: the gate remat over all steps into an fp32 scratch, then the
     persistent chain kernel (ops/rnn_bwd.py plans its grid)."""

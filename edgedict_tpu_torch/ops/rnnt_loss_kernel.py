@@ -63,6 +63,7 @@ def _check(blank_lp, label_lp, xlen, ylen):
     return b, t, u1
 
 
+@_build.on_tensor_device
 def lattice_alpha(blank_lp, label_lp, xlen, ylen):
     """(blank (B,T,U+1), label (B,T,U) fp32, xlen/ylen (B,) int32) →
     (alpha (B, T+1, U+1), logz (B,)).  CUDA tensors launch K9 once (plan
@@ -87,6 +88,7 @@ def lattice_alpha(blank_lp, label_lp, xlen, ylen):
 lattice_alpha.launches = 0
 
 
+@_build.on_tensor_device
 def lattice_beta_grad(blank_lp, label_lp, alpha, logz, xlen, ylen):
     """→ (gb (B,T,U+1), gl (B,T,U)) transition occupancies.  CUDA tensors
     launch K10 once (plan `beta_plan`)."""

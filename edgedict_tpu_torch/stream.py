@@ -20,7 +20,16 @@ with the features computed per chunk with pad_to_divisible=False.
 Every decoder takes an explicit `device`; 'cuda' without a card raises.
 `quantize='int8'` serves an int8 weight-only encoder (ops/quant.py: K11
 for the input projections and the final projection, K12 / K13 for the LSTM
-/ GRU recurrences); `mesh=` is not ported yet and raises.
+/ GRU recurrences).
+
+The multi-stream decoders take `devices=` instead (the JAX package's
+`mesh=` over a 'dp' axis, stream.py:241, :462, :605 there): a replica on
+each device holds its own prepared copy of the model (K3 decode cache and
+int8 weights included) and a contiguous slice of the streams' states; a
+round launches every replica's chunk step, each under its device, before
+it waits on any token fetch, and returns the streams in order.  `mesh=`
+itself, and any multi-device argument of the single-stream decoders,
+raises.
 """
 
 import copy
@@ -30,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from edgedict_tpu_torch._build import on_device
 from edgedict_tpu_torch.features import FeatureConfig, FeaturePipeline
 from edgedict_tpu_torch.models import transducer as T
 from edgedict_tpu_torch.ops import quant
@@ -63,8 +73,24 @@ def stream_chunk_geometry(win_length, hop_length, downsample, step_n_frame):
 
 def _not_ported(mesh):
     if mesh is not None:
-        raise NotImplementedError('mesh= (multi-device serving) is not yet '
-                                  'ported')
+        raise NotImplementedError('mesh= is the JAX package\'s: a multi-'
+                                  'stream decoder takes devices=[...]; a '
+                                  'single stream runs on one device')
+
+
+def replica_devices(device, devices, n_streams):
+    """The devices a multi-stream decoder spreads its streams over:
+    `devices` (n_streams a multiple of their count, as the JAX decoders
+    assert of the mesh), else [device]."""
+    if devices is None:
+        if device is None:
+            raise ValueError('pass device= or devices=')
+        return [resolve_device(device)]
+    devices = [resolve_device(d) for d in devices]
+    if not devices or n_streams % len(devices):
+        raise ValueError(f'{n_streams} streams do not split evenly over '
+                         f'{len(devices)} devices')
+    return devices
 
 
 @torch.no_grad()
@@ -209,64 +235,112 @@ def _chunks(audio, win, hop):
     return np.stack([audio[i * hop:i * hop + win] for i in range(n)])
 
 
+class _GreedyReplica:
+    """One device's share of a MultiStreamDecoder: the prepared model, the
+    feature pipeline, the chunk step and the states of `n` streams."""
+
+    def __init__(self, model, cfg, feature_cfg, tokenizer, n, device,
+                 step_n_frame, compute_dtype, quantize):
+        self.device = device
+        with on_device(device):
+            self.model = prepare_inference_params(model, compute_dtype,
+                                                  quantize, device=device)
+            self.pipeline = FeaturePipeline(feature_cfg, device)
+            self.chunk_step = make_chunk_step(
+                self.model, cfg, self.pipeline,
+                unk_id=getattr(tokenizer, 'unk_id', None),
+                compute_dtype=compute_dtype)
+            self.fresh = make_stream_state(self.model, cfg, n, device)
+        self.state = self.fresh
+
+    def launch(self, frames):
+        """Run the chunk step on these streams' frames and start the token
+        fetch; → the pending fetch."""
+        with on_device(self.device):
+            tokens, self.state = self.chunk_step(
+                self.state, _audio_tensor(frames, self.device))
+            return _fetch_start(tokens)
+
+
 class MultiStreamDecoder:
     """Server mode: N independent streams decoded in one chunk step per
-    round — the batch axis carries the streams."""
+    round — the batch axis carries the streams; with `devices=` the
+    streams are split over one replica a device (module docstring)."""
 
     def __init__(self, model, cfg, feature_cfg: FeatureConfig, tokenizer,
-                 n_streams, *, device, step_n_frame=2, compute_dtype=None,
-                 quantize=None, mesh=None):
+                 n_streams, *, device=None, devices=None, step_n_frame=2,
+                 compute_dtype=None, quantize=None, mesh=None):
         assert not feature_cfg.pad_to_divisible
         _not_ported(mesh)
-        self.device = resolve_device(device)
-        self.model = prepare_inference_params(model, compute_dtype, quantize,
-                                              device=self.device)
+        devices = replica_devices(device, devices, n_streams)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.n = n_streams
-        self.pipeline = FeaturePipeline(feature_cfg, self.device)
+        self.per_replica = n_streams // len(devices)
+        self.replicas = [_GreedyReplica(model, cfg, feature_cfg, tokenizer,
+                                        self.per_replica, dev, step_n_frame,
+                                        compute_dtype, quantize)
+                         for dev in devices]
+        # the first replica's (the only one without devices=)
+        first = self.replicas[0]
+        self.device, self.model, self._fresh = (first.device, first.model,
+                                                first.fresh)
         self.win_size, self.hop_size = stream_chunk_geometry(
             feature_cfg.win_length, feature_cfg.hop_length,
             feature_cfg.downsample, step_n_frame)
-        self.chunk_step = make_chunk_step(
-            self.model, cfg, self.pipeline,
-            unk_id=getattr(tokenizer, 'unk_id', None),
-            compute_dtype=compute_dtype)
-        self._fresh = make_stream_state(self.model, cfg, n_streams,
-                                        self.device)
         self.elapsed = []
         self.reset()
 
+    @property
+    def state(self):
+        """The first replica's stream states."""
+        return self.replicas[0].state
+
     def reset(self):
-        self.state = self._fresh
+        for r in self.replicas:
+            r.state = r.fresh
         self._pending = None                 # decode_pipelined lag buffer
 
     def reset_stream(self, i):
         """Reset one stream's state, leaving the others untouched."""
+        r = self.replicas[i // self.per_replica]
+        i %= self.per_replica
+
         def blend(new, old, axis):
             out = old.clone()
             out.select(axis, i).copy_(new.select(axis, i))
             return out
 
-        fresh, st = self._fresh, self.state
+        fresh, st = r.fresh, r.state
         if isinstance(st.enc_state, torch.Tensor):        # GRU (L, B, H)
             enc_state = blend(fresh.enc_state, st.enc_state, 1)
         else:                                             # LSTM (h, c)
             enc_state = tuple(blend(n, o, 1) for n, o in
                               zip(fresh.enc_state, st.enc_state))
-        self.state = StreamState(
+        r.state = StreamState(
             enc_state=enc_state,
             dec_state=tuple(blend(n, o, 1) for n, o in
                             zip(fresh.dec_state, st.dec_state)),
             h_dec=blend(fresh.h_dec, st.h_dec, 0))
 
+    def _launch(self, frames):
+        """Every replica's chunk step on its slice of the streams, all
+        launched before any fetch is waited on → the pending fetches."""
+        frames = np.asarray(frames)
+        k = self.per_replica
+        return [r.launch(frames[j * k:(j + 1) * k])
+                for j, r in enumerate(self.replicas)]
+
+    @staticmethod
+    def _tokens(pending):
+        """(n_frames, N) tokens of the fetches, streams in order."""
+        return np.concatenate([_fetch_done(p) for p in pending], axis=1)
+
     def decode(self, frames):
         """frames (n_streams, win_size), float or int16 PCM → list of the
         newly decoded text per stream."""
         start = time.perf_counter()
-        tokens, self.state = self.chunk_step(
-            self.state, _audio_tensor(frames, self.device))
-        tokens = tokens.cpu().numpy()                # (n_frames, N)
+        tokens = self._tokens(self._launch(frames))
         self.elapsed.append(time.perf_counter() - start)
         return self._render(tokens)
 
@@ -286,17 +360,15 @@ class MultiStreamDecoder:
         tokens, so the host's fetch overlaps the device's work on the new
         round.  Returns None on the first call; flush() gives the last
         round's text at end of stream."""
-        tokens, self.state = self.chunk_step(
-            self.state, _audio_tensor(frames, self.device))
-        prev, self._pending = self._pending, _fetch_start(tokens)
+        prev, self._pending = self._pending, self._launch(frames)
         if prev is None:
             return None
-        return self._render(_fetch_done(prev))
+        return self._render(self._tokens(prev))
 
     def flush(self):
         """Drain the pipelined decoder: text of the last dispatched round."""
         prev, self._pending = self._pending, None
-        return self._render(_fetch_done(prev)) if prev is not None else None
+        return self._render(self._tokens(prev)) if prev is not None else None
 
 
 def detokenize(tokenizer, tokens):
@@ -513,20 +585,22 @@ class _BeamRuntime:
         from edgedict_tpu_torch.models.beam_search import make_beam_machinery
         assert not feature_cfg.pad_to_divisible
         self.device = resolve_device(device)
-        self.model = prepare_inference_params(model, compute_dtype, quantize,
-                                              device=self.device)
-        self.lm = prepare_lm(lm, compute_dtype, self.device)
         self.cfg = cfg
         self.compute_dtype = compute_dtype
-        self.pipeline = FeaturePipeline(feature_cfg, self.device)
         self.win_size, self.hop_size = stream_chunk_geometry(
             feature_cfg.win_length, feature_cfg.hop_length,
             feature_cfg.downsample, step_n_frame)
-        self.init_beam, self.frame_step = make_beam_machinery(
-            self.model, cfg, batch, beam_width=beam_width,
-            max_sym_per_frame=max_sym_per_frame, max_tokens=max_tokens,
-            lm=self.lm, merge_prefixes=merge_prefixes, device=self.device)
-        self.fresh_enc = T.encoder_zero_state(cfg, batch, self.device)
+        with on_device(self.device):
+            self.model = prepare_inference_params(
+                model, compute_dtype, quantize, device=self.device)
+            self.lm = prepare_lm(lm, compute_dtype, self.device)
+            self.pipeline = FeaturePipeline(feature_cfg, self.device)
+            self.init_beam, self.frame_step = make_beam_machinery(
+                self.model, cfg, batch, beam_width=beam_width,
+                max_sym_per_frame=max_sym_per_frame, max_tokens=max_tokens,
+                lm=self.lm, merge_prefixes=merge_prefixes,
+                device=self.device)
+            self.fresh_enc = T.encoder_zero_state(cfg, batch, self.device)
 
     @torch.no_grad()
     def run_frames(self, enc_state, beam, xs):
@@ -637,20 +711,26 @@ class StreamingBeamDecoder:
 class MultiStreamBeamDecoder:
     """Server-mode beam search: N independent streams, each with its own
     beam, advanced in one chunk step per round (the batch axis carries the
-    streams, as in MultiStreamDecoder).  decode(frames) returns the
+    streams, as in MultiStreamDecoder; with `devices=` one _BeamRuntime a
+    device holds a contiguous slice of them).  decode(frames) returns the
     current best hypothesis text per stream; the server sends it as '='
     replace messages (serving.StreamServer(full_hypothesis=True))."""
 
     def __init__(self, model, cfg, feature_cfg: FeatureConfig, tokenizer,
-                 n_streams, *, device, step_n_frame=2, beam_width=4,
-                 max_sym_per_frame=3, max_tokens=200, lm=None,
+                 n_streams, *, device=None, devices=None, step_n_frame=2,
+                 beam_width=4, max_sym_per_frame=3, max_tokens=200, lm=None,
                  merge_prefixes=True, compute_dtype=None, quantize=None,
                  mesh=None):
         _not_ported(mesh)
-        self.rt = _BeamRuntime(model, cfg, feature_cfg, n_streams, device,
-                               step_n_frame, beam_width, max_sym_per_frame,
-                               max_tokens, lm, merge_prefixes, compute_dtype,
-                               quantize)
+        devices = replica_devices(device, devices, n_streams)
+        self.per_replica = n_streams // len(devices)
+        self.rts = [_BeamRuntime(model, cfg, feature_cfg, self.per_replica,
+                                 dev, step_n_frame, beam_width,
+                                 max_sym_per_frame, max_tokens, lm,
+                                 merge_prefixes, compute_dtype, quantize)
+                    for dev in devices]
+        # the first replica's (the only one without devices=)
+        self.rt = self.rts[0]
         self.device = self.rt.device
         self.model = self.rt.model
         self.cfg = cfg
@@ -660,12 +740,25 @@ class MultiStreamBeamDecoder:
         self.elapsed = []
         self.reset()
 
+    @property
+    def enc_state(self):
+        """The first replica's encoder state."""
+        return self.enc_states[0]
+
+    @property
+    def beam(self):
+        """The first replica's beam."""
+        return self.beams[0]
+
     def reset(self):
-        self.enc_state = self.rt.fresh_enc
-        self.beam = self.rt.init_beam()
+        self.enc_states = [rt.fresh_enc for rt in self.rts]
+        self.beams = [rt.init_beam() for rt in self.rts]
 
     def reset_stream(self, i):
         """Reset stream i's encoder state and beam, leaving the others."""
+        k, i = divmod(i, self.per_replica)
+        rt = self.rts[k]
+
         def blend(axis):
             def f(new, old):
                 out = old.clone()
@@ -673,15 +766,15 @@ class MultiStreamBeamDecoder:
                 return out
             return f
 
-        fresh_enc = self.rt.fresh_enc
+        fresh_enc, enc = rt.fresh_enc, self.enc_states[k]
         if isinstance(fresh_enc, torch.Tensor):            # GRU (L, B, H)
-            self.enc_state = blend(1)(fresh_enc, self.enc_state)
+            self.enc_states[k] = blend(1)(fresh_enc, enc)
         else:                                              # LSTM (h, c)
-            self.enc_state = tuple(map(blend(1), fresh_enc, self.enc_state))
+            self.enc_states[k] = tuple(map(blend(1), fresh_enc, enc))
         # the batch axis is 1 for the (L, B, W, H) network states, 0 for
         # everything else
-        fresh, b = self.rt.init_beam(), self.beam
-        self.beam = b._replace(
+        fresh, b = rt.init_beam(), self.beams[k]
+        self.beams[k] = b._replace(
             tokens=blend(0)(fresh.tokens, b.tokens),
             n_tok=blend(0)(fresh.n_tok, b.n_tok),
             logp=blend(0)(fresh.logp, b.logp),
@@ -694,11 +787,20 @@ class MultiStreamBeamDecoder:
 
     def decode(self, frames):
         """frames (n_streams, win_size), float or int16 PCM (int16 is
-        scaled on the device) → the current best text per stream."""
+        scaled on the device) → the current best text per stream.  Every
+        replica's step is launched before any fetch is waited on."""
         start = time.perf_counter()
-        self.enc_state, self.beam, toks, n_tok, _ = self.rt.chunk_step(
-            self.enc_state, self.beam, _audio_tensor(frames, self.device))
-        toks, n_tok = toks.cpu().numpy(), n_tok.cpu().numpy()
+        frames = np.asarray(frames)
+        k, pending = self.per_replica, []
+        for j, rt in enumerate(self.rts):
+            with on_device(rt.device):
+                self.enc_states[j], self.beams[j], toks, n_tok, _ = \
+                    rt.chunk_step(self.enc_states[j], self.beams[j],
+                                  _audio_tensor(frames[j * k:(j + 1) * k],
+                                                rt.device))
+                pending.append((_fetch_start(toks), _fetch_start(n_tok)))
+        toks = np.concatenate([_fetch_done(p) for p, _ in pending])
+        n_tok = np.concatenate([_fetch_done(p) for _, p in pending])
         self.elapsed.append(time.perf_counter() - start)
         return [detokenize(self.tokenizer, toks[s][:int(n_tok[s])])
                 for s in range(self.n)]

@@ -18,6 +18,16 @@ finite: a non-finite step leaves the params and the optimizer state, Adam's
 count included, as they were, without a host sync (train.py:201-211).
 Metrics: loss, grad_norm (before clipping), skipped.
 
+Data parallelism (parallel/train.py:141 of the JAX package, one process a
+GPU here): when a default torch.distributed process group of world size > 1
+is initialized, each rank runs the step on its own rows and, after the
+accumulation loop and before the optimizer, the gradients and the loss are
+averaged across the ranks by ONE all-reduce of a flat fp32 buffer (what
+DistributedDataParallel with no_sync would do).  The gradient norm and the
+non-finite skip then read the averaged values, so every rank skips or
+updates alike; auxiliary metrics stay per rank.  Without a group, or at
+world size 1, the step is the one-device step.
+
 `make_eval_step` returns `eval(model, batch)` → (loss, y_seq, out_len) for
 an 'audio', 'alen', 'ys', 'ylen' batch: the deterministic fp32 loss and the
 greedy decode (K3 on CUDA), featurised by the pipeline or by
@@ -33,6 +43,7 @@ enqueued step N, so it overlaps that step; elsewhere it is `device_batch`.
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from edgedict_tpu_torch import optim
 from edgedict_tpu_torch.models import transducer as T
@@ -52,6 +63,34 @@ def make_train_state(cfg, optimizer, device, seed=0):
     model = T.Transducer(cfg, device=device, seed=seed)
     return TrainState(model=model,
                       opt_state=optimizer.init(dict(model.named_parameters())))
+
+
+def world():
+    """(rank, world size) of the default process group; (0, 1) without
+    one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def all_reduce_mean(tensors):
+    """Average fp32 tensors across the process group with one all-reduce
+    of their concatenation; → the averaged tensors (new ones)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    return [piece.view_as(t) for piece, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def broadcast_module(module, src=0):
+    """Copy rank `src`'s parameters and buffers to every rank (no-op
+    without a group)."""
+    if world()[1] == 1:
+        return
+    with torch.no_grad():
+        for t in list(module.parameters()) + list(module.buffers()):
+            dist.broadcast(t.data, src)
 
 
 def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None,
@@ -92,6 +131,11 @@ def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None,
         # a param no loss reached has a zero gradient, as under jax.grad
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  / accum for k, p in params.items()}
+        if world()[1] > 1:
+            *reduced, loss = all_reduce_mean([*grads.values(),
+                                              loss.reshape(1)])
+            grads = dict(zip(grads, reduced))
+            loss = loss.reshape(())
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 params, lr)

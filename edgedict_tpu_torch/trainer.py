@@ -20,14 +20,29 @@ by index in the host loader's order, :112-137, :249-311), --profile_dir
 (a torch.profiler chrome trace of steps 11-13, :347-360), tensorboard
 scalars and samples when tensorboardX imports (:199-205), and on CUDA
 page-locked loader batches copied one step ahead (train.prefetch_batches).
+
+Data parallelism (cli/distributed.py; trainer.py:160, :199, :453 of the
+JAX package): under a torch.distributed process group each rank is handed
+its shard of the corpora and loads --batch_size rows from it; the shared
+train step averages the gradients across the ranks.  The ranks start from
+rank 0's parameters, agree on the steps of an epoch (the fewest batches
+any rank's loader has, so no rank waits alone in an all-reduce), draw
+augmentation from generators seeded by rank, and sum their evaluation
+counts (loss, word errors and reference words of the greedy and the beam
+decode) before the WER, the plateau scheduler and the best checkpoint read
+them.  Only rank 0 writes the flag snapshot, tensorboard, the step log and
+checkpoints; every rank waits at a barrier after a save and before a load.
+--device_corpus is one process only.
 """
 
+import itertools
 import os
 import shutil
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from edgedict_tpu_torch import optim
 from edgedict_tpu_torch.checkpoint import (
@@ -44,13 +59,13 @@ from edgedict_tpu_torch.features import FeaturePipeline
 from edgedict_tpu_torch.jax_checkpoint import (
     is_jax_checkpoint, load_jax_checkpoint)
 from edgedict_tpu_torch.models.transducer import build_optimizer
-from edgedict_tpu_torch.metrics import wer as wer_fn
+from edgedict_tpu_torch.metrics import compute_measures
 from edgedict_tpu_torch.stream import resolve_device
 from edgedict_tpu_torch.tokenizer import (
     PAD, CharTokenizer, HuggingFaceTokenizer)
 from edgedict_tpu_torch.train import (
-    device_batch, make_beam_eval_step, make_eval_step, make_train_state,
-    make_train_step, prefetch_batches)
+    broadcast_module, device_batch, make_beam_eval_step, make_eval_step,
+    make_train_state, make_train_step, prefetch_batches, world)
 
 AUGMENT_SEED = 1234
 PROFILE_STEPS = (10, 13)     # the trace covers the steps after 10, to 13
@@ -68,6 +83,12 @@ def build_tokenizer(flags):
     except FileNotFoundError:
         pass
     return tok
+
+
+def tokenizer_built(tokenizer):
+    """False for a tokenizer that found no cache and awaits build()."""
+    return getattr(tokenizer, 'token2id', True) is not None and \
+        getattr(tokenizer, 'tokenizer', True) is not None
 
 
 def build_datasets(flags, tokenizer):
@@ -150,24 +171,54 @@ def summary_writer(logdir):
     return SummaryWriter(logdir)
 
 
+def error_counts(refs, hyps):
+    """(word errors, reference words, pairs) of the pairs whose reference
+    is not blank: the sums a corpus WER is made of, which ranks add up."""
+    pairs = [(r, h) for r, h in zip(refs, hyps) if r.strip()]
+    if not pairs:
+        return 0, 0, 0
+    m = compute_measures([r for r, _ in pairs], [h for _, h in pairs])
+    return (m['substitutions'] + m['deletions'] + m['insertions'],
+            m['hits'] + m['substitutions'] + m['deletions'], len(pairs))
+
+
+def corpus_wer(errors, words, pairs, empty):
+    """WER of summed error counts (metrics.wer's value); `empty` when no
+    pair had a reference."""
+    return errors / max(words, 1) if pairs else empty
+
+
 class Trainer:
-    def __init__(self, flags):
+    def __init__(self, flags, train_datasets=None, eval_dataset=None):
+        """train_datasets / eval_dataset: the corpora (cli/distributed.py
+        hands each rank its shards); None = build_datasets of the flags."""
         self.flags = flags
         self.logdir = os.path.join(flags.logdir_root, flags.name)
         self.device = resolve_device(flags.device)
+        self.rank, self.world = world()
+        if self.world > 1 and flags.device_corpus:
+            raise ValueError('--device_corpus is one process: shard the '
+                             'corpora over the ranks with the host loader '
+                             'instead')
         os.makedirs(self.logdir, exist_ok=True)
 
-        self.tokenizer = build_tokenizer(flags)
-        train_datasets, eval_dataset = build_datasets(flags, self.tokenizer)
+        given = train_datasets is not None
+        if not given:
+            self.tokenizer = build_tokenizer(flags)
+            train_datasets, eval_dataset = build_datasets(flags,
+                                                          self.tokenizer)
         self.train_dataset = MergedDataset(train_datasets)
+        if given:             # the tokenizer that encodes their labels
+            self.tokenizer = self.train_dataset.tokenizer or \
+                build_tokenizer(flags)
         self.eval_dataset = eval_dataset
-        if getattr(self.tokenizer, 'token2id', True) is None or \
-                getattr(self.tokenizer, 'tokenizer', True) is None:
+        if not tokenizer_built(self.tokenizer):
             self.tokenizer.build(self.train_dataset.texts())
 
         self.accum_steps = pick_accum_steps(flags.batch_size,
                                             flags.sub_batch_size)
         self._build_model_and_steps()
+        broadcast_module(self.state.model)
         self.last_beam_wer = None
         self.sched = optim.ReduceLROnPlateau(
             base_lr=flags.lr, factor=flags.sched_factor,
@@ -188,13 +239,20 @@ class Trainer:
             self.eval_dataset, flags.eval_batch_size, shuffle=False,
             bucket=self.bucket, drop_last=True,
             prefetch=0) if self.eval_dataset is not None else None
+        # the batches of an epoch: the fewest of any rank's loader
+        self.epoch_steps = len(self.loader)
+        if self.world > 1:
+            self.epoch_steps = int(self._all_reduce([self.epoch_steps],
+                                                    dist.ReduceOp.MIN)[0])
         self.device_corpus = None
         if flags.device_corpus:
             self._build_device_corpus()
-        self.writer = summary_writer(self.logdir)
-        snapshot_flags(flags, self.logdir)
+        self.writer = None
+        if self.rank == 0:
+            self.writer = summary_writer(self.logdir)
+            snapshot_flags(flags, self.logdir)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            AUGMENT_SEED)
+            AUGMENT_SEED + self.rank)
         self._skip_batches = 0
         self._best_wer = float('inf')
 
@@ -286,9 +344,21 @@ class Trainer:
             self.state, dev, self._lr(self.state.step), self.generator)
         return metrics
 
+    def _all_reduce(self, values, op=dist.ReduceOp.SUM):
+        """Reduce a list of numbers across the ranks (float64 on this
+        device) → the list."""
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op)
+        return t.tolist()
+
+    def _barrier(self):
+        if self.world > 1:
+            dist.barrier()
+
     def _loader_batches(self):
-        """The loader's batches after the resume's fast-forward."""
-        for batch in self.loader:
+        """The loader's batches of an epoch (epoch_steps of them) after the
+        resume's fast-forward."""
+        for batch in itertools.islice(self.loader, self.epoch_steps):
             if self._skip_batches:
                 self._skip_batches -= 1     # resume: skip to the
                 continue                    # checkpointed position
@@ -309,7 +379,7 @@ class Trainer:
 
     def train(self, total_steps=None, log_fn=print):
         f = self.flags
-        total = total_steps or f.epochs * max(len(self.loader), 1)
+        total = total_steps or f.epochs * max(self.epoch_steps, 1)
         t0 = time.time()
         prof, profiled = None, not f.profile_dir
         try:
@@ -325,7 +395,7 @@ class Trainer:
                     if prof is not None and step == PROFILE_STEPS[1]:
                         self._stop_profiler(prof)
                         prof = None
-                    if step % f.loss_step == 0:
+                    if step % f.loss_step == 0 and self.rank == 0:
                         loss = float(metrics['loss'])
                         if self.writer:
                             self.writer.add_scalar('train_loss', loss, step)
@@ -338,7 +408,8 @@ class Trainer:
                         # the snapshot is taken here, the write runs on
                         # the writer thread
                         self.save(background=True)
-                        prune_checkpoints(self.logdir, f.keep_checkpoints)
+                        if self.rank == 0:
+                            prune_checkpoints(self.logdir, f.keep_checkpoints)
                     if step % f.eval_step == 0 and self.eval_loader:
                         self._eval_and_keep_best(step, log_fn)
                     if step >= total:
@@ -349,6 +420,7 @@ class Trainer:
                 self._stop_profiler(prof)
         self.save()
         wait_for_checkpoints()
+        self._barrier()
 
     def _stop_profiler(self, prof):
         if self.device.type == 'cuda':
@@ -362,12 +434,15 @@ class Trainer:
         if self.writer:
             self.writer.add_scalar('val_loss', val_loss, step)
             self.writer.add_scalar('WER', val_wer, step)
-        log_fn(f'eval @ {step}: loss {val_loss:.4f} '
+        rank = f'[rank {self.rank}/{self.world}] ' if self.world > 1 else ''
+        log_fn(f'{rank}eval @ {step}: loss {val_loss:.4f} '
                f'WER {val_wer:.4f}{self.beam_wer_text()}')
         if val_wer < self._best_wer:
             # the best-WER copy is written synchronously, as in JAX
             self._best_wer = val_wer
-            shutil.copy(self.save(), os.path.join(self.logdir, 'best.ckpt'))
+            path = self.save()
+            if self.rank == 0:
+                shutil.copy(path, os.path.join(self.logdir, 'best.ckpt'))
 
     # ------------------------------------------------------------------
     def beam_wer_text(self):
@@ -379,7 +454,9 @@ class Trainer:
     def evaluate(self, max_batches=None):
         """→ (mean loss, corpus WER of the greedy decode); with
         --eval_beam_width > 0 the beam decode's WER goes to
-        last_beam_wer."""
+        last_beam_wer.  Under a process group each rank decodes its shard
+        and the sums behind these numbers are added across the ranks, so
+        every rank returns the same values."""
         losses, refs, hyps, beam_hyps = [], [], [], []
         model = self.state.model
         for i, batch in enumerate(self.eval_loader):
@@ -400,34 +477,48 @@ class Trainer:
                 beam_hyps.extend(self.tokenizer.decode_plus(
                     [t[:n] for t, n in zip(toks.cpu().numpy(),
                                            n_tok.cpu().numpy())]))
-        pairs = [(r, h) for r, h in zip(refs, hyps) if r.strip()]
-        val_wer = wer_fn([r for r, _ in pairs], [h for _, h in pairs]) \
-            if pairs else 1.0
-        bpairs = [(r, h) for r, h in zip(refs, beam_hyps) if r.strip()]
-        self.last_beam_wer = wer_fn([r for r, _ in bpairs],
-                                    [h for _, h in bpairs]) \
-            if bpairs else None
+        sums = [float(np.sum(losses)), len(losses),
+                *error_counts(refs, hyps), *error_counts(refs, beam_hyps)]
+        if self.world > 1:
+            sums = self._all_reduce(sums)
+        loss_sum, n_losses = sums[:2]
+        val_wer = corpus_wer(*sums[2:5], empty=1.0)
+        self.last_beam_wer = corpus_wer(*sums[5:], empty=None)
         if self.writer and self.last_beam_wer is not None:
             self.writer.add_scalar('beam_WER', self.last_beam_wer,
                                    self.state.step)
+        pairs = [(r, h) for r, h in zip(refs, hyps) if r.strip()]
         if self.writer and pairs:
             sample = '\n\n'.join(f'REF: {r}\nHYP: {h}' for r, h in
                                   pairs[:self.flags.sample_size])
             self.writer.add_text('samples', sample, self.state.step)
-        return float(np.mean(losses) if losses else np.nan), val_wer
+        return (loss_sum / n_losses if n_losses else float('nan'),
+                val_wer)
 
     # ------------------------------------------------------------------
     def save(self, background=False):
-        return save_checkpoint(
-            self.logdir, self.state.step, self.state.model.state_dict(),
-            self.state.opt_state,
-            self.sched.state_dict() if self.sched else None,
-            extra={'generator': self.generator.get_state(),
-                   'best_wer': self._best_wer},
-            background=background)
+        """Rank 0 writes the checkpoint (with every rank's augmentation
+        generator state); → its path on every rank."""
+        extra = {'generator': self.generator.get_state(),
+                 'best_wer': self._best_wer}
+        if self.world > 1:
+            states = [None] * self.world
+            dist.all_gather_object(states, extra['generator'])
+            extra['generators'] = states
+        if self.rank == 0:
+            path = save_checkpoint(
+                self.logdir, self.state.step, self.state.model.state_dict(),
+                self.state.opt_state,
+                self.sched.state_dict() if self.sched else None,
+                extra=extra, background=background)
+        else:
+            path = checkpoint_path(self.logdir, self.state.step)
+        self._barrier()
+        return path
 
     def load(self, step=None, log_fn=print):
         wait_for_checkpoints()        # a resume in this process sees them
+        self._barrier()               # and the other ranks see rank 0's
         step = step if step is not None else latest_step(self.logdir)
         if step is None:
             raise FileNotFoundError(f'no checkpoints under {self.logdir}')
@@ -455,12 +546,15 @@ class Trainer:
         if self.sched is not None and payload['sched'] is not None:
             self.sched.load_state_dict(payload['sched'])
         extra = payload.get('extra') or {}
-        if 'generator' in extra:
+        if len(extra.get('generators') or ()) == self.world:
+            self.generator.set_state(extra['generators'][self.rank])
+        elif 'generator' in extra:
             self.generator.set_state(extra['generator'])
         if extra.get('best_wer') is not None:
             self._best_wer = float(extra['best_wer'])
+        broadcast_module(model)
         # replay the batch sequence an uninterrupted run would have seen
-        n = max(len(self.loader), 1)
+        n = max(self.epoch_steps, 1)
         self.loader.epoch = step // n
         self._skip_batches = step % n
         return step

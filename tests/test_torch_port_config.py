@@ -2,7 +2,10 @@
 does not do yet (edgedict_tpu_torch/config.py REFUSED): a value other
 than the default stops the parse (parser.error, SystemExit 2) with a
 message naming the flag and its ROADMAP.md Queue 1 item, under every
-CLI's parser.  The defaults, the flags the JAX package itself ignores and
+CLI's parser.  --dp_size parses at -1 and the process group's world size
+and otherwise names the launcher (cli.distributed) or the world size;
+--serve_dp_size N stops the parse when --device cuda has fewer than N
+cards.  The defaults, the flags the JAX package itself ignores and
 the three preset flagfiles still parse; --eval_beam_width,
 --use_pretrained, --device_corpus and --profile_dir, ported, are
 accepted, and the wav2vec pretraining flags parse with the JAX package's
@@ -33,18 +36,21 @@ PARSERS = {'baseline': baseline.build_parser,
 
 
 @pytest.mark.parametrize('arg,name,item', [
-    ('--dp_size=2', 'dp_size', '14'),
-    ('--tp_size=2', 'tp_size', '14'),
-    ('--pp_size=4', 'pp_size', '14'),
+    ('--dp_size=2', 'dp_size', 'python -m edgedict_tpu_torch.cli.'
+                               'distributed under torchrun'),
+    ('--tp_size=2', 'tp_size', 'Queue 1 item 14b'),
+    ('--pp_size=4', 'pp_size', 'Queue 1 item 14b'),
 ])
 @pytest.mark.parametrize('cli', sorted(PARSERS))
 def test_refused_flag_stops_the_parse(capsys, cli, arg, name, item):
+    """Outside a process group --dp_size 2 names the launcher; tensor and
+    pipeline parallelism name their item, 14b."""
     with pytest.raises(SystemExit) as exc:
         C.parse_flags(PARSERS[cli](),
                       [f'--flagfile={REPO}/flagfiles/E6D2.txt', arg])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f'--{name}=' in err and f'Queue 1 item {item}' in err
+    err = ' '.join(capsys.readouterr().err.split())
+    assert f'--{name}=' in err and item in err
 
 
 def test_every_refused_flag_is_named_at_once(capsys):
@@ -60,8 +66,7 @@ def test_every_refused_flag_is_named_at_once(capsys):
         assert f'--{name}=' in err
     for name in ('profile_dir', 'device_corpus'):     # ported: not refused
         assert f'--{name}=' not in err
-    assert [name for name, *_ in C.REFUSED] == ['dp_size', 'tp_size',
-                                                 'pp_size']
+    assert [name for name, *_ in C.REFUSED] == ['tp_size', 'pp_size']
 
 
 @pytest.mark.parametrize('arg,name,value', [
@@ -191,14 +196,47 @@ def test_serve_dp_size_asking_for_one_device_parses(cli, value):
 
 @pytest.mark.parametrize('value', ['2', '8'])
 @pytest.mark.parametrize('cli', ['stream', 'serve'])
-def test_serve_dp_size_over_one_is_refused(capsys, cli, value):
-    """Sharded serving is Queue 1 item 14: --serve_dp_size > 1 stops the
-    parse naming the flag and the item, as --dp_size 2 does."""
+def test_serve_dp_size_over_one_is_refused(capsys, monkeypatch, cli, value):
+    """--serve_dp_size N over --device cuda asks for N cards: with fewer
+    visible the parse stops with the JAX server's reason (root
+    cli/serve.py:58-67); with N CPU replicas, or N cards, it parses."""
+    import torch
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
     with pytest.raises(SystemExit) as exc:
         C.parse_flags(PARSERS[cli](), [
             f'--flagfile={REPO}/flagfiles/E6D2.txt', '--serve_dp_size',
             value])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f'--serve_dp_size={value}' in err
-    assert 'Queue 1 item 14' in err
+    err = ' '.join(capsys.readouterr().err.split())
+    assert f'--serve_dp_size {value} but only 1 devices' in err
+    assert 'real-time deadlines' in err
+    flags = C.parse_flags(PARSERS[cli](), [
+        f'--flagfile={REPO}/flagfiles/E6D2.txt', '--serve_dp_size', value,
+        '--device', 'cpu'])
+    assert flags.serve_dp_size == int(value)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 8)
+    flags = C.parse_flags(PARSERS[cli](), [
+        f'--flagfile={REPO}/flagfiles/E6D2.txt', '--serve_dp_size', value])
+    assert flags.serve_dp_size == int(value)
+
+
+@pytest.mark.parametrize('dp_size,ok', [(-1, True), (2, True), (1, False),
+                                        (4, False)])
+def test_dp_size_follows_the_process_group(capsys, monkeypatch, dp_size,
+                                           ok):
+    """Inside a process group of world size 2, --dp_size -1 and 2 parse;
+    any other value names the world size."""
+    from edgedict_tpu_torch import train
+    monkeypatch.setattr(train, 'world', lambda: (0, 2))
+    argv = [f'--flagfile={REPO}/flagfiles/E6D2.txt', f'--dp_size={dp_size}']
+    for build in (baseline.build_parser, cli_train.build_parser,
+                  pretrain_wav2vec.build_parser):
+        if ok:
+            assert C.parse_flags(build(), argv).dp_size == dp_size
+            continue
+        with pytest.raises(SystemExit) as exc:
+            C.parse_flags(build(), argv)
+        assert exc.value.code == 2
+        err = ' '.join(capsys.readouterr().err.split())
+        assert f'--dp_size={dp_size} but the process group has world ' \
+            'size 2' in err

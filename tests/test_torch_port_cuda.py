@@ -10,8 +10,9 @@ over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
 plans' refusals, plus the
 streaming decoder, a GRU train step, a wav2vec pretraining step and a raw
 fine-tune step on CUDA against the CPU, the trainer's side-stream batch
-prefetch, a background save of card tensors, and the edgedict ops (K1,
-K11, K12 through torch.library) and torch.export on the card.  Marked `cuda`: every test skips where no
+prefetch, a background save of card tensors, the edgedict ops (K1,
+K11, K12 through torch.library) and torch.export on the card, and the
+sharded multi-stream decoders (devices=[cuda:0, cuda:0]).  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
 
@@ -233,6 +234,27 @@ def test_pipelined_fetch_on_cuda(cuda):
     piped = [ms.decode_pipelined(r) for r in rounds] + [ms.flush()]
     assert piped[0] is None
     assert [p[0] for p in piped[1:]] == sync
+
+
+@pytest.mark.parametrize('quantize', [None, 'int8'])
+def test_sharded_multistream_on_the_card_equals_one_device(cuda, quantize):
+    """devices=['cuda:0', 'cuda:0']: two replicas of 2 streams, each step
+    under its device guard, give the one-device decoder's text (greedy and
+    a W=2 beam)."""
+    cfg, feat, model, audio = _small_stream()
+    audios = [np.roll(audio, 500 * s) for s in range(4)]
+    for cls, kw in ((S.MultiStreamDecoder, {}),
+                    (S.MultiStreamBeamDecoder, dict(beam_width=2))):
+        outs = []
+        for where in (dict(device='cuda'),
+                      dict(devices=['cuda:0', 'cuda:0'])):
+            dec = cls(model, cfg, feat, _Tok(), 4, quantize=quantize,
+                      **where, **kw)
+            n = len(S._chunks(audio, dec.win_size, dec.hop_size))
+            outs.append([dec.decode(np.stack(
+                [a[i * dec.hop_size:i * dec.hop_size + dec.win_size]
+                 for a in audios])) for i in range(n)])
+        assert outs[0] == outs[1]
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,8 @@ def test_importing_the_port_adds_no_jax_module():
     modules = ['edgedict_tpu_torch.' + m for m in (
         '_build', '_native', 'config', 'features', 'compat', 'stream',
         'tokenizer', 'serving', 'metrics', 'data', 'data.audio_io',
-        'data.dataset', 'data.collate',
+        'data.dataset', 'data.collate', 'text', 'data.segment',
+        'data.perturb', 'data.manifest', 'data.nvidia_features', 'utils',
         'ops.layers', 'ops.rnn', 'ops.rnn_kernel', 'ops.gru_kernel',
         'ops.quant', 'ops.features_kernel',
         'ops.decode_kernel', 'ops.rnnt_loss', 'ops.rnnt_loss_kernel',

@@ -270,3 +270,150 @@ def test_unported_options_and_missing_card_raise(pair):
 def test_chunk_geometry():
     assert PS.stream_chunk_geometry(320, 200, 3, 2) == (1320, 1200)
     assert PS.stream_chunk_geometry(40, 20, 3, 2) == (140, 120)
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: devices= against the JAX decoders' dp mesh
+# ---------------------------------------------------------------------------
+
+def _dp_mesh():
+    from edgedict_tpu.parallel import make_mesh
+    return make_mesh(dp=2, devices=jax.devices()[:2])
+
+
+def _serve_rounds(decoders, audios, full_hypothesis):
+    """Drive every decoder over the same rounds → {name: texts}; greedy
+    texts are appended, beam texts replace (the current best)."""
+    first = next(iter(decoders.values()))
+    texts = {name: [''] * len(audios) for name in decoders}
+    for frames in _rounds(first, audios):
+        for name, dec in decoders.items():
+            for s, t in enumerate(dec.decode(frames)):
+                texts[name][s] = t if full_hypothesis else texts[name][s] + t
+    return texts
+
+
+@pytest.mark.parametrize('quantize', [None, 'int8'])
+def test_sharded_multistream_equals_the_jax_mesh_decoder(pair, quantize):
+    """MultiStreamDecoder(devices=['cpu', 'cpu']) == the JAX
+    MultiStreamDecoder on a dp=2 mesh == the port's one-device decoder,
+    4 streams (2 a replica), fp32 and int8; then reset_stream of a stream
+    of the second replica and the pipelined rounds."""
+    from edgedict_tpu.stream import MultiStreamDecoder as JMulti
+    params, model = pair
+    audios = [_audio(60 + i, 3000) for i in range(4)]
+    decs = {
+        'jax': JMulti(params, JCFG, JFeat(**FKW), _Tok(), n_streams=4,
+                      step_n_frame=2, mesh=_dp_mesh(), quantize=quantize),
+        'sharded': PS.MultiStreamDecoder(model, PCFG, PFEAT, _Tok(), 4,
+                                         devices=['cpu', 'cpu'],
+                                         quantize=quantize),
+        'one': PS.MultiStreamDecoder(model, PCFG, PFEAT, _Tok(), 4,
+                                     device='cpu', quantize=quantize)}
+    sharded = decs['sharded']
+    assert len(sharded.replicas) == 2 and sharded.per_replica == 2
+    assert sharded.replicas[0].model is not sharded.replicas[1].model
+    texts = _serve_rounds(decs, audios, False)
+    assert texts['sharded'] == texts['jax'] == texts['one']
+    assert sum(map(len, texts['one'])) > 4
+    for dec in decs.values():
+        dec.reset_stream(3)
+    new = [audios[0], audios[1], audios[2], _audio(70, 2000)]
+    texts = _serve_rounds(decs, new, False)
+    assert texts['sharded'] == texts['jax'] == texts['one']
+    assert texts['one'][3] == _dec(model, quantize=quantize).decode_wav(
+        new[3])
+    for name in ('sharded', 'one'):
+        decs[name].reset()
+    piped = {name: [''] * 4 for name in ('sharded', 'one')}
+    for frames in _rounds(sharded, audios):
+        for name in piped:
+            for s, t in enumerate(decs[name].decode_pipelined(frames)
+                                  or [''] * 4):
+                piped[name][s] += t
+    for name in piped:
+        for s, t in enumerate(decs[name].flush()):
+            piped[name][s] += t
+    assert piped['sharded'] == piped['one']
+
+
+@pytest.mark.parametrize('quantize', [None, 'int8'])
+def test_sharded_multistream_beam_equals_the_jax_mesh_decoder(pair,
+                                                              quantize):
+    from edgedict_tpu.stream import MultiStreamBeamDecoder as JBeam
+    params, model = pair
+    audios = [_audio(80 + i, 3000) for i in range(4)]
+    beam = dict(beam_width=3, max_sym_per_frame=2, max_tokens=40)
+    decs = {
+        'jax': JBeam(params, JCFG, JFeat(**FKW), _Tok(), n_streams=4,
+                     step_n_frame=2, mesh=_dp_mesh(), quantize=quantize,
+                     **beam),
+        'sharded': PS.MultiStreamBeamDecoder(
+            model, PCFG, PFEAT, _Tok(), 4, devices=['cpu', 'cpu'],
+            quantize=quantize, **beam),
+        'one': PS.MultiStreamBeamDecoder(model, PCFG, PFEAT, _Tok(), 4,
+                                         device='cpu', quantize=quantize,
+                                         **beam)}
+    assert len(decs['sharded'].rts) == 2
+    texts = _serve_rounds(decs, audios, True)
+    assert texts['sharded'] == texts['jax'] == texts['one']
+    assert all(texts['one'])
+    for dec in decs.values():
+        dec.reset_stream(2)
+    new = [audios[0], audios[1], _audio(90, 2000), audios[3]]
+    texts = _serve_rounds(decs, new, True)
+    assert texts['sharded'] == texts['jax'] == texts['one']
+
+
+def test_devices_must_split_the_streams(pair):
+    _, model = pair
+    with pytest.raises(ValueError, match='split evenly'):
+        PS.MultiStreamDecoder(model, PCFG, PFEAT, _Tok(), 3,
+                              devices=['cpu', 'cpu'])
+    with pytest.raises(ValueError, match='split evenly'):
+        PS.MultiStreamBeamDecoder(model, PCFG, PFEAT, _Tok(), 5,
+                                  devices=['cpu', 'cpu'])
+    with pytest.raises(ValueError, match='device'):
+        PS.MultiStreamDecoder(model, PCFG, PFEAT, _Tok(), 2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            PS.MultiStreamDecoder(model, PCFG, PFEAT, _Tok(), 2,
+                                  devices=['cuda:0', 'cuda:1'])
+
+
+def test_cli_serve_dp_size_two_cpu_replicas(tmp_path):
+    """cli.serve --serve_dp_size 2 --device cpu builds two CPU replicas of
+    the --pt_path weights; its rounds equal the one-device server's, and
+    cli.stream refuses the flag."""
+    from test_torch_port_cli import TINY, _setup
+
+    from edgedict_tpu_torch import config as C
+    from edgedict_tpu_torch.cli import serve
+    from edgedict_tpu_torch.cli import stream as cli_stream
+    from edgedict_tpu_torch.data.audio_io import load_audio
+    logs, wav = _setup(tmp_path)
+    base = TINY + ['--logdir_root', logs, '--device', 'cpu', '--n_streams',
+                   '4']
+    flags = C.parse_flags(serve.build_parser(), base)
+    tok = cli_stream.build_tokenizer(flags)
+    feat = C.feature_config_from_flags(flags, pad_to_divisible=False)
+    cfg = C.transducer_config_from_flags(flags, tok.vocab_size,
+                                         feat.input_size)
+    model = PT.Transducer(cfg, 'cpu', seed=7)
+    with torch.no_grad():
+        model.joint.out.bias[0] -= 3.0            # emit some text
+    pt = str(tmp_path / 'model.pt')
+    torch.save({'model': model.state_dict()}, pt)
+    base += ['--pt_path', pt]
+    two = serve.build_decoder(C.parse_flags(
+        serve.build_parser(), base + ['--serve_dp_size', '2']))
+    one = serve.build_decoder(C.parse_flags(serve.build_parser(), base))
+    assert [r.device.type for r in two.replicas] == ['cpu', 'cpu']
+    assert len(one.replicas) == 1
+    audio, _ = load_audio(wav)
+    audios = [np.roll(audio, 700 * i) for i in range(4)]
+    texts = _serve_rounds({'two': two, 'one': one}, audios, False)
+    assert texts['two'] == texts['one'] and any(texts['one'])
+    with pytest.raises(SystemExit) as exc:
+        cli_stream.main(base + ['--path', wav, '--serve_dp_size', '2'])
+    assert exc.value.code == 2
