@@ -235,7 +235,23 @@ Phases, each printing JSON or text lines:
              fp32 and int8, 8 streams over devices=[cuda:0, cuda:0] (two
              replicas) against one device: tokens bit-equal, round ms of
              both; cli.serve --serve_dp_size 2 exits 2 on one card
- 31 launches every kernel launched by the main paths themselves: the counts
+ 31 pp_train  pipeline parallelism (parallel/pipeline.py) at full-width
+             E6D2 on make_layout(pp=2, devices=[cuda:0] * 2), batch 32 of
+             2-4 s as accum 2 x 16: one fp32 Adam step of
+             make_train_step_pp == the plain step with accum_steps = 2
+             (loss rel 1e-5, params rtol 1e-4 / atol 1e-5); 3 bf16 Adam
+             steps at pp = 4 (accum 4) lower the loss on the repeated
+             batch; step ms and peak memory of each
+ 32 tp_train  tensor parallelism (parallel/vocab.py): K7 and K8 on each
+             vocabulary slice (B=32, T=214, U+1=65, J=640, V/2=1024 and
+             the sentinel column; bf16 and fp32) against the slice's plain
+             K7 / K8, K8 given the whole vocabulary's lse (slice 0 timed in
+             bf16, with its bound); one fp32 Adam step at tp = 2 on
+             make_layout(tp=2, devices=[cuda:0] * 2) == the tp = 1 step
+             (loss and grad norm rel 1e-5, params train_parity's bounds);
+             step ms and peak memory.  Every slot of
+             both grids is cuda:0: these phases measure no scaling
+ 33 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -272,7 +288,9 @@ Phases, each printing JSON or text lines:
              3 micro-steps imply (as train_run); the sharded servers'
              rounds what two replicas of 4 streams imply (per round and
              replica: K2, the encoder's kernels as the decodes, K3 for
-             greedy, the beam's K1 a frame as the beam runs))
+             greedy, the beam's K1 a frame as the beam runs); the pp and
+             tp steps what their micro-steps imply, as train_run, with K7
+             and K8 once a vocabulary slice)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -5006,6 +5024,293 @@ def phase_server_dp(torch):
             'the sharded greedy decoder emitted nothing')
 
 
+
+# tensor and pipeline parallelism (Queue 1 item 14b) on the one card: every
+# slot of the grid on cuda:0, so these phases measure no scaling
+PAR_ROWS = 32             # E6D2's batch, as accum 2 x its sub-batch 16
+PAR_ACCUM = 2
+PAR_LR = 5e-4
+PAR_BF16_STEPS = 3
+TP_LATTICE = (32, 214, 65)    # (B, T, U+1) of the K7 / K8 slice cases
+
+
+def _par_host_batch():
+    """PAR_ROWS rows of seeded synthetic audio (2-4 s, padded to one
+    length) and labels of 8-16 tokens."""
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
+    rng = np.random.RandomState(23)
+    secs = rng.uniform(2.0, 4.0, PAR_ROWS)
+    audio = np.zeros((PAR_ROWS, 4 * 16000), np.float32)
+    for r, sec in enumerate(secs):
+        a = synthetic_audio(500 + r, sec)
+        audio[r, :len(a)] = a
+    return {'audio': audio, 'alen': (secs * 16000).astype(np.int32),
+            'ys': rng.randint(4, 2048, (PAR_ROWS, 16)).astype(np.int32),
+            'ylen': rng.randint(8, 17, PAR_ROWS).astype(np.int32)}
+
+
+def _par_steps(torch, host, layout, accum, bf16, steps, lr, run=None):
+    """`steps` Adam steps of the E6D2 train step (the trainer's features
+    without dither or SpecAugment) from make_train_state(seed 0) placed by
+    `layout` (None: one device) on one device batch of `accum`
+    micro-batches: make_train_step_pp where layout.pp > 1, else
+    make_train_step, after one warm-up step on a copy of the state.  With
+    `run`, the steps' launches go to STATE['launches_' + run].  → losses,
+    grad norms, skips, step ms (each synchronised), peak GB and the params
+    after."""
+    import copy
+
+    from edgedict_tpu_torch import parallel
+    from edgedict_tpu_torch import train as TR
+    from edgedict_tpu_torch.features import FeaturePipeline
+    from edgedict_tpu_torch.models.transducer import build_optimizer
+    from edgedict_tpu_torch.parallel.pipeline import make_train_step_pp
+    cfg, feat = _e6d2_train_cfg()
+    opt = build_optimizer(cfg, 'adam', shards=parallel.vocab_shards(
+        cfg, layout) if layout else None)
+    state = TR.make_train_state(cfg, opt, 'cuda', seed=0, layout=layout)
+    pipe = FeaturePipeline(feat, 'cuda')
+    step = make_train_step_pp(cfg, opt, layout, bf16=bf16,
+                              feature_pipeline=pipe) \
+        if layout is not None and layout.pp > 1 else \
+        TR.make_train_step(cfg, opt, bf16=bf16, feature_pipeline=pipe)
+    batch = TR.device_batch(host, accum, 'cuda')
+    step(copy.deepcopy(state), batch, lr,          # warm-up, on a copy
+         torch.Generator(device='cuda').manual_seed(0))
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    out = {'losses': [], 'grad_norms': [], 'skipped': [], 'step_ms': []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if run:
+        _reset_launches()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, lr, gen)
+        out['losses'].append(float(m['loss']))
+        out['step_ms'].append(1e3 * (time.perf_counter() - t0))
+        out['grad_norms'].append(float(m['grad_norm']))
+        out['skipped'].append(float(m['skipped']))
+    if run:
+        STATE['launches_' + run] = _launches()
+        STATE.setdefault('run_expect', {})[run] = _par_expect(
+            cfg, steps * accum, layout.tp if layout else 1)
+    out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    out['params'] = {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()}
+    return out
+
+
+def _par_expect(cfg, micro_steps, slices):
+    """Launches of micro_steps feature-Trainer micro-steps (LSTM) whose
+    joint runs in `slices` vocabulary slices (K7 and K8 once a slice)."""
+    want = _train_expect(cfg, micro_steps)
+    want['joint_lse_fwd'] = want['joint_lse_bwd'] = micro_steps * slices
+    return want
+
+
+def _par_compare(got, want):
+    """Params and losses after the steps against the reference run's:
+    {the largest excess of |got - want| over PAR_RTOL·|want| (dp_train's
+    measure), the largest |got - want|, the share of params off by more
+    than 0.01 lr (train_parity's measures: Adam's first step is g / |g|,
+    so a gradient at its rounding level may flip sign), the losses' and
+    the first grad norms' largest relative difference}."""
+    diffs = {k: (p - want['params'][k]).abs()
+             for k, p in got['params'].items()}
+    n = sum(d.numel() for d in diffs.values())
+    return {
+        'param_excess_over_rtol': max(
+            float((d - DP_RTOL * want['params'][k].abs()).max())
+            for k, d in diffs.items()),
+        'param_max_abs_diff': max(float(d.max()) for d in diffs.values()),
+        'param_share_diff_over_0.01lr': sum(
+            int((d > 0.01 * PAR_LR).sum()) for d in diffs.values()) / n,
+        'loss_rel': max(abs(a - b) / abs(b) for a, b in
+                        zip(got['losses'], want['losses'])),
+        'grad_norm_rel': abs(got['grad_norms'][0] - want['grad_norms'][0])
+        / want['grad_norms'][0]}
+
+
+def _par_plain(torch, host):
+    """The one-device fp32 step with accum_steps = PAR_ACCUM that pp_train
+    and tp_train are held against (computed once)."""
+    if 'par_plain' not in STATE:
+        STATE['par_plain'] = _par_steps(torch, host, None, PAR_ACCUM, False,
+                                        1, PAR_LR)
+    return STATE['par_plain']
+
+
+def phase_pp_train(torch):
+    """Pipeline parallelism at E6D2 full width (flagfiles/E6D2.txt: 6 x 1024,
+    a tail of 4 after the reduction at layer 1) on make_layout(pp=2,
+    devices=[cuda:0] * 2), batch 32 as accum 2 x 16: one fp32 Adam step
+    of make_train_step_pp equals the plain step with accum_steps = 2
+    (loss rel 1e-5, params rtol 1e-4 / atol 1e-5, dp_train's bounds), its
+    launches those of 2 plain micro-steps; then 3 bf16 Adam steps at pp = 4
+    (accum 4, pick_accum_steps' pp rule) lower the loss on the repeated
+    batch.  Step ms and peak memory of each."""
+    from edgedict_tpu_torch import parallel
+    from edgedict_tpu_torch.trainer import pick_accum_steps
+    host = _par_host_batch()
+    plain = _par_plain(torch, host)
+    pp2 = _par_steps(torch, host, parallel.make_layout(
+        pp=2, devices=['cuda:0'] * 2), PAR_ACCUM, False, 1, PAR_LR,
+        run='pp_train')
+    cmp = _par_compare(pp2, plain)
+    accum4 = pick_accum_steps(PAR_ROWS, 16, pp=4)
+    pp4 = _par_steps(torch, host, parallel.make_layout(
+        pp=4, devices=['cuda:0'] * 4), accum4, True, PAR_BF16_STEPS, 1e-3,
+        run='pp_train_bf16')
+    res = {'phase': 'pp_train', 'config': 'flagfiles/E6D2.txt',
+           'rows': PAR_ROWS, 'devices': 'cuda:0 x pp',
+           'pp2_fp32': {'accum': PAR_ACCUM, 'loss': pp2['losses'][0],
+                        'loss_plain': plain['losses'][0],
+                        'grad_norm': pp2['grad_norms'][0],
+                        'grad_norm_plain': plain['grad_norms'][0], **cmp,
+                        'step_ms': pp2['step_ms'][0],
+                        'step_ms_plain': plain['step_ms'][0],
+                        'peak_gb': pp2['peak_gb'],
+                        'peak_gb_plain': plain['peak_gb']},
+           'pp4_bf16': {'accum': accum4, 'losses': pp4['losses'],
+                        'step_ms': pp4['step_ms'],
+                        'peak_gb': pp4['peak_gb']},
+           'bounds': f'loss rel {DP_RTOL / 10}, params rtol {DP_RTOL} atol '
+                     f'{DP_ATOL}; bf16 losses falling',
+           'note': 'every stage on cuda:0: no scaling is measured'}
+    emit(res)
+    require(not any(pp2['skipped'] + pp4['skipped']),
+            'a pipelined step was skipped')
+    require(cmp['loss_rel'] <= DP_RTOL / 10
+            and cmp['param_excess_over_rtol'] <= DP_ATOL,
+            f'the pp = 2 step differs from the plain step: {res["pp2_fp32"]}')
+    require(accum4 == 4 and pp4['losses'][-1] < pp4['losses'][0],
+            f'the bf16 pp = 4 steps did not lower the loss: {pp4["losses"]}')
+
+
+def _finite_rel(torch, a, b):
+    """_rel over the entries b holds finite, the -inf entries (an id the
+    slice does not own) required -inf in a too; inf if they differ."""
+    fin = torch.isfinite(b)
+    if not torch.equal(fin, torch.isfinite(a)) or \
+            not bool((a[~fin] == b[~fin]).all()):
+        return float('inf')
+    return _rel(torch, torch.where(fin, a, 0.0), torch.where(fin, b, 0.0))
+
+
+def _tp_slice_cases(torch, record):
+    """K7 and K8 on each vocabulary slice of the E6D2 step (B=32, T=214,
+    U+1=65, J=640, V/2=1024 + the sentinel column), bf16 and fp32, against
+    the plain K7 / K8 of the slice (joint_lse_fwd_plain /
+    joint_lse_bwd_plain), K8 given the whole vocabulary's lse from the
+    slices' K7: log-probs to 1e-4 and gradients to 2e-2 of max(1,
+    max|ref|), the -inf of foreign ids exact; slice 0 timed in bf16 with
+    its bound.  → the cases."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.parallel import vocab as PV
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(31)
+    (b, t, u1), j, v, tp = TP_LATTICE, 640, 2048, 2
+
+    def t_(*shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
+                               device=dev)
+    f, g = t_(b, t, j), t_(b, u1, j)
+    w_t, bias = t_(j, v, scale=j ** -0.5), t_(v, scale=0.1)
+    labels = torch.as_tensor(rng.randint(1, v, (b, u1 - 1)).astype(np.int32),
+                             device=dev)
+    d_b, d_l = t_(b, t, u1, scale=0.1), t_(b, t, u1 - 1, scale=0.1)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        probs = [PV.slice_problem(w.to(dt).contiguous(), bi, labels, 0,
+                                  k * (v // tp))
+                 for k, (w, bi) in enumerate(zip(w_t.chunk(tp, 1),
+                                                 bias.chunk(tp)))]
+        args = [(f.to(dt), g.to(dt), w_p.contiguous(), b_p.contiguous(),
+                 lab.contiguous(), blank_k)
+                for w_p, b_p, lab, blank_k in probs]
+        fwd = [KJ.joint_lse_fwd(*a) for a in args]
+        lse = torch.logsumexp(torch.stack([o[2] for o in fwd]), 0)
+        for k, (a, out) in enumerate(zip(args, fwd)):
+            ref = KJ.joint_lse_fwd_plain(*a)
+            fwd_err = max(_finite_rel(torch, x, r) for x, r in zip(out, ref))
+            del ref
+            grads = KJ.joint_lse_bwd(*a, lse, d_b, d_l)
+            ref_g = KJ.joint_lse_bwd_plain(*a, lse, d_b, d_l)
+            bwd_err = max(_rel(torch, x, r) for x, r in zip(grads, ref_g))
+            del ref_g
+            torch.cuda.synchronize()
+            case = {'kernel': 'K7/K8 joint_lse vocab slice', 'slice': k,
+                    'B': b, 'T': t, 'U1': u1, 'J': j, 'V_slice': v // tp,
+                    'V_padded_cols': a[2].shape[1],
+                    'dtype': str(dt).split('.')[-1], 'fwd_rel': fwd_err,
+                    'bwd_rel': bwd_err, 'blank_on_sentinel': a[5] != 0,
+                    'tol': 'lp 1e-4, grads 2e-2, of max(1, max|ref|); '
+                           '-inf exact'}
+            if dt == torch.bfloat16 and k == 0:
+                ops = 2 * b * t * u1 * j * a[2].shape[1]
+                ms, pms = time_pair(torch, lambda: KJ.joint_lse_fwd_plain(*a),
+                                    lambda: KJ.joint_lse_fwd(*a))
+                bms, bpms = time_pair(
+                    torch, lambda: KJ.joint_lse_bwd_plain(*a, lse, d_b, d_l),
+                    lambda: KJ.joint_lse_bwd(*a, lse, d_b, d_l))
+                fb = bound(nbytes(*a[:5], *out), ops, 'bf16')
+                bb = bound(nbytes(*a[:5], lse, d_b, d_l, *grads), 3 * ops,
+                           'bf16')
+                case.update(fwd_ms=ms, fwd_plain_ms=pms, fwd_bound_ms=fb[0],
+                            fwd_bound_by=fb[1], bwd_ms=bms, bwd_plain_ms=bpms,
+                            bwd_bound_ms=bb[0], bwd_bound_by=bb[1])
+            emit(case)
+            cases.append(case)
+            record('joint_lse_fwd', fwd_err)
+            record('joint_lse_bwd', bwd_err)
+            require(fwd_err <= 1e-4 and bwd_err <= 2e-2,
+                    f'K7/K8 disagree on a vocabulary slice: {case}')
+            del grads
+        del fwd, lse
+    return cases
+
+
+def phase_tp_train(torch):
+    """Tensor parallelism at E6D2 full width on make_layout(tp=2,
+    devices=[cuda:0] * 2): K7 and K8 on each vocabulary slice against the
+    slice's plain version (_tp_slice_cases), then one fp32 Adam step of
+    the train step at tp = 2 (batch 32 as accum 2 x 16) equals the tp = 1
+    step: loss and grad norm rel 1e-5, params within train_parity's
+    bounds (the slices' log-probs are combined, so gradients differ at
+    their rounding level and Adam's first step g / |g| may flip the sign
+    of one at that level), its launches those of 2 micro-steps with K7
+    and K8 twice each.  Step ms and peak memory."""
+    from edgedict_tpu_torch import parallel
+    record = STATE.get('record') or (lambda *a, **k: None)
+    cases = _tp_slice_cases(torch, record)
+    host = _par_host_batch()
+    plain = _par_plain(torch, host)
+    tp2 = _par_steps(torch, host, parallel.make_layout(
+        tp=2, devices=['cuda:0'] * 2), PAR_ACCUM, False, 1, PAR_LR,
+        run='tp_train')
+    cmp = _par_compare(tp2, plain)
+    res = {'phase': 'tp_train', 'config': 'flagfiles/E6D2.txt fp32',
+           'rows': PAR_ROWS, 'accum': PAR_ACCUM, 'devices': 'cuda:0 x tp',
+           'slice_cases': len(cases), 'loss': tp2['losses'][0],
+           'loss_tp1': plain['losses'][0],
+           'grad_norm': tp2['grad_norms'][0],
+           'grad_norm_tp1': plain['grad_norms'][0], **cmp,
+           'step_ms': tp2['step_ms'][0],
+           'step_ms_tp1': plain['step_ms'][0], 'peak_gb': tp2['peak_gb'],
+           'peak_gb_tp1': plain['peak_gb'],
+           'bounds': 'loss and grad_norm rel 1e-5, params max 2 lr and '
+                     '> 0.01 lr on < 1e-3 of them (train_parity\'s: the '
+                     'log-probs are combined over the slices, so the '
+                     'gradients differ at their rounding level)',
+           'note': 'both slices on cuda:0: no scaling is measured'}
+    emit(res)
+    require(not any(tp2['skipped']), 'the tp = 2 step was skipped')
+    require(cmp['loss_rel'] <= 1e-5 and cmp['grad_norm_rel'] <= 1e-5
+            and cmp['param_max_abs_diff'] <= 2 * PAR_LR + 1e-6
+            and cmp['param_share_diff_over_0.01lr'] <= 1e-3,
+            f'the tp = 2 step differs from the tp = 1 step: {res}')
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -5150,7 +5455,8 @@ def main():
               ('ctc', phase_ctc), ('legacy', phase_legacy),
               ('legacy_kernels', phase_legacy_kernels),
               ('surface', phase_surface), ('dp_train', phase_dp_train),
-              ('server_dp', phase_server_dp))
+              ('server_dp', phase_server_dp), ('pp_train', phase_pp_train),
+              ('tp_train', phase_tp_train))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

@@ -6,7 +6,8 @@ a counterpart of the same name there (`features.py` ↔ `features.py`,
 serving path, beam search with RNN-LM shallow fusion, the training step of
 the reference presets, wav2vec 2.0 pretraining and the raw-waveform
 fine-tune on an NVIDIA H100 (LSTM or GRU encoder, fp32, bf16 or int8
-weight-only), data-parallel training over processes (cli/distributed.py)
+weight-only), data-parallel training over processes (cli/distributed.py),
+tensor and pipeline parallelism over each process's devices (parallel/)
 and serving sharded over devices: the Pallas
 kernels on those paths are hand-written CUDA kernels for `sm_90a`
 (`csrc/*.cu`), built with nvcc at first use (`_build.py`) and bound with

@@ -15,12 +15,15 @@ or with the JAX launcher's flags, the same command in every process:
       --coordinator_address host:port --num_processes N --process_id i
 
 (a `tcp://host:port` rendezvous; --coordinator_address may also be
-`file:///path`).  Each process takes the GPU cuda:<local rank> (LOCAL_RANK
-under torchrun, else --process_id modulo the visible cards) and the NCCL
-backend; --device cpu takes gloo, for tests.  There is no fallback from
-NCCL to gloo or from CUDA to the CPU.  Each rank trains on every
-num_processes-th utterance of each corpus (and evaluates its share of the
-eval set); rank 0 builds a missing tokenizer cache while the others wait.
+`file:///path`).  Each process takes the grid of n = tp_size × pp_size
+GPUs cuda:<local rank · n> .. cuda:<local rank · n + n - 1> (LOCAL_RANK
+under torchrun, else --process_id; a request for more cards than are
+visible exits 2 naming the count) and the NCCL backend; --device cpu
+takes gloo, for tests (the grid is then the CPU n times).  There is no
+fallback from NCCL to gloo or from CUDA to the CPU.  Each rank trains on
+every num_processes-th utterance of each corpus (and evaluates its share
+of the eval set); rank 0 builds a missing tokenizer cache while the
+others wait.
 --dp_size must be -1 or the world size.
 """
 
@@ -72,9 +75,11 @@ def build_parser():
 
 def init_process_group(argv):
     """Join the process group the launcher flags or torchrun's environment
-    name → (rank, world size, the device this rank trains on)."""
+    name → (rank, world size, the first device of this rank's grid)."""
     pre = add_launcher_flags(argparse.ArgumentParser(add_help=False))
     pre.add_argument('--device', default='cuda')
+    pre.add_argument('--tp_size', type=int, default=1)
+    pre.add_argument('--pp_size', type=int, default=1)
     known, _ = pre.parse_known_args(expand_argv(list(argv)))
     if known.coordinator_address:
         if known.num_processes is None or known.process_id is None:
@@ -95,11 +100,16 @@ def init_process_group(argv):
     if known.device == 'cpu':
         device, backend = torch.device('cpu'), 'gloo'
     else:
-        n = torch.cuda.device_count()
-        if n == 0:
+        n = max(1, known.tp_size * known.pp_size)
+        visible = torch.cuda.device_count()
+        if visible == 0:
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                'is visible')
-        device, backend = torch.device('cuda', local % n), 'nccl'
+        if (local + 1) * n > visible:
+            pre.error(f'local rank {local} needs the {n} cards cuda:'
+                      f'{local * n}..cuda:{local * n + n - 1} (tp_size × '
+                      f'pp_size) but {visible} are visible')
+        device, backend = torch.device('cuda', local * n), 'nccl'
         torch.cuda.set_device(device)
     dist.init_process_group(backend, **kw)
     return dist.get_rank(), dist.get_world_size(), device

@@ -11,10 +11,10 @@ for wav2vec pretraining (cli/pretrain_wav2vec.py, cli/train.py).  The
 other keys of the JAX registry that a preset or a run snapshot carries
 (`--apex`, `--opt_level`, the trainer's keys in a serving CLI, ...) are
 accepted and ignored.  The JAX package's flags whose work the port does
-not do yet (`REFUSED`) parse at their defaults, and any other value stops
-the parse with an error that names the flag and the ROADMAP.md Queue 1
-item that brings it: nothing is dropped without a word.  Any other key is
-an error, as with absl.
+not do yet (`REFUSED`, empty since every one is ported) parse at their
+defaults, and any other value stops the parse with an error that names
+the flag and the ROADMAP.md Queue 1 item that brings it: nothing is
+dropped without a word.  Any other key is an error, as with absl.
 
 --dp_size is data parallelism over processes (cli/distributed.py, one
 process a GPU): -1 and the default process group's world size parse (1
@@ -22,6 +22,10 @@ without a group), anything else stops the parse naming the launcher or
 the world size.  --serve_dp_size N (the stream / serve parser) asks for N
 local devices; over --device cuda, N larger than the visible cards stops
 the parse as the JAX server's assertion does (root cli/serve.py:58-67).
+--tp_size / --pp_size split a trainer's model over a grid of devices
+(parallel/); under --device cuda a trainer's parse stops when fewer than
+tp_size × pp_size cards are visible, naming the count.  The serving CLIs
+parse both and ignore them, as the JAX package's serving does.
 """
 
 import argparse
@@ -171,10 +175,7 @@ _IGNORABLE = UNREAD | ABSL_FLAGS | {
 
 # flags of edgedict_tpu/config.py whose work the port does not do yet:
 # (name, type, the values that ask for nothing, ROADMAP.md Queue 1 item)
-REFUSED = (
-    ('tp_size', int, (1,), '14b, tensor parallelism'),
-    ('pp_size', int, (1,), '14b, pipeline parallelism'),
-)
+REFUSED = ()
 LAUNCHER = 'python -m edgedict_tpu_torch.cli.distributed'
 
 
@@ -189,8 +190,9 @@ def add_refused_flags(parser, refused):
 
 
 def add_model_flags(parser):
-    """Register --flagfile, the model/feature/tokenizer flags, --dp_size
-    and the refused ones (parse_flags checks those)."""
+    """Register --flagfile, the model/feature/tokenizer flags, --dp_size,
+    --tp_size, --pp_size and the refused ones (parse_flags checks
+    those)."""
     parser.add_argument('--flagfile', action='append', default=[],
                         help='read flags from this file (absl syntax)')
     for name, typ, default in MODEL_FLAGS:
@@ -198,6 +200,15 @@ def add_model_flags(parser):
     parser.add_argument('--dp_size', type=int, default=-1,
                         help='data-parallel processes: -1 or the process '
                              f"group's world size (launch with {LAUNCHER})")
+    parser.add_argument('--tp_size', type=int, default=1,
+                        help='trainers: the joint\'s vocabulary in this many '
+                             'slices, one a device of the process\'s grid '
+                             '(edgedict_tpu_torch/parallel/); serving '
+                             'ignores it')
+    parser.add_argument('--pp_size', type=int, default=1,
+                        help='the transducer trainer: the encoder in this '
+                             'many pipeline stages, one a device of the '
+                             'grid; serving ignores it')
     return add_refused_flags(parser, REFUSED)
 
 
@@ -212,9 +223,11 @@ def add_serve_flags(parser):
 
 
 def _parallel_errors(flags):
-    """The --dp_size and --serve_dp_size values this process cannot
-    honour, as messages."""
-    from edgedict_tpu_torch import train
+    """The --dp_size, --tp_size / --pp_size and --serve_dp_size values this
+    process cannot honour, as messages.  A trainer's parser (one with
+    --mode) over --device cuda needs tp_size × pp_size visible cards from
+    its first (parallel/__init__.py:grid_devices)."""
+    from edgedict_tpu_torch import parallel, train
     errors = []
     world = train.world()[1]
     dp = getattr(flags, 'dp_size', -1)
@@ -225,6 +238,14 @@ def _parallel_errors(flags):
             'with --coordinator_address, --num_processes and --process_id'
             if world == 1 else
             f'--dp_size={dp} but the process group has world size {world}')
+    tp, pp = getattr(flags, 'tp_size', 1), getattr(flags, 'pp_size', 1)
+    if tp < 1 or pp < 1:
+        errors.append(f'--tp_size={tp} --pp_size={pp}: each must be >= 1')
+    elif tp * pp > 1 and hasattr(flags, 'mode'):
+        try:
+            parallel.grid_devices(getattr(flags, 'device', 'cuda'), tp * pp)
+        except ValueError as e:
+            errors.append(f'--tp_size={tp} --pp_size={pp}: {e}')
     n = getattr(flags, 'serve_dp_size', 0)
     if n > 1 and str(getattr(flags, 'device', 'cuda')).startswith('cuda'):
         import torch
@@ -313,8 +334,9 @@ def normalize_argv(argv, parser):
 def parse_flags(parser, argv):
     """argv (without the program name) → argparse Namespace.  A refused
     flag at a value that asks for work the port does not do, and a
-    --dp_size / --serve_dp_size this process cannot honour, stop the parse
-    (parser.error: SystemExit 2) naming the flag."""
+    --dp_size, --tp_size / --pp_size or --serve_dp_size this process
+    cannot honour, stop the parse (parser.error: SystemExit 2) naming the
+    flag."""
     flags = parser.parse_args(normalize_argv(expand_argv(list(argv)), parser))
     refused = [f'--{name}={getattr(flags, name)} (ROADMAP.md Queue 1 item '
                f'{item})'

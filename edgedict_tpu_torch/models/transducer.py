@@ -85,6 +85,15 @@ class Linear(nn.Module):
         self.weight = _p(w)
         self.bias = _p(b)
 
+    @classmethod
+    def of(cls, weight, bias):
+        """A Linear holding copies of weight (out, in) and bias (out,)."""
+        lin = cls.__new__(cls)
+        nn.Module.__init__(lin)
+        lin.weight = _p(weight.detach().clone())
+        lin.bias = _p(bias.detach().clone())
+        return lin
+
 
 class LSTM(nn.Module):
     """Parameters of a torch nn.LSTM (weight_ih_l{k}, ...); `layer(k)`
@@ -192,13 +201,14 @@ class Joint(nn.Module):
         return self.joint[2]
 
 
-def build_optimizer(cfg, name, gradclip=None):
+def build_optimizer(cfg, name, gradclip=None, shards=None):
     """optim.build_optimizer for a Transducer of `cfg`: the joint's first
     weight is cut into the JAX package's two tensors, w_enc | w_dec, so
-    that SM3 and Novograd keep their state per tensor as there."""
+    that SM3 and Novograd keep their state per tensor as there; `shards`:
+    the params held in slices (parallel/__init__.py:vocab_shards)."""
     return optim.Optimizer(name, gradclip=gradclip, segments={
         'joint.joint.0.weight': (1, (cfg.enc_proj_size,
-                                     cfg.dec_proj_size))})
+                                     cfg.dec_proj_size))}, shards=shards)
 
 
 class Transducer(nn.Module):
@@ -264,40 +274,52 @@ def encoder_linear(proj, xs):
     return linear(xs, proj.weight, proj.bias)
 
 
+def encoder_layer(encoder: Encoder, cfg: TransducerConfig, i, xs, state,
+                  deterministic=True, generator=None):
+    """Layer i of the encoder on time-major xs (T, B, in) from `state`
+    (LSTM (h, c), GRU h; each (B, H)): the cell, the residual add from
+    layer 2 on (reference rnnt/models.py:66-69), its LayerNorm, the time
+    reduction where cfg has one after layer i, and with deterministic=False
+    and a generator cfg.enc_dropout (transducer.py:175-177) → (xs, the
+    cell's new state)."""
+    rnn, proj = encoder.lstm.lstms[i], encoder.lstm.projs[i]
+    if cfg.module_type == 'LSTM':
+        ys, new = rnn_ops.lstm_layer_tm(rnn.layer(0), xs, state)
+    else:
+        ys, new = rnn_ops.gru_layer_tm(rnn.layer(0), xs, state)
+    xs = xs + ys if i != 0 else ys
+    xs = layer_norm(xs, proj[0].weight, proj[0].bias)
+    if i in cfg.enc_time_reductions:
+        xs = time_reduction_tm(xs, cfg.reduction_factor)
+    if not deterministic and cfg.enc_dropout > 0 and generator is not None:
+        xs = dropout(xs, cfg.enc_dropout, False, generator)
+    return xs, new
+
+
 def encoder_apply(encoder: Encoder, cfg: TransducerConfig, xs, state=None,
                   deterministic=True, generator=None):
     """xs (B, T, input_size) → (ys (B, T // time_scale, enc_proj_size),
     new state: ((L, B, H), (L, B, H)) for the LSTM, (L, B, H) for the
     GRU).  state None means zeros.  Runs time-major inside, like the JAX
-    encoder, and dispatches per cell type (transducer.py:145-175).  With
-    deterministic=False and a generator, cfg.enc_dropout applies after
-    each layer (transducer.py:175-177)."""
+    encoder, and dispatches per cell type (transducer.py:145-175), layer
+    by layer (encoder_layer)."""
     is_lstm = cfg.module_type == 'LSTM'
     if state is None:
         state = encoder_zero_state(cfg, xs.shape[0], xs.device)
     xs = xs.transpose(0, 1)
     xs = layer_norm(xs, encoder.norm.weight, encoder.norm.bias)
-    new_h, new_c = [], []
-    for i, (rnn, proj) in enumerate(zip(encoder.lstm.lstms,
-                                        encoder.lstm.projs)):
-        if is_lstm:
-            ys, (h, c) = rnn_ops.lstm_layer_tm(rnn.layer(0), xs,
-                                               (state[0][i], state[1][i]))
-            new_c.append(c)
-        else:
-            ys, h = rnn_ops.gru_layer_tm(rnn.layer(0), xs, state[i])
-        new_h.append(h)
-        # residual add from layer 2 on (reference rnnt/models.py:66-69)
-        xs = xs + ys if i != 0 else ys
-        xs = layer_norm(xs, proj[0].weight, proj[0].bias)
-        if i in cfg.enc_time_reductions:
-            xs = time_reduction_tm(xs, cfg.reduction_factor)
-        if not deterministic and cfg.enc_dropout > 0 \
-                and generator is not None:
-            xs = dropout(xs, cfg.enc_dropout, False, generator)
+    new_states = []
+    for i in range(len(encoder.lstm.lstms)):
+        xs, new = encoder_layer(encoder, cfg, i, xs,
+                                (state[0][i], state[1][i]) if is_lstm
+                                else state[i], deterministic, generator)
+        new_states.append(new)
     xs = encoder_linear(encoder.proj, xs)
-    new_state = (torch.stack(new_h), torch.stack(new_c)) if is_lstm \
-        else torch.stack(new_h)
+    if is_lstm:
+        new_state = (torch.stack([h for h, _ in new_states]),
+                     torch.stack([c for _, c in new_states]))
+    else:
+        new_state = torch.stack(new_states)
     return xs.transpose(0, 1), new_state
 
 

@@ -20,13 +20,14 @@ from edgedict_tpu_torch import _build
 from edgedict_tpu_torch.ops import joint_lse_plan
 
 
-def fused_joint_lse_plain(f, g, w_t, bias, labels, blank):
-    """f (B,T,J), g (B,U+1,J), w_t (J,V), bias (V,), labels (B,U) →
-    (blank_lp (B,T,U+1), label_lp (B,T,U)) fp32: h = tanh(f + g) in fp32,
-    rounded to f's dtype for the product h·W^T (fp32 accumulation) + bias,
-    then the two entries normalised by one logsumexp (joint_lse_pallas.py's
+def joint_lse_fwd_plain(f, g, w_t, bias, labels, blank, dtype=None):
+    """K7's plain version: f (B,T,J), g (B,U+1,J), w_t (J,V), bias (V,),
+    labels (B,U) → (blank_lp (B,T,U+1), label_lp (B,T,U), lse (B,T,U+1))
+    fp32: h = tanh(f + g) in fp32, rounded to the product dtype (`dtype`,
+    else f's) for the product h·W^T (fp32 accumulation) + bias, then the
+    two entries normalised by one logsumexp (joint_lse_pallas.py's
     _xla_reference)."""
-    dtype = f.dtype
+    dtype = dtype or f.dtype
     h = torch.tanh(f.float()[:, :, None, :] + g.float()[:, None, :, :])
     logits = h.to(dtype).float() @ w_t.to(dtype).float() + bias.float()
     lse = torch.logsumexp(logits, -1)
@@ -35,7 +36,41 @@ def fused_joint_lse_plain(f, g, w_t, bias, labels, blank):
     idx = labels.long()[:, None, :, None].expand(-1, logits.shape[1], -1, 1)
     label_lp = torch.gather(logits[:, :, :u], -1, idx)[..., 0] \
         - lse[:, :, :u]
-    return blank_lp, label_lp
+    return blank_lp, label_lp, lse
+
+
+def fused_joint_lse_plain(f, g, w_t, bias, labels, blank):
+    """→ (blank_lp (B,T,U+1), label_lp (B,T,U)) of joint_lse_fwd_plain,
+    differentiable by autograd."""
+    return joint_lse_fwd_plain(f, g, w_t, bias, labels, blank)[:2]
+
+
+def joint_lse_bwd_plain(f, g, w_t, bias, labels, blank, lse, d_blank,
+                        d_label):
+    """K8's plain version: from the saved lse (B,T,U+1) and the cotangents
+    of blank_lp and label_lp, dlogits = onehot(blank)·d_blank +
+    onehot(label)·d_label − softmax·(d_blank + d_label) with softmax =
+    exp(logits − lse), then → (df (B,T,J), dg (B,U+1,J), dw_t (J,V),
+    dbias (V,)), fp32.  The lse is taken as given, so a slice of the
+    vocabulary handed the whole vocabulary's lse gets its slice of the
+    whole dlogits."""
+    dtype = f.dtype
+    h = torch.tanh(f.float()[:, :, None, :] + g.float()[:, None, :, :])
+    hq = h.to(dtype).float()
+    w = w_t.to(dtype).float()
+    logits = hq @ w + bias.float()
+    d_lab = torch.cat([d_label.float(), torch.zeros_like(d_blank[..., :1])],
+                      -1)
+    dl = -torch.exp(logits - lse[..., None]) * (d_blank.float()
+                                                 + d_lab)[..., None]
+    dl[..., blank] += d_blank.float()
+    u = labels.shape[1]
+    idx = labels.long()[:, None, :, None].expand(-1, f.shape[1], -1, 1)
+    dl[:, :, :u].scatter_add_(-1, idx, d_label.float()[..., None])
+    dw_t = torch.einsum('btuj,btuv->jv', hq, dl)
+    dbias = dl.sum((0, 1, 2))
+    da = (dl @ w.t()) * (1 - h * h)
+    return da.sum(2), da.sum(1), dw_t, dbias
 
 
 def _dims(f, g, w_t, bias, labels):

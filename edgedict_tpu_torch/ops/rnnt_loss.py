@@ -24,8 +24,7 @@ loss = −logZ.  Invalid transitions carry the finite NEG, never −inf.
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from edgedict_tpu_torch.ops.joint_lse_kernel import (
-    fused_joint_lse, fused_joint_lse_plain)
+from edgedict_tpu_torch.ops.joint_lse_kernel import fused_joint_lse
 
 NEG = -1e30  # effectively log(0), finite to avoid inf−inf NaNs
 
@@ -198,19 +197,29 @@ def rnnt_loss_from_joint(joint, h_enc, h_dec, labels, xlen, ylen, blank=0,
     (K7/K8) and the lattice kernels (K9/K10); CPU tensors through the plain
     joint `time_chunk` frames at a time, each chunk rematerialised in the
     backward (torch.utils.checkpoint), so the (B, T, U+1, V) logits never
-    exist whole."""
+    exist whole.  A joint whose output layer is in vocabulary slices (tp,
+    parallel/vocab.py) runs vocab_parallel_joint_lse in place of
+    fused_joint_lse; the lattice runs on f's (the home) device."""
     from edgedict_tpu_torch.models.transducer import joint_project
+    from edgedict_tpu_torch.parallel.vocab import (
+        VocabParallelLinear, vocab_parallel_joint_lse)
     f, g = joint_project(joint, h_enc, h_dec)          # (B,T,J), (B,U1,J)
-    w_t = joint.out.weight.t()                         # (J, V)
-    bias = joint.out.bias
+    if isinstance(joint.out, VocabParallelLinear):     # V in slices (tp)
+        w_t = [w.t() for w in joint.out.slices('weight')]
+        bias = joint.out.slices('bias')
+        joint_lse = vocab_parallel_joint_lse
+    else:
+        w_t = joint.out.weight.t()                     # (J, V)
+        bias = joint.out.bias
+        joint_lse = fused_joint_lse
     labels = labels.to(torch.int32)
     if f.device.type == 'cuda':
-        blank_lp, label_lp = fused_joint_lse(f, g, w_t, bias, labels, blank)
+        blank_lp, label_lp = joint_lse(f, g, w_t, bias, labels, blank)
     else:
-        def chunk_lp(f_c, g_, w_, b_):
-            return fused_joint_lse_plain(f_c, g_, w_, b_, labels, blank)
+        def chunk_lp(f_c, g_):
+            return joint_lse(f_c, g_, w_t, bias, labels, blank)
 
-        parts = [checkpoint(chunk_lp, f[:, s:s + time_chunk], g, w_t, bias,
+        parts = [checkpoint(chunk_lp, f[:, s:s + time_chunk], g,
                             use_reentrant=False)
                  for s in range(0, f.shape[1], time_chunk)]
         blank_lp = torch.cat([p[0] for p in parts], 1)

@@ -89,6 +89,12 @@ def plan_masks(cfg, b, t_frames, rng):
 class Wav2VecPretrainer:
     def __init__(self, flags, train_dataset, eval_dataset=None):
         self.flags = flags
+        if getattr(flags, 'pp_size', 1) > 1:
+            raise NotImplementedError(
+                'pipeline parallelism (--pp_size) is wired for the '
+                'transducer trainer only; wav2vec pretraining uses dp/tp')
+        # --tp_size splits nothing: the model has no joint output layer
+        # (pretrainer.py:90-95 of the JAX package)
         self.logdir = os.path.join(flags.logdir_root, flags.name)
         os.makedirs(self.logdir, exist_ok=True)
         self.device = resolve_device(flags.device)

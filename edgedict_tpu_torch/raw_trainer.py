@@ -6,7 +6,9 @@ pipeline: the encoder's input is the FrontEnd's last channel count and it
 has no time reduction (raw_trainer.py:54-57); frame lengths come from the
 conv stride ratio, xlen = min(ceil(alen / (L / T)), T) (:71-82); the loss
 casts the FrontEnd's fp32 output to the compute dtype (:84-88); eval is
-greedy only (:96-100).  `load_pretrained` splices the FrontEnd and encoder
+greedy only (:96-100).  --tp_size cuts the joint's vocabulary over the
+grid as the Trainer does; --pp_size > 1 is refused as in the JAX package
+(:43-47).  `load_pretrained` splices the FrontEnd and encoder
 of a pretraining checkpoint (cli/pretrain_wav2vec.py's pretrained.ckpt,
 the port's or the JAX package's) into the model key by key and
 re-initialises the optimizer state (:102-138).
@@ -16,6 +18,7 @@ import dataclasses
 
 import torch
 
+from edgedict_tpu_torch import parallel
 from edgedict_tpu_torch.checkpoint import load_checkpoint
 from edgedict_tpu_torch.compat import wav2vec_state_dict_from_jax_params
 from edgedict_tpu_torch.config import transducer_config_from_flags
@@ -81,15 +84,22 @@ class RawTrainer(Trainer):
 
     def _build_model_and_steps(self):
         flags = self.flags
+        if self.layout.pp > 1:
+            raise NotImplementedError(
+                'pipeline parallelism (--pp_size) is wired for the '
+                'feature-based trainer only; the raw-waveform FrontEnd '
+                'path trains with dp/tp')
         spec = self.FRONTEND_SPEC
         self.feature_cfg = None
         self.pipeline = None
         base = transducer_config_from_flags(
             flags, self.tokenizer.vocab_size, spec[-1][2])
         self.cfg = cfg = dataclasses.replace(base, enc_time_reductions=())
-        self.optimizer = T.build_optimizer(cfg, flags.optim,
-                                           gradclip=flags.gradclip)
-        model = W.RawTransducer(cfg, self.device, seed=0, spec=spec)
+        self.optimizer = T.build_optimizer(
+            cfg, flags.optim, gradclip=flags.gradclip,
+            shards=parallel.vocab_shards(cfg, self.layout))
+        model = parallel.place_model(
+            W.RawTransducer(cfg, self.device, seed=0, spec=spec), self.layout)
         self.state = TrainState(
             model, self.optimizer.init(dict(model.named_parameters())))
         compute_dtype = torch.bfloat16 if flags.bf16 else torch.float32

@@ -16,14 +16,17 @@ and each metric is the mean over the micro-batches (train.py:216).  The
 optimizer update is applied only when the loss and the gradient norm are
 finite: a non-finite step leaves the params and the optimizer state, Adam's
 count included, as they were, without a host sync (train.py:201-211).
-Metrics: loss, grad_norm (before clipping), skipped.
+Metrics: loss, grad_norm (before clipping), skipped (`apply_grads`, the
+end of every train step: this one and parallel/pipeline.py's).
 
 Data parallelism (parallel/train.py:141 of the JAX package, one process a
 GPU here): when a default torch.distributed process group of world size > 1
 is initialized, each rank runs the step on its own rows and, after the
 accumulation loop and before the optimizer, the gradients and the loss are
-averaged across the ranks by ONE all-reduce of a flat fp32 buffer (what
-DistributedDataParallel with no_sync would do).  The gradient norm and the
+averaged across the ranks by one all-reduce of a flat fp32 buffer for each
+device the rank's parameters lie on (one device, or the rank's grid of
+tensor / pipeline slots, parallel/; what DistributedDataParallel with
+no_sync would do).  The gradient norm and the
 non-finite skip then read the averaged values, so every rank skips or
 updates alike; auxiliary metrics stay per rank.  Without a group, or at
 world size 1, the step is the one-device step.
@@ -45,9 +48,10 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from edgedict_tpu_torch import optim
+from edgedict_tpu_torch import optim, parallel
 from edgedict_tpu_torch.models import transducer as T
 from edgedict_tpu_torch.models.decoding import transducer_greedy_decode
+from edgedict_tpu_torch.optim import on
 
 
 @dataclasses.dataclass
@@ -57,10 +61,16 @@ class TrainState:
     step: int = 0
 
 
-def make_train_state(cfg, optimizer, device, seed=0):
+def make_train_state(cfg, optimizer, device, seed=0, layout=None):
     """Seeded model on `device` (Transducer's CPU torch.Generator init, so
-    every device gets the same weights) and its optimizer state."""
-    model = T.Transducer(cfg, device=device, seed=seed)
+    every device gets the same weights), or placed by `layout` over its
+    grid (parallel/__init__.py:place_model; `device` is then unread), and
+    its optimizer state, each entry beside its parameter."""
+    if layout is None:
+        model = T.Transducer(cfg, device=device, seed=seed)
+    else:
+        model = parallel.place_model(
+            T.Transducer(cfg, device=layout.home, seed=seed), layout)
     return TrainState(model=model,
                       opt_state=optimizer.init(dict(model.named_parameters())))
 
@@ -74,13 +84,22 @@ def world():
 
 
 def all_reduce_mean(tensors):
-    """Average fp32 tensors across the process group with one all-reduce
-    of their concatenation; → the averaged tensors (new ones)."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
-    return [piece.view_as(t) for piece, t in
-            zip(flat.split([t.numel() for t in tensors]), tensors)]
+    """Average fp32 tensors across the process group with one all-reduce a
+    device, of the concatenation of the tensors on it (a rank's grid puts
+    its parameters on several devices, parallel/); → the averaged tensors
+    (new ones), in order."""
+    by_device = {}
+    for i, t in enumerate(tensors):
+        by_device.setdefault(t.device, []).append(i)
+    out = [None] * len(tensors)
+    for idx in by_device.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat)
+        flat /= dist.get_world_size()
+        for i, piece in zip(idx, flat.split([tensors[i].numel()
+                                             for i in idx])):
+            out[i] = piece.view_as(tensors[i])
+    return out
 
 
 def broadcast_module(module, src=0):
@@ -127,33 +146,41 @@ def make_train_step(cfg, optimizer, bf16=True, feature_pipeline=None,
                                for k, v in extra.items()})
             loss.backward()
             loss_sum = loss_sum + loss.detach().float()
-        loss = loss_sum / accum
-        # a param no loss reached has a zero gradient, as under jax.grad
-        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 / accum for k, p in params.items()}
-        if world()[1] > 1:
-            *reduced, loss = all_reduce_mean([*grads.values(),
-                                              loss.reshape(1)])
-            grads = dict(zip(grads, reduced))
-            loss = loss.reshape(())
-        with torch.no_grad():
-            updates, new_opt = optimizer.update(grads, state.opt_state,
-                                                params, lr)
-            gnorm = optim.global_norm(grads.values())
-            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-            for k, p in params.items():
-                p.copy_(torch.where(ok, p + updates[k], p))
-            new_opt = optim.select_state(ok, new_opt, state.opt_state)
-        for p in params.values():
-            p.grad = None
-        metrics = {'loss': loss, 'grad_norm': gnorm,
-                   'skipped': (~ok).float()}
+        state, metrics = apply_grads(state, optimizer, params,
+                                     loss_sum / accum, lr, accum)
         for k in extras[0] if extras else ():
             metrics[k] = torch.stack([e[k].to(first.device)
                                       for e in extras]).mean()
-        return TrainState(model, new_opt, state.step + 1), metrics
+        return state, metrics
 
     return train_step
+
+
+def apply_grads(state, optimizer, params, loss, lr, accum=1):
+    """The end of a train step over `params` ({name: parameter} of
+    state.model): their .grad / accum (a param no loss reached has a zero
+    gradient, as under jax.grad), averaged with the loss across the
+    process group, then the optimizer update, applied only where the loss
+    and the gradient norm are finite; the .grad cleared.
+    → (the next TrainState, metrics loss, grad_norm, skipped)."""
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             / accum for k, p in params.items()}
+    if world()[1] > 1:
+        *reduced, loss = all_reduce_mean([*grads.values(), loss.reshape(1)])
+        grads = dict(zip(grads, reduced))
+        loss = loss.reshape(())
+    with torch.no_grad():
+        updates, new_opt = optimizer.update(grads, state.opt_state, params,
+                                            lr)
+        gnorm = optim.global_norm(grads.values())
+        ok = torch.isfinite(loss) & torch.isfinite(on(gnorm, loss))
+        for k, p in params.items():
+            p.copy_(torch.where(on(ok, p), p + updates[k], p))
+        new_opt = optim.select_state(ok, new_opt, state.opt_state)
+    for p in params.values():
+        p.grad = None
+    return TrainState(state.model, new_opt, state.step + 1), \
+        {'loss': loss, 'grad_norm': gnorm, 'skipped': (~ok).float()}
 
 
 def make_eval_step(cfg, feature_pipeline=None, feature_fn=None):

@@ -33,6 +33,16 @@ decode) before the WER, the plateau scheduler and the best checkpoint read
 them.  Only rank 0 writes the flag snapshot, tensorboard, the step log and
 checkpoints; every rank waits at a barrier after a save and before a load.
 --device_corpus is one process only.
+
+Tensor and pipeline parallelism (parallel/; trainer.py:156-160, :228-237
+of the JAX package): --tp_size / --pp_size build the process's grid of
+devices from --device (parallel/__init__.py:grid_devices, make_layout).
+The model is placed over it, the train step is make_train_step_pp with pp
+> 1 (the accumulation micro-batches as its microbatches, a multiple of pp
+where one divides the batch), evaluation and the greedy decode run on a
+gathered one-device copy on the home device, checkpoints hold the
+one-device layout (the slices gathered on save, scattered on load), and
+batches and the device corpus stay on the home device.
 """
 
 import itertools
@@ -44,7 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from edgedict_tpu_torch import optim
+from edgedict_tpu_torch import optim, parallel
 from edgedict_tpu_torch.checkpoint import (
     checkpoint_path, latest_step, load_checkpoint, prune_checkpoints,
     save_checkpoint, snapshot_flags, wait_for_checkpoints)
@@ -117,15 +127,26 @@ def build_datasets(flags, tokenizer):
     return train, eval_ds
 
 
-def pick_accum_steps(batch_size, sub_batch_size):
+def pick_accum_steps(batch_size, sub_batch_size, pp=1):
     """Accumulation steps: the fewest that make the micro-batch (an equal
-    split of the batch) at most sub_batch_size (trainer.py:80-109, one
-    device)."""
-    for accum in range(1, batch_size + 1):
-        if batch_size % accum == 0 and batch_size // accum <= sub_batch_size:
-            return accum
-    raise ValueError(f'no micro-batch <= sub_batch_size={sub_batch_size} '
-                     f'divides batch_size={batch_size}')
+    split of the batch) at most sub_batch_size; with pp > 1 the fewest
+    such that are a multiple of pp where one exists, as the accumulation
+    micro-batches stream through the pipeline stages (trainer.py:80-108,
+    one process of the dp axis)."""
+    def search(fits):
+        for accum in range(1, batch_size + 1):
+            if batch_size % accum == 0 and fits(accum) \
+                    and batch_size // accum <= sub_batch_size:
+                return accum
+        return None
+
+    found = search(lambda a: a % pp == 0) if pp > 1 else None
+    if found is None:
+        found = search(lambda a: True)
+    if found is None:
+        raise ValueError(f'no micro-batch <= sub_batch_size={sub_batch_size} '
+                         f'divides batch_size={batch_size}')
+    return found
 
 
 def truncate_and_strip(y_seq, out_len, blank=0):
@@ -194,7 +215,10 @@ class Trainer:
         hands each rank its shards); None = build_datasets of the flags."""
         self.flags = flags
         self.logdir = os.path.join(flags.logdir_root, flags.name)
-        self.device = resolve_device(flags.device)
+        tp, pp = flags.tp_size, flags.pp_size
+        self.layout = parallel.make_layout(tp, pp, parallel.grid_devices(
+            resolve_device(flags.device), tp * pp))
+        self.device = self.layout.home
         self.rank, self.world = world()
         if self.world > 1 and flags.device_corpus:
             raise ValueError('--device_corpus is one process: shard the '
@@ -216,7 +240,8 @@ class Trainer:
             self.tokenizer.build(self.train_dataset.texts())
 
         self.accum_steps = pick_accum_steps(flags.batch_size,
-                                            flags.sub_batch_size)
+                                            flags.sub_batch_size,
+                                            pp=self.layout.pp)
         self._build_model_and_steps()
         broadcast_module(self.state.model)
         self.last_beam_wer = None
@@ -264,12 +289,22 @@ class Trainer:
         self.pipeline = FeaturePipeline(self.feature_cfg, self.device)
         self.cfg = transducer_config_from_flags(
             flags, self.tokenizer.vocab_size, self.feature_cfg.input_size)
-        self.optimizer = build_optimizer(self.cfg, flags.optim,
-                                         gradclip=flags.gradclip)
-        self.state = make_train_state(self.cfg, self.optimizer, self.device)
-        self.train_step = make_train_step(self.cfg, self.optimizer,
-                                          bf16=flags.bf16,
-                                          feature_pipeline=self.pipeline)
+        self.optimizer = build_optimizer(
+            self.cfg, flags.optim, gradclip=flags.gradclip,
+            shards=parallel.vocab_shards(self.cfg, self.layout))
+        self.state = make_train_state(self.cfg, self.optimizer, self.device,
+                                      layout=self.layout)
+        if self.layout.pp > 1:
+            from edgedict_tpu_torch.parallel.pipeline import (
+                make_train_step_pp)
+            # the accumulation micro-batches are the pipeline's microbatches
+            self.train_step = make_train_step_pp(
+                self.cfg, self.optimizer, self.layout, bf16=flags.bf16,
+                feature_pipeline=self.pipeline)
+        else:
+            self.train_step = make_train_step(self.cfg, self.optimizer,
+                                              bf16=flags.bf16,
+                                              feature_pipeline=self.pipeline)
         self.eval_step = make_eval_step(self.cfg, self.pipeline)
         self.beam_eval_step = make_beam_eval_step(
             self.cfg, flags.eval_beam_width, self.pipeline) \
@@ -458,7 +493,7 @@ class Trainer:
         and the sums behind these numbers are added across the ranks, so
         every rank returns the same values."""
         losses, refs, hyps, beam_hyps = [], [], [], []
-        model = self.state.model
+        model = self.eval_model()
         for i, batch in enumerate(self.eval_loader):
             if max_batches is not None and i >= max_batches:
                 break
@@ -495,6 +530,15 @@ class Trainer:
         return (loss_sum / n_losses if n_losses else float('nan'),
                 val_wer)
 
+    def eval_model(self):
+        """The model that evaluation runs: the train state's, or on a grid
+        of several devices a gathered one-device copy on the home device
+        (the greedy decode's K3 takes the whole joint)."""
+        model = self.state.model
+        if len(self.layout.devices) == 1:
+            return model
+        return parallel.gathered_model(model, self.device)
+
     # ------------------------------------------------------------------
     def save(self, background=False):
         """Rank 0 writes the checkpoint (with every rank's augmentation
@@ -508,7 +552,8 @@ class Trainer:
         if self.rank == 0:
             path = save_checkpoint(
                 self.logdir, self.state.step, self.state.model.state_dict(),
-                self.state.opt_state,
+                optim.join_shards(self.state.opt_state,
+                                  self.optimizer.shards),
                 self.sched.state_dict() if self.sched else None,
                 extra=extra, background=background)
         else:
@@ -528,20 +573,22 @@ class Trainer:
             payload = load_jax_checkpoint(path)
             model.load_state_dict(state_dict_from_jax_params(
                 payload['model']))
-            params = dict(model.named_parameters())
             opt_state = None if payload['optim'] is None else \
-                optim_state_from_jax(payload['optim'], self.optimizer, params)
+                optim_state_from_jax(payload['optim'], self.optimizer,
+                                     model.state_dict())
             log_fn('JAX checkpoint: its augmentation rng cannot seed a '
                    f'torch.Generator; augmentation restarts from seed '
                    f'{AUGMENT_SEED}')
         else:
             payload = load_checkpoint(path)
             model.load_state_dict(payload['model'])
-            params = dict(model.named_parameters())
             opt_state = payload['optim']
+        params = dict(model.named_parameters())
         if opt_state is None:                   # model-only checkpoint
             opt_state = self.optimizer.init(params)
-        opt_state = _to_device(opt_state, self.device)
+        else:                                   # the one-device layout
+            opt_state = optim.place_state(optim.split_shards(
+                opt_state, self.optimizer.shards), params)
         self.state = type(self.state)(model, opt_state, int(payload['step']))
         if self.sched is not None and payload['sched'] is not None:
             self.sched.load_state_dict(payload['sched'])
@@ -559,8 +606,3 @@ class Trainer:
         self._skip_batches = step % n
         return step
 
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)

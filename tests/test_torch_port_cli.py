@@ -563,3 +563,42 @@ def test_cli_wav2vec_entry_points_default_to_cuda(w2v_run, cli):
     main = importlib.import_module(f'edgedict_tpu_torch.cli.{cli}').main
     with pytest.raises(RuntimeError, match='is_available'):
         main(args + W2V_PRETRAIN, log_fn=lambda s: None)
+
+
+def test_cli_train_tp_cuts_the_raw_joint(w2v_run):
+    """cli.train --tp_size 2 --device cpu (the raw fine-tune from a fresh
+    init, one epoch of 2 steps): the joint's output layer is in two
+    vocabulary slices and the run trains, evaluates and saves the
+    one-device layout."""
+    from edgedict_tpu_torch.checkpoint import checkpoint_path, load_checkpoint
+    from edgedict_tpu_torch.cli import train as cli_train
+    args, _, _ = w2v_run
+    lines = []
+    trainer = cli_train.main(args + ['--name', 'raw-tp', '--epochs', '1',
+                                     '--tp_size', '2', '--eval_step', '1'],
+                             log_fn=lines.append)
+    v = trainer.cfg.vocab_size
+    assert v % 2 == 0, v
+    rows = sorted(p.shape[0] for k, p in
+                  trainer.state.model.named_parameters()
+                  if k.startswith('joint.joint.2.'))
+    assert rows == [v // 2] * 4
+    losses = [ln for ln in lines if ln.startswith('step ')]
+    assert losses and all(np.isfinite(float(ln.split()[3])) for ln in losses)
+    assert any(ln.startswith('eval @ ') for ln in lines)
+    saved = load_checkpoint(checkpoint_path(trainer.logdir,
+                                            trainer.state.step))
+    assert saved['model']['joint.joint.2.weight'].shape[0] == v
+
+
+@pytest.mark.parametrize('cli', ['pretrain_wav2vec', 'train'])
+def test_cli_wav2vec_entry_points_refuse_pp(w2v_run, cli):
+    """--pp_size > 1 is wired for the transducer trainer only: the raw
+    fine-tune and the wav2vec pretrainer refuse it, as the JAX package's
+    do (raw_trainer.py:43-47, pretrainer.py:90-93)."""
+    import importlib
+    args, _, _ = w2v_run
+    main = importlib.import_module(f'edgedict_tpu_torch.cli.{cli}').main
+    with pytest.raises(NotImplementedError, match='pp_size'):
+        main(args + W2V_PRETRAIN + ['--name', 'raw-pp', '--pp_size', '2'],
+             log_fn=lambda s: None)

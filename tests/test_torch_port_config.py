@@ -1,9 +1,10 @@
-"""The port's flag parsing refuses the JAX package's flags whose work it
-does not do yet (edgedict_tpu_torch/config.py REFUSED): a value other
-than the default stops the parse (parser.error, SystemExit 2) with a
-message naming the flag and its ROADMAP.md Queue 1 item, under every
-CLI's parser.  --dp_size parses at -1 and the process group's world size
-and otherwise names the launcher (cli.distributed) or the world size;
+"""The port's flag parsing: nothing is refused as not ported any more
+(edgedict_tpu_torch/config.py REFUSED is empty).  --tp_size / --pp_size
+stop a trainer's parse over --device cuda when fewer cards are visible
+than the grid needs, naming the count, and the stream and serve parsers
+take and ignore them.  --dp_size parses at -1 and the process group's
+world size and otherwise names the launcher (cli.distributed) or the
+world size;
 --serve_dp_size N stops the parse when --device cuda has fewer than N
 cards.  The defaults, the flags the JAX package itself ignores and
 the three preset flagfiles still parse; --eval_beam_width,
@@ -14,6 +15,7 @@ defaults."""
 import os
 
 import pytest
+import torch
 
 from edgedict_tpu_torch import config as C
 from edgedict_tpu_torch.cli import baseline, pretrain_wav2vec, stream
@@ -38,16 +40,27 @@ PARSERS = {'baseline': baseline.build_parser,
 @pytest.mark.parametrize('arg,name,item', [
     ('--dp_size=2', 'dp_size', 'python -m edgedict_tpu_torch.cli.'
                                'distributed under torchrun'),
-    ('--tp_size=2', 'tp_size', 'Queue 1 item 14b'),
-    ('--pp_size=4', 'pp_size', 'Queue 1 item 14b'),
+    ('--tp_size=2', 'tp_size', '2 cards needed from cuda:0 (tp_size × '
+                               'pp_size) but 1 visible'),
+    ('--pp_size=4', 'pp_size', '4 cards needed from cuda:0 (tp_size × '
+                               'pp_size) but 1 visible'),
 ])
 @pytest.mark.parametrize('cli', sorted(PARSERS))
-def test_refused_flag_stops_the_parse(capsys, cli, arg, name, item):
-    """Outside a process group --dp_size 2 names the launcher; tensor and
-    pipeline parallelism name their item, 14b."""
+def test_refused_flag_stops_the_parse(capsys, monkeypatch, cli, arg, name,
+                                      item):
+    """Outside a process group --dp_size 2 names the launcher.  --tp_size
+    and --pp_size split a trainer's model over a grid of cards: on a
+    machine with one visible card the trainer's parse (--device cuda)
+    stops, naming the count; the stream and serve parsers take both and
+    ignore them, as the JAX package's serving does."""
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    argv = [f'--flagfile={REPO}/flagfiles/E6D2.txt', arg]
+    if name != 'dp_size' and cli != 'baseline':
+        flags = C.parse_flags(PARSERS[cli](), argv)
+        assert getattr(flags, name) == int(arg.split('=')[1])
+        return
     with pytest.raises(SystemExit) as exc:
-        C.parse_flags(PARSERS[cli](),
-                      [f'--flagfile={REPO}/flagfiles/E6D2.txt', arg])
+        C.parse_flags(PARSERS[cli](), argv)
     assert exc.value.code == 2
     err = ' '.join(capsys.readouterr().err.split())
     assert f'--{name}=' in err and item in err
@@ -55,7 +68,9 @@ def test_refused_flag_stops_the_parse(capsys, cli, arg, name, item):
 
 def test_every_refused_flag_is_named_at_once(capsys):
     """The command line ROADMAP.md's Queue 3 fault gave: it parsed and
-    trained greedy-only on one device from a random init."""
+    trained greedy-only on one device from a random init.  Now --dp_size
+    names its launcher and the tp × pp grid its card count in one error;
+    nothing is refused as not ported (REFUSED is empty)."""
     with pytest.raises(SystemExit):
         C.parse_flags(baseline.build_parser(), [
             '--flagfile', f'{REPO}/flagfiles/E6D2.txt',
@@ -64,9 +79,10 @@ def test_every_refused_flag_is_named_at_once(capsys):
     err = capsys.readouterr().err
     for name in ('tp_size', 'pp_size', 'dp_size'):
         assert f'--{name}=' in err
+    assert '4 cards needed' in err and 'not ported' not in err
     for name in ('profile_dir', 'device_corpus'):     # ported: not refused
         assert f'--{name}=' not in err
-    assert [name for name, *_ in C.REFUSED] == ['tp_size', 'pp_size']
+    assert C.REFUSED == ()
 
 
 @pytest.mark.parametrize('arg,name,value', [

@@ -11,8 +11,10 @@ plans' refusals, plus the
 streaming decoder, a GRU train step, a wav2vec pretraining step and a raw
 fine-tune step on CUDA against the CPU, the trainer's side-stream batch
 prefetch, a background save of card tensors, the edgedict ops (K1,
-K11, K12 through torch.library) and torch.export on the card, and the
-sharded multi-stream decoders (devices=[cuda:0, cuda:0]).  Marked `cuda`: every test skips where no
+K11, K12 through torch.library) and torch.export on the card, the
+sharded multi-stream decoders (devices=[cuda:0, cuda:0]), and the
+vocabulary-parallel joint (K7 / K8 once a slice) and tp = 2 / pp = 2
+train steps on [cuda:0] * 2.  Marked `cuda`: every test skips where no
 CUDA device is visible.  On a machine with a card (--noconftest keeps
 tests/conftest.py, which configures JAX, out of a JAX-free run):
 
@@ -1779,3 +1781,81 @@ def test_spline_time_warp_cuda_matches_cpu(cuda):
                float(feat.diff(dim=2).abs().max()))
     assert _max_abs(out.cpu(), ref) <= (1e-4 * (w + 1) + 1e-5) * step + 1e-5
     assert _max_abs(out.cpu(), feat) > 1e-2
+
+
+@pytest.mark.parametrize('tp,vs,dtype', [
+    (2, 16, torch.bfloat16), (4, 5, torch.bfloat16), (2, 1024, torch.bfloat16),
+    (2, 16, torch.float32), (4, 5, torch.float32)])
+def test_vocab_parallel_joint_on_the_card_matches_plain(cuda, tp, vs, dtype):
+    """parallel/vocab.py on the card (K7 and K8 once a slice, the sentinel
+    column alone in its pad tile at V/tp = 16) against its plain version
+    on the card: log-probs to 1e-4, gradients to 2e-2 of max(1, max|ref|),
+    -inf nowhere."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.parallel import vocab as PV
+    rng = np.random.RandomState(tp * 100 + vs)
+    b, t, u, j = 3, 7, 5, 64
+    v = tp * vs
+
+    def t_(*shape, scale=1.0):
+        return torch.tensor(rng.randn(*shape) * scale, dtype=torch.float32,
+                            device=cuda)
+    f, g = t_(b, t, j).to(dtype), t_(b, u + 1, j).to(dtype)
+    w_t, bias = t_(j, v, scale=j ** -0.5), t_(v, scale=0.1)
+    labels = torch.tensor(rng.randint(1, v, (b, u)), dtype=torch.int32,
+                          device=cuda)
+    labels[0, :tp] = torch.arange(tp, device=cuda) * vs  # every slice owns
+    cot = (t_(b, t, u + 1), t_(b, t, u))
+    outs = []
+    for fn in (PV.vocab_parallel_joint_lse, PV.vocab_parallel_joint_lse_plain):
+        leaves = [x.detach().clone().requires_grad_()
+                  for x in (f, g, w_t, bias)]
+        before = KJ.joint_lse_fwd.launches
+        out = fn(leaves[0], leaves[1], list(leaves[2].chunk(tp, 1)),
+                 list(leaves[3].chunk(tp)), labels, 0)
+        launched = KJ.joint_lse_fwd.launches - before
+        grads = torch.autograd.grad(out, leaves, cot)
+        outs.append((out, grads, launched))
+    (got, got_g, n), (want, want_g, n_plain) = outs
+    assert n == tp and n_plain == 0
+    for a, r in zip(got, want):
+        assert torch.isfinite(a).all()
+        ref_max = float(r.detach().abs().max())
+        assert _max_abs(a, r) <= 1e-4 * max(1.0, ref_max)
+    for a, r in zip(got_g, want_g):
+        assert _max_abs(a, r) <= 2e-2 * max(1.0, float(r.float().abs().max()))
+
+
+def test_tp_and_pp_train_steps_on_the_card_match_the_one_device_step(cuda):
+    """A tiny fp32 train step at tp = 2 and at pp = 2 on [cuda:0] * 2
+    against the one-device step on the card: loss rel 1e-5, params within
+    2 lr (Adam's first step is g / |g|)."""
+    from edgedict_tpu_torch import parallel
+    from edgedict_tpu_torch import train as TR
+    from edgedict_tpu_torch.parallel.pipeline import make_train_step_pp
+    cfg = T.TransducerConfig(vocab_size=24, vocab_embed_size=8, input_size=20,
+                             enc_hidden_size=48, enc_layers=4,
+                             enc_proj_size=28, dec_hidden_size=24,
+                             dec_layers=1, dec_proj_size=20, joint_size=24)
+    rng = np.random.RandomState(3)
+    batch = {'xs': torch.tensor(rng.randn(2, 4, 18, 20), dtype=torch.float32),
+             'xlen': torch.full((2, 4), 18, dtype=torch.int32),
+             'ys': torch.tensor(rng.randint(1, 24, (2, 4, 5)),
+                                dtype=torch.int32),
+             'ylen': torch.full((2, 4), 5, dtype=torch.int32)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    out = {}
+    for name, tp, pp in (('one', 1, 1), ('tp', 2, 1), ('pp', 1, 2)):
+        layout = parallel.make_layout(tp, pp, ['cuda:0'] * (tp * pp))
+        opt = T.build_optimizer(cfg, 'adam', shards=parallel.vocab_shards(
+            cfg, layout))
+        state = TR.make_train_state(cfg, opt, cuda, seed=1, layout=layout)
+        step = make_train_step_pp(cfg, opt, layout, bf16=False) if pp > 1 \
+            else TR.make_train_step(cfg, opt, bf16=False)
+        state, m = step(state, batch, 1e-3)
+        out[name] = (float(m['loss']), state.model.state_dict())
+    loss, sd = out['one']
+    for name in ('tp', 'pp'):
+        assert abs(out[name][0] - loss) <= 1e-5 * abs(loss)
+        for k, v in sd.items():
+            assert _max_abs(out[name][1][k], v) <= 2e-3 + 1e-6, (name, k)

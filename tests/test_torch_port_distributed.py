@@ -12,7 +12,13 @@ within 120 s so a hang fails instead of stalling the suite:
   * cli.distributed under the JAX launcher's flags on a 9-utterance corpus
     (shards of 5 and 4 utterances at batch 1, so the loaders' lengths
     differ) runs to its end, only rank 0 writes, and both ranks log the
-    same evaluation.
+    same evaluation;
+  * the same at dp = 2 × pp = 2 (--pp_size 2, 4 encoder layers, batch 2
+    in 2 pipeline microbatches), as tests/test_cli_baseline.py runs the
+    JAX CLI: both ranks train and log the same evaluation, and rank 0's
+    checkpoint holds the one-device key layout;
+  * a rank's grid of tp × pp cards starts at cuda:<local rank · tp·pp>:
+    too few visible exits 2 naming the count (no wrap).
 """
 
 import os
@@ -199,48 +205,60 @@ def _char_cache(corpus, logdir_root):
     tok.build(Librispeech(corpus, tok).texts())
 
 
-def test_cli_distributed_two_gloo_ranks_with_uneven_shards(tmp_path):
-    """Each rank runs in its own directory with a relative --logdir_root,
-    so what each one writes is seen apart: rank 0 holds the flag snapshot
-    and the checkpoints, rank 1 nothing.  Its shard has one utterance
-    fewer; both stop after the 4 steps of the shorter one."""
+def _cli_flags(extra=()):
+    """cli.distributed's tiny LSTM run on _corpus, each rank in its own
+    directory with a relative --logdir_root."""
+    return ['--LibriSpeech_train_100', 'LIBRI',
+            '--LibriSpeech_train_360', '/nonexistent',
+            '--LibriSpeech_train_500', '/nonexistent',
+            '--LibriSpeech_test', 'LIBRI', '--TEDLIUM_train', '/nonexistent',
+            '--CommonVoice', '/nonexistent', '--YT_bloomberg2', '/nonexistent',
+            '--YT_life', '/nonexistent', '--logdir_root', 'logs',
+            '--name', 'dp', '--tokenizer', 'char', '--batch_size', '1',
+            '--sub_batch_size', '1', '--eval_batch_size', '2',
+            '--enc_hidden_size', '16', '--enc_layers', '2',
+            '--enc_proj_size', '16', '--dec_hidden_size', '16',
+            '--dec_layers', '1', '--dec_proj_size', '16', '--joint_size', '16',
+            '--vocab_embed_size', '8', '--feature', 'logfbank',
+            '--feature_size', '8', '--n_fft', '256', '--win_length', '256',
+            '--hop_length', '128', '--downsample', '3',
+            '--audio_bucket_frames', '8', '--warmup_step', '2',
+            '--epochs', '1',
+            '--loss_step', '1', '--save_step', '2', '--eval_step', '2',
+            '--num_workers', '1', '--bf16=false', '--dp_size', '2',
+            '--device', 'cpu', *extra]
+
+
+def _cli_ranks(tmp_path, flags):
+    """cli.distributed in two gloo processes, each in tmp_path/rank<r>;
+    → (their stdout, their run directories)."""
     corpus = str(tmp_path / 'libri')
     _corpus(corpus)
     cwds = [str(tmp_path / f'rank{r}') for r in range(2)]
     for cwd in cwds:
         _char_cache(corpus, os.path.join(cwd, 'logs'))
-    flags = [
-        '--LibriSpeech_train_100', corpus,
-        '--LibriSpeech_train_360', '/nonexistent',
-        '--LibriSpeech_train_500', '/nonexistent',
-        '--LibriSpeech_test', corpus, '--TEDLIUM_train', '/nonexistent',
-        '--CommonVoice', '/nonexistent', '--YT_bloomberg2', '/nonexistent',
-        '--YT_life', '/nonexistent', '--logdir_root', 'logs',
-        '--name', 'dp', '--tokenizer', 'char', '--batch_size', '1',
-        '--sub_batch_size', '1', '--eval_batch_size', '2',
-        '--enc_hidden_size', '16', '--enc_layers', '2',
-        '--enc_proj_size', '16', '--dec_hidden_size', '16',
-        '--dec_layers', '1', '--dec_proj_size', '16', '--joint_size', '16',
-        '--vocab_embed_size', '8', '--feature', 'logfbank',
-        '--feature_size', '8', '--n_fft', '256', '--win_length', '256',
-        '--hop_length', '128', '--downsample', '3',
-        '--audio_bucket_frames', '8', '--warmup_step', '2', '--epochs', '1',
-        '--loss_step', '1', '--save_step', '2', '--eval_step', '2',
-        '--num_workers', '1', '--bf16=false', '--dp_size', '2',
-        '--device', 'cpu']
+    flags = [corpus if f == 'LIBRI' else f for f in flags]
     rdv = f'file://{tmp_path}/rendezvous'
     out = _run_ranks([[sys.executable, '-m',
                        'edgedict_tpu_torch.cli.distributed', *flags,
                        '--coordinator_address', rdv, '--num_processes', '2',
                        '--process_id', str(r)] for r in range(2)], cwds)
-    logs = [stdout for _, stdout, _ in out]
+    return ([stdout for _, stdout, _ in out],
+            [os.path.join(cwd, 'logs', 'dp') for cwd in cwds])
+
+
+def test_cli_distributed_two_gloo_ranks_with_uneven_shards(tmp_path):
+    """Each rank runs in its own directory with a relative --logdir_root,
+    so what each one writes is seen apart: rank 0 holds the flag snapshot
+    and the checkpoints, rank 1 nothing.  Its shard has one utterance
+    fewer; both stop after the 4 steps of the shorter one."""
+    logs, (run0, run1) = _cli_ranks(tmp_path, _cli_flags())
     evals = [re.findall(rf'\[rank {r}/2\] eval @ (\d+): (loss \S+ WER \S+)',
                         logs[r]) for r in range(2)]
     assert [s for s, _ in evals[0]] == ['2', '4']
     assert evals[0] == evals[1]
     assert len(re.findall(r'^step \d+/4 ', logs[0], re.M)) == 4
     assert not re.findall(r'^step ', logs[1], re.M)
-    run0, run1 = (os.path.join(cwd, 'logs', 'dp') for cwd in cwds)
     assert sorted(os.listdir(os.path.join(run0, 'models'))) == \
         ['2.ckpt', '4.ckpt']
     assert os.path.isfile(os.path.join(run0, 'flagfile.txt'))
@@ -250,6 +268,28 @@ def test_cli_distributed_two_gloo_ranks_with_uneven_shards(tmp_path):
     payload = load_checkpoint(os.path.join(run0, 'models', '4.ckpt'))
     assert payload['step'] == 4 and len(payload['extra']['generators']) == 2
     assert not torch.equal(*payload['extra']['generators'])
+
+
+def test_cli_distributed_two_gloo_ranks_pipelined(tmp_path):
+    """dp = 2 × pp = 2, as tests/test_cli_baseline.py runs the JAX CLI:
+    4 encoder layers (a preamble of 2, two stages of 1), batch 2 in 2
+    microbatches a rank; both ranks train the 2 steps of the shorter
+    shard, log the same evaluation, and rank 0's checkpoint holds the
+    one-device layout."""
+    flags = _cli_flags(['--pp_size', '2'])
+    for key, value in (('--enc_layers', '4'), ('--batch_size', '2')):
+        flags[flags.index(key) + 1] = value
+    logs, (run0, _) = _cli_ranks(tmp_path, flags)
+    evals = [re.findall(rf'\[rank {r}/2\] eval @ (\d+): (loss \S+ WER \S+)',
+                        logs[r]) for r in range(2)]
+    assert [s for s, _ in evals[0]] == ['2'] and evals[0] == evals[1]
+    losses = re.findall(r'^step \d+/2 loss (\S+)', logs[0], re.M)
+    assert len(losses) == 2 and all(np.isfinite(float(x)) for x in losses)
+    from edgedict_tpu_torch.checkpoint import load_checkpoint
+    payload = load_checkpoint(os.path.join(run0, 'models', '2.ckpt'))
+    keys = PT.Transducer(PT.TransducerConfig(
+        vocab_size=5, enc_layers=4, dec_layers=1), 'cpu').state_dict()
+    assert set(payload['model']) == set(keys)
 
 
 def test_cli_distributed_needs_a_launcher(capsys):
@@ -263,3 +303,19 @@ def test_cli_distributed_needs_a_launcher(capsys):
         os.environ.update(env)
     assert exc.value.code == 2
     assert 'torchrun' in capsys.readouterr().err
+
+
+def test_cli_distributed_counts_a_ranks_grid_of_cards(monkeypatch, capsys):
+    """Rank r takes cuda:r·tp·pp onwards: process 1 of a tp = 2 run needs
+    cards 2 and 3, so with two visible it exits 2 naming the count before
+    joining any group, where it once wrapped onto cuda:(1 % 2)."""
+    from edgedict_tpu_torch.cli import distributed
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)
+    monkeypatch.delenv('LOCAL_RANK', raising=False)
+    with pytest.raises(SystemExit) as exc:
+        distributed.init_process_group([
+            '--coordinator_address', 'file:///nonexistent/rdv',
+            '--num_processes', '2', '--process_id', '1', '--tp_size', '2'])
+    assert exc.value.code == 2
+    err = ' '.join(capsys.readouterr().err.split())
+    assert 'cuda:2..cuda:3' in err and 'but 2 are visible' in err

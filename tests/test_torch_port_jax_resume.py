@@ -9,7 +9,8 @@ step 3 on the same batch without augmentation (fp32).  Loss rtol 1e-5,
 params rtol 1e-4 / atol 1e-5 (the tolerances of
 tests/test_torch_port_train.py).  SM3's accumulators and Novograd's
 second moments are per JAX tensor, so the joint's w_enc | w_dec keep
-theirs apart in the port (optim.Optimizer segments).  Also: the port's
+theirs apart in the port (optim.Optimizer segments).  The same
+checkpoint also resumes on a port Trainer at --tp_size 2.  Also: the port's
 load_reference_checkpoint gives state_dict_from_jax_params of the saved
 params bit for bit, and its greedy decode the JAX package's tokens.
 """
@@ -92,13 +93,13 @@ def _jax_run(jflags, corpus, logs, optim, gradclip):
     return trainer, step
 
 
-def _port_trainer(corpus, logs, optim, gradclip):
+def _port_trainer(corpus, logs, optim, gradclip, extra=()):
     from edgedict_tpu_torch.cli import baseline
     from edgedict_tpu_torch.config import parse_flags
     from edgedict_tpu_torch.trainer import Trainer
     argv = ['--device', 'cpu', '--nobf16', '--LibriSpeech_train_100', corpus,
             '--logdir_root', logs, '--name', 'run', '--optim', optim,
-            '--gradclip', str(gradclip)]
+            '--gradclip', str(gradclip), *extra]
     for k, v in TINY.items():
         argv += [f'--{k}', str(v)]
     for k in NONE_DIRS:
@@ -146,6 +147,39 @@ def test_resume_from_a_jax_checkpoint_matches_its_next_step(
                                    err_msg=k)
     for k in ('joint.joint.0.weight', 'encoder.lstm.lstms.0.weight_ih_l0'):
         assert not torch.equal(want[k], sd[k]), k     # the step moved it
+    assert int(pstate.opt_state['count']) == 3
+
+
+@pytest.mark.parametrize('optim', ['adam', 'sm3', 'novograd'])
+def test_resume_from_a_jax_checkpoint_onto_a_tp_grid(corpus, tmp_path,
+                                                    jax_flags, optim):
+    """The JAX run's checkpoint loads into a port Trainer at --tp_size 2
+    (the joint's output layer and its optimizer state scattered over two
+    vocabulary slices, SM3's and Novograd's statistics spanning them),
+    and step 3 matches the JAX package's (the tolerances above)."""
+    from edgedict_tpu_torch import train as ptrain
+    logs = str(tmp_path / 'logs')
+    jtr, jstep = _jax_run(jax_flags, corpus, logs, optim, 0.05)
+    ptr = _port_trainer(corpus, logs, optim, 0.05, ['--tp_size', '2'])
+    assert ptr.load() == 2 and int(ptr.state.opt_state['count']) == 2
+    v = ptr.cfg.vocab_size
+    assert v % 2 == 0 and ptr.optimizer.shards == {
+        'joint.joint.2.weight': 2, 'joint.joint.2.bias': 2}
+    assert ptr.state.model.joint.out.slices('weight')[1].shape[0] == v // 2
+    batch = _batch(jtr.cfg, 2)
+    jstate, jm = jstep(jtr.state, {k: jnp.asarray(v_) for k, v_ in
+                                   batch.items()},
+                       jax.random.PRNGKey(2), jnp.asarray(1e-2))
+    pstep = ptrain.make_train_step(ptr.cfg, ptr.optimizer, bf16=False)
+    pstate, pm = pstep(ptr.state, {k: torch.from_numpy(v_)
+                                   for k, v_ in batch.items()}, 1e-2)
+    np.testing.assert_allclose(float(pm['loss']), float(jm['loss']), 1e-5)
+    want = state_dict_from_jax_params(jax.tree.map(np.asarray,
+                                                   jstate.params))
+    got = pstate.model.state_dict()
+    for k, v_ in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v_.numpy(), 1e-4, 1e-5,
+                                   err_msg=k)
     assert int(pstate.opt_state['count']) == 3
 
 
