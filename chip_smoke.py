@@ -56,7 +56,11 @@ Phases, each printing JSON or text lines:
              ops/joint_lse_plan.py fwd_plan) at the E6D2 step also with h
              staged through the slab scratch (both timed, the same bits),
              at ragged B=33, U+1 = 1, 300, 1100, J/V padded (600, 2000), a
-             wide J=768 and fp32, each bit-stable across two calls; K3 (one
+             wide J=768 and fp32, each bit-stable across two calls; K7 in
+             fp32 (FFMA tiles) at the evals' B=32 T=214 U+1=65 and B=4
+             T=1437 U+1=33 and K8 in fp32 at B=32 T=214 U+1=65 (an E6D2
+             --bf16 false step), each timed beside the plain joint over the
+             whole lattice and its bound, to 1e-4; K3 (one
              cooperative launch over the card, plan ops/decode_plan.py) at
              B=1/8 T=1/16, the int8 server's B=64 and the eval decode's B=4
              T=214, bit-stable, with its device time by torch.profiler;
@@ -95,7 +99,8 @@ Phases, each printing JSON or text lines:
              synthetic corpus of 8-16 s utterances: 2 warm-up and 5 measured
              steps (median step ms, audio s/s, peak memory), loss falling on
              a repeated small batch, one --mode eval pass (val_loss, WER;
-             its launches counted)
+             its launches counted), then its greedy eval steps timed again
+             (wall ms a batch, kernels' device ms a batch)
  12 train_run_gru  the same with --enc_type GRU on the same corpus and
              BPE model, plus one step of a Trainer with --time_warp_w 80
              --optim novograd (finite loss); the LSTM run's eval pass also
@@ -366,17 +371,18 @@ def _median_ms(torch, fn, iters=20, warmup=3):
 LONG_PLAIN_MS = 100.0
 
 
-def time_pair(torch, plain, kernel):
+def time_pair(torch, plain, kernel, kernel_iters=20):
     """(kernel ms, plain ms), each the mean of two medians taken in the
-    order plain, kernel, kernel, plain: medians of 20 timings after 3
-    warm-up calls, the plain version's of 2 where one call of it (after
-    one warm-up call) takes over LONG_PLAIN_MS."""
+    order plain, kernel, kernel, plain: medians of 20 timings (the
+    kernel's: kernel_iters) after 3 warm-up calls, the plain version's of
+    2 where one call of it (after one warm-up call) takes over
+    LONG_PLAIN_MS."""
     plain()
     iters, warm = ((2, 0) if _median_ms(torch, plain, 1, 0) > LONG_PLAIN_MS
-                   else (20, 3))
+                   else (min(20, kernel_iters), 3))
     p1 = _median_ms(torch, plain, iters, warm)
-    k1 = _median_ms(torch, kernel)
-    k2 = _median_ms(torch, kernel)
+    k1 = _median_ms(torch, kernel, kernel_iters)
+    k2 = _median_ms(torch, kernel, kernel_iters)
     p2 = _median_ms(torch, plain, iters, warm)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
@@ -1184,11 +1190,12 @@ def device_ms_per_launch(torch, fn, name, n=5):
 BWD_PARTS = {'remat_ms': ('remat_',), 'chain_ms': ('chain_kernel',)}
 # K7's launches: the resident kernel (one), or the staged h and product
 K7_PARTS = {'h_ms': ('joint_lse_fwd_h_',), 'mma_ms': ('joint_lse_fwd_mma',)}
-# K8's tensor-core launches, summed over the slabs (ops/joint_lse_plan.py)
+# K8's launches, summed over the slabs (ops/joint_lse_plan.py; dh includes
+# its df / dg sum launch)
 K8_PARTS = {'h_ms': ('joint_lse_bwd_h_',),
             'dlogits_ms': ('joint_lse_bwd_dl_',),
-            'dh_ms': ('joint_lse_bwd_dh_mma',),
-            'dw_ms': ('joint_lse_bwd_dw_mma',),
+            'dh_ms': ('joint_lse_bwd_dh',),
+            'dw_ms': ('joint_lse_bwd_dw',),
             'reduce_ms': ('joint_lse_bwd_reduce',)}
 
 
@@ -1411,6 +1418,7 @@ def train_kernels(torch, rng, dev, record):
         del ref, ref_g, leaves
 
     k7_cases(torch, rng, dev, record)
+    fp32_joint_cases(torch, rng, dev, record)
 
     # K9 / K10 — the lattice of the E6D2 step
     b, t, u1 = 32, 214, 65
@@ -1683,6 +1691,108 @@ def k7_cases(torch, rng, dev, record):
         require(max(errs) <= 1e-4 and stable, f'K7 disagrees: {case}')
         record('joint_lse_fwd', max(errs))
         del out, again, ref, lse
+
+
+# the fp32 joint's main-path lattices (J 640, V 2048): (B, T, U+1, K8 too)
+# — E6D2's trainer eval and --bf16 false step, the raw fine-tune's eval
+FP32_JOINT = ((32, 214, 65, True), (4, 1437, 33, False))
+
+
+def fp32_joint_cases(torch, rng, dev, record):
+    """K7 in fp32 (FFMA lattice tiles) at both evals' lattices and K8 in
+    fp32 at the E6D2 step's, each against the plain joint over the whole
+    lattice (its logits fit the card), timed in turns with its bound and
+    plan: log-probs and lse to 1e-4 of max(1, max|ref|), gradients to 1e-4,
+    each output the same bits on a second call."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.ops import joint_lse_plan as JP
+    j, v = 640, 2048
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def t_(*shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
+                               device=dev)
+    for b, t, u1, backward in FP32_JOINT:
+        f, g = t_(b, t, j), t_(b, u1, j)
+        w_t, bias = t_(j, v, scale=j ** -0.5), t_(v, scale=0.1)
+        labels = torch.as_tensor(rng.randint(4, v, (b, u1 - 1))
+                                 .astype(np.int32), device=dev)
+        labels[:, ::3] = 0
+        out = KJ.joint_lse_fwd(f, g, w_t, bias, labels, 0)
+        again = KJ.joint_lse_fwd(f, g, w_t, bias, labels, 0)
+        with torch.no_grad():
+            ref = KJ.joint_lse_fwd_plain(f, g, w_t, bias, labels, 0)
+        torch.cuda.synchronize()
+        errs = [_rel(torch, a, r) for a, r in zip(out, ref)]
+        del ref
+        plain = lambda: KJ.joint_lse_fwd_plain(  # noqa: E731
+            f, g, w_t, bias, labels, 0)
+        with torch.no_grad():
+            ms, pms = time_pair(torch, plain, lambda: KJ.joint_lse_fwd(
+                f, g, w_t, bias, labels, 0), 10)
+        ops = 2 * b * t * u1 * j * v
+        fwd_bound = bound(nbytes(f, g, w_t, bias, labels, *out), ops, 'fp32')
+        case = {'kernel': 'K7 joint_lse_fwd', 'B': b, 'T': t, 'U1': u1,
+                'J': j, 'V': v, 'dtype': 'float32', 'blank_rel': errs[0],
+                'label_rel': errs[1], 'lse_rel': errs[2],
+                'bit_stable': all(torch.equal(a, c)
+                                  for a, c in zip(out, again)),
+                'ms': ms, 'plain_ms': pms,
+                'plain': 'joint_lse_fwd_plain over the whole lattice',
+                'bound_ms': fwd_bound[0], 'bound_by': fwd_bound[1],
+                'bound_share': fwd_bound[0] / ms,
+                'plan': dataclasses.asdict(JP.fwd_plan(b, t, u1, j, v, sms,
+                                                       elem=4)),
+                'tol': 'lp and lse 1e-4 of max(1, max|ref|)'}
+        emit(case)
+        require(max(errs) <= 1e-4 and case['bit_stable'],
+                f'fp32 K7 disagrees: {case}')
+        record('joint_lse_fwd', max(errs))
+        del out, again
+        if not backward:
+            continue
+        lse = KJ.joint_lse_fwd(f, g, w_t, bias, labels, 0)[2]
+        d_b, d_l = t_(b, t, u1, scale=0.1), t_(b, t, u1 - 1, scale=0.1)
+        grads = KJ.joint_lse_bwd(f, g, w_t, bias, labels, 0, lse, d_b, d_l)
+        again = KJ.joint_lse_bwd(f, g, w_t, bias, labels, 0, lse, d_b, d_l)
+        leaves = [x.clone().requires_grad_() for x in (f, g, w_t, bias)]
+        ref = KJ.fused_joint_lse_plain(*leaves, labels, 0)
+        ref_g = torch.autograd.grad(ref, leaves, (d_b, d_l),
+                                    retain_graph=True)
+        torch.cuda.synchronize()
+        errs = [_rel(torch, a, r) for a, r in zip(grads, ref_g)]
+        del ref_g
+        bms, bpms = time_pair(
+            torch, lambda: torch.autograd.grad(ref, leaves, (d_b, d_l),
+                                               retain_graph=True),
+            lambda: KJ.joint_lse_bwd(f, g, w_t, bias, labels, 0, lse, d_b,
+                                     d_l), 5)
+        bwd_bound = bound(nbytes(f, g, w_t, bias, labels, lse, d_b, d_l,
+                                 *grads), 3 * ops, 'fp32')
+        case = {'kernel': 'K8 joint_lse_bwd', 'B': b, 'T': t, 'U1': u1,
+                'J': j, 'V': v, 'dtype': 'float32', 'df_rel': errs[0],
+                'dg_rel': errs[1], 'dw_rel': errs[2], 'dbias_rel': errs[3],
+                'bit_stable': all(torch.equal(a, c)
+                                  for a, c in zip(grads, again)),
+                'ms': bms, 'plain_ms': bpms,
+                'plain': 'autograd through fused_joint_lse_plain, its '
+                         'forward graph kept',
+                'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1],
+                'bound_share': bwd_bound[0] / bms,
+                'parts_ms': kernel_split_ms(
+                    torch, lambda: KJ.joint_lse_bwd(
+                        f, g, w_t, bias, labels, 0, lse, d_b, d_l),
+                    K8_PARTS, n=2),
+                'plan': dataclasses.asdict(JP.bwd_plan(b, t, u1, j, v, sms,
+                                                       4)),
+                'tol': 'grads 1e-4 of max(1, max|ref|)'}
+        emit(case)
+        require(max(errs) <= 1e-4 and case['bit_stable'],
+                f'fp32 K8 disagrees: {case}')
+        record('joint_lse_bwd', max(errs))
+        del ref, leaves, grads, again
 
 
 def quant_layer_times(torch, cell, hid, b, t, n_in=ENC_IN):
@@ -2479,6 +2589,7 @@ def phase_train_run(torch, enc_type='LSTM'):
         STATE[f'launches_{run}_eval'] = _launches()
         STATE.setdefault('run_expect', {})[run + '_eval'] = _eval_expect(
             torch, evaluated, BEAM['beam_width'] if beam else 0)
+        res.update(_eval_pass_times(torch, evaluated))
         del evaluated
         val = [ln for ln in lines if ln.startswith('val_loss')]
         res['eval'] = val[0] if val else None
@@ -2501,6 +2612,35 @@ def phase_train_run(torch, enc_type='LSTM'):
                     f'the time-warp + novograd step failed: {w}')
     finally:
         os.chdir(cwd)
+
+
+def _eval_pass_times(torch, trainer):
+    """A Trainer's greedy eval pass timed again after its counted run, on
+    its eval batches already on the card: the wall ms of each batch's eval
+    step (features, the fp32 loss through K7 and K9, the greedy decode;
+    not the beam, whose host-bound search slice_beam times), and each
+    kernel's device ms a batch by torch.profiler (EVAL_PARTS)."""
+    model = trainer.eval_model()
+    batches = [{k: torch.as_tensor(x).to(trainer.device)
+                for k, x in batch.items()} for batch in trainer.eval_loader]
+
+    def greedy_pass():
+        for dev in batches:
+            trainer.eval_step(model, dev)
+    greedy_pass()
+    steps = []
+    for dev in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.eval_step(model, dev)
+        torch.cuda.synchronize()
+        steps.append(1e3 * (time.perf_counter() - t0))
+    return {'eval_step_ms': steps, 'eval_batch_shapes': [
+                list(dev['xs' if 'xs' in dev else 'audio'].shape)
+                for dev in batches],
+            'eval_kernel_device_ms_per_batch': {
+                k: v / len(batches) for k, v in kernel_split_ms(
+                    torch, greedy_pass, EVAL_PARTS, n=1).items()}}
 
 
 def _warp_novograd_step(torch, argv, batch):
@@ -3335,7 +3475,7 @@ FEATURE_STEPS = 5          # measured steps a turn
 FEATURE_TURNS = ('prefetch', 'device_corpus', 'sync', 'sync',
                  'device_corpus', 'prefetch')
 # torch.profiler kernel names of the training kernels (the substrings of
-# cli/profile_train.py KERNELS): K8 is any of its five launches
+# cli/profile_train.py KERNELS): K8 is any of its launches
 TRACE_KERNELS = {'K1': ('lstm_fwd',), 'K2': ('mel_power',),
                  'K4': ('lstm_bwd',), 'K7': ('joint_lse_fwd',),
                  'K8': ('joint_lse_bwd_h', 'joint_lse_bwd_dl',

@@ -71,19 +71,13 @@ _SIGNATURES = {
     'edd_gru_bwd': (_P,) * 11 + (_I,) * 6 + (_P,),
     # gru, bf16, smem, out (int*)
     'edd_rnn_bwd_blocks_per_sm': (_I, _I, _I, _P),
-    # f, g, wt, bias, labels, blank_lp, label_lp, lse, B, T, U1, J, V,
-    # blank, stream
-    'edd_joint_lse_fwd': (_P,) * 8 + (_I,) * 6 + (_P,),
     # f, g, wt, bias, labels, blank_lp, label_lp, lse, hs, B, T, U1, J, V,
-    # blank, r_t, r_u, ldh, slab_tiles, stream
-    'edd_joint_lse_fwd_mma': (_P,) * 9 + (_I,) * 10 + (_P,),
+    # blank, r_t, r_u, ldh, slab_tiles, bf16, stream
+    'edd_joint_lse_fwd': (_P,) * 9 + (_I,) * 11 + (_P,),
     # f, g, wt, w, bias, labels, lse, d_blank, d_label, df, dg, dw, dbias,
-    # B, T, U1, J, V, blank, n_split, stream
-    'edd_joint_lse_bwd': (_P,) * 13 + (_I,) * 7 + (_P,),
-    # f, g, wt, w, bias, labels, lse, d_blank, d_label, df, dg, dw, dbias,
-    # hs, dls, dw_part, dbias_part, B, T, U1, J, V, blank, r_t, r_u,
-    # slab_tiles, dw_split, stream
-    'edd_joint_lse_bwd_mma': (_P,) * 17 + (_I,) * 10 + (_P,),
+    # hs, dls, dw_part, dbias_part, dfdg_part, B, T, U1, J, V, blank, r_t,
+    # r_u, slab_tiles, dw_split, bf16, stream
+    'edd_joint_lse_bwd': (_P,) * 18 + (_I,) * 11 + (_P,),
     # blank, label, xlen, ylen, alpha, logz, B, T, U1, warps, items, stream
     'edd_lattice_alpha': (_P,) * 6 + (_I,) * 5 + (_P,),
     # blank, label, alpha, logz, xlen, ylen, gb, gl, B, T, U1, warps,

@@ -13,60 +13,68 @@
 //   dW^T += h^T dlogits, dbias += sum dlogits, dh = dlogits . W,
 //   da = dh (1 - h^2) (fp32 h), df[b,t] += sum_u da, dg[b,u] += sum_t da,
 // with dlogits rounded to W's dtype for the two products, as the TPU kernel
-// feeds its MXU. The (B, T, U+1, V) logits and dlogits never reach device
-// memory whole: the forward and the CUDA-core backward recompute them tile
-// by tile, the tensor-core backward holds one slab's dlogits at a time.
+// feeds its MXU (bf16; in fp32 nothing is rounded). The (B, T, U+1, V)
+// logits and dlogits never reach device memory whole: the forward folds
+// them chunk by chunk, the backward holds one slab's dlogits at a time.
 //
 // What bounds it on the H100: arithmetic. At E6D2 training (B=32, T=214,
 // U+1=65, J=640, V=2048) the forward is 445k rows x J x V = 5.8e11 FMAs and
 // the backward three times that (logits, dh, dW); bytes are small (f, g, W
-// stay in L2). In bf16, the training dtype, every product runs on the
-// tensor cores (the wrapper pads J and V to multiples of 16); fp32 runs the
-// CUDA-core kernels.
+// stay in L2). bf16, the training dtype, runs every product on the tensor
+// cores (989 TFLOP/s); fp32 (every eval's loss, the --bf16 false steps) on
+// the CUDA cores (67 TFLOP/s of FFMA: the fine-tune eval's forward, B=4
+// T=1437 U+1=33, is bound at 7.4 ms). The wrapper pads J and V to multiples
+// of 16 for both.
 //
 // Design. The lattice is cut into tiles of 64 cells (r_t frames x r_u label
-// slots; ops/joint_lse_plan.py picks the shape), and all three tensor-core
-// products share one block product, gemm_block: 128 x 128 outputs (two
-// tiles), a 3-stage cp.async ring of 64-deep stages, ldmatrix (.trans for
-// transposed operands) into mma.sync m16n8k16 with fp32 accumulators.
-//  * forward (K7), bf16: a block takes two whole tiles (128 rows). Where
-//    their h fits in shared memory beside the ring (J up to 640: 128 x 648
-//    bf16 = 166 KB + 54 KB of W^T stages), the block loads the tiles' r_t
-//    f-rows and r_u g-rows once, takes tanh once per cell into shared
-//    memory, then streams only W^T, 128 columns at a time, through the ring
-//    (gemm_block with A resident) — one pass over W per 128 rows, no
-//    scratch. Wider J stages h through a bounded slab scratch with the h
-//    launch the backward uses, and the same kernel reads A from it. After
-//    each 128-column chunk a thread folds its 8 rows x 8 columns of fp32
-//    accumulators (+ bias; -inf past V) into per-row running (max, sum of
-//    exp) and the blank and label logits where they fall (the online
-//    logsumexp of _fwd_kernel_split); at the end the 4 lanes and the 4
-//    column warps that share a row combine in a fixed order through a small
-//    shared-memory reduction, and each row's three outputs are written
-//    once: no atomics, no partials, the same bits from run to run.
-//  * forward, fp32: a block takes 32 rows, holds their h in shared memory
-//    and walks V in 128-column chunks on CUDA cores (a warp's rows x a
-//    lane's 4 columns), with the same online logsumexp.
-//  * backward (K8), bf16: the TPU kernel takes r_t x r_u lattice cells a
-//    grid step, computes h once and runs the three products on it. Here
-//    consecutive tiles form slabs whose h and dlogits fit a scratch of
-//    fixed size; per slab, four launches: h (one block per tile: its r_t
-//    f-rows and r_u g-rows loaded once, kHCols columns at a time, tanh once
-//    per cell, bf16 into the scratch), dlogits (h . W^T + bias, the softmax
-//    gradient, bf16 into the scratch, fp32 column sums into per-row-block
-//    dbias partials), dh (dlogits . W, then da = dh (1 - h^2) with fp32 h
-//    summed inside each tile: one df atomic per (tile, t, k) and one dg
-//    atomic per (tile, u, k)), dW (h^T . dlogits over row shares, each into
-//    its own fp32 partial, no atomics). One last launch sums the partials
-//    in a fixed order: dW^T and dbias are the same bits from run to run, df
-//    and dg (fp32 atomics) are not.
-//  * backward, fp32: the forward's row tiling recomputes each logits chunk,
-//    forms dlogits and accumulates dh = dlogits . W; the epilogue forms da
-//    and adds it to df (summed over the block's rows of one (b, t) first)
-//    and dg with fp32 atomics. A second kernel owns a 32-column strip of
-//    dW^T per block over a share of the rows, recomputing h and the strip's
-//    logits, and adds the strip to dW^T and dbias with fp32 atomics at its
-//    end.
+// slots; ops/joint_lse_plan.py picks the shape). Every product is one block
+// product of 8 warps in which a thread owns 8 x 8 fp32 accumulators
+// (frag_row, frag_col), fed by a 3-stage cp.async ring:
+//  * gemm_block (bf16): 128 x 128 outputs (two tiles), 64-deep stages,
+//    ldmatrix (.trans for transposed operands) into mma.sync m16n8k16;
+//  * ffma_block (fp32): 64 x 256 (K7: one tile, 16-deep stages) or 128 x
+//    128 outputs (K8, 32-deep), the chunks a thread copies worked out once
+//    per product, a register-tiled outer product: per k a thread reads
+//    its 8 A and 8 B values as float4s from shared memory (conflict-free:
+//    A rows 8 apart at an odd number of 16-byte words, or 4 consecutive
+//    rows along m; B 4 consecutive columns) and issues 64 FFMAs.
+// The kernels around the products are templates over the element type, so
+// both dtypes run the same cell order, epilogues and reductions.
+//  * forward (K7): a block takes whole tiles, bf16 two lattice tiles, fp32
+//    64 consecutive cells (no tile padding: 6.3 % of the rows at the E6D2
+//    eval's T=214 U+1=65; it has no df / dg for tiles to sum). Where
+//    their h fits in shared memory beside the ring (bf16 up to J = 640: 128
+//    x 648 bf16 = 166 KB + 54 KB of W^T stages; fp32 up to J = 704: 64 x
+//    708 fp32 = 181 KB + 48 KB), the block loads the tiles' r_t f-rows and
+//    r_u g-rows once (fp32: each cell's f and g rows from L2), takes tanh
+//    once per cell into shared memory, then streams only W^T, 128 (bf16) or
+//    256 (fp32) columns at a time, through the ring — one pass over W per
+//    block, no scratch. Wider J stages h through a bounded slab scratch with
+//    an h launch (bf16: the backward's), and the same kernel reads A from
+//    it. After each column chunk a thread folds
+//    its 8 rows x 8 columns of fp32 accumulators (+ bias; -inf past V) into
+//    per-row running (max, sum of exp) and the blank and label logits where
+//    they fall (the online logsumexp of _fwd_kernel_split; a row whose
+//    columns were all -inf so far is skipped, so a chunk of -inf bias —
+//    padding, a vocabulary slice's sentinel — gives no NaN); at the end the
+//    4 lanes and the column warps that share a row combine in a fixed order
+//    through a small shared-memory reduction, and each row's three outputs
+//    are written once: no atomics, no partials, the same bits from run to
+//    run.
+//  * backward (K8): the TPU kernel takes r_t x r_u lattice cells a grid
+//    step, computes h once and runs the three products on it. Here
+//    lattice tiles (fp32: the shape that pads least; bf16: fewer df / dg
+//    partial rows within a slack) form slabs whose h and dlogits (input dtype)
+//    fit a scratch of fixed size; per slab, four launches: h (one block per
+//    tile: its r_t f-rows and r_u g-rows loaded once, 2 KB of each row at a
+//    time, tanh once per cell, into the scratch), dlogits (h . W^T + bias,
+//    the softmax gradient, into the scratch, fp32 column sums into
+//    per-row-block dbias partials), dh (dlogits . W, then da = dh (1 - h^2)
+//    with fp32 h summed inside each tile into per-tile df / dg partials,
+//    added to df and dg in tile order by a sum launch), dW (h^T . dlogits
+//    over row shares, each into its own fp32 partial). One last launch sums
+//    the dW^T and dbias partials in a fixed order. No atomics: df, dg, dW^T
+//    and dbias are the same bits from run to run.
 // Shared-memory rows read by ldmatrix are padded by 16 bytes against bank
 // conflicts.
 
@@ -76,407 +84,55 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 128;       // logits columns per chunk (4 per lane)
-constexpr int kStrip = 32;       // dW^T columns per block
-constexpr int kStripRows = 32;   // rows per step of the dW kernel
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-struct Dims {
-  int B, T, U1, U, J, V, blank;
-  long long N;  // rows = B * T * U1
-};
-
-struct Row {
-  int b, t, u;
-  long long bt;  // b * T + t
-};
-
-__device__ __forceinline__ Row split_row(long long r, const Dims& d) {
-  Row w;
-  w.u = (int)(r % d.U1);
-  w.bt = r / d.U1;
-  w.t = (int)(w.bt % d.T);
-  w.b = (int)(w.bt / d.T);
-  return w;
-}
-
-__device__ __forceinline__ float h_fp32(const float* f, const float* g,
-                                        const Row& w, int k, const Dims& d) {
-  return tanhf(f[(size_t)w.bt * d.J + k] +
-               g[((size_t)w.b * d.U1 + w.u) * d.J + k]);
-}
-
-// hs[rr * J + k] = h of rows r0 .. r0 + R - 1 (rows >= end read as 0)
-__device__ void fill_h(float* hs, const float* f, const float* g, long long r0,
-                       int R, long long end, const Dims& d) {
-  for (int i = threadIdx.x; i < R * d.J; i += blockDim.x) {
-    const int rr = i / d.J;
-    const int k = i - rr * d.J;
-    const long long r = r0 + rr;
-    hs[i] = r < end ? h_fp32(f, g, split_row(r, d), k, d) : 0.0f;
-  }
-}
-
-// logits of RPW rows (hs rows row0 ..) at columns c0 + lane + 32 j
-template <int RPW>
-__device__ __forceinline__ void warp_logits(const float* hs, int row0,
-                                            const float* wt,
-                                            const float* bias, int c0,
-                                            const Dims& d,
-                                            float acc[RPW][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int k = 0; k < d.J; ++k) {
-    float wv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + lane + 32 * j;
-      wv[j] = c < d.V ? wt[(size_t)k * d.V + c] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const float hv = hs[(row0 + i) * d.J + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(hv, wv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + lane + 32 * j;
-    const float bv = c < d.V ? bias[c] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i][j] += bv;
-  }
-}
-
-__device__ __forceinline__ int row_label(const int* labels, const Row& w,
-                                         const Dims& d) {
-  return w.u < d.U ? labels[(size_t)w.b * d.U + w.u] : d.blank;
-}
-
-// ---------------------------------------------------------------------------
-// K7 forward
-// ---------------------------------------------------------------------------
-
-template <int RPW>
-__global__ void __launch_bounds__(kThreads)
-joint_lse_fwd_kernel(const float* __restrict__ f, const float* __restrict__ g,
-                     const float* __restrict__ wt,
-                     const float* __restrict__ bias,
-                     const int* __restrict__ labels,
-                     float* __restrict__ blank_out,
-                     float* __restrict__ label_out,
-                     float* __restrict__ lse_out, Dims d) {
-  extern __shared__ float hs[];
-  constexpr int R = kWarps * RPW;
-  const long long r0 = (long long)blockIdx.x * R;
-  fill_h(hs, f, g, r0, R, d.N, d);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = warp * RPW;
-  int lbl[RPW];
-  float m[RPW], s[RPW], bv[RPW], lv[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const long long r = r0 + row0 + i;
-    lbl[i] = r < d.N ? row_label(labels, split_row(r, d), d) : d.blank;
-    m[i] = -CUDART_INF_F;
-    s[i] = 0.0f;
-    bv[i] = 0.0f;
-    lv[i] = 0.0f;
-  }
-  for (int c0 = 0; c0 < d.V; c0 += kCols) {
-    float acc[RPW][4];
-    warp_logits<RPW>(hs, row0, wt, bias, c0, d, acc);
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      float cm = -CUDART_INF_F, pb = 0.0f, pl = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + lane + 32 * j;
-        if (c < d.V) {
-          cm = fmaxf(cm, acc[i][j]);
-          if (c == d.blank) pb += acc[i][j];
-          if (c == lbl[i]) pl += acc[i][j];
-        }
-      }
-      const float mn = fmaxf(m[i], warp_max(cm));
-      float cs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c0 + lane + 32 * j < d.V) cs += expf(acc[i][j] - mn);
-      s[i] = s[i] * expf(m[i] - mn) + warp_sum(cs);
-      m[i] = mn;
-      bv[i] += warp_sum(pb);
-      lv[i] += warp_sum(pl);
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const long long r = r0 + row0 + i;
-      if (r >= d.N) continue;
-      const Row w = split_row(r, d);
-      const float lse = m[i] + logf(s[i]);
-      blank_out[r] = bv[i] - lse;
-      lse_out[r] = lse;
-      if (w.u < d.U) label_out[(size_t)w.bt * d.U + w.u] = lv[i] - lse;
-    }
-  }
-}
-
-// da = dh (1 - h^2) with fp32 h for rows r0 .. r0 + R - 1 (dhs[rr * J + k]);
-// df summed over the tile's rows of one (b, t) before its atomic, dg one
-// atomic per row
-__device__ void dh_epilogue(const float* dhs, const float* f, const float* g,
-                            long long r0, int R, const Dims& d, float* df,
-                            float* dg) {
-  for (int k = threadIdx.x; k < d.J; k += blockDim.x) {
-    float run = 0.0f;
-    long long cur = -1;
-    for (int rr = 0; rr < R; ++rr) {
-      const long long r = r0 + rr;
-      if (r >= d.N) break;
-      const Row rw = split_row(r, d);
-      const float h = h_fp32(f, g, rw, k, d);
-      const float da = dhs[rr * d.J + k] * (1.0f - h * h);
-      atomicAdd(&dg[((size_t)rw.b * d.U1 + rw.u) * d.J + k], da);
-      if (rw.bt != cur) {
-        if (cur >= 0) atomicAdd(&df[(size_t)cur * d.J + k], run);
-        run = 0.0f;
-        cur = rw.bt;
-      }
-      run += da;
-    }
-    if (cur >= 0) atomicAdd(&df[(size_t)cur * d.J + k], run);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K8 backward: dh → df, dg
-// ---------------------------------------------------------------------------
-
-template <int RPW>
-__global__ void __launch_bounds__(kThreads)
-joint_lse_bwd_dh_kernel(const float* __restrict__ f,
-                        const float* __restrict__ g,
-                        const float* __restrict__ wt,
-                        const float* __restrict__ w,
-                        const float* __restrict__ bias,
-                        const int* __restrict__ labels,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ d_blank,
-                        const float* __restrict__ d_label,
-                        float* __restrict__ df, float* __restrict__ dg,
-                        Dims d) {
-  extern __shared__ float smem[];
-  constexpr int R = kWarps * RPW;
-  float* hs = smem;                       // R * J
-  float* dhs = hs + R * d.J;              // R * J
-  float* dls = dhs + R * d.J;             // R * kCols
-  const long long r0 = (long long)blockIdx.x * R;
-  fill_h(hs, f, g, r0, R, d.N, d);
-  for (int i = threadIdx.x; i < R * d.J; i += kThreads) dhs[i] = 0.0f;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = warp * RPW;
-  int lbl[RPW];
-  float z[RPW], db[RPW], dl[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const long long r = r0 + row0 + i;
-    lbl[i] = d.blank;
-    z[i] = 0.0f;
-    db[i] = 0.0f;
-    dl[i] = 0.0f;
-    if (r < d.N) {
-      const Row rw = split_row(r, d);
-      lbl[i] = row_label(labels, rw, d);
-      z[i] = lse[r];
-      db[i] = d_blank[r];
-      if (rw.u < d.U) dl[i] = d_label[(size_t)rw.bt * d.U + rw.u];
-    }
-  }
-  for (int c0 = 0; c0 < d.V; c0 += kCols) {
-    float acc[RPW][4];
-    warp_logits<RPW>(hs, row0, wt, bias, c0, d, acc);
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + lane + 32 * j;
-        float v = 0.0f;
-        if (c < d.V && (db[i] != 0.0f || dl[i] != 0.0f)) {
-          const float p = expf(acc[i][j] - z[i]);
-          v = (c == d.blank ? db[i] : 0.0f) + (c == lbl[i] ? dl[i] : 0.0f) -
-              (db[i] + dl[i]) * p;
-        }
-        dls[(row0 + i) * kCols + lane + 32 * j] = v;
-      }
-    }
-    __syncwarp();
-    const int ncol = min(kCols, d.V - c0);
-    for (int k = lane; k < d.J; k += 32) {
-      float a[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) a[i] = 0.0f;
-      for (int cc = 0; cc < ncol; ++cc) {
-        const float wv = w[(size_t)(c0 + cc) * d.J + k];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i)
-          a[i] = fmaf(dls[(row0 + i) * kCols + cc], wv, a[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) dhs[(row0 + i) * d.J + k] += a[i];
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-  dh_epilogue(dhs, f, g, r0, R, d, df, dg);
-}
-
-// ---------------------------------------------------------------------------
-// K8 backward: dW^T, dbias
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-joint_lse_bwd_dw_kernel(const float* __restrict__ f,
-                        const float* __restrict__ g,
-                        const float* __restrict__ wt,
-                        const float* __restrict__ bias,
-                        const int* __restrict__ labels,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ d_blank,
-                        const float* __restrict__ d_label,
-                        float* __restrict__ dw, float* __restrict__ dbias,
-                        Dims d, long long rows_per_split) {
-  extern __shared__ float smem[];
-  constexpr int R = kStripRows;
-  constexpr int RPW = R / kWarps;
-  float* hs = smem;                          // R * J
-  float* dws = hs + R * d.J;                 // J * kStrip
-  float* dls = dws + d.J * kStrip;           // R * kStrip
-  float* red = dls + R * kStrip;             // kWarps * 32
-  float* m_z = red + kWarps * 32;            // R
-  float* m_db = m_z + R;                     // R
-  float* m_dl = m_db + R;                    // R
-  int* m_lbl = reinterpret_cast<int*>(m_dl + R);  // R
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kStrip + lane;
-  const long long start = (long long)blockIdx.y * rows_per_split;
-  const long long end =
-      start + rows_per_split < d.N ? start + rows_per_split : d.N;
-  for (int i = threadIdx.x; i < d.J * kStrip; i += kThreads) dws[i] = 0.0f;
-  float db_acc = 0.0f;
-  const float bcol = col < d.V ? bias[col] : 0.0f;
-  for (long long r0 = start; r0 < end; r0 += R) {
-    __syncthreads();  // the previous step's hs / dls are consumed
-    fill_h(hs, f, g, r0, R, end, d);
-    if (threadIdx.x < R) {
-      const long long r = r0 + threadIdx.x;
-      float z = 0.0f, db = 0.0f, dl = 0.0f;
-      int lb = d.blank;
-      if (r < end) {
-        const Row rw = split_row(r, d);
-        lb = row_label(labels, rw, d);
-        z = lse[r];
-        db = d_blank[r];
-        if (rw.u < d.U) dl = d_label[(size_t)rw.bt * d.U + rw.u];
-      }
-      m_z[threadIdx.x] = z;
-      m_db[threadIdx.x] = db;
-      m_dl[threadIdx.x] = dl;
-      m_lbl[threadIdx.x] = lb;
-    }
-    __syncthreads();
-    float acc[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i] = 0.0f;
-    for (int k = 0; k < d.J; ++k) {
-      const float wv = col < d.V ? wt[(size_t)k * d.V + col] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < RPW; ++i)
-        acc[i] = fmaf(hs[(warp * RPW + i) * d.J + k], wv, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int rr = warp * RPW + i;
-      const float db = m_db[rr], dl = m_dl[rr];
-      float v = 0.0f;
-      if (col < d.V && (db != 0.0f || dl != 0.0f)) {
-        const float p = expf(acc[i] + bcol - m_z[rr]);
-        v = (col == d.blank ? db : 0.0f) + (col == m_lbl[rr] ? dl : 0.0f) -
-            (db + dl) * p;
-      }
-      db_acc += v;
-      dls[rr * kStrip + lane] = v;
-    }
-    __syncthreads();
-    for (int k = warp; k < d.J; k += kWarps) {
-      float a = dws[k * kStrip + lane];
-      for (int rr = 0; rr < R; ++rr)
-        a = fmaf(hs[rr * d.J + k], dls[rr * kStrip + lane], a);
-      dws[k * kStrip + lane] = a;
-    }
-  }
-  __syncthreads();
-  if (col < d.V)
-    for (int k = warp; k < d.J; k += kWarps)
-      atomicAdd(&dw[(size_t)k * d.V + col], dws[k * kStrip + lane]);
-  red[warp * 32 + lane] = db_acc;
-  __syncthreads();
-  if (warp == 0 && col < d.V) {
-    float s = 0.0f;
-    for (int i = 0; i < kWarps; ++i) s += red[i * 32 + lane];
-    atomicAdd(&dbias[col], s);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K8 in bf16 on the tensor cores (J and V multiples of 16): the lattice in
-// 2D tiles, slab by slab (launch plan: ops/joint_lse_plan.py)
-// ---------------------------------------------------------------------------
-
 typedef __nv_bfloat16 bf16;
 
+constexpr int kThreads = 256;      // every block: 8 warps
 constexpr int kTileCells = 64;     // r_t x r_u cells per lattice tile
-constexpr int kHCols = 1024;       // columns of f, g staged at a time (h)
-constexpr int kGm = 128;           // rows of a product's block (two tiles)
-constexpr int kGn = 128;           // columns of a product's block
-constexpr int kGk = 64;            // depth of one cp.async stage
-constexpr int kGStages = 3;
-constexpr int kGThreads = 256;     // 8 warps of 64 x 32 outputs
+constexpr int kHBytes = 2048;      // bytes of an f / g row staged at a time
+constexpr int kGm = 128;           // rows of a K8 product's block (two tiles)
+constexpr int kGn = 128;           // columns of a K8 product's block
+constexpr int kGStages = 3;        // cp.async ring of every product
+// bf16 products (mma.sync)
+constexpr int kGk = 64;            // depth of one stage
 constexpr int kLdMk = kGk + 8;     // [row][k] stage rows: 144 bytes
 constexpr int kLdKm = kGn + 8;     // [k][row] stage rows: 272 bytes
 constexpr int kStageElems = kGm * kLdMk;   // >= kGk * kLdKm
+// fp32 products (FFMA): stage depth of K7's (64 x 256, beside a resident
+// h) and of K8's (128 x 128); [m][k] stage rows are BK + 4 fp32 apart
+constexpr int kFk7 = 16;
+constexpr int kFk8 = 32;
 constexpr int kLdE = kGn + 4;      // fp32 da rows of the dh epilogue
-constexpr int kLdD = kGn + 8;      // bf16 dlogits rows of the dl epilogue
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+template <typename T>
+constexpr int kVec = 16 / sizeof(T);       // elements in 16 bytes
+// K7: tiles a block takes (bf16 128 rows, fp32 64)
+template <typename T>
+constexpr int kFwdWm = kF32<T> ? 1 : 2;
+// K8's product kernels: bf16 two blocks an SM (at most 128 registers a
+// thread), fp32 one (its 8 x 8 accumulators and fragments need more)
+template <typename T>
+constexpr int kK8Blocks = kF32<T> ? 1 : 2;
+
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
 
 struct Lattice {
   int B, T, U1, U, J, V, blank;
@@ -503,6 +159,47 @@ __device__ __forceinline__ Cell tile_cell(const Lattice& L, long long tile,
   return c;
 }
 
+// cell m of the lattice in (b, t, u) order (fp32 K7's rows; ok: m < N)
+__device__ __forceinline__ Cell flat_cell(const Lattice& L, long long m) {
+  Cell c;
+  c.u = (int)(m % L.U1);
+  const long long bt = m / L.U1;
+  c.t = (int)(bt % L.T);
+  c.b = (int)(bt / L.T);
+  c.ok = m < (long long)L.B * L.T * L.U1;
+  return c;
+}
+
+// The 8 x 8 accumulators acc[r][c] of a thread (warp wm along rows, wn along
+// columns; lane = 4 gid + tig) lie at row frag_row(r), column frag_col(c) of
+// the block's product. mma.sync (bf16): rows gid + 8 r (m16n8 tile r / 2,
+// half r % 2), columns 8 (c / 2) + 2 tig + c % 2. FFMA (fp32): the same
+// rows where A is read [m][k], rows 4 gid + r % 4 + 32 (r / 4) where it is
+// read [k][m] (float4s along m); columns 4 tig + c % 4 + 16 (c / 4)
+// (float4s along n). Either way a row is shared by the 4 lanes of one gid
+// and by the warps of one wm.
+template <typename T, bool A_KM = false>
+__device__ __forceinline__ int frag_row(int wm, int r) {
+  const int gid = (threadIdx.x & 31) >> 2;
+  if constexpr (kF32<T> && A_KM)
+    return wm * 64 + gid * 4 + (r & 3) + 32 * (r >> 2);
+  return wm * 64 + gid + 8 * r;
+}
+
+template <typename T>
+__device__ __forceinline__ int frag_col(int wn, int c) {
+  const int tig = threadIdx.x & 3;
+  if constexpr (kF32<T>) return wn * 32 + tig * 4 + (c & 3) + 16 * (c >> 2);
+  return wn * 32 + 8 * (c >> 1) + 2 * tig + (c & 1);
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[8][8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+}
+
 // ROWS x COLS bf16 tile of a row-major matrix (leading dim src_ld), rows r0
 // .., columns c0 .., into shared memory rows `ld` apart, by 16-byte cp.async
 // copies; zero at rows >= row_end or columns >= col_end (both multiples of
@@ -513,7 +210,7 @@ __device__ __forceinline__ void stage_tile(bf16* dst, int ld, const bf16* src,
                                            long long row_end, int c0,
                                            int col_end) {
   constexpr int kChunks = ROWS * (COLS / 8);
-  for (int i = threadIdx.x; i < kChunks; i += kGThreads) {
+  for (int i = threadIdx.x; i < kChunks; i += kThreads) {
     const int r = i / (COLS / 8), c = (i % (COLS / 8)) * 8;
     bf16* d = dst + r * ld + c;
     if (r0 + r < row_end && c0 + c < col_end)
@@ -523,19 +220,18 @@ __device__ __forceinline__ void stage_tile(bf16* dst, int ld, const bf16* src,
   }
 }
 
-// One block's 128 x 128 product, acc += A . B over k in [k0, k_end), on
-// mma.sync m16n8k16 through ldmatrix from a 3-stage cp.async ring in `sm`.
-// A is (M, K): stored [m][k] (A_KM false, element (m, k) at a[m * lda + k])
-// or [k][m] (A_KM true, at a[k * lda + m]); B is (K, N): stored [n][k]
-// (B_KN false) or [k][n] (B_KN true). With A_RES, A is the block's own 128
-// rows already in shared memory ([m][k], rows lda apart, m0 and m_end
-// unused, zero up to k0 + a whole number of stages) and the ring holds B
-// alone. Warp (wm, wn) owns rows wm * 64 .. + 64 and columns wn * 32 ..
-// + 32: acc[i][j] is the m16n8 tile at rows wm * 64 + 16 i, columns wn * 32
-// + 8 j, element 2 h + e at row + gid + 8 h, column + 2 tig + e.
+// One block's 128 x 128 bf16 product, acc += A . B over k in [k0, k_end),
+// on mma.sync m16n8k16 through ldmatrix from a 3-stage cp.async ring in
+// `sm`. A is (M, K): stored [m][k] (A_KM false, element (m, k) at
+// a[m * lda + k]) or [k][m] (A_KM true, at a[k * lda + m]); B is (K, N):
+// stored [n][k] (B_KN false) or [k][n] (B_KN true). With A_RES, A is the
+// block's own 128 rows already in shared memory ([m][k], rows lda apart, m0
+// and m_end unused, zero up to k0 + a whole number of stages) and the ring
+// holds B alone. Warp (wm, wn) = (warp / 4, warp % 4) owns rows wm * 64 ..
+// + 64 and columns wn * 32 .. + 32 (frag_row, frag_col).
 template <bool A_KM, bool B_KN, bool A_RES = false>
 __device__ __forceinline__ void gemm_block(
-    float (&acc)[4][4][4], const bf16* a, int lda, long long m0,
+    float (&acc)[8][8], const bf16* a, int lda, long long m0,
     long long m_end, const bf16* b, int ldb, int n0, int n_end,
     long long k0, long long k_end, bf16* sm) {
   static_assert(!(A_RES && A_KM), "a resident A is stored [m][k]");
@@ -606,42 +302,200 @@ __device__ __forceinline__ void gemm_block(
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
-                   bfr[j][0], bfr[j][1]);
+          mma_bf16(acc[2 * i][2 * j], acc[2 * i][2 * j + 1],
+                   acc[2 * i + 1][2 * j], acc[2 * i + 1][2 * j + 1],
+                   af[i][0], af[i][1], af[i][2], af[i][3], bfr[j][0],
+                   bfr[j][1]);
     }
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring may be reused by the epilogue
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[4][4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+__device__ __forceinline__ void ld4(float* d, const float* s) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
 }
 
-// h of the slab's tiles (one block each) in bf16, rows of invalid cells
-// zero: the tile's r_t f-rows and r_u g-rows are loaded once into shared
-// memory, kHCols columns at a time, and tanh(f + g) is taken once per cell
-// in fp32. Tile tile0 + blockIdx.x is written to rows blockIdx.x * 64 ..
-// of hs.
-__device__ __forceinline__ void tile_h(const bf16* __restrict__ f,
-                                       const bf16* __restrict__ g,
-                                       bf16* __restrict__ hs,
-                                       const Lattice& L, long long tile0,
-                                       bf16* fs) {
+// fp32 stage of ffma_block in elements: A (none where resident) and B
+__host__ __device__ constexpr int ffma_stage_elems(int wm, int bk, bool a_km,
+                                                   bool a_res) {
+  return (a_res ? 0 : a_km ? bk * 64 * wm : 64 * wm * (bk + 4)) +
+         bk * 32 * (8 / wm);
+}
+
+// The 16-byte chunks a thread copies of one fp32 stage, ROWS x COLS of a
+// row-major matrix (leading dim ld), k running down its rows (K_ROWS: A or
+// B stored [k][..]) or along its columns (A stored [m][k]): each chunk's
+// source offset at k = 0 and its mask on the other coordinate (in [o0,
+// o_end)) are worked out once per product, a stage adds k's offset.
+// Offsets are 32-bit: an operand (a slab's scratch, W) holds under 2^31
+// elements.
+template <int ROWS, int COLS, bool K_ROWS>
+struct Stager {
+  static constexpr int kRowChunks = COLS / 4;
+  static constexpr int kN = ROWS * kRowChunks / kThreads;
+  static_assert(kN * kThreads == ROWS * kRowChunks, "whole chunks a thread");
+  int src[kN];
+  unsigned ok;             // bit j: chunk j inside [o0, o_end)
+  int ld;
+  __device__ __forceinline__ Stager(int ld_, int o0, int o_end)
+      : ok(0), ld(ld_) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kRowChunks, c = (i % kRowChunks) * 4;
+      const int o = K_ROWS ? o0 + c : o0 + r;
+      src[j] = K_ROWS ? r * ld + o : o * ld + c;
+      if (o < o_end) ok |= 1u << j;
+    }
+  }
+  // the stage at k into dst (rows dld apart): zero past k_end or the mask
+  __device__ __forceinline__ void copy(float* dst, int dld, const float* base,
+                                      int k, int k_end) const {
+    const float* from = base + (K_ROWS ? k * ld : k);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kRowChunks, c = (i % kRowChunks) * 4;
+      float* d = dst + r * dld + c;
+      if ((ok >> j & 1u) && (K_ROWS ? k + r : k + c) < k_end)
+        cp_async16(d, from + src[j]);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+  }
+};
+
+// One block's fp32 product on the CUDA cores, acc += A . B over k in [k0,
+// k_end), through a 3-stage cp.async ring of BK-deep stages in `sm`: WM
+// warps along M (64 rows each) by 8 / WM along N (32 columns each), warp
+// (wm, wn) = (warp / WN, warp % WN). A is (M, K) stored [m][k] (A_KM false)
+// or [k][m]; B is (K, N) stored [k][n]. With A_RES, A is the block's own
+// rows already in shared memory ([m][k], rows lda apart, lda / 4 odd, m0 and
+// m_end unused, K a whole number of stages) and the ring holds B alone. Per
+// k a thread reads its 8 A and 8 B values as float4s (A [m][k]: its 8 rows'
+// next 4 k at once) and issues 64 FFMAs into acc (frag_row<float, A_KM>,
+// frag_col<float>).
+template <int WM, int BK, bool A_KM, bool A_RES = false>
+__device__ __forceinline__ void ffma_block(
+    float (&acc)[8][8], const float* a, int lda, long long m0,
+    long long m_end, const float* b, int ldb, int n0, int n_end,
+    long long k0, long long k_end, float* sm) {
+  static_assert(!(A_RES && A_KM), "a resident A is stored [m][k]");
+  constexpr int WN = 8 / WM, BM = 64 * WM, BN = 32 * WN;
+  constexpr int kLdA = A_KM ? BM : BK + 4;
+  constexpr int kStage = ffma_stage_elems(WM, BK, A_KM, A_RES);
+  constexpr int kA = kStage - BK * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / WN, wn = warp % WN;
+  const int gid = lane >> 2, tig = lane & 3;
+  const Stager<A_KM ? BK : BM, A_KM ? BM : BK, A_KM> sa(lda, (int)m0,
+                                                        (int)m_end);
+  const Stager<BK, BN, true> sb(ldb, n0, n_end);
+  const int k_stop = (int)k_end;
+  auto stage = [&](int buf, int k) {
+    float* ad = sm + buf * kStage;
+    if constexpr (!A_RES) sa.copy(ad, kLdA, a, k, k_stop);
+    sb.copy(ad + kA, BN, b, k, k_stop);
+  };
+  const int nk = (int)((k_end - k0 + BK - 1) / BK);
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < nk) stage(s, (int)k0 + s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();   // stage kt landed; stage kt - 1 is consumed
+    const int pf = kt + kGStages - 1;
+    if (pf < nk) stage(pf % kGStages, (int)k0 + pf * BK);
+    cp_async_commit();
+    const float* ab = sm + (kt % kGStages) * kStage;
+    const float* bb = ab + kA + wn * 32 + tig * 4;
+    if constexpr (A_KM) {
+      const float* ap = ab + wm * 64 + gid * 4;
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float av[8], bv[8];
+        ld4(av, ap + kk * BM);
+        ld4(av + 4, ap + kk * BM + 32);
+        ld4(bv, bb + kk * BN);
+        ld4(bv + 4, bb + kk * BN + 16);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      }
+    } else {
+      const float* ap =
+          A_RES ? a + (size_t)(wm * 64 + gid) * lda + k0 + (long long)kt * BK
+                : ab + (wm * 64 + gid) * kLdA;
+      const int step = 8 * (A_RES ? lda : kLdA);   // 8 rows apart
+#pragma unroll
+      for (int kq = 0; kq < BK; kq += 4) {
+        float av[8][4];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) ld4(av[r], ap + r * step + kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float bv[8];
+          ld4(bv, bb + (kq + kk) * BN);
+          ld4(bv + 4, bb + (kq + kk) * BN + 16);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[r][c] = fmaf(av[r][kk], bv[c], acc[r][c]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring may be reused by the epilogue
+}
+
+// A K8 product of 128 x 128 in the element type: bf16 on the tensor cores,
+// B stored [n][k]; fp32 on the CUDA cores, B stored [k][n] (the kernels hand
+// over W or W^T accordingly)
+template <typename T, bool A_KM>
+__device__ __forceinline__ void k8_product(float (&acc)[8][8], const T* a,
+                                           int lda, long long m0,
+                                           long long m_end, const T* b,
+                                           int ldb, int n0, int n_end,
+                                           long long k0, long long k_end,
+                                           unsigned char* sm) {
+  if constexpr (kF32<T>)
+    ffma_block<2, kFk8, A_KM>(acc, a, lda, m0, m_end, b, ldb, n0, n_end, k0,
+                              k_end, reinterpret_cast<float*>(sm));
+  else
+    gemm_block<A_KM, A_KM>(acc, a, lda, m0, m_end, b, ldb, n0, n_end, k0,
+                           k_end, reinterpret_cast<bf16*>(sm));
+}
+
+// h of the slab's tiles (one block each), rows of invalid cells zero: the
+// tile's r_t f-rows and r_u g-rows are loaded once into shared memory,
+// kHBytes of each at a time, and tanh(f + g) is taken once per cell in fp32.
+// Tile tile0 + blockIdx.x is written to rows blockIdx.x * 64 .. of hs.
+template <typename T>
+__device__ __forceinline__ void tile_h(const T* __restrict__ f,
+                                       const T* __restrict__ g,
+                                       T* __restrict__ hs, const Lattice& L,
+                                       long long tile0, T* fs) {
+  constexpr int kCols = kHBytes / sizeof(T);
   const long long tile = tile0 + blockIdx.x;
   const Cell c0 = tile_cell(L, tile, 0);
-  for (int k0 = 0; k0 < L.J; k0 += kHCols) {
-    const int kc = min(kHCols, L.J - k0);
-    bf16* gs = fs + L.r_t * kc;
+  for (int k0 = 0; k0 < L.J; k0 += kCols) {
+    const int kc = min(kCols, L.J - k0);
+    T* gs = fs + L.r_t * kc;
     if (k0 > 0) __syncthreads();   // the previous chunk is consumed
     for (int i = threadIdx.x; i < (L.r_t + L.r_u) * kc; i += kThreads) {
       const int r = i / kc, k = k0 + i - r * kc;
-      bf16 v = __float2bfloat16(0.0f);
+      T v = from_f<T>(0.0f);
       if (c0.b < L.B) {
         if (r < L.r_t) {
           const int t = c0.t + r;
@@ -654,18 +508,16 @@ __device__ __forceinline__ void tile_h(const bf16* __restrict__ f,
       fs[i] = v;
     }
     __syncthreads();
-    const int groups = kc / 8;
+    const int groups = kc / kVec<T>;
     for (int i = threadIdx.x; i < kTileCells * groups; i += kThreads) {
-      const int lr = i / groups, k = (i - lr * groups) * 8;
+      const int lr = i / groups, k = (i - lr * groups) * kVec<T>;
       const Cell c = tile_cell(L, tile, lr);
-      __align__(16) bf16 out[8];
-      const bf16* fr = fs + (lr / L.r_u) * kc + k;
-      const bf16* gr = gs + (lr % L.r_u) * kc + k;
+      __align__(16) T out[kVec<T>];
+      const T* fr = fs + (lr / L.r_u) * kc + k;
+      const T* gr = gs + (lr % L.r_u) * kc + k;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        out[e] = __float2bfloat16(
-            c.ok ? tanhf(__bfloat162float(fr[e]) + __bfloat162float(gr[e]))
-                 : 0.0f);
+      for (int e = 0; e < kVec<T>; ++e)
+        out[e] = from_f<T>(c.ok ? tanhf(to_f(fr[e]) + to_f(gr[e])) : 0.0f);
       *reinterpret_cast<uint4*>(
           hs + ((size_t)blockIdx.x * kTileCells + lr) * L.J + k0 + k) =
           *reinterpret_cast<const uint4*>(out);
@@ -674,96 +526,96 @@ __device__ __forceinline__ void tile_h(const bf16* __restrict__ f,
 }
 
 // 1. K8's h launch (tile_h)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-joint_lse_bwd_h_kernel(const bf16* __restrict__ f, const bf16* __restrict__ g,
-                       bf16* __restrict__ hs, Lattice L, long long tile0) {
+joint_lse_bwd_h_kernel(const T* __restrict__ f, const T* __restrict__ g,
+                       T* __restrict__ hs, Lattice L, long long tile0) {
   extern __shared__ __align__(16) unsigned char k8_smem[];
-  tile_h(f, g, hs, L, tile0, reinterpret_cast<bf16*>(k8_smem));
+  tile_h<T>(f, g, hs, L, tile0, reinterpret_cast<T*>(k8_smem));
 }
 
-// 2. dlogits (rows, V) = softmax gradient of h . W^T + bias, in bf16, rows
-// of invalid cells zero; the column sums of the fp32 dlogits over the
-// block's rows are added to dbias_part[blockIdx.y].
-__global__ void __launch_bounds__(kGThreads)
-joint_lse_bwd_dl_kernel(const bf16* __restrict__ hs,
-                        const bf16* __restrict__ w,
+// 2. dlogits (rows, V) = softmax gradient of h . W^T + bias, in T, rows of
+// invalid cells zero; the column sums of the fp32 dlogits over the block's
+// rows are added to dbias_part[blockIdx.y]. bf16 takes B = W (V, J), fp32
+// W^T (J, V).
+template <typename T, int kBlocks = kK8Blocks<T>>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+joint_lse_bwd_dl_kernel(const T* __restrict__ hs, const T* __restrict__ w,
+                        const T* __restrict__ wt,
                         const float* __restrict__ bias,
                         const int* __restrict__ labels,
                         const float* __restrict__ lse,
                         const float* __restrict__ d_blank,
                         const float* __restrict__ d_label,
-                        bf16* __restrict__ dls, float* __restrict__ dbias_part,
+                        T* __restrict__ dls, float* __restrict__ dbias_part,
                         Lattice L, long long tile0, long long rows) {
   extern __shared__ __align__(16) unsigned char k8_smem[];
-  bf16* sm = reinterpret_cast<bf16*>(k8_smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int gid = lane >> 2;
   const int wm = warp >> 2, wn = warp & 3;
   const long long m0 = (long long)blockIdx.y * kGm;
   const int n0 = blockIdx.x * kGn;
-  float acc[4][4][4];
+  float acc[8][8];
   zero_acc(acc);
-  gemm_block<false, false>(acc, hs, L.J, m0, rows, w, L.J, n0, L.V, 0, L.J,
-                           sm);
+  if constexpr (kF32<T>)
+    k8_product<T, false>(acc, hs, L.J, m0, rows, wt, L.V, n0, L.V, 0, L.J,
+                         k8_smem);
+  else
+    k8_product<T, false>(acc, hs, L.J, m0, rows, w, L.J, n0, L.V, 0, L.J,
+                         k8_smem);
   // the thread's 8 rows: cotangents, label and lse of their cells
-  float z[4][2], db[4][2], dl[4][2];
-  int lbl[4][2];
+  float z[8], db[8], dl[8];
+  int lbl[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long m = m0 + wm * 64 + i * 16 + gid + 8 * h;
-      const Cell c = tile_cell(L, tile0 + m / kTileCells,
-                               (int)(m % kTileCells));
-      z[i][h] = db[i][h] = dl[i][h] = 0.0f;
-      lbl[i][h] = L.blank;
-      if (m < rows && c.ok) {
-        const size_t cell = ((size_t)c.b * L.T + c.t) * L.U1 + c.u;
-        z[i][h] = lse[cell];
-        db[i][h] = d_blank[cell];
-        if (c.u < L.U) {
-          dl[i][h] = d_label[((size_t)c.b * L.T + c.t) * L.U + c.u];
-          lbl[i][h] = labels[(size_t)c.b * L.U + c.u];
-        }
+  for (int r = 0; r < 8; ++r) {
+    const long long m = m0 + frag_row<T>(wm, r);
+    const Cell c = tile_cell(L, tile0 + m / kTileCells,
+                             (int)(m % kTileCells));
+    z[r] = db[r] = dl[r] = 0.0f;
+    lbl[r] = L.blank;
+    if (m < rows && c.ok) {
+      const size_t cell = ((size_t)c.b * L.T + c.t) * L.U1 + c.u;
+      z[r] = lse[cell];
+      db[r] = d_blank[cell];
+      if (c.u < L.U) {
+        dl[r] = d_label[((size_t)c.b * L.T + c.t) * L.U + c.u];
+        lbl[r] = labels[(size_t)c.b * L.U + c.u];
       }
     }
-  bf16* ds = sm;                                  // kGm x kLdD
+  }
+  constexpr int kLdD = kGn + kVec<T>;               // dlogits rows
+  T* ds = reinterpret_cast<T*>(k8_smem);            // kGm x kLdD
   float* red = reinterpret_cast<float*>(ds + kGm * kLdD);   // 2 x kGn
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int c = 0; c < 8; ++c) {
+    const int cl = frag_col<T>(wn, c);
+    const int col = n0 + cl;
+    const float bc = col < L.V ? bias[col] : 0.0f;
+    float sum = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int cl = wn * 32 + j * 8 + tig * 2 + e;
-      const int col = n0 + cl;
-      const float bc = col < L.V ? bias[col] : 0.0f;
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = 0.0f;
-          if (col < L.V && (db[i][h] != 0.0f || dl[i][h] != 0.0f)) {
-            const float p = expf(acc[i][j][2 * h + e] + bc - z[i][h]);
-            v = (col == L.blank ? db[i][h] : 0.0f) +
-                (col == lbl[i][h] ? dl[i][h] : 0.0f) -
-                (db[i][h] + dl[i][h]) * p;
-          }
-          sum += v;
-          ds[(wm * 64 + i * 16 + gid + 8 * h) * kLdD + cl] =
-              __float2bfloat16(v);
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-      if (gid == 0) red[wm * kGn + cl] = sum;
+    for (int r = 0; r < 8; ++r) {
+      float v = 0.0f;
+      if (col < L.V && (db[r] != 0.0f || dl[r] != 0.0f)) {
+        const float p = expf(acc[r][c] + bc - z[r]);
+        v = (col == L.blank ? db[r] : 0.0f) + (col == lbl[r] ? dl[r] : 0.0f) -
+            (db[r] + dl[r]) * p;
+      }
+      sum += v;
+      ds[frag_row<T>(wm, r) * kLdD + cl] = from_f<T>(v);
     }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+    if (gid == 0) red[wm * kGn + cl] = sum;
+  }
   __syncthreads();
   if (threadIdx.x < kGn && n0 + (int)threadIdx.x < L.V) {
     float* p = dbias_part + (size_t)blockIdx.y * L.V + n0 + threadIdx.x;
     *p += red[threadIdx.x] + red[kGn + threadIdx.x];
   }
-  for (int i = threadIdx.x; i < kGm * (kGn / 8); i += kGThreads) {
-    const int r = i / (kGn / 8), c = (i % (kGn / 8)) * 8;
+  constexpr int kRowChunks = kGn / kVec<T>;
+  for (int i = threadIdx.x; i < kGm * kRowChunks; i += kThreads) {
+    const int r = i / kRowChunks, c = (i % kRowChunks) * kVec<T>;
     if (m0 + r < rows && n0 + c < L.V)
       *reinterpret_cast<uint4*>(dls + (size_t)(m0 + r) * L.V + n0 + c) =
           *reinterpret_cast<const uint4*>(ds + r * kLdD + c);
@@ -771,114 +623,147 @@ joint_lse_bwd_dl_kernel(const bf16* __restrict__ hs,
 }
 
 // 3. dh (rows, J) = dlogits . W on 128 rows (two tiles) x 128 columns; da =
-// dh (1 - h^2) with fp32 h, then inside each tile df[b, t, k] += the sum
-// over its r_u cells and dg[b, u, k] += the sum over its r_t cells: one
-// atomic per tile and (b, t, k) or (b, u, k).
-__global__ void __launch_bounds__(kGThreads)
-joint_lse_bwd_dh_mma_kernel(const bf16* __restrict__ f,
-                            const bf16* __restrict__ g,
-                            const bf16* __restrict__ wt,
-                            const bf16* __restrict__ dls,
-                            float* __restrict__ df, float* __restrict__ dg,
-                            Lattice L, long long tile0, long long rows) {
+// dh (1 - h^2) with fp32 h, then inside each tile the sums over its r_u
+// cells (frame t) and over its r_t cells (label slot u) into the slab's
+// partials dfp (slab tile, ti, k) and dgp (slab tile, ui, k). bf16 takes
+// B = W^T (J, V), fp32 W (V, J).
+template <typename T, int kBlocks = kK8Blocks<T>>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+joint_lse_bwd_dh_kernel(const T* __restrict__ f, const T* __restrict__ g,
+                        const T* __restrict__ w, const T* __restrict__ wt,
+                        const T* __restrict__ dls, float* __restrict__ dfp,
+                        float* __restrict__ dgp, Lattice L, long long tile0,
+                        long long rows) {
   extern __shared__ __align__(16) unsigned char k8_smem[];
-  bf16* sm = reinterpret_cast<bf16*>(k8_smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const long long m0 = (long long)blockIdx.y * kGm;
   const int n0 = blockIdx.x * kGn;
-  float acc[4][4][4];
+  float acc[8][8];
   zero_acc(acc);
-  gemm_block<false, false>(acc, dls, L.V, m0, rows, wt, L.V, n0, L.J, 0, L.V,
-                           sm);
+  if constexpr (kF32<T>)
+    k8_product<T, false>(acc, dls, L.V, m0, rows, w, L.J, n0, L.J, 0, L.V,
+                         k8_smem);
+  else
+    k8_product<T, false>(acc, dls, L.V, m0, rows, wt, L.V, n0, L.J, 0, L.V,
+                         k8_smem);
   float* es = reinterpret_cast<float*>(k8_smem);     // kGm x kLdE da
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 8; ++r) {
+    const int lm = frag_row<T>(wm, r);
+    const Cell c = tile_cell(L, tile0 + (m0 + lm) / kTileCells,
+                             (int)((m0 + lm) % kTileCells));
+    const bool ok = m0 + lm < rows && c.ok;
+    const T* fr = f + ((size_t)c.b * L.T + c.t) * L.J;
+    const T* gr = g + ((size_t)c.b * L.U1 + c.u) * L.J;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int lm = wm * 64 + i * 16 + gid + 8 * h;
-      const Cell c = tile_cell(L, tile0 + (m0 + lm) / kTileCells,
-                               (int)((m0 + lm) % kTileCells));
-      const bool ok = m0 + lm < rows && c.ok;
-      const bf16* fr = f + ((size_t)c.b * L.T + c.t) * L.J;
-      const bf16* gr = g + ((size_t)c.b * L.U1 + c.u) * L.J;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cl = wn * 32 + j * 8 + tig * 2 + e;
-          const int k = n0 + cl;
-          float da = 0.0f;
-          if (ok && k < L.J) {
-            const float hv = tanhf(__bfloat162float(fr[k]) +
-                                   __bfloat162float(gr[k]));
-            da = acc[i][j][2 * h + e] * (1.0f - hv * hv);
-          }
-          es[lm * kLdE + cl] = da;
-        }
-    }
-  __syncthreads();
-  // one (tile, column) pair a thread: 2 tiles x 128 columns
-  for (int pair = threadIdx.x; pair < 2 * kGn; pair += kGThreads) {
-    const int half = pair / kGn, cl = pair % kGn;
-    const int k = n0 + cl;
-    const Cell c0 = tile_cell(L, tile0 + (m0 >> 6) + half, 0);
-    if (k >= L.J || m0 + half * kTileCells >= rows || c0.b >= L.B) continue;
-    const float* et = es + half * kTileCells * kLdE + cl;
-    for (int ti = 0; ti < L.r_t && c0.t + ti < L.T; ++ti) {
-      float s = 0.0f;
-      for (int ui = 0; ui < L.r_u; ++ui) s += et[(ti * L.r_u + ui) * kLdE];
-      atomicAdd(&df[((size_t)c0.b * L.T + c0.t + ti) * L.J + k], s);
-    }
-    for (int ui = 0; ui < L.r_u && c0.u + ui < L.U1; ++ui) {
-      float s = 0.0f;
-      for (int ti = 0; ti < L.r_t; ++ti) s += et[(ti * L.r_u + ui) * kLdE];
-      atomicAdd(&dg[((size_t)c0.b * L.U1 + c0.u + ui) * L.J + k], s);
+    for (int q = 0; q < 8; ++q) {
+      const int cl = frag_col<T>(wn, q);
+      const int k = n0 + cl;
+      float da = 0.0f;
+      if (ok && k < L.J) {
+        const float hv = tanhf(to_f(fr[k]) + to_f(gr[k]));
+        da = acc[r][q] * (1.0f - hv * hv);
+      }
+      es[lm * kLdE + cl] = da;
     }
   }
+  __syncthreads();
+  // one (tile, column) pair a thread: 2 tiles x 128 columns (invalid
+  // cells' da is 0)
+  for (int pair = threadIdx.x; pair < 2 * kGn; pair += kThreads) {
+    const int half = pair / kGn, cl = pair % kGn;
+    const int k = n0 + cl;
+    const long long tl = (m0 >> 6) + half;          // the slab's tile
+    if (k >= L.J || tl * kTileCells >= rows) continue;
+    const float* et = es + half * kTileCells * kLdE + cl;
+    for (int ti = 0; ti < L.r_t; ++ti) {
+      float s = 0.0f;
+      for (int ui = 0; ui < L.r_u; ++ui) s += et[(ti * L.r_u + ui) * kLdE];
+      dfp[((size_t)tl * L.r_t + ti) * L.J + k] = s;
+    }
+    for (int ui = 0; ui < L.r_u; ++ui) {
+      float s = 0.0f;
+      for (int ti = 0; ti < L.r_t; ++ti) s += et[(ti * L.r_u + ui) * kLdE];
+      dgp[((size_t)tl * L.r_u + ui) * L.J + k] = s;
+    }
+  }
+}
+
+// 3b. df[b, t, k] += the sum of the slab's partials for frame row (b, t)
+// (tiles of one run b n_tt + tt, consecutive), dg[b, u, k] += that for
+// label slot (b, u) (tiles n_tu apart), each in tile order and once a slab,
+// so df and dg are the same bits from run to run. Item i: df's (run of the
+// slab, ti, k) for i < runs r_t J, else dg's (b of the slab, tu, ui, k).
+__global__ void __launch_bounds__(kThreads)
+joint_lse_bwd_dh_sum_kernel(const float* __restrict__ dfp,
+                            const float* __restrict__ dgp,
+                            float* __restrict__ df, float* __restrict__ dg,
+                            Lattice L, int tile0, int n) {
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  const int run0 = tile0 / L.n_tu;
+  const int n_df = ((tile0 + n - 1) / L.n_tu - run0 + 1) * L.r_t * L.J;
+  if (i < n_df) {
+    const int k = i % L.J, q = i / L.J, ti = q % L.r_t;
+    const int run = run0 + q / L.r_t;
+    const int t = run % L.n_tt * L.r_t + ti;
+    if (t >= L.T) return;
+    const int hi = min(tile0 + n, (run + 1) * L.n_tu);
+    float s = 0.0f;
+    for (int x = max(tile0, run * L.n_tu); x < hi; ++x)
+      s += dfp[((size_t)(x - tile0) * L.r_t + ti) * L.J + k];
+    df[((size_t)(run / L.n_tt) * L.T + t) * L.J + k] += s;
+    return;
+  }
+  i -= n_df;
+  const int per_b = L.n_tt * L.n_tu;                   // tiles of a b
+  const int b0 = tile0 / per_b;
+  if (i >= ((tile0 + n - 1) / per_b - b0 + 1) * L.n_tu * L.r_u * L.J) return;
+  const int k = i % L.J, q = i / L.J, ui = q % L.r_u;
+  const int tu = q / L.r_u % L.n_tu, b = b0 + q / L.r_u / L.n_tu;
+  const int u = tu * L.r_u + ui;
+  if (u >= L.U1) return;
+  int x = b * per_b + tu;                                 // tt = 0
+  if (x < tile0) x += (tile0 - x + L.n_tu - 1) / L.n_tu * L.n_tu;
+  const int end = min(tile0 + n, (b + 1) * per_b);
+  if (x >= end) return;                      // no tile of (b, tu) here
+  float s = 0.0f;
+  for (; x < end; x += L.n_tu)
+    s += dgp[((size_t)(x - tile0) * L.r_u + ui) * L.J + k];
+  dg[((size_t)b * L.U1 + u) * L.J + k] += s;
 }
 
 // 4. dW^T partial `blockIdx.z` += h^T . dlogits over its share of the slab's
 // rows: a 128 x 128 tile of (J, V) per block, both operands read
 // transposed ([k][m] and [k][n] stages), each partial element owned by one
 // block of the launch (no atomics).
-__global__ void __launch_bounds__(kGThreads)
-joint_lse_bwd_dw_mma_kernel(const bf16* __restrict__ hs,
-                            const bf16* __restrict__ dls,
-                            float* __restrict__ dw_part, Lattice L,
-                            long long rows, long long share) {
+template <typename T, int kBlocks = kK8Blocks<T>>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+joint_lse_bwd_dw_kernel(const T* __restrict__ hs, const T* __restrict__ dls,
+                        float* __restrict__ dw_part, Lattice L,
+                        long long rows, long long share) {
   extern __shared__ __align__(16) unsigned char k8_smem[];
-  bf16* sm = reinterpret_cast<bf16*>(k8_smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * kGm, n0 = blockIdx.x * kGn;
   const long long k0 = (long long)blockIdx.z * share;
   const long long k_end = k0 + share < rows ? k0 + share : rows;
   if (k0 >= k_end) return;
-  float acc[4][4][4];
+  float acc[8][8];
   zero_acc(acc);
-  gemm_block<true, true>(acc, hs, L.J, m0, L.J, dls, L.V, n0, L.V, k0, k_end,
-                         sm);
+  k8_product<T, true>(acc, hs, L.J, m0, L.J, dls, L.V, n0, L.V, k0, k_end,
+                      k8_smem);
   float* part = dw_part + (size_t)blockIdx.z * L.J * L.V;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 8; ++r) {
+    const int m = m0 + frag_row<T, true>(wm, r);
+    if (m >= L.J) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 64 + i * 16 + gid + 8 * h;
-      if (m >= L.J) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + j * 8 + tig * 2;
-        if (n >= L.V) continue;   // V is even: n + 1 < V too
-        float2* p = reinterpret_cast<float2*>(part + (size_t)m * L.V + n);
-        float2 v = *p;
-        v.x += acc[i][j][2 * h];
-        v.y += acc[i][j][2 * h + 1];
-        *p = v;
-      }
+    for (int c = 0; c < 8; ++c) {
+      const int n = n0 + frag_col<T>(wn, c);
+      if (n < L.V) part[(size_t)m * L.V + n] += acc[r][c];
     }
+  }
 }
 
 // 5. after the last slab: dw = the sum of the dW^T partials, dbias the sum
@@ -902,29 +787,36 @@ joint_lse_bwd_reduce_kernel(const float* __restrict__ dw_part,
 }
 
 // ---------------------------------------------------------------------------
-// K7 in bf16 on the tensor cores (J and V multiples of 16): two lattice
-// tiles (128 rows) a block, one pass over W^T (launch plan:
-// ops/joint_lse_plan.py fwd_plan)
+// K7: whole tiles a block, bf16 lattice tiles, fp32 64 consecutive cells
+// (launch plan: ops/joint_lse_plan.py fwd_plan)
 // ---------------------------------------------------------------------------
 
-constexpr int kRingElems = kGStages * kStageElems;   // one operand's ring
+// the ring of K7's product, in T: bf16 one operand's (RES) or both; fp32 B's
+// 256-column stages (RES) or A's 64-row and B's
+template <typename T>
+__host__ __device__ constexpr int fwd_ring_elems(bool res) {
+  return kF32<T> ? kGStages * ffma_stage_elems(1, kFk7, false, res)
+                 : (res ? 1 : 2) * kGStages * kStageElems;
+}
 
-// h of the block's two tiles (first tile t0) into hs (128 rows, ldh apart,
-// columns J .. ldh - 8 zero), rows of invalid cells zero: each tile's r_t
-// f-rows and r_u g-rows are staged once in `buf` (bf16, `buf_elems`), as
-// many columns at a time as fit, and tanh(f + g) is taken once per cell in
-// fp32.
-__device__ void fill_h_resident(bf16* hs, int ldh, bf16* buf, int buf_elems,
-                                const bf16* __restrict__ f,
-                                const bf16* __restrict__ g, const Lattice& L,
+// h of the block's TILES tiles (first tile t0) into hs (64 TILES rows, ldh
+// apart, columns J .. ldh - kVec zero), rows of invalid cells zero: each
+// tile's r_t f-rows and r_u g-rows are staged once in `buf` (`buf_elems`
+// of T), as many columns at a time as fit, and tanh(f + g) is taken once
+// per cell in fp32.
+template <typename T, int TILES>
+__device__ void fill_h_resident(T* hs, int ldh, T* buf, int buf_elems,
+                                const T* __restrict__ f,
+                                const T* __restrict__ g, const Lattice& L,
                                 long long t0) {
+  constexpr int kV = kVec<T>;
   const int rows = L.r_t + L.r_u;            // staged rows per tile
-  const int kc = min(L.J, buf_elems / (2 * rows) / 8 * 8);
+  const int kc = min(L.J, buf_elems / (TILES * rows) / kV * kV);
   for (int k0 = 0; k0 < L.J; k0 += kc) {
-    const int w = min(kc, L.J - k0), groups = w / 8;
+    const int w = min(kc, L.J - k0), groups = w / kV;
     if (k0 > 0) __syncthreads();             // the previous chunk is consumed
-    for (int i = threadIdx.x; i < 2 * rows * groups; i += kGThreads) {
-      const int r = i / groups, c = (i - r * groups) * 8;
+    for (int i = threadIdx.x; i < TILES * rows * groups; i += kThreads) {
+      const int r = i / groups, c = (i - r * groups) * kV;
       const int q = r / rows, rr = r - q * rows;
       const Cell c0 = tile_cell(L, t0 + q, 0);
       uint4 v = make_uint4(0, 0, 0, 0);
@@ -941,27 +833,49 @@ __device__ void fill_h_resident(bf16* hs, int ldh, bf16* buf, int buf_elems,
       *reinterpret_cast<uint4*>(buf + r * kc + c) = v;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < kGm * groups; i += kGThreads) {
-      const int lm = i / groups, c = (i - lm * groups) * 8;
+    for (int i = threadIdx.x; i < TILES * kTileCells * groups;
+         i += kThreads) {
+      const int lm = i / groups, c = (i - lm * groups) * kV;
       const int q = lm / kTileCells, lr = lm - q * kTileCells;
       const Cell cell = tile_cell(L, t0 + q, lr);
-      const bf16* fr = buf + (q * rows + lr / L.r_u) * kc + c;
-      const bf16* gr = buf + (q * rows + L.r_t + lr % L.r_u) * kc + c;
-      __align__(16) bf16 out[8];
+      const T* fr = buf + (q * rows + lr / L.r_u) * kc + c;
+      const T* gr = buf + (q * rows + L.r_t + lr % L.r_u) * kc + c;
+      __align__(16) T out[kV];
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        out[e] = __float2bfloat16(
-            cell.ok ? tanhf(__bfloat162float(fr[e]) + __bfloat162float(gr[e]))
-                    : 0.0f);
+      for (int e = 0; e < kV; ++e)
+        out[e] = from_f<T>(cell.ok ? tanhf(to_f(fr[e]) + to_f(gr[e]))
+                                   : 0.0f);
       *reinterpret_cast<uint4*>(hs + lm * ldh + k0 + c) =
           *reinterpret_cast<const uint4*>(out);
     }
   }
-  const int pad = (ldh - 8 - L.J) / 8;      // columns J .. : read as zero
-  for (int i = threadIdx.x; i < kGm * pad; i += kGThreads)
-    *reinterpret_cast<uint4*>(hs + (i / pad) * ldh + L.J + (i % pad) * 8) =
+  const int pad = (ldh - kV - L.J) / kV;    // columns J .. : read as zero
+  for (int i = threadIdx.x; i < TILES * kTileCells * pad; i += kThreads)
+    *reinterpret_cast<uint4*>(hs + (i / pad) * ldh + L.J + (i % pad) * kV) =
         make_uint4(0, 0, 0, 0);
   __syncthreads();
+}
+
+// fp32 h of the 64 consecutive cells from m0 into hs (rows ldh apart, ldh
+// a multiple of 4; cells past the lattice zero), read straight from f and g
+__device__ void fill_h_flat(float* hs, int ldh, const float* __restrict__ f,
+                            const float* __restrict__ g, const Lattice& L,
+                            long long m0) {
+  const int q = L.J / 4;
+  for (int i = threadIdx.x; i < kTileCells * q; i += kThreads) {
+    const int lm = i / q, k = (i - lm * q) * 4;
+    const Cell c = flat_cell(L, m0 + lm);
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c.ok) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          f + ((size_t)c.b * L.T + c.t) * L.J + k);
+      const float4 b = *reinterpret_cast<const float4*>(
+          g + ((size_t)c.b * L.U1 + c.u) * L.J + k);
+      o = make_float4(tanhf(a.x + b.x), tanhf(a.y + b.y), tanhf(a.z + b.z),
+                      tanhf(a.w + b.w));
+    }
+    *reinterpret_cast<float4*>(hs + lm * ldh + k) = o;
+  }
 }
 
 // (m, s) <- the logsumexp pair of (m, s) and (m2, s2): s is a sum of
@@ -974,118 +888,122 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
   m = mn;
 }
 
-// K7: block x takes tiles t0 = tile0 + 2x and t0 + 1. RES: their h is
-// formed here and stays in shared memory (ldh = J rounded up to 64, + 8);
-// else h comes from the slab scratch hsg (rows of the slab, `rows` of them,
-// the block's from 128 x on). Then, for every 128 columns of V: the block
-// product with W^T (B [k][n]), and each thread folds its 8 rows x 8 columns
-// into running (max, sum of exp, blank logit, label logit).
-template <bool RES>
-__global__ void __launch_bounds__(kGThreads)
-joint_lse_fwd_mma_kernel(const bf16* __restrict__ f,
-                         const bf16* __restrict__ g,
-                         const bf16* __restrict__ wt,
-                         const float* __restrict__ bias,
-                         const int* __restrict__ labels,
-                         const bf16* __restrict__ hsg,
-                         float* __restrict__ blank_out,
-                         float* __restrict__ label_out,
-                         float* __restrict__ lse_out, Lattice L,
-                         long long tile0, long long rows, int ldh) {
-  extern __shared__ __align__(16) unsigned char k7_smem[];
-  bf16* hs = reinterpret_cast<bf16*>(k7_smem);
-  bf16* ring = RES ? hs + kGm * ldh : hs;
+// K7: block x takes kFwdWm tiles from t0 = tile0 + kFwdWm x: bf16 lattice
+// tiles, fp32 blocks of 64 consecutive cells (cells t0 64 ..; no tile
+// padding, and without df / dg to sum nothing gains from sharing f and g
+// rows). RES: their h is formed here and stays in shared memory (ldh: bf16
+// J rounded up to 64, + 8; fp32 J + 4); else h comes from the slab scratch
+// hsg (rows of the slab, `rows` of them, the block's from 64 kFwdWm x on).
+// Then, for every BN columns of V: the block product with W^T (B [k][n]),
+// and each thread folds its 8 rows x 8 columns into running (max, sum of
+// exp, blank logit, label logit).
+template <typename T, bool RES>
+__device__ __forceinline__ void fwd_block(
+    const T* __restrict__ f, const T* __restrict__ g,
+    const T* __restrict__ wt, const float* __restrict__ bias,
+    const int* __restrict__ labels, const T* __restrict__ hsg,
+    float* __restrict__ blank_out, float* __restrict__ label_out,
+    float* __restrict__ lse_out, const Lattice& L, long long tile0,
+    long long rows, int ldh, unsigned char* smem) {
+  constexpr int WM = kFwdWm<T>, WN = 8 / WM, BM = 64 * WM, BN = 32 * WN;
+  T* hs = reinterpret_cast<T*>(smem);
+  T* ring = RES ? hs + BM * ldh : hs;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const long long t0 = tile0 + 2LL * blockIdx.x;
-  const long long m0 = (long long)blockIdx.x * kGm;
-  if constexpr (RES) fill_h_resident(hs, ldh, ring, kRingElems, f, g, L, t0);
-  // the thread's 8 rows (i, h): row wm * 64 + 16 i + gid + 8 h
-  int lbl[4][2];
-  float m[4][2], s[4][2], bl[4][2], la[4][2];
+  const int tig = lane & 3;
+  const int wm = warp / WN, wn = warp % WN;
+  const long long t0 = tile0 + (long long)WM * blockIdx.x;
+  const long long m0 = (long long)blockIdx.x * BM;
+  auto cell_of = [&](int lm) {
+    return kF32<T> ? flat_cell(L, t0 * kTileCells + lm)
+                   : tile_cell(L, t0 + lm / kTileCells, lm % kTileCells);
+  };
+  if constexpr (RES && kF32<T>) {
+    fill_h_flat(hs, ldh, f, g, L, t0 * kTileCells);
+    __syncthreads();
+  } else if constexpr (RES) {
+    fill_h_resident<T, WM>(hs, ldh, ring, fwd_ring_elems<T>(true), f, g, L,
+                           t0);
+  }
+  // the thread's 8 rows
+  int lbl[8];
+  float m[8], s[8], bl[8], la[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int lm = wm * 64 + i * 16 + gid + 8 * h;
-      const Cell c = tile_cell(L, t0 + lm / kTileCells, lm % kTileCells);
-      lbl[i][h] = c.ok && c.u < L.U ? labels[(size_t)c.b * L.U + c.u]
-                                    : L.blank;
-      m[i][h] = -CUDART_INF_F;
-      s[i][h] = bl[i][h] = la[i][h] = 0.0f;
-    }
-  for (int n0 = 0; n0 < L.V; n0 += kGn) {
-    float acc[4][4][4];
+  for (int r = 0; r < 8; ++r) {
+    const Cell c = cell_of(frag_row<T>(wm, r));
+    lbl[r] = c.ok && c.u < L.U ? labels[(size_t)c.b * L.U + c.u] : L.blank;
+    m[r] = -CUDART_INF_F;
+    s[r] = bl[r] = la[r] = 0.0f;
+  }
+  for (int n0 = 0; n0 < L.V; n0 += BN) {
+    float acc[8][8];
     zero_acc(acc);
-    if constexpr (RES)
-      gemm_block<false, true, true>(acc, hs, ldh, 0, kGm, wt, L.V, n0, L.V,
-                                    0, L.J, ring);
-    else
-      gemm_block<false, true>(acc, hsg, L.J, m0, rows, wt, L.V, n0, L.V, 0,
-                              L.J, ring);
+    if constexpr (kF32<T>) {
+      if constexpr (RES)
+        ffma_block<1, kFk7, false, true>(acc, hs, ldh, 0, BM, wt, L.V, n0,
+                                         L.V, 0, L.J, ring);
+      else
+        ffma_block<1, kFk7, false>(acc, hsg, L.J, m0, rows, wt, L.V, n0,
+                                   L.V, 0, L.J, ring);
+    } else {
+      if constexpr (RES)
+        gemm_block<false, true, true>(acc, hs, ldh, 0, BM, wt, L.V, n0, L.V,
+                                      0, L.J, ring);
+      else
+        gemm_block<false, true>(acc, hsg, L.J, m0, rows, wt, L.V, n0, L.V, 0,
+                                L.J, ring);
+    }
     // the bias of the thread's 8 columns, -inf past V (their accumulators
     // are 0: W^T is staged as zero there)
-    float bc[4][2];
-    int col[4][2];
+    float bc[8];
+    int col[8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        col[j][e] = n0 + wn * 32 + j * 8 + tig * 2 + e;
-        bc[j][e] = col[j][e] < L.V ? bias[col[j][e]] : -CUDART_INF_F;
-      }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float x[4][2], cm = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            x[j][e] = acc[i][j][2 * h + e] + bc[j][e];
-            cm = fmaxf(cm, x[j][e]);
-            if (col[j][e] == L.blank) bl[i][h] += x[j][e];
-            if (col[j][e] == lbl[i][h]) la[i][h] += x[j][e];
-          }
-        const float mn = fmaxf(m[i][h], cm);
-        if (mn == -CUDART_INF_F) continue;
-        float cs = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) cs += expf(x[j][e] - mn);
-        s[i][h] = s[i][h] * expf(m[i][h] - mn) + cs;
-        m[i][h] = mn;
-      }
-  }
-  // the 4 lanes of a row (tig), then the 4 column warps (wn) in order
-  float4* red = reinterpret_cast<float4*>(ring);   // kGm x 4: (m, s, bl, la)
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float m2 = __shfl_xor_sync(0xffffffffu, m[i][h], off);
-        const float s2 = __shfl_xor_sync(0xffffffffu, s[i][h], off);
-        bl[i][h] += __shfl_xor_sync(0xffffffffu, bl[i][h], off);
-        la[i][h] += __shfl_xor_sync(0xffffffffu, la[i][h], off);
-        lse_merge(m[i][h], s[i][h], m2, s2);
-      }
-      if (tig == 0)
-        red[(wm * 64 + i * 16 + gid + 8 * h) * 4 + wn] =
-            make_float4(m[i][h], s[i][h], bl[i][h], la[i][h]);
+    for (int c = 0; c < 8; ++c) {
+      col[c] = n0 + frag_col<T>(wn, c);
+      bc[c] = col[c] < L.V ? bias[col[c]] : -CUDART_INF_F;
     }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float x[8], cm = -CUDART_INF_F;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        x[c] = acc[r][c] + bc[c];
+        cm = fmaxf(cm, x[c]);
+        if (col[c] == L.blank) bl[r] += x[c];
+        if (col[c] == lbl[r]) la[r] += x[c];
+      }
+      const float mn = fmaxf(m[r], cm);
+      if (mn == -CUDART_INF_F) continue;
+      float cs = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) cs += expf(x[c] - mn);
+      s[r] = s[r] * expf(m[r] - mn) + cs;
+      m[r] = mn;
+    }
+  }
+  // the 4 lanes of a row (tig), then the WN column warps (wn) in order
+  float4* red = reinterpret_cast<float4*>(ring);   // BM x WN: (m, s, bl, la)
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s[r], off);
+      bl[r] += __shfl_xor_sync(0xffffffffu, bl[r], off);
+      la[r] += __shfl_xor_sync(0xffffffffu, la[r], off);
+      lse_merge(m[r], s[r], m2, s2);
+    }
+    if (tig == 0)
+      red[frag_row<T>(wm, r) * WN + wn] = make_float4(m[r], s[r], bl[r],
+                                                      la[r]);
+  }
   __syncthreads();
-  if (threadIdx.x < kGm) {
+  if (threadIdx.x < BM) {
     const int lm = threadIdx.x;
-    const Cell c = tile_cell(L, t0 + lm / kTileCells, lm % kTileCells);
+    const Cell c = cell_of(lm);
     if (c.ok && (RES || m0 + lm < rows)) {
-      float4 a = red[lm * 4];
-      for (int q = 1; q < 4; ++q) {
-        const float4 p = red[lm * 4 + q];
+      float4 a = red[lm * WN];
+      for (int q = 1; q < WN; ++q) {
+        const float4 p = red[lm * WN + q];
         lse_merge(a.x, a.y, p.x, p.y);
         a.z += p.z;
         a.w += p.w;
@@ -1100,27 +1018,60 @@ joint_lse_fwd_mma_kernel(const bf16* __restrict__ f,
   }
 }
 
-// K7's h launch where h is not resident (tile_h, as K8's)
+// K7 in bf16 on the tensor cores: two tiles (128 rows) a block
+template <bool RES>
 __global__ void __launch_bounds__(kThreads)
-joint_lse_fwd_h_kernel(const bf16* __restrict__ f, const bf16* __restrict__ g,
-                       bf16* __restrict__ hs, Lattice L, long long tile0) {
+joint_lse_fwd_mma_kernel(const bf16* __restrict__ f,
+                         const bf16* __restrict__ g,
+                         const bf16* __restrict__ wt,
+                         const float* __restrict__ bias,
+                         const int* __restrict__ labels,
+                         const bf16* __restrict__ hsg,
+                         float* __restrict__ blank_out,
+                         float* __restrict__ label_out,
+                         float* __restrict__ lse_out, Lattice L,
+                         long long tile0, long long rows, int ldh) {
   extern __shared__ __align__(16) unsigned char k7_smem[];
-  tile_h(f, g, hs, L, tile0, reinterpret_cast<bf16*>(k7_smem));
+  fwd_block<bf16, RES>(f, g, wt, bias, labels, hsg, blank_out, label_out,
+                       lse_out, L, tile0, rows, ldh, k7_smem);
 }
 
-size_t fwd_smem(int rpw, int J) {
-  return (size_t)kWarps * rpw * J * sizeof(float);
+// K7 in fp32 on the CUDA cores: one tile (64 rows) a block, 256 columns a
+// chunk
+template <bool RES>
+__global__ void __launch_bounds__(kThreads)
+joint_lse_fwd_ffma_kernel(const float* __restrict__ f,
+                          const float* __restrict__ g,
+                          const float* __restrict__ wt,
+                          const float* __restrict__ bias,
+                          const int* __restrict__ labels,
+                          const float* __restrict__ hsg,
+                          float* __restrict__ blank_out,
+                          float* __restrict__ label_out,
+                          float* __restrict__ lse_out, Lattice L,
+                          long long tile0, long long rows, int ldh) {
+  extern __shared__ __align__(16) unsigned char k7_smem[];
+  fwd_block<float, RES>(f, g, wt, bias, labels, hsg, blank_out, label_out,
+                        lse_out, L, tile0, rows, ldh, k7_smem);
 }
 
-size_t dh_smem(int rpw, int J) {
-  return (size_t)kWarps * rpw * (2 * J + kCols) * sizeof(float);
+// K7's h launch where h is not resident: bf16 tile_h, as K8's; fp32 the
+// block's 64 consecutive cells
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+joint_lse_fwd_h_kernel(const T* __restrict__ f, const T* __restrict__ g,
+                       T* __restrict__ hs, Lattice L, long long tile0) {
+  extern __shared__ __align__(16) unsigned char k7_smem[];
+  if constexpr (kF32<T>)
+    fill_h_flat(hs + (size_t)blockIdx.x * kTileCells * L.J, L.J, f, g, L,
+                (tile0 + blockIdx.x) * kTileCells);
+  else
+    tile_h<T>(f, g, hs, L, tile0, reinterpret_cast<T*>(k7_smem));
 }
 
-size_t dw_smem(int J) {
-  return ((size_t)kStripRows * J + (size_t)J * kStrip +
-          kStripRows * kStrip + kWarps * 32 + 4 * kStripRows) *
-         sizeof(float);
-}
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -1131,157 +1082,89 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-Dims make_dims(int B, int T, int U1, int J, int V, int blank) {
-  Dims d;
-  d.B = B;
-  d.T = T;
-  d.U1 = U1;
-  d.U = U1 - 1;
-  d.J = J;
-  d.V = V;
-  d.blank = blank;
-  d.N = (long long)B * T * U1;
-  return d;
+size_t max_size(size_t a, size_t b) { return a > b ? a : b; }
+
+// a K8 product's ring
+template <typename T>
+size_t prod_smem(bool a_km) {
+  return kF32<T> ? (size_t)kGStages * ffma_stage_elems(2, kFk8, a_km, false) *
+                       4
+                 : (size_t)kGStages * 2 * kStageElems * 2;
 }
 
-template <int RPW>
-cudaError_t launch_fwd(const void* f, const void* g, const void* wt,
-                       const void* bias, const void* labels, void* blank_out,
-                       void* label_out, void* lse_out, const Dims& d,
-                       cudaStream_t s) {
-  const size_t smem = fwd_smem(RPW, d.J);
-  cudaError_t e = allow_smem(joint_lse_fwd_kernel<RPW>, smem);
-  if (e != cudaSuccess) return e;
-  const long long rows = kWarps * RPW;
-  const unsigned grid = (unsigned)((d.N + rows - 1) / rows);
-  joint_lse_fwd_kernel<RPW><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(f), static_cast<const float*>(g),
-      static_cast<const float*>(wt), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<float*>(blank_out),
-      static_cast<float*>(label_out), static_cast<float*>(lse_out), d);
-  return cudaGetLastError();
+template <typename T>
+size_t dl_smem() {
+  return max_size(prod_smem<T>(false),
+                  (size_t)kGm * (kGn + kVec<T>) * sizeof(T) + 2 * kGn * 4);
 }
 
-cudaError_t run_fwd(const void* f, const void* g, const void* wt,
-                    const void* bias, const void* labels, void* blank_out,
-                    void* label_out, void* lse_out, const Dims& d,
+template <typename T>
+size_t dh_smem() {
+  return max_size(prod_smem<T>(false), (size_t)kGm * kLdE * 4);
+}
+
+template <typename T>
+size_t h_smem(const Lattice& L) {
+  constexpr int kCols = kHBytes / sizeof(T);
+  return (size_t)(L.r_t + L.r_u) * (L.J < kCols ? L.J : kCols) * sizeof(T);
+}
+
+template <typename T>
+size_t fwd_smem(int ldh) {
+  return ((size_t)(ldh > 0 ? 64 * kFwdWm<T> * ldh : 0) +
+          fwd_ring_elems<T>(ldh > 0)) *
+         sizeof(T);
+}
+
+// the slabs of the plan, five launches each, then the reduction
+template <typename T>
+cudaError_t run_bwd(const T* f, const T* g, const T* wt, const T* w,
+                    const float* bias, const int* labels, const float* lse,
+                    const float* d_blank, const float* d_label, float* df,
+                    float* dg, float* dw, float* dbias, T* hs, T* dls,
+                    float* dw_part, float* dbias_part, float* dfdg_part,
+                    const Lattice& L, int slab_tiles, int dw_split,
                     cudaStream_t s) {
-  if (fwd_smem(4, d.J) <= kMaxSmem)
-    return launch_fwd<4>(f, g, wt, bias, labels, blank_out, label_out,
-                               lse_out, d, s);
-  return launch_fwd<1>(f, g, wt, bias, labels, blank_out, label_out,
-                             lse_out, d, s);
-}
-
-template <int RPW>
-cudaError_t launch_dh(const void* f, const void* g, const void* wt,
-                      const void* w, const void* bias, const void* labels,
-                      const void* lse, const void* d_blank,
-                      const void* d_label, void* df, void* dg, const Dims& d,
-                      cudaStream_t s) {
-  const size_t smem = dh_smem(RPW, d.J);
-  cudaError_t e = allow_smem(joint_lse_bwd_dh_kernel<RPW>, smem);
-  if (e != cudaSuccess) return e;
-  const long long rows = kWarps * RPW;
-  const unsigned grid = (unsigned)((d.N + rows - 1) / rows);
-  joint_lse_bwd_dh_kernel<RPW><<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(f), static_cast<const float*>(g),
-      static_cast<const float*>(wt), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(labels),
-      static_cast<const float*>(lse), static_cast<const float*>(d_blank),
-      static_cast<const float*>(d_label), static_cast<float*>(df),
-      static_cast<float*>(dg), d);
-  return cudaGetLastError();
-}
-
-cudaError_t run_dh(const void* f, const void* g, const void* wt,
-                   const void* w, const void* bias, const void* labels,
-                   const void* lse, const void* d_blank, const void* d_label,
-                   void* df, void* dg, const Dims& d, cudaStream_t s) {
-  return dh_smem(4, d.J) <= kMaxSmem
-             ? launch_dh<4>(f, g, wt, w, bias, labels, lse, d_blank,
-                                  d_label, df, dg, d, s)
-             : launch_dh<1>(f, g, wt, w, bias, labels, lse, d_blank,
-                                  d_label, df, dg, d, s);
-}
-
-cudaError_t launch_dw(const void* f, const void* g, const void* wt,
-                      const void* bias, const void* labels, const void* lse,
-                      const void* d_blank, const void* d_label, void* dw,
-                      void* dbias, const Dims& d, int n_split,
-                      cudaStream_t s) {
-  const size_t smem = dw_smem(d.J);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(joint_lse_bwd_dw_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const long long per = (d.N + n_split - 1) / n_split;
-  const dim3 grid((d.V + kStrip - 1) / kStrip, n_split);
-  joint_lse_bwd_dw_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(f), static_cast<const float*>(g),
-      static_cast<const float*>(wt), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse),
-      static_cast<const float*>(d_blank), static_cast<const float*>(d_label),
-      static_cast<float*>(dw), static_cast<float*>(dbias), d, per);
-  return cudaGetLastError();
-}
-
-cudaError_t run_bwd(const void* f, const void* g, const void* wt,
-                    const void* w, const void* bias, const void* labels,
-                    const void* lse, const void* d_blank,
-                    const void* d_label, void* df, void* dg, void* dw,
-                    void* dbias, const Dims& d, int n_split,
-                    cudaStream_t s) {
-  cudaError_t e = run_dh(f, g, wt, w, bias, labels, lse, d_blank,
-                               d_label, df, dg, d, s);
-  if (e != cudaSuccess) return e;
-  return launch_dw(f, g, wt, bias, labels, lse, d_blank, d_label, dw,
-                         dbias, d, n_split, s);
-}
-
-size_t gemm_smem() { return (size_t)kGStages * 2 * kStageElems * 2; }
-
-size_t dh_mma_smem() {
-  const size_t e = (size_t)kGm * kLdE * sizeof(float);
-  return e > gemm_smem() ? e : gemm_smem();
-}
-
-// the slabs of the plan, four launches each, then the reduction
-cudaError_t run_bwd_mma(const bf16* f, const bf16* g, const bf16* wt,
-                        const bf16* w, const float* bias, const int* labels,
-                        const float* lse, const float* d_blank,
-                        const float* d_label, float* df, float* dg,
-                        float* dw, float* dbias, bf16* hs, bf16* dls,
-                        float* dw_part, float* dbias_part, const Lattice& L,
-                        int slab_tiles, int dw_split, cudaStream_t s) {
-  const size_t smem_h =
-      (size_t)(L.r_t + L.r_u) * (L.J < kHCols ? L.J : kHCols) * 2;
+  const size_t smem_h = h_smem<T>(L);
   if (smem_h > kMaxSmem || slab_tiles < 2 || slab_tiles % 2 || dw_split < 1)
     return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(joint_lse_bwd_h_kernel, smem_h);
-  if (e == cudaSuccess) e = allow_smem(joint_lse_bwd_dl_kernel, gemm_smem());
+  cudaError_t e = allow_smem(joint_lse_bwd_h_kernel<T>, smem_h);
   if (e == cudaSuccess)
-    e = allow_smem(joint_lse_bwd_dh_mma_kernel, dh_mma_smem());
+    e = allow_smem(joint_lse_bwd_dl_kernel<T>, dl_smem<T>());
   if (e == cudaSuccess)
-    e = allow_smem(joint_lse_bwd_dw_mma_kernel, gemm_smem());
+    e = allow_smem(joint_lse_bwd_dh_kernel<T>, dh_smem<T>());
+  if (e == cudaSuccess)
+    e = allow_smem(joint_lse_bwd_dw_kernel<T>, prod_smem<T>(true));
   if (e != cudaSuccess) return e;
   const unsigned vb = (L.V + kGn - 1) / kGn, jb = (L.J + kGn - 1) / kGn;
   for (long long t0 = 0; t0 < L.tiles; t0 += slab_tiles) {
     const long long n = L.tiles - t0 < slab_tiles ? L.tiles - t0 : slab_tiles;
     const long long rows = n * kTileCells;
     const unsigned mb = (unsigned)((rows + kGm - 1) / kGm);
-    joint_lse_bwd_h_kernel<<<(unsigned)n, kThreads, smem_h, s>>>(f, g, hs, L,
-                                                                  t0);
-    joint_lse_bwd_dl_kernel<<<dim3(vb, mb), kGThreads, gemm_smem(), s>>>(
-        hs, w, bias, labels, lse, d_blank, d_label, dls, dbias_part, L, t0,
-        rows);
-    joint_lse_bwd_dh_mma_kernel<<<dim3(jb, mb), kGThreads, dh_mma_smem(),
-                                  s>>>(f, g, wt, dls, df, dg, L, t0, rows);
+    joint_lse_bwd_h_kernel<T><<<(unsigned)n, kThreads, smem_h, s>>>(f, g, hs,
+                                                                    L, t0);
+    joint_lse_bwd_dl_kernel<T><<<dim3(vb, mb), kThreads, dl_smem<T>(), s>>>(
+        hs, w, wt, bias, labels, lse, d_blank, d_label, dls, dbias_part, L,
+        t0, rows);
+    float* dfp = dfdg_part;
+    float* dgp = dfdg_part + (size_t)slab_tiles * L.r_t * L.J;
+    joint_lse_bwd_dh_kernel<T><<<dim3(jb, mb), kThreads, dh_smem<T>(), s>>>(
+        f, g, w, wt, dls, dfp, dgp, L, t0, rows);
+    const int first = (int)t0, last = (int)(t0 + n - 1);
+    const int items =
+        ((last / L.n_tu - first / L.n_tu + 1) * L.r_t +
+         (last / (L.n_tt * L.n_tu) - first / (L.n_tt * L.n_tu) + 1) *
+             L.n_tu * L.r_u) *
+        L.J;
+    joint_lse_bwd_dh_sum_kernel<<<(items + kThreads - 1) / kThreads,
+                                  kThreads, 0, s>>>(dfp, dgp, df, dg, L,
+                                                    first, (int)n);
     const long long share =
         (rows + (long long)dw_split * kGk - 1) / ((long long)dw_split * kGk) *
         kGk;
-    joint_lse_bwd_dw_mma_kernel<<<dim3(vb, jb, dw_split), kGThreads,
-                                  gemm_smem(), s>>>(hs, dls, dw_part, L, rows,
-                                                    share);
+    joint_lse_bwd_dw_kernel<T><<<dim3(vb, jb, dw_split), kThreads,
+                                 prod_smem<T>(true), s>>>(hs, dls, dw_part, L,
+                                                          rows, share);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -1293,47 +1176,61 @@ cudaError_t run_bwd_mma(const bf16* f, const bf16* g, const bf16* wt,
   return cudaGetLastError();
 }
 
-size_t fwd_res_smem(int ldh) {
-  return ((size_t)kGm * ldh + kRingElems) * 2;
+// one launch of K7's product (the kernel of T's name)
+template <typename T, bool RES>
+cudaError_t launch_fwd(unsigned grid, size_t smem, cudaStream_t s,
+                       const T* f, const T* g, const T* wt,
+                       const float* bias, const int* labels, const T* hs,
+                       float* blank_out, float* label_out, float* lse_out,
+                       const Lattice& L, long long tile0, long long rows,
+                       int ldh) {
+  cudaError_t e;
+  if constexpr (kF32<T>) {
+    e = allow_smem(joint_lse_fwd_ffma_kernel<RES>, smem);
+    if (e != cudaSuccess) return e;
+    joint_lse_fwd_ffma_kernel<RES><<<grid, kThreads, smem, s>>>(
+        f, g, wt, bias, labels, hs, blank_out, label_out, lse_out, L, tile0,
+        rows, ldh);
+  } else {
+    e = allow_smem(joint_lse_fwd_mma_kernel<RES>, smem);
+    if (e != cudaSuccess) return e;
+    joint_lse_fwd_mma_kernel<RES><<<grid, kThreads, smem, s>>>(
+        f, g, wt, bias, labels, hs, blank_out, label_out, lse_out, L, tile0,
+        rows, ldh);
+  }
+  return cudaGetLastError();
 }
 
-// K7, bf16: resident (ldh > 0), one launch over every tile pair; else slab
-// by slab, K8's h kernel into the scratch hs, then the same product reading
-// it
-cudaError_t run_fwd_mma(const bf16* f, const bf16* g, const bf16* wt,
-                        const float* bias, const int* labels, bf16* hs,
-                        float* blank_out, float* label_out, float* lse_out,
-                        const Lattice& L, int ldh, int slab_tiles,
-                        cudaStream_t s) {
+// K7: resident (ldh > 0), one launch over every block of tiles; else slab by
+// slab, the h launch into the scratch hs, then the same product reading it
+template <typename T>
+cudaError_t run_fwd(const T* f, const T* g, const T* wt, const float* bias,
+                    const int* labels, T* hs, float* blank_out,
+                    float* label_out, float* lse_out, const Lattice& L,
+                    int ldh, int slab_tiles, cudaStream_t s) {
+  constexpr int WM = kFwdWm<T>;
+  const size_t smem = fwd_smem<T>(ldh);
   if (ldh > 0) {
-    const size_t smem = fwd_res_smem(ldh);
-    if (smem > kMaxSmem || ldh % 8 || ldh - 8 < L.J)
+    // fp32: J + 4 (an odd number of 16-byte words: conflict-free rows)
+    if (smem > kMaxSmem || ldh % kVec<T> || ldh < L.J + kVec<T> ||
+        (kF32<T> && (ldh / 4) % 2 == 0))
       return cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(joint_lse_fwd_mma_kernel<true>, smem);
-    if (e != cudaSuccess) return e;
-    joint_lse_fwd_mma_kernel<true>
-        <<<(unsigned)((L.tiles + 1) / 2), kGThreads, smem, s>>>(
-            f, g, wt, bias, labels, nullptr, blank_out, label_out, lse_out, L,
-            0, 0, ldh);
-    return cudaGetLastError();
+    return launch_fwd<T, true>((unsigned)((L.tiles + WM - 1) / WM), smem, s,
+                               f, g, wt, bias, labels, nullptr, blank_out,
+                               label_out, lse_out, L, 0, 0, ldh);
   }
-  const size_t smem_h =
-      (size_t)(L.r_t + L.r_u) * (L.J < kHCols ? L.J : kHCols) * 2;
-  if (smem_h > kMaxSmem || slab_tiles < 2 || slab_tiles % 2)
+  const size_t smem_h = kF32<T> ? 0 : h_smem<T>(L);
+  if (smem_h > kMaxSmem || slab_tiles < WM || slab_tiles % WM)
     return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(joint_lse_fwd_h_kernel, smem_h);
-  if (e == cudaSuccess)
-    e = allow_smem(joint_lse_fwd_mma_kernel<false>, gemm_smem());
+  cudaError_t e = allow_smem(joint_lse_fwd_h_kernel<T>, smem_h);
   if (e != cudaSuccess) return e;
   for (long long t0 = 0; t0 < L.tiles; t0 += slab_tiles) {
     const long long n = L.tiles - t0 < slab_tiles ? L.tiles - t0 : slab_tiles;
-    joint_lse_fwd_h_kernel<<<(unsigned)n, kThreads, smem_h, s>>>(f, g, hs, L,
-                                                                  t0);
-    joint_lse_fwd_mma_kernel<false>
-        <<<(unsigned)((n + 1) / 2), kGThreads, gemm_smem(), s>>>(
-            f, g, wt, bias, labels, hs, blank_out, label_out, lse_out, L, t0,
-            n * kTileCells, 0);
-    e = cudaGetLastError();
+    joint_lse_fwd_h_kernel<T><<<(unsigned)n, kThreads, smem_h, s>>>(f, g, hs,
+                                                                    L, t0);
+    e = launch_fwd<T, false>((unsigned)((n + WM - 1) / WM), smem, s, f, g, wt,
+                             bias, labels, hs, blank_out, label_out, lse_out,
+                             L, t0, n * kTileCells, 0);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -1351,6 +1248,11 @@ Lattice make_lattice(int B, int T, int U1, int J, int V, int blank, int r_t,
   L.blank = blank;
   L.r_t = r_t;
   L.r_u = r_u;
+  if (r_t == 0) {      // blocks of 64 consecutive cells (fp32 K7)
+    L.n_tt = L.n_tu = 0;
+    L.tiles = ((long long)B * T * U1 + kTileCells - 1) / kTileCells;
+    return L;
+  }
   L.n_tt = (T + r_t - 1) / r_t;
   L.n_tu = (U1 + r_u - 1) / r_u;
   L.tiles = (long long)B * L.n_tt * L.n_tu;
@@ -1359,92 +1261,89 @@ Lattice make_lattice(int B, int T, int U1, int J, int V, int blank, int r_t,
 
 }  // namespace
 
-// K7 in fp32, on the CUDA cores: f (B, T, J), g (B, U1, J), wt = W^T (J, V)
-// fp32; bias (V) fp32; labels (B, U1 - 1) int32 → blank_lp (B, T, U1),
-// label_lp (B, T, U1 - 1), lse (B, T, U1) fp32.
-extern "C" int edd_joint_lse_fwd(const void* f, const void* g, const void* wt,
-                                 const void* bias, const void* labels,
-                                 void* blank_out, void* label_out,
-                                 void* lse_out, int B, int T, int U1, int J,
-                                 int V, int blank, void* stream) {
-  const Dims d = make_dims(B, T, U1, J, V, blank);
-  const cudaError_t e =
-      run_fwd(f, g, wt, bias, labels, blank_out, label_out, lse_out, d,
-                     static_cast<cudaStream_t>(stream));
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// K7 in bf16 with J, V multiples of 16 (ops/joint_lse_plan.py fwd_plan): f,
-// g, wt bf16 (16-byte aligned), the rest as edd_joint_lse_fwd; lattice
-// tiles of r_t x r_u = 64 cells. ldh > 0: h resident in shared memory, rows
-// ldh bf16 apart (hs unused); ldh = 0: slabs of slab_tiles tiles through
-// the scratch hs (slab_tiles * 64, J) bf16.
-extern "C" int edd_joint_lse_fwd_mma(const void* f, const void* g,
-                                     const void* wt, const void* bias,
-                                     const void* labels, void* blank_out,
-                                     void* label_out, void* lse_out, void* hs,
-                                     int B, int T, int U1, int J, int V,
-                                     int blank, int r_t, int r_u, int ldh,
-                                     int slab_tiles, void* stream) {
-  if (r_t * r_u != kTileCells || J % 16 || V % 16)
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t e = run_fwd_mma(
-      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(wt), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<bf16*>(hs),
-      static_cast<float*>(blank_out), static_cast<float*>(label_out),
-      static_cast<float*>(lse_out),
-      make_lattice(B, T, U1, J, V, blank, r_t, r_u), ldh, slab_tiles,
-      static_cast<cudaStream_t>(stream));
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// K8 in fp32, on the CUDA cores: f, g, wt as edd_joint_lse_fwd (fp32), w =
-// W (V, J), lse from the forward, d_blank (B, T, U1) and d_label (B, T, U1 -
-// 1) cotangents → accumulates into df (B, T, J), dg (B, U1, J), dw = dW^T
-// (J, V), dbias (V), all fp32 and zeroed by the caller. n_split: row shares
-// of the dW kernel (its grid's second axis).
-extern "C" int edd_joint_lse_bwd(const void* f, const void* g, const void* wt,
-                                 const void* w, const void* bias,
-                                 const void* labels, const void* lse,
-                                 const void* d_blank, const void* d_label,
-                                 void* df, void* dg, void* dw, void* dbias,
+// K7 with J, V multiples of 16 (ops/joint_lse_plan.py fwd_plan): f (B, T,
+// J), g (B, U1, J), wt = W^T (J, V) in one dtype (bf16 != 0: bf16, else
+// fp32; 16-byte aligned), bias (V) fp32, labels (B, U1 - 1) int32 →
+// blank_lp (B, T, U1), label_lp (B, T, U1 - 1), lse (B, T, U1) fp32;
+// bf16 in lattice tiles of r_t x r_u = 64 cells, fp32 (r_t = r_u = 0) in
+// blocks of 64 consecutive cells. ldh > 0: h resident in shared memory,
+// rows ldh elements apart (hs unused); ldh = 0: slabs of slab_tiles tiles
+// through the scratch hs (slab_tiles * 64, J) in f's dtype.
+extern "C" int edd_joint_lse_fwd(const void* f, const void* g,
+                                 const void* wt, const void* bias,
+                                 const void* labels, void* blank_out,
+                                 void* label_out, void* lse_out, void* hs,
                                  int B, int T, int U1, int J, int V,
-                                 int blank, int n_split, void* stream) {
-  const Dims d = make_dims(B, T, U1, J, V, blank);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                 int blank, int r_t, int r_u, int ldh,
+                                 int slab_tiles, int bf16_in, void* stream) {
+  if ((bf16_in ? r_t * r_u != kTileCells : r_t != 0 || r_u != 0) || J % 16 ||
+      V % 16)
+    return (int)cudaErrorInvalidValue;
+  const Lattice L = make_lattice(B, T, U1, J, V, blank, r_t, r_u);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const int* lb = static_cast<const int*>(labels);
+  float* bo = static_cast<float*>(blank_out);
+  float* lo = static_cast<float*>(label_out);
+  float* zo = static_cast<float*>(lse_out);
   const cudaError_t e =
-      run_bwd(f, g, wt, w, bias, labels, lse, d_blank, d_label, df,
-                     dg, dw, dbias, d, n_split, s);
+      bf16_in ? run_fwd(static_cast<const bf16*>(f),
+                        static_cast<const bf16*>(g),
+                        static_cast<const bf16*>(wt), b, lb,
+                        static_cast<bf16*>(hs), bo, lo, zo, L, ldh,
+                        slab_tiles, s)
+              : run_fwd(static_cast<const float*>(f),
+                        static_cast<const float*>(g),
+                        static_cast<const float*>(wt), b, lb,
+                        static_cast<float*>(hs), bo, lo, zo, L, ldh,
+                        slab_tiles, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// K8 in bf16 with J, V multiples of 16 (ops/joint_lse_plan.py): f, g, wt, w,
-// bias, labels, lse, d_blank, d_label, df, dg, dw, dbias as
-// edd_joint_lse_bwd (df, dg zeroed by the caller; dw, dbias written), plus
-// the slab scratch hs (slab_tiles * 64, J) and dls (slab_tiles * 64, V)
-// bf16, dw_part (dw_split, J, V) and dbias_part (slab_tiles / 2, V) fp32
-// zeroed by the caller; lattice tiles of r_t x r_u = 64 cells.
-extern "C" int edd_joint_lse_bwd_mma(
+// K8 with J, V multiples of 16 (ops/joint_lse_plan.py bwd_plan): f, g, wt as
+// edd_joint_lse_fwd, w = W (V, J) in their dtype, bias, labels as there,
+// lse from the forward, d_blank (B, T, U1) and d_label (B, T, U1 - 1)
+// cotangents fp32 → df (B, T, J), dg (B, U1, J) (fp32, zeroed by the
+// caller, accumulated), dw = dW^T (J, V), dbias (V) (fp32, written); the
+// slab scratch hs (slab_tiles * 64, J) and dls (slab_tiles * 64, V) in f's
+// dtype, dw_part (dw_split, J, V) and dbias_part (slab_tiles / 2, V) fp32
+// zeroed by the caller, dfdg_part (slab_tiles * (r_t + r_u), J) fp32;
+// lattice tiles of r_t x r_u = 64 cells.
+extern "C" int edd_joint_lse_bwd(
     const void* f, const void* g, const void* wt, const void* w,
     const void* bias, const void* labels, const void* lse,
     const void* d_blank, const void* d_label, void* df, void* dg, void* dw,
-    void* dbias, void* hs, void* dls, void* dw_part, void* dbias_part, int B,
-    int T, int U1, int J, int V, int blank, int r_t, int r_u, int slab_tiles,
-    int dw_split, void* stream) {
+    void* dbias, void* hs, void* dls, void* dw_part, void* dbias_part,
+    void* dfdg_part, int B, int T, int U1, int J, int V, int blank, int r_t,
+    int r_u, int slab_tiles, int dw_split, int bf16_in, void* stream) {
   if (r_t * r_u != kTileCells || J % 16 || V % 16)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = run_bwd_mma(
-      static_cast<const bf16*>(f), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(wt), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(labels),
-      static_cast<const float*>(lse), static_cast<const float*>(d_blank),
-      static_cast<const float*>(d_label), static_cast<float*>(df),
-      static_cast<float*>(dg), static_cast<float*>(dw),
-      static_cast<float*>(dbias), static_cast<bf16*>(hs),
-      static_cast<bf16*>(dls), static_cast<float*>(dw_part),
-      static_cast<float*>(dbias_part),
-      make_lattice(B, T, U1, J, V, blank, r_t, r_u), slab_tiles, dw_split,
-      static_cast<cudaStream_t>(stream));
+  const Lattice L = make_lattice(B, T, U1, J, V, blank, r_t, r_u);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const int* lb = static_cast<const int*>(labels);
+  const float* z = static_cast<const float*>(lse);
+  const float* db = static_cast<const float*>(d_blank);
+  const float* dl = static_cast<const float*>(d_label);
+  float* o[7] = {static_cast<float*>(df), static_cast<float*>(dg),
+                 static_cast<float*>(dw), static_cast<float*>(dbias),
+                 static_cast<float*>(dw_part),
+                 static_cast<float*>(dbias_part),
+                 static_cast<float*>(dfdg_part)};
+  const cudaError_t e =
+      bf16_in
+          ? run_bwd(static_cast<const bf16*>(f), static_cast<const bf16*>(g),
+                    static_cast<const bf16*>(wt),
+                    static_cast<const bf16*>(w), b, lb, z, db, dl, o[0],
+                    o[1], o[2], o[3], static_cast<bf16*>(hs),
+                    static_cast<bf16*>(dls), o[4], o[5], o[6], L,
+                    slab_tiles, dw_split, s)
+          : run_bwd(static_cast<const float*>(f),
+                    static_cast<const float*>(g),
+                    static_cast<const float*>(wt),
+                    static_cast<const float*>(w), b, lb, z, db, dl, o[0],
+                    o[1], o[2], o[3], static_cast<float*>(hs),
+                    static_cast<float*>(dls), o[4], o[5], o[6], L,
+                    slab_tiles, dw_split, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

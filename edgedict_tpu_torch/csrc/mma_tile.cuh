@@ -25,6 +25,19 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// the same with the four accumulators named one by one (d0, d1: row gid,
+// columns 2 tig and + 1; d2, d3: row gid + 8)
+__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2,
+                                         float& d3, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 // 16 bytes global -> shared, asynchronously (cp.async.cg: through L2 only)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);

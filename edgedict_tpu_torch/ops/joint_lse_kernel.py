@@ -6,11 +6,12 @@ csrc/joint_lse.cu).
 label_lp (B,T,U)) without ever materialising the whole (B,T,U+1,V) logits:
 for CUDA tensors an autograd.Function whose forward is K7 (saving only the
 per-cell logsumexp) and whose backward is K8 (dlogits, dW, dbias, df, dg;
-the bf16 launch plans of both in ops/joint_lse_plan.py); for CPU tensors
+the launch plans of both in ops/joint_lse_plan.py); for CPU tensors
 `fused_joint_lse_plain`, the same math in plain PyTorch, differentiated by
-autograd.  Products run in f's dtype (bf16 in
-training) with fp32 accumulation; W and the bias gradients come back fp32.
-There is no U envelope: any U+1 runs.
+autograd.  Products run in f's dtype with fp32 accumulation: bf16 (in
+training) on the tensor cores, fp32 (every eval's loss) on the CUDA cores;
+W and the bias gradients come back fp32.  There is no U envelope: any U+1
+runs.
 """
 
 import torch
@@ -95,35 +96,29 @@ def _dims(f, g, w_t, bias, labels):
 def joint_lse_fwd(f, g, w_t, bias, labels, blank, staged=False):
     """K7: → (blank_lp (B,T,U+1), label_lp (B,T,U), lse (B,T,U+1)), fp32;
     f, g, w_t in one dtype (fp32 or bf16), all contiguous CUDA tensors.
-    bf16 runs the tensor-core lattice tiles (ops/joint_lse_plan.py
-    fwd_plan) on the problem padded by pad16, with h in shared memory where
-    it fits (`staged` forces the slab scratch, for measurement); fp32 the
-    CUDA-core kernel.  One launch is counted per call."""
+    Runs the lattice tiles of ops/joint_lse_plan.py fwd_plan on the problem
+    padded by pad16 (bf16 on the tensor cores, fp32 on the CUDA cores),
+    with h in shared memory where it fits (`staged` forces the slab
+    scratch, for measurement).  One launch is counted per call."""
     b, t, u1, j, v = _dims(f, g, w_t, bias, labels)
     dev = f.device
     blank_lp = torch.empty((b, t, u1), dtype=torch.float32, device=dev)
     label_lp = torch.empty((b, t, u1 - 1), dtype=torch.float32, device=dev)
     lse = torch.empty((b, t, u1), dtype=torch.float32, device=dev)
+    f, g, w_t, bias = (x if x.data_ptr() % 16 == 0 else x.clone()
+                       for x in pad16(f, g, w_t, bias))
+    j, v = w_t.shape
+    plan = joint_lse_plan.fwd_plan(b, t, u1, j, v, _build.sm_count(dev),
+                                   staged, f.element_size())
+    hs = None if plan.resident else torch.empty(
+        (plan.slab_tiles * joint_lse_plan.TILE_CELLS, j), dtype=f.dtype,
+        device=dev)
     p = _build.ptr
-    if f.dtype == torch.bfloat16:
-        f, g, w_t, bias = (x if x.data_ptr() % 16 == 0 else x.clone()
-                           for x in pad16(f, g, w_t, bias))
-        j, v = w_t.shape
-        plan = joint_lse_plan.fwd_plan(b, t, u1, j, v, _build.sm_count(dev),
-                                       staged)
-        hs = None if plan.resident else torch.empty(
-            (plan.slab_tiles * joint_lse_plan.TILE_CELLS, j),
-            dtype=torch.bfloat16, device=dev)
-        _build.check(_build.library().edd_joint_lse_fwd_mma(
-            p(f), p(g), p(w_t), p(bias), p(labels), p(blank_lp), p(label_lp),
-            p(lse), p(hs), b, t, u1, j, v, int(blank), plan.r_t, plan.r_u,
-            plan.ldh, plan.slab_tiles, _build.stream_ptr(dev)),
-            'joint_lse_fwd')
-    else:
-        _build.check(_build.library().edd_joint_lse_fwd(
-            p(f), p(g), p(w_t), p(bias), p(labels), p(blank_lp), p(label_lp),
-            p(lse), b, t, u1, j, v, int(blank), _build.stream_ptr(dev)),
-            'joint_lse_fwd')
+    _build.check(_build.library().edd_joint_lse_fwd(
+        p(f), p(g), p(w_t), p(bias), p(labels), p(blank_lp), p(label_lp),
+        p(lse), p(hs), b, t, u1, j, v, int(blank), plan.r_t, plan.r_u,
+        plan.ldh, plan.slab_tiles, int(f.dtype == torch.bfloat16),
+        _build.stream_ptr(dev)), 'joint_lse_fwd')
     joint_lse_fwd.launches += 1
     return blank_lp, label_lp, lse
 
@@ -133,9 +128,10 @@ joint_lse_fwd.launches = 0
 
 def joint_lse_bwd(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
     """K8: → (df (B,T,J), dg (B,U+1,J), dw_t (J,V), dbias (V,)), all fp32;
-    w (V, J) is made here from w_t.  bf16 runs the tensor-core kernels slab
-    by slab over a scratch of the plan's size (ops/joint_lse_plan.py), fp32
-    the CUDA-core kernels.  One launch is counted per call."""
+    w (V, J) is made here from w_t.  Runs the kernels slab by slab over a
+    scratch of the plan's size (ops/joint_lse_plan.py bwd_plan), bf16 on
+    the tensor cores, fp32 on the CUDA cores.  One launch is counted per
+    call."""
     b, t, u1, j, v = _dims(f, g, w_t, bias, labels)
     _build.require_cuda(lse, 'lse', (torch.float32,))
     _build.require_cuda(d_blank, 'd_blank', (torch.float32,))
@@ -145,15 +141,15 @@ def joint_lse_bwd(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
         raise ValueError(f'joint_lse_bwd: lse {tuple(lse.shape)} d_blank '
                          f'{tuple(d_blank.shape)} d_label '
                          f'{tuple(d_label.shape)}')
-    grads = (_bwd_mma if f.dtype == torch.bfloat16 else _bwd_cuda_cores)(
-        f, g, w_t, bias, labels, blank, lse, d_blank, d_label)
+    grads = _bwd_slabs(f, g, w_t, bias, labels, blank, lse, d_blank,
+                       d_label)
     joint_lse_bwd.launches += 1
     return grads
 
 
 def pad16(f, g, w_t, bias):
     """(f, g, w_t, bias) with J and V padded to multiples of 16, as the
-    tensor-core kernels take them: zero columns of f and g (h = 0 there)
+    kernels take them: zero columns of f and g (h = 0 there)
     and zero rows of W^T add nothing to the products, and a padded vocab
     column's bias of -inf gives it a softmax of 0: it adds 0 to the sum of
     exp of the forward and dlogits 0 to the backward.  The outputs of the
@@ -168,53 +164,36 @@ def pad16(f, g, w_t, bias):
 
 
 @_build.on_tensor_device
-def _bwd_mma(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
-    """The tensor-core kernels, slab by slab (ops/joint_lse_plan.py), on
-    the problem padded by pad16."""
+def _bwd_slabs(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
+    """The kernels, slab by slab (ops/joint_lse_plan.py), on the problem
+    padded by pad16, the scratch in f's dtype."""
     j0, v0 = w_t.shape
     f, g, w_t, bias = pad16(f, g, w_t, bias)
     (b, t, j), u1, v = f.shape, g.shape[1], w_t.shape[1]
     dev = f.device
-    plan = joint_lse_plan.bwd_plan(b, t, u1, j, v, _build.sm_count(dev))
+    plan = joint_lse_plan.bwd_plan(b, t, u1, j, v, _build.sm_count(dev),
+                                   f.element_size())
     if w_t.data_ptr() % 16:            # the products copy 16-byte rows
         w_t = w_t.clone()
     w = w_t.t().contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     df, dg = torch.zeros((b, t, j), **f32), torch.zeros((b, u1, j), **f32)
     dw_t, dbias = torch.empty((j, v), **f32), torch.empty((v,), **f32)
-    hs = torch.empty((plan.slab_rows, j), dtype=torch.bfloat16, device=dev)
-    dls = torch.empty((plan.slab_rows, v), dtype=torch.bfloat16, device=dev)
+    hs = torch.empty((plan.slab_rows, j), dtype=f.dtype, device=dev)
+    dls = torch.empty((plan.slab_rows, v), dtype=f.dtype, device=dev)
     dw_part = torch.zeros((plan.dw_split, j, v), **f32)
     dbias_part = torch.zeros((plan.slab_tiles // 2, v), **f32)
-    p = _build.ptr
-    _build.check(_build.library().edd_joint_lse_bwd_mma(
-        p(f), p(g), p(w_t), p(w), p(bias), p(labels), p(lse), p(d_blank),
-        p(d_label), p(df), p(dg), p(dw_t), p(dbias), p(hs), p(dls),
-        p(dw_part), p(dbias_part), b, t, u1, j, v, int(blank), plan.r_t,
-        plan.r_u, plan.slab_tiles, plan.dw_split, _build.stream_ptr(dev)),
-        'joint_lse_bwd')
-    return df[..., :j0], dg[..., :j0], dw_t[:j0, :v0], dbias[:v0]
-
-
-@_build.on_tensor_device
-def _bwd_cuda_cores(f, g, w_t, bias, labels, blank, lse, d_blank, d_label):
-    """fp32: the row-tiled kernels with fp32 atomics."""
-    (b, t, j), u1, v = f.shape, g.shape[1], w_t.shape[1]
-    dev = f.device
-    w = w_t.t().contiguous()
-    f32 = dict(dtype=torch.float32, device=dev)
-    df, dg = torch.zeros((b, t, j), **f32), torch.zeros((b, u1, j), **f32)
-    dw_t, dbias = torch.zeros((j, v), **f32), torch.zeros((v,), **f32)
-    # row shares of the dW kernel: at most two blocks per SM in all, one wave
-    strips = -(-v // 32)
-    n_split = max(1, min(2 * _build.sm_count(dev) // strips,
-                         -(-b * t * u1 // 32)))
+    dfdg_part = torch.empty((plan.slab_tiles * (plan.r_t + plan.r_u), j),
+                            **f32)
     p = _build.ptr
     _build.check(_build.library().edd_joint_lse_bwd(
         p(f), p(g), p(w_t), p(w), p(bias), p(labels), p(lse), p(d_blank),
-        p(d_label), p(df), p(dg), p(dw_t), p(dbias), b, t, u1, j, v,
-        int(blank), n_split, _build.stream_ptr(dev)), 'joint_lse_bwd')
-    return df, dg, dw_t, dbias
+        p(d_label), p(df), p(dg), p(dw_t), p(dbias), p(hs), p(dls),
+        p(dw_part), p(dbias_part), p(dfdg_part), b, t, u1, j, v, int(blank),
+        plan.r_t, plan.r_u, plan.slab_tiles, plan.dw_split,
+        int(f.dtype == torch.bfloat16), _build.stream_ptr(dev)),
+        'joint_lse_bwd')
+    return df[..., :j0], dg[..., :j0], dw_t[:j0, :v0], dbias[:v0]
 
 
 joint_lse_bwd.launches = 0

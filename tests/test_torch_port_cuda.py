@@ -5,7 +5,8 @@ T = 1, K1/K4 at cli.train_lm's H=512 B=32 T=64; training: K1, K4, K5, K6
 at H=1024 B=32 T=427 bf16; wav2vec pretraining's K1/K4 in fp32 at H=1024
 B=32 T=297 and the raw fine-tune's K1/K4 bf16 at T=1597, K7-K10 at its
 B=32 T=1597 U+1=65 lattice and K3 at its eval; K7/K8 in fp32
-and bf16, K7's and K8's tensor-core paths at the E6D2 step, K3's one launch
+(FFMA products) and bf16 (tensor cores) at the E6D2 step, fp32 also at the
+evals' B=32 T=214 U+1=65 and B=4 T=1437 U+1=33, K3's one launch
 over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
 plans' refusals, plus the
 streaming decoder, a GRU train step, a wav2vec pretraining step and a raw
@@ -438,6 +439,10 @@ def _joint_case(cuda, b, t, u1, j, v, dtype, seed):
     (1, 3, 300, 64, 200, torch.float32), (1, 2, 700, 24, 50, torch.float32),
     (3, 9, 4, 40, 300, torch.bfloat16), (1, 4, 300, 1000, 70, torch.bfloat16),
     (2, 6, 33, 768, 400, torch.bfloat16), (2, 5, 17, 64, 48, torch.bfloat16),
+    # fp32 on the CUDA cores: U+1 = 1 (64 x 1 tiles), U+1 = 1100, and
+    # J = 1000 (padded to 1008: h through the slab scratch in K7)
+    (2, 37, 1, 48, 80, torch.float32), (2, 6, 1100, 640, 2048, torch.float32),
+    (1, 4, 300, 1000, 70, torch.float32),
 ])
 def test_k7_k8_fused_joint_matches_plain(cuda, b, t, u1, j, v, dtype):
     from edgedict_tpu_torch.ops import joint_lse_kernel as K
@@ -453,21 +458,23 @@ def test_k7_k8_fused_joint_matches_plain(cuda, b, t, u1, j, v, dtype):
     ref = K.fused_joint_lse_plain(*ref_leaves, labels, 0)
     ((ref[0] * db).sum() + (ref[1] * dl).sum()).backward()
     for a, r in zip(out, ref):
-        scale = max(1.0, float(r.detach().abs().max()))
-        assert _max_abs(a, r) <= 1e-4 * scale
+        assert a.shape == r.shape
+        if r.numel():               # label_lp is empty at U+1 = 1
+            scale = max(1.0, float(r.detach().abs().max()))
+            assert _max_abs(a, r) <= 1e-4 * scale
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, r in zip(leaves, ref_leaves):
         assert a.grad.dtype == r.grad.dtype
         assert _rel_err(a.grad, r.grad) <= tol
 
 
-def _k8_case(cuda, b, t, u1, j, v, seed):
-    """joint_lse_bwd (bf16, tensor-core plan) and the plain version's
+def _k8_case(cuda, b, t, u1, j, v, seed, dtype=torch.bfloat16):
+    """joint_lse_bwd (the slab plan, in `dtype`) and the plain version's
     gradients from the same inputs and K7's lse → (grads, ref grads)."""
     from edgedict_tpu_torch.ops import joint_lse_kernel as K
     f, g, w_t, bias, labels, db, dl = _joint_case(
-        cuda, b, t, u1, j, v, torch.bfloat16, seed)
-    wt_e = w_t.to(torch.bfloat16)
+        cuda, b, t, u1, j, v, dtype, seed)
+    wt_e = w_t.to(dtype)
     lse = K.joint_lse_fwd(f, g, wt_e, bias, labels, 0)[2]
     before = K.joint_lse_bwd.launches
     grads = K.joint_lse_bwd(f, g, wt_e, bias, labels, 0, lse, db, dl)
@@ -520,6 +527,57 @@ def test_k8_wide_joint_with_one_label_slot_matches_plain(cuda):
     grads, ref_g, _ = _k8_case(cuda, 2, 200, 1, 4096, 256, 1)
     for a, r in zip(grads, ref_g):
         assert _rel_err(a, r) <= 2e-2
+
+
+@pytest.mark.parametrize('b,t,u1,j,v', [
+    (32, 214, 65, 640, 2048),     # the E6D2 step (--bf16 false) and eval
+    (4, 1437, 33, 640, 2048),     # the raw fine-tune's eval
+    (3, 13, 11, 64, 128),         # T, U+1 not multiples of the 8 x 8 tile
+    (2, 37, 1, 48, 80),           # U+1 = 1: 64 x 1 tiles
+    (2, 6, 1100, 640, 2048),      # U+1 = 1100
+    (2, 6, 33, 768, 400),         # J, V not multiples of 128
+    (1, 4, 300, 1000, 70),        # J, V padded to 16
+])
+def test_k8_fp32_backward_matches_plain_and_is_bit_stable(cuda, b, t, u1, j,
+                                                          v):
+    """K8 in fp32 (FFMA products, dlogits not rounded) within 1e-4 of
+    max(1, |ref|) of the plain gradients, all four the same bits on a
+    second call (fixed-order partial sums, no atomics)."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as K
+    grads, ref_g, args = _k8_case(cuda, b, t, u1, j, v, b + t + u1,
+                                  torch.float32)
+    for a, r in zip(grads, ref_g):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert _rel_err(a, r) <= 1e-4
+    again = K.joint_lse_bwd(*args[:5], 0, *args[5:])
+    assert all(torch.equal(a, c) for a, c in zip(again, grads))
+
+
+@pytest.mark.parametrize('b,t,u1,j,v', [(32, 214, 65, 640, 2048),
+                                        (3, 13, 11, 64, 128)])
+def test_k8_bf16_gradients_are_bit_stable(cuda, b, t, u1, j, v):
+    """bf16 K8's df and dg (per-tile partials added in tile order) as well
+    as dW and dbias are the same bits on a second call."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as K
+    grads, _, args = _k8_case(cuda, b, t, u1, j, v, 7)
+    again = K.joint_lse_bwd(*args[:5], 0, *args[5:])
+    assert all(torch.equal(a, c) for a, c in zip(again, grads))
+
+
+def test_k8_fp32_crosses_slab_boundaries(cuda, monkeypatch):
+    """fp32 slabs of two tiles (the last one a single tile) give the
+    one-slab gradients."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as K
+    from edgedict_tpu_torch.ops import joint_lse_plan as P
+    b, t, u1, j, v = 3, 17, 5, 64, 96
+    whole, ref_g, args = _k8_case(cuda, b, t, u1, j, v, 5, torch.float32)
+    monkeypatch.setattr(P, 'SLAB_BYTES', 1)
+    plan = P.bwd_plan(b, t, u1, j, v, 132, 4)
+    assert plan.slab_tiles == 2 and plan.slabs > 2 and plan.tiles % 2 == 1
+    sliced = K.joint_lse_bwd(*args[:5], 0, *args[5:])
+    for a, w, r in zip(sliced, whole, ref_g):
+        assert _rel_err(a, r) <= 1e-4
+        assert _max_abs(a, w) <= 1e-5 * max(1.0, float(w.abs().max()))
 
 
 def _traced(case):
@@ -626,6 +684,11 @@ def _kernel_events(case):
     (2, 9, 33, 600, 2000, torch.bfloat16, False),     # J, V padded to 16
     (2, 6, 33, 768, 400, torch.bfloat16, False),      # wide J: staged
     (2, 20, 65, 640, 2048, torch.float32, False),     # CUDA cores
+    (32, 214, 65, 640, 2048, torch.float32, False),   # E6D2 eval, fp32
+    (4, 1437, 33, 640, 2048, torch.float32, False),   # raw fine-tune eval
+    (32, 214, 65, 640, 2048, torch.float32, True),    # fp32 through scratch
+    (2, 6, 33, 768, 400, torch.float32, False),       # fp32 wide J: staged
+    (4, 50, 1, 640, 2000, torch.float32, False),      # U+1 = 1, V padded
 ])
 def test_k7_forward_matches_plain_and_is_bit_stable(cuda, b, t, u1, j, v,
                                                     dtype, staged):
@@ -1824,6 +1887,47 @@ def test_vocab_parallel_joint_on_the_card_matches_plain(cuda, tp, vs, dtype):
         assert _max_abs(a, r) <= 1e-4 * max(1.0, ref_max)
     for a, r in zip(got_g, want_g):
         assert _max_abs(a, r) <= 2e-2 * max(1.0, float(r.float().abs().max()))
+
+
+def test_vocab_parallel_fp32_matches_the_whole_vocabulary_joint(cuda):
+    """Two fp32 vocabulary slices (1,024 columns + the -inf sentinel each, a
+    padded chunk of -inf past it) through K7 / K8 once a slice, against the
+    whole-vocabulary K7 / K8 on the same inputs: log-probs 1e-4 of max(1,
+    |ref|), gradients 1e-4 relative, nothing non-finite."""
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.parallel import vocab as PV
+    rng = np.random.RandomState(19)
+    b, t, u, j, v = 2, 20, 16, 640, 2048
+
+    def t_(*shape, scale=1.0):
+        return torch.tensor(rng.randn(*shape) * scale, dtype=torch.float32,
+                            device=cuda)
+    f, g = t_(b, t, j), t_(b, u + 1, j)
+    w_t, bias = t_(j, v, scale=j ** -0.5), t_(v, scale=0.1)
+    labels = torch.tensor(rng.randint(1, v, (b, u)), dtype=torch.int32,
+                          device=cuda)
+    cot = (t_(b, t, u + 1), t_(b, t, u))
+    outs = []
+    for sliced in (True, False):
+        leaves = [x.detach().clone().requires_grad_()
+                  for x in (f, g, w_t, bias)]
+        before = (KJ.joint_lse_fwd.launches, KJ.joint_lse_bwd.launches)
+        if sliced:
+            out = PV.vocab_parallel_joint_lse(
+                leaves[0], leaves[1], list(leaves[2].chunk(2, 1)),
+                list(leaves[3].chunk(2)), labels, 0)
+        else:
+            out = KJ.fused_joint_lse(*leaves, labels, 0)
+        grads = torch.autograd.grad(out, leaves, cot)
+        outs.append((out, grads, (KJ.joint_lse_fwd.launches - before[0],
+                                  KJ.joint_lse_bwd.launches - before[1])))
+    (got, got_g, n), (want, want_g, n_whole) = outs
+    assert n == (2, 2) and n_whole == (1, 1)
+    for a, r in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _max_abs(a, r) <= 1e-4 * max(1.0, float(r.abs().max()))
+    for a, r in zip(got_g, want_g):
+        assert torch.isfinite(a).all() and _rel_err(a, r) <= 1e-4
 
 
 def test_tp_and_pp_train_steps_on_the_card_match_the_one_device_step(cuda):

@@ -1,5 +1,6 @@
-"""The launch plan of K8's tensor-core backward (ops/joint_lse_plan.py) on
-the CPU: the lattice tiles cover every cell (b, t, u) once for ragged T and
+"""The launch plan of K8's backward (ops/joint_lse_plan.py bwd_plan, bf16
+on the tensor cores and, sized in 4-byte elements, fp32 on the CUDA cores)
+on the CPU: the lattice tiles cover every cell (b, t, u) once for ragged T and
 U+1, the slabs partition the tiles, every block's shared memory fits the
 H100, the scratch does not grow with B·T·U, shapes outside the plan raise
 ValueError; and the slab-by-slab algorithm the kernels run, written out in
@@ -93,7 +94,8 @@ def test_scratch_does_not_grow_with_the_lattice():
     assert p.slab_rows * (j + v) * 2 <= P.SLAB_BYTES
     assert p.scratch_bytes == (p.slab_rows * (j + v) * 2
                                + p.dw_split * j * v * 4
-                               + p.slab_tiles // 2 * v * 4)
+                               + p.slab_tiles // 2 * v * 4
+                               + p.slab_tiles * (p.r_t + p.r_u) * j * 4)
     # a lattice smaller than a slab takes a smaller one
     small = P.bwd_plan(2, 5, 17, j, v, H100_SMS)
     assert small.slabs == 1 and small.scratch_bytes < p.scratch_bytes
@@ -210,6 +212,102 @@ def test_padding_to_16_keeps_the_gradients(j, v):
                                          d_l)
     got = (df[..., :j], dg[..., :j], dw_t[:j, :v], dbias[:v])
     assert not dw_t[:, v:].any() and not dbias[v:].any()
+    leaves = [x.clone().requires_grad_() for x in (f, g, w_t, bias)]
+    out = K.fused_joint_lse_plain(*leaves, labels, 0)
+    want = torch.autograd.grad(out, leaves, (d_b, d_l))
+    for a, r in zip(got, want):
+        assert torch.allclose(a, r, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize('b,t,u1,j,v', [(32, 214, 65, 640, 2048),
+                                        (4, 1437, 33, 640, 2048),
+                                        (2, 6, 1100, 640, 2048),
+                                        (1, 4, 300, 1008, 80),
+                                        (4, 300, 1, 1008, 4096),
+                                        (2, 200, 1, 4096, 2048)])
+def test_fp32_bwd_plan_covers_the_lattice_and_fits(b, t, u1, j, v):
+    """K8's fp32 plan: the tile shape that pads the lattice least (every
+    cell once), slabs of h + dlogits in 4-byte elements within SLAB_BYTES,
+    every launch's block within the card's 232,448 bytes of shared memory
+    at J = 640 and 1000 (padded to 1008), the h launch staging 512 fp32
+    columns at a time."""
+    plan = P.bwd_plan(b, t, u1, j, v, H100_SMS, 4)
+    assert (plan.r_t, plan.r_u) == P.tile_shape(t, u1, 1.0)
+    shapes = [(P.TILE_CELLS >> k, 1 << k) for k in range(7)]
+
+    def padded(s):
+        return -(-t // s[0]) * s[0] * -(-u1 // s[1]) * s[1]
+    assert padded((plan.r_t, plan.r_u)) == min(padded(s) for s in shapes)
+    seen = _cells(plan, b, t, u1)
+    assert len(seen) == b * t * u1 and set(seen.values()) == {1}
+    assert plan.slab_tiles % 2 == 0 and plan.slab_tiles >= 2
+    assert plan.slab_rows * (j + v) * 4 <= max(P.SLAB_BYTES,
+                                               2 * P.TILE_CELLS * (j + v) * 4)
+    assert plan.slab_tiles == min(
+        max(2, P.SLAB_BYTES // (P.TILE_CELLS * (j + v) * 4) // 2 * 2),
+        plan.tiles + plan.tiles % 2)
+    assert plan.smem_h == (plan.r_t + plan.r_u) * min(j, 512) * 4
+    assert max(plan.smem_h, plan.smem_dl, plan.smem_dh, plan.smem_dw) \
+        <= P.SMEM_PER_BLOCK
+    assert plan.smem_dl == max(P.gemm_smem(4), 128 * 132 * 4 + 2 * 128 * 4)
+    assert plan.smem_dw == P.gemm_smem(4, a_km=True) == 3 * 8192 * 4
+    assert plan.smem_dh == P.gemm_smem(4) == 3 * (128 * 36 + 32 * 128) * 4
+    assert plan.scratch_bytes == (plan.slab_rows * (j + v) * 4
+                                  + plan.dw_split * j * v * 4
+                                  + plan.slab_tiles // 2 * v * 4
+                                  + plan.slab_tiles * (plan.r_t + plan.r_u)
+                                  * j * 4)
+
+
+def test_fp32_slab_is_half_the_bf16_slab():
+    """The same SLAB_BYTES holds half the fp32 rows: 194 tiles a slab at
+    the E6D2 step against bf16's 390; fp32 takes 32 x 2 tiles there (6.3 %
+    padding), bf16 8 x 8 (11.8 %, half the df / dg atomics)."""
+    p2 = P.bwd_plan(32, 214, 65, 640, 2048, H100_SMS)
+    p4 = P.bwd_plan(32, 214, 65, 640, 2048, H100_SMS, 4)
+    assert (p2.slab_tiles, p4.slab_tiles) == (390, 194)
+    assert (p2.r_t, p2.r_u, p4.r_t, p4.r_u) == (8, 8, 32, 2)
+    assert p4.slabs == -(-p4.tiles // 194)
+
+
+@pytest.mark.parametrize('b,t,u1,j,v,elem', [(2, 5, 7, 40, 48, 4),
+                                             (2, 5, 7, 64, 70, 4),
+                                             (0, 5, 7, 64, 48, 4),
+                                             (2, 200, 1, 4104, 2048, 4),
+                                             (2, 5, 7, 64, 48, 1)])
+def test_fp32_shape_outside_the_plan_raises(b, t, u1, j, v, elem):
+    with pytest.raises(ValueError, match=f'J={j} V={v}'
+                       if elem == 4 else 'element size 1'):
+        P.bwd_plan(b, t, u1, j, v, H100_SMS, elem)
+
+
+@pytest.mark.parametrize('b,t,u1,slab_bytes', [
+    (2, 9, 7, 1), (1, 13, 1, 1), (2, 5, 17, 1 << 20), (1, 3, 70, 1),
+    (2, 70, 2, 1 << 16)])
+def test_fp32_slab_algorithm_matches_plain_gradients(b, t, u1, slab_bytes,
+                                                     monkeypatch):
+    """The slab algorithm under the fp32 plan (slabs sized in 4-byte
+    elements, dlogits kept in fp32) gives the plain gradients."""
+    j, v = 16, 32
+    rng = np.random.RandomState(b * 100 + t + u1 + 1)
+    f = torch.tensor(rng.randn(b, t, j).astype(np.float32))
+    g = torch.tensor(rng.randn(b, u1, j).astype(np.float32))
+    w_t = torch.tensor(rng.randn(j, v).astype(np.float32) / 4)
+    bias = torch.tensor(rng.randn(v).astype(np.float32) / 10)
+    labels = torch.tensor(rng.randint(1, v, (b, u1 - 1)))
+    d_b = torch.tensor(rng.randn(b, t, u1).astype(np.float32))
+    d_l = torch.tensor(rng.randn(b, t, u1 - 1).astype(np.float32))
+    monkeypatch.setattr(P, 'SLAB_BYTES', slab_bytes)
+    plan = P.bwd_plan(b, t, u1, j, v, H100_SMS, 4)
+    if slab_bytes == 1:
+        assert plan.slab_tiles == 2 and plan.slabs == -(-plan.tiles // 2)
+    else:
+        assert plan.slab_tiles == min(
+            max(2, slab_bytes // (P.TILE_CELLS * (j + v) * 4) // 2 * 2),
+            plan.tiles + plan.tiles % 2)
+    h = torch.tanh(f[:, :, None] + g[:, None])
+    lse = torch.logsumexp(h @ w_t + bias, -1)
+    got = _slab_backward(plan, f, g, w_t, bias, labels, 0, lse, d_b, d_l)
     leaves = [x.clone().requires_grad_() for x in (f, g, w_t, bias)]
     out = K.fused_joint_lse_plain(*leaves, labels, 0)
     want = torch.autograd.grad(out, leaves, (d_b, d_l))
