@@ -256,7 +256,38 @@ Phases, each printing JSON or text lines:
              (loss and grad norm rel 1e-5, params train_parity's bounds);
              step ms and peak memory.  Every slot of
              both grids is cuda:0: these phases measure no scaling
- 33 launches every kernel launched by the main paths themselves: the counts
+ 33 large_slice  flagfiles/E6D2_LARGE_Batch.txt (6 x 1024 encoder, 2 x
+             512 prediction net, projection 640, hop 320: 120 ms chunks;
+             seeded random weights): StreamingDecoder.decode_wav of the
+             slice's 4 s, cuda fp32 == the CPU run token for token, bf16
+             agreement, per-chunk ms, K3's plan at B=1
+ 34 large_server  StreamServer over MultiStreamDecoder at that preset, 8
+             and 64 streams (cli/serve.py's build); 4 clients of 3 s, each
+             transcript == its single-stream CPU decode_wav; the shape
+             spies show every K3 launch at B = the streams
+ 35 large_kernels  K3 at that preset's widths against its plain version
+             (k3_check) at B=1, 4, 64, 256 T=1 and the eval's B=4 T=214,
+             each with its plan, device ms and bound
+ 36 large_train_run  the Trainer from that flagfile (batch 128 as 32
+             micro-batches of 4, --dec_dropout 0.1, bf16, BPE 2048) on 128
+             synthetic utterances of 8-14 s: 2 warm-up and 3 measured steps
+             (step ms, audio s/s, peak memory, busy share of one more),
+             loss falling on a repeated batch of 4, one --mode eval pass
+             (every K3 launch at B=4, the shape spies)
+ 37 e4d1     flagfiles/E4D1.txt (4 x 256 encoder, hop 160): its
+             StreamingDecoder cuda fp32 == CPU; its Trainer (batch 32 as 2
+             x 16) 2 steps on the train_run corpus, the loss falling on a
+             repeated batch of 16; one --mode eval pass (every K3 launch
+             at B=2)
+ 38 preset_kernels  each kernel shape that the train steps and evals of
+             phases 36 and 37 launched (recorded by _recorded_shapes, the
+             spies first held against the launch counts) against its plain
+             version as in jax_kernels: K1 bf16 held step by step at the
+             encoders' and prediction nets' H (1024, 512; 256), K4, K2
+             through each preset's mel tables, K3 on each eval's own first
+             call (LARGE B=4, E4D1 B=2), K7 / K8 at J=640 / 256, V=2048,
+             K9 / K10 at the runs' own lengths
+ 39 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -295,7 +326,10 @@ Phases, each printing JSON or text lines:
              replica: K2, the encoder's kernels as the decodes, K3 for
              greedy, the beam's K1 a frame as the beam runs); the pp and
              tp steps what their micro-steps imply, as train_run, with K7
-             and K8 once a vocabulary slice)
+             and K8 once a vocabulary slice; the LARGE and E4D1 decodes
+             K2 and K3 once and K1 once per encoder layer a chunk, their
+             steps and eval passes as train_run's; the LARGE servers one
+             K2 and six K1 per K3 launch (a round), no other kernel)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -986,7 +1020,9 @@ def k3_long_case(torch, rng, dev, record, b, t):
 def k3_check(torch, record, args, **info):
     """K3 against its plain version on greedy_frame_loop's args: tokens
     exact, states (and log-probs) to 1e-4, bit-stable, timed in turns,
-    device ms by the profiler; `info` goes into the printed case."""
+    device ms by the profiler, or where it recorded no launch by CUDA
+    events around queued calls (queued_ms); `info` goes into the printed
+    case."""
     import dataclasses
 
     from edgedict_tpu_torch.ops import decode_kernel as K3
@@ -1002,6 +1038,10 @@ def k3_check(torch, record, args, **info):
                         lambda: K3.greedy_frame_loop(*args))
     dms, n = device_ms_per_launch(torch, lambda: K3.greedy_frame_loop(*args),
                                   'greedy_frame_kernel', n=2)
+    dms_by = 'torch.profiler'
+    if dms is None:
+        dms = queued_ms(torch, lambda: K3.greedy_frame_loop(*args))
+        dms_by = 'cuda events, queued calls'
     bounds = k3_bound(torch, cache, args, out)
     j, v = cache['w_out_t'].shape
     case = {'kernel': 'K3 greedy_decode', 'B': f.shape[1], 'T': f.shape[0],
@@ -1011,7 +1051,8 @@ def k3_check(torch, record, args, **info):
             'bit_stable': all(torch.equal(a, c) for a, c in zip(out, again)
                               if a is not None),
             'ms': ms, 'plain_ms': pms, 'device_ms': dms,
-            'profiled_launches': n, 'bound_ms': bounds[0],
+            'device_ms_by': dms_by, 'profiled_launches': n,
+            'bound_ms': bounds[0],
             'bound_by': bounds[1], 'tol': 'tokens exact, atol 1e-4 rtol 1e-4',
             'plan': dataclasses.asdict(K3.card_plan(cache, f, hs))}
     emit(case)
@@ -1184,6 +1225,23 @@ def device_ms_per_launch(torch, fn, name, n=5):
         if count:
             return us / 1e3 / count, count
     return None, 0
+
+
+def queued_ms(torch, fn, n=10):
+    """Device ms of one call of fn: CUDA events around n calls that the
+    host queues while a sleep kernel holds the stream (~25 ms), so its
+    dispatch between calls does not show; the mean."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 # K4/K6's two launches: the gate remat over all steps and the dh chain
@@ -1490,8 +1548,8 @@ def k9_cases(torch, record, cases):
     t <= xlen, u <= ylen and logZ within max(1e-5, 1e-6 |logZ|) of the
     plain version run in fp64 (the fp32 plain version's own error beside
     it), logZ the stored alpha[xlen, ylen] bit for bit, the same bits on a
-    second call, one kernel launch per call and no memory past alpha and
-    logz."""
+    second call, one kernel launch per call and no memory past what the
+    caching allocator gives alpha and logz (alloc_bytes)."""
     import dataclasses
 
     from edgedict_tpu_torch.ops import rnnt_loss as PL
@@ -1499,6 +1557,7 @@ def k9_cases(torch, record, cases):
     for i, (blank, label, xlen, ylen) in enumerate(cases):
         b, t, u1 = blank.shape
         args = (blank, label, xlen, ylen)
+        outputs = alloc_bytes(torch, (b, t + 1, u1), (b,))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1534,7 +1593,7 @@ def k9_cases(torch, record, cases):
                     logz, alpha[idx, xlen.long(), ylen.long()]),
                 'bit_stable': torch.equal(alpha, again[0])
                 and torch.equal(logz, again[1]),
-                'extra_bytes': extra,
+                'extra_bytes': extra, 'output_bytes': outputs,
                 'profiled_launches_per_call':
                     sum(c for _, c in prof.values()) / 5,
                 'profiled_kernels': sorted(prof)}
@@ -1557,13 +1616,27 @@ def k9_cases(torch, record, cases):
         # call is that, more than one is a second launch
         require(case['max_abs_err'] <= tol and case['fp64_reference']
                 and case['logz_is_alpha'] and case['bit_stable']
-                and extra <= sum(-(-x.numel() * 4 // 512) * 512
-                                 for x in (alpha, logz))
+                and extra <= outputs
                 and case['profiled_launches_per_call'] <= 1
                 and all('lattice_alpha_kernel' in k for k in prof),
                 f'K9 disagrees: {case}')
         record('lattice_alpha', case['max_abs_err'], case.get('ms'),
                case.get('plain_ms'), bounds, None, case.get('device_ms'))
+
+
+def alloc_bytes(torch, *shapes):
+    """The bytes that the caching allocator hands fp32 card tensors of
+    these shapes, allocated in turn (its rounding: 512-byte multiples, and
+    a whole 2 MiB block where less than 1 MiB of it would be left), read
+    the way k9_cases reads a kernel's; a best-fit request of the same
+    sizes right after gets the same blocks back."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    held = [torch.empty(s, device='cuda') for s in shapes]
+    n = torch.cuda.max_memory_allocated() - base
+    del held
+    return n
 
 
 def k10_cases(torch, record, cases, wide=False):
@@ -2008,10 +2081,12 @@ def serving_kernels_q(torch, rng, dev, record):
     return tile_cases
 
 
-def _e6d2():
+def _e6d2(flagfile='flagfiles/E6D2.txt'):
+    """(TransducerConfig at V=2048, streaming FeatureConfig) of a bundled
+    flagfile (E6D2's by default)."""
     from edgedict_tpu_torch import config as C
     flags = C.parse_flags(C.add_model_flags(argparse.ArgumentParser()),
-                          [f'--flagfile={REPO}/flagfiles/E6D2.txt'])
+                          [f'--flagfile={REPO}/{flagfile}'])
     feat = C.feature_config_from_flags(flags, pad_to_divisible=False)
     cfg = C.transducer_config_from_flags(flags, 2048, feat.input_size)
     return cfg, feat
@@ -3825,7 +3900,8 @@ def phase_jax_checkpoint(torch):
 class _ShapeSpy:
     """Stands in for a kernel wrapper in the port's modules while a run
     goes: counts the call, keeps its shape key (and, from the key's first
-    call, what that key's case needs), then calls the wrapper.  Its
+    call, what that key's case needs: the key function's second result, a
+    thunk or None, called then and only then), then calls the wrapper.  Its
     `launches` is the wrapper's own attribute, so the count that the
     wrapper keeps through its module's name is the same with the spy in
     place."""
@@ -3837,7 +3913,8 @@ class _ShapeSpy:
     def __call__(self, *args, **kwargs):
         key, need = self.key(*args, **kwargs)
         self.log['calls'] += 1
-        self.log['keys'].setdefault(key, need)
+        if key not in self.log['keys']:
+            self.log['keys'][key] = need() if need else None
         return self.fn(*args, **kwargs)
 
     launches = property(lambda self: self.fn.launches,
@@ -3863,13 +3940,13 @@ def _spied(layer_widths=False):
         return (*f.shape[:2], g.shape[1], *w_t.shape, f.dtype), None
 
     def frames(cache, f, h_dec, hs, cs, blank, unk, emit_logp=False):
-        return (f.shape[1], f.shape[0], emit_logp), (
+        return (f.shape[1], f.shape[0], emit_logp), lambda: (
             cache, f.clone(), h_dec.clone(), hs.clone(), cs.clone(), blank,
             unk, emit_logp)
 
     def lattice(blank_lp, label_lp, xlen, ylen):
-        return tuple(blank_lp.shape), (xlen.cpu().numpy(),
-                                       ylen.cpu().numpy())
+        return tuple(blank_lp.shape), lambda: (xlen.cpu().numpy(),
+                                               ylen.cpu().numpy())
 
     def layer(params, xs, state):
         return (params['w_hh'].shape[1], *xs.shape[1::-1], xs.shape[2]), None
@@ -3878,7 +3955,7 @@ def _spied(layer_widths=False):
              'lstm_bwd': (rnn_kernel, 'lstm_recurrence_bwd', lstm),
              'mel_power': (features_kernel, 'mel_power',
                            lambda audio, tables: (tuple(audio.shape),
-                                                  tables)),
+                                                  lambda: tables)),
              'greedy_decode': (decode_kernel, 'greedy_frame_loop', frames),
              'joint_lse_fwd': (joint_lse_kernel, 'joint_lse_fwd', joint),
              'joint_lse_bwd': (joint_lse_kernel, 'joint_lse_bwd', joint),
@@ -3928,23 +4005,29 @@ def phase_jax_kernels(torch):
     """Each kernel that jax_checkpoint's two runs launched against its
     plain version at the shapes those runs gave it (STATE['jax_shapes'],
     recorded as they ran; the fixture's H=16 encoder and prediction net,
-    its char vocabulary of 22, J=16, 2 s utterances), on card tensors, at
-    the tolerances of the E6D2 cases: K1 fp32 (lstm_fwd_case) and bf16
-    held step by step (bf16_forward_case), K4 (lstm_bwd_case), K2 through
-    the fixture's own mel tables (mel_case), K3 on the first call's own
-    arguments (k3_check), K7 / K8 on seeded data at J=16 V=22
-    (joint_long_case: bf16 padded onto 16), K9 / K10 on seeded
-    log-probs at the run's own lengths (lattice_long_cases).  First each
-    run's recorded calls are held against its launch counts: the spies
-    saw every launch."""
+    its char vocabulary of 22, J=16, 2 s utterances): recorded_cases."""
+    recorded_cases(torch, 'jax_kernels', STATE['jax_shapes'],
+                   np.random.RandomState(15))
+
+
+def recorded_cases(torch, phase, shapes, rng):
+    """Each kernel of each run in shapes ({run: _recorded_shapes' logs})
+    against its plain version at the shapes that run gave it, on card
+    tensors, at the tolerances of the E6D2 cases: K1 fp32 (lstm_fwd_case)
+    and bf16 held step by step (bf16_forward_case), K4 (lstm_bwd_case), K2
+    through the run's own mel tables (mel_case), K3 on the first call's
+    own arguments (k3_check), K7 / K8 on seeded data at the run's J and V
+    (joint_long_case: bf16 padded onto 16), K9 / K10 on seeded log-probs
+    at the run's own lengths (lattice_long_cases).  First each run's
+    recorded calls are held against its launch counts: the spies saw every
+    launch."""
     record, dev = STATE['record'], torch.device('cuda')
-    rng = np.random.RandomState(15)
     bf16 = torch.bfloat16
     readable = {run: {name: [[str(x) for x in key] for key in log['keys']]
                       for name, log in logs.items()}
-                for run, logs in STATE['jax_shapes'].items()}
-    emit({'phase': 'jax_kernels', 'shapes': readable})
-    for run, logs in STATE['jax_shapes'].items():
+                for run, logs in shapes.items()}
+    emit({'phase': phase, 'shapes': readable})
+    for run, logs in shapes.items():
         n = STATE['launches_' + run]
         calls = {name: log['calls'] for name, log in logs.items()}
         want = {name: n.get(name, n['lattice_alpha']) for name in calls}
@@ -5451,6 +5534,355 @@ def phase_tp_train(torch):
             f'the tp = 2 step differs from the tp = 1 step: {res}')
 
 
+# ---------------------------------------------------------------------------
+# E6D2_LARGE_Batch and E4D1: the other two bundled presets on the card
+# ---------------------------------------------------------------------------
+
+LARGE = 'flagfiles/E6D2_LARGE_Batch.txt'
+E4D1 = 'flagfiles/E4D1.txt'
+LARGE_SERVERS = (8, 64)         # streams of the two servers
+LARGE_STEPS = (2, 3)            # warm-up, measured train steps
+E4D1_STEPS = 2
+
+
+def _preset_slice(torch, flagfile, phase, run):
+    """A bundled preset's StreamingDecoder (seeded random weights, as
+    cli.stream builds it: step_n_frame 2) over the slice's 4 s: cuda fp32
+    == the CPU run token for token, its launches (run) exactly K2 and K3
+    once and K1 once per encoder layer a chunk; cuda bf16 agreement and
+    per-chunk ms → (model, cfg, feat, the phase's record)."""
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    from edgedict_tpu_torch.models import transducer as T
+    cfg, feat = _e6d2(flagfile)
+    tok = StandInTokenizer(cfg.vocab_size)
+    model = T.Transducer(cfg, device='cpu', seed=0)
+    audio = synthetic_audio(0)
+    cuda32, tok32 = _decode(model, cfg, feat, tok, audio, 'cuda', count=run)
+    cpu32, tok_cpu = _decode(model, cfg, feat, tok, audio, 'cpu')
+    cuda16, tok16 = _decode(model, cfg, feat, tok, audio, 'cuda',
+                            torch.bfloat16)
+    n = STATE['chunks_' + run]
+    STATE.setdefault('run_expect', {})[run] = _expect(
+        mel_power=n, greedy_decode=n, lstm_fwd=cfg.enc_layers * n)
+    equal = tok32.shape == tok_cpu.shape and bool((tok32 == tok_cpu).all())
+    res = {'phase': phase, 'config': flagfile,
+           'params': sum(p.numel() for p in model.parameters()),
+           'weights': 'random, seed 0', 'audio_s': len(audio) / 16000,
+           'chunk_s': cuda32.hop_size / 16000, 'frames': int(tok32.size),
+           'nonblank_frames': int((tok32 != 0).sum()), 'chunks': n,
+           'cuda_fp32_equals_cpu': equal,
+           'chunk_ms_cuda_fp32': 1e3 * float(np.mean(cuda32.elapsed)),
+           'chunk_ms_cuda_bf16': 1e3 * float(np.mean(cuda16.elapsed)),
+           'chunk_ms_cpu_fp32': 1e3 * float(np.mean(cpu32.elapsed)),
+           'bf16_token_agreement': _agreement(tok16, tok32)}
+    if not equal:
+        k, gap = _first_divergence(torch, model, cfg, feat, tok, audio,
+                                   tok_cpu, tok32)
+        res.update(first_diverging_frame=k, top2_gap=gap)
+        emit(res)
+    require(equal, f'{phase}: cuda fp32 tokens differ from the CPU run')
+    require(res['nonblank_frames'] > 0, f'{phase}: no token emitted')
+    return model, cfg, feat, res
+
+
+def phase_large_slice(torch):
+    """E6D2_LARGE_Batch's StreamingDecoder: _preset_slice, with K3's plan
+    at B=1."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    model, cfg, feat, res = _preset_slice(torch, LARGE, 'large_slice',
+                                          'large_decode')
+    res['k3_plan'] = dataclasses.asdict(K3.card_plan(
+        K3.build_decode_cache(model),
+        torch.zeros(1, 1, cfg.joint_size, device='cuda'),
+        torch.zeros(cfg.dec_layers, 1, cfg.dec_hidden_size, device='cuda')))
+    emit(res)
+    STATE['large'] = (model, cfg, feat)
+
+
+def phase_large_server(torch):
+    """StreamServer over MultiStreamDecoder at E6D2_LARGE_Batch, 8 and 64
+    streams, as cli/serve.py builds it; 4 concurrent clients of 3 s, each
+    transcript (one character a token) == its own single-stream CPU
+    decode_wav; every K3 launch of the rounds at B = the streams (the
+    shape spies); its launches (checked with the others) one K2 and one
+    K1 per encoder layer a K3 launch, no other kernel."""
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    model, cfg, feat = STATE['large']
+    tok = StandInTokenizer(cfg.vocab_size)
+    audios = [synthetic_audio(10 + i, seconds=3.0) for i in range(4)]
+    single = S.StreamingDecoder(model, cfg, feat, tok, device='cpu')
+    expected = [single.decode_wav(a) for a in audios]
+    for n in LARGE_SERVERS:
+        run = f'large_server_{n}'
+        dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=n,
+                                   device='cuda')
+        logs = {}
+        with _recorded_shapes(logs):
+            results, server = _serve(torch, dec, audios, run)
+        c = STATE['launches_' + run]
+        n_k3 = c['greedy_decode']
+        STATE.setdefault('run_expect', {})[run] = _expect(
+            mel_power=n_k3, greedy_decode=n_k3,
+            lstm_fwd=cfg.enc_layers * n_k3)
+        k3_batches = sorted({key[0] for key in
+                             logs['greedy_decode']['keys']})
+        match = [r == e for r, e in zip(results, expected)]
+        res = {'phase': 'large_server', 'config': LARGE, 'n_streams': dec.n,
+               'clients': len(audios), 'rounds': server.rounds,
+               'round_ms_mean': 1e3 * float(np.mean(dec.elapsed)),
+               'k3_batches': k3_batches, 'launches': c,
+               'transcripts_match_cpu': match,
+               'transcript_chars': [len(r or '') for r in results]}
+        emit(res)
+        require(all(match), f'{run}: a transcript differs from the CPU '
+                            'decode_wav')
+        require(k3_batches == [n] and n_k3 > 0,
+                f'{run}: K3 ran {n_k3} times at B={k3_batches}')
+
+
+def _preset_trainer(torch, flagfile, name):
+    """The port's Trainer from a bundled flagfile, built as cli/baseline.py
+    builds it, on the smoke's synthetic corpus (LARGE: its own, of 128
+    utterances within the preset's 14 s); the cwd is the corpus root (its
+    BPE-2048/), restored by the caller → (trainer, argv, flags)."""
+    from edgedict_tpu_torch.cli import baseline
+    from edgedict_tpu_torch.config import parse_flags
+    from edgedict_tpu_torch.trainer import Trainer
+    tmp, base = _train_corpus()
+    argv = [f'--flagfile={REPO}/{flagfile}'] + base[1:]
+    if flagfile == LARGE:
+        root = os.path.join(tmp, 'large')
+        if not os.path.isdir(root):
+            train_texts, eval_texts = _corpus_texts(128, 8, seed=1)
+            _synthetic_corpus(os.path.join(root, 'train'), train_texts, 300,
+                              hi=14.0)
+            _synthetic_corpus(os.path.join(root, 'test'), eval_texts, 700,
+                              hi=14.0)
+        argv[argv.index('--LibriSpeech_train_100') + 1] = os.path.join(
+            root, 'train')
+        argv[argv.index('--LibriSpeech_test') + 1] = os.path.join(root,
+                                                                  'test')
+    argv += ['--name', name]
+    os.chdir(tmp)                 # the BPE-2048/ cache lands in the cwd
+    flags = parse_flags(baseline.build_parser(), argv)
+    return Trainer(flags), argv, flags
+
+
+def _preset_shapes(run):
+    """_recorded_shapes of one run of the preset phases, into
+    STATE['preset_shapes'][run] (phase_preset_kernels checks them)."""
+    return _recorded_shapes(
+        STATE.setdefault('preset_shapes', {}).setdefault(run, {}))
+
+
+def _preset_train(torch, trainer, run, warm, measured):
+    """warm + measured run_steps over the trainer's loader (endless), the
+    measured ones' launches to STATE['launches_' + run] with what their
+    micro-steps imply and their kernels' shapes recorded (_preset_shapes)
+    → (step ms, audio s/s, losses, the last batch)."""
+    def batches():
+        while True:
+            yield from trainer.loader
+    it = batches()
+    for _ in range(warm):
+        float(trainer.run_step(next(it))['loss'])
+    _reset_launches()
+    times, audio_s, losses = [], [], []
+    with _preset_shapes(run):
+        for _ in range(measured):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(trainer.run_step(batch)['loss']))
+            times.append(time.perf_counter() - t1)
+            audio_s.append(float(batch['alen'].sum()) / 16000.0)
+    STATE['launches_' + run] = _launches()
+    it.close()
+    STATE.setdefault('run_expect', {})[run] = _train_expect(
+        trainer.cfg, trainer.accum_steps * measured)
+    return times, audio_s, losses, batch
+
+
+def _preset_eval(torch, argv, run, eval_batch):
+    """One cli.baseline --mode eval pass, its launches exactly what
+    evaluate() implies, every K3 launch at B = eval_batch (the shape
+    spies, _preset_shapes) → its val_loss line and eval batches."""
+    from edgedict_tpu_torch.cli import baseline
+    lines = []
+    _reset_launches()
+    with _preset_shapes(run):
+        evaluated = baseline.main(argv + ['--mode', 'eval'],
+                                  log_fn=lines.append)
+        torch.cuda.synchronize()
+    STATE['launches_' + run] = _launches()
+    STATE.setdefault('run_expect', {})[run] = _eval_expect(torch, evaluated,
+                                                           0)
+    val = [ln for ln in lines if ln.startswith('val_loss')]
+    require(bool(val) and np.isfinite(float(val[0].split()[1])),
+            f'{run}: eval printed no finite val_loss: {lines}')
+    k3 = sorted({key[0] for key in
+                 STATE['preset_shapes'][run]['greedy_decode']['keys']})
+    require(k3 == [eval_batch], f'{run}: K3 ran at B={k3}')
+    return val[0], len(list(evaluated.eval_loader))
+
+
+def _repeated_batch_losses(trainer, batch, rows):
+    """The trainer's train_step from a fresh state (seed 1), 10 times at lr
+    1e-3 on the first `rows` rows of a host batch as one micro-batch →
+    the losses."""
+    from edgedict_tpu_torch.train import device_batch, make_train_state
+    small = device_batch({k: v[:rows] for k, v in batch.items()}, 1,
+                         trainer.device)
+    state = make_train_state(trainer.cfg, trainer.optimizer, trainer.device,
+                             seed=1)
+    fall = []
+    for _ in range(10):
+        state, m = trainer.train_step(state, small, 1e-3, trainer.generator)
+        fall.append(float(m['loss']))
+    return fall
+
+
+def phase_large_train_run(torch):
+    """The Trainer from flagfiles/E6D2_LARGE_Batch.txt (batch 128 as 32
+    micro-batches of 4, --dec_dropout 0.1, bf16, BPE 2048) on 128 synthetic
+    utterances of 8-14 s: 2 warm-up and 3 measured steps (step ms,
+    audio-s/s, peak memory, the busy share of one more step), the loss
+    finite and falling on a repeated batch of 4, one --mode eval pass (its
+    greedy decode K3 at B=4)."""
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer, argv, flags = _preset_trainer(torch, LARGE, 'large')
+        setup_s = time.perf_counter() - t0
+        require((flags.batch_size, trainer.accum_steps, flags.dec_dropout,
+                 flags.bf16, flags.eval_batch_size) == (128, 32, 0.1, True,
+                                                        4),
+                f'LARGE trainer: batch {flags.batch_size}, accum '
+                f'{trainer.accum_steps}, dec_dropout {flags.dec_dropout}, '
+                f'bf16 {flags.bf16}')
+        times, audio_s, losses, batch = _preset_train(
+            torch, trainer, 'large_train', *LARGE_STEPS)
+        res = {'phase': 'large_train_run', 'config': LARGE,
+               'params': sum(p.numel() for p in
+                             trainer.state.model.parameters()),
+               'vocab': trainer.tokenizer.vocab_size,
+               'batch_size': flags.batch_size, 'accum': trainer.accum_steps,
+               'bf16': flags.bf16, 'dec_dropout': flags.dec_dropout,
+               'utterances': len(trainer.train_dataset),
+               'setup_s': setup_s,
+               'batch_audio_s': [float(a) for a in audio_s],
+               'step_ms': [1e3 * x for x in times],
+               'step_ms_median': 1e3 * statistics.median(times),
+               'audio_s_per_s_median': statistics.median(
+                   a / x for a, x in zip(audio_s, times)),
+               'losses': losses,
+               'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
+        res.update(_device_profile(torch, lambda: float(
+            trainer.run_step(batch)['loss']), 1, 'step'))
+        fall = res['repeated_batch_losses'] = _repeated_batch_losses(
+            trainer, batch, 4)
+        trainer.save()
+        del trainer
+        res['eval'], res['eval_batches'] = _preset_eval(
+            torch, argv, 'large_train_eval', flags.eval_batch_size)
+        emit(res)
+        require(all(np.isfinite(losses)), 'a LARGE train loss is not finite')
+        require(fall[-1] < fall[0], f'LARGE loss did not fall: {fall}')
+    finally:
+        os.chdir(cwd)
+
+
+def phase_large_kernels(torch):
+    """K3 at E6D2_LARGE_Batch's joint and prediction net (2 x 512, D 640,
+    compact layout) against its plain version (k3_check: tokens exact,
+    state and log-probs to 1e-4, bit-stable, timed in turns, device ms,
+    bound, plan): B = 1, 4, 64 and 256 at T = 1 (streams and servers,
+    <unk> 3, every frame emitting) and the eval's B = 4 at T = 214 (blank
+    bias 1.8, no <unk>, log-probs)."""
+    from edgedict_tpu_torch.models import transducer as T
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    record = STATE.get('record') or (lambda *a, **k: None)
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(21)
+    cfg, _ = _e6d2(LARGE)
+    dcfg = T.TransducerConfig(vocab_size=2048, vocab_embed_size=64,
+                              enc_hidden_size=8, enc_layers=1,
+                              enc_proj_size=640, dec_hidden_size=512,
+                              dec_layers=2, dec_proj_size=640,
+                              joint_size=640)
+    require((cfg.dec_hidden_size, cfg.dec_proj_size, cfg.joint_size) ==
+            (512, 640, 640), 'LARGE widths changed')
+    for b, t, bias, unk, logp in ((1, 1, 0.0, 3, False),
+                                  (4, 1, 0.0, 3, False),
+                                  (64, 1, 0.0, 3, False),
+                                  (256, 1, 0.0, 3, False),
+                                  (4, 214, 1.8, None, True)):
+        model = T.Transducer(dcfg, device=dev, seed=1)
+        with torch.no_grad():
+            model.joint.out.bias[dcfg.blank] += bias
+            model.joint.out.bias[3] += 0.0 if bias else 4.0     # <unk>
+            h_dec0, (hs, cs) = T.decoder_apply(
+                model.decoder, dcfg,
+                torch.zeros((b, 0), dtype=torch.long, device=dev))
+        cache = K3.build_decode_cache(model)
+        f = torch.as_tensor(rng.randn(t, b, 640).astype(np.float32),
+                            device=dev)
+        k3_check(torch, record, (cache, f, h_dec0[:, 0].contiguous(), hs, cs,
+                                 0, unk, logp), config=LARGE,
+                 blank_bias=bias)
+
+
+def phase_e4d1(torch):
+    """flagfiles/E4D1.txt (4 x 256 encoder, hop 160, joint 256): its
+    StreamingDecoder (_preset_slice), then its Trainer (batch 32 as 2
+    micro-batches of 16) on the smoke's corpus: 2 measured steps (finite
+    losses), the loss falling on a repeated batch of 16, one --mode eval
+    pass (K3 at its eval batch 2)."""
+    _, cfg, _, res = _preset_slice(torch, E4D1, 'e4d1', 'e4d1_decode')
+    cwd = os.getcwd()
+    try:
+        trainer, argv, flags = _preset_trainer(torch, E4D1, 'e4d1')
+        require((flags.batch_size, trainer.accum_steps,
+                 flags.eval_batch_size) == (32, 2, 2),
+                f'E4D1 trainer: batch {flags.batch_size}, accum '
+                f'{trainer.accum_steps}')
+        times, audio_s, losses, batch = _preset_train(torch, trainer,
+                                                      'e4d1_train', 0,
+                                                      E4D1_STEPS)
+        fall = _repeated_batch_losses(trainer, batch, 16)
+        res.update(train_params=sum(p.numel() for p in
+                                    trainer.state.model.parameters()),
+                   batch_size=flags.batch_size, accum=trainer.accum_steps,
+                   step_ms=[1e3 * x for x in times],
+                   audio_s_per_s=[a / x for a, x in zip(audio_s, times)],
+                   losses=losses, repeated_batch_losses=fall)
+        trainer.save()
+        del trainer
+        res['eval'], res['eval_batches'] = _preset_eval(
+            torch, argv, 'e4d1_train_eval', flags.eval_batch_size)
+    finally:
+        os.chdir(cwd)
+    emit(res)
+    require(all(np.isfinite(losses)), f'an E4D1 train loss is not finite: '
+                                      f'{losses}')
+    require(fall[-1] < fall[0], f'E4D1 loss did not fall: {fall}')
+
+
+def phase_preset_kernels(torch):
+    """Each kernel that the preset phases' train steps and evals launched
+    (large_train, large_train_eval, e4d1_train, e4d1_train_eval; recorded
+    as they ran, _preset_shapes) against its plain version at the shapes
+    those runs gave it: recorded_cases."""
+    recorded_cases(torch, 'preset_kernels', STATE['preset_shapes'],
+                   np.random.RandomState(21))
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -5596,7 +6028,13 @@ def main():
               ('legacy_kernels', phase_legacy_kernels),
               ('surface', phase_surface), ('dp_train', phase_dp_train),
               ('server_dp', phase_server_dp), ('pp_train', phase_pp_train),
-              ('tp_train', phase_tp_train))
+              ('tp_train', phase_tp_train),
+              ('large_slice', phase_large_slice),
+              ('large_server', phase_large_server),
+              ('large_kernels', phase_large_kernels),
+              ('large_train_run', phase_large_train_run),
+              ('e4d1', phase_e4d1),
+              ('preset_kernels', phase_preset_kernels))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

@@ -89,12 +89,12 @@ _SIGNATURES = {
     # f, T, B, J, w_dec_t, b_joint, w_out_t, b_out, V, table, E,
     # L, w_ih_t[L], w_hh_t[L], bias[L], H, w_proj_t, b_proj, D,
     # h_dec0, hs0, cs0, tokens, logp, h_dec, hs, cs, blank, unk,
-    # scratch, scratch_floats, grid, bc, smem, stream
+    # scratch, scratch_floats, grid, bc, pc, smem, stream
     'edd_greedy_decode': (
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
         _I, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
         _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-        _P, ctypes.c_longlong, _I, _I, _I, _P),
+        _P, ctypes.c_longlong, _I, _I, _I, _I, _P),
     # unused, unused, smem, out (int*)
     'edd_greedy_decode_blocks_per_sm': (_I, _I, _I, _P),
 }

@@ -16,7 +16,15 @@ Cases: the persistent recurrences K1 (LSTM), K5 (GRU), K12 (int8 LSTM) and
 K13 (int8 GRU) at H=1024 B=1 T=2 fp32 (a streaming chunk's layer), K12 and
 K13 at B=64 T=2 (the int8 server) in fp32 and bf16 and at B=1 T=16, and
 K9 (the lattice alpha) and K10 (the lattice beta + gradients) at the E6D2
-train step (B=32 T=214 U+1=65).  Prints one JSON line per case, then the
+train step (B=32 T=214 U+1=65), and K3 (the greedy frame loop; seeded
+random weights, <unk> 3, no log-probs) at E6D2's joint and prediction net
+and at E6D2_LARGE_Batch's (2 x 512 prediction net, projection 640): B=1
+T=1 a streaming chunk, B=4 T=214 the eval batch at blank bias 1.8, the
+servers' B=64 and B=256 at T=1; LARGE's B=256 also with its partials'
+and stream chunks forced to (12, 32) and (4, 256), other splits that fit
+its block beside the plan's (8, 160).  `--only K3` runs
+the cases of the named kernels alone.  A case the port cannot plan prints
+its error instead of times.  Prints one JSON line per case, then the
 card's `nvidia-smi --query-gpu=name,power.limit` line.  Needs a CUDA card;
 only the wrappers' public entry points are called, so the script runs
 against any version of the port that has them.
@@ -118,20 +126,104 @@ def cases(dev):
     out.append(('K10', {'B': b, 'T': t, 'U1': u1},
                 partial(KL.lattice_beta_grad, blank, label, alpha, logz,
                         xlen, ylen)))
+    for config, hid, d in (('E6D2', 256, 256),
+                           ('E6D2_LARGE_Batch', 512, 640)):
+        cache, state = _k3_model(dev, hid, d)
+        for b, t, bias in ((1, 1, 0.0), (4, 214, 1.8), (64, 1, 0.0),
+                           (256, 1, 0.0)):
+            f = t_(t, b, 640)
+            out.append(('K3', {'config': config, 'B': b, 'T': t,
+                               'blank_bias': bias},
+                        partial(_k3_call, cache[bias], f, *state(b))))
+        if config == 'E6D2_LARGE_Batch':
+            for chunks in ((12, 32), (4, 256)):
+                out.append(('K3', {'config': config, 'B': b, 'T': t,
+                                   'blank_bias': bias, 'chunks': chunks},
+                            partial(_k3_forced, chunks, cache[bias], f,
+                                    *state(b))))
     return out
+
+
+def _k3_model(dev, hid, d):
+    """({blank bias: K3's decode cache}, state(b) → (h_dec, hs, cs)) of a
+    seeded joint (J 640, V 2048) and 2-layer prediction net (E 64, hid
+    units, projection d), blank lifted by 0 and by 1.8 (chip_smoke.py's
+    eval case: most frames blank)."""
+    from edgedict_tpu_torch.models import transducer as T
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    cfg = T.TransducerConfig(vocab_size=2048, vocab_embed_size=64,
+                             enc_hidden_size=8, enc_layers=1,
+                             enc_proj_size=640, dec_hidden_size=hid,
+                             dec_layers=2, dec_proj_size=d, joint_size=640)
+    caches = {}
+    for bias in (0.0, 1.8):
+        model = T.Transducer(cfg, device=dev, seed=1)
+        with torch.no_grad():
+            model.joint.out.bias[cfg.blank] += bias
+        caches[bias] = K3.build_decode_cache(model)
+
+    def state(b):
+        with torch.no_grad():
+            h_dec, (hs, cs) = T.decoder_apply(
+                model.decoder, cfg,
+                torch.zeros((b, 0), dtype=torch.long, device=dev))
+        return h_dec[:, 0].contiguous(), hs, cs
+    return caches, state
+
+
+def _k3_call(cache, f, h_dec, hs, cs):
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    return K3.greedy_frame_loop(cache, f, h_dec, hs, cs, 0, 3)
+
+
+def _k3_forced(chunks, cache, f, h_dec, hs, cs):
+    """_k3_call on its plan with (partials' chunk, stream chunk) = chunks
+    and the bytes layout_floats gives them; ValueError for a port whose
+    plan has no partials' chunk."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    from edgedict_tpu_torch.ops import decode_plan as P
+    plan = K3.card_plan(cache, f, hs)
+    if not hasattr(plan, 'part_chunk'):
+        raise ValueError('K3: this port stages every partial at once')
+    pc, bc = chunks
+    v, e = cache['table'].shape
+    smem, scratch = P.layout_floats(
+        f.shape[1], f.shape[2], v, e, hs.shape[0], hs.shape[2],
+        cache['w_proj_t'].shape[1], plan.blocks, bc, pc)
+    forced = dataclasses.replace(plan, part_chunk=pc, stream_chunk=bc,
+                                 smem=4 * smem, scratch_floats=scratch)
+    if forced.smem > P.SMEM_PER_BLOCK:
+        raise ValueError(f'K3: chunks {chunks} need {forced.smem} bytes')
+    planned, K3.card_plan = K3.card_plan, lambda *a: forced
+    try:
+        return _k3_call(cache, f, h_dec, hs, cs)
+    finally:
+        K3.card_plan = planned
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--iters', type=int, default=50)
     ap.add_argument('--tag', default='', help='a label for every line')
+    ap.add_argument('--only', default='',
+                    help='comma-separated kernels (K1, K3, ...) to time')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_kernels: needs a CUDA card')
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
+    only = set(filter(None, args.only.split(',')))
     for name, shape, fn in cases(dev):
-        wall = _wall_ms(fn, args.iters)
+        if only and name not in only:
+            continue
+        try:
+            wall = _wall_ms(fn, args.iters)
+        except ValueError as e:            # no plan for this shape
+            print(json.dumps({'tag': args.tag, 'kernel': name, **shape,
+                              'error': str(e)}), flush=True)
+            continue
         device, launches = _device_ms(fn, args.iters)
         print(json.dumps({'tag': args.tag, 'kernel': name, **shape,
                           'wall_ms': wall, 'device_ms': device,

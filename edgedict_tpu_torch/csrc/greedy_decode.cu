@@ -55,7 +55,7 @@
 // never the read-only path. The block's own units' (h, c) and h_dec columns
 // also stay in its shared memory for the whole launch, and are written out
 // at its end. Each product is the block's weight slice (rows k, columns c,
-// rows padded against bank conflicts) times the streams' input vectors read
+// swizzled against bank conflicts) times the streams' input vectors read
 // from L2, 4 streams x 16 columns a warp pass, lanes along k, the warps also
 // splitting k where fewer than 8 passes exist (small B), folded over lanes
 // by shuffles and over warps in shared memory. Streams go through the
@@ -64,6 +64,14 @@
 // Why not a thread-block cluster: its distributed shared memory (at most
 // 16 x 227 KB = 3.6 MB) cannot hold the 9.6 MB of weights, so a cluster
 // would re-read them from L2 every frame.
+// A weight slice's row is whole float4s with its float4 columns
+// XOR-swizzled by row (swizzle_bits), so a warp's float4 loads fall on 8
+// bank groups without padding the rows; the partials' chunk `pc` and the
+// stream chunk `bc` are the plan's, cut to the bytes left.
+// E6D2_LARGE_Batch (2 x 512 prediction net, projection 640: 21.3 MB of
+// weights) needs the unpadded rows: its slices are 180,224 bytes a block,
+// and would be 234,496 with each row padded off multiples of 8 floats, over
+// the 232,448 the H100 gives one.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -84,7 +92,7 @@ constexpr int kMaxLayers = 4;
 constexpr int kSB = 4;             // streams of a warp pass
 constexpr int kNC = 16;            // columns of a warp pass
 constexpr int kNone = 0xFFFF;      // a partial's offset: the slice is empty
-constexpr int kPartChunk = 16;     // streams whose partials are staged at once
+constexpr int kPartChunk = 16;     // most streams whose partials are staged
 
 // first column of slice g of n columns over G blocks (balanced)
 __host__ __device__ __forceinline__ int split(int n, int g, int G) {
@@ -94,15 +102,28 @@ __host__ __device__ __forceinline__ int split(int n, int g, int G) {
 __host__ __device__ __forceinline__ int most(int n, int G) {
   return (n + G - 1) / G;
 }
-// a weight slice's row: whole float4s, off multiples of 8 floats (float4
-// reads of neighbouring rows then fall on different banks)
+// a weight slice's row: whole float4s
 __host__ __device__ __forceinline__ int pitch(int nc) {
-  const int p = (nc + 3) / 4 * 4;
-  return p % 8 ? p : p + 4;
+  return (nc + 3) / 4 * 4;
+}
+// A row of p floats stores float4 column q of row k at
+// q ^ ((k >> (3 - a)) & ((1 << a) - 1)), with p / 4 = 2^a x odd (a capped
+// at 3): rows 2^(3-a) apart differ in the low a bits, rows closer in k p/4
+// mod 8, so the 8 rows one phase of a warp's float4 load reads (lanes along
+// k) fall on 8 different 16-byte bank groups. → a.
+__host__ __device__ __forceinline__ int swizzle_bits(int p) {
+  int a = 0;
+  while (a < 3 && !((p >> (2 + a)) & 1)) ++a;
+  return a;
+}
+// what row k's float4 columns are XORed with (bits: swizzle_bits(pitch))
+__device__ __forceinline__ int swizzle(int k, int bits) {
+  return (k >> (3 - bits)) & ((1 << bits) - 1);
 }
 
-// The block's shared memory (float offsets) and the scratch (floats); the
-// same numbers as ops/decode_plan.py.
+// The block's shared memory (float offsets) and the scratch (floats) for a
+// plan's stream chunk bc and partials' chunk pc; the same numbers as
+// ops/decode_plan.py.
 struct Layout {
   int cj, cv, cu, cd;              // most J columns / V columns / units / D
   int pj, pv, pg, pd, po;          // row pitches
@@ -114,7 +135,7 @@ struct Layout {
 
 __host__ __device__ inline Layout make_layout(int B, int J, int V, int E,
                                               int L, int H, int D, int G,
-                                              int bc) {
+                                              int bc, int pc) {
   Layout y;
   y.cj = most(J, G);
   y.cv = most(V, G);
@@ -126,7 +147,7 @@ __host__ __device__ inline Layout make_layout(int B, int J, int V, int E,
   y.pd = pitch(y.cd);
   y.po = y.cv > 4 * y.cu ? y.cv : 4 * y.cu;
   if (y.po < 1) y.po = 1;
-  y.pc = B < kPartChunk ? B : kPartChunk;
+  y.pc = pc;
   size_t o = 0;                    // float4 regions first: 16-byte aligned
   y.pst = o;
   o += (size_t)4 * y.pc * G;
@@ -182,7 +203,7 @@ struct Args {
   float* hs_out;                    // (L, B, H)
   float* cs_out;                    // (L, B, H)
   float* scratch;                   // Layout::s_total floats
-  int T, B, J, V, E, L, H, D, blank, unk, bc;
+  int T, B, J, V, E, L, H, D, blank, unk, bc, pc;
 };
 
 // (v, i) <- the better of (v, i) and (v2, i2): NaN beats numbers (first NaN
@@ -197,11 +218,15 @@ __device__ __forceinline__ void combine(float& v, int& i, float v2, int i2) {
   }
 }
 
-// ws[k * p + c] = w(k, c) for k < K, c < nc, 0 for nc <= c < p
+// ws[k * p + c] = w(k, c) for k < K, c < nc, 0 for nc <= c < p, the float4
+// columns of each row swizzled (swizzle_bits)
 template <typename W>
 __device__ void load_slice(float* ws, int K, int nc, int p, W w) {
+  const int bits = swizzle_bits(p);
   for (int i = threadIdx.x; i < K * p; i += kThreads) {
-    const int k = i / p, c = i - k * p;
+    const int k = i / p;
+    int c = i - k * p;
+    c = ((c >> 2) ^ swizzle(k, bits)) << 2 | (c & 3);
     ws[i] = c < nc ? w(k, c) : 0.0f;
   }
 }
@@ -210,11 +235,13 @@ __device__ void load_slice(float* ws, int K, int nc, int p, W w) {
 // c < nc, handed to emit(b, c, out) once each. Warp passes of kSB streams x
 // kNC columns with lanes along k; where the passes are fewer than the warps,
 // ks warps share one pass, splitting k, and are summed in a fixed order
-// through `red`. Block-uniform arguments: it holds __syncthreads.
+// through `red`. ws as load_slice lays it out. Block-uniform arguments: it
+// holds __syncthreads.
 template <typename X, typename Emit>
 __device__ void product(int nb, int K, int nc, const float* ws, int p, X x,
                         Emit emit, float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bits = swizzle_bits(p);
   const int groups = (nb + kSB - 1) / kSB;
   int ks = 1;
   while (ks < kWarps && groups * ks * 2 <= kWarps) ks *= 2;
@@ -232,11 +259,12 @@ __device__ void product(int nb, int K, int nc, const float* ws, int p, X x,
           for (int s = 0; s < kSB; ++s)
             xv[s] = b0 + s < nb ? x(b0 + s, k) : 0.0f;
           const float4* wr =
-              reinterpret_cast<const float4*>(ws + (size_t)k * p + c0);
+              reinterpret_cast<const float4*>(ws + (size_t)k * p);
+          const int swz = swizzle(k, bits);
 #pragma unroll
           for (int q = 0; q < kNC / 4; ++q) {
             if (c0 + 4 * q >= nc) break;
-            const float4 w = wr[q];
+            const float4 w = wr[((c0 >> 2) + q) ^ swz];
 #pragma unroll
             for (int s = 0; s < kSB; ++s) {
               float* a = acc + s * kNC + 4 * q;
@@ -342,7 +370,7 @@ __global__ void __launch_bounds__(kThreads) greedy_frame_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int G = gridDim.x, g = blockIdx.x, tid = threadIdx.x;
   const int B = a.B, J = a.J, V = a.V, E = a.E, L = a.L, H = a.H, D = a.D;
-  const Layout y = make_layout(B, J, V, E, L, H, D, G, a.bc);
+  const Layout y = make_layout(B, J, V, E, L, H, D, G, a.bc, a.pc);
   float* w_dec = smem + y.wdec;
   float* w_out = smem + y.wout;
   float* w_proj = smem + y.wproj;
@@ -546,10 +574,10 @@ extern "C" int edd_greedy_decode_blocks_per_sm(int, int, int smem,
 // All tensors fp32 except tokens (int32); logp may be null. w_ih_t, w_hh_t
 // and bias are host arrays of L device pointers. unk < 0 disables the
 // <unk> re-argmax; T = 0 copies the state. From the plan
-// (ops/decode_plan.py): `grid` blocks,
-// streams in chunks of `bc`, `smem` bytes of dynamic shared memory and the
-// scratch (`scratch_floats` floats, 16-byte aligned); a plan that disagrees
-// with this file's layout is refused.
+// (ops/decode_plan.py): `grid` blocks, streams in chunks of `bc` through
+// the products and of `pc` through the partials, `smem` bytes of dynamic
+// shared memory and the scratch (`scratch_floats` floats, 16-byte aligned);
+// a plan that disagrees with this file's layout is refused.
 extern "C" int edd_greedy_decode(
     const void* f, int T, int B, int J, const void* w_dec_t,
     const void* b_joint, const void* w_out_t, const void* b_out, int V,
@@ -558,10 +586,11 @@ extern "C" int edd_greedy_decode(
     const void* w_proj_t, const void* b_proj, int D, const void* h_dec0,
     const void* hs0, const void* cs0, void* tokens, void* logp, void* h_dec,
     void* hs, void* cs, int blank, int unk, void* scratch, long long
-    scratch_floats, int grid, int bc, int smem, void* stream) {
-  if (L < 1 || L > kMaxLayers || grid < 1 || bc < 1 || T < 0)
+    scratch_floats, int grid, int bc, int pc, int smem, void* stream) {
+  if (L < 1 || L > kMaxLayers || grid < 1 || bc < 1 || T < 0 || pc < 1 ||
+      pc > kPartChunk || pc > B)
     return (int)cudaErrorInvalidValue;
-  const Layout y = make_layout(B, J, V, E, L, H, D, grid, bc);
+  const Layout y = make_layout(B, J, V, E, L, H, D, grid, bc, pc);
   if ((size_t)smem < y.total * sizeof(float) ||
       (size_t)scratch_floats < y.s_total || most(V, grid) >= kNone)
     return (int)cudaErrorInvalidValue;
@@ -599,6 +628,7 @@ extern "C" int edd_greedy_decode(
   a.blank = blank;
   a.unk = unk;
   a.bc = bc;
+  a.pc = pc;
   const void* fn = reinterpret_cast<const void*>(greedy_frame_kernel);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

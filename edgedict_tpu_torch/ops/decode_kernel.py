@@ -120,14 +120,13 @@ def card_plan(cache, f, hs):
 @functools.lru_cache(maxsize=None)
 def _card_plan(index, b, j, v, e, n_layers, hid, d):
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    smem, _ = decode_plan.layout_floats(
-        b, j, v, e, n_layers, hid, d, decode_plan.BLOCKS_PER_SM * sms,
-        min(b, decode_plan.STREAM_CHUNK))
-    n = 0
-    if 4 * smem <= decode_plan.SMEM_PER_BLOCK:
-        n = rnn_bwd.card_blocks_per_sm('edd_greedy_decode_blocks_per_sm',
-                                       index, 0, False, 4 * smem)
-    return decode_plan.decode_plan(b, j, v, e, n_layers, hid, d, sms, n)
+    args = (b, j, v, e, n_layers, hid, d, sms)
+    # the layout first (ValueError where none fits), then the blocks of its
+    # size one SM of this card holds
+    plan = decode_plan.decode_plan(*args, decode_plan.BLOCKS_PER_SM)
+    n = rnn_bwd.card_blocks_per_sm('edd_greedy_decode_blocks_per_sm', index,
+                                   0, False, plan.smem)
+    return decode_plan.decode_plan(*args, n)
 
 
 @_build.on_tensor_device
@@ -181,7 +180,8 @@ def greedy_frame_loop(cache, f, h_dec, hs, cs, blank, unk, emit_logp=False):
         p(cache['b_proj']), d, p(h_dec), p(hs), p(cs), p(tokens), p(logp),
         p(h_out), p(hs_out), p(cs_out), int(blank),
         -1 if unk is None else int(unk), p(scratch), plan.scratch_floats,
-        plan.blocks, plan.stream_chunk, plan.smem, _build.stream_ptr(dev)),
+        plan.blocks, plan.stream_chunk, plan.part_chunk, plan.smem,
+        _build.stream_ptr(dev)),
         'greedy_decode')
     greedy_frame_loop.launches += 1
     return tokens, logp, h_out, hs_out, cs_out

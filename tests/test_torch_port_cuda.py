@@ -7,7 +7,9 @@ B=32 T=297 and the raw fine-tune's K1/K4 bf16 at T=1597, K7-K10 at its
 B=32 T=1597 U+1=65 lattice and K3 at its eval; K7/K8 in fp32
 (FFMA products) and bf16 (tensor cores) at the E6D2 step, fp32 also at the
 evals' B=32 T=214 U+1=65 and B=4 T=1437 U+1=33, K3's one launch
-over the card at B up to 256, K9/K10), K11's tiled kernels, the launch
+over the card at B up to 256, also at E6D2_LARGE_Batch's widths (2 x 512
+prediction net, projection 640: chunks cut to the bytes) at B = 1, 4, 64, 256
+with the cross-slice tie and NaN, K9/K10), K11's tiled kernels, the launch
 plans' refusals, plus the
 streaming decoder, a GRU train step, a wav2vec pretraining step and a raw
 fine-tune step on CUDA against the CPU, the trainer's side-stream batch
@@ -723,11 +725,12 @@ def test_k7_resident_path_is_one_launch(cuda):
     assert len(names) == 1 and 'joint_lse_fwd_mma_kernel' in names[0]
 
 
-def _k3_model(cuda, blank_bias, seed=1):
+def _k3_model(cuda, blank_bias, seed=1, hid=256, d=256):
     """E6D2's joint and prediction net (V 2048, J 640, 2 x 256 LSTM, D 256,
-    E 64) with seeded random weights; blank biased by `blank_bias`, and
-    <unk> (3) by 4 where blank is not."""
-    cfg, model = _decoder_model(cuda, 2048, 640, 256, 64, 256, 2, seed)
+    E 64; E6D2_LARGE_Batch's with hid 512, d 640) with seeded random
+    weights; blank biased by `blank_bias`, and <unk> (3) by 4 where blank
+    is not."""
+    cfg, model = _decoder_model(cuda, 2048, 640, d, 64, hid, 2, seed)
     with torch.no_grad():
         model.joint.out.bias[0] += blank_bias
         model.joint.out.bias[3] += 0.0 if blank_bias else 4.0
@@ -778,11 +781,24 @@ def test_k3_cross_slice_tie_and_nan(cuda, case):
     """Column 100 (another block's slice) made equal to column 5 and both
     lifted: the token is 5 every frame; a NaN logit at column 2000 (a
     later slice) is the token every frame with a NaN log-prob."""
-    cfg, model = _k3_model(cuda, 0.0)
+    _k3_cross_slice(cuda, case, 256, 256)
+
+
+@pytest.mark.parametrize('case', ['tie', 'nan'])
+def test_k3_large_cross_slice_tie_and_nan(cuda, case):
+    """The same at E6D2_LARGE_Batch's widths."""
+    _k3_cross_slice(cuda, case, 512, 640)
+
+
+def _k3_cross_slice(cuda, case, hid, d):
+    cfg, model = _k3_model(cuda, 0.0, hid=hid, d=d)
     cache = K3.build_decode_cache(model)
     plan = K3.card_plan(cache, torch.zeros(1, 3, 640, device=cuda),
-                        torch.zeros(2, 3, 256, device=cuda))
+                        torch.zeros(2, 3, hid, device=cuda))
     from edgedict_tpu_torch.ops import decode_plan as DP
+    assert plan.smem == 4 * DP.layout_floats(
+        3, 640, 2048, 64, 2, hid, d, plan.blocks, plan.stream_chunk,
+        plan.part_chunk)[0]
     slice_of = [g for g in range(plan.blocks)
                 if DP.split(2048, g, plan.blocks) <= 100
                 < DP.split(2048, g + 1, plan.blocks)]
@@ -801,6 +817,31 @@ def test_k3_cross_slice_tie_and_nan(cuda, case):
     _k3_check(out, ref)
     assert (out[0] == want).all()
     assert torch.isnan(out[1]).all() == (case == 'nan')
+
+
+@pytest.mark.parametrize('blank_bias', [0.0, 1.8, 6.0])
+@pytest.mark.parametrize('b,t', [(1, 1), (1, 16), (4, 1), (4, 214), (64, 1),
+                                 (64, 16), (256, 1), (256, 16)])
+def test_k3_large_matches_plain(cuda, b, t, blank_bias):
+    """K3 at E6D2_LARGE_Batch's widths (2 x 512 prediction net, projection
+    640, J 640, V 2048, E 64): B = 1 (a stream), 4 (its eval batch,
+    T = 214 a whole utterance), 64 and 256 (servers; at 256 the partials'
+    and the stream chunk cut to the bytes left: 8 and 160); tokens equal to
+    the plain loop's, log-probs and state within 1e-4, one launch."""
+    cfg, model = _k3_model(cuda, blank_bias, hid=512, d=640)
+    cache = K3.build_decode_cache(model)
+    args = (cache, *_k3_args(cuda, cfg, model, b, t, b + t), 0, 3, True)
+    plan = K3.card_plan(cache, args[1], args[3])
+    assert (plan.part_chunk, plan.stream_chunk) == (
+        (8, 160) if b == 256 else (min(b, 16), b))
+    before = K3.greedy_frame_loop.launches
+    out = K3.greedy_frame_loop(*args)
+    assert K3.greedy_frame_loop.launches == before + 1
+    ref = K3.greedy_frame_loop_plain(*args)
+    _k3_check(out, ref)
+    assert not (out[0] == 3).any()
+    if blank_bias == 6.0:
+        assert (out[0] == 0).all()
 
 
 def _lattice_case(cuda, b, t, u1, edge):
