@@ -287,7 +287,32 @@ Phases, each printing JSON or text lines:
              through each preset's mel tables, K3 on each eval's own first
              call (LARGE B=4, E4D1 B=2), K7 / K8 at J=640 / 256, V=2048,
              K9 / K10 at the runs' own lengths
- 39 launches every kernel launched by the main paths themselves: the counts
+ 39 defaults_slice  the flags' defaults, no flagfile (MFCC of 80 over 128
+             mels, n_fft 400, hop 200; 4 x 600 LSTM encoder, 2 x 150
+             prediction net, joint 512; seeded random weights) at the
+             character vocabulary of the 8-14 s corpus (31):
+             StreamingDecoder.decode_wav of the slice's 4 s in 75 ms chunks
+             of 1,400 samples, cuda fp32 == the CPU run token for token,
+             bf16 agreement, per-chunk ms, K2's plan at the chunk, K3's at
+             B=1; the measured decode's kernel shapes recorded
+ 40 defaults_server  StreamServer over MultiStreamDecoder at the defaults,
+             8 and 64 streams, as large_server
+ 41 defaults_train_run  the Trainer at the defaults (batch 8 as one
+             micro-batch, bf16, char tokenizer, their dither and
+             SpecAugment) on the 8-14 s corpus: one warm-up and 2
+             measured steps (finite losses), the loss falling on a
+             repeated batch of 8, one --mode eval pass (K3 at B=4); the
+             kernel shapes of the steps and the eval recorded
+ 42 defaults_kernels  each kernel shape of phases 39 and 41 against its
+             plain version as in preset_kernels (K2 at n_fft 400 in both
+             splits, K1 / K4 at H=600 and 150, K3 at J=512 and V=31, K7 /
+             K8 bf16 at J=512, K9 / K10 at the character labels); then K2
+             with its device ms at a chunk and at 8 x 14 s, n_fft 400
+             beside E6D2's 512
+ 43 server_int8_gru  cli/serve.py --quantize int8 --enc_type GRU at 64
+             streams (E6D2 widths): 4 clients of 3 s, each transcript ==
+             its own single-stream CPU int8 decode_wav
+ 44 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -329,7 +354,10 @@ Phases, each printing JSON or text lines:
              and K8 once a vocabulary slice; the LARGE and E4D1 decodes
              K2 and K3 once and K1 once per encoder layer a chunk, their
              steps and eval passes as train_run's; the LARGE servers one
-             K2 and six K1 per K3 launch (a round), no other kernel)
+             K2 and six K1 per K3 launch (a round), no other kernel; the
+             defaults' decode, servers, steps and eval as LARGE's (four K1
+             a chunk or round); the int8 GRU server one K2 and K3, 7 tiled
+             K11 and 6 K13 a round, no other kernel)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -2081,14 +2109,15 @@ def serving_kernels_q(torch, rng, dev, record):
     return tile_cases
 
 
-def _e6d2(flagfile='flagfiles/E6D2.txt'):
-    """(TransducerConfig at V=2048, streaming FeatureConfig) of a bundled
-    flagfile (E6D2's by default)."""
+def _e6d2(flagfile='flagfiles/E6D2.txt', vocab=2048):
+    """(TransducerConfig at `vocab` ids, streaming FeatureConfig) of a
+    bundled flagfile (E6D2's by default; None: the flags' own defaults)."""
     from edgedict_tpu_torch import config as C
+    argv = [f'--flagfile={REPO}/{flagfile}'] if flagfile else []
     flags = C.parse_flags(C.add_model_flags(argparse.ArgumentParser()),
-                          [f'--flagfile={REPO}/{flagfile}'])
+                          argv)
     feat = C.feature_config_from_flags(flags, pad_to_divisible=False)
-    cfg = C.transducer_config_from_flags(flags, 2048, feat.input_size)
+    cfg = C.transducer_config_from_flags(flags, vocab, feat.input_size)
     return cfg, feat
 
 
@@ -2160,10 +2189,11 @@ def _first_divergence(torch, model, cfg, feat, tok, audio, a, b):
 
 
 def _decode(model, cfg, feat, tok, audio, device, dtype=None, quantize=None,
-            count=None):
+            count=None, shapes=None):
     """A warm-up decode_wav, then the measured one → (decoder, tokens);
     with `count`, the launch counts of the measured decode alone go to
-    STATE['launches_' + count]."""
+    STATE['launches_' + count]; with `shapes` (a context of
+    _recorded_shapes), its kernels' shapes too."""
     from edgedict_tpu_torch import stream as S
     dec = S.StreamingDecoder(model, cfg, feat, tok, device=device,
                              compute_dtype=dtype, quantize=quantize)
@@ -2171,7 +2201,8 @@ def _decode(model, cfg, feat, tok, audio, device, dtype=None, quantize=None,
     dec.reset_profile()
     if count:
         _reset_launches()
-    dec.decode_wav(audio)
+    with shapes or contextlib.nullcontext():
+        dec.decode_wav(audio)
     if count:
         STATE['launches_' + count] = _launches()
         STATE['chunks_' + count] = len(dec.elapsed)
@@ -5545,20 +5576,23 @@ LARGE_STEPS = (2, 3)            # warm-up, measured train steps
 E4D1_STEPS = 2
 
 
-def _preset_slice(torch, flagfile, phase, run):
+def _preset_slice(torch, flagfile, phase, run, tok=None, shapes=None):
     """A bundled preset's StreamingDecoder (seeded random weights, as
     cli.stream builds it: step_n_frame 2) over the slice's 4 s: cuda fp32
     == the CPU run token for token, its launches (run) exactly K2 and K3
     once and K1 once per encoder layer a chunk; cuda bf16 agreement and
-    per-chunk ms → (model, cfg, feat, the phase's record)."""
+    per-chunk ms → (model, cfg, feat, the phase's record).  flagfile None:
+    the flags' defaults; tok: its tokenizer (else one of V = 2048);
+    shapes: a _recorded_shapes context for the measured cuda fp32 decode."""
     from edgedict_tpu_torch.cli.profile_stream import (
         StandInTokenizer, synthetic_audio)
     from edgedict_tpu_torch.models import transducer as T
-    cfg, feat = _e6d2(flagfile)
-    tok = StandInTokenizer(cfg.vocab_size)
+    cfg, feat = _e6d2(flagfile, tok.vocab_size if tok else 2048)
+    tok = tok or StandInTokenizer(cfg.vocab_size)
     model = T.Transducer(cfg, device='cpu', seed=0)
     audio = synthetic_audio(0)
-    cuda32, tok32 = _decode(model, cfg, feat, tok, audio, 'cuda', count=run)
+    cuda32, tok32 = _decode(model, cfg, feat, tok, audio, 'cuda', count=run,
+                            shapes=shapes)
     cpu32, tok_cpu = _decode(model, cfg, feat, tok, audio, 'cpu')
     cuda16, tok16 = _decode(model, cfg, feat, tok, audio, 'cuda',
                             torch.bfloat16)
@@ -5566,8 +5600,9 @@ def _preset_slice(torch, flagfile, phase, run):
     STATE.setdefault('run_expect', {})[run] = _expect(
         mel_power=n, greedy_decode=n, lstm_fwd=cfg.enc_layers * n)
     equal = tok32.shape == tok_cpu.shape and bool((tok32 == tok_cpu).all())
-    res = {'phase': phase, 'config': flagfile,
+    res = {'phase': phase, 'config': flagfile or 'the flags\' defaults',
            'params': sum(p.numel() for p in model.parameters()),
+           'vocab': cfg.vocab_size,
            'weights': 'random, seed 0', 'audio_s': len(audio) / 16000,
            'chunk_s': cuda32.hop_size / 16000, 'frames': int(tok32.size),
            'nonblank_frames': int((tok32 != 0).sum()), 'chunks': n,
@@ -5604,21 +5639,27 @@ def phase_large_slice(torch):
 
 def phase_large_server(torch):
     """StreamServer over MultiStreamDecoder at E6D2_LARGE_Batch, 8 and 64
-    streams, as cli/serve.py builds it; 4 concurrent clients of 3 s, each
-    transcript (one character a token) == its own single-stream CPU
-    decode_wav; every K3 launch of the rounds at B = the streams (the
-    shape spies); its launches (checked with the others) one K2 and one
-    K1 per encoder layer a K3 launch, no other kernel."""
-    from edgedict_tpu_torch import stream as S
-    from edgedict_tpu_torch.cli.profile_stream import (
-        StandInTokenizer, synthetic_audio)
+    streams: _preset_servers."""
+    from edgedict_tpu_torch.cli.profile_stream import StandInTokenizer
     model, cfg, feat = STATE['large']
-    tok = StandInTokenizer(cfg.vocab_size)
+    _preset_servers(torch, 'large_server', LARGE, model, cfg, feat,
+                    StandInTokenizer(cfg.vocab_size))
+
+
+def _preset_servers(torch, phase, config, model, cfg, feat, tok):
+    """StreamServer over MultiStreamDecoder, 8 and 64 streams
+    (LARGE_SERVERS), as cli/serve.py builds it; 4 concurrent clients of 3
+    s, each transcript == its own single-stream CPU decode_wav; every K3
+    launch of the rounds at B = the streams (the shape spies); its
+    launches (checked with the others) one K2 and one K1 per encoder layer
+    a K3 launch, no other kernel."""
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.cli.profile_stream import synthetic_audio
     audios = [synthetic_audio(10 + i, seconds=3.0) for i in range(4)]
     single = S.StreamingDecoder(model, cfg, feat, tok, device='cpu')
     expected = [single.decode_wav(a) for a in audios]
     for n in LARGE_SERVERS:
-        run = f'large_server_{n}'
+        run = f'{phase}_{n}'
         dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=n,
                                    device='cuda')
         logs = {}
@@ -5632,7 +5673,7 @@ def phase_large_server(torch):
         k3_batches = sorted({key[0] for key in
                              logs['greedy_decode']['keys']})
         match = [r == e for r, e in zip(results, expected)]
-        res = {'phase': 'large_server', 'config': LARGE, 'n_streams': dec.n,
+        res = {'phase': phase, 'config': config, 'n_streams': dec.n,
                'clients': len(audios), 'rounds': server.rounds,
                'round_ms_mean': 1e3 * float(np.mean(dec.elapsed)),
                'k3_batches': k3_batches, 'launches': c,
@@ -5645,24 +5686,35 @@ def phase_large_server(torch):
                 f'{run}: K3 ran {n_k3} times at B={k3_batches}')
 
 
+def _short_corpus():
+    """The corpus of 128 utterances of 8-14 s (and 8 to evaluate) that
+    LARGE and the flags' defaults train on (their --audio_max_length 14),
+    written once beside the train_run corpus → its root."""
+    tmp, _ = _train_corpus()
+    root = os.path.join(tmp, 'large')
+    if not os.path.isdir(root):
+        train_texts, eval_texts = _corpus_texts(128, 8, seed=1)
+        _synthetic_corpus(os.path.join(root, 'train'), train_texts, 300,
+                          hi=14.0)
+        _synthetic_corpus(os.path.join(root, 'test'), eval_texts, 700,
+                          hi=14.0)
+    return root
+
+
 def _preset_trainer(torch, flagfile, name):
-    """The port's Trainer from a bundled flagfile, built as cli/baseline.py
-    builds it, on the smoke's synthetic corpus (LARGE: its own, of 128
-    utterances within the preset's 14 s); the cwd is the corpus root (its
-    BPE-2048/), restored by the caller → (trainer, argv, flags)."""
+    """The port's Trainer from a bundled flagfile (None: the flags'
+    defaults), built as cli/baseline.py builds it, on the smoke's synthetic
+    corpus (LARGE and the defaults: _short_corpus, within their 14 s); the
+    cwd is the corpus root (its BPE-2048/), restored by the caller →
+    (trainer, argv, flags)."""
     from edgedict_tpu_torch.cli import baseline
     from edgedict_tpu_torch.config import parse_flags
     from edgedict_tpu_torch.trainer import Trainer
     tmp, base = _train_corpus()
-    argv = [f'--flagfile={REPO}/{flagfile}'] + base[1:]
-    if flagfile == LARGE:
-        root = os.path.join(tmp, 'large')
-        if not os.path.isdir(root):
-            train_texts, eval_texts = _corpus_texts(128, 8, seed=1)
-            _synthetic_corpus(os.path.join(root, 'train'), train_texts, 300,
-                              hi=14.0)
-            _synthetic_corpus(os.path.join(root, 'test'), eval_texts, 700,
-                              hi=14.0)
+    argv = ([f'--flagfile={REPO}/{flagfile}'] if flagfile else []) \
+        + base[1:]
+    if flagfile in (LARGE, None):
+        root = _short_corpus()
         argv[argv.index('--LibriSpeech_train_100') + 1] = os.path.join(
             root, 'train')
         argv[argv.index('--LibriSpeech_test') + 1] = os.path.join(root,
@@ -5673,18 +5725,19 @@ def _preset_trainer(torch, flagfile, name):
     return Trainer(flags), argv, flags
 
 
-def _preset_shapes(run):
+def _preset_shapes(run, store='preset_shapes'):
     """_recorded_shapes of one run of the preset phases, into
-    STATE['preset_shapes'][run] (phase_preset_kernels checks them)."""
-    return _recorded_shapes(
-        STATE.setdefault('preset_shapes', {}).setdefault(run, {}))
+    STATE[store][run] (phase_preset_kernels checks 'preset_shapes',
+    phase_defaults_kernels 'defaults_shapes')."""
+    return _recorded_shapes(STATE.setdefault(store, {}).setdefault(run, {}))
 
 
-def _preset_train(torch, trainer, run, warm, measured):
+def _preset_train(torch, trainer, run, warm, measured,
+                  store='preset_shapes'):
     """warm + measured run_steps over the trainer's loader (endless), the
     measured ones' launches to STATE['launches_' + run] with what their
-    micro-steps imply and their kernels' shapes recorded (_preset_shapes)
-    → (step ms, audio s/s, losses, the last batch)."""
+    micro-steps imply and their kernels' shapes recorded (_preset_shapes
+    into STATE[store]) → (step ms, audio s/s, losses, the last batch)."""
     def batches():
         while True:
             yield from trainer.loader
@@ -5693,7 +5746,7 @@ def _preset_train(torch, trainer, run, warm, measured):
         float(trainer.run_step(next(it))['loss'])
     _reset_launches()
     times, audio_s, losses = [], [], []
-    with _preset_shapes(run):
+    with _preset_shapes(run, store):
         for _ in range(measured):
             batch = next(it)
             torch.cuda.synchronize()
@@ -5708,14 +5761,15 @@ def _preset_train(torch, trainer, run, warm, measured):
     return times, audio_s, losses, batch
 
 
-def _preset_eval(torch, argv, run, eval_batch):
+def _preset_eval(torch, argv, run, eval_batch, store='preset_shapes'):
     """One cli.baseline --mode eval pass, its launches exactly what
     evaluate() implies, every K3 launch at B = eval_batch (the shape
-    spies, _preset_shapes) → its val_loss line and eval batches."""
+    spies, _preset_shapes into STATE[store]) → its val_loss line and eval
+    batches."""
     from edgedict_tpu_torch.cli import baseline
     lines = []
     _reset_launches()
-    with _preset_shapes(run):
+    with _preset_shapes(run, store):
         evaluated = baseline.main(argv + ['--mode', 'eval'],
                                   log_fn=lines.append)
         torch.cuda.synchronize()
@@ -5726,7 +5780,7 @@ def _preset_eval(torch, argv, run, eval_batch):
     require(bool(val) and np.isfinite(float(val[0].split()[1])),
             f'{run}: eval printed no finite val_loss: {lines}')
     k3 = sorted({key[0] for key in
-                 STATE['preset_shapes'][run]['greedy_decode']['keys']})
+                 STATE[store][run]['greedy_decode']['keys']})
     require(k3 == [eval_batch], f'{run}: K3 ran at B={k3}')
     return val[0], len(list(evaluated.eval_loader))
 
@@ -5883,6 +5937,172 @@ def phase_preset_kernels(torch):
                    np.random.RandomState(21))
 
 
+DEFAULTS = None                 # no flagfile: the flags' own defaults
+DEFAULTS_STEPS = (1, 2)         # warm-up, measured train steps
+
+
+def _defaults_tokenizer():
+    """The character tokenizer of _short_corpus's training texts (the
+    defaults' --tokenizer char), built into the smoke's temp dir."""
+    from edgedict_tpu_torch.tokenizer import CharTokenizer
+    tmp, _ = _train_corpus()
+    tok = CharTokenizer(os.path.join(tmp, 'char_defaults'))
+    tok.build(_corpus_texts(128, 8, seed=1)[0])
+    return tok
+
+
+def phase_defaults_slice(torch):
+    """The flags' defaults (no flagfile: MFCC of 80 over 128 mels, n_fft
+    400, hop 200, 4 x 600 LSTM encoder, 2 x 150 prediction net, joint 512)
+    at the character vocabulary of the 8-14 s corpus: _preset_slice (75 ms
+    chunks of 1,400 samples; cuda fp32 == CPU; K2, K3 once and K1 four
+    times a chunk), the measured decode's kernel shapes recorded, K2's
+    plan at the chunk and K3's at B=1."""
+    import dataclasses
+
+    from edgedict_tpu_torch.ops import decode_kernel as K3
+    from edgedict_tpu_torch.ops import features_plan as KP
+    tok = _defaults_tokenizer()
+    model, cfg, feat, res = _preset_slice(
+        torch, DEFAULTS, 'defaults_slice', 'defaults_decode', tok,
+        _preset_shapes('defaults_decode', 'defaults_shapes'))
+    require((cfg.enc_layers, cfg.enc_hidden_size, cfg.dec_hidden_size,
+             cfg.joint_size, feat.feature_type, feat.n_fft,
+             feat.hop_length) == (4, 600, 150, 512, 'mfcc', 400, 200),
+            f'the flags\' defaults changed: {cfg}, {feat}')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res['k2_plan'] = dataclasses.asdict(KP.mel_plan(
+        1, 1400, feat.n_fft, feat.hop_length, feat.mfcc_n_mels, sms))
+    res['k3_plan'] = dataclasses.asdict(K3.card_plan(
+        K3.build_decode_cache(model),
+        torch.zeros(1, 1, cfg.joint_size, device='cuda'),
+        torch.zeros(cfg.dec_layers, 1, cfg.dec_hidden_size, device='cuda')))
+    emit(res)
+    STATE['defaults'] = (model, cfg, feat, tok)
+
+
+def phase_defaults_server(torch):
+    """cli.serve's StreamServer at the flags' defaults, 8 and 64 streams:
+    _preset_servers."""
+    model, cfg, feat, tok = STATE['defaults']
+    _preset_servers(torch, 'defaults_server', 'the flags\' defaults', model,
+                    cfg, feat, tok)
+
+
+def phase_defaults_train_run(torch):
+    """The Trainer at the flags' defaults (batch 8, one micro-batch, bf16,
+    char tokenizer, dither and SpecAugment as the defaults set them) on
+    _short_corpus's 8-14 s utterances: one warm-up and 2 measured steps
+    (finite losses, step ms, audio-s/s), the loss falling on a repeated
+    batch of 8, one --mode eval pass (K3 at B=4); both runs' kernel shapes
+    recorded."""
+    cwd = os.getcwd()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer, argv, flags = _preset_trainer(torch, DEFAULTS, 'defaults')
+        require((flags.batch_size, trainer.accum_steps, flags.bf16,
+                 flags.tokenizer, flags.audio_max_length,
+                 flags.eval_batch_size) == (8, 1, True, 'char', 14, 4),
+                f'defaults trainer: batch {flags.batch_size}, accum '
+                f'{trainer.accum_steps}, bf16 {flags.bf16}, tokenizer '
+                f'{flags.tokenizer}')
+        times, audio_s, losses, batch = _preset_train(
+            torch, trainer, 'defaults_train', *DEFAULTS_STEPS,
+            store='defaults_shapes')
+        fall = _repeated_batch_losses(trainer, batch, 8)
+        res = {'phase': 'defaults_train_run',
+               'config': 'the flags\' defaults',
+               'params': sum(p.numel() for p in
+                             trainer.state.model.parameters()),
+               'vocab': trainer.tokenizer.vocab_size,
+               'batch_size': flags.batch_size,
+               'utterances': len(trainer.train_dataset),
+               'batch_audio_s': [float(a) for a in audio_s],
+               'step_ms': [1e3 * x for x in times],
+               'audio_s_per_s': [a / x for a, x in zip(audio_s, times)],
+               'losses': losses, 'repeated_batch_losses': fall,
+               'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
+        trainer.save()
+        del trainer
+        res['eval'], res['eval_batches'] = _preset_eval(
+            torch, argv, 'defaults_train_eval', flags.eval_batch_size,
+            'defaults_shapes')
+    finally:
+        os.chdir(cwd)
+    emit(res)
+    require(all(np.isfinite(losses)), f'a defaults train loss is not '
+                                      f'finite: {losses}')
+    require(fall[-1] < fall[0], f'the defaults\' loss did not fall: {fall}')
+
+
+def phase_defaults_kernels(torch):
+    """Each kernel that the defaults' decode, train steps and eval
+    launched against its plain version at the shapes those runs gave it
+    (recorded_cases: K2 at n_fft 400 in both splits through the defaults'
+    MFCC tables, K1 / K4 at H=600 and 150, K3 at J=512 and the character
+    vocabulary, K7 / K8 bf16 at J=512, K9 / K10 at the character labels);
+    then K2's device ms by torch.profiler at the chunk (B=1) and the train
+    batch (B=8 x 14 s), n_fft 400 beside E6D2's 512 at the same shapes."""
+    from edgedict_tpu_torch import features as F
+    recorded_cases(torch, 'defaults_kernels', STATE['defaults_shapes'],
+                   np.random.RandomState(23))
+    record, dev = STATE['record'], torch.device('cuda')
+    rng = np.random.RandomState(230)
+    feat = STATE['defaults'][2]
+    _, e6d2 = _e6d2()
+    for cfg in (feat, e6d2):
+        tables = F.FeaturePipeline(cfg, dev).tables
+        for b, length in ((1, 1400), (8, 224000)):
+            mel_case(torch, rng, dev, record, tables, b, length,
+                     profiled=True)
+
+
+def phase_server_int8_gru(torch):
+    """cli.serve --quantize int8 --enc_type GRU at 64 streams (E6D2 widths,
+    seeded random weights), StreamServer over MultiStreamDecoder as
+    cli/serve.py builds it; 4 concurrent clients of 3 s, each transcript
+    == its own single-stream CPU int8 decode_wav; its launches one K2 and
+    one K3 a round, K13 once per encoder layer a round at B = 64 and K11
+    on its tiled kernel for every x_proj and the projection, no other
+    kernel."""
+    import dataclasses
+
+    from edgedict_tpu_torch import stream as S
+    from edgedict_tpu_torch.cli.profile_stream import (
+        StandInTokenizer, synthetic_audio)
+    from edgedict_tpu_torch.models import transducer as T
+    cfg, feat = _e6d2()
+    cfg = dataclasses.replace(cfg, module_type='GRU')
+    tok = StandInTokenizer(cfg.vocab_size)
+    model = T.Transducer(cfg, device='cpu', seed=0)
+    audios = [synthetic_audio(10 + i, seconds=3.0) for i in range(4)]
+    single = S.StreamingDecoder(model, cfg, feat, tok, device='cpu',
+                                quantize='int8')
+    expected = [single.decode_wav(a) for a in audios]
+    dec = S.MultiStreamDecoder(model, cfg, feat, tok, n_streams=64,
+                               device='cuda', quantize='int8')
+    run = 'server_int8_gru'
+    results, server = _serve(torch, dec, audios, run)
+    c = STATE['launches_' + run]
+    n = c['greedy_decode']
+    per_round = DECODE_RUNS['decode_wav_gru_int8']
+    STATE.setdefault('run_expect', {})[run] = _expect(
+        mel_power=n, greedy_decode=n, gru_fwd_q=per_round['gru_fwd_q'] * n,
+        quant_matmul=per_round['quant_matmul'] * n,
+        quant_matmul_tile=per_round['quant_matmul'] * n)
+    match = [r == e for r, e in zip(results, expected)]
+    emit({'phase': run, 'config': 'flagfiles/E6D2.txt --enc_type GRU '
+                                  '--quantize int8',
+          'n_streams': dec.n, 'clients': len(audios),
+          'rounds': server.rounds,
+          'round_ms_mean': 1e3 * float(np.mean(dec.elapsed)),
+          'launches': c, 'transcripts_match_cpu': match,
+          'transcript_chars': [len(r or '') for r in results]})
+    require(all(match), f'{run}: a transcript differs from the CPU int8 '
+                        'decode_wav')
+    require(n > 0, f'{run}: no round ran')
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -6034,7 +6254,12 @@ def main():
               ('large_kernels', phase_large_kernels),
               ('large_train_run', phase_large_train_run),
               ('e4d1', phase_e4d1),
-              ('preset_kernels', phase_preset_kernels))
+              ('preset_kernels', phase_preset_kernels),
+              ('defaults_slice', phase_defaults_slice),
+              ('defaults_server', phase_defaults_server),
+              ('defaults_train_run', phase_defaults_train_run),
+              ('defaults_kernels', phase_defaults_kernels),
+              ('server_int8_gru', phase_server_int8_gru))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

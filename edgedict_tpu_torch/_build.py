@@ -83,9 +83,10 @@ _SIGNATURES = {
     # blank, label, alpha, logz, xlen, ylen, gb, gl, B, T, U1, warps,
     # items, stream
     'edd_lattice_beta_grad': (_P,) * 8 + (_I,) * 5 + (_P,),
-    # audio, dft, mel_t, band, out, part, count, L, T, n_fft, hop, M, rg,
-    # cg, S, passes, slices, kc, tiles_per_row, span, blocks, smem, stream
-    'edd_mel_power': (_P,) * 7 + (_I,) * 15 + (_P,),
+    # audio, dft, mel_t, band, out, part, count, L, T, n_fft, hop, M, nbp,
+    # rg, cg, S, passes, slices, kc, tiles_per_row, span, blocks, smem,
+    # stream
+    'edd_mel_power': (_P,) * 7 + (_I,) * 16 + (_P,),
     # f, T, B, J, w_dec_t, b_joint, w_out_t, b_out, V, table, E,
     # L, w_ih_t[L], w_hh_t[L], bias[L], H, w_proj_t, b_proj, D,
     # h_dec0, hs0, cs0, tokens, logp, h_dec, hs, cs, blank, unk,

@@ -22,7 +22,11 @@ and at E6D2_LARGE_Batch's (2 x 512 prediction net, projection 640): B=1
 T=1 a streaming chunk, B=4 T=214 the eval batch at blank bias 1.8, the
 servers' B=64 and B=256 at T=1; LARGE's B=256 also with its partials'
 and stream chunks forced to (12, 32) and (4, 256), other splits that fit
-its block beside the plan's (8, 160).  `--only K3` runs
+its block beside the plan's (8, 160); and K2 (the mel power) with
+E6D2's featurizer (n_fft 512, hop 200, 80 mels) and the flags' defaults'
+(MFCC: n_fft 400, hop 200, 128 mels) at a streaming chunk (B=1; 1,320 and
+1,400 samples), the 64-stream server's round, the defaults' train batch
+(B=8 x 224,000) and E6D2's (B=32 x 256,000).  `--only K3` runs
 the cases of the named kernels alone.  A case the port cannot plan prints
 its error instead of times.  Prints one JSON line per case, then the
 card's `nvidia-smi --query-gpu=name,power.limit` line.  Needs a CUDA card;
@@ -141,6 +145,21 @@ def cases(dev):
                                    'blank_bias': bias, 'chunks': chunks},
                             partial(_k3_forced, chunks, cache[bias], f,
                                     *state(b))))
+    from edgedict_tpu_torch import features as F
+    from edgedict_tpu_torch.ops import features_kernel as K2
+    for config, cfg in (
+            ('E6D2', F.FeatureConfig(feature_size=80, n_fft=512,
+                                     win_length=320, hop_length=200)),
+            ('defaults', F.FeatureConfig(feature_type='mfcc',
+                                         feature_size=80, n_fft=400,
+                                         win_length=400, hop_length=200,
+                                         mfcc_n_mels=128))):
+        tables = F.FeaturePipeline(cfg, dev).tables
+        chunk = 1320 if cfg.n_fft == 512 else 1400
+        for b, n in ((1, chunk), (64, chunk), (8, 224000), (32, 256000)):
+            out.append(('K2', {'config': config, 'n_fft': cfg.n_fft, 'B': b,
+                               'samples': n},
+                        partial(K2.mel_power, t_(b, n, scale=0.1), tables)))
     return out
 
 

@@ -18,14 +18,17 @@
 // over the card or the call is one block's latency.
 //
 // Design (plan: ops/features_plan.py, which the wrapper passes in): one
-// launch per call. The DFT is a register-tiled fp32 product, FFMA and never
-// TF32 (the TPU kernel's 3-pass bf16 split, features_pallas.py:37-54, only
-// emulates fp32 on the MXU): frames x the window-folded table dft (n_fft,
-// 2 NB), [cos | sin] of NB = n_fft/2 bin pairs, pair 0's sine column
-// carrying the Nyquist cosine. A block owns a tile of R consecutive frames
-// of one batch row, staged once as one contiguous span of the padded row,
-// (R-1)·hop + n_fft samples, read from the unpadded audio with the
-// reflection done by index arithmetic (no padded copy). Its threads are
+// launch per call, any n_fft from 64 to 2048 and hop from 1 to n_fft. The
+// DFT is a register-tiled fp32 product, FFMA and never TF32 (the TPU
+// kernel's 3-pass bf16 split, features_pallas.py:37-54, only emulates fp32
+// on the MXU): frames x the window-folded table dft (rows, 2 NBP), [cos |
+// sin] of NBP bin pairs: the ceil(n_fft/2) real pairs (even n_fft: pair
+// 0's sine column carries the Nyquist cosine), then zero pairs up to whole
+// pair groups, and zero rows past n_fft up to whole stages. A block owns a
+// tile of R consecutive frames of one batch row, staged once as one
+// contiguous span of the padded row, (R-1)·hop + the rows read, from the
+// unpadded audio with the reflection done by index arithmetic (no padded
+// copy) and zeros past the padded row. Its threads are
 // (row groups x column groups x depth splits); each sums 8 frames x 4
 // pairs (cos and sin: 64 accumulators) over every S-th sample, the table's
 // slice streaming through two shared stages of 4096 floats by cp.async.
@@ -56,13 +59,14 @@ constexpr int kStage = 4096;    // floats per table stage
 
 struct MelArgs {
   const float* audio;   // (B, L) preemphasized
-  const float* dft;     // (n_fft, 2 NB)
-  const float* mel_t;   // (NB + 1, M)
+  const float* dft;     // (rows, 2 nbp)
+  const float* mel_t;   // (n_fft/2 + 1, M)
   const int* band;      // (M, 2) the bins [lo, hi) of each mel's weights
   float* out;           // (B, T, M)
   float* part;          // (blocks, R, M) partial mel tiles (split)
   int* count;           // (tiles) finished slices, 0 between calls (split)
   int L, T, n_fft, hop, M;
+  int nbp;              // the table's pairs (real ones, then zero ones)
   int passes, slices, kc, tiles_per_row, span;
 };
 
@@ -93,14 +97,15 @@ struct Place {
 // both halves) into a stage laid out as kc rows of [cos C | sin C]
 __device__ __forceinline__ void stage_chunk(const MelArgs& a, float* st,
                                             int c, int kc, int pb, int C,
-                                            int NB) {
+                                            int NBP) {
   const int per_row = C / 2;              // 16-byte units of a stage row
   const int units = kc * per_row;
   for (int u = threadIdx.x; u < units; u += kThreads) {
     const int r = u / per_row, w = u % per_row;
     const int half = w / (C / 4), col = (w % (C / 4)) * 4;
     cp_async16(st + r * 2 * C + half * C + col,
-               a.dft + (size_t)(c * kc + r) * 2 * NB + half * NB + pb + col);
+               a.dft + (size_t)(c * kc + r) * 2 * NBP + half * NBP + pb +
+                   col);
   }
   cp_async_commit();
 }
@@ -114,7 +119,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 mel_power_kernel(MelArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int R = kTR * RG, C = kTP * CG;
-  const int NB = a.n_fft / 2, M = a.M;
+  // NB: the Nyquist bin (even n_fft), nbr: the pairs that carry bins
+  const int NB = a.n_fft / 2, NBP = a.nbp, M = a.M;
+  const int nbr = (a.n_fft + 1) / 2;
+  const bool nyquist = (a.n_fft & 1) == 0;
   float* ring = smem;                     // 2 stages; then red, power
   float* span = smem + 2 * kStage;
   float* macc = span + (a.span + 3) / 4 * 4;   // (R, M)
@@ -131,7 +139,8 @@ mel_power_kernel(MelArgs a) {
     span[i] = padded(row, t0 * a.hop + i, a.L, p);
   for (int i = tid; i < R * M; i += kThreads) macc[i] = 0.0f;
 
-  const int kc = kKC ? kKC : a.kc, nchunks = a.n_fft / kc, rows = kc / S;
+  const int kc = kKC ? kKC : a.kc, nchunks = (a.n_fft + kc - 1) / kc;
+  const int rows = kc / S;
   for (int pass = 0; pass < a.passes; ++pass) {
     const int pb = (slice * a.passes + pass) * C;
     float acc[kTR][kTP][2];
@@ -139,11 +148,11 @@ mel_power_kernel(MelArgs a) {
     for (int i = 0; i < kTR; ++i)
 #pragma unroll
       for (int e = 0; e < kTP; ++e) acc[i][e][0] = acc[i][e][1] = 0.0f;
-    stage_chunk(a, ring, 0, kc, pb, C, NB);
+    stage_chunk(a, ring, 0, kc, pb, C, NBP);
     for (int c = 0; c < nchunks; ++c) {
       if (c + 1 < nchunks) {
         stage_chunk(a, ring + ((c + 1) & 1) * kStage, c + 1, kc, pb, C,
-                    NB);
+                    NBP);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -216,18 +225,20 @@ mel_power_kernel(MelArgs a) {
     }
     __syncthreads();
 
-    // the filterbank over the pass's bins inside each mel's band (the
-    // triangular filters' other weights are zero), then the Nyquist bin
-    // (its power is 0 outside pair 0's pass)
+    // the filterbank over the pass's real pairs inside each mel's band
+    // (the triangular filters' other weights are zero), then the Nyquist
+    // bin of an even n_fft (its power is 0 outside pair 0's pass)
     for (int o = tid; o < R * M; o += kThreads) {
       const int f = o / M, m = o % M;
       const int lo = max(__ldg(a.band + 2 * m), pb);
-      const int hi = min(__ldg(a.band + 2 * m + 1), pb + C);
+      const int hi = min(min(__ldg(a.band + 2 * m + 1), pb + C), nbr);
       const float* pr = power + f * C;
       float v = macc[o];
       for (int q = lo; q < hi; ++q)
         v = fmaf(pr[q - pb], __ldg(a.mel_t + (size_t)q * M + m), v);
-      macc[o] = fmaf(nyq[f], __ldg(a.mel_t + (size_t)NB * M + m), v);
+      if (nyquist)
+        v = fmaf(nyq[f], __ldg(a.mel_t + (size_t)NB * M + m), v);
+      macc[o] = v;
     }
     __syncthreads();                      // power (the ring) free again
   }
@@ -273,9 +284,10 @@ cudaError_t launch(const MelArgs& a, int blocks, int smem,
 
 }  // namespace
 
-// audio (B, L) fp32 preemphasized; dft (n_fft, n_fft) the window-folded
-// [cos | sin] pair table, mel_t (n_fft/2 + 1, M), band (M, 2) int32 the
-// bins [lo, hi) of each mel's nonzero weights; out (B, T, M). The plan
+// audio (B, L) fp32 preemphasized; dft (rows, 2 nbp) the window-folded
+// [cos | sin] pair table (zero past the real pairs and past row n_fft),
+// mel_t (n_fft/2 + 1, M), band (M, 2) int32 the bins [lo, hi) of each
+// mel's nonzero weights; out (B, T, M). The plan
 // (ops/features_plan.py): rg/cg/S the block's row groups, column groups
 // and depth splits (8/32/1 with 16 table rows a stage: many frames;
 // 1/4/64: few frames; any other is refused), `passes` and `slices` of
@@ -285,7 +297,8 @@ cudaError_t launch(const MelArgs& a, int blocks, int smem,
 extern "C" int edd_mel_power(const void* audio, const void* dft,
                              const void* mel_t, const void* band, void* out,
                              void* part, void* count, int L, int T,
-                             int n_fft, int hop, int M, int rg, int cg,
+                             int n_fft, int hop, int M, int nbp, int rg,
+                             int cg,
                              int S, int passes, int slices, int kc,
                              int tiles_per_row, int span, int blocks,
                              int smem, void* stream) {
@@ -296,8 +309,8 @@ extern "C" int edd_mel_power(const void* audio, const void* dft,
                   static_cast<float*>(out),
                   static_cast<float*>(part),
                   static_cast<int*>(count),
-                  L, T, n_fft, hop, M, passes, slices, kc, tiles_per_row,
-                  span};
+                  L, T, n_fft, hop, M, nbp, passes, slices, kc,
+                  tiles_per_row, span};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rg == 8 && cg == 32 && S == 1 && kc == 16)
     return (int)launch<8, 32, 1, 16>(a, blocks, smem, s);

@@ -26,13 +26,14 @@ from edgedict_tpu_torch.ops import features_plan
 class MelTables:
     """Per-pipeline constants on one device, all fp32: the analysis window
     zero-padded to n_fft, the mel filterbank (n_mels, n_freq), and for the
-    kernel the window-folded DFT pair table `dft` (n_fft, 2 · (n_fft //
-    2)): [cos of bins 0 .. n_fft/2 - 1 | sin of the same bins], the sine
-    column of bin 0 (zero) holding the cosine of the Nyquist bin
-    (ops/features_plan.py), the transposed filterbank (n_freq, n_mels) and
-    each mel's band (n_mels, 2) int32: the bins [lo, hi) that hold its
-    nonzero weights (0, 0 for an all-zero filter), so that the kernel skips
-    the filterbank's zeros."""
+    kernel the window-folded DFT pair table `dft` (table_rows, 2 ·
+    table_pairs) of ops/features_plan.py: [cos of the real pairs, zero
+    pairs | sin of the same, zero pairs], zero rows past n_fft, for even
+    n_fft the sine column of bin 0 (zero) holding the cosine of the
+    Nyquist bin; the transposed filterbank (n_freq, n_mels) and each mel's
+    band (n_mels, 2) int32: the bins [lo, hi) that hold its nonzero weights
+    (0, 0 for an all-zero filter), so that the kernel skips the
+    filterbank's zeros."""
     window: torch.Tensor
     mel: torch.Tensor
     dft: torch.Tensor
@@ -50,9 +51,15 @@ class MelTables:
         ang = -2.0 * np.pi * np.outer(np.arange(n_fft), np.arange(n_freq)) \
             / n_fft
         win = np.asarray(window, np.float32).astype(np.float64)[:, None]
-        nb = n_fft // 2
         cos, sin = np.cos(ang) * win, np.sin(ang) * win
-        sin[:, 0] = cos[:, nb]
+        nb = features_plan.real_pairs(n_fft)
+        if n_fft % 2 == 0:
+            sin[:, 0] = cos[:, nb]
+        dft = np.zeros((features_plan.table_rows(n_fft),
+                        2 * features_plan.table_pairs(n_fft)))
+        half = dft.shape[1] // 2
+        dft[:n_fft, :nb], dft[:n_fft, half:half + nb] = cos[:, :nb], \
+            sin[:, :nb]
         f32 = lambda a: torch.as_tensor(  # noqa: E731
             np.ascontiguousarray(a, np.float32), device=device)
         nz = np.asarray(mel, np.float32) != 0
@@ -61,8 +68,8 @@ class MelTables:
         band = torch.as_tensor(np.stack([lo, hi], 1).astype(np.int32),
                                device=device)
         return cls(window=f32(window), mel=f32(mel), mel_band=band,
-                   dft=f32(np.concatenate([cos[:, :nb], sin[:, :nb]], 1)),
-                   mel_t=f32(np.asarray(mel).T), n_fft=n_fft, hop=hop)
+                   dft=f32(dft), mel_t=f32(np.asarray(mel).T), n_fft=n_fft,
+                   hop=hop)
 
 
 def reflect_pad(x, n_fft):
@@ -80,13 +87,25 @@ def frame_signal(x, n_fft, hop_length):
 
 def stft_power(x, window, n_fft, hop_length):
     """Power spectrogram |STFT|² (B, L) → (B, T, n_fft // 2 + 1)."""
-    frames = frame_signal(x, n_fft, hop_length) * window
-    spec = torch.fft.rfft(frames.float(), dim=-1)
+    return _power(frame_signal(x, n_fft, hop_length) * window)
+
+
+def _power(frames, dtype=torch.float32):
+    spec = torch.fft.rfft(frames.to(dtype), dim=-1)
     return spec.real ** 2 + spec.imag ** 2
 
 
 def mel_power_plain(audio, tables: MelTables):
-    spec = stft_power(audio, tables.window, tables.n_fft, tables.hop)
+    """(B, L) → (B, 1 + L // hop, n_mels): frames of the reflect-padded row
+    and, for odd n_fft, one zero past it, so that every n_fft gives the
+    kernel's (and mel_power_pallas's) frame count; then stft_power's rfft
+    and |.|² and the filterbank.  In fp32, or in fp64 for fp64 audio and
+    tables (a reference for the kernel)."""
+    x = reflect_pad(audio, tables.n_fft)
+    if tables.n_fft % 2:
+        x = F.pad(x, (0, 1))
+    spec = _power(x.unfold(1, tables.n_fft, tables.hop) * tables.window,
+                  torch.promote_types(audio.dtype, torch.float32))
     return torch.einsum('btf,mf->btm', spec, tables.mel)
 
 
@@ -137,10 +156,10 @@ def mel_power(audio, tables: MelTables):
     p = _build.ptr
     _build.check(_build.library().edd_mel_power(
         p(audio), p(tables.dft), p(tables.mel_t), p(tables.mel_band), p(out),
-        p(part), p(count), length, t, n_fft, hop, n_mels, plan.row_groups,
-        plan.col_groups, plan.depth_split, plan.passes, plan.slices,
-        plan.chunk_rows, plan.tiles_per_row, plan.span, plan.blocks,
-        plan.smem,
+        p(part), p(count), length, t, n_fft, hop, n_mels,
+        tables.dft.shape[1] // 2, plan.row_groups, plan.col_groups,
+        plan.depth_split, plan.passes, plan.slices, plan.chunk_rows,
+        plan.tiles_per_row, plan.span, plan.blocks, plan.smem,
         _build.stream_ptr(dev)), 'mel_power')
     mel_power.launches += 1
     return out

@@ -105,12 +105,24 @@ def test_k1_lstm_fwd_matches_plain(cuda, hid, b, t, dtype):
     (64, 1320, 512, 200, 80), (1, 64000, 512, 200, 80),
     (8, 64000, 512, 200, 80), (32, 256000, 512, 200, 80),
     (1, 257, 512, 200, 80), (1, 1399, 512, 200, 80), (3, 999, 64, 20, 8),
+    # the padded pair table: the flags' default n_fft 400 (a 75 ms chunk
+    # of 1,400 samples; the default train batch of 8 x 14 s), 320, and
+    # the odd 511 (no Nyquist bin), in both splits
+    (1, 1400, 400, 200, 128), (8, 224000, 400, 200, 128),
+    (1, 1400, 400, 160, 80), (8, 224000, 400, 160, 80),
+    (1, 1400, 320, 80, 40), (8, 224000, 320, 80, 40),
+    (1, 1408, 511, 128, 80), (8, 224000, 511, 128, 80),
+    (1, 6000, 2048, 512, 256), (8, 224000, 2048, 2048, 80),
 ])
 def test_k2_mel_power_matches_plain(cuda, b, n, n_fft, hop, mels):
     """Both splits of ops/features_plan.py (few frames: chunks and servers;
-    many: the train step's 32 x 16 s), the shortest legal row and one off
-    the hop grid: log-mel within 5e-3 of the plain version, one launch per
-    call and the same bits on a second call."""
+    many: the train step's 32 x 16 s and 8 x 14 s), the shortest legal row,
+    one off the hop grid, n_fft 400, 320, 511 and 2048: log-mel within
+    5e-3 of the plain version computed in fp64 (on an H100 the fp32 one,
+    cuFFT, differed from the kernel by 0.10 at n_fft 511 and 8 x 224,000,
+    where the fp64 one agrees), one launch per call and the same bits on a
+    second call."""
+    import dataclasses
     cfg = F.FeatureConfig(feature_size=mels, n_fft=n_fft,
                           win_length=n_fft * 5 // 8, hop_length=hop)
     pipe = F.FeaturePipeline(cfg, cuda)
@@ -121,11 +133,26 @@ def test_k2_mel_power_matches_plain(cuda, b, n, n_fft, hop, mels):
     out = K2.mel_power(x, pipe.tables)
     again = K2.mel_power(x, pipe.tables)
     assert K2.mel_power.launches == before + 2
-    ref = K2.mel_power_plain(x, pipe.tables)
+    t = pipe.tables
+    ref = K2.mel_power_plain(x.double(), dataclasses.replace(
+        t, window=t.window.double(), mel=t.mel.double()))
     assert out.shape == ref.shape == (b, 1 + n // hop, mels)
     diff = (torch.log(out + 1e-20) - torch.log(ref + 1e-20)).abs()
     assert float(diff.max()) <= 5e-3
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize('n_fft', [63, 4096])
+def test_k2_refuses_n_fft_outside_its_plan(cuda, n_fft):
+    """No fallback: a CUDA tensor at an n_fft the plan does not place raises
+    ValueError naming mel_power, and launches nothing."""
+    cfg = F.FeatureConfig(feature_size=40, n_fft=n_fft, win_length=n_fft,
+                          hop_length=n_fft // 4)
+    pipe = F.FeaturePipeline(cfg, cuda)
+    before = K2.mel_power.launches
+    with pytest.raises(ValueError, match='mel_power'):
+        K2.mel_power(torch.zeros(1, 3 * n_fft, device=cuda), pipe.tables)
+    assert K2.mel_power.launches == before
 
 
 def test_k2_two_streams_keep_their_own_counters(cuda):
@@ -590,7 +617,8 @@ def _traced(case):
     decoder widths, B=1 T=16, ('k12', dtype name) for K12 at H=1024 B=1
     T=16, ('k13', dtype name) for K13 at the same shape, ('k9',) and
     ('k10',) for K9 and K10 at the E6D2 lattice (B=32 T=214 U+1=65),
-    ('k2',) for K2 at a 75 ms chunk."""
+    ('k2',) for K2 at a 75 ms chunk, ('k2', B, L, n_fft, hop, window) at
+    that shape."""
     import json
     import os
     import tempfile
@@ -625,9 +653,10 @@ def _traced(case):
         args = (blank, label, alpha, logz, xlen, ylen)
         fn = KL.lattice_beta_grad
     elif case[0] == 'k2':
-        cfg = F.FeatureConfig(feature_size=80, n_fft=512, win_length=320,
-                              hop_length=200)
-        x = torch.randn(1, 1320, generator=torch.Generator().manual_seed(2))
+        b, n, n_fft, hop, win = case[1:] or (1, 1320, 512, 200, 320)
+        cfg = F.FeatureConfig(feature_size=80, n_fft=n_fft, win_length=win,
+                              hop_length=hop)
+        x = torch.randn(b, n, generator=torch.Generator().manual_seed(2))
         args = (x.to(cuda), F.FeaturePipeline(cfg, cuda).tables)
         fn = K2.mel_power
     elif case[0] == 'k7':
@@ -1138,6 +1167,18 @@ def test_k2_is_one_launch_per_call(cuda):
     """One K2 call (the 75 ms chunk: the few-frame split) is one kernel
     launch on the card: no padding copy, no memset."""
     names = [n for n, _ in _kernel_events(('k2',))['kernels']]
+    assert names and all('mel_power_kernel' in n for n in names), names
+    assert len(names) == 1
+
+
+@pytest.mark.parametrize('b,n,n_fft,hop', [
+    (1, 1400, 400, 200), (8, 224000, 400, 200), (1, 1400, 400, 160),
+    (1, 1408, 511, 128), (8, 224000, 511, 128)])
+def test_k2_is_one_launch_per_call_at_any_n_fft(cuda, b, n, n_fft, hop):
+    """The padded table keeps one launch per call in both splits (the
+    flags' default n_fft 400 at a chunk and at the train batch; odd 511)."""
+    names = [name for name, _ in _kernel_events(('k2', b, n, n_fft, hop,
+                                                 n_fft))['kernels']]
     assert names and all('mel_power_kernel' in n for n in names), names
     assert len(names) == 1
 

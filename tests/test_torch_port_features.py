@@ -99,6 +99,48 @@ def test_pipeline_matches_jax(ftype, delta, cmvn, pad):
                                LOG_ATOL)
 
 
+@pytest.mark.parametrize('ftype,n', [('mfcc', 1400), ('mfcc', 5000),
+                                     ('logfbank', 1400), ('logfbank', 5000)])
+def test_pipeline_at_the_flags_defaults_matches_jax(ftype, n):
+    """The flags' default featurizer (n_fft 400, a 400-sample window, hop
+    200; MFCC of 80 over 128 mels, downsample 3) and its logfbank twin, on a
+    75 ms chunk (1,400 samples) and a ragged batch, against the JAX
+    package's pipeline."""
+    kw = dict(feature_type=ftype, feature_size=80, n_fft=400,
+              win_length=400, hop_length=200, downsample=3,
+              pad_to_divisible=n > 1400)
+    x = _audio(2, n, seed=n)
+    lens = np.array([n, n * 2 // 3], np.int32)
+    ref, ref_len = JF.FeaturePipeline(JF.FeatureConfig(**kw))(
+        jnp.asarray(x), jnp.asarray(lens), train=False)
+    out, out_len = PF.FeaturePipeline(PF.FeatureConfig(**kw), 'cpu')(
+        torch.from_numpy(x), torch.from_numpy(lens))
+    assert out.shape == ref.shape and out.shape[-1] == 240
+    np.testing.assert_array_equal(out_len.numpy(), np.asarray(ref_len))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), LOG_RTOL,
+                               LOG_ATOL)
+
+
+@pytest.mark.parametrize('n_fft,hop,n', [(511, 128, 1408), (511, 128, 1500),
+                                         (97, 20, 1000), (400, 200, 1400)])
+def test_mel_power_plain_frames_as_pallas(n_fft, hop, n):
+    """Every n_fft gives 1 + L // hop frames on the plain path, as on the
+    kernel and mel_power_pallas: for odd n_fft the reflect-padded row ends
+    one sample short of the last frame (L a multiple of the hop), which
+    both read as zero."""
+    cfg = PF.FeatureConfig(feature_size=16, n_fft=n_fft,
+                           win_length=n_fft * 5 // 8, hop_length=hop)
+    tables = _tables(cfg)
+    x = _audio(2, n, seed=n_fft)
+    ref = mel_power_pallas(jnp.asarray(x), jnp.asarray(tables.window),
+                           jnp.asarray(tables.mel), n_fft, hop)
+    out = K2.mel_power(torch.from_numpy(x), tables)
+    assert out.shape == ref.shape == (2, 1 + n // hop, 16)
+    np.testing.assert_allclose(np.log(out.numpy() + 1e-20),
+                               np.log(np.asarray(ref) + 1e-20),
+                               LOG_RTOL, LOG_ATOL)
+
+
 def test_e6d2_chunk_geometry_features():
     """An E6D2 streaming chunk (1320 samples) gives 7 STFT frames that
     stack to 2 encoder input frames of 240."""
