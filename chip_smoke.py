@@ -66,11 +66,13 @@ Phases, each printing JSON or text lines:
              T=214, bit-stable, with its device time by torch.profiler;
              then, on their own seed after every other case, a 16 s raw
              fine-tune step at E6D2's U+1 = 65 (wav2vec_kernels; the
-             wav2vec runs' own shapes are phase 19's): K1 bf16 held step
-             by step and K4 at B=32 T=1597, each beside one cuDNN layer of
-             input 128, K9/K10 and K7/K8 at B=32 T=1597 U+1=65 (the joint
-             against the plain joint by time chunks), and one library call
-             beside the shapes that had none (library_rows);
+             wav2vec runs' own shapes, timed, are phase 19's), checked and
+             not timed: K1 bf16 held step by step and K4 at B=32 T=1597,
+             K9/K10 and K7/K8 at B=32 T=1597 U+1=65 (the joint against the
+             plain joint by time chunks); then one library call beside the
+             shapes that had none (library_rows); a plain version over 100
+             ms a call is timed once before and once after the kernel; the
+             inputs of over 2^24 elements are drawn on the card;
              each kernel's bound
              (bytes once over 3.35 TB/s, or operations over the peak of
              their type, whichever is larger) from the timed inputs
@@ -110,10 +112,12 @@ Phases, each printing JSON or text lines:
              batch 32, ~20 steps: finite, falling loss, lm.ckpt written
  14 slice_beam  StreamingBeamDecoder.decode_wav (E6D2, W=4, 3 expansions a
              frame, prefix merging, 200 tokens; seeded weights made peaky,
-             see _beam_models) of the slice's 4 s without LM, with a seeded
-             LM (weight 0.2) and with quantize='int8': cuda best tokens ==
+             see _beam_models) of 2 s of seeded audio without LM, with a
+             seeded LM (weight 0.2) and with quantize='int8': cuda best
+             tokens ==
              the CPU run's, best logp within rel 1e-4, non-empty; bf16
-             agreement, the smallest prune gap, per-chunk wall ms, profiled
+             agreement, the smallest prune gap (of the warm-up decode),
+             per-chunk wall ms, profiled
              device ms and busy share; then cli.stream --beam_width 4
              --lm_path <lm_train's lm.ckpt> == decode_wav with that LM
  15 server_beam  StreamServer over MultiStreamBeamDecoder(n_streams=8,
@@ -312,7 +316,28 @@ Phases, each printing JSON or text lines:
  43 server_int8_gru  cli/serve.py --quantize int8 --enc_type GRU at 64
              streams (E6D2 widths): 4 clients of 3 s, each transcript ==
              its own single-stream CPU int8 decode_wav
- 44 launches every kernel launched by the main paths themselves: the counts
+ 44 synth_convergence  the port's synthetic-language learning run
+             (edgedict_tpu_torch/scripts/synthetic_convergence.py: tone
+             words, 3 x 128 encoder, 1 x 64 prediction net, joint 128, 40
+             log-mels at n_fft 400, hop 160, batch 16, bf16, seeded random
+             init, 256 training and 48 held-out utterances) through its
+             run() on cuda, four trainings: (a) LSTM, 400 steps, its serving
+             A/B (fp32 / bf16 / int8 held-out greedy WER), (b) the same
+             with the GRU encoder, (c) the confusable language, noise 0.06,
+             600 steps, 64 held out, beam W=4 without and with a trained LM
+             at fusion 0.8, (d) the hard language with the SNR sweep inf,
+             20, 10, 5, 0; each prints its WERs, losses, median step wall
+             ms and seconds; greedy WER under 0.3 (a, b) and 0.35 (c), the
+             beam at most 0.02 over greedy (c), and (c)'s card-trained
+             transducer and LM decoded again by the CPU's beam on the
+             card's features: its 64 hypotheses of each pass == the card's;
+             its launches exactly what its steps, evaluations, beam passes,
+             LM steps and serving legs imply (_synth_expect), every kernel
+             of its path among them
+ 45 synth_kernels  each kernel shape of those runs (recorded as they ran,
+             the GRU and int8 kernels too) against its plain version, each
+             shape once, as preset_kernels
+ 46 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -357,7 +382,8 @@ Phases, each printing JSON or text lines:
              K2 and six K1 per K3 launch (a round), no other kernel; the
              defaults' decode, servers, steps and eval as LARGE's (four K1
              a chunk or round); the int8 GRU server one K2 and K3, 7 tiled
-             K11 and 6 K13 a round, no other kernel)
+             K11 and 6 K13 a round, no other kernel; each learning run
+             what _synth_expect states)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -412,7 +438,23 @@ def set_numerics(torch):
 # timing
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def untimed():
+    """Within: the kernel cases check and do not time: time_pair,
+    _median_ms, layer_times, quant_layer_times, kernel_split_ms,
+    device_ms_per_launch and queued_ms return None (or nothing) without
+    calling; the profiler's launch checks (_profiled_us) still run.  For
+    shapes whose kernels an earlier case timed."""
+    STATE['untimed'] = True
+    try:
+        yield
+    finally:
+        STATE['untimed'] = False
+
+
 def _median_ms(torch, fn, iters=20, warmup=3):
+    if STATE.get('untimed'):
+        return None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -428,24 +470,29 @@ def _median_ms(torch, fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-# a plain version slower than this a call is timed twice, not 20 times (the
-# long cases' plain versions take seconds)
+# a plain version slower than this a call is timed once each side, not 20
+# times (the long cases' plain versions take seconds)
 LONG_PLAIN_MS = 100.0
 
 
 def time_pair(torch, plain, kernel, kernel_iters=20):
     """(kernel ms, plain ms), each the mean of two medians taken in the
     order plain, kernel, kernel, plain: medians of 20 timings (the
-    kernel's: kernel_iters) after 3 warm-up calls, the plain version's of
-    2 where one call of it (after one warm-up call) takes over
-    LONG_PLAIN_MS."""
+    kernel's: kernel_iters) after 3 warm-up calls; where one call of the
+    plain version (after one warm-up call) takes over LONG_PLAIN_MS, that
+    call is its first timing and one more call after the kernel's its
+    second.  (None, None) untimed()."""
+    if STATE.get('untimed'):
+        return None, None
     plain()
-    iters, warm = ((2, 0) if _median_ms(torch, plain, 1, 0) > LONG_PLAIN_MS
-                   else (min(20, kernel_iters), 3))
-    p1 = _median_ms(torch, plain, iters, warm)
+    p1 = _median_ms(torch, plain, 1, 0)
+    long_plain = p1 > LONG_PLAIN_MS
+    if not long_plain:
+        p1 = _median_ms(torch, plain, min(20, kernel_iters), 3)
     k1 = _median_ms(torch, kernel, kernel_iters)
     k2 = _median_ms(torch, kernel, kernel_iters)
-    p2 = _median_ms(torch, plain, iters, warm)
+    p2 = _median_ms(torch, plain, *((1, 0) if long_plain
+                                    else (min(20, kernel_iters), 3)))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -468,6 +515,22 @@ def bound(n_bytes, n_ops, kind):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+# seeded normal draws of more than this many elements are made on the card
+# (the host's draw of the long cases' inputs takes seconds)
+BIG_DRAW = 1 << 24
+
+
+def randn(torch, rng, dev, shape, scale=1.0):
+    """rng.randn(*shape) * scale as an fp32 tensor on dev; a draw of more
+    than BIG_DRAW elements comes from a torch.Generator on dev seeded from
+    rng."""
+    if int(np.prod(shape)) <= BIG_DRAW:
+        return torch.as_tensor((rng.randn(*shape) * scale)
+                               .astype(np.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+    return torch.randn(tuple(shape), generator=gen, device=dev) * scale
 
 
 def kind_of(torch, t):
@@ -733,8 +796,7 @@ def lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt, beam_step=False,
     is also timed beside one cuDNN layer of that width."""
     from edgedict_tpu_torch.ops import rnn_kernel as K1
     k = 1.0 / hid ** 0.5
-    xp = torch.as_tensor(rng.randn(t, b, 4 * hid).astype(np.float32),
-                         device=dev).to(dt)
+    xp = randn(torch, rng, dev, (t, b, 4 * hid)).to(dt)
     w = torch.as_tensor(rng.uniform(-k, k, (4 * hid, hid))
                         .astype(np.float32), device=dev).to(dt)
     h0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
@@ -803,8 +865,7 @@ def lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt, n_in=None):
     fp32 = torch.float32
 
     def t_(*shape, scale=1.0, dtype=fp32):
-        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
-                               device=dev).to(dtype)
+        return randn(torch, rng, dev, shape, scale).to(dtype)
 
     k = 1.0 / hid ** 0.5
     xp = t_(t, b, 4 * hid, dtype=dt)
@@ -876,20 +937,22 @@ RAW_U1 = 65
 def wav2vec_kernels(torch, dev, record):
     """K1, K4 and K7-K10 at a 16 s raw fine-tune step with E6D2's U+1 = 65
     (B=32 T=1597, after every other case, on their own seed), beside the
-    shapes of the runs themselves (phase_wav2vec_kernels): K1 bf16 held
-    step by step and K4, each beside one cuDNN layer of input 128; the
-    lattice (K9, K10); the joint (K7, K8) against the plain joint by time
-    chunks; then library_rows."""
+    shapes of the runs themselves (phase_wav2vec_kernels, which times
+    them at the run's B=32 T=1601 U+1=49): checked, not timed (untimed());
+    K1 bf16 held step by step, K4, the lattice (K9, K10), the joint (K7,
+    K8) against the plain joint by time chunks; then library_rows."""
     bf16 = torch.bfloat16
     rng = np.random.RandomState(13)
-    bf16_forward_case(torch, rng, dev, record, 'LSTM', 32, RAW_T, FRONTEND_C)
-    lstm_bwd_case(torch, rng, dev, record, 1024, 32, RAW_T, bf16,
-                  n_in=FRONTEND_C)
-    xlen = rng.randint(RAW_T * 3 // 4, RAW_T + 1, 32)
-    ylen = rng.randint(40, RAW_U1, 32)
-    lattice_long_cases(torch, rng, dev, record, 32, RAW_T, RAW_U1, xlen,
-                       ylen)
-    joint_long_case(torch, rng, dev, record, 32, RAW_T, RAW_U1, bf16)
+    with untimed():
+        bf16_forward_case(torch, rng, dev, record, 'LSTM', 32, RAW_T,
+                          FRONTEND_C)
+        lstm_bwd_case(torch, rng, dev, record, 1024, 32, RAW_T, bf16,
+                      n_in=FRONTEND_C)
+        xlen = rng.randint(RAW_T * 3 // 4, RAW_T + 1, 32)
+        ylen = rng.randint(40, RAW_U1, 32)
+        lattice_long_cases(torch, rng, dev, record, 32, RAW_T, RAW_U1, xlen,
+                           ylen)
+        joint_long_case(torch, rng, dev, record, 32, RAW_T, RAW_U1, bf16)
     library_rows(torch)
 
 
@@ -952,8 +1015,7 @@ def joint_long_case(torch, rng, dev, record, b, t, u1, dt, j=640, v=2048):
     chunk = 100
 
     def t_(*shape, scale=1.0):
-        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
-                               device=dev)
+        return randn(torch, rng, dev, shape, scale)
     f, g = t_(b, t, j).to(dt), t_(b, u1, j).to(dt)
     w_t, bias = t_(j, v, scale=j ** -0.5), t_(v, scale=0.1)
     labels = torch.as_tensor(rng.randint(4, v, (b, u1 - 1)).astype(np.int32),
@@ -1162,8 +1224,11 @@ def layer_times(torch, cell, hid, b, t, dt, backward, n_in=ENC_IN):
     layer function (b_hh inside the GRU's reset gate included); it is a
     layer time, the kernel's ms is the recurrence alone.  Where cuDNN
     refuses the dtype, that is recorded and fp32 is timed.
-    → {'library_ms', 'library_dtype', 'layer_ms', 'cudnn'}."""
+    → {'library_ms', 'library_dtype', 'layer_ms', 'cudnn'} ({}
+    untimed())."""
     from edgedict_tpu_torch.ops import rnn as R
+    if STATE.get('untimed'):
+        return {}
     dev = torch.device('cuda')
     gen = torch.Generator(device='cpu').manual_seed(hid + b + t)
     xs = torch.randn(t, b, n_in, generator=gen).to(dev, dt)
@@ -1226,7 +1291,9 @@ PROFILE_RUNS = 3
 def kernel_split_ms(torch, fn, parts, n=5):
     """Device ms per call of fn for each part of `parts` ({name: substrings
     all in the kernel's name}), from torch.profiler over n calls: the
-    largest of PROFILE_RUNS profiled runs' totals."""
+    largest of PROFILE_RUNS profiled runs' totals ({} untimed())."""
+    if STATE.get('untimed'):
+        return {}
     fn()
     torch.cuda.synchronize()
     best = {name: 0.0 for name in parts}
@@ -1243,7 +1310,9 @@ def device_ms_per_launch(torch, fn, name, n=5):
     """(device ms of one launch of the kernel whose name holds `name`, the
     launches torch.profiler recorded) over n calls of fn: the mean over the
     recorded launches of the first of PROFILE_RUNS profiled runs that
-    recorded one; (None, 0) when none did."""
+    recorded one; (None, 0) when none did, or untimed()."""
+    if STATE.get('untimed'):
+        return None, 0
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_RUNS):
@@ -1258,7 +1327,9 @@ def device_ms_per_launch(torch, fn, name, n=5):
 def queued_ms(torch, fn, n=10):
     """Device ms of one call of fn: CUDA events around n calls that the
     host queues while a sleep kernel holds the stream (~25 ms), so its
-    dispatch between calls does not show; the mean."""
+    dispatch between calls does not show; the mean (None untimed())."""
+    if STATE.get('untimed'):
+        return None
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1306,8 +1377,7 @@ def bf16_forward_case(torch, rng, dev, record, cell, b, t, n_in, hid=1024):
     dt = torch.bfloat16
     gates = 4 if cell == 'LSTM' else 3
     k = 1.0 / hid ** 0.5
-    xp = torch.as_tensor(rng.randn(t, b, gates * hid).astype(np.float32),
-                         device=dev).to(dt)
+    xp = randn(torch, rng, dev, (t, b, gates * hid)).to(dt)
     w = torch.as_tensor(rng.uniform(-k, k, (gates * hid, hid))
                         .astype(np.float32), device=dev).to(dt)
     h0 = torch.as_tensor(rng.randn(b, hid).astype(np.float32) * 0.5,
@@ -1358,6 +1428,56 @@ def bf16_forward_case(torch, rng, dev, record, cell, b, t, n_in, hid=1024):
            max(e for _, e in steps))
 
 
+def gru_bwd_case(torch, rng, dev, record, hid, b, t, dt, n_in=None):
+    """K6 against its plain version at (H, B, T, dtype), timed, split into
+    its two launches by the profiler; the E6D2 encoder's (H=1024, T=427)
+    also beside one cuDNN layer, and given the layer's input width n_in
+    beside one of that width."""
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    fp32 = torch.float32
+
+    def t_(*shape, scale=1.0, dtype=fp32):
+        return randn(torch, rng, dev, shape, scale).to(dtype)
+
+    k = 1.0 / hid ** 0.5
+    xp = t_(t, b, 3 * hid, dtype=dt)
+    w = torch.as_tensor(rng.uniform(-k, k, (3 * hid, hid))
+                        .astype(np.float32), device=dev).to(dt)
+    b_hh = t_(3 * hid, scale=0.1)
+    h0 = t_(b, hid, scale=0.5)
+    ys, _ = K5.gru_recurrence(xp, w, b_hh, h0)
+    dys = t_(t, b, hid, dtype=dt)
+    dhT = t_(b, hid)
+    args = (xp, w, b_hh, h0, ys, dys, dhT)
+    out = K5.gru_recurrence_bwd(*args)
+    ref = K5.gru_recurrence_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [_rel(torch, a, r) for a, r in zip(out, ref)]
+    tol = 1e-4 if dt == fp32 else 2e-2
+    case = {'kernel': 'K6 gru_bwd', 'H': hid, 'B': b, 'T': t,
+            'dtype': str(dt).split('.')[-1], 'dgx_rel': errs[0],
+            'dgh_rel': errs[1], 'dh0_rel': errs[2],
+            'tol': f'max|d| / max(1, max|ref|) <= {tol}'}
+    main = (hid, t) == (1024, 427)
+    ms, pms = time_pair(torch, lambda: K5.gru_recurrence_bwd_plain(*args),
+                        lambda: K5.gru_recurrence_bwd(*args))
+    case.update(ms=ms, plain_ms=pms)
+    # the gate remat and the dh product: 2 x 2·T·B·3H·H
+    bounds = bound(nbytes(xp, w, b_hh, h0, ys, dys, dhT, *out),
+                   12 * t * b * hid * hid, kind_of(torch, xp))
+    case.update(bound_ms=bounds[0], bound_by=bounds[1])
+    case.update(kernel_split_ms(
+        torch, lambda: K5.gru_recurrence_bwd(*args), BWD_PARTS))
+    if main:
+        case.update(layer_times(torch, 'GRU', hid, b, t, dt, True))
+    if n_in:
+        case.update(layer_times(torch, 'GRU', hid, b, t, dt, True, n_in))
+    emit(case)
+    require(max(errs) <= tol, f'K6 disagrees: {case}')
+    record('gru_bwd', max(errs), ms if main else None, pms, bounds,
+           case.get('library_ms'))
+
+
 def train_kernels(torch, rng, dev, record):
     """K4, K7/K8 and K9/K10 against their plain versions at the E6D2
     training step's shapes (B=32, 16 s: encoder T=427/214, prediction net
@@ -1371,8 +1491,7 @@ def train_kernels(torch, rng, dev, record):
     bf16, fp32 = torch.bfloat16, torch.float32
 
     def t_(*shape, scale=1.0, dtype=fp32):
-        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
-                               device=dev).to(dtype)
+        return randn(torch, rng, dev, shape, scale).to(dtype)
 
     # K4 — LSTM backward: encoder layer 0 in bf16 (the training dtype), a
     # shorter encoder layer in fp32, the prediction net in bf16
@@ -1382,44 +1501,9 @@ def train_kernels(torch, rng, dev, record):
 
     # K6 — GRU backward: encoder layer 0 in bf16 (the training dtype), a
     # shorter encoder layer in fp32, and odd small shapes
-    from edgedict_tpu_torch.ops import gru_kernel as K5
     for hid, b, t, dt in ((1024, 32, 427, bf16), (1024, 32, 64, fp32),
                           (1030, 11, 3, fp32), (40, 5, 7, bf16)):
-        k = 1.0 / hid ** 0.5
-        xp = t_(t, b, 3 * hid, dtype=dt)
-        w = torch.as_tensor(rng.uniform(-k, k, (3 * hid, hid))
-                            .astype(np.float32), device=dev).to(dt)
-        b_hh = t_(3 * hid, scale=0.1)
-        h0 = t_(b, hid, scale=0.5)
-        ys, _ = K5.gru_recurrence(xp, w, b_hh, h0)
-        dys = t_(t, b, hid, dtype=dt)
-        dhT = t_(b, hid)
-        args = (xp, w, b_hh, h0, ys, dys, dhT)
-        out = K5.gru_recurrence_bwd(*args)
-        ref = K5.gru_recurrence_bwd_plain(*args)
-        torch.cuda.synchronize()
-        errs = [_rel(torch, a, r) for a, r in zip(out, ref)]
-        tol = 1e-4 if dt == fp32 else 2e-2
-        case = {'kernel': 'K6 gru_bwd', 'H': hid, 'B': b, 'T': t,
-                'dtype': str(dt).split('.')[-1], 'dgx_rel': errs[0],
-                'dgh_rel': errs[1], 'dh0_rel': errs[2],
-                'tol': f'max|d| / max(1, max|ref|) <= {tol}'}
-        main = (hid, t) == (1024, 427)
-        ms, pms = time_pair(torch, lambda: K5.gru_recurrence_bwd_plain(*args),
-                            lambda: K5.gru_recurrence_bwd(*args))
-        case.update(ms=ms, plain_ms=pms)
-        # the gate remat and the dh product: 2 x 2·T·B·3H·H
-        bounds = bound(nbytes(xp, w, b_hh, h0, ys, dys, dhT, *out),
-                       12 * t * b * hid * hid, kind_of(torch, xp))
-        case.update(bound_ms=bounds[0], bound_by=bounds[1])
-        case.update(kernel_split_ms(
-            torch, lambda: K5.gru_recurrence_bwd(*args), BWD_PARTS))
-        if main:
-            case.update(layer_times(torch, 'GRU', hid, b, t, dt, True))
-        emit(case)
-        require(max(errs) <= tol, f'K6 disagrees: {case}')
-        record('gru_bwd', max(errs), ms if main else None, pms, bounds,
-               case.get('library_ms'))
+        gru_bwd_case(torch, rng, dev, record, hid, b, t, dt)
 
     # K7 / K8 — fused joint: the E6D2 step in bf16, and U+1 = 300 (past the
     # TPU kernel's U envelope)
@@ -1902,8 +1986,10 @@ def quant_layer_times(torch, cell, hid, b, t, n_in=ENC_IN):
     (T, B, n_in), fp32), beside the port's own int8 layer (ops/quant.py:
     K11's x_proj, then K12 / K13) from the same int8 weights, both timed
     as layer_times times K1/K5's (median of 10).
-    → {'library_ms', 'layer_ms', 'cudnn'}."""
+    → {'library_ms', 'layer_ms', 'cudnn'} ({} untimed())."""
     from torch.func import functional_call
+    if STATE.get('untimed'):
+        return {}
 
     from edgedict_tpu_torch.ops import quant as Q
     dev = torch.device('cuda')
@@ -1938,6 +2024,169 @@ Q_KERNELS = {'lstm_fwd_q': 'recur_fwd_q_kernel',
              'gru_fwd_q': 'recur_fwd_gru_q_kernel'}
 
 
+def quant_matmul_case(torch, rng, dev, record, r, k, n, dt):
+    """K11 against its plain version at (R rows, K, N, dtype), timed beside
+    dequantize + F.linear: fp32 to 1e-5 of max(1, |out|) (fp32 sums in
+    another order); bf16 to 1e-2 (both round the same fp32 value to bf16:
+    one ulp apart at most).  R <= 32 runs the matrix-vector kernel (kept
+    as quant_matmul), more rows the tiled kernels (quant_matmul_tile).
+    → the case."""
+    from edgedict_tpu_torch.ops import quant as Q
+    fp32, bf16 = torch.float32, torch.bfloat16
+
+    def t_(*shape, scale=1.0, dtype=fp32):
+        return randn(torch, rng, dev, shape, scale).to(dtype)
+
+    x = t_(r, k, dtype=dt)
+    q, sc = Q.quantize_int8(t_(n, k, scale=k ** -0.5))
+    bias = t_(n, scale=0.1)
+    out = Q.quant_matmul(x, q, sc, bias)
+    ref = Q.quant_matmul_plain(x, q, sc, bias)
+    torch.cuda.synchronize()
+    rel = _rel(torch, out, ref)
+    tol = 1e-5 if dt == fp32 else 1e-2
+    ms, pms = time_pair(torch, lambda: Q.quant_matmul_plain(x, q, sc, bias),
+                        lambda: Q.quant_matmul(x, q, sc, bias))
+    lib = _median_ms(torch, lambda: torch.nn.functional.linear(
+        x, Q.dequantize(q, sc, dt), bias.to(dt)))
+    case = {'kernel': 'K11 quant_matmul', 'R': r, 'K': k, 'N': n,
+            'dtype': str(dt).split('.')[-1], 'rel_err': rel,
+            'tol': f'max|d| / max(1, max|ref|) <= {tol}', 'ms': ms,
+            'plain_ms': pms, 'library_ms': lib}
+    b_ms, b_by = bound(nbytes(x, q, sc, bias, out), 2 * r * k * n,
+                       kind_of(torch, x))
+    case.update(bound_ms=b_ms, bound_by=b_by)
+    emit(case)
+    require(rel <= tol, f'K11 disagrees: {case}')
+    if r <= 32:
+        main = (r, k, n, dt) == (2, 1024, 4096, fp32)
+        record('quant_matmul', rel, ms if main else None, pms,
+               (b_ms, b_by), lib)
+    else:
+        main = (r, k, n, dt) == (512, 1024, 4096, bf16)
+        record('quant_matmul_tile', rel, ms if main else None, pms,
+               (b_ms, b_by), lib)
+    return case
+
+
+def recurrence_case(torch, rng, dev, record, name, hid, b, t, dt,
+                    n_in=None):
+    """K5 ('gru_fwd'), K12 ('lstm_fwd_q') or K13 ('gru_fwd_q') against its
+    plain version at (H, B, T, dtype): free-running to 1e-4 in fp32 and
+    2e-2 in bf16, where one rounding flip of h feeds every later step; so
+    bf16 is also held step by step from the kernel's own carried state: ys
+    to one bf16 ulp (2^-7 of |ys|, or 1e-2), the LSTM's cs to 1e-4; K12 /
+    K13 bit-stable, with their plan and device ms; given the layer's input
+    width n_in, beside one cuDNN layer (K5) or dequantize + one cuDNN
+    layer (K12 / K13) of that width."""
+    from edgedict_tpu_torch.ops import gru_kernel as K5
+    from edgedict_tpu_torch.ops import quant as Q
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    fp32 = torch.float32
+
+    def t_(*shape, scale=1.0, dtype=fp32):
+        return randn(torch, rng, dev, shape, scale).to(dtype)
+
+    kw = 1.0 / hid ** 0.5
+    gates = 4 if name == 'lstm_fwd_q' else 3
+    xp = t_(t, b, gates * hid, dtype=dt)
+    w = torch.as_tensor(rng.uniform(-kw, kw, (gates * hid, hid))
+                        .astype(np.float32), device=dev)
+    b_hh = t_(gates * hid, scale=0.1)
+    h0 = t_(b, hid, scale=0.5)
+    c0 = t_(b, hid, scale=0.5)
+    if name == 'gru_fwd':
+        w = w.to(dt)
+        kernel = lambda: K5.gru_recurrence(  # noqa: E731
+            xp, w, b_hh, h0)[0]
+        plain = lambda: K5.gru_recurrence_plain(  # noqa: E731
+            xp, w, b_hh, h0)
+        w_eff, inputs = w, (xp, w, b_hh, h0)
+    else:
+        q, sc = Q.quantize_int8(w)
+        w_eff = Q.dequantize(q, sc, dt)
+        if name == 'gru_fwd_q':
+            kernel = lambda: Q.gru_recurrence_q(  # noqa: E731
+                xp, q, sc, b_hh, h0)
+            plain = lambda: Q.gru_recurrence_q_plain(  # noqa: E731
+                xp, q, sc, b_hh, h0)
+            inputs = (xp, q, sc, b_hh, h0)
+        else:
+            kernel = lambda: Q.lstm_recurrence_q(  # noqa: E731
+                xp, q, sc, h0, c0)
+            plain = lambda: Q.lstm_recurrence_q_plain(  # noqa: E731
+                xp, q, sc, h0, c0)
+            inputs = (xp, q, sc, h0, c0)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    run_tol = 1e-4 if dt == fp32 else 2e-2
+    step_tol = (1e-4, 1e-4) if dt == fp32 else (1e-2, 2.0 ** -7)
+    if name == 'lstm_fwd_q':
+        ys, cs, _ = out
+        step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w_eff, h0, c0,
+                                            ys, cs)
+        runs = [_close(a, r_, run_tol, run_tol)
+                for a, r_ in zip(out, ref)]
+        steps = [_close(ys, step_ys, *step_tol),
+                 _close(cs, step_cs, 1e-4, 1e-4)]
+    else:
+        ys = out
+        h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b,
+                                                                hid)
+        step_ys = K5.gru_recurrence_plain(
+            xp.reshape(1, t * b, gates * hid), w_eff, b_hh,
+            h_prev).reshape(ys.shape)
+        runs = [_close(ys, ref, run_tol, run_tol)]
+        steps = [_close(ys, step_ys, *step_tol)]
+    ok = all(c for c, _ in runs + steps)
+    errs = [e for _, e in runs]
+    steps = [e for _, e in steps]
+    ms, pms = time_pair(torch, plain, kernel)
+    b_ms, b_by = bound(nbytes(*inputs, *((out,) if name != 'lstm_fwd_q'
+                                         else out)),
+                       2 * t * b * gates * hid * hid, kind_of(torch, xp))
+    label = {'gru_fwd': 'K5 gru_fwd', 'lstm_fwd_q': 'K12 lstm_fwd_q',
+             'gru_fwd_q': 'K13 gru_fwd_q'}[name]
+    case = {'kernel': label, 'H': hid, 'B': b, 'T': t,
+            'dtype': str(dt).split('.')[-1], 'run_max_abs': max(errs),
+            'step_max_abs': steps, 'ms': ms, 'plain_ms': pms,
+            'bound_ms': b_ms, 'bound_by': b_by,
+            'tol': f'run atol/rtol {run_tol}; per step ys atol '
+                   f'{step_tol[0]} rtol {step_tol[1]:.3g}'
+                   + (', cs 1e-4' if name == 'lstm_fwd_q' else '')}
+    main = (hid, b, t, dt) == (1024, 1, 2, fp32)
+    if name == 'gru_fwd':
+        case['plan'] = fwd_plan(xp, 3)
+    if name in ('lstm_fwd_q', 'gru_fwd_q'):
+        # one persistent launch per call under the kernel's own name:
+        # its plan, its device time by torch.profiler and the launches
+        # the profiler recorded per call (it has lost records on the
+        # card machine: PERF.md §7)
+        case['plan'] = fwd_plan(xp, gates, quant=True)
+        again = kernel()
+        pairs = zip(out, again) if name == 'lstm_fwd_q' else \
+            [(out, again)]
+        case['bit_stable'] = all(torch.equal(a, c) for a, c in pairs)
+        ok = ok and case['bit_stable']
+        dms, n = device_ms_per_launch(torch, kernel, Q_KERNELS[name])
+        case.update(device_ms=dms, profiled_launches_per_call=n / 5)
+    if main and name == 'gru_fwd':
+        case.update(layer_times(torch, 'GRU', hid, b, t, dt, False))
+    if main and name in ('lstm_fwd_q', 'gru_fwd_q'):
+        case.update(quant_layer_times(
+            torch, 'GRU' if name == 'gru_fwd_q' else 'LSTM', hid, b, t))
+    if n_in and name == 'gru_fwd':
+        case.update(layer_times(torch, 'GRU', hid, b, t, dt, False, n_in))
+    elif n_in:
+        case.update(quant_layer_times(
+            torch, 'GRU' if name == 'gru_fwd_q' else 'LSTM', hid, b, t,
+            n_in))
+    emit(case)
+    require(ok, f'{label} disagrees: {case}')
+    record(name, max(errs + steps), ms if main else None, pms,
+           (b_ms, b_by), case.get('library_ms'), case.get('device_ms'))
+
+
 def serving_kernels_q(torch, rng, dev, record):
     """K5 (GRU forward), K11 (int8-weight matmul), K12 / K13 (int8 LSTM /
     GRU recurrences) against their plain versions at E6D2's serving shapes
@@ -1945,64 +2194,23 @@ def serving_kernels_q(torch, rng, dev, record):
     projection at R = T*B rows 2, 64, 128 and 512: one stream, the int8
     server's 64 streams after and before the time reduction, 256 streams),
     fp32 and bf16.  → K11's R=512 cases (its tiled kernels)."""
-    from edgedict_tpu_torch.ops import gru_kernel as K5
-    from edgedict_tpu_torch.ops import quant as Q
-    from edgedict_tpu_torch.ops import rnn_kernel as K1
     fp32, bf16 = torch.float32, torch.bfloat16
-
-    def t_(*shape, scale=1.0, dtype=fp32):
-        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32),
-                               device=dev).to(dtype)
-
-    # K11: fp32 to 1e-5 of max(1, |out|) (fp32 sums in another order); bf16
-    # to 1e-2 (both round the same fp32 value to bf16: one ulp apart at most).
-    # R=2 runs the matrix-vector kernel, R=64, 128 and 512 the tiled kernels
-    # (each R=512 case is kept in the kernels line's quant_matmul_tile entry)
+    # K11 at R=2 (the matrix-vector kernel), R=64, 128 and 512 (the tiled
+    # kernels; each R=512 case is kept in the kernels line's
+    # quant_matmul_tile entry)
     tile_cases = []
     for (k, n), r, dt in [(kn, r, dt) for kn in ((240, 4096), (1024, 4096),
                                                  (1024, 640), (240, 3072),
                                                  (1024, 3072))
                           for r in (2, 64, 128, 512)
                           for dt in (fp32, bf16)]:
-        x = t_(r, k, dtype=dt)
-        q, sc = Q.quantize_int8(t_(n, k, scale=k ** -0.5))
-        bias = t_(n, scale=0.1)
-        out = Q.quant_matmul(x, q, sc, bias)
-        ref = Q.quant_matmul_plain(x, q, sc, bias)
-        torch.cuda.synchronize()
-        rel = _rel(torch, out, ref)
-        tol = 1e-5 if dt == fp32 else 1e-2
-        ms, pms = time_pair(torch, lambda: Q.quant_matmul_plain(x, q, sc,
-                                                                bias),
-                            lambda: Q.quant_matmul(x, q, sc, bias))
-        lib = _median_ms(torch, lambda: torch.nn.functional.linear(
-            x, Q.dequantize(q, sc, dt), bias.to(dt)))
-        case = {'kernel': 'K11 quant_matmul', 'R': r, 'K': k, 'N': n,
-                'dtype': str(dt).split('.')[-1], 'rel_err': rel,
-                'tol': f'max|d| / max(1, max|ref|) <= {tol}', 'ms': ms,
-                'plain_ms': pms, 'library_ms': lib}
-        b_ms, b_by = bound(nbytes(x, q, sc, bias, out), 2 * r * k * n,
-                           kind_of(torch, x))
-        case.update(bound_ms=b_ms, bound_by=b_by)
-        emit(case)
-        require(rel <= tol, f'K11 disagrees: {case}')
-        if r <= 32:
-            main = (r, k, n, dt) == (2, 1024, 4096, fp32)
-            record('quant_matmul', rel, ms if main else None, pms,
-                   (b_ms, b_by), lib)
-        else:
-            main = (r, k, n, dt) == (512, 1024, 4096, bf16)
-            record('quant_matmul_tile', rel, ms if main else None, pms,
-                   (b_ms, b_by), lib)
-            if r == 512:
-                tile_cases.append({key: case[key] for key in (
-                    'R', 'K', 'N', 'dtype', 'ms', 'plain_ms', 'library_ms',
-                    'bound_ms', 'bound_by', 'rel_err')})
+        case = quant_matmul_case(torch, rng, dev, record, r, k, n, dt)
+        if r == 512:
+            tile_cases.append({key: case[key] for key in (
+                'R', 'K', 'N', 'dtype', 'ms', 'plain_ms', 'library_ms',
+                'bound_ms', 'bound_by', 'rel_err')})
 
-    # K5 / K12 / K13: free-running to 1e-4 in fp32 and 2e-2 in bf16, where
-    # one rounding flip of h feeds every later step; so bf16 is also held
-    # step by step from the kernel's own carried state: ys to one bf16 ulp
-    # (2^-7 of |ys|, or 1e-2), the LSTM's cs to 1e-4
+    # K5 / K12 / K13
     for name, hid, b, t, dt in [(nm, 1024, b, 2, dt)
                                 for nm in ('gru_fwd', 'lstm_fwd_q',
                                            'gru_fwd_q')
@@ -2014,98 +2222,7 @@ def serving_kernels_q(torch, rng, dev, record):
                                     ('gru_fwd_q', 72, 9, 4, fp32),
                                     ('gru_fwd', 1024, 33, 2, bf16),
                                     ('gru_fwd', 1024, 256, 2, fp32)]:
-        kw = 1.0 / hid ** 0.5
-        gates = 4 if name == 'lstm_fwd_q' else 3
-        xp = t_(t, b, gates * hid, dtype=dt)
-        w = torch.as_tensor(rng.uniform(-kw, kw, (gates * hid, hid))
-                            .astype(np.float32), device=dev)
-        b_hh = t_(gates * hid, scale=0.1)
-        h0 = t_(b, hid, scale=0.5)
-        c0 = t_(b, hid, scale=0.5)
-        if name == 'gru_fwd':
-            w = w.to(dt)
-            kernel = lambda: K5.gru_recurrence(  # noqa: E731
-                xp, w, b_hh, h0)[0]
-            plain = lambda: K5.gru_recurrence_plain(  # noqa: E731
-                xp, w, b_hh, h0)
-            w_eff, inputs = w, (xp, w, b_hh, h0)
-        else:
-            q, sc = Q.quantize_int8(w)
-            w_eff = Q.dequantize(q, sc, dt)
-            if name == 'gru_fwd_q':
-                kernel = lambda: Q.gru_recurrence_q(  # noqa: E731
-                    xp, q, sc, b_hh, h0)
-                plain = lambda: Q.gru_recurrence_q_plain(  # noqa: E731
-                    xp, q, sc, b_hh, h0)
-                inputs = (xp, q, sc, b_hh, h0)
-            else:
-                kernel = lambda: Q.lstm_recurrence_q(  # noqa: E731
-                    xp, q, sc, h0, c0)
-                plain = lambda: Q.lstm_recurrence_q_plain(  # noqa: E731
-                    xp, q, sc, h0, c0)
-                inputs = (xp, q, sc, h0, c0)
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        run_tol = 1e-4 if dt == fp32 else 2e-2
-        step_tol = (1e-4, 1e-4) if dt == fp32 else (1e-2, 2.0 ** -7)
-        if name == 'lstm_fwd_q':
-            ys, cs, _ = out
-            step_ys, step_cs = lstm_steps_plain(torch, K1, xp, w_eff, h0, c0,
-                                                ys, cs)
-            runs = [_close(a, r_, run_tol, run_tol)
-                    for a, r_ in zip(out, ref)]
-            steps = [_close(ys, step_ys, *step_tol),
-                     _close(cs, step_cs, 1e-4, 1e-4)]
-        else:
-            ys = out
-            h_prev = torch.cat([h0[None], ys[:-1].float()]).reshape(t * b,
-                                                                    hid)
-            step_ys = K5.gru_recurrence_plain(
-                xp.reshape(1, t * b, gates * hid), w_eff, b_hh,
-                h_prev).reshape(ys.shape)
-            runs = [_close(ys, ref, run_tol, run_tol)]
-            steps = [_close(ys, step_ys, *step_tol)]
-        ok = all(c for c, _ in runs + steps)
-        errs = [e for _, e in runs]
-        steps = [e for _, e in steps]
-        ms, pms = time_pair(torch, plain, kernel)
-        b_ms, b_by = bound(nbytes(*inputs, *((out,) if name != 'lstm_fwd_q'
-                                             else out)),
-                           2 * t * b * gates * hid * hid, kind_of(torch, xp))
-        label = {'gru_fwd': 'K5 gru_fwd', 'lstm_fwd_q': 'K12 lstm_fwd_q',
-                 'gru_fwd_q': 'K13 gru_fwd_q'}[name]
-        case = {'kernel': label, 'H': hid, 'B': b, 'T': t,
-                'dtype': str(dt).split('.')[-1], 'run_max_abs': max(errs),
-                'step_max_abs': steps, 'ms': ms, 'plain_ms': pms,
-                'bound_ms': b_ms, 'bound_by': b_by,
-                'tol': f'run atol/rtol {run_tol}; per step ys atol '
-                       f'{step_tol[0]} rtol {step_tol[1]:.3g}'
-                       + (', cs 1e-4' if name == 'lstm_fwd_q' else '')}
-        main = (hid, b, t, dt) == (1024, 1, 2, fp32)
-        if name == 'gru_fwd':
-            case['plan'] = fwd_plan(xp, 3)
-        if name in ('lstm_fwd_q', 'gru_fwd_q'):
-            # one persistent launch per call under the kernel's own name:
-            # its plan, its device time by torch.profiler and the launches
-            # the profiler recorded per call (it has lost records on the
-            # card machine: PERF.md §7)
-            case['plan'] = fwd_plan(xp, gates, quant=True)
-            again = kernel()
-            pairs = zip(out, again) if name == 'lstm_fwd_q' else \
-                [(out, again)]
-            case['bit_stable'] = all(torch.equal(a, c) for a, c in pairs)
-            ok = ok and case['bit_stable']
-            dms, n = device_ms_per_launch(torch, kernel, Q_KERNELS[name])
-            case.update(device_ms=dms, profiled_launches_per_call=n / 5)
-        if main and name == 'gru_fwd':
-            case.update(layer_times(torch, 'GRU', hid, b, t, dt, False))
-        if main and name in ('lstm_fwd_q', 'gru_fwd_q'):
-            case.update(quant_layer_times(
-                torch, 'GRU' if name == 'gru_fwd_q' else 'LSTM', hid, b, t))
-        emit(case)
-        require(ok, f'{label} disagrees: {case}')
-        record(name, max(errs + steps), ms if main else None, pms,
-               (b_ms, b_by), case.get('library_ms'), case.get('device_ms'))
+        recurrence_case(torch, rng, dev, record, name, hid, b, t, dt)
     return tile_cases
 
 
@@ -2775,6 +2892,7 @@ def _warp_novograd_step(torch, argv, batch):
 # merging, 200 tokens; shallow fusion at cli/stream.py's default weight
 BEAM = dict(beam_width=4, max_sym_per_frame=3, max_tokens=200)
 LM_WEIGHT = 0.2
+BEAM_SECONDS = 2.0         # slice_beam's seeded audio, seconds
 # the beam paths' K1 / K4 shapes that phase_kernels and train_kernels hold
 # against plain: server_beam's streams, train_run's eval batch (its beam
 # eval runs W=4 too), lm_train's (H, B, T) at E6D2's batch
@@ -2813,7 +2931,8 @@ def _beam_models(torch):
 
 def _beam_decode(torch, model, cfg, feat, tok, audio, device, dtype=None,
                  quantize=None, lm=None, count=None, warm=True):
-    """StreamingBeamDecoder.decode_wav (after a warm-up one when `warm`) →
+    """StreamingBeamDecoder.decode_wav (after a warm-up one when `warm`,
+    which also takes the smallest prune gap: STATE['prune_gap']) →
     (decoder, best tokens, best logp); with `count`, the launch counts of
     the measured decode alone go to STATE['launches_' + count]."""
     from edgedict_tpu_torch import stream as S
@@ -2822,7 +2941,7 @@ def _beam_decode(torch, model, cfg, feat, tok, audio, device, dtype=None,
                                  compute_dtype=dtype, quantize=quantize,
                                  lm=lm, **BEAM)
     if warm:
-        dec.decode_wav(audio)
+        STATE['prune_gap'] = _prune_gap(torch, dec, audio)
         dec.elapsed = []
     if count:
         _reset_launches()
@@ -2841,7 +2960,7 @@ def _beam_decode(torch, model, cfg, feat, tok, audio, device, dtype=None,
 def _prune_gap(torch, dec, audio):
     """The smallest gap between the W-th and the (W+1)-th candidate, both
     live, at any prune of one decode_wav (top_k wrapped for this decode
-    alone; its minima fetched once at the end)."""
+    alone, its k best the same; its minima fetched once at the end)."""
     from edgedict_tpu_torch.models import beam_search as B
     plain, gaps = B.top_k, []
 
@@ -2893,8 +3012,9 @@ def _token_agreement(a, b):
 
 
 def phase_slice_beam(torch):
-    """E6D2 StreamingBeamDecoder.decode_wav (W=4, fp32) of the slice's 4 s
-    without LM, with LM and with quantize='int8': the cuda best hypothesis
+    """E6D2 StreamingBeamDecoder.decode_wav (W=4, fp32) of BEAM_SECONDS of
+    seeded audio without LM, with LM and with quantize='int8': the cuda
+    best hypothesis
     == the CPU run's, its logp within rel 1e-4, non-empty; bf16 agreement,
     the smallest prune gap, per-chunk wall ms and the profiled device ms;
     then cli.stream --beam_width 4 --lm_path <lm_train's lm.ckpt> on the
@@ -2904,8 +3024,9 @@ def phase_slice_beam(torch):
     cfg, feat = _e6d2()
     tok = StandInTokenizer(cfg.vocab_size)
     model, lm = _beam_models(torch)
-    audio = synthetic_audio(0)
+    audio = synthetic_audio(0, seconds=BEAM_SECONDS)
     emit({'phase': 'slice_beam', 'config': 'flagfiles/E6D2.txt', **BEAM,
+          'seconds': BEAM_SECONDS,
           'merge_prefixes': True, 'lm': 'LMConfig defaults (V=2048, 256 / '
           f'512 / 2), random seed 0, weight {LM_WEIGHT}',
           'weights': 'random, seed 0, joint output x32, prediction-net '
@@ -2937,7 +3058,7 @@ def phase_slice_beam(torch):
                'logp_bf16': lp16,
                'chunk_ms_cuda': 1e3 * float(np.mean(cuda.elapsed)),
                'chunk_ms_cpu': 1e3 * float(np.mean(cpu.elapsed)),
-               'min_prune_gap': _prune_gap(torch, cuda, audio)}
+               'min_prune_gap': STATE['prune_gap']}
         res.update(_device_profile(torch, lambda: cuda.decode_wav(audio),
                                    res['chunks'], 'chunk'))
         res['k1_launches_per_chunk'] = \
@@ -3950,18 +4071,25 @@ class _ShapeSpy:
 
     launches = property(lambda self: self.fn.launches,
                         lambda self, n: setattr(self.fn, 'launches', n))
+    # K11's count of its tiled launches (quant_matmul only)
+    tile_launches = property(
+        lambda self: self.fn.tile_launches,
+        lambda self, n: setattr(self.fn, 'tile_launches', n))
 
 
-def _spied(layer_widths=False):
+def _spied(layer_widths=False, extra=False):
     """{name: (module, wrapper's name, call → (shape key, what its case
     needs))} of the kernels a JAX run launches: K1, K4, K2, K3, K7, K8,
     and the lattice core, whose forward launches K9 and backward K10 (it
     holds those two wrappers itself).  layer_widths: also the port's LSTM
     layer (ops/rnn.py lstm_layer_tm; no kernel), keyed (H, B, T, input
-    width): the width of the cuDNN layer beside each K1 / K4 shape."""
+    width): the width of the cuDNN layer beside each K1 / K4 shape (with
+    extra, the GRU layer's too, gru_layer_tm).  extra: also K5, K6, K11,
+    K12 and K13 (the GRU and int8 kernels), keyed (H, B, T, dtype) and
+    K11 (R, K, N, dtype)."""
     from edgedict_tpu_torch.ops import (
-        decode_kernel, features_kernel, joint_lse_kernel, rnn, rnn_kernel,
-        rnnt_loss_kernel)
+        decode_kernel, features_kernel, gru_kernel, joint_lse_kernel, quant,
+        rnn, rnn_kernel, rnnt_loss_kernel)
 
     def lstm(x_proj, w_hh, h0, *rest):
         return (w_hh.shape[1], h0.shape[0], x_proj.shape[0],
@@ -3980,7 +4108,9 @@ def _spied(layer_widths=False):
                                                ylen.cpu().numpy())
 
     def layer(params, xs, state):
-        return (params['w_hh'].shape[1], *xs.shape[1::-1], xs.shape[2]), None
+        # an int8 layer (w_hh_q) is keyed too: its K12 is keyed apart
+        w_hh = params['w_hh'] if 'w_hh' in params else params['w_hh_q']
+        return (w_hh.shape[1], *xs.shape[1::-1], xs.shape[2]), None
 
     spied = {'lstm_fwd': (rnn_kernel, 'lstm_recurrence', lstm),
              'lstm_bwd': (rnn_kernel, 'lstm_recurrence_bwd', lstm),
@@ -3993,6 +4123,25 @@ def _spied(layer_widths=False):
              'lattice': (rnnt_loss_kernel, 'rnnt_loss_core', lattice)}
     if layer_widths:
         spied['lstm_layer'] = (rnn, 'lstm_layer_tm', layer)
+    if layer_widths and extra:
+        spied['gru_layer'] = (rnn, 'gru_layer_tm', layer)
+    if extra:
+        def gru(x_proj, w_hh, *rest):
+            return (w_hh.shape[1], x_proj.shape[1], x_proj.shape[0],
+                    x_proj.dtype), None
+
+        def recur_q(h0):
+            return lambda x_proj, *rest: ((
+                rest[h0].shape[1], rest[h0].shape[0], x_proj.shape[0],
+                x_proj.dtype), None)
+
+        spied.update({
+            'gru_fwd': (gru_kernel, 'gru_recurrence', gru),
+            'gru_bwd': (gru_kernel, 'gru_recurrence_bwd', gru),
+            'quant_matmul': (quant, 'quant_matmul', lambda x, wq, *rest: (
+                (x.shape[0], x.shape[1], wq.shape[0], x.dtype), None)),
+            'lstm_fwd_q': (quant, 'lstm_recurrence_q', recur_q(2)),
+            'gru_fwd_q': (quant, 'gru_recurrence_q', recur_q(3))})
     return spied
 
 
@@ -4002,13 +4151,13 @@ def _port_modules():
 
 
 @contextlib.contextmanager
-def _recorded_shapes(logs, layer_widths=False):
+def _recorded_shapes(logs, layer_widths=False, extra=False):
     """Within: every name in the port's modules bound to a wrapper of
-    _spied(layer_widths) is bound to its _ShapeSpy, which fills
+    _spied(layer_widths, extra) is bound to its _ShapeSpy, which fills
     logs[name]; on the way out every spy is unbound again, also from a
     module that was first imported within."""
     spies = {}
-    for name, (mod, attr, key) in _spied(layer_widths).items():
+    for name, (mod, attr, key) in _spied(layer_widths, extra).items():
         fn = getattr(mod, attr)
         spies[id(fn)] = (fn, _ShapeSpy(fn, key, logs.setdefault(name, {})))
     try:
@@ -4041,7 +4190,7 @@ def phase_jax_kernels(torch):
                    np.random.RandomState(15))
 
 
-def recorded_cases(torch, phase, shapes, rng):
+def recorded_cases(torch, phase, shapes, rng, seen=None, groups=None):
     """Each kernel of each run in shapes ({run: _recorded_shapes' logs})
     against its plain version at the shapes that run gave it, on card
     tensors, at the tolerances of the E6D2 cases: K1 fp32 (lstm_fwd_case)
@@ -4051,40 +4200,104 @@ def recorded_cases(torch, phase, shapes, rng):
     (joint_long_case: bf16 padded onto 16), K9 / K10 on seeded log-probs
     at the run's own lengths (lattice_long_cases).  First each run's
     recorded calls are held against its launch counts: the spies saw every
-    launch."""
+    launch.  Where recorded (_spied's extra), also K5 (bf16 held step by
+    step, fp32 by recurrence_case), K6 (gru_bwd_case), K11
+    (quant_matmul_case), K12 and K13 (recurrence_case); where the LSTM
+    layers' input widths were recorded (layer_widths), K1 / K4 beside one
+    cuDNN layer of that width.  seen: a set of (kernel, key) already held,
+    skipped here and added to (runs that share shapes).  groups: {kernel:
+    key → group}; of the keys of one group only the first is timed, the
+    others are checked untimed()."""
     record, dev = STATE['record'], torch.device('cuda')
     bf16 = torch.bfloat16
+    timed_groups = set()
     readable = {run: {name: [[str(x) for x in key] for key in log['keys']]
                       for name, log in logs.items()}
                 for run, logs in shapes.items()}
     emit({'phase': phase, 'shapes': readable})
     for run, logs in shapes.items():
         n = STATE['launches_' + run]
-        calls = {name: log['calls'] for name, log in logs.items()}
+        calls = {name: log['calls'] for name, log in logs.items()
+                 if name not in ('lstm_layer', 'gru_layer')}
         want = {name: n.get(name, n['lattice_alpha']) for name in calls}
         require(calls == want and n['lattice_beta_grad'] <= calls['lattice'],
                 f'{run}: recorded calls {calls}, launches {n}')
-        for hid, b, t, dt in logs['lstm_fwd']['keys']:
-            if dt == bf16:
-                bf16_forward_case(torch, rng, dev, record, 'LSTM', b, t,
-                                  None, hid=hid)
-            else:
-                lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt)
-        for hid, b, t, dt in logs['lstm_bwd']['keys']:
-            lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt)
-        for (b, length), tables in logs['mel_power']['keys'].items():
-            mel_case(torch, rng, dev, record, tables, b, length)
-        for args in logs['greedy_decode']['keys'].values():
-            k3_check(torch, record, args, run=run)
-        fwd = logs['joint_lse_fwd']['keys']
-        require(all(k in fwd and k[-1] == bf16
+        widths = {key[:3]: key[3] for key in
+                  logs.get('lstm_layer', {}).get('keys', ())}
+        gru_widths = {key[:3]: key[3] for key in
+                      logs.get('gru_layer', {}).get('keys', ())}
+
+        def keys(name):
+            """(key, its timing context) of the run's keys of `name` that
+            `seen` has not had: untimed() where `groups` puts a key in a
+            group an earlier key of this call timed."""
+            out = []
+            for key in logs.get(name, {}).get('keys', ()):
+                if seen is not None and (name, key) in seen:
+                    continue
+                if seen is not None:
+                    seen.add((name, key))
+                ctx = contextlib.nullcontext()
+                if groups and name in groups:
+                    group = (name, groups[name](key))
+                    if group in timed_groups:
+                        ctx = untimed()
+                    timed_groups.add(group)
+                out.append((key, ctx))
+            return out
+
+        for (hid, b, t, dt), ctx in keys('lstm_fwd'):
+            with ctx:
+                if dt == bf16:
+                    bf16_forward_case(torch, rng, dev, record, 'LSTM', b, t,
+                                      widths.get((hid, b, t)), hid=hid)
+                else:
+                    lstm_fwd_case(torch, rng, dev, record, hid, b, t, dt,
+                                  n_in=widths.get((hid, b, t)))
+        for (hid, b, t, dt), ctx in keys('lstm_bwd'):
+            with ctx:
+                lstm_bwd_case(torch, rng, dev, record, hid, b, t, dt,
+                              n_in=widths.get((hid, b, t)))
+        for (b, length), ctx in keys('mel_power'):
+            with ctx:
+                mel_case(torch, rng, dev, record,
+                         logs['mel_power']['keys'][(b, length)], b, length)
+        for key, ctx in keys('greedy_decode'):
+            with ctx:
+                k3_check(torch, record, logs['greedy_decode']['keys'][key],
+                         run=run)
+        require(all(k in logs['joint_lse_fwd']['keys'] and k[-1] == bf16
                     for k in logs['joint_lse_bwd']['keys']),
                 f'{run}: a K8 call without its bf16 K7 case')
-        for b, t, u1, j, v, dt in fwd:
-            joint_long_case(torch, rng, dev, record, b, t, u1, dt, j, v)
-        for (b, t, u1), (xlen, ylen) in logs['lattice']['keys'].items():
-            lattice_long_cases(torch, rng, dev, record, b, t, u1, xlen, ylen,
-                               backward=n['lattice_beta_grad'] > 0)
+        for (b, t, u1, j, v, dt), ctx in keys('joint_lse_fwd'):
+            with ctx:
+                joint_long_case(torch, rng, dev, record, b, t, u1, dt, j, v)
+        for (b, t, u1), ctx in keys('lattice'):
+            xlen, ylen = logs['lattice']['keys'][(b, t, u1)]
+            with ctx:
+                lattice_long_cases(torch, rng, dev, record, b, t, u1, xlen,
+                                   ylen, backward=n['lattice_beta_grad'] > 0)
+        for (hid, b, t, dt), ctx in keys('gru_fwd'):
+            with ctx:
+                if dt == bf16:
+                    bf16_forward_case(torch, rng, dev, record, 'GRU', b, t,
+                                      gru_widths.get((hid, b, t)), hid=hid)
+                else:
+                    recurrence_case(torch, rng, dev, record, 'gru_fwd', hid,
+                                    b, t, dt,
+                                    n_in=gru_widths.get((hid, b, t)))
+        for (hid, b, t, dt), ctx in keys('gru_bwd'):
+            with ctx:
+                gru_bwd_case(torch, rng, dev, record, hid, b, t, dt,
+                             n_in=gru_widths.get((hid, b, t)))
+        for (r, k, n_out, dt), ctx in keys('quant_matmul'):
+            with ctx:
+                quant_matmul_case(torch, rng, dev, record, r, k, n_out, dt)
+        for name, w in (('lstm_fwd_q', widths), ('gru_fwd_q', gru_widths)):
+            for (hid, b, t, dt), ctx in keys(name):
+                with ctx:
+                    recurrence_case(torch, rng, dev, record, name, hid, b, t,
+                                    dt, n_in=w.get((hid, b, t)))
 
 
 
@@ -6103,6 +6316,299 @@ def phase_server_int8_gru(torch):
     require(n > 0, f'{run}: no round ran')
 
 
+# ---------------------------------------------------------------------------
+# the synthetic-language learning run
+# ---------------------------------------------------------------------------
+
+# the trainings of phase synth_convergence: (run, the script's run()
+# arguments); each at the script's widths (3 x 128 encoder, 1 x 64
+# prediction net, joint 128, 40 log-mels, n_fft 400, hop 160, batch 16,
+# bf16, 256 training and 48 held-out utterances unless given)
+SYNTH_RUNS = (
+    ('synth_lstm', dict(enc_type='LSTM', quant_ab=True)),
+    ('synth_gru', dict(enc_type='GRU', quant_ab=True)),
+    ('synth_beam', dict(language='confusable', noise=0.06, steps=600,
+                        eval_n=64, beam=4, lm_fusion=0.8, beam_msf=4)),
+    ('synth_hard', dict(language='hard', snr_sweep='inf,20,10,5,0')))
+# greedy held-out WER gates: the script's exit rule (a, b) and the beam
+# run's (tests/test_beam_gain.py's configuration); the beam may lose to
+# greedy by at most SYNTH_BEAM_SLACK
+SYNTH_GREEDY_MAX = {'synth_lstm': 0.3, 'synth_gru': 0.3, 'synth_beam': 0.35}
+SYNTH_BEAM_SLACK = 0.02
+# the kernels each run must launch (besides its exact counts)
+SYNTH_KERNELS = ('mel_power', 'greedy_decode', 'lstm_fwd', 'lstm_bwd',
+                 'joint_lse_fwd', 'joint_lse_bwd', 'lattice_alpha',
+                 'lattice_beta_grad')
+
+
+def _synth_expect(SC, trainer, kw, frames):
+    """What one run of the script launches: per train step (one
+    micro-step: batch 16 = sub-batch 16) the encoder's forward and
+    backward kernel per layer (K1 / K4, or K5 / K6 for the GRU), the
+    prediction net's K1 and K4 per layer, K2 and K7-K10 once; per held-out
+    batch of each evaluate() (the greedy one and one per swept SNR) K2,
+    K3, K7 and K9 once, the encoder's and the prediction net's forward
+    twice per layer; per batch of a beam pass (without, then with the LM)
+    K2 and the encoder once, the initial beam's prediction net (and LM)
+    layers, and at B·W rows those layers for each of beam_msf expansions
+    of every encoder frame (`frames`: the passes' frames over the held-out
+    batches); the LM's LM_STEPS steps one K1 and one K4 per layer; per
+    batch of each serving leg K2, K3 and the prediction net's priming K1
+    per layer, and the encoder per layer (fp32, bf16), or (int8) K11 for
+    each layer's x_proj and the projection (all tiled: B·T > 32 rows) and
+    K12 / K13 per layer."""
+    a = {**SC.DEFAULTS, **kw}
+    cfg = trainer.cfg
+    gru = cfg.module_type == 'GRU'
+    enc_f, enc_b = ('gru_fwd', 'gru_bwd') if gru else ('lstm_fwd',
+                                                        'lstm_bwd')
+    n_enc, n_dec = cfg.enc_layers, cfg.dec_layers
+    c = dict.fromkeys(SOURCES, 0)
+
+    def add(**counts):
+        for k, v in counts.items():
+            c[k] += v
+
+    s = a['steps']
+    add(**{enc_f: s * n_enc})
+    add(**{enc_b: s * n_enc})
+    add(lstm_fwd=s * n_dec, lstm_bwd=s * n_dec, mel_power=s,
+        joint_lse_fwd=s, joint_lse_bwd=s, lattice_alpha=s,
+        lattice_beta_grad=s)
+    n = a['eval_n'] // trainer.flags.eval_batch_size
+    evals = 1 + len(SC._parse_snrs(a['snr_sweep']))
+    add(**{enc_f: 2 * evals * n * n_enc})
+    add(lstm_fwd=2 * evals * n * n_dec, mel_power=evals * n,
+        greedy_decode=evals * n, joint_lse_fwd=evals * n,
+        lattice_alpha=evals * n)
+    if a['beam']:
+        lm = a['lm_fusion'] > 0
+        for layers in ((n_dec, n_dec + SC.LM_LAYERS) if lm else (n_dec,)):
+            add(**{enc_f: n * n_enc})
+            add(mel_power=n,
+                lstm_fwd=n * layers + frames * a['beam_msf'] * layers)
+        if lm:
+            add(lstm_fwd=SC.LM_STEPS * SC.LM_LAYERS,
+                lstm_bwd=SC.LM_STEPS * SC.LM_LAYERS)
+    if a['quant_ab']:
+        for _ in ('fp32', 'bf16'):
+            add(**{enc_f: n * n_enc})
+        add(**{'gru_fwd_q' if gru else 'lstm_fwd_q': n * n_enc})
+        add(mel_power=3 * n, greedy_decode=3 * n, lstm_fwd=3 * n * n_dec,
+            quant_matmul=n * (n_enc + 1), quant_matmul_tile=n * (n_enc + 1))
+    return c
+
+
+def _synth_frames(torch, trainer):
+    """Encoder frames over the trainer's held-out batches (the beam's
+    frame loop runs every frame of the padded batch).  Runs the pipeline
+    (K2): call it after reading the counts."""
+    frames = 0
+    for batch in trainer.eval_loader:
+        xs, _ = trainer.pipeline(
+            torch.as_tensor(batch['audio']).to(trainer.device),
+            torch.as_tensor(batch['alen']).to(trainer.device))
+        frames += -(-xs.shape[1] // trainer.cfg.time_scale)
+    return frames
+
+
+def _synth_run(torch, SC, run, kw):
+    """One call of the script's run() on cuda in a temporary logdir
+    (removed afterwards), its kernel calls recorded by shape
+    (STATE['synth_shapes'][run]) and its launches counted from zero:
+    → (result, the trainer, its log lines, its train steps' start times,
+    seconds)."""
+    import tempfile
+
+    from edgedict_tpu_torch import trainer as TR
+    logdir = tempfile.mkdtemp(prefix='edgedict_synth_')
+    lines, starts, built = [], [], {'beam': []}
+    real_step, real_build = TR.Trainer.run_step, SC.build_run
+    real_lm, real_beam = SC.train_lm, SC.beam_hyps
+
+    def run_step(self, batch):
+        starts.append(time.perf_counter())
+        return real_step(self, batch)
+
+    def build_run(args):
+        built['run'] = real_build(args)
+        return built['run']
+
+    def train_lm(model, *a, **k):
+        built['lm'] = model
+        return real_lm(model, *a, **k)
+
+    def beam_hyps(*a, **k):
+        built['beam'].append(real_beam(*a, **k))
+        return built['beam'][-1]
+
+    TR.Trainer.run_step, SC.build_run = run_step, build_run
+    SC.train_lm, SC.beam_hyps = train_lm, beam_hyps
+    try:
+        t0 = time.perf_counter()
+        _reset_launches()
+        with _recorded_shapes(STATE['synth_shapes'].setdefault(run, {}),
+                              layer_widths=True, extra=True):
+            result = SC.run(device='cuda', logdir=logdir,
+                            log_fn=lines.append, **kw)
+        torch.cuda.synchronize()
+        STATE['launches_' + run] = _launches()
+        seconds = time.perf_counter() - t0
+    finally:
+        TR.Trainer.run_step, SC.build_run = real_step, real_build
+        SC.train_lm, SC.beam_hyps = real_lm, real_beam
+        shutil.rmtree(logdir, ignore_errors=True)
+    return result, built, lines, starts, seconds
+
+
+def _synth_beam_on_cpu(torch, SC, built, kw):
+    """The beam run's card-trained weights (transducer and LM) decoded
+    again by the CPU's beam search on the card's features of the held-out
+    set, to tell the card's decoding from its training: per pass ('beam',
+    then 'beam_lm') the CPU's WER, the utterances whose hypotheses differ
+    from the card's, the characters the card emitted and the CPU's
+    seconds.  Runs the pipeline (K2): call it after reading the counts."""
+    import copy
+    from types import SimpleNamespace
+
+    from edgedict_tpu_torch.metrics import wer
+    trainer, tok = built['run'][:2]
+    model = copy.deepcopy(trainer.eval_model()).cpu()
+    lm = copy.deepcopy(built['lm']).cpu()
+
+    def pipeline(audio, alen):
+        xs, xlen = trainer.pipeline(audio.to(trainer.device),
+                                    alen.to(trainer.device))
+        return xs.cpu(), xlen.cpu()
+
+    cpu = SimpleNamespace(eval_model=lambda: model, cfg=trainer.cfg,
+                          eval_loader=trainer.eval_loader, pipeline=pipeline,
+                          device='cpu')
+    out = {}
+    for name, (refs, card), fuse in zip(
+            ('beam', 'beam_lm'), built['beam'],
+            (None, (lm, SC.lm_config(tok.vocab_size), kw['lm_fusion']))):
+        t0 = time.perf_counter()
+        cpu_refs, hyps = SC.beam_hyps(cpu, tok, kw['beam'], kw['beam_msf'],
+                                      fuse)
+        out[name] = {'wer_cpu': wer(cpu_refs, hyps),
+                     'utterances': len(hyps),
+                     'differ': sum(a != b for a, b in zip(hyps, card)),
+                     'chars_card': sum(len(h) for h in card),
+                     'seconds': time.perf_counter() - t0}
+    return out
+
+
+def _last_float(lines, prefix, field):
+    """The number after `field` in the last line that starts with
+    prefix."""
+    for ln in reversed(lines):
+        if ln.startswith(prefix):
+            words = ln.split()
+            return float(words[words.index(field) + 1])
+    return None
+
+
+def phase_synth_convergence(torch):
+    """The port's synthetic-language learning run
+    (edgedict_tpu_torch/scripts/synthetic_convergence.py) through its
+    run() on cuda, four trainings (SYNTH_RUNS): LSTM and GRU with the
+    serving A/B (fp32 / bf16 / int8 held-out greedy WER), the confusable
+    language with beam W=4 with and without LM fusion, the hard language
+    with the SNR sweep.  Each: its held-out WERs, the last train loss and
+    the held-out loss, the median train step wall ms (start to start), its
+    seconds; gates SYNTH_GREEDY_MAX and, for the beam run, beam <= greedy +
+    SYNTH_BEAM_SLACK; test_beam_gain.py's other two claims (beam_lm <
+    greedy - 0.005, beam_lm <= beam) printed beside them, and the beam
+    run's weights decoded again by the CPU's beam (_synth_beam_on_cpu),
+    whose hypotheses must be the card's.  Its launches must equal
+    _synth_expect's and include every kernel of its path."""
+    from edgedict_tpu_torch.scripts import synthetic_convergence as SC
+    STATE['synth_shapes'] = {}
+    emit({'phase': 'synth_convergence', 'runs': {
+        run: {**SC.DEFAULTS, **kw, 'device': 'cuda', 'logdir': 'temporary'}
+        for run, kw in SYNTH_RUNS}})
+    failed = []
+    for run, kw in SYNTH_RUNS:
+        result, built, lines, starts, seconds = _synth_run(
+            torch, SC, run, kw)
+        trainer = built['run'][0]
+        got = STATE['launches_' + run]
+        frames = _synth_frames(torch, trainer) if kw.get('beam') else 0
+        want = _synth_expect(SC, trainer, kw, frames)
+        STATE.setdefault('run_expect', {})[run] = want
+        steps = np.diff(starts) * 1e3
+        res = {'phase': 'synth_convergence', 'run': run, **result,
+               'train_loss': _last_float(lines, 'step ', 'loss'),
+               'held_out_loss': _last_float(lines, 'FINAL held-out (greedy)',
+                                            'loss'),
+               'lm_loss': _last_float(lines, 'LM trained', 'loss'),
+               'steps': len(starts),
+               'step_ms_median': float(np.median(steps)),
+               'step_ms_p90': float(np.percentile(steps, 90)),
+               'seconds': seconds, 'launches': got,
+               'launches_expected': want, 'beam_frames': frames,
+               'log': lines}
+        gates = []
+        if run in SYNTH_GREEDY_MAX:
+            gates.append((f'greedy < {SYNTH_GREEDY_MAX[run]}',
+                          result['greedy'] < SYNTH_GREEDY_MAX[run]))
+        if 'beam' in result:
+            gates.append((f'beam <= greedy + {SYNTH_BEAM_SLACK}',
+                          result['beam']
+                          <= result['greedy'] + SYNTH_BEAM_SLACK))
+            res['claims'] = {
+                'beam_lm < greedy - 0.005':
+                    result['beam_lm'] < result['greedy'] - 0.005,
+                'beam_lm <= beam': result['beam_lm'] <= result['beam']}
+            res['cpu_decode'] = _synth_beam_on_cpu(torch, SC, built, kw)
+            gates.append(('the CPU beam on the card-trained weights == the '
+                          'card beam',
+                          all(p['differ'] == 0
+                              for p in res['cpu_decode'].values())))
+        enc = ('gru_fwd', 'gru_bwd') if kw.get('enc_type') == 'GRU' else ()
+        quant = (('quant_matmul', 'quant_matmul_tile',
+                  'gru_fwd_q' if enc else 'lstm_fwd_q')
+                 if kw.get('quant_ab') else ())
+        gates.append(('exact launches', got == want))
+        gates.append(('every kernel of the path launched',
+                      all(got[k] > 0 for k in SYNTH_KERNELS + enc + quant)))
+        res['gates'] = {name: ok for name, ok in gates}
+        emit(res)
+        failed += [f'{run}: {name}' for name, ok in gates if not ok]
+    require(not failed, f'synth_convergence: {failed}')
+
+
+# the groups of phase synth_kernels' shapes of which one (the first
+# recorded) is timed: per kernel, its key without the lengths (T, U+1,
+# samples)
+SYNTH_TIMED = {'lstm_fwd': lambda k: (k[0], k[1], k[3]),
+               'lstm_bwd': lambda k: (k[0], k[1], k[3]),
+               'gru_fwd': lambda k: (k[0], k[1], k[3]),
+               'gru_bwd': lambda k: (k[0], k[1], k[3]),
+               'lstm_fwd_q': lambda k: (k[0], k[1], k[3]),
+               'gru_fwd_q': lambda k: (k[0], k[1], k[3]),
+               'mel_power': lambda k: k[0],
+               'greedy_decode': lambda k: k[0],
+               'joint_lse_fwd': lambda k: (k[0], k[3], k[4], k[5]),
+               'lattice': lambda k: k[0]}
+
+
+def phase_synth_kernels(torch):
+    """Each kernel shape that synth_convergence's four runs launched
+    (recorded by _recorded_shapes, with the LSTM layers' input widths and
+    the GRU and int8 kernels; the spies first held against the launch
+    counts) against its plain version, as in preset_kernels, each shape
+    once across the runs: K1 / K4 at H=128, 64 (and the LM's 64) with one
+    cuDNN layer of the recorded input width beside them, K5 / K6, K2 at
+    n_fft 400, K3 at J=128, K7 / K8, K9 / K10, K11, K12, K13; every shape
+    checked, the first of each SYNTH_TIMED group (and every K11 shape)
+    timed."""
+    recorded_cases(torch, 'synth_kernels', STATE['synth_shapes'],
+                   np.random.RandomState(24), seen=set(),
+                   groups=SYNTH_TIMED)
+
+
 SOURCES = {
     'lstm_fwd': ('edgedict_tpu_torch/csrc/rnn_fwd.cu',
                  'edgedict_tpu/ops/rnn_pallas.py:116'),
@@ -6259,7 +6765,9 @@ def main():
               ('defaults_server', phase_defaults_server),
               ('defaults_train_run', phase_defaults_train_run),
               ('defaults_kernels', phase_defaults_kernels),
-              ('server_int8_gru', phase_server_int8_gru))
+              ('server_int8_gru', phase_server_int8_gru),
+              ('synth_convergence', phase_synth_convergence),
+              ('synth_kernels', phase_synth_kernels))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()
