@@ -70,8 +70,9 @@ Phases, each printing JSON or text lines:
              not timed: K1 bf16 held step by step and K4 at B=32 T=1597,
              K9/K10 and K7/K8 at B=32 T=1597 U+1=65 (the joint against the
              plain joint by time chunks); then one library call beside the
-             shapes that had none (library_rows); a plain version over 100
-             ms a call is timed once before and once after the kernel; the
+             shapes that had none (library_rows); a plain version over 20
+             ms a call (LONG_PLAIN_MS) is timed once before and once after
+             the kernel; the
              inputs of over 2^24 elements are drawn on the card;
              each kernel's bound
              (bytes once over 3.35 TB/s, or operations over the peak of
@@ -331,13 +332,32 @@ Phases, each printing JSON or text lines:
              beam at most 0.02 over greedy (c), and (c)'s card-trained
              transducer and LM decoded again by the CPU's beam on the
              card's features: its 64 hypotheses of each pass == the card's;
-             its launches exactly what its steps, evaluations, beam passes,
-             LM steps and serving legs imply (_synth_expect), every kernel
-             of its path among them
+             (c)'s LM trained again on the card and on the CPU side by side
+             from its initial weights: the first 10 steps from the card's
+             parameters within loss rel 1e-5 and gradients 1e-3 of their
+             max (gated), the losses and parameter gap at steps 1 to 600
+             printed, and (c)'s transducer decoded with the CPU's LM
+             (lm_cross); its launches exactly what its steps, evaluations,
+             beam passes, LM steps and serving legs imply (_synth_expect),
+             every kernel of its path among them
  45 synth_kernels  each kernel shape of those runs (recorded as they ran,
              the GRU and int8 kernels too) against its plain version, each
              shape once, as preset_kernels
- 46 launches every kernel launched by the main paths themselves: the counts
+ 46 soak     the port's training soak
+             (edgedict_tpu_torch/scripts/soak_train.py) at E6D2's full width
+             (char vocabulary, bf16), 256 utterances of 8 s at batch 64, 60
+             steps: every leg a cli.baseline child on cuda; the SIGKILL hit
+             a live child, a checkpoint survived, both resume legs' final
+             checkpoints byte-identical, the final leg exited 0 at --steps,
+             every child on cuda, no NaN-skipped loss, the loss fell, the
+             device-rate probe parsed; each leg that ended by itself
+             launched exactly what its steps and evaluation imply; prints
+             the soak's report
+ 47 soak_kernels  each kernel shape of those legs (recorded in the
+             children) against its plain version, as synth_kernels; the
+             prediction net's lookup (_Embedding) at a step's ids against
+             F.embedding: bit-stable gradient, timed
+ 48 launches every kernel launched by the main paths themselves: the counts
              are zeroed just before each measured cuda decode_wav (LSTM
              fp32 / int8, GRU fp32 / int8, the three beam runs), just
              before the clients of each server connect, just before the
@@ -383,7 +403,9 @@ Phases, each printing JSON or text lines:
              defaults' decode, servers, steps and eval as LARGE's (four K1
              a chunk or round); the int8 GRU server one K2 and K3, 7 tiled
              K11 and 6 K13 a round, no other kernel; each learning run
-             what _synth_expect states)
+             what _synth_expect states; each soak leg that ended by itself
+             what _soak_expect states: the children's counts, zeroed as
+             each child starts and read as it ends)
 Then the kernels JSON line, the nvidia-smi line and, only when every phase
 passed, {"ok": true, "device": {...}} as the last line.  Any failure exits
 non-zero; without a CUDA card nothing runs.
@@ -395,11 +417,13 @@ import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -471,8 +495,9 @@ def _median_ms(torch, fn, iters=20, warmup=3):
 
 
 # a plain version slower than this a call is timed once each side, not 20
-# times (the long cases' plain versions take seconds)
-LONG_PLAIN_MS = 100.0
+# times (the long cases' plain versions take tens of ms to seconds, and
+# the smoke's time is bounded)
+LONG_PLAIN_MS = 20.0
 
 
 def time_pair(torch, plain, kernel, kernel_iters=20):
@@ -6145,9 +6170,12 @@ def phase_preset_kernels(torch):
     """Each kernel that the preset phases' train steps and evals launched
     (large_train, large_train_eval, e4d1_train, e4d1_train_eval; recorded
     as they ran, _preset_shapes) against its plain version at the shapes
-    those runs gave it: recorded_cases."""
+    those runs gave it: recorded_cases, each shape once across the runs,
+    the first of each SYNTH_TIMED group timed (the others checked
+    untimed)."""
     recorded_cases(torch, 'preset_kernels', STATE['preset_shapes'],
-                   np.random.RandomState(21))
+                   np.random.RandomState(21), seen=set(),
+                   groups=SYNTH_TIMED)
 
 
 DEFAULTS = None                 # no flagfile: the flags' own defaults
@@ -6254,11 +6282,13 @@ def phase_defaults_kernels(torch):
     (recorded_cases: K2 at n_fft 400 in both splits through the defaults'
     MFCC tables, K1 / K4 at H=600 and 150, K3 at J=512 and the character
     vocabulary, K7 / K8 bf16 at J=512, K9 / K10 at the character labels);
-    then K2's device ms by torch.profiler at the chunk (B=1) and the train
-    batch (B=8 x 14 s), n_fft 400 beside E6D2's 512 at the same shapes."""
+    each shape once across the runs, the first of each SYNTH_TIMED group
+    timed; then K2's device ms by torch.profiler at the chunk (B=1) and the
+    train batch (B=8 x 14 s), n_fft 400 beside E6D2's 512 at the same
+    shapes."""
     from edgedict_tpu_torch import features as F
     recorded_cases(torch, 'defaults_kernels', STATE['defaults_shapes'],
-                   np.random.RandomState(23))
+                   np.random.RandomState(23), seen=set(), groups=SYNTH_TIMED)
     record, dev = STATE['record'], torch.device('cuda')
     rng = np.random.RandomState(230)
     feat = STATE['defaults'][2]
@@ -6461,6 +6491,23 @@ def _synth_run(torch, SC, run, kw):
     return result, built, lines, starts, seconds
 
 
+def _cpu_beam_trainer(trainer):
+    """What SC.beam_hyps reads of a trainer, for the CPU's beam search on
+    a card-trained transducer: a CPU copy of its model, its held-out
+    loader, and the card's features of each batch moved to the CPU."""
+    import copy
+    model = copy.deepcopy(trainer.eval_model()).cpu()
+
+    def pipeline(audio, alen):
+        xs, xlen = trainer.pipeline(audio.to(trainer.device),
+                                    alen.to(trainer.device))
+        return xs.cpu(), xlen.cpu()
+
+    return SimpleNamespace(eval_model=lambda: model, cfg=trainer.cfg,
+                           eval_loader=trainer.eval_loader,
+                           pipeline=pipeline, device='cpu')
+
+
 def _synth_beam_on_cpu(torch, SC, built, kw):
     """The beam run's card-trained weights (transducer and LM) decoded
     again by the CPU's beam search on the card's features of the held-out
@@ -6469,21 +6516,11 @@ def _synth_beam_on_cpu(torch, SC, built, kw):
     from the card's, the characters the card emitted and the CPU's
     seconds.  Runs the pipeline (K2): call it after reading the counts."""
     import copy
-    from types import SimpleNamespace
 
     from edgedict_tpu_torch.metrics import wer
     trainer, tok = built['run'][:2]
-    model = copy.deepcopy(trainer.eval_model()).cpu()
+    cpu = _cpu_beam_trainer(trainer)
     lm = copy.deepcopy(built['lm']).cpu()
-
-    def pipeline(audio, alen):
-        xs, xlen = trainer.pipeline(audio.to(trainer.device),
-                                    alen.to(trainer.device))
-        return xs.cpu(), xlen.cpu()
-
-    cpu = SimpleNamespace(eval_model=lambda: model, cfg=trainer.cfg,
-                          eval_loader=trainer.eval_loader, pipeline=pipeline,
-                          device='cpu')
     out = {}
     for name, (refs, card), fuse in zip(
             ('beam', 'beam_lm'), built['beam'],
@@ -6497,6 +6534,275 @@ def _synth_beam_on_cpu(torch, SC, built, kw):
                      'chars_card': sum(len(h) for h in card),
                      'seconds': time.perf_counter() - t0}
     return out
+
+
+# the beam run's LM held card against CPU (ROADMAP Queue 3 item 1): the
+# steps whose losses and parameter gap are printed; the first
+# LM_HOLD_GATED steps held to the fp32 step tolerances (PERF.md section 2:
+# loss rel 1e-5, each gradient 1e-3 of its largest magnitude)
+LM_HOLD_PRINTED = (1, 2, 5, 10, 50, 100, 600)
+LM_HOLD_GATED = 10
+LM_LOSS_RTOL, LM_GRAD_RTOL = 1e-5, 1e-3
+
+
+def _rel_to_max(torch, got, want):
+    """max |got - want| / max |want| (both on the CPU)."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-300))
+
+
+def _synth_lm_hold(torch, SC, built):
+    """The beam run's LM trained again from its initial weights
+    (LMModel(seed=LM_SEED), drawn on the CPU) over the run's lm_batches,
+    on the card and on the CPU side by side, in fp32 with TF32 off (K1 / K4
+    at H=64 B=8 T=32 on the card, their plain versions on the CPU).  At
+    each of the first LM_HOLD_GATED steps the card's parameters before the
+    step are copied to the CPU and the step's loss and gradients computed
+    on both: one step's error, without the drift of the steps before it.
+    At LM_HOLD_PRINTED: the two runs' losses and their largest relative
+    parameter gap (max |card - CPU| / max |CPU| of each tensor, the
+    largest).  → ({'held', 'printed', 'loss_card', 'loss_cpu',
+    'card_equals_the_runs_lm'}, the CPU-trained LM)."""
+    import copy
+
+    from edgedict_tpu_torch import optim
+    from edgedict_tpu_torch.cli.train_lm import make_lm_train_step
+    from edgedict_tpu_torch.models.lm import LMModel, lm_loss
+    tok, train_set = built['run'][1:3]
+    cfg = SC.lm_config(tok.vocab_size)
+    ids = SC.lm_ids(tok, train_set.texts())
+    dev = {'card': 'cuda', 'cpu': 'cpu'}
+    models = {k: LMModel(cfg, d, seed=SC.LM_SEED) for k, d in dev.items()}
+    opts = {k: optim.build_optimizer('adam') for k in dev}
+    states = {k: opts[k].init(dict(models[k].named_parameters()))
+              for k in dev}
+    steps = {k: make_lm_train_step(cfg, opts[k]) for k in dev}
+
+    def loss_and_grads(model, ys):
+        params = dict(model.named_parameters())
+        ylen = torch.full((ys.shape[0],), ys.shape[1], dtype=torch.int32,
+                          device=ys.device)
+        loss = lm_loss(model, cfg, ys, ylen)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), {k: g.cpu()
+                                      for k, g in zip(params, grads)}
+
+    held, printed, last = [], [], {}
+    for i, rows in enumerate(SC.lm_batches(ids, SC.LM_STEPS), 1):
+        ys = {k: torch.from_numpy(rows).to(d) for k, d in dev.items()}
+        if i <= LM_HOLD_GATED:
+            lc, gc = loss_and_grads(models['card'], ys['card'])
+            lp, gp = loss_and_grads(copy.deepcopy(models['card']).cpu(),
+                                    ys['cpu'])
+            held.append({'step': i, 'loss_card': lc, 'loss_cpu': lp,
+                         'loss_rel': abs(lc - lp) / abs(lp),
+                         'grad_rel_max': max(_rel_to_max(torch, gc[k],
+                                                         gp[k])
+                                             for k in gp)})
+        for k in dev:
+            states[k], loss = steps[k](models[k], states[k], ys[k],
+                                       SC.LM_LR)
+            last[k] = loss
+        if i in LM_HOLD_PRINTED:
+            card = dict(models['card'].named_parameters())
+            printed.append({
+                'step': i, 'loss_card': float(last['card']),
+                'loss_cpu': float(last['cpu']),
+                'param_rel_max': max(
+                    _rel_to_max(torch, card[k].detach().cpu(), p.detach())
+                    for k, p in models['cpu'].named_parameters())})
+    run_lm = dict(built['lm'].named_parameters())
+    return {'held': held, 'printed': printed,
+            'loss_card': float(last['card']), 'loss_cpu': float(last['cpu']),
+            'card_equals_the_runs_lm': all(
+                torch.equal(p, run_lm[k])
+                for k, p in models['card'].named_parameters())}, \
+        models['cpu']
+
+
+def _synth_lm_cross(torch, SC, built, kw, result, lines):
+    """Queue 3 item 1, (a) and (b): the card-trained transducer decoded by
+    the CPU's beam search with the LM trained on the CPU from the same
+    initial weights and batches (_synth_lm_hold), beside the card's beam
+    and beam + LM WERs, and the two LMs' final losses; with the LM's step
+    by step hold.  Runs the pipeline (K2): call it after reading the
+    counts."""
+    from edgedict_tpu_torch.metrics import wer
+    t0 = time.perf_counter()
+    hold, cpu_lm = _synth_lm_hold(torch, SC, built)
+    trainer, tok = built['run'][:2]
+    fuse = (cpu_lm, SC.lm_config(tok.vocab_size), kw['lm_fusion'])
+    crossed = wer(*SC.beam_hyps(_cpu_beam_trainer(trainer), tok, kw['beam'],
+                                kw['beam_msf'], fuse))
+    return {'beam_card': result['beam'], 'beam_lm_card': result['beam_lm'],
+            'beam_lm_card_transducer_cpu_lm': crossed,
+            'beam_lm <= beam with the CPU LM': crossed <= result['beam'],
+            'lm_loss_card_run': _last_float(lines, 'LM trained', 'loss'),
+            **hold, 'seconds': time.perf_counter() - t0}
+
+
+
+class _PlainStandIn:
+    """Calls a kernel wrapper's plain version in its place; its `launches`
+    is the wrapper's own, so the wrapper, which counts through its
+    module's name, still finds its count if called by a path that holds
+    it (as _ShapeSpy)."""
+
+    def __init__(self, fn, plain):
+        self.fn, self.plain = fn, plain
+
+    def __call__(self, *args, **kwargs):
+        return self.plain(*args, **kwargs)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, 'launches', n))
+
+
+@contextlib.contextmanager
+def _plain_training_path():
+    """Within: the training kernels' plain versions on the card's tensors,
+    the path the CPU takes: K2 (features_kernel.mel_power), K1 and K4
+    (ops/rnn_kernel.py _LSTMRecurrence: lstm_recurrence_plain forward,
+    lstm_recurrence_bwd_plain backward), K7 / K8 (fused_joint_lse_plain,
+    autograd through it) and K9 / K10 (the lattice core made of
+    lattice_alpha_plain and lattice_beta_grad_plain), bound in every port
+    module that holds them; all restored on the way out."""
+    from edgedict_tpu_torch.ops import features_kernel as K2
+    from edgedict_tpu_torch.ops import joint_lse_kernel as KJ
+    from edgedict_tpu_torch.ops import rnn_kernel as K1
+    from edgedict_tpu_torch.ops import rnnt_loss as RL
+    from edgedict_tpu_torch.ops import rnnt_loss_kernel as KL
+    swaps = {id(f): (f, p) for f, p in (
+        (K2.mel_power, _PlainStandIn(K2.mel_power, K2.mel_power_plain)),
+        (K1.lstm_recurrence_bwd, _PlainStandIn(
+            K1.lstm_recurrence_bwd, K1.lstm_recurrence_bwd_plain)),
+        (KJ.fused_joint_lse, KJ.fused_joint_lse_plain),
+        (KL.rnnt_loss_core, RL.make_core(RL.lattice_alpha_plain,
+                                         RL.lattice_beta_grad_plain)))}
+    real_fwd = K1._LSTMRecurrence.forward
+
+    def plain_fwd(ctx, x_proj, w_hh, h0, c0):
+        ys, cs, h = K1.lstm_recurrence_plain(x_proj, w_hh, h0, c0)
+        ctx.save_for_backward(x_proj, w_hh, h0, c0, ys, cs)
+        ctx.set_materialize_grads(False)
+        return ys, cs, h
+
+    bound = []
+    try:
+        K1._LSTMRecurrence.forward = staticmethod(plain_fwd)
+        for mod in _port_modules():
+            for attr, val in list(vars(mod).items()):
+                if id(val) in swaps and swaps[id(val)][0] is val:
+                    setattr(mod, attr, swaps[id(val)][1])
+                    bound.append((mod, attr, val))
+        yield
+    finally:
+        K1._LSTMRecurrence.forward = real_fwd
+        for mod, attr, val in bound:
+            setattr(mod, attr, val)
+
+
+# the beam run's transducer steps held three ways (ROADMAP Queue 3 item 1,
+# (c)): the first SYNTH_HOLD_STEPS steps
+SYNTH_HOLD_STEPS = 10
+
+
+def _synth_transducer_hold(torch, SC, kw):
+    """The beam run's first SYNTH_HOLD_STEPS bf16 train steps again from
+    its seeded initial weights (a fresh build_run of its arguments, in a
+    temporary logdir): before each step, the step's features computed once
+    on the card (its augmentation draws, the generator then rewound), and
+    the loss and gradients of those features from the same parameters by
+    the card's kernels (K), the card's plain path (_plain_training_path:
+    P) and the CPU's (a CPU copy of the model: C).  Per step: the loss
+    relative gaps K-P (the kernels' rounding), P-C (the card's arithmetic
+    against the CPU's) and K-C, and the largest gradient gap relative to
+    the gradient's largest magnitude of each pair; then the kernels' step
+    is taken, as the run takes it."""
+    import copy
+    import tempfile
+
+    from edgedict_tpu_torch.models import transducer as TM
+    logdir = tempfile.mkdtemp(prefix='edgedict_synth_hold_')
+    args = argparse.Namespace(**{**SC.DEFAULTS, **kw, 'device': 'cuda',
+                                 'logdir': logdir})
+    out = []
+    try:
+        trainer = SC.build_run(args)[0]
+        cfg = trainer.cfg
+
+        def loss_and_grads(model, xs, ys, xlen, ylen):
+            params = dict(model.named_parameters())
+            loss = TM.transducer_loss(model, cfg, xs.to(torch.bfloat16), ys,
+                                      xlen, ylen)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return float(loss.detach()), {k: g.float().cpu()
+                                          for k, g in zip(params, grads)}
+
+        def gaps(a, b):
+            return {'loss_rel': abs(a[0] - b[0]) / abs(b[0]),
+                    'grad_rel_max': max(_rel_to_max(torch, a[1][k], b[1][k])
+                                        for k in b[1])}
+
+        batches = iter(trainer.loader)
+        for i in range(1, SYNTH_HOLD_STEPS + 1):
+            batch = next(batches)
+            dev = {k: torch.as_tensor(v).to(trainer.device)
+                   for k, v in batch.items()}
+            rng = trainer.generator.get_state()
+            xs, xlen = trainer.pipeline(dev['audio'], dev['alen'],
+                                        train=True,
+                                        generator=trainer.generator)
+            trainer.generator.set_state(rng)
+            model = trainer.state.model
+            k = loss_and_grads(model, xs, dev['ys'], xlen, dev['ylen'])
+            with _plain_training_path():
+                p = loss_and_grads(model, xs, dev['ys'], xlen, dev['ylen'])
+            c = loss_and_grads(copy.deepcopy(model).cpu(), xs.cpu(),
+                               dev['ys'].cpu(), xlen.cpu(), dev['ylen'].cpu())
+            out.append({'step': i, 'loss_kernels': k[0], 'loss_card_plain':
+                        p[0], 'loss_cpu': c[0],
+                        'kernels_vs_card_plain': gaps(k, p),
+                        'card_plain_vs_cpu': gaps(p, c),
+                        'kernels_vs_cpu': gaps(k, c)})
+            trainer.run_step(batch)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return out
+
+
+def synth_plain_run(torch):
+    """ROADMAP Queue 3 item 1, (c): the beam run's first steps held three
+    ways (_synth_transducer_hold), then the run trained and decoded on the
+    card's plain path (_plain_training_path) through the script's run(),
+    in a temporary logdir: its held-out greedy, beam and beam + LM WERs
+    and test_beam_gain.py's two claims, to set beside the kernels' run.
+    Not a phase of the smoke (600 plain steps take minutes): call it alone
+    after phase_build."""
+    import tempfile
+
+    from edgedict_tpu_torch.scripts import synthetic_convergence as SC
+    kw = dict(SYNTH_RUNS)['synth_beam']
+    emit({'phase': 'synth_plain_run', 'transducer_hold':
+          _synth_transducer_hold(torch, SC, kw)})
+    logdir = tempfile.mkdtemp(prefix='edgedict_synth_plain_')
+    lines = []
+    try:
+        t0 = time.perf_counter()
+        with _plain_training_path():
+            result = SC.run(device='cuda', logdir=logdir,
+                            log_fn=lines.append, **kw)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    emit({'phase': 'synth_plain_run', 'run': 'synth_beam', **result,
+          'claims': {'beam_lm < greedy - 0.005':
+                     result['beam_lm'] < result['greedy'] - 0.005,
+                     'beam_lm <= beam': result['beam_lm'] <= result['beam']},
+          'train_loss': _last_float(lines, 'step ', 'loss'),
+          'lm_loss': _last_float(lines, 'LM trained', 'loss'),
+          'seconds': seconds, 'log': lines})
+    return result
 
 
 def _last_float(lines, prefix, field):
@@ -6566,6 +6872,14 @@ def phase_synth_convergence(torch):
                           'card beam',
                           all(p['differ'] == 0
                               for p in res['cpu_decode'].values())))
+            res['lm_cross'] = cross = _synth_lm_cross(torch, SC, built, kw,
+                                                      result, lines)
+            gates.append((f'the LM\'s first {LM_HOLD_GATED} steps, card '
+                          f'against CPU: loss rel <= {LM_LOSS_RTOL}, '
+                          f'gradients <= {LM_GRAD_RTOL} of their max',
+                          all(h['loss_rel'] <= LM_LOSS_RTOL
+                              and h['grad_rel_max'] <= LM_GRAD_RTOL
+                              for h in cross['held'])))
         enc = ('gru_fwd', 'gru_bwd') if kw.get('enc_type') == 'GRU' else ()
         quant = (('quant_matmul', 'quant_matmul_tile',
                   'gru_fwd_q' if enc else 'lstm_fwd_q')
@@ -6607,6 +6921,253 @@ def phase_synth_kernels(torch):
     recorded_cases(torch, 'synth_kernels', STATE['synth_shapes'],
                    np.random.RandomState(24), seen=set(),
                    groups=SYNTH_TIMED)
+
+
+
+# ---------------------------------------------------------------------------
+# the training soak
+# ---------------------------------------------------------------------------
+
+# phase soak: the port's soak (edgedict_tpu_torch/scripts/soak_train.py)
+# at E6D2's full width, cut in depth for the smoke's time: 256 utterances
+# of 8 s at batch 64 (4 steps an epoch; the checkpoints at 15 and 30 sit
+# inside an epoch, so a resume skips into it; 64 x ~61 label ids a step,
+# past the 3,072 where F.embedding's backward would vary from run to run),
+# the kill at step 27 (0.45 of 60), resume legs of 15 steps, one
+# evaluation at the end
+SOAK_ARGS = ['--steps', '60', '--batch', '64', '--utts', '256',
+             '--utt_seconds', '8', '--save_step', '15', '--eval_step', '60',
+             '--kill_frac', '0.45', '--resume_probe_steps', '15',
+             '--poll', '0.5']
+SOAK_RECORD = 'EDGEDICT_SMOKE_SOAK_RECORD'   # where each leg's record goes
+SOAK_KERNELS = ('mel_power', 'greedy_decode', 'lstm_fwd', 'lstm_bwd',
+                'joint_lse_fwd', 'joint_lse_bwd', 'lattice_alpha',
+                'lattice_beta_grad')
+# the soak's legs that end by themselves (the killed one records nothing):
+# their log file → the run name of their launches
+SOAK_LEGS = {'probe_A.log': 'soak_probe_A', 'probe_B.log': 'soak_probe_B',
+             'train.log': 'soak_final', 'device_rate.log': 'soak_device_rate'}
+
+
+def soak_child():
+    """One leg of phase soak, started by the soak script in place of
+    cli.baseline (its flags in sys.argv[1:]): cli.baseline.main with every
+    kernel call recorded by shape (_recorded_shapes, the LSTM layers' input
+    widths too); at its end its launches and shapes are torch.save'd to
+    $EDGEDICT_SMOKE_SOAK_RECORD/<pid>.pt, with the wall clock at this
+    function's entry, after the imports, when the trainer's work begins
+    (Trainer.train or the device-rate probe) and at its end.  A leg killed
+    mid-run writes nothing."""
+    clock = {'entry': time.time()}
+    import torch
+
+    from edgedict_tpu_torch import trainer as TR
+    from edgedict_tpu_torch.cli import baseline
+    clock['imported'] = time.time()
+    real_train, real_rate = TR.Trainer.train, baseline.device_rate
+
+    def train(self, *args, **kwargs):
+        clock['work'] = time.time()
+        return real_train(self, *args, **kwargs)
+
+    def device_rate(*args, **kwargs):
+        clock['work'] = time.time()
+        return real_rate(*args, **kwargs)
+
+    TR.Trainer.train, baseline.device_rate = train, device_rate
+    logs = {}
+    with _recorded_shapes(logs, layer_widths=True):
+        trainer = baseline.main(sys.argv[1:])
+    if trainer.device.type == 'cuda':
+        torch.cuda.synchronize()
+    clock['end'] = time.time()
+    torch.save({'launches': _launches(), 'shapes': logs, 'clock': clock},
+               os.path.join(os.environ[SOAK_RECORD], f'{os.getpid()}.pt'))
+
+
+def _soak_expect(steps, eval_batches):
+    """What a soak leg launches: per train step (batch = sub-batch: one
+    micro-step) the 6 encoder and 2 prediction-net layers' K1 and K4,
+    K2 and K7-K10 once; per held-out batch of an evaluation K2, K3, K7 and
+    K9 once and the 8 layers' K1 twice (the loss, the greedy decode)."""
+    c = _train_expect(SimpleNamespace(enc_layers=6, dec_layers=2), steps)
+    for k in ('mel_power', 'greedy_decode', 'joint_lse_fwd',
+              'lattice_alpha'):
+        c[k] += eval_batches
+    c['lstm_fwd'] += 16 * eval_batches
+    return c
+
+
+def phase_soak(torch):
+    """The port's training soak through its run() at E6D2's full width (6 x
+    1024 encoder, 640 projection, 2 x 256 prediction net, joint 640, 80
+    log-mels, n_fft 400, hop 200, char vocabulary; bf16), SOAK_ARGS: every
+    leg a cli.baseline child on cuda (soak_child in its place, to count
+    and record).  Gates: the SIGKILL hit a live child (its return code
+    -SIGKILL), a checkpoint survived, both resume legs' final checkpoints
+    byte-identical, the final leg exited 0 at --steps, every child's log
+    says 'device: cuda', no NaN-skipped loss line, loss_final <
+    loss_first, the device-rate probe parsed; each leg that ended by
+    itself launched exactly what its steps and evaluation imply
+    (_soak_expect), every kernel of the path among them.  Prints the
+    report and each leg's seconds."""
+    import tempfile
+
+    from edgedict_tpu_torch.scripts import soak_train as SOAK
+    work = tempfile.mkdtemp(prefix='edgedict_soak_')
+    record = os.path.join(work, 'record')
+    os.makedirs(record)
+    args = SOAK.build_parser().parse_args(
+        SOAK_ARGS + ['--work', os.path.join(work, 'soak')])
+    legs, real_launch, real_command = [], SOAK.launch, SOAK.child_command
+
+    def launch(flags, log_path, env):
+        proc, log = real_launch(flags, log_path, env)
+        legs.append({'log': os.path.basename(log_path), 'proc': proc,
+                     'mode': flags[flags.index('--mode') + 1],
+                     't0': time.perf_counter(), 'wall': time.time()})
+        return proc, log
+
+    SOAK.launch = launch
+    SOAK.child_command = lambda: [sys.executable, '-u', '-c',
+                                  'import chip_smoke; chip_smoke.soak_child()']
+    os.environ[SOAK_RECORD] = record
+    lines = []
+    try:
+        t0 = time.perf_counter()
+        try:
+            result = SOAK.run(args, log_fn=lines.append)
+        except SOAK.SoakError as e:
+            raise SmokeFailure(f'soak: {e}') from e
+        seconds = time.perf_counter() - t0
+        logs = {name: open(os.path.join(args.work, name),
+                           errors='ignore').read()
+                for name in ('train.log', 'probe_A.log', 'probe_B.log',
+                             'device_rate.log')}
+        records = {int(f[:-3]): torch.load(os.path.join(record, f),
+                                           weights_only=False)
+                   for f in os.listdir(record)}
+    finally:
+        SOAK.launch, SOAK.child_command = real_launch, real_command
+        os.environ.pop(SOAK_RECORD, None)
+        shutil.rmtree(work, ignore_errors=True)
+    steps_per_epoch = args.utts // args.batch
+    total = -(-args.steps // steps_per_epoch) * steps_per_epoch
+    probe = -(-(result['resumed_from'] + args.resume_probe_steps)
+              // steps_per_epoch) * steps_per_epoch
+    eval_batches = args.utts // 16
+    leg_steps = {'soak_probe_A': (probe - result['resumed_from'], 0),
+                 'soak_probe_B': (probe - result['resumed_from'], 0),
+                 # the final leg resumes from the probes' last checkpoint
+                 'soak_final': (total - probe, eval_batches),
+                 'soak_device_rate': (101, 0)}
+    STATE['soak_shapes'] = {}
+    for leg in legs[1:]:
+        run = SOAK_LEGS[leg['log']]
+        rec = records.get(leg['proc'].pid)
+        require(rec is not None, f'soak: leg {run} left no record')
+        STATE['launches_' + run] = rec['launches']
+        c = rec['clock']
+        leg['seconds'] = {'to_entry': c['entry'] - leg['wall'],
+                          'imports': c['imported'] - c['entry'],
+                          'init': c['work'] - c['imported'],
+                          'work': c['end'] - c['work']}
+        STATE['soak_shapes'][run] = rec['shapes']
+        STATE.setdefault('run_expect', {})[run] = _soak_expect(
+            *leg_steps[run])
+    got = {run: STATE['launches_' + run] for run in leg_steps}
+    gates = {
+        'the SIGKILL hit a live child':
+            legs[0]['proc'].returncode == -signal.SIGKILL,
+        'a checkpoint survived': bool(result['checkpoints']),
+        'both resume legs byte-identical':
+            result['double_resume_bit_identical'],
+        'the final leg exited 0 at --steps':
+            legs[3]['proc'].returncode == 0 and result['steps'] == total,
+        'every child says device: cuda': all(
+            logs[name].count('device: cuda') == n for name, n in (
+                ('train.log', 2), ('probe_A.log', 1), ('probe_B.log', 1),
+                ('device_rate.log', 1))),
+        'no NaN-skipped loss line': result['nan_skipped_loss_lines'] == 0,
+        'loss_final < loss_first':
+            result['loss_final'] < result['loss_first'],
+        'the device-rate probe parsed': result['device_step_ms'] is not None,
+        'exact launches': all(got[run] == STATE['run_expect'][run]
+                              for run in got),
+        'every kernel of the path launched': all(
+            sum(c[k] for c in got.values()) > 0 for k in SOAK_KERNELS)}
+    emit({'phase': 'soak', 'args': SOAK_ARGS, 'report': result,
+          'seconds': seconds, 'legs': [
+              {'log': leg['log'], 'mode': leg['mode'],
+               'returncode': leg['proc'].returncode,
+               'started_s': leg['t0'] - t0, **{
+                   k: leg[k] for k in ('seconds',) if k in leg}}
+              for leg in legs],
+          'leg_steps': leg_steps, 'launches': got,
+          'launches_expected': {run: STATE['run_expect'][run]
+                                for run in got},
+          'log': lines, 'gates': gates})
+    failed = [name for name, ok in gates.items() if not ok]
+    require(not failed, f'soak: {failed}')
+
+
+def phase_soak_kernels(torch):
+    """Each kernel shape the soak's legs that ended by themselves launched
+    (recorded in the children) against its plain version, as
+    synth_kernels: K1 / K4 bf16 at H=1024 and 256 B=64 beside one cuDNN
+    layer of the recorded input width, the eval's fp32 K1 at B=16, K2 at
+    n_fft 400 on 64 x 8 s, K3 at J=640 and the char vocabulary, K7 / K8 and K9 / K10
+    at the char vocabulary's lattices; every shape checked, the first of
+    each SYNTH_TIMED group timed; then the prediction net's lookup at the
+    final leg's ids (embedding_case)."""
+    recorded_cases(torch, 'soak_kernels', STATE['soak_shapes'],
+                   np.random.RandomState(25), seen=set(),
+                   groups=SYNTH_TIMED)
+    logs = STATE['soak_shapes']['soak_final']
+    b, _, u1 = next(iter(logs['lattice']['keys']))
+    v = next(iter(logs['joint_lse_fwd']['keys']))[4]
+    embedding_case(torch, b, u1, v)
+
+
+def embedding_case(torch, b, u1, v, e=64):
+    """The prediction net's lookup on the card (ops/layers.py _Embedding:
+    its table gradient by index_put_ with accumulate) at a soak step's
+    B x (U+1) ids over its V rows and E = 64, forward and backward, against
+    F.embedding's: the output bit-equal, the table gradient bit-stable over
+    three calls and within 1e-5 of F.embedding's largest magnitude (the
+    two sum in different orders); both timed in turns."""
+    import torch.nn.functional as Fn
+
+    from edgedict_tpu_torch.ops import layers as L
+    dev = torch.device('cuda')
+    g = torch.Generator().manual_seed(25)
+    table = torch.randn(v, e, generator=g).to(dev).requires_grad_()
+    ids = torch.randint(0, v, (b, u1), generator=g).to(dev)
+    grad = torch.randn(b, u1, e, generator=g).to(dev)
+
+    def run(fn):
+        table.grad = None
+        out = fn()
+        out.backward(grad)
+        return out, table.grad
+
+    ker = [run(lambda: L.embedding(table, ids)) for _ in range(3)]
+    ref = run(lambda: Fn.embedding(ids, table))
+    torch.cuda.synchronize()
+    ms, plain_ms = time_pair(torch, lambda: run(lambda: Fn.embedding(
+        ids, table)), lambda: run(lambda: L.embedding(table, ids)))
+    case = {'case': 'embedding', 'ids': [b, u1], 'rows': v, 'width': e,
+            'output_equal': torch.equal(ker[0][0], ref[0]),
+            'grad_bit_stable': all(torch.equal(ker[0][1], k[1])
+                                   for k in ker[1:]),
+            'grad_max_abs': float((ker[0][1] - ref[1]).abs().max()),
+            'grad_max': float(ref[1].abs().max()),
+            'tol': 'grad within 1e-5 of the largest |F.embedding grad|',
+            'ms': ms, 'plain_ms': plain_ms}
+    emit({'phase': 'soak_kernels', **case})
+    require(case['output_equal'] and case['grad_bit_stable']
+            and case['grad_max_abs'] <= 1e-5 * case['grad_max'],
+            f'the lookup at the soak\'s ids: {case}')
 
 
 SOURCES = {
@@ -6767,7 +7328,8 @@ def main():
               ('defaults_kernels', phase_defaults_kernels),
               ('server_int8_gru', phase_server_int8_gru),
               ('synth_convergence', phase_synth_convergence),
-              ('synth_kernels', phase_synth_kernels))
+              ('synth_kernels', phase_synth_kernels),
+              ('soak', phase_soak), ('soak_kernels', phase_soak_kernels))
     try:
         for name, fn in phases:
             t0 = time.perf_counter()

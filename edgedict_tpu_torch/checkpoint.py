@@ -7,7 +7,9 @@ with torch.load(weights_only=True), holding
      cli/stream.py --pt_path loads it), 'optim': optimizer state, 'sched':
      plateau state or None, 'extra': {generator state, best_wer, ...}}.
 
-Writes are atomic (a temporary file of its own per write, then a rename).
+Writes are atomic (a temporary file of its own per write, then a rename),
+and their bytes depend only on the payload: two processes that save the
+same state write the same file.
 With background=True the snapshot is taken at once (copied off the card,
 or cloned when already on the CPU: the train step updates its params in
 place) and torch.save + the rename run on one writer thread
@@ -52,7 +54,12 @@ def _write_payload(payload, path):
     # of one step must not rename each other's file
     tmp = (f'{path}.tmp.{os.getpid()}.{threading.get_ident()}.'
            f'{next(_TMP_SEQ)}')
-    torch.save(payload, tmp)
+    # through a file handle: torch.save to a path names the archive's root
+    # folder after the file, which would put the pid and thread id in the
+    # bytes; a handle's archive is 'archive/', so the bytes depend only on
+    # the payload
+    with open(tmp, 'wb') as f:
+        torch.save(payload, f)
     os.replace(tmp, path)
 
 

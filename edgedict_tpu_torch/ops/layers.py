@@ -48,11 +48,39 @@ def group_norm(x, scale, bias, num_groups, eps=1e-5):
     return y.to(x.dtype)
 
 
+class _Embedding(torch.autograd.Function):
+    """F.embedding whose table gradient sums each row's contributions in
+    one order on every run: index_put_ with accumulate (the ids sorted,
+    each row's terms added in turn).  On CUDA, F.embedding's own backward
+    takes a sort path past 3,072 ids whose sums vary from run to run (a
+    prediction net's batch of 64 x 61 ids is past it), so two runs from
+    one checkpoint would part."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        dtable = torch.zeros(ctx.table_shape, dtype=grad.dtype,
+                             device=grad.device)
+        dtable.index_put_((ids.reshape(-1),),
+                          grad.reshape(-1, grad.shape[-1]), accumulate=True)
+        return None, dtable
+
+
 def embedding(table, ids, padding_idx=None):
     """Row lookup; the `padding_idx` row reads as zero on every call, also
     for a table whose stored row is not zero (torch's nn.Embedding only
-    zeroes it at init)."""
-    out = F.embedding(ids, table)
+    zeroes it at init).  A CUDA table that takes a gradient gets it from
+    _Embedding, the same bits on every run."""
+    if table.device.type == 'cuda' and table.requires_grad:
+        out = _Embedding.apply(ids, table)
+    else:
+        out = F.embedding(ids, table)
     if padding_idx is not None:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
     return out

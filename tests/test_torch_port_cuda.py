@@ -2045,3 +2045,78 @@ def test_tp_and_pp_train_steps_on_the_card_match_the_one_device_step(cuda):
         assert abs(out[name][0] - loss) <= 1e-5 * abs(loss)
         for k, v in sd.items():
             assert _max_abs(out[name][1][k], v) <= 2e-3 + 1e-6, (name, k)
+
+
+@pytest.mark.parametrize('b,u1,v', [(64, 151, 29), (64, 61, 29),
+                                    (32, 65, 2048)])
+def test_embedding_table_gradient_is_bit_stable(cuda, b, u1, v):
+    """The prediction net's table gradient on the card (ops/layers.py
+    _Embedding: index_put_ accumulate) is the same bits on every call,
+    also past F.embedding's 3,072-id sort path, whose sums vary from run
+    to run (the soak's 64 x 151 and 64 x 61 char ids), and equals
+    F.embedding's up to the order of the sums: within 1e-5 of its largest
+    magnitude."""
+    from edgedict_tpu_torch.ops import layers as L
+    g = torch.Generator().manual_seed(b + u1)
+    table = torch.randn(v, 64, generator=g).to(cuda).requires_grad_()
+    ids = torch.randint(0, v, (b, u1), generator=g).to(cuda)
+    grad = torch.randn(b, u1, 64, generator=g).to(cuda)
+    grads = []
+    for _ in range(5):
+        table.grad = None
+        L.embedding(table, ids).backward(grad)
+        grads.append(table.grad.clone())
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    table.grad = None
+    torch.nn.functional.embedding(ids, table).backward(grad)
+    assert _max_abs(grads[0], table.grad) <= \
+        1e-5 * float(table.grad.abs().max())
+
+
+@pytest.mark.parametrize('b,seconds,u', [(64, 14.0, 150), (16, 8.0, 60)])
+def test_soak_step_gradients_are_bit_reproducible(cuda, b, seconds, u):
+    """E6D2's bf16 loss and every parameter gradient at the soak's shapes
+    (edgedict_tpu_torch/scripts/soak_train.py flags: 64 x 14 s with 150
+    labels, the full soak's; 16 x 8 s with 60, the smoke's; a char
+    vocabulary of 29; the feature pipeline's augmentation from one seed),
+    computed three times from the same parameters: the same bits every
+    time, as a double resume needs."""
+    from edgedict_tpu_torch.cli import baseline
+    from edgedict_tpu_torch.config import (
+        feature_config_from_flags, parse_flags, transducer_config_from_flags)
+    from edgedict_tpu_torch.features import FeaturePipeline
+    from edgedict_tpu_torch.scripts import soak_train as SOAK
+    args = SOAK.build_parser().parse_args(
+        ['--batch', str(b), '--utt_seconds', str(seconds)])
+    flags = parse_flags(baseline.build_parser(),
+                        SOAK.flags_for(args, '/c', '/l', 1))
+    fc = feature_config_from_flags(flags)
+    cfg = transducer_config_from_flags(flags, 29, fc.input_size)
+    pipe = FeaturePipeline(fc, cuda)
+    model = T.Transducer(cfg, cuda, seed=0)
+    rng = np.random.RandomState(0)
+    n = int(seconds * 16000)
+    audio = torch.as_tensor((rng.randn(b, n) * 0.1).astype(np.float32),
+                            device=cuda)
+    alen = torch.as_tensor(rng.randint(n * 3 // 4, n + 1, b),
+                           dtype=torch.int32, device=cuda)
+    ys = torch.as_tensor(rng.randint(1, 29, (b, u)), dtype=torch.int32,
+                         device=cuda)
+    ylen = torch.as_tensor(rng.randint(u * 3 // 4, u + 1, b),
+                           dtype=torch.int32, device=cuda)
+    runs = []
+    for _ in range(3):
+        g = torch.Generator(device=cuda).manual_seed(1234)
+        xs, xlen = pipe(audio, alen, train=True, generator=g)
+        for p in model.parameters():
+            p.grad = None
+        loss = T.transducer_loss(model, cfg, xs.to(torch.bfloat16), ys,
+                                 xlen, ylen)
+        loss.backward()
+        runs.append({'loss': loss.detach().clone(),
+                     **{k: p.grad.clone()
+                        for k, p in model.named_parameters()}})
+    for other in runs[1:]:
+        differ = [k for k, v in runs[0].items() if not torch.equal(v,
+                                                                   other[k])]
+        assert not differ, differ

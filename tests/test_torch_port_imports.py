@@ -71,7 +71,7 @@ def test_importing_the_port_adds_no_jax_module():
         'cli.baseline', 'cli.profile_stream', 'cli.profile_train',
         'export', 'cli.export', 'cli.demo', 'cli.youtube_live',
         'cli.wav_inference', 'cli.wer_parity',
-        'scripts.synthetic_convergence')]
+        'scripts.synthetic_convergence', 'scripts.soak_train')]
     # the apps' audio packages are imported only in the modes that need
     # them (--mic, youtube_live --url)
     banned = sorted(BANNED | {'edgedict_tpu'} | AUDIO_IO)

@@ -91,3 +91,42 @@ def test_linear_init_is_seeded():
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert float(a[0].abs().max()) <= 1 / 6 ** 0.5
+
+
+@pytest.mark.parametrize('b,u1,v', [(64, 151, 29), (64, 61, 29),
+                                    (32, 65, 2048), (3, 4, 7)])
+def test_embedding_stable_backward_matches_f_embedding(b, u1, v):
+    """_Embedding (the CUDA tables' lookup: index_put_ accumulate in the
+    backward) gives F.embedding's forward bit for bit and its table
+    gradient up to the order of the sums (within 1e-5 of its largest
+    magnitude), on the soak's batch of 64 x 151
+    and 64 x 61 char ids (past F.embedding's 3,072-id sort path on CUDA),
+    E6D2's 32 x 65 BPE ids and a small case; the padding row still reads
+    zero through embedding()."""
+    g = torch.Generator().manual_seed(b + u1)
+    table = torch.randn(v, 16, generator=g, requires_grad=True)
+    ids = torch.randint(0, v, (b, u1), generator=g)
+    grad = torch.randn(b, u1, 16, generator=g)
+    out = PL._Embedding.apply(ids, table)
+    assert torch.equal(out, torch.nn.functional.embedding(ids, table))
+    out.backward(grad)
+    got, table.grad = table.grad.clone(), None
+    torch.nn.functional.embedding(ids, table).backward(grad)
+    # the two sum a row's terms in different orders
+    assert float((got - table.grad).abs().max()) <= \
+        1e-5 * float(table.grad.abs().max())
+    counts = torch.bincount(ids.reshape(-1), minlength=v)
+    assert torch.equal(got[counts == 0], torch.zeros_like(got[counts == 0]))
+
+
+def test_embedding_on_the_cpu_is_f_embedding():
+    """embedding() of a CPU table keeps F.embedding (and its backward):
+    bit-equal outputs and gradients."""
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn(11, 8, generator=g, requires_grad=True)
+    ids = torch.randint(0, 11, (4, 9), generator=g)
+    grad = torch.randn(4, 9, 8, generator=g)
+    PL.embedding(table, ids).backward(grad)
+    got, table.grad = table.grad.clone(), None
+    torch.nn.functional.embedding(ids, table).backward(grad)
+    assert torch.equal(got, table.grad)
